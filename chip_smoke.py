@@ -5,7 +5,7 @@ Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py --quick    # device, build, kernels vs plain only
-                                     # (no result line)
+                                     # (phases 1-3 and 6; no result line)
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
@@ -18,7 +18,17 @@ Phases, in order; any failure raises and the script exits non-zero:
      the int8 KV pool; the launch counts must equal decode calls x layers;
   5. serve at full width: the engine on GPT-2 124M (vocab 50257, bf16),
      decode tokens/s and p50 decode-step time with each pool, then an fp32
-     pair, kernel against gather, that must agree token for token.
+     pair, kernel against gather, that must agree token for token;
+  6. training kernels vs plain: flash fwd / dq / dkv and fused AdamW against
+     their plain torch versions at GPT-2 124M training shapes, then their
+     times, bounds and library yardsticks;
+  7. train through the entry point: ``cli train`` in-process on
+     ``configs/gpt2_owt.py`` at full width (batch 32 x 1024, bf16, flash,
+     adamw_fused) for 8 steps; launches must be 12 x steps per flash kernel
+     and 2 x steps for fused_adamw, every loss finite;
+  8. fp32 parity pair at 124M width: (flash, adamw_fused) through the
+     kernels against (xla, adamw) through none, 4 steps on the same weights
+     and batches; the losses must agree within 1e-4 relative and fall.
 The line before the last is the kernels record; the last line is
 ``{"ok": true, "device": {...}}``. No GPU means no result line and a
 non-zero exit: nothing here falls back to the CPU.
@@ -30,6 +40,7 @@ import argparse
 import contextlib
 import io
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -38,17 +49,31 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 FP32_FLOPS_PER_S = 67e12      # H100 SXM fp32, outside the tensor cores
+BF16_FLOPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "distributeddeeplearning_tpu_torch", "configs",
                       "gpt2_owt.py")
-SOURCE = "distributeddeeplearning_tpu_torch/csrc/paged_attention.cu"
+SOURCES = {
+    "paged_decode": "distributeddeeplearning_tpu_torch/csrc/paged_attention.cu",
+    "paged_decode_q8":
+        "distributeddeeplearning_tpu_torch/csrc/paged_attention.cu",
+    "flash_fwd": "distributeddeeplearning_tpu_torch/csrc/flash_attention.cu",
+    "flash_dq": "distributeddeeplearning_tpu_torch/csrc/flash_attention.cu",
+    "flash_dkv": "distributeddeeplearning_tpu_torch/csrc/flash_attention.cu",
+    "fused_adamw": "distributeddeeplearning_tpu_torch/csrc/fused_adamw.cu",
+}
 # gpt2_owt.py trains with flash attention; serving refuses it by name, so
 # every serving phase runs the config's xla attention core.
 OVERRIDES = ["model.kwargs.attn_impl=xla"]
 REPLACES = {
     "paged_decode": "distributeddeeplearning_tpu/ops/paged_attention.py:71",
     "paged_decode_q8": "distributeddeeplearning_tpu/ops/paged_attention.py:118",
+    "flash_fwd": "distributeddeeplearning_tpu/ops/flash_attention.py:69",
+    "flash_dq": "distributeddeeplearning_tpu/ops/flash_attention.py:213",
+    "flash_dkv": "distributeddeeplearning_tpu/ops/flash_attention.py:254",
+    "fused_adamw": "distributeddeeplearning_tpu/ops/fused_adamw.py:59",
 }
+TRAIN_STEPS = 8
 
 
 def phase(name):
@@ -340,6 +365,360 @@ def serve_full_width(torch, pa, cli, ServingEngine, ServingConfig, Request,
           "identical", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# 6. training kernels vs plain
+# ---------------------------------------------------------------------------
+
+
+def flash_case(torch, *, dtype, bh, L, D, causal, ragged=False, limit=None,
+               heads=12, seed=1):
+    """Folded [bh, L, D] inputs: q, k, v, dO standard normal; ``ragged``
+    gives each batch row (``heads`` folded rows) a kv limit in [1, L];
+    ``limit`` is the static true length of a padded sequence (rows and
+    columns past it zero, as the wrapper pads)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    t = [torch.randn(bh, L, D, generator=g, device="cuda") for _ in range(4)]
+    limit = L if limit is None else limit
+    for x in t:
+        x[:, limit:] = 0
+    q, k, v, do = (x.to(dtype).contiguous() for x in t)
+    vl = None
+    if ragged:
+        lens = torch.randint(1, L + 1, (bh // heads,), generator=g,
+                             device="cuda", dtype=torch.int32)
+        lens[0] = L
+        vl = lens.repeat_interleave(heads).contiguous()
+    return dict(q=q, k=k, v=v, do=do, vl=vl, causal=causal, limit=limit,
+                sm_scale=1.0 / D ** 0.5)
+
+
+def visible_pairs(torch, case):
+    """(row, column) pairs of the case's visible tiles' work: what the
+    kernels must compute, row by row."""
+    bh, L, _ = case["q"].shape
+    rows = torch.arange(L, device="cuda")
+    lim = torch.full((bh,), min(case["limit"], L), device="cuda")
+    if case["vl"] is not None:
+        lim = torch.minimum(lim, case["vl"].long())
+    per_row = lim[:, None].expand(bh, L)
+    if case["causal"]:
+        per_row = torch.minimum(per_row, rows[None, :] + 1)
+    return int(per_row.sum().item())
+
+
+def flash_bounds(torch, case):
+    """Least time of each flash kernel's work on the card: its bytes (each
+    input read once, each output written once) over HBM, and its matrix
+    flops over the visible (row, column) pairs over the tensor-core bf16
+    peak for bf16 inputs (the fp32 CUDA-core peak for fp32):
+      fwd: S = QK^T and O = PV, 4*D flops per pair; reads q, k, v, writes
+           o and lse;
+      dq:  S, dP = dO V^T and dQ = dS K, 6*D per pair; reads q, k, v, o,
+           dO, lse, writes dq and delta;
+      dkv: S, dP, dV = P^T dO and dK = dS^T Q, 8*D per pair; reads q, k, v,
+           dO, lse, delta, writes dk and dv."""
+    bh, L, D = case["q"].shape
+    el = case["q"].element_size()
+    mat, row = bh * L * D * el, bh * L * 4
+    pairs = visible_pairs(torch, case)
+    peak = BF16_FLOPS_PER_S if el == 2 else FP32_FLOPS_PER_S
+    work = {"flash_fwd": (4 * mat + row, 4 * D * pairs),
+            "flash_dq": (6 * mat + 2 * row, 6 * D * pairs),
+            "flash_dkv": (6 * mat + 2 * row, 8 * D * pairs)}
+    out = {}
+    for name, (nbytes, flops) in work.items():
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / peak
+        out[name] = (max(t_b, t_o) * 1e3,
+                     "bytes" if t_b >= t_o else "operations",
+                     nbytes, flops)
+    return out
+
+
+def check_flash(torch, fa, name, case, atol, timed):
+    """Each flash kernel against its plain version on the same inputs
+    (the backward kernels fed the plain forward's o and lse, and dkv the
+    plain dq's delta, so each is held alone)."""
+    kw = dict(causal=case["causal"], sm_scale=case["sm_scale"],
+              limit=case["limit"], vl=case["vl"])
+    q, k, v, do = case["q"], case["k"], case["v"], case["do"]
+    L = case["limit"]
+
+    def err(a, b, what):
+        a, b = a[:, :L].float(), b[:, :L].float()
+        e = (a - b).abs().max().item()
+        bad = (a - b).abs() > atol + atol * b.abs()
+        if bad.any() or not torch.isfinite(a).all():
+            raise AssertionError(
+                f"flash {name}: {what} disagrees with its plain version: "
+                f"max_abs_err {e}, tolerance {atol} + {atol} * |ref|")
+        return e
+
+    before = dict(fa.LAUNCHES)
+    o, lse = fa.flash_fwd(q, k, v, **kw)
+    o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, **kw)
+    dq, delta = fa.flash_dq(q, k, v, o_ref, do, lse_ref, **kw)
+    dq_ref, delta_ref = fa.flash_dq_plain(q, k, v, o_ref, do, lse_ref, **kw)
+    dk, dv = fa.flash_dkv(q, k, v, do, lse_ref, delta_ref, **kw)
+    dk_ref, dv_ref = fa.flash_dkv_plain(q, k, v, do, lse_ref, delta_ref, **kw)
+    torch.cuda.synchronize()
+    if any(fa.LAUNCHES[x] != before[x] + 1 for x in before):
+        raise RuntimeError(f"flash {name}: a wrapper did not launch")
+    errs = {
+        "flash_fwd": max(err(o, o_ref, "o"),
+                         err(lse[..., None], lse_ref[..., None], "lse")),
+        "flash_dq": max(err(dq, dq_ref, "dq"),
+                        err(delta[..., None], delta_ref[..., None], "delta")),
+        "flash_dkv": max(err(dk, dk_ref, "dk"), err(dv, dv_ref, "dv")),
+    }
+    res = {k: {"max_abs_err": e, "atol": atol} for k, e in errs.items()}
+    print(f"flash {name}: max_abs_err {json.dumps(errs)} (atol {atol})",
+          flush=True)
+    if not timed:
+        return res
+    bounds = flash_bounds(torch, case)
+    times = {
+        "flash_fwd": (lambda: fa.flash_fwd(q, k, v, **kw),
+                      lambda: fa.flash_fwd_plain(q, k, v, **kw)),
+        "flash_dq": (lambda: fa.flash_dq(q, k, v, o_ref, do, lse_ref, **kw),
+                     lambda: fa.flash_dq_plain(q, k, v, o_ref, do, lse_ref,
+                                               **kw)),
+        "flash_dkv": (lambda: fa.flash_dkv(q, k, v, do, lse_ref, delta_ref,
+                                           **kw),
+                      lambda: fa.flash_dkv_plain(q, k, v, do, lse_ref,
+                                                 delta_ref, **kw)),
+    }
+    lib_fwd, lib_bwd = sdpa_yardsticks(torch, case)
+    for kname, (kern, plain) in times.items():
+        r = res[kname]
+        r["ms"] = time_ms(torch, kern, iters=10)
+        r["plain_ms"] = time_ms(torch, plain, iters=3)
+        r["bound_ms"], r["bound_by"], r["bytes"], r["flops"] = bounds[kname]
+        # The library's backward computes dq, dk and dv in one call: it is
+        # the yardstick of the dq + dkv pair, recorded on both.
+        r["library_ms"] = lib_fwd if kname == "flash_fwd" else lib_bwd
+        print(f"  {kname}: {json.dumps(r)}", flush=True)
+    return res
+
+
+def sdpa_yardsticks(torch, case, heads=12):
+    """Yardsticks only (the port never calls them): the library's
+    ``scaled_dot_product_attention(is_causal=True)`` forward, and its
+    autograd backward, on the case's tensors viewed [B, H, L, D]."""
+    F = torch.nn.functional
+    bh, L, D = case["q"].shape
+    shape = (bh // heads, heads, L, D)
+    q, k, v = (case[x].reshape(shape).detach().requires_grad_()
+               for x in ("q", "k", "v"))
+    do = case["do"].reshape(shape)
+    fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=case["causal"]), iters=10)
+    o = F.scaled_dot_product_attention(q, k, v, is_causal=case["causal"])
+    bwd = time_ms(torch, lambda: torch.autograd.grad(
+        o, (q, k, v), do, retain_graph=True), iters=10)
+    return fwd, bwd
+
+
+def adamw_leaves(torch, models, cfg, fused):
+    """GPT-2 124M's parameter shapes (the config's model on the meta
+    device), split as the optimizer splits them: the kernel groups
+    {(dtype, wd): [shapes]}."""
+    meta = models.get_model(cfg.model.name, **cfg.model.kwargs,
+                            device="meta")
+    params = dict(meta.named_parameters())
+    _, groups = fused.split_leaves(params, cfg.optim.weight_decay)
+    return {key: [tuple(params[n].shape) for n in names]
+            for key, names in groups.items()}
+
+
+def adamw_tensors(torch, shapes, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def draw(scale, positive=False):
+        out = []
+        for shp in shapes:
+            x = torch.randn(shp, generator=g, device="cuda") * scale
+            out.append(x.abs() if positive else x)
+        return out
+
+    return dict(p=draw(0.02), g=draw(1e-3), m=draw(1e-4),
+                v=draw(1e-7, positive=True))
+
+
+def check_adamw(torch, fused, groups, cfg):
+    """The kernel over each group against the plain version leaf by leaf,
+    at step counts 1 and 1000 and weight decay 0.1 and 0: the design gives
+    the plain version's numbers bit for bit, so the tolerance is 0."""
+    hp = dict(b1=cfg.optim.b1, b2=cfg.optim.b2, eps=1e-8)
+    worst = 0.0
+    (decayed, wd), shapes = next(
+        (key, shp) for key, shp in groups.items() if key[1])
+    for count in (1, 1000):
+        c1, c2 = fused.bias_corrections(hp["b1"], hp["b2"], count)
+        for wd_case in (wd, 0.0):
+            t = adamw_tensors(torch, shapes, seed=count)
+            ref = {k: [x.clone() for x in xs] for k, xs in t.items()}
+            before = fused.LAUNCHES["fused_adamw"]
+            fused.fused_adamw_group(t["p"], t["g"], t["m"], t["v"], lr=6e-4,
+                                    wd=wd_case, c1=c1, c2=c2, **hp)
+            for leaf in zip(ref["p"], ref["g"], ref["m"], ref["v"]):
+                fused.fused_adamw_plain(*leaf, lr=6e-4, wd=wd_case, c1=c1,
+                                        c2=c2, **hp)
+            torch.cuda.synchronize()
+            if fused.LAUNCHES["fused_adamw"] != before + 1:
+                raise RuntimeError("fused_adamw: the wrapper did not launch")
+            e = max((a - b).abs().max().item()
+                    for k in ("p", "m", "v") for a, b in zip(t[k], ref[k]))
+            print(f"fused_adamw count={count} wd={wd_case}: max_abs_err {e} "
+                  f"over {len(shapes)} leaves", flush=True)
+            if e != 0.0 or not all(torch.isfinite(x).all() for x in t["p"]):
+                raise AssertionError(
+                    f"fused_adamw (count={count}, wd={wd_case}) disagrees "
+                    f"with its plain version: max_abs_err {e}")
+            worst = max(worst, e)
+    return worst
+
+
+def time_adamw(torch, fused, groups, cfg):
+    """One optimizer step's launches at GPT-2 124M (every kernel group),
+    the plain version over the same leaves, and the library's fused AdamW
+    step over the same tensors. Bound: p, g, m, v read and p, m, v written,
+    28 B per element, over HBM."""
+    hp = dict(lr=6e-4, b1=cfg.optim.b1, b2=cfg.optim.b2, eps=1e-8)
+    c1, c2 = fused.bias_corrections(hp["b1"], hp["b2"], 1000)
+    sets = [(wd, adamw_tensors(torch, shapes, seed=7))
+            for (_, wd), shapes in groups.items()]
+
+    def kernel():
+        for wd, t in sets:
+            fused.fused_adamw_group(t["p"], t["g"], t["m"], t["v"], wd=wd,
+                                    c1=c1, c2=c2, **hp)
+
+    def plain():
+        for wd, t in sets:
+            for leaf in zip(t["p"], t["g"], t["m"], t["v"]):
+                fused.fused_adamw_plain(*leaf, wd=wd, c1=c1, c2=c2, **hp)
+
+    params = [p for _, t in sets for p in t["p"]]
+    for (_, t) in sets:
+        for p, g in zip(t["p"], t["g"]):
+            p.grad = g
+    opt = torch.optim.AdamW(params, lr=hp["lr"], betas=(hp["b1"], hp["b2"]),
+                            eps=hp["eps"], weight_decay=0.1, fused=True)
+    elems = sum(p.numel() for p in params)
+    nbytes = 28 * elems
+    res = {
+        "ms": time_ms(torch, kernel, iters=20),
+        "plain_ms": time_ms(torch, plain, iters=5),
+        "library_ms": time_ms(torch, opt.step, iters=20),
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "bytes": nbytes, "elements": elems, "launches_per_step": len(sets),
+    }
+    print(f"  fused_adamw step: {json.dumps(res)}", flush=True)
+    return res
+
+
+def check_training_kernels(torch, models, cfg):
+    from distributeddeeplearning_tpu_torch.ops import flash_attention as fa
+    from distributeddeeplearning_tpu_torch.ops import fused_adamw as fused
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    # bf16: o, dq, dk, dv are rounded to bf16 (8 bits of mantissa) at the
+    # output, so one rounding step apart is ~0.4% of the value: 2e-2
+    # absolute plus 2e-2 relative. fp32: only the order of the fp32 sums
+    # differs (tiles vs one einsum), ~1e-6 of the magnitudes.
+    res = check_flash(torch, fa, "bf16 causal [384, 1024, 64]",
+                      flash_case(torch, dtype=bf16, bh=384, L=1024, D=64,
+                                 causal=True), 2e-2, timed=True)
+    check_flash(torch, fa, "fp32 causal [384, 1024, 64]",
+                flash_case(torch, dtype=f32, bh=384, L=1024, D=64,
+                           causal=True), 2e-5, timed=False)
+    check_flash(torch, fa, "fp32 ragged kv_valid_lens, non-causal "
+                "[96, 512, 64]",
+                flash_case(torch, dtype=f32, bh=96, L=512, D=64,
+                           causal=False, ragged=True), 2e-5, timed=False)
+    check_flash(torch, fa, "fp32 L=197 padded to 256, non-causal, D=128",
+                flash_case(torch, dtype=f32, bh=24, L=256, D=128,
+                           causal=False, limit=197), 2e-5, timed=False)
+    groups = adamw_leaves(torch, models, cfg, fused)
+    err = check_adamw(torch, fused, groups, cfg)
+    res["fused_adamw"] = {**time_adamw(torch, fused, groups, cfg),
+                          "max_abs_err": err}
+    return res
+
+
+# ---------------------------------------------------------------------------
+# 7. / 8. training
+# ---------------------------------------------------------------------------
+
+
+def cli_train(torch, cli, steps):
+    argv = ["train", "--config", CONFIG, "--device", "cuda", "--sync-steps",
+            "--override", f"train.steps={steps}",
+            "--override", "train.log_every=1"]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    if rc != 0:
+        raise RuntimeError(f"cli train exited {rc}")
+    lines = buf.getvalue().strip().splitlines()
+    recs = [json.loads(x) for x in lines if x.startswith("{")]
+    losses = [r["loss"] for r in recs if "loss" in r]
+    end = next(r for r in recs if r.get("event") == "train_end")
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"cli train: losses {losses}")
+    step_s = end["step_s"][1:]  # the first step warms the libraries up
+    return losses, step_s, [x for x in lines if not x.startswith("{")]
+
+
+def parity_pair(torch, cli, load_config, apply_overrides, steps=4):
+    """fp32 at 124M width: (flash, adamw_fused) against (xla, adamw) from
+    the same seed's weights on the same batches."""
+    from distributeddeeplearning_tpu_torch.ops import flash_attention as fa
+    from distributeddeeplearning_tpu_torch.ops import fused_adamw as fused
+    from distributeddeeplearning_tpu_torch.train import fit
+
+    base = ["model.kwargs.dtype=float32", "data.batch_size=4",
+            "data.n_distinct=1", "optim.schedule=constant",
+            "optim.warmup_steps=0", "optim.grad_clip=1.0",
+            f"train.steps={steps}"]
+    routes = {"kernels": ["model.kwargs.attn_impl=flash",
+                          "optim.name=adamw_fused"],
+              "plain": ["model.kwargs.attn_impl=xla", "optim.name=adamw"]}
+    out = {}
+    from distributeddeeplearning_tpu_torch import data
+
+    for name, extra in routes.items():
+        cfg = apply_overrides(load_config(CONFIG), base + extra)
+        model, trainer, dataset = cli.build_all(cfg, "cuda")
+        state = trainer.init(cfg.train.seed)
+        before = sum(fa.LAUNCHES.values()) + fused.LAUNCHES["fused_adamw"]
+        state, hist = fit(trainer, state,
+                          data.prefetch(dataset.iter_from(0), "cuda"),
+                          steps=steps, log_every=1, log_fn=lambda m: None)
+        torch.cuda.synchronize()
+        launched = (sum(fa.LAUNCHES.values()) + fused.LAUNCHES["fused_adamw"]
+                    - before)
+        if (launched > 0) != (name == "kernels"):
+            raise AssertionError(f"parity route {name}: {launched} kernel "
+                                 "launches")
+        out[name] = ([r["loss"] for r in hist],
+                     {k: p.detach().clone() for k, p in state.params.items()})
+        del model, trainer, state
+        torch.cuda.empty_cache()
+    (la, pa_), (lb, pb) = out["kernels"], out["plain"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(la, lb))
+    pdiff = max((pa_[k] - pb[k]).abs().max().item() for k in pa_)
+    print(f"fp32 parity: losses kernels {la} plain {lb} max rel diff {rel}; "
+          f"max abs param diff after {steps} steps {pdiff} (information)",
+          flush=True)
+    if not rel <= 1e-4:
+        raise AssertionError(f"fp32 parity: loss rel diff {rel} > 1e-4")
+    if not (la[-1] < la[0] and lb[-1] < lb[0]):
+        raise AssertionError(f"fp32 parity: loss did not fall {la} {lb}")
+    return {"losses_kernels": la, "losses_plain": lb, "max_rel_diff": rel,
+            "max_abs_param_diff": pdiff}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -381,21 +760,26 @@ def main(argv=None) -> int:
 
     phase("2 build")
     t0 = time.perf_counter()
-    _build.build(["paged_attention"])
+    names = ["paged_attention", "flash_attention", "fused_adamw"]
+    _build.build(names)  # one nvcc per source, all started together
     print(f"build_s {time.perf_counter() - t0:.2f}")
-    for line in _build.BUILD_LOGS["paged_attention"].splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas {line.strip()}")
+    for name in names:
+        for line in _build.BUILD_LOGS[name].splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                print(f"  ptxas {name}: {line.strip()}")
 
     phase("3 kernels vs plain")
     kres = check_kernels(torch, pa)
 
+    cfg = load_config(CONFIG)
     if args.quick:
+        phase("6 training kernels vs plain")
+        check_training_kernels(torch, models, cfg)
         return 0  # a build-and-check run prints no result line
 
     phase("4 serve through the entry point")
-    cfg = apply_overrides(load_config(CONFIG), OVERRIDES)
-    layers = models.get_model(cfg.model.name, **cfg.model.kwargs,
+    scfg = apply_overrides(cfg, OVERRIDES)
+    layers = models.get_model(scfg.model.name, **scfg.model.kwargs,
                               device="meta").num_layers
     pa.reset_launches()  # the main path's count starts here
     calls_off = cli_serve(cli, "off")
@@ -414,16 +798,44 @@ def main(argv=None) -> int:
     serve_full_width(torch, pa, cli, ServingEngine, ServingConfig,
                      Request, load_config, apply_overrides)
 
+    phase("6 training kernels vs plain")
+    kres.update(check_training_kernels(torch, models, cfg))
+
+    phase("7 train through the entry point")
+    from distributeddeeplearning_tpu_torch.ops import flash_attention as fa
+    from distributeddeeplearning_tpu_torch.ops import fused_adamw as fused
+
+    fa.reset_launches()  # the training path's counts start here
+    fused.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s, text = cli_train(torch, cli, TRAIN_STEPS)
+    train_launches = {**fa.LAUNCHES, **fused.LAUNCHES}
+    want = {**{k: layers * TRAIN_STEPS for k in fa.LAUNCHES},
+            "fused_adamw": 2 * TRAIN_STEPS}
+    tokens = cfg.data.batch_size * cfg.data.seq_len
+    print("\n".join(text))
+    print(f"losses {losses}")
+    print(f"launches {train_launches} expected {want}")
+    print(f"train: {json.dumps({'tokens_per_s': tokens / statistics.mean(step_s), 'p50_step_ms': statistics.median(step_s) * 1e3, 'step_ms': [x * 1e3 for x in step_s], 'peak_mem_gb': torch.cuda.max_memory_allocated() / 1e9})}", flush=True)
+    if train_launches != want:
+        raise AssertionError(f"train launches {train_launches} != {want}")
+    launches.update(train_launches)
+
+    phase("8 fp32 parity pair at 124M width")
+    parity_pair(torch, cli, load_config, apply_overrides)
+
     # Each kernel's numbers come from its case at the main path's types.
-    main_case = {"paged_decode": "bf16", "paged_decode_q8": "int8_bf16q"}
+    main_case = {"paged_decode": "bf16", "paged_decode_q8": "int8_bf16q",
+                 "flash_fwd": "flash_fwd", "flash_dq": "flash_dq",
+                 "flash_dkv": "flash_dkv", "fused_adamw": "fused_adamw"}
     kernels = []
     for kernel, name in main_case.items():
         r = kres[name]
         kernels.append({
-            "name": kernel, "route": "cuda", "source": SOURCE,
+            "name": kernel, "route": "cuda", "source": SOURCES[kernel],
             "replaces": REPLACES[kernel], "launches": launches[kernel],
             "max_abs_err": r["max_abs_err"],
-            "ms": r["ms"], "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
         })

@@ -1,8 +1,12 @@
 """PyTorch/CUDA port of ``distributeddeeplearning_tpu``, slice by slice.
 
-This slice is the serving path: ``cli serve`` -> ``serving.ServingEngine``
--> GPT-2 in paged-decode mode, whose decode attention reads the paged KV
-pool through a CUDA kernel written for Hopper (``csrc/paged_attention.cu``).
+Two paths run on the GPU:
+- serving: ``cli serve`` -> ``serving.ServingEngine`` -> GPT-2 in
+  paged-decode mode, whose decode attention reads the paged KV pool through
+  a CUDA kernel written for Hopper (``csrc/paged_attention.cu``);
+- training: ``cli train`` -> ``train.Trainer`` -> GPT-2 on one GPU, with
+  flash attention forward and backward (``csrc/flash_attention.cu``) and the
+  fused AdamW update (``csrc/fused_adamw.cu``) as hand-written kernels.
 The package imports torch and never JAX; entry points run on the GPU unless
 the caller asks for the CPU.
 """

@@ -1,13 +1,17 @@
-"""CLI entry point: ``python -m distributeddeeplearning_tpu_torch.cli serve``.
+"""CLI entry points: ``python -m distributeddeeplearning_tpu_torch.cli
+{train,serve}``.
 
-This slice ports ``serve`` (in-process, single engine). It runs on the GPU
-by default; ``--device cpu`` asks for the CPU.
+``train`` runs the single-device training path (``build_all`` -> ``Trainer``
+-> ``fit``); ``serve`` the in-process serving engine. Both run on the GPU by
+default; ``--device cpu`` asks for the CPU.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import math
 import os
 
 import torch
@@ -34,6 +38,127 @@ def build_model(cfg: Config, device):
     gen = torch.Generator().manual_seed(int(cfg.train.seed))
     model.init_weights(gen)
     return model.to(device)
+
+
+# (knob, value is on, what it is, ROADMAP queue item that ports it)
+def _unported_train_knobs(cfg: Config):
+    t, mesh = cfg.train, cfg.mesh
+    sizes = [mesh.dp, mesh.fsdp, mesh.pp, mesh.tp, mesh.cp, mesh.ep,
+             mesh.dcn_dp]
+    # -1 absorbs the devices left over: on this one-device path, 1.
+    devices = math.prod(s for s in sizes if s != -1)
+    return [
+        ("train.checkpoint_dir", t.checkpoint_dir, "checkpoints", "A7"),
+        ("train.save_every", t.save_every, "checkpoints", "A7"),
+        ("train.eval_every", t.eval_every, "evaluation", "A7"),
+        ("train.log_dir", t.log_dir, "the metrics writer", "A7"),
+        ("train.profile_steps", t.profile_steps, "the profiler", "A7"),
+        ("train.grad_accum", t.grad_accum if t.grad_accum > 1 else 0,
+         "gradient accumulation", "A6"),
+        ("train.steps_per_call", t.steps_per_call if t.steps_per_call > 1
+         else 0, "fused multi-step dispatch", "A7"),
+        ("health.enabled", cfg.health.enabled, "the health guard", "A9"),
+        ("telemetry.enabled", cfg.telemetry.enabled, "telemetry", "A14"),
+        ("train.fault_injection", t.fault_injection, "fault injection",
+         "A14"),
+        ("train.debug_nans", t.debug_nans, "NaN debugging", "A14"),
+        ("train.debug_checks", t.debug_checks, "runtime checks", "A14"),
+        ("train.grad_comm", t.grad_comm if t.grad_comm != "fp32" else "",
+         "compressed gradient sync", "A13"),
+        ("train.grad_bucket_mb", t.grad_bucket_mb,
+         "bucketed overlapped gradient sync", "A13"),
+        ("train.update_sharding", t.update_sharding
+         if t.update_sharding == "sharded" else "",
+         "sharded weight update", "A13"),
+        ("train.sequence_parallel", t.sequence_parallel,
+         "sequence parallelism", "A13"),
+        ("train.remat", t.remat if t.remat != "none" else "",
+         "rematerialization", "A3"),
+        ("mesh", dataclasses.asdict(mesh) if devices > 1 else "",
+         f"a mesh over {devices} devices (DP and ZeRO-1 across GPUs)", "A6"),
+    ]
+
+
+def check_train_composition(cfg: Config) -> None:
+    """Refuse by name, before anything is built, every training knob whose
+    feature is not ported yet. ``train.zero1=True`` passes: JAX's ZeRO-1 is
+    a placement of the optimizer state over dp, and over the one device of
+    this path (dp=1) that placement is a no-op."""
+    for knob, value, what, item in _unported_train_knobs(cfg):
+        if value:
+            raise NotImplementedError(
+                f"{knob}={value!r}: {what} not yet ported to "
+                f"distributeddeeplearning_tpu_torch (ROADMAP queue {item})"
+            )
+
+
+def build_all(cfg: Config, device):
+    """Construct (model, trainer, dataset) from a config on ``device``. The
+    model's compute dtype follows ``train.precision.policy`` when the policy
+    is mixed, as in the reference."""
+    from . import data
+    from .models.gpt2 import as_torch_dtype
+    from .precision import check_precision_composition
+    from .train import Trainer, get_task, make_optimizer
+
+    policy = check_precision_composition(cfg.train.precision.policy,
+                                         optim_name=cfg.optim.name)
+    check_train_composition(cfg)
+    kwargs = dict(cfg.model.kwargs)
+    if policy.mixed:
+        explicit = kwargs.get("dtype")
+        if explicit is not None and (
+                as_torch_dtype(explicit) != policy.compute_dtype):
+            raise ValueError(
+                f"model.kwargs.dtype={explicit!r} conflicts with "
+                f"train.precision.policy={policy.name!r} (compute dtype "
+                f"{policy.compute_dtype}): drop model.kwargs.dtype — the "
+                "policy owns the compute dtype"
+            )
+        kwargs["dtype"] = policy.compute_dtype
+    model = models.get_model(cfg.model.name, **kwargs).to(device)
+    tx = make_optimizer(
+        cfg.optim.name, cfg.optim.lr, momentum=cfg.optim.momentum,
+        b1=cfg.optim.b1, b2=cfg.optim.b2,
+        weight_decay=cfg.optim.weight_decay,
+        warmup_steps=cfg.optim.warmup_steps, schedule=cfg.optim.schedule,
+        total_steps=cfg.train.steps, grad_clip=cfg.optim.grad_clip,
+        precision=policy,
+    )
+    trainer = Trainer(
+        model, tx,
+        get_task(cfg.train.task, head_chunk=cfg.train.head_chunk,
+                 label_smoothing=cfg.train.label_smoothing),
+        device=device, precision=policy,
+    )
+    dataset = data.make_dataset(cfg.data.kind, **cfg.data.dataset_kwargs())
+    return model, trainer, dataset
+
+
+def cmd_train(cfg: Config, *, device=None, sync_steps: bool = False) -> int:
+    """Train on one device: one JSON record per ``train.log_every`` steps.
+    ``sync_steps`` ends every step in a device sync and prints each step's
+    seconds in a final ``train_end`` event record."""
+    from . import data
+    from .metrics import event_record
+    from .train import fit
+
+    device = resolve_device(device)
+    _, trainer, dataset = build_all(cfg, device)
+    print(f"devices: 1  device: {device}")
+    state = trainer.init(cfg.train.seed)
+    n = sum(p.numel() for p in state.params.values())
+    print(f"model: {cfg.model.name}  params: {n:,}")
+    batches = data.prefetch(dataset.iter_from(state.step), device,
+                            size=cfg.data.prefetch_size)
+    step_s = [] if sync_steps else None
+    fit(trainer, state, batches, steps=cfg.train.steps,
+        log_every=cfg.train.log_every, log_fn=lambda m: print(json.dumps(m)),
+        step_times=step_s)
+    if sync_steps:
+        print(json.dumps(event_record("train_end", cfg.train.steps,
+                                      step_s=step_s)))
+    return 0
 
 
 def cmd_serve(cfg: Config, prompts: list[str], max_new_tokens: int,
@@ -93,12 +218,27 @@ def cmd_serve(cfg: Config, prompts: list[str], max_new_tokens: int,
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="distributeddeeplearning_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
-    p = sub.add_parser("serve")
-    p.add_argument("--config", required=True, help="path to a config .py")
-    p.add_argument(
-        "--override", action="append", default=[], metavar="a.b=v",
-        help="dotted config override (repeatable)",
+
+    def common(p):
+        p.add_argument("--config", required=True, help="path to a config .py")
+        p.add_argument(
+            "--override", action="append", default=[], metavar="a.b=v",
+            help="dotted config override (repeatable)",
+        )
+        p.add_argument(
+            "--device", default=None,
+            help="torch device to run on (default: cuda; 'cpu' on request)",
+        )
+
+    t = sub.add_parser("train")
+    common(t)
+    t.add_argument(
+        "--sync-steps", action="store_true",
+        help="end every step in a device sync and print the step times in "
+        "a final train_end record",
     )
+    p = sub.add_parser("serve")
+    common(p)
     p.add_argument(
         "--telemetry", nargs="?", const="", default=None, metavar="DIR",
         help="enable telemetry (refused: not yet ported)",
@@ -117,11 +257,10 @@ def main(argv=None) -> int:
         "--fleet", type=int, default=0,
         help="cross-process fleet (refused: not yet ported)",
     )
-    p.add_argument(
-        "--device", default=None,
-        help="torch device to serve on (default: cuda; 'cpu' on request)",
-    )
     args = parser.parse_args(argv)
+    if args.cmd == "train":
+        cfg = apply_overrides(load_config(args.config), args.override)
+        return cmd_train(cfg, device=args.device, sync_steps=args.sync_steps)
     if args.telemetry is not None:
         args.override = list(args.override) + ["telemetry.enabled=True"]
         if args.telemetry:

@@ -61,6 +61,17 @@ class DataConfig:
     aug_pad: int = 4
     label_bytes: int = 1
 
+    def dataset_kwargs(self) -> dict[str, Any]:
+        """Kwargs for this kind's dataset class: the intersection of its
+        dataclass fields with this config's, from the one registry in
+        ``data.py``."""
+        from .data import DATASET_KINDS, make_dataset
+
+        if self.kind not in DATASET_KINDS:
+            make_dataset(self.kind)  # raises, naming the kind
+        names = {f.name for f in dataclasses.fields(DATASET_KINDS[self.kind])}
+        return {k: getattr(self, k) for k in names if hasattr(self, k)}
+
 
 @dataclasses.dataclass(frozen=True)
 class OptimConfig:

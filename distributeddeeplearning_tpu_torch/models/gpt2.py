@@ -11,7 +11,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from . import register
-from .transformer import LayerNorm, PagedKVCache, TransformerStack
+from .transformer import LayerNorm, PagedKVCache, TransformerStack, dropout
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -43,19 +43,20 @@ class GPT2(nn.Module):
                  attn_impl: str = "xla", chunked_head: bool = False,
                  device=None):
         super().__init__()
-        if attn_impl != "xla":
-            # Flash attention is a training kernel of a later slice; serving
-            # fences it by name before a model is built.
+        if attn_impl not in ("xla", "flash"):
+            # The context-parallel cores need several devices (ROADMAP
+            # queue A13); the serving engine fences everything but 'xla'.
             raise NotImplementedError(
                 f"gpt2 attn_impl={attn_impl!r} not yet ported to "
-                "distributeddeeplearning_tpu_torch (only 'xla')"
+                "distributeddeeplearning_tpu_torch (ring/ulysses cores: "
+                "ROADMAP queue A13); 'xla' and 'flash' are"
             )
         self.vocab_size, self.max_len = vocab_size, max_len
         self.num_layers, self.num_heads = num_layers, num_heads
         self.embed_dim, self.head_dim = embed_dim, embed_dim // num_heads
         self.num_kv_heads = num_heads
-        # Dropout and remat are training knobs; this inference-only slice
-        # accepts them (a config carries them) and never applies them.
+        # Dropout applies in training only (``forward(train=True)``); remat
+        # is carried for the config and refused by ``cli train``.
         self.dropout_rate, self.remat = dropout_rate, remat
         self.attn_impl = attn_impl
         self.chunked_head = chunked_head
@@ -64,35 +65,46 @@ class GPT2(nn.Module):
         self.wpe = Embed(max_len, embed_dim, self.dtype, device)
         self.h = TransformerStack(
             num_layers, embed_dim, num_heads, self.head_dim, 4 * embed_dim,
-            1e-5, self.dtype, device,
+            1e-5, self.dtype, device, attn_impl=attn_impl,
+            dropout_rate=dropout_rate,
         )
         self.ln_f = LayerNorm(embed_dim, 1e-5, self.dtype, device)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
-        """The JAX init's distributions from ``generator``: embeddings and
-        projection kernels normal (wte and kernels std 0.02, wpe 0.01),
-        biases zero, LayerNorm scales one."""
+        """The JAX init's distributions from ``generator`` (a CPU
+        generator; the draws are made on the CPU and copied in, so a seed
+        gives the same weights on every device): embeddings and projection
+        kernels normal (wte and kernels std 0.02, wpe 0.01), biases zero,
+        LayerNorm scales one."""
         for name, p in self.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
-            if name == "wpe.embedding":
-                nn.init.normal_(p, std=0.01, generator=generator)
-            elif leaf in ("embedding", "kernel"):
-                nn.init.normal_(p, std=0.02, generator=generator)
+            if name == "wpe.embedding" or leaf in ("embedding", "kernel"):
+                std = 0.01 if name == "wpe.embedding" else 0.02
+                p.copy_(torch.empty(p.shape).normal_(std=std,
+                                                     generator=generator))
             elif leaf == "scale":
                 nn.init.ones_(p)
             else:
                 nn.init.zeros_(p)
 
-    def forward(self, tokens: torch.Tensor, cache: PagedKVCache | None = None):
+    def forward(self, tokens: torch.Tensor, cache: PagedKVCache | None = None,
+                *, train: bool = False, generator=None):
         """``tokens`` [B, L] -> fp32 logits [B, L, V], or with
         ``chunked_head`` the ``ops.chunked_xent.head_output`` dict. With a
         paged ``cache`` positions are per row: ``seq_lens[b] + i``, clamped
         to ``max_len - 1`` (pad positions of a bucketed prefill may pass it;
-        their outputs are discarded)."""
+        their outputs are discarded). ``train=True`` applies dropout from
+        ``generator`` (a ``torch.Generator`` on the tokens' device), at the
+        embeddings, the attention probs (xla core), and each block's
+        attention and MLP outputs."""
         B, L = tokens.shape
         if L > self.max_len:
             raise ValueError(f"seq_len {L} exceeds max_len {self.max_len}")
+        if train and self.dropout_rate and generator is None:
+            raise ValueError("train=True with dropout_rate > 0 needs a "
+                             "dropout generator")
+        gen = generator if train else None
         steps = torch.arange(L, device=tokens.device)[None, :]
         if cache is None:
             positions = steps
@@ -101,7 +113,8 @@ class GPT2(nn.Module):
                 cache.seq_lens.long()[:, None] + steps, max=self.max_len - 1
             )
         x = self.wte(tokens) + self.wpe(positions)
-        x = self.h(x, cache)
+        x = dropout(x, self.dropout_rate, gen)
+        x = self.h(x, cache, generator=gen)
         x = self.ln_f(x)
         emb = self.wte.embedding.to(self.dtype)
         if self.chunked_head:

@@ -72,12 +72,37 @@ def _promoted_einsum(eq: str, a: torch.Tensor, b: torch.Tensor):
     return torch.einsum(eq, a.to(dt), b.to(dt))
 
 
-def attention_core(q, k, v, *, causal: bool, dtype, mask=None):
-    """Post-projection attention, the reference's 'xla' core. q/k/v:
-    [batch, seq, heads, head_dim] with equal head counts. ``mask``:
-    [batch, k_len] (True = attend) or broadcastable to the
-    [batch, heads, q_len, k_len] scores. The fused cores come with
-    training."""
+def dropout(x, rate: float, generator):
+    """flax ``nn.Dropout``: keep each element with probability ``1 - rate``
+    and scale the kept ones by ``1 / (1 - rate)``. Deterministic (the
+    identity) without a generator or at rate 0."""
+    if not rate or generator is None:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
+
+
+def attention_core(q, k, v, *, causal: bool, dtype, impl: str = "xla",
+                   mask=None, kv_valid=None, dropout=None):
+    """Post-projection attention dispatch, the reference's one place where
+    the xla and the fused flash cores are selected. q/k/v: [batch, seq,
+    heads, head_dim] with equal head counts.
+
+    - ``impl='xla'``: einsum + fp32 softmax. ``mask``: [batch, k_len]
+      (True = attend) or broadcastable to the [batch, heads, q_len, k_len]
+      scores; ``dropout`` (a callable on the probs) applies here only.
+    - ``impl='flash'``: ``ops.flash_attention`` (the hand-written kernels on
+      the GPU), with ``kv_valid`` [batch] the per-sequence key-padding
+      limit.
+    """
+    if impl == "flash":
+        from ..ops.flash_attention import flash_attention
+
+        return flash_attention(q, k, v, causal=causal, kv_valid_lens=kv_valid)
+    if impl != "xla":
+        raise ValueError(f"unknown attn_impl {impl!r}")
     head_dim = q.shape[-1]
     scores = _promoted_einsum("bqhd,bkhd->bhqk", q, k).float()
     scores = scores / math.sqrt(head_dim)
@@ -92,6 +117,8 @@ def attention_core(q, k, v, *, causal: bool, dtype, mask=None):
             mask = mask[:, None, None, :]
         scores = torch.where(mask.bool(), scores, neg)
     probs = torch.softmax(scores, dim=-1).to(dtype)
+    if dropout is not None:
+        probs = dropout(probs)
     return _promoted_einsum("bhqk,bkhd->bqhd", probs, v)
 
 
@@ -221,28 +248,70 @@ class LayerNorm(nn.Module):
 
 
 class SelfAttention(nn.Module):
-    """Multi-head self-attention with ``query``/``key``/``value`` [E, H, D]
-    and ``out`` [H, D, E] projections. With a :class:`PagedKVCache` it runs
-    :func:`paged_decode_attention` on layer ``layer``'s pools; without, the
-    plain causal core."""
+    """Causal multi-head self-attention with ``query``/``key``/``value``
+    [E, H, D] and ``out`` [H, D, E] projections. With a
+    :class:`PagedKVCache` it runs :func:`paged_decode_attention` on layer
+    ``layer``'s pools; without, the ``attn_impl`` core:
 
-    def __init__(self, embed_dim, num_heads, head_dim, dtype, device=None):
+    - ``xla``: einsum + softmax, with attention-prob dropout in training;
+    - ``flash``: the fused flash kernels (``ops/flash_attention.py``). It
+      takes mask=None or a [batch, k_len] contiguous-prefix key-padding
+      mask (turned into per-sequence kv limits; rows whose mask is not a
+      prefix are poisoned to NaN), and no active attention-dropout.
+    """
+
+    def __init__(self, embed_dim, num_heads, head_dim, dtype, device=None,
+                 *, attn_impl: str = "xla", dropout_rate: float = 0.0):
         super().__init__()
-        self.dtype = dtype
+        if attn_impl not in ("xla", "flash"):
+            raise ValueError(f"unknown attn_impl {attn_impl!r}")
+        self.dtype, self.attn_impl = dtype, attn_impl
+        self.dropout_rate = dropout_rate
         for name in ("query", "key", "value"):
             self.add_module(name, Dense(
                 (embed_dim,), (num_heads, head_dim), dtype, device))
         self.out = Dense((num_heads, head_dim), (embed_dim,), dtype, device)
 
-    def forward(self, x, cache: PagedKVCache | None = None, layer: int = 0):
+    def forward(self, x, cache: PagedKVCache | None = None, layer: int = 0,
+                *, mask=None, generator=None):
         q, k, v = self.query(x), self.key(x), self.value(x)
-        if cache is None:
-            out = attention_core(q, k, v, causal=True, dtype=self.dtype)
-        else:
+        if cache is not None:
             out = paged_decode_attention(
                 q, k, v, dtype=self.dtype, pools=cache.pools[layer],
                 page_table=cache.page_table, seq_lens=cache.seq_lens,
                 kernel=cache.kernel,
+            )
+        elif self.attn_impl == "flash":
+            if self.dropout_rate and generator is not None:
+                raise NotImplementedError(
+                    "flash attention supports no active attention-dropout"
+                )
+            kv_valid = not_prefix = None
+            if mask is not None:
+                if mask.ndim != 2:
+                    raise NotImplementedError(
+                        "flash attention supports key-padding masks "
+                        "([batch, k_len] contiguous prefix) or mask=None"
+                    )
+                # Contiguous-prefix mask -> per-sequence kv limit. Whether a
+                # mask IS a prefix is data-dependent, so non-prefix rows are
+                # poisoned to NaN below rather than checked on the host.
+                kv_valid = mask.to(torch.int32).sum(-1)
+                cols = torch.arange(mask.shape[-1], device=mask.device)
+                prefix = cols[None, :] < kv_valid[:, None]
+                not_prefix = (mask.bool() != prefix).any(-1)
+            out = attention_core(q, k, v, impl="flash", causal=True,
+                                 dtype=self.dtype, kv_valid=kv_valid)
+            if not_prefix is not None:
+                out = torch.where(not_prefix[:, None, None, None],
+                                  torch.full((), float("nan"),
+                                             dtype=out.dtype,
+                                             device=out.device), out)
+        else:
+            rate = self.dropout_rate
+            out = attention_core(
+                q, k, v, causal=True, dtype=self.dtype, mask=mask,
+                dropout=lambda p: dropout(p, rate, generator),
             )
         return self.out(out)
 
@@ -253,45 +322,56 @@ def gelu_tanh(x):
 
 
 class Mlp(nn.Module):
-    def __init__(self, embed_dim, hidden_dim, dtype, device=None):
+    def __init__(self, embed_dim, hidden_dim, dtype, device=None,
+                 dropout_rate: float = 0.0):
         super().__init__()
+        self.dropout_rate = dropout_rate
         self.fc_in = Dense((embed_dim,), (hidden_dim,), dtype, device)
         self.fc_out = Dense((hidden_dim,), (embed_dim,), dtype, device)
 
-    def forward(self, x):
-        return self.fc_out(gelu_tanh(self.fc_in(x)))
+    def forward(self, x, generator=None):
+        h = self.fc_out(gelu_tanh(self.fc_in(x)))
+        return dropout(h, self.dropout_rate, generator)
 
 
 class TransformerBlock(nn.Module):
-    """Pre-LN block (GPT-2): x + attn(ln1(x)), then x + mlp(ln2(x))."""
+    """Pre-LN block (GPT-2): x + drop(attn(ln1(x))), then x + mlp(ln2(x))
+    (the MLP applies its own output dropout)."""
 
     def __init__(self, embed_dim, num_heads, head_dim, mlp_dim, ln_eps,
-                 dtype, device=None):
+                 dtype, device=None, *, attn_impl: str = "xla",
+                 dropout_rate: float = 0.0):
         super().__init__()
+        self.dropout_rate = dropout_rate
         self.attn = SelfAttention(embed_dim, num_heads, head_dim, dtype,
-                                  device)
-        self.mlp = Mlp(embed_dim, mlp_dim, dtype, device)
+                                  device, attn_impl=attn_impl,
+                                  dropout_rate=dropout_rate)
+        self.mlp = Mlp(embed_dim, mlp_dim, dtype, device, dropout_rate)
         self.ln1 = LayerNorm(embed_dim, ln_eps, dtype, device)
         self.ln2 = LayerNorm(embed_dim, ln_eps, dtype, device)
 
-    def forward(self, x, cache=None, layer: int = 0):
-        x = x + self.attn(self.ln1(x), cache, layer)
-        return x + self.mlp(self.ln2(x))
+    def forward(self, x, cache=None, layer: int = 0, *, generator=None):
+        a = self.attn(self.ln1(x), cache, layer, generator=generator)
+        x = x + dropout(a, self.dropout_rate, generator)
+        return x + self.mlp(self.ln2(x), generator)
 
 
 class TransformerStack(nn.Module):
-    """N identically-configured blocks named ``block_{i}``."""
+    """N identically-configured blocks named ``block_{i}``. ``generator``
+    (a ``torch.Generator`` on the activations' device) turns dropout on:
+    training passes one, evaluation and serving pass none."""
 
     def __init__(self, num_layers, embed_dim, num_heads, head_dim, mlp_dim,
-                 ln_eps, dtype, device=None):
+                 ln_eps, dtype, device=None, *, attn_impl: str = "xla",
+                 dropout_rate: float = 0.0):
         super().__init__()
         self.num_layers = num_layers
         for i in range(num_layers):
             self.add_module(f"block_{i}", TransformerBlock(
                 embed_dim, num_heads, head_dim, mlp_dim, ln_eps, dtype,
-                device))
+                device, attn_impl=attn_impl, dropout_rate=dropout_rate))
 
-    def forward(self, x, cache=None):
+    def forward(self, x, cache=None, *, generator=None):
         for i in range(self.num_layers):
-            x = getattr(self, f"block_{i}")(x, cache, i)
+            x = getattr(self, f"block_{i}")(x, cache, i, generator=generator)
         return x

@@ -1,3 +1,3 @@
 """Ops of the port: each hand-written kernel sits beside its plain torch
-version in the same module (``paged_attention``); ``_build`` compiles the
-CUDA sources at first use."""
+version in the same module (``paged_attention``, ``flash_attention``,
+``fused_adamw``); ``_build`` compiles the CUDA sources at first use."""

@@ -1,12 +1,22 @@
-"""The chunked tied-head output shape.
+"""Chunked tied-head softmax cross-entropy: the LM head without its logits.
 
 A ``chunked_head=True`` model returns its final hidden states and the tied
-decoder instead of ``[B, L, V]`` logits, so a caller that needs logits at a
-few positions only (sampling at the last prompt token) never materializes
-the rest. The chunked cross-entropy itself comes with the training slice.
+decoder instead of ``[B, L, V]`` logits. :func:`chunked_xent` walks the
+sequence in chunks: each chunk's ``[B, Lc, V]`` logits are computed,
+reduced to per-token cross-entropy and dropped, and
+``torch.utils.checkpoint`` makes the backward recompute each chunk's logits
+instead of keeping them (the reference's ``jax.checkpoint`` over a
+``lax.scan``). At GPT-2 124M's training shapes the full logits would be
+``[32, 1024, 50257]`` fp32, 6.6 GB; one chunk of 128 positions is 1/8 of it.
+A caller that needs logits at a few positions only (sampling at the last
+prompt token) reads them from the same output.
 """
 
 from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 # hidden [B, L, E] (final, post-LN), emb [V, E] tied decoder, bias [V] or
 # absent.
@@ -23,3 +33,34 @@ def head_output(hidden, emb, bias=None) -> ChunkedHeadOut:
 
 def is_chunked_head(out) -> bool:
     return isinstance(out, dict) and "hidden" in out and "emb" in out
+
+
+def _chunk_xent(hc, emb, tc, bias=None):
+    """Per-token xent [B, Lc] fp32 of one chunk: logits in the compute
+    dtype (as the tied head computes them), cast to fp32 for the softmax."""
+    logits = torch.einsum("ble,ve->blv", hc, emb)
+    if bias is not None:
+        logits = logits + bias
+    B, Lc, V = logits.shape
+    return F.cross_entropy(logits.float().reshape(B * Lc, V),
+                           tc.reshape(-1).long(),
+                           reduction="none").reshape(B, Lc)
+
+
+def chunked_xent(out: ChunkedHeadOut, targets, *, seq_chunk: int = 128):
+    """Per-token softmax cross-entropy [B, L] fp32 without full logits.
+
+    ``targets`` [B, L] int, in-vocab. ``seq_chunk`` positions have their
+    logits alive at once; the last chunk may be shorter (the reference pads
+    it and drops the pad, which is the same function)."""
+    hidden, emb = out["hidden"], out["emb"]
+    bias = out.get("bias")
+    L = hidden.shape[1]
+    seq_chunk = max(1, min(seq_chunk, L))
+    per_tok = []
+    for lo in range(0, L, seq_chunk):
+        hc = hidden[:, lo:lo + seq_chunk]
+        tc = targets[:, lo:lo + seq_chunk]
+        per_tok.append(checkpoint(_chunk_xent, hc, emb, tc, bias,
+                                  use_reentrant=False))
+    return torch.cat(per_tok, dim=1)

@@ -1,0 +1,371 @@
+"""Trainer of the port: tasks, the optimizer factory, the single-device
+training step and the host loop.
+
+The reference compiles one step program over a device mesh; here the step
+runs eagerly on one device:
+
+- compute cast of the fp32 masters (``precision``), forward with dropout
+  from a generator seeded per step, backward by ``torch.autograd``;
+- gradients to fp32, then the optimizer: global-norm clip before the update,
+  and ``p += delta`` in place on the masters (the fused AdamW kernel, or the
+  plain optax-semantics AdamW);
+- the host loop logs ``{"loss", "perplexity", "step", "wall_s"}`` every
+  ``log_every`` steps with one interval of lag, never draining the device
+  queue for logging.
+
+Data parallelism, ZeRO-1 across devices, gradient accumulation, fused
+multi-step dispatch, checkpoints, evaluation and the health guard come in
+later slices; ``cli train`` refuses their knobs by name.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import time
+from collections.abc import Callable
+from typing import Any
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .ops.fused_adamw import (
+    FusedAdamW,
+    FusedAdamWState,
+    decay_leaf,
+    f32,
+    global_norm,
+)
+from .precision import (
+    Policy,
+    cast_grads_to_update,
+    cast_to_compute,
+    check_precision_composition,
+    get_policy,
+)
+
+# ---------------------------------------------------------------------------
+# Tasks: how a model consumes a batch.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Task:
+    """Adapter between a model and a batch dict."""
+
+    input_fn: Callable[[dict], tuple]  # batch -> model positional args
+    loss_fn: Callable[[Any, dict], tuple]  # (output, batch) -> (loss, metrics)
+
+
+def _xent(logits, labels):
+    """Per-position softmax cross-entropy in fp32 over [..., V] logits."""
+    V = logits.shape[-1]
+    return F.cross_entropy(logits.float().reshape(-1, V),
+                           labels.reshape(-1).long(),
+                           reduction="none").reshape(labels.shape)
+
+
+def _per_token_xent(model_out, targets, head_chunk: int):
+    """Per-token xent for either head form: full [B, L, V] logits, or a
+    chunked-head dict that never materializes them."""
+    from .ops.chunked_xent import chunked_xent, is_chunked_head
+
+    if is_chunked_head(model_out):
+        return chunked_xent(model_out, targets, seq_chunk=head_chunk)
+    return _xent(model_out, targets)
+
+
+def lm_task(head_chunk: int = 128) -> Task:
+    """Causal LM: predict tokens[1:] from tokens[:-1]."""
+
+    def input_fn(batch):
+        return (batch["tokens"][:, :-1],)
+
+    def loss_fn(out, batch):
+        targets = batch["tokens"][:, 1:]
+        loss = _per_token_xent(out, targets, head_chunk).mean()
+        return loss, {"loss": loss, "perplexity": torch.exp(loss)}
+
+    return Task(input_fn=input_fn, loss_fn=loss_fn)
+
+
+_TASK_KNOBS = {"head_chunk", "label_smoothing"}  # every task's, reference
+_UNPORTED_TASKS = {"classification": "A8", "mlm": "A9"}
+
+
+def get_task(name: str, **task_kwargs) -> Task:
+    """``task_kwargs``: per-task knobs; a knob no task of the reference
+    declares is a TypeError, a knob another task declares is dropped."""
+    unknown = set(task_kwargs) - _TASK_KNOBS
+    if unknown:
+        raise TypeError(f"unknown task knob(s) {sorted(unknown)}")
+    if name in _UNPORTED_TASKS:
+        raise NotImplementedError(
+            f"train.task={name!r} not yet ported to "
+            "distributeddeeplearning_tpu_torch (ROADMAP queue "
+            f"{_UNPORTED_TASKS[name]}); 'lm' is"
+        )
+    if name != "lm":
+        raise KeyError(f"unknown task {name!r}")
+    return lm_task(**{k: v for k, v in task_kwargs.items()
+                      if k == "head_chunk"})
+
+
+# ---------------------------------------------------------------------------
+# Schedules: optax's formulas, evaluated on the host in fp32 at an int count.
+# ---------------------------------------------------------------------------
+
+_F = np.float32
+
+
+def constant_schedule(value: float):
+    return lambda count: _F(value)
+
+
+def linear_schedule(init_value: float, end_value: float,
+                    transition_steps: int):
+    """optax ``linear_schedule`` (a polynomial schedule of power 1)."""
+    if transition_steps <= 0:
+        return lambda count: _F(init_value)
+
+    def schedule(count):
+        c = _F(min(max(count, 0), transition_steps))
+        frac = _F(1) - c / _F(transition_steps)
+        return _F(init_value - end_value) * frac + _F(end_value)
+
+    return schedule
+
+
+def cosine_decay_schedule(init_value: float, decay_steps: int,
+                          alpha: float = 0.0):
+    if not decay_steps > 0:
+        raise ValueError("cosine_decay_schedule requires positive "
+                         f"decay_steps, got {decay_steps}")
+
+    def schedule(count):
+        c = _F(min(count, decay_steps))
+        cosine = _F(0.5) * (_F(1) + np.cos(_F(math.pi) * c / _F(decay_steps)))
+        return _F(init_value) * ((_F(1) - _F(alpha)) * cosine + _F(alpha))
+
+    return schedule
+
+
+def join_schedules(schedules, boundaries):
+    def schedule(count):
+        out = schedules[0](count)
+        for boundary, sched in zip(boundaries, schedules[1:]):
+            if count >= boundary:
+                out = sched(count - boundary)
+        return out
+
+    return schedule
+
+
+def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
+                                 warmup_steps: int, decay_steps: int,
+                                 end_value: float = 0.0):
+    alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
+    return join_schedules(
+        [linear_schedule(init_value, peak_value, warmup_steps),
+         cosine_decay_schedule(peak_value, decay_steps - warmup_steps,
+                               alpha)],
+        [warmup_steps],
+    )
+
+
+# ---------------------------------------------------------------------------
+# Optimizers
+# ---------------------------------------------------------------------------
+
+
+class AdamW(FusedAdamW):
+    """``optax.chain(clip_by_global_norm(clip), optax.adamw(sched, b1, b2,
+    weight_decay=wd, mask=decay_leaf))`` in plain torch, updating the
+    params and moments in place: the reference path of ``optim.name=
+    'adamw'``, which runs no kernel. Its state has the fused optimizer's
+    (count, mu, nu) layout, as optax's ``ScaleByAdamState`` does."""
+
+    @torch.no_grad()
+    def update(self, grads: dict, state: FusedAdamWState,
+               params: dict) -> FusedAdamWState:
+        if self.grad_clip:
+            # optax.clip_by_global_norm: g unchanged below the threshold,
+            # else (g / norm) * clip.
+            norm = global_norm(grads)
+            clip = self.grad_clip
+            grads = {k: torch.where(norm < clip, g, (g / norm) * clip)
+                     for k, g in grads.items()}
+        lr = f32(self.learning_rate(state.count)
+                 if callable(self.learning_rate) else self.learning_rate)
+        count = state.count + 1
+        bc1 = float(_F(1) - np.power(_F(self.b1), _F(count)))
+        bc2 = float(_F(1) - np.power(_F(self.b2), _F(count)))
+        b1, b2 = f32(self.b1), f32(self.b2)
+        omb1, omb2 = f32(1 - self.b1), f32(1 - self.b2)
+        eps, wd = f32(self.eps), f32(self.weight_decay)
+        for name, p in params.items():
+            g = grads[name].float()
+            mu, nu = state.mu[name], state.nu[name]
+            mu.copy_(g * omb1 + mu * b1)
+            nu.copy_((g * g) * omb2 + nu * b2)
+            u = (mu / bc1) / (torch.sqrt(nu / bc2) + eps)
+            if wd and decay_leaf(p):
+                u = u + p * wd
+            p.add_(u * -lr)
+        return FusedAdamWState(count=count, mu=state.mu, nu=state.nu)
+
+
+def make_optimizer(name: str = "sgd", lr: float = 0.1, *,
+                   momentum: float = 0.9, b1: float = 0.9,
+                   b2: float = 0.999, weight_decay: float = 0.0,
+                   warmup_steps: int = 0, schedule: str = "constant",
+                   total_steps: int = 0, grad_clip: float = 0.0,
+                   precision: str | Policy = "fp32"):
+    """The reference's optimizer factory. ``adamw`` is the plain AdamW
+    (optax semantics, decay mask, outer clip); ``adamw_fused`` the fused
+    kernel with the clip inside its update. ``sgd`` and the ``bf16_full``
+    policy are refused by name."""
+    del momentum  # sgd's, refused below
+    if schedule == "constant":
+        sched = constant_schedule(lr)
+    elif schedule == "cosine":
+        sched = warmup_cosine_decay_schedule(
+            0.0, lr, warmup_steps, max(total_steps, warmup_steps + 1))
+    elif schedule == "linear":
+        sched = join_schedules(
+            [linear_schedule(0.0, lr, max(warmup_steps, 1)),
+             linear_schedule(lr, 0.0, max(total_steps - warmup_steps, 1))],
+            [warmup_steps],
+        )
+    else:
+        raise ValueError(f"unknown schedule {schedule!r}")
+    check_precision_composition(precision, optim_name=name)
+    if name == "sgd":
+        raise NotImplementedError(
+            "optim.name='sgd' not yet ported to "
+            "distributeddeeplearning_tpu_torch (ROADMAP queue A8, with "
+            "ResNet-50); 'adamw' and 'adamw_fused' are"
+        )
+    if name == "adamw":
+        return AdamW(sched, b1=b1, b2=b2, weight_decay=weight_decay,
+                     grad_clip=grad_clip)
+    if name == "adamw_fused":
+        return FusedAdamW(sched, b1=b1, b2=b2, weight_decay=weight_decay,
+                          grad_clip=grad_clip)
+    raise ValueError(f"unknown optimizer {name!r}")
+
+
+# ---------------------------------------------------------------------------
+# Trainer
+# ---------------------------------------------------------------------------
+
+
+def fold_in_step(seed: int, step: int) -> int:
+    """The per-step dropout seed from the root seed and the step: the
+    counterpart of the reference's ``fold_in_step`` (JAX's and torch's
+    generators differ, so the bits do too; the derivation is as
+    deterministic)."""
+    return int(np.random.SeedSequence([int(seed), int(step)])
+               .generate_state(1, np.uint64)[0])
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The training state: ``params`` are the model's own fp32 master
+    parameters (updated in place), ``rng`` the root dropout seed."""
+
+    step: int
+    params: dict
+    opt_state: Any
+    rng: int
+
+
+class Trainer:
+    """Single-device trainer over a model, an optimizer (``AdamW`` or
+    ``FusedAdamW``) and a task."""
+
+    def __init__(self, model, tx, task: Task, *, device,
+                 precision: str | Policy = "fp32"):
+        self.model, self.tx, self.task = model, tx, task
+        self.device = torch.device(device)
+        self.precision = get_policy(precision)
+        if self.precision.mixed and model.dtype != self.precision.compute_dtype:
+            raise ValueError(
+                f"precision={self.precision.name!r} requires model dtype "
+                f"{self.precision.compute_dtype} (got {model.dtype}): the "
+                "step casts a compute copy of the fp32 masters, and a model "
+                "at another dtype would cast it straight back at every use"
+            )
+        self._generator = torch.Generator(device=self.device)
+
+    def init(self, seed: int) -> TrainState:
+        """Draw the weights from ``seed`` and make the optimizer state."""
+        self.model.init_weights(torch.Generator().manual_seed(int(seed)))
+        params = dict(self.model.named_parameters())
+        return TrainState(step=0, params=params,
+                          opt_state=self.tx.init(params), rng=int(seed))
+
+    def train_step(self, state: TrainState, batch: dict):
+        """One step: (new state, metrics as device scalars)."""
+        self._generator.manual_seed(fold_in_step(state.rng, state.step))
+        # Mixed precision: ONE compute copy per step, differentiated
+        # directly; fp32 returns the masters themselves.
+        cparams = cast_to_compute(self.precision, state.params)
+        inputs = self.task.input_fn(batch)
+        kw = {"train": True, "generator": self._generator}
+        if cparams is state.params:
+            out = self.model(*inputs, **kw)
+        else:
+            out = torch.func.functional_call(self.model, cparams, inputs, kw)
+        loss, metrics = self.task.loss_fn(out, batch)
+        names = list(cparams)
+        grads = torch.autograd.grad(loss, [cparams[k] for k in names],
+                                    allow_unused=True)
+        grads = {k: torch.zeros_like(cparams[k]) if g is None else g
+                 for k, g in zip(names, grads)}
+        grads = cast_grads_to_update(self.precision, grads)
+        opt_state = self.tx.update(grads, state.opt_state, state.params)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        return dataclasses.replace(state, step=state.step + 1,
+                                   opt_state=opt_state), metrics
+
+
+def fit(trainer: Trainer, state: TrainState, batches, steps: int,
+        log_every: int = 10, log_fn=print, step_times: list | None = None):
+    """Host step loop from ``state.step`` to ``steps``.
+
+    Every ``log_every`` steps a record ``{metric, ..., "step", "wall_s"}``
+    goes to ``log_fn`` with one interval of lag (``DeferredMetrics``); the
+    last interval is flushed before returning. ``step_times``: when a list,
+    each step ends in a device sync and its seconds are appended (for
+    timing; the loop otherwise never waits on the device outside its log
+    records). Returns (state, history)."""
+    from .metrics import DeferredMetrics
+
+    history = []
+
+    def emit(m):
+        history.append(m)
+        log_fn(m)
+
+    deferred = DeferredMetrics(emit)
+    t0 = time.perf_counter()
+    it = iter(batches)
+    for i in range(state.step, steps):
+        try:
+            batch = next(it)
+        except StopIteration:
+            break
+        t_step = time.perf_counter()
+        state, metrics = trainer.train_step(state, batch)
+        if step_times is not None:
+            if trainer.device.type == "cuda":
+                torch.cuda.synchronize(trainer.device)
+            step_times.append(time.perf_counter() - t_step)
+        end = i + 1
+        if log_every and end % log_every == 0:
+            deferred.push(end, metrics,
+                          wall_s=round(time.perf_counter() - t0, 3))
+    deferred.flush()
+    return state, history

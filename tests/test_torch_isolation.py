@@ -1,6 +1,8 @@
 """The port stands alone: no module of ``distributeddeeplearning_tpu_torch``
 and nothing in ``chip_smoke.py`` imports JAX, flax, optax or the JAX
-package, so it runs on a GPU host that has none of them."""
+package, so it runs on a GPU host that has none of them. Its entry points
+run on the GPU unless asked, and ``cli train`` refuses by name every knob
+whose feature is not ported yet."""
 
 import ast
 import os
@@ -9,6 +11,7 @@ import subprocess
 import sys
 
 import pytest
+import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "distributeddeeplearning_tpu_torch"
@@ -18,6 +21,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "distributeddeeplearning_tpu")
 def _sources():
     files = sorted(PORT.rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "tools" / "torch_decode_profile.py",
+        ROOT / "tools" / "torch_train_profile.py",
     ]
     return [p for p in files if "_build" not in p.parts]
 
@@ -42,7 +46,12 @@ def _forbidden(module: str) -> bool:
 def test_sources_exist():
     names = {p.name for p in _sources()}
     assert {"chip_smoke.py", "engine.py", "paged_attention.py",
-            "transformer.py", "gpt2.py", "cli.py"} <= names
+            "transformer.py", "gpt2.py", "cli.py", "flash_attention.py",
+            "fused_adamw.py", "train.py", "data.py", "dataset_base.py",
+            "precision.py", "chunked_xent.py"} <= names
+    csrc = {p.name for p in (PORT / "csrc").glob("*.cu")}
+    assert {"paged_attention.cu", "flash_attention.cu",
+            "fused_adamw.cu"} <= csrc
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(
@@ -83,3 +92,69 @@ def test_port_imports_with_jax_blocked():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"
+
+
+CONFIG = "distributeddeeplearning_tpu_torch/configs/gpt2_owt.py"
+TINY = ["model.kwargs.size=tiny", "model.kwargs.vocab_size=256",
+        "model.kwargs.max_len=64", "data.vocab_size=256", "data.seq_len=64",
+        "data.batch_size=2", "train.steps=1"]
+
+
+def _train(*overrides, device="cpu"):
+    from distributeddeeplearning_tpu_torch import cli
+
+    argv = ["train", "--config", str(ROOT / CONFIG)]
+    if device is not None:
+        argv += ["--device", device]
+    for o in TINY + list(overrides):
+        argv += ["--override", o]
+    return cli.main(argv)
+
+
+def test_cli_train_default_device_is_the_gpu(capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable here")
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        _train(device=None)
+
+
+@pytest.mark.parametrize("override,knob", [
+    ("train.checkpoint_dir=/nonexistent/ckpt", "train.checkpoint_dir"),
+    ("train.save_every=10", "train.save_every"),
+    ("train.eval_every=10", "train.eval_every"),
+    ("train.grad_accum=2", "train.grad_accum"),
+    ("train.steps_per_call=2", "train.steps_per_call"),
+    ("health.enabled=True", "health.enabled"),
+    ("telemetry.enabled=True", "telemetry.enabled"),
+    ("train.fault_injection=nan:3", "train.fault_injection"),
+    ("train.grad_comm=int8", "train.grad_comm"),
+    ("train.grad_bucket_mb=4.0", "train.grad_bucket_mb"),
+    ("train.update_sharding=sharded", "train.update_sharding"),
+    ("train.sequence_parallel=True", "train.sequence_parallel"),
+    ("train.remat=full", "train.remat"),
+    ("mesh.dp=2", "mesh"),
+    ("mesh.tp=2", "mesh"),
+    ("train.log_dir=/nonexistent/logs", "train.log_dir"),
+])
+def test_unported_train_knobs_are_refused_by_name(override, knob):
+    with pytest.raises(NotImplementedError,
+                       match=rf"^{knob}=.*ROADMAP queue A\d+"):
+        _train(override)
+
+
+@pytest.mark.parametrize("override,exc,match", [
+    ("train.task=mlm", NotImplementedError, "train.task='mlm'"),
+    ("optim.name=sgd", NotImplementedError, "optim.name='sgd'"),
+    ("train.precision.policy=bf16_full", ValueError, "bf16_full"),
+    ("data.kind=synthetic_image", NotImplementedError, "synthetic_image"),
+    ("model.kwargs.attn_impl=ring", NotImplementedError, "attn_impl='ring'"),
+])
+def test_unported_paths_are_refused_by_name(override, exc, match):
+    with pytest.raises(exc, match=match):
+        _train(override)
+
+
+def test_zero1_on_one_device_is_accepted(capsys):
+    """gpt2_owt sets train.zero1=True: over dp=1 it is a no-op placement."""
+    assert _train("train.zero1=True", "model.kwargs.dtype=float32") == 0
+    assert '"step": 1' not in capsys.readouterr().out  # log_every=20

@@ -1,0 +1,124 @@
+"""The training kernels of the port against their plain versions, on the card.
+
+Imports torch and the port only, so it runs on a GPU host without JAX:
+
+    python -m pytest tests/test_torch_kernels_gpu.py --noconftest -q
+
+(``--noconftest``: the suite's conftest sets JAX up.) Every test carries
+the ``gpu`` marker and skips where torch sees no CUDA device; the kernels
+have no CPU mode. Tolerances: flash in fp32 2e-5 (only the order of fp32
+sums differs), in bf16 2e-2 absolute and relative (one bf16 rounding step of
+the output); fused AdamW bit for bit (every operation rounds on its own in
+both).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from distributeddeeplearning_tpu_torch.ops import flash_attention as fa
+from distributeddeeplearning_tpu_torch.ops import fused_adamw as fused
+
+# name: (causal, per-row kv limits or None, true length of a padded L, L).
+# L = 100 is no multiple of the kernels' 64-row tiles: what flash_attention
+# hands them, unpadded, for a sequence shorter than its blocks.
+FLASH_CASES = {
+    "causal": (True, None, None, 128),
+    "kv_valid_lens": (False, [128, 13, 40, 1], None, 128),
+    "causal_kv_valid_lens": (True, [128, 33, 40, 5], None, 128),
+    "padded_L100": (False, None, 100, 128),
+    "causal_padded_L100": (True, None, 100, 128),
+    "causal_L100": (True, None, None, 100),
+    "kv_valid_lens_L100": (False, [100, 7, 64, 65], None, 100),
+}
+DTYPES = {"float32": (torch.float32, 2e-5), "bfloat16": (torch.bfloat16, 2e-2)}
+
+
+def _need_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", list(FLASH_CASES))
+def test_flash_kernels_match_plain_versions(case, dtype, head_dim):
+    _need_cuda()
+    causal, vl, valid, L = FLASH_CASES[case]
+    tdt, tol = DTYPES[dtype]
+    rng = np.random.default_rng(5)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((4, L, head_dim))
+                                    .astype(np.float32)).to("cuda")
+                   for _ in range(4))
+    if valid is not None:  # the wrapper's zero pad
+        for x in (q, k, v, do):
+            x[:, valid:] = 0
+    q, k, v, do = (x.to(tdt) for x in (q, k, v, do))
+    kw = dict(causal=causal, sm_scale=head_dim ** -0.5, limit=valid or L,
+              vl=None if vl is None else torch.tensor(
+                  vl, dtype=torch.int32, device="cuda"))
+    before = dict(fa.LAUNCHES)
+    o, lse = fa.flash_fwd(q, k, v, **kw)
+    o_p, lse_p = fa.flash_fwd_plain(q, k, v, **kw)
+    dq, delta = fa.flash_dq(q, k, v, o_p, do, lse_p, **kw)
+    dq_p, delta_p = fa.flash_dq_plain(q, k, v, o_p, do, lse_p, **kw)
+    dk, dv = fa.flash_dkv(q, k, v, do, lse_p, delta_p, **kw)
+    dk_p, dv_p = fa.flash_dkv_plain(q, k, v, do, lse_p, delta_p, **kw)
+    torch.cuda.synchronize()
+    assert all(fa.LAUNCHES[x] == before[x] + 1 for x in before)
+    n = valid or L
+    for a, b in ((o, o_p), (lse, lse_p), (dq, dq_p), (delta, delta_p),
+                 (dk, dk_p), (dv, dv_p)):
+        torch.testing.assert_close(a[:, :n].float(), b[:, :n].float(),
+                                   atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+def test_flash_autograd_runs_the_three_kernels():
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (torch.randn(2, 200, 3, 64, generator=g, device="cuda")
+               .requires_grad_() for _ in range(3))
+    before = dict(fa.LAUNCHES)
+    o = fa.flash_attention(q, k, v, causal=True)
+    grads = torch.autograd.grad(o.square().sum(), (q, k, v))
+    torch.cuda.synchronize()
+    assert all(fa.LAUNCHES[x] == before[x] + 1 for x in before)
+    ref = fa.attention_reference(q, k, v, causal=True)
+    ref_grads = torch.autograd.grad(ref.square().sum(), (q, k, v))
+    torch.testing.assert_close(o, ref, atol=2e-5, rtol=2e-5)
+    for a, b in zip(grads, ref_grads):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_flash_kernel_refuses_head_dim_by_name():
+    _need_cuda()
+    q = torch.zeros(2, 8, 32, device="cuda")
+    with pytest.raises(ValueError, match="head_dim 32 not in"):
+        fa.flash_fwd(q, q, q, causal=True, sm_scale=1.0, limit=8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("count", [1, 1000])
+@pytest.mark.parametrize("wd", [0.1, 0.0])
+def test_fused_adamw_kernel_matches_plain_bitwise(wd, count):
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(count)
+    shapes = [(50257, 768), (768, 12, 64), (3072,), (1027,)]
+    t = [[torch.randn(s, generator=g, device="cuda") * sc for s in shapes]
+         for sc in (0.02, 1e-3, 1e-4, 1e-7)]
+    t[3] = [x.abs() for x in t[3]]
+    ref = [[x.clone() for x in xs] for xs in t]
+    c1, c2 = fused.bias_corrections(0.9, 0.95, count)
+    hp = dict(lr=6e-4, b1=0.9, b2=0.95, eps=1e-8, wd=wd, c1=c1, c2=c2)
+    before = fused.LAUNCHES["fused_adamw"]
+    fused.fused_adamw_group(*t, **hp)
+    for leaf in zip(*ref):
+        fused.fused_adamw_plain(*leaf, **hp)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES["fused_adamw"] == before + 1
+    for xs, ys in zip(t, ref):
+        for a, b in zip(xs, ys):
+            assert torch.equal(a, b)
