@@ -5,7 +5,7 @@ Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py --quick    # device, build, kernels vs plain only
-                                     # (phases 1-3 and 6; no result line)
+                                     # (phases 1-3, 6 and 9; no result line)
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
@@ -28,7 +28,21 @@ Phases, in order; any failure raises and the script exits non-zero:
      and 2 x steps for fused_adamw, every loss finite;
   8. fp32 parity pair at 124M width: (flash, adamw_fused) through the
      kernels against (xla, adamw) through none, 4 steps on the same weights
-     and batches; the losses must agree within 1e-4 relative and fall.
+     and batches; the losses must agree within 1e-4 relative and fall;
+  9. ring kernels vs plain: ring_step / ring_dq / ring_dkv against their
+     plain torch versions at the cp=2 training shapes ([384, 512, 64], bf16
+     k/v, fp32 carries), mode 0 and 1, plus fp32 cases (D=128, L=200) and
+     four virtual cp ranks driven in lockstep against full causal
+     attention; then their times, bounds and library yardsticks;
+  10. context-parallel training through the entry point: ``cli train``
+     under ``torchrun`` with 2 ranks, ``mesh.cp=2``, ``ring_pallas``, at
+     full width for 6 steps. Both ranks share the one card over gloo, so
+     the step times are no context-parallel speed. Launches must be 12 x
+     steps per ring kernel on rank 0 and 24 x steps on rank 1, none of the
+     flash kernels, 2 x steps of fused_adamw on each;
+  11. fp32 parity at 124M width: 2 ranks at cp=2 (ring_pallas,
+     adamw_fused) against phase 8's single-process flash route, 4 steps;
+     the losses must agree within 1e-4 relative and fall.
 The line before the last is the kernels record; the last line is
 ``{"ok": true, "device": {...}}``. No GPU means no result line and a
 non-zero exit: nothing here falls back to the CPU.
@@ -61,6 +75,9 @@ SOURCES = {
     "flash_dq": "distributeddeeplearning_tpu_torch/csrc/flash_attention.cu",
     "flash_dkv": "distributeddeeplearning_tpu_torch/csrc/flash_attention.cu",
     "fused_adamw": "distributeddeeplearning_tpu_torch/csrc/fused_adamw.cu",
+    "ring_step": "distributeddeeplearning_tpu_torch/csrc/ring_attention.cu",
+    "ring_dq": "distributeddeeplearning_tpu_torch/csrc/ring_attention.cu",
+    "ring_dkv": "distributeddeeplearning_tpu_torch/csrc/ring_attention.cu",
 }
 # gpt2_owt.py trains with flash attention; serving refuses it by name, so
 # every serving phase runs the config's xla attention core.
@@ -72,8 +89,12 @@ REPLACES = {
     "flash_dq": "distributeddeeplearning_tpu/ops/flash_attention.py:213",
     "flash_dkv": "distributeddeeplearning_tpu/ops/flash_attention.py:254",
     "fused_adamw": "distributeddeeplearning_tpu/ops/fused_adamw.py:59",
+    "ring_step": "distributeddeeplearning_tpu/ops/ring_attention_pallas.py:56",
+    "ring_dq": "distributeddeeplearning_tpu/ops/ring_attention_pallas.py:234",
+    "ring_dkv": "distributeddeeplearning_tpu/ops/ring_attention_pallas.py:261",
 }
 TRAIN_STEPS = 8
+CP_STEPS = 6
 
 
 def phase(name):
@@ -716,6 +737,382 @@ def parity_pair(torch, cli, load_config, apply_overrides, steps=4):
     if not (la[-1] < la[0] and lb[-1] < lb[0]):
         raise AssertionError(f"fp32 parity: loss did not fall {la} {lb}")
     return {"losses_kernels": la, "losses_plain": lb, "max_rel_diff": rel,
+            "max_abs_param_diff": pdiff, "params_kernels": pa_,
+            "overrides": base + routes["kernels"]}
+
+
+# ---------------------------------------------------------------------------
+# 9. ring kernels vs plain
+# ---------------------------------------------------------------------------
+
+
+def ring_case(torch, rp, *, dtype, bh, L, D, seed=11):
+    """Inputs of one ring visit as rank 1 of cp=2 meets them: its queries
+    q, a diagonal block (k1, v1) and the block of rank 0 (k0, v0), dO; the
+    carries after the diagonal visit (plain versions), the lse and delta of
+    the whole forward, and the dq, dk, dv carried into the mode-0 visit."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k0, v0, k1, v1, do = (
+        torch.randn(bh, L, D, generator=g, device="cuda").to(dtype)
+        for _ in range(6))
+    scale = D ** -0.5
+    qf = q.float() * scale
+    zero = dict(m=torch.full((bh, L, 1), -1e30, device="cuda"),
+                l=torch.zeros(bh, L, 1, device="cuda"),
+                acc=torch.zeros(bh, L, D, device="cuda"))
+    diag = rp.ring_step_plain(qf, k1, v1, zero["m"], zero["l"], zero["acc"], 1)
+    m, l, acc = rp.ring_step_plain(qf, k0, v0, *diag, 0)
+    lse = m + torch.log(l)
+    out = (acc / l).to(dtype)
+    delta = (do.float() * out.float()).sum(-1, keepdim=True)
+    zd = torch.zeros(bh, L, D, device="cuda")
+    dq1 = rp.ring_dq_plain(q, k1, v1, do, lse, delta, zd, 1, scale)
+    dk1, dv1 = rp.ring_dkv_plain(q, k1, v1, do, lse, delta, zd, zd, 1, scale)
+    return dict(q=q, qf=qf, blocks={1: (k1, v1), 0: (k0, v0)},
+                carries={1: (zero["m"], zero["l"], zero["acc"]), 0: diag},
+                grads={1: (zd, zd, zd), 0: (dq1, dk1, dv1)},
+                do=do, lse=lse, delta=delta, scale=scale)
+
+
+def ring_calls(rp, case, mode, plain=False):
+    """(name -> zero-argument call) of the three kernels (or their plain
+    versions) on the case's mode-``mode`` visit."""
+    k, v = case["blocks"][mode]
+    dq, dk, dv = case["grads"][mode]
+    bwd = (case["q"], k, v, case["do"], case["lse"], case["delta"])
+    sfx = "_plain" if plain else ""
+    step, rdq, rdkv = (getattr(rp, n + sfx)
+                       for n in ("ring_step", "ring_dq", "ring_dkv"))
+    return {
+        "ring_step": lambda: step(case["qf"], k, v, *case["carries"][mode],
+                                  mode),
+        "ring_dq": lambda: rdq(*bwd, dq, mode, case["scale"]),
+        "ring_dkv": lambda: rdkv(*bwd, dk, dv, mode, case["scale"]),
+    }
+
+
+def ring_bounds(case, mode):
+    """Least time of each ring kernel's work: its bytes (each input read
+    once, each output written once) over HBM, and its matrix flops over the
+    visible (row, column) pairs (mode 0: all L^2, mode 1: L(L+1)/2 per
+    row block) over the bf16 tensor-core peak for bf16 k/v (fp32 CUDA-core
+    peak for fp32):
+      ring_step: S and PV, 4*D flops per pair; reads qf, k, v, m, l, acc
+                 (fp32 but k, v), writes m, l, acc;
+      ring_dq:   S, dP and dS K, 6*D per pair; reads q, k, v, dO, lse,
+                 delta, dq, writes dq (fp32);
+      ring_dkv:  S, dP, P^T dO and dS^T Q, 8*D per pair; reads q, k, v, dO,
+                 lse, delta, dk, dv, writes dk, dv (fp32)."""
+    bh, L, D = case["q"].shape
+    el = case["q"].element_size()
+    mat_t, mat_f, row = bh * L * D * el, bh * L * D * 4, bh * L * 4
+    pairs = bh * L * L if mode == 0 else bh * L * (L + 1) // 2
+    peak = BF16_FLOPS_PER_S if el == 2 else FP32_FLOPS_PER_S
+    work = {"ring_step": (mat_f + 2 * mat_t + 4 * row + 2 * mat_f,
+                          4 * D * pairs),
+            "ring_dq": (4 * mat_t + 2 * row + 2 * mat_f, 6 * D * pairs),
+            "ring_dkv": (4 * mat_t + 2 * row + 4 * mat_f, 8 * D * pairs)}
+    out = {}
+    for name, (nbytes, flops) in work.items():
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / peak
+        out[name] = (max(t_b, t_o) * 1e3,
+                     "bytes" if t_b >= t_o else "operations", nbytes, flops)
+    return out
+
+
+def check_ring(torch, rp, name, case, atol, timed):
+    """Each ring kernel against its plain version on the same inputs, in
+    mode 1 (the diagonal visit) and mode 0 (a visible block); errors are
+    held to atol + atol * |ref|."""
+    res = {}
+    for mode in (1, 0):
+        kern, plain = ring_calls(rp, case, mode), ring_calls(rp, case, mode,
+                                                             plain=True)
+        for kname in kern:
+            before = rp.LAUNCHES[kname]
+            got = kern[kname]()
+            want = plain[kname]()
+            torch.cuda.synchronize()
+            if rp.LAUNCHES[kname] != before + 1:
+                raise RuntimeError(f"ring {name}: {kname} did not launch")
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            e = 0.0
+            for a, b in zip(got, want):
+                bad = (a - b).abs() > atol + atol * b.abs()
+                e = max(e, (a - b).abs().max().item())
+                if bad.any() or not torch.isfinite(a).all():
+                    raise AssertionError(
+                        f"ring {name}: {kname} mode {mode} disagrees with "
+                        f"its plain version: max_abs_err {e}, tolerance "
+                        f"{atol} + {atol} * |ref|")
+            res[(kname, mode)] = {"max_abs_err": e, "atol": atol}
+    print(f"ring {name}: max_abs_err "
+          f"{json.dumps({f'{k} mode {m}': r['max_abs_err'] for (k, m), r in res.items()})}"
+          f" (atol {atol})", flush=True)
+    if not timed:
+        return res
+    out = {}
+    lib_fwd, lib_bwd = ring_yardsticks(torch, case)
+    for mode in (1, 0):
+        bounds = ring_bounds(case, mode)
+        kern, plain = ring_calls(rp, case, mode), ring_calls(rp, case, mode,
+                                                             plain=True)
+        for kname in kern:
+            r = dict(res[(kname, mode)])
+            r["ms"] = time_ms(torch, kern[kname], iters=10)
+            r["plain_ms"] = time_ms(torch, plain[kname], iters=3)
+            r["bound_ms"], r["bound_by"], r["bytes"], r["flops"] = (
+                bounds[kname])
+            # The library's backward computes dq, dk and dv in one call: the
+            # yardstick of the dq + dkv pair, recorded on both.
+            r["library_ms"] = lib_fwd if kname == "ring_step" else lib_bwd
+            print(f"  {kname} mode {mode}: {json.dumps(r)}", flush=True)
+            if mode == 0:  # the full visible block: the kernels' record
+                out[kname] = r
+    return out
+
+
+def ring_yardsticks(torch, case, heads=12):
+    """Yardsticks only (the port never calls them): the library's
+    ``scaled_dot_product_attention`` forward over one visible block (no
+    mask) and its autograd backward, on the case's bf16 tensors viewed
+    [B, H, L, D]."""
+    F = torch.nn.functional
+    bh, L, D = case["q"].shape
+    k, v = case["blocks"][0]
+    shape = (bh // heads, heads, L, D)
+    q, k, v = (x.reshape(shape).detach().requires_grad_()
+               for x in (case["q"], k, v))
+    do = case["do"].reshape(shape)
+    fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v),
+                  iters=10)
+    o = F.scaled_dot_product_attention(q, k, v)
+    bwd = time_ms(torch, lambda: torch.autograd.grad(
+        o, (q, k, v), do, retain_graph=True), iters=10)
+    return fwd, bwd
+
+
+def composed_ring(torch, rp, fa, *, cp=4, bh=48, L=512, D=64, atol=1e-4):
+    """cp virtual ranks in lockstep in one process: the forward ring through
+    ``ring_step``, then the backward ring through ``ring_dq``/``ring_dkv``,
+    blocks rotating as Python lists (rank i receives from i + 1; dk, dv
+    rotate with k, v and hop home at the end). Outputs, lse, dq, dk, dv
+    against full causal attention over the cp * L sequence through the
+    flash module's plain versions, fp32."""
+    g = torch.Generator(device="cuda").manual_seed(21)
+    full = [torch.randn(bh, cp * L, D, generator=g, device="cuda")
+            for _ in range(4)]
+    q, k, v, do = ([x[:, i * L:(i + 1) * L].contiguous() for i in range(cp)]
+                   for x in full)
+    scale = D ** -0.5
+
+    def rotate(xs):
+        return xs[1:] + xs[:1]
+
+    def visits():
+        for t in range(cp):
+            for i in range(cp):
+                src = (i + t) % cp
+                if src <= i:
+                    yield t, i, int(src == i)
+
+    carries = [(torch.full((bh, L, 1), -1e30, device="cuda"),
+                torch.zeros(bh, L, 1, device="cuda"),
+                torch.zeros(bh, L, D, device="cuda")) for _ in range(cp)]
+    qf = [x * scale for x in q]
+    kt, vt = list(k), list(v)
+    t_prev = 0
+    for t, i, mode in visits():
+        while t_prev < t:
+            kt, vt, t_prev = rotate(kt), rotate(vt), t_prev + 1
+        carries[i] = rp.ring_step(qf[i], kt[i], vt[i], *carries[i], mode)
+    out = [acc / l for (_, l, acc) in carries]
+    lse = [m + torch.log(l) for (m, l, _) in carries]
+    delta = [(d * o).sum(-1, keepdim=True) for d, o in zip(do, out)]
+    zeros = [torch.zeros(bh, L, D, device="cuda") for _ in range(cp)]
+    dq, dk, dv = list(zeros), list(zeros), list(zeros)
+    kt, vt = list(k), list(v)
+    t_prev = 0
+    for t, i, mode in visits():
+        while t_prev < t:
+            kt, vt, dk, dv = map(rotate, (kt, vt, dk, dv))
+            t_prev += 1
+        args = (q[i], kt[i], vt[i], do[i], lse[i], delta[i])
+        dq[i] = rp.ring_dq(*args, dq[i], mode, scale)
+        dk[i], dv[i] = rp.ring_dkv(*args, dk[i], dv[i], mode, scale)
+    for _ in range(cp - t_prev):  # the last lap's remaining hops home
+        dk, dv = rotate(dk), rotate(dv)
+    torch.cuda.synchronize()
+    kw = dict(causal=True, sm_scale=scale, limit=cp * L)
+    o_ref, lse_ref = fa.flash_fwd_plain(*full[:3], **kw)
+    dq_ref, delta_ref = fa.flash_dq_plain(*full[:3], o_ref, full[3], lse_ref,
+                                          **kw)
+    dk_ref, dv_ref = fa.flash_dkv_plain(*full[:3], full[3], lse_ref,
+                                        delta_ref, **kw)
+    errs = {}
+    for name, got, want in (("out", out, o_ref), ("lse", lse, lse_ref[..., None]),
+                            ("dq", dq, dq_ref), ("dk", dk, dk_ref),
+                            ("dv", dv, dv_ref)):
+        a = torch.cat(got, dim=1)
+        e = (a - want).abs().max().item()
+        errs[name] = e
+        if ((a - want).abs() > atol + atol * want.abs()).any():
+            raise AssertionError(f"composed ring (cp={cp}): {name} disagrees "
+                                 f"with full causal attention: max_abs_err "
+                                 f"{e}, tolerance {atol} + {atol} * |ref|")
+    print(f"composed ring cp={cp} [{bh}, {cp} x {L}, {D}] fp32 vs full causal: "
+          f"max_abs_err {json.dumps(errs)} (atol {atol})", flush=True)
+    return errs
+
+
+def check_ring_kernels(torch):
+    from distributeddeeplearning_tpu_torch.ops import flash_attention as fa
+    from distributeddeeplearning_tpu_torch.ops import ring_attention_pallas as rp
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    # Every output is an fp32 carry and bf16 inputs are exact in fp32, so
+    # only the order of the fp32 sums differs: 2e-3 with bf16 inputs (their
+    # larger magnitudes), 2e-5 in fp32.
+    res = check_ring(torch, rp, "bf16 [384, 512, 64] (cp=2 training)",
+                     ring_case(torch, rp, dtype=bf16, bh=384, L=512, D=64),
+                     2e-3, timed=True)
+    check_ring(torch, rp, "fp32 [384, 512, 64]",
+               ring_case(torch, rp, dtype=f32, bh=384, L=512, D=64), 2e-5,
+               timed=False)
+    check_ring(torch, rp, "fp32 D=128 [24, 256, 128]",
+               ring_case(torch, rp, dtype=f32, bh=24, L=256, D=128), 2e-5,
+               timed=False)
+    check_ring(torch, rp, "fp32 L=200, no multiple of 64 [24, 200, 64]",
+               ring_case(torch, rp, dtype=f32, bh=24, L=200, D=64), 2e-5,
+               timed=False)
+    composed_ring(torch, rp, fa)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# 10. / 11. context-parallel training
+# ---------------------------------------------------------------------------
+
+
+def cli_train_cp(torch, layers, steps=CP_STEPS):
+    """``cli train`` under torchrun: 2 ranks, cp=2, ring_pallas, full width.
+    Returns (rank 0's step seconds, the train_end record, the text)."""
+    overrides = ["mesh.cp=2", "mesh.dp=1", "model.kwargs.attn_impl=ring_pallas",
+                 f"train.steps={steps}", "train.log_every=1"]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "2", "-m", "distributeddeeplearning_tpu_torch.cli",
+           "train", "--config", CONFIG, "--sync-steps"]
+    for o in overrides:
+        cmd += ["--override", o]
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"torchrun cli train exited {proc.returncode}:\n"
+                           f"{proc.stdout[-4000:]}\n{proc.stderr[-8000:]}")
+    lines = proc.stdout.strip().splitlines()
+    recs = [json.loads(x) for x in lines if x.startswith("{")]
+    losses = [r["loss"] for r in recs if "loss" in r]
+    end = next(r for r in recs if r.get("event") == "train_end")
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"cp cli train: losses {losses}")
+    if len(end["ranks"]) != 2 or any(r["losses"] != losses
+                                     for r in end["ranks"]):
+        raise AssertionError(f"cp cli train: the ranks' losses differ "
+                             f"{[r['losses'] for r in end['ranks']]}")
+    want = [{"ring_step": layers * steps * (i + 1),
+             "ring_dq": layers * steps * (i + 1),
+             "ring_dkv": layers * steps * (i + 1),
+             "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
+             "fused_adamw": 2 * steps} for i in range(2)]
+    got = [r["launches"] for r in end["ranks"]]
+    print("\n".join(x for x in lines if not x.startswith("{")))
+    print(f"losses {losses}")
+    print(f"launches per rank {got} expected {want}", flush=True)
+    if got != want:
+        raise AssertionError(f"cp train launches {got} != {want}")
+    return losses, end, got
+
+
+def _cp_rank(rank, port, overrides, out_dir):
+    """One rank of phase 11 (a child process): build_all + fit at cp=2."""
+    import torch
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK=str(rank),
+                      LOCAL_WORLD_SIZE="2", MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
+    sys.path.insert(0, ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import torch.distributed as dist
+
+    from distributeddeeplearning_tpu_torch import cli, data
+    from distributeddeeplearning_tpu_torch.config import (
+        apply_overrides,
+        load_config,
+    )
+    from distributeddeeplearning_tpu_torch.mesh import (
+        build_mesh,
+        init_distributed,
+        rank_device,
+    )
+    from distributeddeeplearning_tpu_torch.ops import ring_attention_pallas
+    from distributeddeeplearning_tpu_torch.train import fit
+
+    init_distributed("cuda")
+    device = rank_device("cuda")
+    cfg = apply_overrides(load_config(CONFIG), overrides)
+    mesh = build_mesh(cfg.mesh)
+    _, trainer, dataset = cli.build_all(cfg, device, mesh)
+    state = trainer.init(cfg.train.seed)
+    state, hist = fit(trainer, state, data.prefetch(
+        data.sharded_batches(dataset.iter_from(0), mesh), device),
+        steps=cfg.train.steps, log_every=1, log_fn=lambda m: None)
+    torch.cuda.synchronize()
+    out = {"losses": [r["loss"] for r in hist],
+           "launches": dict(ring_attention_pallas.LAUNCHES)}
+    if rank == 0:
+        out["params"] = {k: p.detach().cpu() for k, p in state.params.items()}
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def cp_parity(torch, parity, steps=4):
+    """fp32 at 124M width: 2 ranks at cp=2 (ring_pallas, adamw_fused)
+    against phase 8's single-process flash route on the same weights and
+    batches."""
+    import socket
+    import tempfile
+
+    overrides = parity["overrides"] + [
+        "model.kwargs.attn_impl=ring_pallas", "mesh.cp=2", "mesh.dp=1"]
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.multiprocessing.spawn(_cp_rank, args=(port, overrides, tmp),
+                                    nprocs=2, join=True)
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"))
+                 for r in range(2)]
+    la, lb = ranks[0]["losses"], parity["losses_kernels"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(la, lb))
+    pb = parity["params_kernels"]
+    pdiff = max((ranks[0]["params"][k] - pb[k].cpu()).abs().max().item()
+                for k in pb)
+    print(f"cp=2 fp32 parity: losses ring {la} flash {lb} max rel diff "
+          f"{rel}; max abs param diff after {steps} steps {pdiff} "
+          f"(information); ring launches per rank "
+          f"{[r['launches'] for r in ranks]}", flush=True)
+    if ranks[1]["losses"] != la:
+        raise AssertionError("cp=2 fp32 parity: the ranks' losses differ")
+    if not rel <= 1e-4:
+        raise AssertionError(f"cp=2 fp32 parity: loss rel diff {rel} > 1e-4")
+    if not la[-1] < la[0]:
+        raise AssertionError(f"cp=2 fp32 parity: loss did not fall {la}")
+    return {"losses_ring": la, "losses_flash": lb, "max_rel_diff": rel,
             "max_abs_param_diff": pdiff}
 
 
@@ -760,7 +1157,8 @@ def main(argv=None) -> int:
 
     phase("2 build")
     t0 = time.perf_counter()
-    names = ["paged_attention", "flash_attention", "fused_adamw"]
+    names = ["paged_attention", "flash_attention", "fused_adamw",
+             "ring_attention"]
     _build.build(names)  # one nvcc per source, all started together
     print(f"build_s {time.perf_counter() - t0:.2f}")
     for name in names:
@@ -775,6 +1173,8 @@ def main(argv=None) -> int:
     if args.quick:
         phase("6 training kernels vs plain")
         check_training_kernels(torch, models, cfg)
+        phase("9 ring kernels vs plain")
+        check_ring_kernels(torch)
         return 0  # a build-and-check run prints no result line
 
     phase("4 serve through the entry point")
@@ -822,12 +1222,31 @@ def main(argv=None) -> int:
     launches.update(train_launches)
 
     phase("8 fp32 parity pair at 124M width")
-    parity_pair(torch, cli, load_config, apply_overrides)
+    parity = parity_pair(torch, cli, load_config, apply_overrides)
+
+    phase("9 ring kernels vs plain")
+    kres.update(check_ring_kernels(torch))
+
+    phase("10 context-parallel train through the entry point (torchrun)")
+    # The ranks are fresh processes: their counts start at 0 with the run.
+    torch.cuda.empty_cache()
+    _, end, per_rank = cli_train_cp(torch, layers)
+    step_s = end["step_s"][1:]  # the first step warms the libraries up
+    print(f"cp train: {json.dumps({'backend': end['backend'], 'ranks_on_one_card': 2, 'tokens_per_s': tokens / statistics.mean(step_s), 'p50_step_ms': statistics.median(step_s) * 1e3, 'step_ms': [x * 1e3 for x in step_s], 'peak_mem_gb': [r['peak_mem_gb'] for r in end['ranks']]})}"
+          " (both ranks share the one card over gloo: not a "
+          "context-parallel speed)", flush=True)
+    for k in ("ring_step", "ring_dq", "ring_dkv"):
+        launches[k] = sum(r[k] for r in per_rank)
+
+    phase("11 fp32 parity at 124M width, cp=2 against one rank")
+    cp_parity(torch, parity)
 
     # Each kernel's numbers come from its case at the main path's types.
     main_case = {"paged_decode": "bf16", "paged_decode_q8": "int8_bf16q",
                  "flash_fwd": "flash_fwd", "flash_dq": "flash_dq",
-                 "flash_dkv": "flash_dkv", "fused_adamw": "fused_adamw"}
+                 "flash_dkv": "flash_dkv", "fused_adamw": "fused_adamw",
+                 "ring_step": "ring_step", "ring_dq": "ring_dq",
+                 "ring_dkv": "ring_dkv"}
     kernels = []
     for kernel, name in main_case.items():
         r = kres[name]

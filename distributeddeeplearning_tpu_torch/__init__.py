@@ -1,12 +1,16 @@
 """PyTorch/CUDA port of ``distributeddeeplearning_tpu``, slice by slice.
 
-Two paths run on the GPU:
+Three paths run on the GPU:
 - serving: ``cli serve`` -> ``serving.ServingEngine`` -> GPT-2 in
   paged-decode mode, whose decode attention reads the paged KV pool through
   a CUDA kernel written for Hopper (``csrc/paged_attention.cu``);
 - training: ``cli train`` -> ``train.Trainer`` -> GPT-2 on one GPU, with
   flash attention forward and backward (``csrc/flash_attention.cu``) and the
-  fused AdamW update (``csrc/fused_adamw.cu``) as hand-written kernels.
+  fused AdamW update (``csrc/fused_adamw.cu``) as hand-written kernels;
+- context-parallel training: ``cli train`` under ``torchrun`` over a
+  ``mesh.Mesh`` of dp x cp ranks, ring attention over the cp ranks with its
+  block attention in ``csrc/ring_attention.cu``, gradients averaged over
+  every rank (``comms.py``).
 The package imports torch and never JAX; entry points run on the GPU unless
 the caller asks for the CPU.
 """

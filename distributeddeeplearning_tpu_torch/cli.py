@@ -1,9 +1,11 @@
 """CLI entry points: ``python -m distributeddeeplearning_tpu_torch.cli
 {train,serve}``.
 
-``train`` runs the single-device training path (``build_all`` -> ``Trainer``
--> ``fit``); ``serve`` the in-process serving engine. Both run on the GPU by
-default; ``--device cpu`` asks for the CPU.
+``train`` runs the training path (``build_all`` -> ``Trainer`` -> ``fit``)
+on one rank, or on every rank ``torchrun`` starts (one process per rank,
+``mesh.dp`` x ``mesh.cp`` of them); ``serve`` the in-process serving engine.
+Both run on the GPU by default; ``--device cpu`` asks for the CPU (and gloo
+under ``torchrun``).
 """
 
 from __future__ import annotations
@@ -11,7 +13,6 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
-import math
 import os
 
 import torch
@@ -40,13 +41,37 @@ def build_model(cfg: Config, device):
     return model.to(device)
 
 
+def _mesh_sizes(cfg: Config, world_size: int) -> dict[str, int]:
+    """The mesh's axis sizes over ``world_size`` ranks; where they do not
+    fit the ranks, -1 counts as 1 (``build_mesh`` then says why)."""
+    from .mesh import MESH_AXES, axis_sizes
+
+    try:
+        return axis_sizes(cfg.mesh, world_size)
+    except ValueError:
+        return {a: max(getattr(cfg.mesh, a), 1) for a in MESH_AXES}
+
+
+# Mesh axes whose parallel strategy is not ported: (what, ROADMAP item).
+_UNPORTED_AXES = {
+    "fsdp": ("fully sharded data parallelism", "A13"),
+    "pp": ("pipeline parallelism", "A13"),
+    "tp": ("tensor parallelism", "A13"),
+    "ep": ("expert parallelism", "A13"),
+    "dcn_dp": ("data parallelism across slices over DCN", "A13"),
+}
+
+
 # (knob, value is on, what it is, ROADMAP queue item that ports it)
-def _unported_train_knobs(cfg: Config):
+def _unported_train_knobs(cfg: Config, world_size: int = 1):
     t, mesh = cfg.train, cfg.mesh
-    sizes = [mesh.dp, mesh.fsdp, mesh.pp, mesh.tp, mesh.cp, mesh.ep,
-             mesh.dcn_dp]
-    # -1 absorbs the devices left over: on this one-device path, 1.
-    devices = math.prod(s for s in sizes if s != -1)
+    sizes = {**_mesh_sizes(cfg, world_size), "dcn_dp": mesh.dcn_dp}
+    attn = cfg.model.kwargs.get("attn_impl")
+    mesh_knobs = [
+        ("mesh", dataclasses.asdict(mesh) if sizes[a] > 1 else "",
+         f"mesh.{a}={sizes[a]} ({what})", item)
+        for a, (what, item) in _UNPORTED_AXES.items()
+    ]
     return [
         ("train.checkpoint_dir", t.checkpoint_dir, "checkpoints", "A7"),
         ("train.save_every", t.save_every, "checkpoints", "A7"),
@@ -74,17 +99,25 @@ def _unported_train_knobs(cfg: Config):
          "sequence parallelism", "A13"),
         ("train.remat", t.remat if t.remat != "none" else "",
          "rematerialization", "A3"),
-        ("mesh", dataclasses.asdict(mesh) if devices > 1 else "",
-         f"a mesh over {devices} devices (DP and ZeRO-1 across GPUs)", "A6"),
+        *mesh_knobs,
+        ("mesh", dataclasses.asdict(mesh)
+         if t.zero1 and sizes["dp"] > 1 else "",
+         f"train.zero1=True over mesh.dp={sizes['dp']} (ZeRO-1 across "
+         "GPUs; train.zero1=false or mesh.dp=1 runs)", "A6"),
+        ("model.kwargs.attn_impl", attn if attn in ("ring", "ring_pallas")
+         and sizes["cp"] == 1 else "",
+         "a ring over one rank, mesh.cp=1 (the ring cores run on mesh.cp > "
+         "1; on one rank attn_impl='flash' is the same attention)", "A13"),
     ]
 
 
-def check_train_composition(cfg: Config) -> None:
+def check_train_composition(cfg: Config, world_size: int = 1) -> None:
     """Refuse by name, before anything is built, every training knob whose
-    feature is not ported yet. ``train.zero1=True`` passes: JAX's ZeRO-1 is
-    a placement of the optimizer state over dp, and over the one device of
-    this path (dp=1) that placement is a no-op."""
-    for knob, value, what, item in _unported_train_knobs(cfg):
+    feature is not ported yet, over a job of ``world_size`` ranks.
+    ``train.zero1=True`` passes over dp=1: JAX's ZeRO-1 is a placement of
+    the optimizer state over dp, and over one data-parallel rank that
+    placement is a no-op."""
+    for knob, value, what, item in _unported_train_knobs(cfg, world_size):
         if value:
             raise NotImplementedError(
                 f"{knob}={value!r}: {what} not yet ported to "
@@ -92,18 +125,21 @@ def check_train_composition(cfg: Config) -> None:
             )
 
 
-def build_all(cfg: Config, device):
-    """Construct (model, trainer, dataset) from a config on ``device``. The
-    model's compute dtype follows ``train.precision.policy`` when the policy
-    is mixed, as in the reference."""
+def build_all(cfg: Config, device, mesh=None):
+    """Construct (model, trainer, dataset) from a config on ``device``, for
+    this rank of ``mesh`` (default: the one-rank mesh). The model's compute
+    dtype follows ``train.precision.policy`` when the policy is mixed, as in
+    the reference."""
     from . import data
+    from .mesh import single_device_mesh
     from .models.gpt2 import as_torch_dtype
     from .precision import check_precision_composition
     from .train import Trainer, get_task, make_optimizer
 
+    mesh = mesh or single_device_mesh()
     policy = check_precision_composition(cfg.train.precision.policy,
                                          optim_name=cfg.optim.name)
-    check_train_composition(cfg)
+    check_train_composition(cfg, world_size=mesh.size)
     kwargs = dict(cfg.model.kwargs)
     if policy.mixed:
         explicit = kwargs.get("dtype")
@@ -116,7 +152,7 @@ def build_all(cfg: Config, device):
                 "policy owns the compute dtype"
             )
         kwargs["dtype"] = policy.compute_dtype
-    model = models.get_model(cfg.model.name, **kwargs).to(device)
+    model = models.get_model(cfg.model.name, **kwargs, mesh=mesh).to(device)
     tx = make_optimizer(
         cfg.optim.name, cfg.optim.lr, momentum=cfg.optim.momentum,
         b1=cfg.optim.b1, b2=cfg.optim.b2,
@@ -127,37 +163,86 @@ def build_all(cfg: Config, device):
     )
     trainer = Trainer(
         model, tx,
-        get_task(cfg.train.task, head_chunk=cfg.train.head_chunk,
+        get_task(cfg.train.task, mesh=mesh, head_chunk=cfg.train.head_chunk,
                  label_smoothing=cfg.train.label_smoothing),
-        device=device, precision=policy,
+        device=device, precision=policy, mesh=mesh,
     )
     dataset = data.make_dataset(cfg.data.kind, **cfg.data.dataset_kwargs())
     return model, trainer, dataset
 
 
+def _rank_report(device, history) -> dict:
+    """What one rank reports at the end: its kernel launch counts, its peak
+    device memory and the losses it logged."""
+    from .ops import flash_attention, fused_adamw, ring_attention_pallas
+
+    peak = (torch.cuda.max_memory_allocated(device) / 1e9
+            if device.type == "cuda" else None)
+    return {
+        "launches": {**flash_attention.LAUNCHES, **fused_adamw.LAUNCHES,
+                     **ring_attention_pallas.LAUNCHES},
+        "peak_mem_gb": peak,
+        "losses": [r["loss"] for r in history],
+    }
+
+
 def cmd_train(cfg: Config, *, device=None, sync_steps: bool = False) -> int:
-    """Train on one device: one JSON record per ``train.log_every`` steps.
-    ``sync_steps`` ends every step in a device sync and prints each step's
-    seconds in a final ``train_end`` event record."""
+    """Train on this rank: one JSON record per ``train.log_every`` steps,
+    printed by rank 0. Under ``torchrun`` every rank joins the process
+    group first, and the mesh spans ``WORLD_SIZE`` ranks. ``sync_steps``
+    ends every step in a device sync and prints each step's seconds, with
+    every rank's report (:func:`_rank_report`), in a final ``train_end``
+    event record."""
+    import torch.distributed as dist
+
     from . import data
+    from .comms import psum
+    from .mesh import DistEnv, build_mesh, init_distributed, rank_device
     from .metrics import event_record
     from .train import fit
 
+    env = DistEnv.from_environ()
+    check_train_composition(cfg, world_size=env.world_size)
     device = resolve_device(device)
-    _, trainer, dataset = build_all(cfg, device)
-    print(f"devices: 1  device: {device}")
-    state = trainer.init(cfg.train.seed)
-    n = sum(p.numel() for p in state.params.values())
-    print(f"model: {cfg.model.name}  params: {n:,}")
-    batches = data.prefetch(dataset.iter_from(state.step), device,
-                            size=cfg.data.prefetch_size)
-    step_s = [] if sync_steps else None
-    fit(trainer, state, batches, steps=cfg.train.steps,
-        log_every=cfg.train.log_every, log_fn=lambda m: print(json.dumps(m)),
-        step_times=step_s)
-    if sync_steps:
-        print(json.dumps(event_record("train_end", cfg.train.steps,
-                                      step_s=step_s)))
+    joined = init_distributed(device, env)
+    try:
+        if joined:
+            device = rank_device(device, env)
+        mesh = build_mesh(cfg.mesh)
+        lead = mesh.rank == 0
+
+        def say(text):
+            if lead:
+                print(text, flush=True)
+
+        _, trainer, dataset = build_all(cfg, device, mesh)
+        live = {a: n for a, n in mesh.shape.items() if n > 1}
+        say(f"devices: {mesh.size}  device: {device}  mesh: {live or {}}")
+        state = trainer.init(cfg.train.seed)
+        n = sum(p.numel() for p in state.params.values())
+        say(f"model: {cfg.model.name}  params: {n:,}")
+        batches = data.prefetch(
+            data.sharded_batches(dataset.iter_from(state.step), mesh),
+            device, size=cfg.data.prefetch_size)
+        step_s = [] if sync_steps else None
+        _, history = fit(trainer, state, batches, steps=cfg.train.steps,
+                         log_every=cfg.train.log_every,
+                         log_fn=lambda m: say(json.dumps(m)),
+                         step_times=step_s)
+        if sync_steps:
+            report = _rank_report(device, history)
+            extra = {"launches": report["launches"],
+                     "peak_mem_gb": report["peak_mem_gb"]}
+            if mesh.size > 1:
+                extra = {"backend": dist.get_backend(),
+                         "ranks": mesh.comm.gather_objects(report)}
+            say(json.dumps(event_record("train_end", cfg.train.steps,
+                                        step_s=step_s, **extra)))
+        if joined:  # no rank leaves while another still reads from it
+            psum(torch.zeros((), device=device), mesh)
+    finally:
+        if joined:
+            dist.destroy_process_group()
     return 0
 
 

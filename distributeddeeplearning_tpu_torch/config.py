@@ -3,8 +3,8 @@
 The schema is field-for-field the one of ``distributeddeeplearning_tpu.config``
 (so the same ``--override section.field=value`` strings work against both
 packages), kept as a copy here because that module imports ``mesh`` and with
-it JAX. ``MeshConfig`` is a plain dataclass: this package builds no device
-mesh yet. Each config module exposes ``get_config() -> Config``.
+it JAX. ``MeshConfig`` is a plain dataclass; ``mesh.build_mesh`` lays it
+over the ranks. Each config module exposes ``get_config() -> Config``.
 """
 
 from __future__ import annotations
@@ -19,8 +19,8 @@ from typing import Any
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
     """Sizes for each named mesh axis (``-1`` absorbs the remaining
-    devices). Carried for schema parity; the serving slice runs on one
-    device."""
+    ranks); ``mesh.axis_sizes`` resolves them. Training runs dp and cp;
+    ``cli train`` refuses the other axes by name."""
 
     dp: int = -1
     fsdp: int = 1

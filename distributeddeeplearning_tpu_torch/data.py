@@ -1,5 +1,5 @@
-"""Input pipeline of the training slice: synthetic token batches and their
-transfer to the device.
+"""Input pipeline of the training slice: synthetic token batches, each
+rank's share of them, and their transfer to the device.
 
 :class:`SyntheticTokens` draws exactly the reference's batches (the same
 numpy generator and seed), so the two packages train on identical data.
@@ -63,6 +63,32 @@ def make_dataset(kind: str, **kwargs):
             "and A14)"
         )
     return DATASET_KINDS[kind](**kwargs)
+
+
+def sharded_batches(it, mesh) -> Iterator[dict]:
+    """This rank's rows of each global host batch: every rank draws the same
+    global batch from the seed and keeps its contiguous slice of the batch
+    dim over the batch axes (dp, fsdp), as the reference's multi-process
+    ``sharded_batches`` does. The sequence split over cp is the task's,
+    after the LM shift (``train.lm_task``)."""
+    from .mesh import BATCH_AXES
+
+    n, idx = 1, 0
+    for a in BATCH_AXES if mesh is not None else ():
+        # row-major over the batch axes, dp outermost
+        n, idx = n * mesh.shape[a], idx * mesh.shape[a] + mesh.coords[a]
+    for batch in it:
+        if n == 1:
+            yield batch
+            continue
+        out = {}
+        for k, x in batch.items():
+            if x.shape[0] % n:
+                raise ValueError(f"batch dim {x.shape[0]} of {k!r} not "
+                                 f"divisible by {n} data-parallel ranks")
+            per = x.shape[0] // n
+            out[k] = x[idx * per:(idx + 1) * per]
+        yield out
 
 
 def to_device(batch: dict, device) -> dict:

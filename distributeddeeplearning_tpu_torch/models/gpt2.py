@@ -11,7 +11,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from . import register
-from .transformer import LayerNorm, PagedKVCache, TransformerStack, dropout
+from .transformer import (
+    ATTN_IMPLS,
+    LayerNorm,
+    PagedKVCache,
+    TransformerStack,
+    dropout,
+)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -41,16 +47,18 @@ class GPT2(nn.Module):
                  embed_dim: int = 768, dropout_rate: float = 0.0,
                  remat: str = "none", dtype="float32",
                  attn_impl: str = "xla", chunked_head: bool = False,
-                 device=None):
+                 mesh=None, device=None):
         super().__init__()
-        if attn_impl not in ("xla", "flash"):
-            # The context-parallel cores need several devices (ROADMAP
+        if attn_impl not in ATTN_IMPLS:
+            # Ulysses is the context-parallel core still to come (ROADMAP
             # queue A13); the serving engine fences everything but 'xla'.
             raise NotImplementedError(
                 f"gpt2 attn_impl={attn_impl!r} not yet ported to "
-                "distributeddeeplearning_tpu_torch (ring/ulysses cores: "
-                "ROADMAP queue A13); 'xla' and 'flash' are"
+                "distributeddeeplearning_tpu_torch (the ulysses cores: "
+                f"ROADMAP queue A13); {', '.join(map(repr, ATTN_IMPLS))} are"
             )
+        if attn_impl in ("ring", "ring_pallas") and mesh is None:
+            raise ValueError(f"attn_impl={attn_impl!r} requires mesh")
         self.vocab_size, self.max_len = vocab_size, max_len
         self.num_layers, self.num_heads = num_layers, num_heads
         self.embed_dim, self.head_dim = embed_dim, embed_dim // num_heads
@@ -58,7 +66,7 @@ class GPT2(nn.Module):
         # Dropout applies in training only (``forward(train=True)``); remat
         # is carried for the config and refused by ``cli train``.
         self.dropout_rate, self.remat = dropout_rate, remat
-        self.attn_impl = attn_impl
+        self.attn_impl, self.mesh = attn_impl, mesh
         self.chunked_head = chunked_head
         self.dtype = as_torch_dtype(dtype)
         self.wte = Embed(vocab_size, embed_dim, self.dtype, device)
@@ -66,7 +74,7 @@ class GPT2(nn.Module):
         self.h = TransformerStack(
             num_layers, embed_dim, num_heads, self.head_dim, 4 * embed_dim,
             1e-5, self.dtype, device, attn_impl=attn_impl,
-            dropout_rate=dropout_rate,
+            dropout_rate=dropout_rate, mesh=mesh,
         )
         self.ln_f = LayerNorm(embed_dim, 1e-5, self.dtype, device)
 
@@ -97,23 +105,30 @@ class GPT2(nn.Module):
         their outputs are discarded). ``train=True`` applies dropout from
         ``generator`` (a ``torch.Generator`` on the tokens' device), at the
         embeddings, the attention probs (xla core), and each block's
-        attention and MLP outputs."""
+        attention and MLP outputs.
+
+        On a ``mesh`` with cp > 1, ``tokens`` is this rank's contiguous block
+        of the sequence: its positions start at ``cp_index * L``."""
         B, L = tokens.shape
-        if L > self.max_len:
-            raise ValueError(f"seq_len {L} exceeds max_len {self.max_len}")
+        cp = 1 if self.mesh is None else self.mesh.shape["cp"]
+        if L * cp > self.max_len:
+            raise ValueError(f"seq_len {L * cp} exceeds max_len "
+                             f"{self.max_len}")
         if train and self.dropout_rate and generator is None:
             raise ValueError("train=True with dropout_rate > 0 needs a "
                              "dropout generator")
         gen = generator if train else None
         steps = torch.arange(L, device=tokens.device)[None, :]
         if cache is None:
-            positions = steps
+            # JAX sees the global sequence; a cp rank holds its block of it.
+            offset = 0 if cp == 1 else self.mesh.coords["cp"] * L
+            positions = steps + offset
         else:
             positions = torch.clamp(
                 cache.seq_lens.long()[:, None] + steps, max=self.max_len - 1
             )
         x = self.wte(tokens) + self.wpe(positions)
-        x = dropout(x, self.dropout_rate, gen)
+        x = dropout(x, self.dropout_rate, gen, self.mesh)
         x = self.h(x, cache, generator=gen)
         x = self.ln_f(x)
         emb = self.wte.embedding.to(self.dtype)

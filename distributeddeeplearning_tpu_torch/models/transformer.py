@@ -22,6 +22,8 @@ from ..comms_quant import block_quantize
 
 _NEG_INF = -1e30
 
+ATTN_IMPLS = ("xla", "flash", "ring", "ring_pallas")
+
 
 @dataclasses.dataclass
 class PagedKVCache:
@@ -72,23 +74,41 @@ def _promoted_einsum(eq: str, a: torch.Tensor, b: torch.Tensor):
     return torch.einsum(eq, a.to(dt), b.to(dt))
 
 
-def dropout(x, rate: float, generator):
+def _global_rand(shape, generator, device, mesh):
+    """Uniforms for this rank's rows of the global batch: the draw is made
+    for all dp ranks' rows and sliced, so a mask does not depend on how the
+    ranks split the batch, as JAX's masks over global arrays do not. (No
+    draw is made under cp > 1: the ring cores refuse active dropout.)"""
+    dp = 1 if mesh is None else mesh.shape["dp"]
+    if dp == 1:
+        return torch.rand(shape, generator=generator, device=device)
+    B = shape[0]
+    full = torch.rand((B * dp, *shape[1:]), generator=generator,
+                      device=device)
+    b0 = mesh.coords["dp"] * B
+    return full[b0:b0 + B]
+
+
+def dropout(x, rate: float, generator, mesh=None):
     """flax ``nn.Dropout``: keep each element with probability ``1 - rate``
     and scale the kept ones by ``1 / (1 - rate)``. Deterministic (the
-    identity) without a generator or at rate 0."""
+    identity) without a generator or at rate 0. On a ``mesh`` the mask is
+    this rank's rows (``x`` is ``[batch, ...]`` over dp) of the global
+    batch's mask."""
     if not rate or generator is None:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    mask = _global_rand(x.shape, generator, x.device, mesh) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
 
 
 def attention_core(q, k, v, *, causal: bool, dtype, impl: str = "xla",
-                   mask=None, kv_valid=None, dropout=None):
+                   mask=None, kv_valid=None, dropout=None, mesh=None):
     """Post-projection attention dispatch, the reference's one place where
-    the xla and the fused flash cores are selected. q/k/v: [batch, seq,
-    heads, head_dim] with equal head counts.
+    the xla, the fused flash and the ring cores are selected. q/k/v:
+    [batch, seq, heads, head_dim] with equal head counts (this rank's
+    sequence block under the ring cores).
 
     - ``impl='xla'``: einsum + fp32 softmax. ``mask``: [batch, k_len]
       (True = attend) or broadcastable to the [batch, heads, q_len, k_len]
@@ -96,11 +116,19 @@ def attention_core(q, k, v, *, causal: bool, dtype, impl: str = "xla",
     - ``impl='flash'``: ``ops.flash_attention`` (the hand-written kernels on
       the GPU), with ``kv_valid`` [batch] the per-sequence key-padding
       limit.
+    - ``impl='ring'`` / ``'ring_pallas'``: ring attention over the ``cp``
+      axis of ``mesh`` (``parallel.sp_ring``), which they require.
     """
     if impl == "flash":
         from ..ops.flash_attention import flash_attention
 
         return flash_attention(q, k, v, causal=causal, kv_valid_lens=kv_valid)
+    if impl in ("ring", "ring_pallas"):
+        if mesh is None:
+            raise ValueError(f"attn_impl={impl!r} requires mesh")
+        from ..parallel.sp_ring import ring_attention_fn
+
+        return ring_attention_fn(impl)(q, k, v, mesh, causal=causal)
     if impl != "xla":
         raise ValueError(f"unknown attn_impl {impl!r}")
     head_dim = q.shape[-1]
@@ -257,16 +285,19 @@ class SelfAttention(nn.Module):
     - ``flash``: the fused flash kernels (``ops/flash_attention.py``). It
       takes mask=None or a [batch, k_len] contiguous-prefix key-padding
       mask (turned into per-sequence kv limits; rows whose mask is not a
-      prefix are poisoned to NaN), and no active attention-dropout.
+      prefix are poisoned to NaN), and no active attention-dropout;
+    - ``ring`` / ``ring_pallas``: ring attention over ``mesh``'s cp axis,
+      with mask=None and no active attention-dropout.
     """
 
     def __init__(self, embed_dim, num_heads, head_dim, dtype, device=None,
-                 *, attn_impl: str = "xla", dropout_rate: float = 0.0):
+                 *, attn_impl: str = "xla", dropout_rate: float = 0.0,
+                 mesh=None):
         super().__init__()
-        if attn_impl not in ("xla", "flash"):
+        if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"unknown attn_impl {attn_impl!r}")
         self.dtype, self.attn_impl = dtype, attn_impl
-        self.dropout_rate = dropout_rate
+        self.dropout_rate, self.mesh = dropout_rate, mesh
         for name in ("query", "key", "value"):
             self.add_module(name, Dense(
                 (embed_dim,), (num_heads, head_dim), dtype, device))
@@ -281,6 +312,14 @@ class SelfAttention(nn.Module):
                 page_table=cache.page_table, seq_lens=cache.seq_lens,
                 kernel=cache.kernel,
             )
+        elif self.attn_impl in ("ring", "ring_pallas"):
+            if mask is not None or (self.dropout_rate and generator is not None):
+                raise NotImplementedError(
+                    "ring attention supports mask=None and no active "
+                    "attention-dropout"
+                )
+            out = attention_core(q, k, v, impl=self.attn_impl, causal=True,
+                                 dtype=self.dtype, mesh=self.mesh)
         elif self.attn_impl == "flash":
             if self.dropout_rate and generator is not None:
                 raise NotImplementedError(
@@ -308,10 +347,10 @@ class SelfAttention(nn.Module):
                                              dtype=out.dtype,
                                              device=out.device), out)
         else:
-            rate = self.dropout_rate
+            rate, mesh = self.dropout_rate, self.mesh
             out = attention_core(
                 q, k, v, causal=True, dtype=self.dtype, mask=mask,
-                dropout=lambda p: dropout(p, rate, generator),
+                dropout=lambda p: dropout(p, rate, generator, mesh),
             )
         return self.out(out)
 
@@ -323,15 +362,15 @@ def gelu_tanh(x):
 
 class Mlp(nn.Module):
     def __init__(self, embed_dim, hidden_dim, dtype, device=None,
-                 dropout_rate: float = 0.0):
+                 dropout_rate: float = 0.0, mesh=None):
         super().__init__()
-        self.dropout_rate = dropout_rate
+        self.dropout_rate, self.mesh = dropout_rate, mesh
         self.fc_in = Dense((embed_dim,), (hidden_dim,), dtype, device)
         self.fc_out = Dense((hidden_dim,), (embed_dim,), dtype, device)
 
     def forward(self, x, generator=None):
         h = self.fc_out(gelu_tanh(self.fc_in(x)))
-        return dropout(h, self.dropout_rate, generator)
+        return dropout(h, self.dropout_rate, generator, self.mesh)
 
 
 class TransformerBlock(nn.Module):
@@ -340,36 +379,38 @@ class TransformerBlock(nn.Module):
 
     def __init__(self, embed_dim, num_heads, head_dim, mlp_dim, ln_eps,
                  dtype, device=None, *, attn_impl: str = "xla",
-                 dropout_rate: float = 0.0):
+                 dropout_rate: float = 0.0, mesh=None):
         super().__init__()
-        self.dropout_rate = dropout_rate
+        self.dropout_rate, self.mesh = dropout_rate, mesh
         self.attn = SelfAttention(embed_dim, num_heads, head_dim, dtype,
                                   device, attn_impl=attn_impl,
-                                  dropout_rate=dropout_rate)
-        self.mlp = Mlp(embed_dim, mlp_dim, dtype, device, dropout_rate)
+                                  dropout_rate=dropout_rate, mesh=mesh)
+        self.mlp = Mlp(embed_dim, mlp_dim, dtype, device, dropout_rate, mesh)
         self.ln1 = LayerNorm(embed_dim, ln_eps, dtype, device)
         self.ln2 = LayerNorm(embed_dim, ln_eps, dtype, device)
 
     def forward(self, x, cache=None, layer: int = 0, *, generator=None):
         a = self.attn(self.ln1(x), cache, layer, generator=generator)
-        x = x + dropout(a, self.dropout_rate, generator)
+        x = x + dropout(a, self.dropout_rate, generator, self.mesh)
         return x + self.mlp(self.ln2(x), generator)
 
 
 class TransformerStack(nn.Module):
     """N identically-configured blocks named ``block_{i}``. ``generator``
     (a ``torch.Generator`` on the activations' device) turns dropout on:
-    training passes one, evaluation and serving pass none."""
+    training passes one, evaluation and serving pass none. ``mesh``: the
+    ranks the activations are split over (dropout masks, the ring cores)."""
 
     def __init__(self, num_layers, embed_dim, num_heads, head_dim, mlp_dim,
                  ln_eps, dtype, device=None, *, attn_impl: str = "xla",
-                 dropout_rate: float = 0.0):
+                 dropout_rate: float = 0.0, mesh=None):
         super().__init__()
         self.num_layers = num_layers
         for i in range(num_layers):
             self.add_module(f"block_{i}", TransformerBlock(
                 embed_dim, num_heads, head_dim, mlp_dim, ln_eps, dtype,
-                device, attn_impl=attn_impl, dropout_rate=dropout_rate))
+                device, attn_impl=attn_impl, dropout_rate=dropout_rate,
+                mesh=mesh))
 
     def forward(self, x, cache=None, *, generator=None):
         for i in range(self.num_layers):

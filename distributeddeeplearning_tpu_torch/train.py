@@ -1,21 +1,23 @@
 """Trainer of the port: tasks, the optimizer factory, the single-device
 training step and the host loop.
 
-The reference compiles one step program over a device mesh; here the step
-runs eagerly on one device:
+The reference compiles one step program over a device mesh; here each rank
+runs the step eagerly on its device, over its slice of the global batch
+(rows over dp, the sequence over cp):
 
 - compute cast of the fp32 masters (``precision``), forward with dropout
   from a generator seeded per step, backward by ``torch.autograd``;
-- gradients to fp32, then the optimizer: global-norm clip before the update,
-  and ``p += delta`` in place on the masters (the fused AdamW kernel, or the
-  plain optax-semantics AdamW);
+- gradients to fp32 and averaged over every rank (``comms.pmean_tensors``,
+  a few flat buckets), then the optimizer: global-norm clip before the
+  update, and ``p += delta`` in place on the masters (the fused AdamW
+  kernel, or the plain optax-semantics AdamW);
 - the host loop logs ``{"loss", "perplexity", "step", "wall_s"}`` every
   ``log_every`` steps with one interval of lag, never draining the device
   queue for logging.
 
-Data parallelism, ZeRO-1 across devices, gradient accumulation, fused
-multi-step dispatch, checkpoints, evaluation and the health guard come in
-later slices; ``cli train`` refuses their knobs by name.
+ZeRO-1 across devices, gradient accumulation, fused multi-step dispatch,
+checkpoints, evaluation and the health guard come in later slices; ``cli
+train`` refuses their knobs by name.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .comms import pmean_tensors
 from .ops.fused_adamw import (
     FusedAdamW,
     FusedAdamWState,
@@ -56,6 +59,8 @@ class Task:
 
     input_fn: Callable[[dict], tuple]  # batch -> model positional args
     loss_fn: Callable[[Any, dict], tuple]  # (output, batch) -> (loss, metrics)
+    # metrics averaged over the ranks -> the logged metrics
+    finish_metrics: Callable[[dict], dict] = lambda m: m
 
 
 def _xent(logits, labels):
@@ -76,27 +81,46 @@ def _per_token_xent(model_out, targets, head_chunk: int):
     return _xent(model_out, targets)
 
 
-def lm_task(head_chunk: int = 128) -> Task:
-    """Causal LM: predict tokens[1:] from tokens[:-1]."""
+def seq_block(x, mesh):
+    """This cp rank's contiguous block ``[r*l, (r+1)*l)`` of dim 1."""
+    cp = 1 if mesh is None else mesh.shape["cp"]
+    if cp == 1:
+        return x
+    if x.shape[1] % cp:
+        raise ValueError(f"seq_len {x.shape[1]} not divisible by cp={cp}")
+    n = x.shape[1] // cp
+    r = mesh.coords["cp"]
+    return x[:, r * n:(r + 1) * n]
+
+
+def lm_task(head_chunk: int = 128, mesh=None) -> Task:
+    """Causal LM: predict tokens[1:] from tokens[:-1]. On a mesh with cp > 1
+    both are cut to this rank's block of the positions AFTER the shift, so
+    no target is lost at a block edge."""
 
     def input_fn(batch):
-        return (batch["tokens"][:, :-1],)
+        return (seq_block(batch["tokens"][:, :-1], mesh),)
 
     def loss_fn(out, batch):
-        targets = batch["tokens"][:, 1:]
+        targets = seq_block(batch["tokens"][:, 1:], mesh)
         loss = _per_token_xent(out, targets, head_chunk).mean()
-        return loss, {"loss": loss, "perplexity": torch.exp(loss)}
+        return loss, {"loss": loss}
 
-    return Task(input_fn=input_fn, loss_fn=loss_fn)
+    def finish_metrics(m):
+        return {**m, "perplexity": torch.exp(m["loss"])}
+
+    return Task(input_fn=input_fn, loss_fn=loss_fn,
+                finish_metrics=finish_metrics)
 
 
 _TASK_KNOBS = {"head_chunk", "label_smoothing"}  # every task's, reference
 _UNPORTED_TASKS = {"classification": "A8", "mlm": "A9"}
 
 
-def get_task(name: str, **task_kwargs) -> Task:
+def get_task(name: str, mesh=None, **task_kwargs) -> Task:
     """``task_kwargs``: per-task knobs; a knob no task of the reference
-    declares is a TypeError, a knob another task declares is dropped."""
+    declares is a TypeError, a knob another task declares is dropped.
+    ``mesh``: the ranks a batch is split over."""
     unknown = set(task_kwargs) - _TASK_KNOBS
     if unknown:
         raise TypeError(f"unknown task knob(s) {sorted(unknown)}")
@@ -108,8 +132,8 @@ def get_task(name: str, **task_kwargs) -> Task:
         )
     if name != "lm":
         raise KeyError(f"unknown task {name!r}")
-    return lm_task(**{k: v for k, v in task_kwargs.items()
-                      if k == "head_chunk"})
+    return lm_task(mesh=mesh, **{k: v for k, v in task_kwargs.items()
+                                 if k == "head_chunk"})
 
 
 # ---------------------------------------------------------------------------
@@ -281,13 +305,32 @@ class TrainState:
     rng: int
 
 
+CP_ATTN = ("ring", "ring_pallas")
+
+
 class Trainer:
-    """Single-device trainer over a model, an optimizer (``AdamW`` or
-    ``FusedAdamW``) and a task."""
+    """Trainer of one rank over a model, an optimizer (``AdamW`` or
+    ``FusedAdamW``) and a task. ``mesh`` (``mesh.Mesh``, default one rank):
+    the ranks the step's gradients and metrics are averaged over; the
+    model and the task must have been built on the same mesh."""
 
     def __init__(self, model, tx, task: Task, *, device,
-                 precision: str | Policy = "fp32"):
+                 precision: str | Policy = "fp32", mesh=None):
         self.model, self.tx, self.task = model, tx, task
+        self.mesh = mesh
+        cp = 1 if mesh is None else mesh.shape["cp"]
+        attn = getattr(model, "attn_impl", None)
+        if cp > 1 and attn not in CP_ATTN:
+            raise ValueError(
+                f"mesh cp={cp} but model {type(model).__name__} attention "
+                f"(attn_impl={attn!r}) is not context-parallel: the cp axis "
+                f"would silently replicate — use attn_impl in {CP_ATTN} or "
+                "drop the axis"
+            )
+        if (mesh is not None and mesh.size > 1
+                and getattr(model, "mesh", None) is not mesh):
+            raise ValueError("the model was built on another mesh than the "
+                             "trainer's")
         self.device = torch.device(device)
         self.precision = get_policy(precision)
         if self.precision.mixed and model.dtype != self.precision.compute_dtype:
@@ -325,8 +368,20 @@ class Trainer:
         grads = {k: torch.zeros_like(cparams[k]) if g is None else g
                  for k, g in zip(names, grads)}
         grads = cast_grads_to_update(self.precision, grads)
-        opt_state = self.tx.update(grads, state.opt_state, state.params)
         metrics = {k: v.detach() for k, v in metrics.items()}
+        if self.mesh is not None and self.mesh.size > 1:
+            # Each rank's loss is the mean over an equal share of the
+            # tokens, so the world average of the gradients (and metrics)
+            # is that of the global mean loss, as the reference's. Before
+            # the update, so its clip sees the global norm.
+            keys = list(metrics)
+            synced = pmean_tensors(
+                [grads[k] for k in names] + [metrics[k] for k in keys],
+                self.mesh)
+            grads = dict(zip(names, synced[:len(names)]))
+            metrics = dict(zip(keys, synced[len(names):]))
+        metrics = self.task.finish_metrics(metrics)
+        opt_state = self.tx.update(grads, state.opt_state, state.params)
         return dataclasses.replace(state, step=state.step + 1,
                                    opt_state=opt_state), metrics
 

@@ -22,6 +22,7 @@ def _sources():
     files = sorted(PORT.rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "tools" / "torch_decode_profile.py",
         ROOT / "tools" / "torch_train_profile.py",
+        ROOT / "tools" / "torch_cp_profile.py",
     ]
     return [p for p in files if "_build" not in p.parts]
 
@@ -48,10 +49,12 @@ def test_sources_exist():
     assert {"chip_smoke.py", "engine.py", "paged_attention.py",
             "transformer.py", "gpt2.py", "cli.py", "flash_attention.py",
             "fused_adamw.py", "train.py", "data.py", "dataset_base.py",
-            "precision.py", "chunked_xent.py"} <= names
+            "precision.py", "chunked_xent.py", "mesh.py", "comms.py",
+            "sp_ring.py", "ring_attention.py",
+            "ring_attention_pallas.py"} <= names
     csrc = {p.name for p in (PORT / "csrc").glob("*.cu")}
     assert {"paged_attention.cu", "flash_attention.cu",
-            "fused_adamw.cu"} <= csrc
+            "fused_adamw.cu", "ring_attention.cu"} <= csrc
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(
@@ -158,3 +161,76 @@ def test_zero1_on_one_device_is_accepted(capsys):
     """gpt2_owt sets train.zero1=True: over dp=1 it is a no-op placement."""
     assert _train("train.zero1=True", "model.kwargs.dtype=float32") == 0
     assert '"step": 1' not in capsys.readouterr().out  # log_every=20
+
+
+@pytest.mark.parametrize("override,axis", [
+    ("mesh.fsdp=2", "fsdp"), ("mesh.pp=2", "pp"), ("mesh.ep=2", "ep"),
+    ("mesh.dcn_dp=2", "dcn_dp"), ("mesh.tp=4", "tp"),
+])
+def test_unported_mesh_axes_are_refused_by_name(override, axis):
+    with pytest.raises(NotImplementedError,
+                       match=rf"^mesh=.*mesh\.{axis}=\d+ .*ROADMAP queue A13"):
+        _train(override, "mesh.dp=1")
+
+
+def test_zero1_over_dp_is_refused_by_name():
+    """gpt2_owt sets train.zero1=True: over dp > 1 that is ZeRO-1 across
+    ranks, still to come."""
+    from distributeddeeplearning_tpu_torch import cli
+    from distributeddeeplearning_tpu_torch.config import (
+        apply_overrides,
+        load_config,
+    )
+
+    cfg = apply_overrides(load_config(str(ROOT / CONFIG)), TINY)
+    with pytest.raises(NotImplementedError,
+                       match=r"train\.zero1=True over mesh\.dp=4 .*A6"):
+        cli.check_train_composition(cfg, world_size=4)
+    cli.check_train_composition(
+        apply_overrides(cfg, ["train.zero1=false"]), world_size=4)
+    cli.check_train_composition(
+        apply_overrides(cfg, ["mesh.dp=1", "mesh.cp=4",
+                              "model.kwargs.attn_impl=ring_pallas"]),
+        world_size=4)
+
+
+@pytest.mark.parametrize("impl", ["ulysses", "ulysses_flash"])
+def test_ulysses_is_refused_by_name(impl):
+    with pytest.raises(NotImplementedError,
+                       match=rf"attn_impl='{impl}'.*ROADMAP queue A13"):
+        _train(f"model.kwargs.attn_impl={impl}")
+
+
+@pytest.mark.parametrize("impl", ["flash", "xla"])
+def test_cp_needs_a_ring_core(impl):
+    from distributeddeeplearning_tpu_torch import models
+    from distributeddeeplearning_tpu_torch.mesh import Mesh
+    from distributeddeeplearning_tpu_torch.train import (
+        AdamW,
+        Trainer,
+        get_task,
+    )
+
+    mesh = Mesh({"cp": 2})
+    model = models.get_model("gpt2", size="tiny", vocab_size=64, max_len=16,
+                             attn_impl=impl, mesh=mesh)
+    with pytest.raises(ValueError, match=r"mesh cp=2 but model GPT2 "
+                       rf"attention \(attn_impl='{impl}'\) is not "
+                       "context-parallel"):
+        Trainer(model, AdamW(1e-3), get_task("lm", mesh=mesh), device="cpu",
+                mesh=mesh)
+
+
+def test_ring_needs_a_mesh():
+    from distributeddeeplearning_tpu_torch import models
+
+    with pytest.raises(ValueError, match="attn_impl='ring_pallas' requires "
+                       "mesh"):
+        models.get_model("gpt2", size="tiny", attn_impl="ring_pallas")
+
+
+def test_mesh_that_does_not_fit_the_ranks_is_refused():
+    """mesh.cp=2 in one process: the mesh needs 2 ranks."""
+    with pytest.raises(ValueError, match="needs 2 devices, have 1"):
+        _train("mesh.cp=2", "mesh.dp=1", "train.zero1=false",
+               "model.kwargs.attn_impl=ring")

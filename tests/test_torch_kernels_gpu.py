@@ -1,4 +1,5 @@
-"""The training kernels of the port against their plain versions, on the card.
+"""The training kernels of the port against their plain versions, on the card:
+flash attention, fused AdamW and the ring attention block kernels.
 
 Imports torch and the port only, so it runs on a GPU host without JAX:
 
@@ -9,7 +10,9 @@ the ``gpu`` marker and skips where torch sees no CUDA device; the kernels
 have no CPU mode. Tolerances: flash in fp32 2e-5 (only the order of fp32
 sums differs), in bf16 2e-2 absolute and relative (one bf16 rounding step of
 the output); fused AdamW bit for bit (every operation rounds on its own in
-both).
+both); the ring kernels, whose outputs are fp32 carries, 2e-5 in fp32 and
+2e-3 with bf16 inputs (the bf16 inputs are exact in fp32; only the order of
+the fp32 sums differs, over larger magnitudes).
 """
 
 import numpy as np
@@ -18,6 +21,7 @@ import torch
 
 from distributeddeeplearning_tpu_torch.ops import flash_attention as fa
 from distributeddeeplearning_tpu_torch.ops import fused_adamw as fused
+from distributeddeeplearning_tpu_torch.ops import ring_attention_pallas as rp
 
 # name: (causal, per-row kv limits or None, true length of a padded L, L).
 # L = 100 is no multiple of the kernels' 64-row tiles: what flash_attention
@@ -122,3 +126,54 @@ def test_fused_adamw_kernel_matches_plain_bitwise(wd, count):
     for xs, ys in zip(t, ref):
         for a, b in zip(xs, ys):
             assert torch.equal(a, b)
+
+
+# L = 100 is no multiple of the kernels' 64-row tiles: the kernels hide the
+# ragged edge themselves.
+RING_DTYPES = {"float32": (torch.float32, 2e-5),
+               "bfloat16": (torch.bfloat16, 2e-3)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L", [128, 100])
+@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("dtype", list(RING_DTYPES))
+@pytest.mark.parametrize("mode", [0, 1])
+def test_ring_kernels_match_plain_versions(mode, dtype, head_dim, L):
+    _need_cuda()
+    tdt, tol = RING_DTYPES[dtype]
+    g = torch.Generator(device="cuda").manual_seed(3)
+
+    def rnd(*shape, dt=torch.float32):
+        return torch.randn(*shape, generator=g, device="cuda").to(dt)
+
+    bh, scale = 6, head_dim ** -0.5
+    q, kt, vt, do = (rnd(bh, L, head_dim, dt=tdt) for _ in range(4))
+    qf = q.float() * scale
+    m, l, acc = rnd(bh, L, 1), rnd(bh, L, 1).abs() + 0.5, rnd(bh, L, head_dim)
+    # lse of the block itself, so p is a softmax; delta, dq, dk, dv random.
+    s = rp._scores(qf, kt, mode)
+    lse = torch.logsumexp(s, -1, keepdim=True)
+    delta, dq, dk, dv = (rnd(bh, L, 1), rnd(bh, L, head_dim),
+                         rnd(bh, L, head_dim), rnd(bh, L, head_dim))
+    before = dict(rp.LAUNCHES)
+    got = [*rp.ring_step(qf, kt, vt, m, l, acc, mode),
+           rp.ring_dq(q, kt, vt, do, lse, delta, dq, mode, scale),
+           *rp.ring_dkv(q, kt, vt, do, lse, delta, dk, dv, mode, scale)]
+    want = [*rp.ring_step_plain(qf, kt, vt, m, l, acc, mode),
+            rp.ring_dq_plain(q, kt, vt, do, lse, delta, dq, mode, scale),
+            *rp.ring_dkv_plain(q, kt, vt, do, lse, delta, dk, dv, mode,
+                               scale)]
+    torch.cuda.synchronize()
+    assert all(rp.LAUNCHES[x] == before[x] + 1 for x in before)
+    for name, a, b in zip(("m", "l", "acc", "dq", "dk", "dv"), got, want):
+        torch.testing.assert_close(a, b, atol=tol, rtol=tol, msg=name)
+
+
+@pytest.mark.gpu
+def test_ring_kernel_refuses_head_dim_by_name():
+    _need_cuda()
+    x = torch.zeros(2, 8, 32, device="cuda")
+    c = torch.zeros(2, 8, 1, device="cuda")
+    with pytest.raises(ValueError, match="head_dim 32 not in"):
+        rp.ring_step(x, x, x, c, c, x, 0)
