@@ -10,6 +10,9 @@ Run from the repository root on a machine with one NVIDIA H100:
 Phases, in order; any failure raises and the script exits non-zero:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
   2. build: the CUDA sources of the port, compiled from this checkout;
+     ptxas's registers and spills, and the tensor-core (HMMA) instruction
+     count of each flash kernel's machine code; the bf16 fwd and dkv
+     kernels must spill nothing and hold HMMA;
   3. kernels vs plain: each kernel's wrapper against its plain torch
      version at GPT-2 124M decode shapes, then their times, the bound of
      the same work on the card, and a library yardstick;
@@ -20,7 +23,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      decode tokens/s and p50 decode-step time with each pool, then an fp32
      pair, kernel against gather, that must agree token for token;
   6. training kernels vs plain: flash fwd / dq / dkv and fused AdamW against
-     their plain torch versions at GPT-2 124M training shapes, then their
+     their plain torch versions at GPT-2 124M training shapes (bf16 causal
+     [384, 1024, 64]), the bf16 kernels' other mask paths (per-row limits,
+     a pad limit at D = 128, causal L = 1000) and fp32 cases, then their
      times, bounds and library yardsticks;
   7. train through the entry point: ``cli train`` in-process on
      ``configs/gpt2_owt.py`` at full width (batch 32 x 1024, bf16, flash,
@@ -56,6 +61,8 @@ import io
 import json
 import math
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -94,11 +101,65 @@ REPLACES = {
     "ring_dkv": "distributeddeeplearning_tpu/ops/ring_attention_pallas.py:261",
 }
 TRAIN_STEPS = 8
+# Symbol fragments of the bf16 flash instantiations on the tensor cores.
+TC_KERNELS = ("flash_fwd_kernel_tc", "flash_dkv_kernel_tc")
 CP_STEPS = 6
 
 
 def phase(name):
     print(f"== {name}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# 2. build
+# ---------------------------------------------------------------------------
+
+
+def ptxas_stats(log):
+    """{kernel symbol: (registers, spill bytes stored and loaded)} from
+    nvcc's ``-Xptxas -v`` output, which names each kernel and then gives
+    its spills and its registers."""
+    stats = {}
+    for entry in re.finditer(r"Compiling entry function '([^']+)'", log):
+        tail = log[entry.end():]
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", tail)
+        used = re.search(r"Used (\d+) registers", tail)
+        stats[entry[1]] = (int(used[1]), int(spill[1]) + int(spill[2]))
+    return stats
+
+
+def check_tensor_core_build(_build):
+    """The bf16 flash fwd and dk/dv instantiations: ptxas must report no
+    spills for them, and their machine code must hold tensor-core (HMMA)
+    instructions (``cuobjdump -sass`` of the built library)."""
+    log = _build.BUILD_LOGS["flash_attention"]
+    if log:  # "" when the library came from an earlier build
+        tc = {sym: regs_spills
+              for sym, regs_spills in ptxas_stats(log).items()
+              if any(k in sym for k in TC_KERNELS)}
+        print(f"  ptxas (registers, spill bytes) of the bf16 fwd/dkv "
+              f"kernels: {json.dumps(tc)}")
+        if len(tc) != 4 or any(spill for _, spill in tc.values()):
+            raise AssertionError(f"bf16 flash kernels spill: {tc}")
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    lib = _build.build(["flash_attention"])["flash_attention"]
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    hmma, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[-1].strip()
+            hmma[fn] = 0
+        elif fn is not None and "HMMA" in line:
+            hmma[fn] += 1
+    for fn, n in sorted(hmma.items()):
+        print(f"  sass flash_attention {fn}: {n} HMMA")
+    tc = {fn: n for fn, n in hmma.items()
+          if any(k in fn for k in TC_KERNELS)}
+    if len(tc) != 4 or not all(tc.values()):
+        raise AssertionError(f"bf16 flash kernels without HMMA: {tc}")
 
 
 # ---------------------------------------------------------------------------
@@ -644,12 +705,26 @@ def check_training_kernels(torch, models, cfg):
 
     bf16, f32 = torch.bfloat16, torch.float32
     # bf16: o, dq, dk, dv are rounded to bf16 (8 bits of mantissa) at the
-    # output, so one rounding step apart is ~0.4% of the value: 2e-2
-    # absolute plus 2e-2 relative. fp32: only the order of the fp32 sums
-    # differs (tiles vs one einsum), ~1e-6 of the magnitudes.
+    # output, so one rounding step apart is ~0.4% of the value, and the
+    # tensor-core fwd and dkv round P and dS to bf16 inside the P V, P^T dO
+    # and dS^T Q products (about 0.2% per term, averaging out over the
+    # sum): 2e-2 absolute plus 2e-2 relative. fp32: only the order of the
+    # fp32 sums differs (tiles vs one einsum), ~1e-6 of the magnitudes.
     res = check_flash(torch, fa, "bf16 causal [384, 1024, 64]",
                       flash_case(torch, dtype=bf16, bh=384, L=1024, D=64,
                                  causal=True), 2e-2, timed=True)
+    # The bf16 kernels' other mask paths: per-row limits, a static pad
+    # limit at D = 128, and a length that is no multiple of either tile.
+    check_flash(torch, fa, "bf16 ragged kv_valid_lens, non-causal "
+                "[96, 512, 64]",
+                flash_case(torch, dtype=bf16, bh=96, L=512, D=64,
+                           causal=False, ragged=True), 2e-2, timed=False)
+    check_flash(torch, fa, "bf16 L=197 padded to 256, non-causal, D=128",
+                flash_case(torch, dtype=bf16, bh=24, L=256, D=128,
+                           causal=False, limit=197), 2e-2, timed=False)
+    check_flash(torch, fa, "bf16 causal L=1000 [48, 1000, 64]",
+                flash_case(torch, dtype=bf16, bh=48, L=1000, D=64,
+                           causal=True), 2e-2, timed=False)
     check_flash(torch, fa, "fp32 causal [384, 1024, 64]",
                 flash_case(torch, dtype=f32, bh=384, L=1024, D=64,
                            causal=True), 2e-5, timed=False)
@@ -1165,6 +1240,8 @@ def main(argv=None) -> int:
         for line in _build.BUILD_LOGS[name].splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"  ptxas {name}: {line.strip()}")
+
+    check_tensor_core_build(_build)
 
     phase("3 kernels vs plain")
     kres = check_kernels(torch, pa)

@@ -24,26 +24,50 @@
 // order, so the grid is (bh, q-blocks) for fwd and dq and (bh, kv-blocks) for
 // dk/dv, and a loop inside the block walks the other axis. Under causal the
 // loop stops at the diagonal block; it also stops at the row's column limit,
-// so blocks that hold only hidden columns are never read. Tiles are 64 x 64
-// in shared memory, converted to fp32 at load (rows padded by one float so
-// the column-strided reads are free of bank conflicts); 256 threads each own
-// 4 rows x 4 strided columns of a score tile and 4 rows x D/16 strided
-// columns of the output accumulator, kept in registers. Row statistics are
-// reduced over the 16 lanes that share a row with shuffles. Rows and columns
-// past L (a length that is no multiple of 64) are zero-filled and hidden.
+// so blocks that hold only hidden columns are never read. Rows and columns
+// past L (a length that is no multiple of a tile) are zero-filled and hidden.
+//
+// Two designs share that skeleton.
+// - bf16 fwd and dk/dv (namespace tc): the tensor cores. bf16 operands go
+//   through mma.sync.m16n8k16 with fp32 accumulators. Tiles arrive in
+//   XOR-swizzled shared memory by 16-byte cp.async into a two-slot ring, so
+//   the next tile loads while this one is multiplied, and ldmatrix(.trans)
+//   reads them without bank conflicts. The forward's block owns 128 q rows
+//   (64 at D = 128, where 128 would spill), 4 warps of 16-row strips with
+//   Q held as A fragments; S stays in registers, the online softmax runs in
+//   log2 units on the fragments (exp2, row reductions over the 4 lanes of a
+//   quad), and P goes to bf16 in registers as the A operand of P V. dk/dv's
+//   block owns 64 kv rows with kv rows as the MMA's M: S^T = K Q^T and
+//   dP^T = V dO^T, whose accumulators, as bf16, are the A operands of
+//   dV += P^T dO and dK += dS^T Q. Only tiles that cross the diagonal or the
+//   column limit are masked; the output is staged in shared memory for
+//   16-byte stores. P and dS are rounded to bf16 inside the products, as
+//   FA2 does.
+// - fp32 (every kernel) and bf16 dq: the first design, fp32 products on the
+//   CUDA cores. Tiles are 64 x 64 in shared memory, converted to fp32 at
+//   load (rows padded by one float so the column-strided reads are free of
+//   bank conflicts); 256 threads each own 4 rows x 4 strided columns of a
+//   score tile and 4 rows x D/16 strided columns of the output accumulator,
+//   kept in registers; row statistics are reduced over the 16 lanes that
+//   share a row with shuffles. fp32 keeps it because its products must stay
+//   fp32 end to end: it is the parity path whose losses are held to 1e-4 of
+//   the plain route, and no speed path runs it. bf16 dq is the next kernel
+//   to move to the tensor-core design.
 //
 // Bound. At GPT-2 124M's training shapes (bh = 384, L = 1024, D = 64, bf16,
 // causal) the forward moves ~201 MB and does ~51.5 GFLOP of visible-tile
 // matrix work: ~256 flops per byte, at the H100's ~295 bf16 tensor-core
-// balance point, so its least time is the larger of the two,
-// ~0.06 ms (bytes). The backward does 2.5x the forward's matrix work over
-// ~2x the bytes. This first version does the matrix work in fp32 on the CUDA
-// cores from shared memory, so it runs far from that bound (its times are in
-// PERF.md); wgmma with TMA-fed bf16 tiles is the later step.
+// balance point, so its least time is the larger of the two, ~0.06 ms
+// (bytes). dk/dv does twice the forward's matrix work over 1.5x its bytes,
+// ~0.10 ms (operations). mma.sync reaches part of the tensor cores' rate;
+// wgmma fed by TMA is the step after this one (times in PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <initializer_list>
+#include <type_traits>
 
 namespace {
 
@@ -502,6 +526,569 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
+// bf16 forward and dk/dv on the tensor cores
+// ---------------------------------------------------------------------------
+//
+// mma.sync.m16n8k16 (bf16 in, fp32 accumulate). Per lane, g = lane / 4 and
+// t = lane % 4: an A fragment (16 x 16) holds rows g and g + 8 at columns
+// 2t, 2t + 1 and 2t + 8, 2t + 9; a B fragment (16 x 8) rows 2t, 2t + 1 and
+// 2t + 8, 2t + 9 of column g; the accumulator (16 x 8) rows g and g + 8 at
+// columns 2t, 2t + 1. Two neighbouring accumulator tiles are thus one A
+// fragment over their 16 columns once packed to bf16, which is how P (and
+// dS) feed the next product without leaving registers. Shared tiles are
+// bf16 [rows, D] with each 16-byte chunk c of row r stored at chunk
+// c ^ (r % 8), so the 8 rows an ldmatrix reads at one logical chunk fall
+// in 8 distinct bank groups.
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kKvCols = 64;  // forward: kv columns per tile
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+__device__ __forceinline__ uint32_t saddr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Element offset of logical 16-byte chunk `c` of row `r` in a swizzled tile.
+template <int D>
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * D + ((c ^ (r & 7)) << 3);
+}
+
+// 16 bytes global -> shared; zero-filled (nothing read) when !ok.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+__device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// d += a b over one 16 x 8 x 16 tile.
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Accumulator tiles 2kk and 2kk + 1 of x as the A fragment of k-chunk kk.
+__device__ __forceinline__ void to_a(uint32_t (&a)[4], const float (&x0)[4],
+                                     const float (&x1)[4]) {
+  a[0] = pack(x0[0], x0[1]);
+  a[1] = pack(x0[2], x0[3]);
+  a[2] = pack(x1[0], x1[1]);
+  a[3] = pack(x1[2], x1[3]);
+}
+
+// ldmatrix lane addresses. A operand (16 rows x 16, k-chunk kk) from a
+// row-major tile; B operand of two n-tiles (rows n0..n0+15 as columns) from
+// a tile whose rows are the n index (non-transposed); B operand of two
+// n-tiles (columns c..c+15 at k rows k0..k0+15) from a tile whose rows are
+// the k index (transposed).
+template <int D>
+__device__ __forceinline__ uint32_t a_addr(const bf16* s, int r0, int kk,
+                                           int lane) {
+  return saddr(s + swz<D>(r0 + (lane & 15), 2 * kk + (lane >> 4)));
+}
+template <int D>
+__device__ __forceinline__ uint32_t bn_addr(const bf16* s, int n0, int kk,
+                                            int lane) {
+  return saddr(s + swz<D>(n0 + (lane & 7) + ((lane >> 4) << 3),
+                          2 * kk + ((lane >> 3) & 1)));
+}
+template <int D>
+__device__ __forceinline__ uint32_t bk_addr(const bf16* s, int k0, int cp,
+                                            int lane) {
+  return saddr(s + swz<D>(k0 + (lane & 7) + (((lane >> 3) & 1) << 3),
+                          2 * cp + (lane >> 4)));
+}
+
+// Rows [r0, r0 + ROWS) of src [L, D] into a swizzled tile, asynchronously;
+// rows past L zero-filled.
+template <int ROWS, int D>
+__device__ __forceinline__ void load_async(bf16* dst, const bf16* src, int r0,
+                                           int L) {
+  constexpr int kChunks = D / 8;
+  static_assert(ROWS * kChunks % kThreads == 0, "tile / threads");
+#pragma unroll
+  for (int i = 0; i < ROWS * kChunks / kThreads; ++i) {
+    const int idx = threadIdx.x + i * kThreads;
+    const int r = idx / kChunks, c = idx % kChunks;
+    const int row = r0 + r;
+    const bool ok = row < L;
+    cp_async16(saddr(dst + swz<D>(r, c)),
+               src + static_cast<size_t>(ok ? row : 0) * D + c * 8, ok);
+  }
+}
+
+// rows [r0, r0 + N) of a [L] fp32 row vector; past L zero.
+template <int N>
+__device__ __forceinline__ void load_rows_async(float* dst, const float* src,
+                                                int r0, int L) {
+  for (int r = threadIdx.x; r < N; r += kThreads) {
+    const bool ok = r0 + r < L;
+    cp_async4(saddr(dst + r), src + (ok ? r0 + r : 0), ok);
+  }
+}
+
+// The warp's rows of a staged tile to global rows [r0 + w0, ...), 16 bytes
+// a store, rows past L skipped.
+template <int ROWS, int D>
+__device__ __forceinline__ void store_rows(bf16* dst, const bf16* st, int r0,
+                                           int w0, int L, int lane) {
+  constexpr int kChunks = D / 8;
+#pragma unroll
+  for (int i = lane; i < ROWS * kChunks; i += 32) {
+    const int r = w0 + i / kChunks, c = i % kChunks;
+    if (r0 + r < L)
+      *reinterpret_cast<uint4*>(dst + static_cast<size_t>(r0 + r) * D +
+                                c * 8) =
+          *reinterpret_cast<const uint4*>(st + swz<D>(r, c));
+  }
+}
+
+// 2^x by the SFU's ex2.approx (2 ulp; results below 2^-126 flush to 0,
+// and the hidden scores' -1e30 gives 0). exp2f adds range handling around
+// the same instruction, ~5% of these kernels' time.
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// Forward: a block owns BM = 4 warps x WM strips x 16 q rows; the warps
+// walk 64-column kv tiles through a two-slot cp.async ring.
+template <int D, int WM>
+constexpr int fwd_smem_bytes() {
+  return (kWarps * WM * 16 * D + 2 * 2 * kKvCols * D) * 2;
+}
+
+template <int D, int WM>
+__global__ void __launch_bounds__(kThreads)
+    flash_fwd_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const int* __restrict__ vl,
+                        bf16* __restrict__ o, float* __restrict__ lse, int L,
+                        int limit, int causal, float scale) {
+  constexpr int BM = kWarps * WM * 16, BN = kKvCols;
+  constexpr int KC = D / 16, NT = BN / 8, DT = D / 8;
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(tc_smem);
+  bf16* Ks = Qs + BM * D;       // two slots of BN x D
+  bf16* Vs = Ks + 2 * BN * D;   // two slots of BN x D
+
+  const int bh = blockIdx.x;
+  // The grid's slow axis walks q tiles last-first: under causal the long
+  // rows near the end start first and the short ones fill in behind.
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = warp * WM * 16;  // the warp's first row in the tile
+  const size_t base = static_cast<size_t>(bh) * L * D;
+  const int lim = col_limit(vl, bh, limit, L);
+  int end = lim;
+  if (causal && q0 + BM < end) end = q0 + BM;
+  const int nkv = end > 0 ? (end + BN - 1) / BN : 0;
+
+  load_async<BM, D>(Qs, q + base, q0, L);
+  cp_async_commit();
+  if (nkv > 0) {
+    load_async<BN, D>(Ks, k + base, 0, L);
+    load_async<BN, D>(Vs, v + base, 0, L);
+  }
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+
+  uint32_t qa[WM][KC][4];
+#pragma unroll
+  for (int s = 0; s < WM; ++s)
+#pragma unroll
+    for (int kk = 0; kk < KC; ++kk)
+      ldsm4(qa[s][kk], a_addr<D>(Qs, wr + 16 * s, kk, lane));
+
+  // Scores in log2 units: x = s * scale * log2(e), softmax by exp2.
+  const float sl2 = scale * kLog2e;
+  float acc[WM][DT][4], m[WM][2], l[WM][2];
+#pragma unroll
+  for (int s = 0; s < WM; ++s) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      m[s][h] = kNegInf;
+      l[s][h] = 0.f;  // this lane's part of the row sum
+    }
+#pragma unroll
+    for (int d = 0; d < DT; ++d)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[s][d][e] = 0.f;
+  }
+
+  for (int j = 0; j < nkv; ++j) {
+    const int k0 = j * BN;
+    const bf16* Kb = Ks + (j & 1) * BN * D;
+    const bf16* Vb = Vs + (j & 1) * BN * D;
+    if (j + 1 < nkv) {
+      load_async<BN, D>(Ks + ((j + 1) & 1) * BN * D, k + base, k0 + BN, L);
+      load_async<BN, D>(Vs + ((j + 1) & 1) * BN * D, v + base, k0 + BN, L);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // tile j has landed
+    __syncthreads();
+
+    // A warp whose rows all lie above the tile's first column sees none of
+    // it (causal); it skips the tile.
+    if (!causal || k0 <= q0 + wr + WM * 16 - 1) {
+      float sc[WM][NT][4];
+#pragma unroll
+      for (int s = 0; s < WM; ++s)
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sc[s][n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KC; ++kk)
+#pragma unroll
+        for (int p = 0; p < NT / 2; ++p) {
+          uint32_t b[4];
+          ldsm4(b, bn_addr<D>(Kb, 16 * p, kk, lane));
+#pragma unroll
+          for (int s = 0; s < WM; ++s) {
+            mma(sc[s][2 * p], qa[s][kk], b[0], b[1]);
+            mma(sc[s][2 * p + 1], qa[s][kk], b[2], b[3]);
+          }
+        }
+
+      // Only tiles that cross the column limit or the warp's diagonal mask.
+      const bool masked =
+          k0 + BN > lim || (causal && k0 + BN - 1 > q0 + wr);
+#pragma unroll
+      for (int s = 0; s < WM; ++s)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = q0 + wr + 16 * s + g + 8 * h;
+          float mx = kNegInf;
+#pragma unroll
+          for (int n = 0; n < NT; ++n)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              float x = sc[s][n][2 * h + e] * sl2;
+              if (masked) {
+                const int col = k0 + 8 * n + 2 * t + e;
+                if (!(col < lim && (!causal || col <= row))) x = kNegInf;
+              }
+              sc[s][n][2 * h + e] = x;
+              mx = fmaxf(mx, x);
+            }
+          const float m_new = fmaxf(m[s][h], quad_max(mx));
+          const float alpha = fast_exp2(m[s][h] - m_new);
+          float rs = 0.f;
+#pragma unroll
+          for (int n = 0; n < NT; ++n)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float p = fast_exp2(sc[s][n][2 * h + e] - m_new);
+              sc[s][n][2 * h + e] = p;
+              rs += p;
+            }
+          l[s][h] = l[s][h] * alpha + rs;
+          m[s][h] = m_new;
+#pragma unroll
+          for (int d = 0; d < DT; ++d) {
+            acc[s][d][2 * h] *= alpha;
+            acc[s][d][2 * h + 1] *= alpha;
+          }
+        }
+
+      // O += P V, P straight from the accumulators as bf16 A fragments.
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) {
+        uint32_t pa[WM][4];
+#pragma unroll
+        for (int s = 0; s < WM; ++s)
+          to_a(pa[s], sc[s][2 * kk], sc[s][2 * kk + 1]);
+#pragma unroll
+        for (int cp = 0; cp < DT / 2; ++cp) {
+          uint32_t b[4];
+          ldsm4_t(b, bk_addr<D>(Vb, 16 * kk, cp, lane));
+#pragma unroll
+          for (int s = 0; s < WM; ++s) {
+            mma(acc[s][2 * cp], pa[s], b[0], b[1]);
+            mma(acc[s][2 * cp + 1], pa[s], b[2], b[3]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // slot j & 1 is free for tile j + 2
+  }
+
+  // Epilogue: o = acc / max(l, 1e-30) staged in the warp's own Q rows (only
+  // this warp read them), then stored 16 bytes a lane; lse in fp32.
+#pragma unroll
+  for (int s = 0; s < WM; ++s)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = wr + 16 * s + g + 8 * h;
+      const float lc = fmaxf(quad_sum(l[s][h]), 1e-30f);
+      const float inv = 1.f / lc;
+#pragma unroll
+      for (int d = 0; d < DT; ++d)
+        *reinterpret_cast<uint32_t*>(Qs + swz<D>(r, d) + 2 * t) =
+            pack(acc[s][d][2 * h] * inv, acc[s][d][2 * h + 1] * inv);
+      if (t == 0 && q0 + r < L)
+        lse[static_cast<size_t>(bh) * L + q0 + r] = m[s][h] * kLn2 + logf(lc);
+    }
+  __syncwarp();
+  store_rows<WM * 16, D>(o + base, Qs, q0, wr, L, lane);
+}
+
+// dk/dv: a block owns 64 kv rows (16 a warp) and walks q tiles of BQ rows
+// from the diagonal (causal) to the end through a two-slot cp.async ring of
+// Q, dO, lse and delta. With kv rows as the MMA's M, P^T and dS^T come out
+// as accumulators that are the A fragments of dV += P^T dO and
+// dK += dS^T Q. KV_REGS keeps the warp's K and V fragments in registers
+// across the loop (D = 64); at D = 128 they are read from shared memory at
+// each use, to stay clear of spills.
+template <int D, int BQ>
+constexpr int dkv_smem_bytes() {
+  return (2 * kWarps * 16 * D + 2 * 2 * BQ * D) * 2 + 2 * 2 * BQ * 4;
+}
+
+template <int D, int BQ, bool KV_REGS>
+__global__ void __launch_bounds__(kThreads)
+    flash_dkv_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v,
+                        const bf16* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        const int* __restrict__ vl, bf16* __restrict__ dk,
+                        bf16* __restrict__ dv, int L, int limit, int causal,
+                        float scale) {
+  constexpr int BN = kWarps * 16;
+  constexpr int KC = D / 16, NT = BQ / 8, DT = D / 8;
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  bf16* Ks = reinterpret_cast<bf16*>(tc_smem);
+  bf16* Vs = Ks + BN * D;
+  bf16* Qs = Vs + BN * D;        // two slots of BQ x D
+  bf16* dOs = Qs + 2 * BQ * D;   // two slots of BQ x D
+  float* lse_s = reinterpret_cast<float*>(dOs + 2 * BQ * D);  // 2 x BQ
+  float* dl_s = lse_s + 2 * BQ;                               // 2 x BQ
+
+  const int bh = blockIdx.x;
+  // Under causal the first kv tiles see the most q tiles: they start first.
+  const int k0 = blockIdx.y * BN;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = warp * 16;
+  const size_t base = static_cast<size_t>(bh) * L * D;
+  const size_t rbase = static_cast<size_t>(bh) * L;
+  const int lim = col_limit(vl, bh, limit, L);
+  const int nq = (L + BQ - 1) / BQ;
+  // Under causal, q tiles wholly above this kv tile see none of it; a kv
+  // tile at or past the column limit is hidden from every row.
+  const int qb0 = causal ? k0 / BQ : 0;
+  const int qb1 = k0 < lim ? nq : qb0;
+
+  auto load_q = [&](int qb, int slot) {
+    load_async<BQ, D>(Qs + slot * BQ * D, q + base, qb * BQ, L);
+    load_async<BQ, D>(dOs + slot * BQ * D, dout + base, qb * BQ, L);
+    load_rows_async<BQ>(lse_s + slot * BQ, lse + rbase, qb * BQ, L);
+    load_rows_async<BQ>(dl_s + slot * BQ, delta + rbase, qb * BQ, L);
+  };
+
+  load_async<BN, D>(Ks, k + base, k0, L);
+  load_async<BN, D>(Vs, v + base, k0, L);
+  cp_async_commit();
+  if (qb0 < qb1) load_q(qb0, 0);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+
+  uint32_t ka[KV_REGS ? KC : 1][4], va[KV_REGS ? KC : 1][4];
+  if constexpr (KV_REGS) {
+#pragma unroll
+    for (int kk = 0; kk < KC; ++kk) {
+      ldsm4(ka[kk], a_addr<D>(Ks, wr, kk, lane));
+      ldsm4(va[kk], a_addr<D>(Vs, wr, kk, lane));
+    }
+  }
+
+  const float sl2 = scale * kLog2e;
+  float dka[DT][4], dva[DT][4];
+#pragma unroll
+  for (int d = 0; d < DT; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[d][e] = dva[d][e] = 0.f;
+
+  for (int qb = qb0; qb < qb1; ++qb) {
+    const int q0 = qb * BQ, slot = (qb - qb0) & 1;
+    const bf16* Qb = Qs + slot * BQ * D;
+    const bf16* dOb = dOs + slot * BQ * D;
+    const float* lse_b = lse_s + slot * BQ;
+    const float* dl_b = dl_s + slot * BQ;
+    if (qb + 1 < qb1) load_q(qb + 1, slot ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // tile qb has landed
+    __syncthreads();
+
+    // Causal: a tile whose rows all lie above the warp's first kv row sees
+    // none of its columns.
+    if (!causal || q0 + BQ - 1 >= k0 + wr) {
+      // S^T = K Q^T and dP^T = V dO^T, kv rows as M, q rows as N.
+      float st[NT][4], dpt[NT][4];
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KC; ++kk) {
+        uint32_t kf[4], vf[4];
+        if constexpr (KV_REGS) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            kf[e] = ka[kk][e];
+            vf[e] = va[kk][e];
+          }
+        } else {
+          ldsm4(kf, a_addr<D>(Ks, wr, kk, lane));
+          ldsm4(vf, a_addr<D>(Vs, wr, kk, lane));
+        }
+#pragma unroll
+        for (int p = 0; p < NT / 2; ++p) {
+          uint32_t b[4];
+          ldsm4(b, bn_addr<D>(Qb, 16 * p, kk, lane));
+          mma(st[2 * p], kf, b[0], b[1]);
+          mma(st[2 * p + 1], kf, b[2], b[3]);
+          ldsm4(b, bn_addr<D>(dOb, 16 * p, kk, lane));
+          mma(dpt[2 * p], vf, b[0], b[1]);
+          mma(dpt[2 * p + 1], vf, b[2], b[3]);
+        }
+      }
+
+      // P^T = exp2(S^T scale log2e - lse log2e), dS^T = P^T (dP^T - delta);
+      // only tiles that cross the column limit or the diagonal mask.
+      const bool masked =
+          k0 + wr + 16 > lim || (causal && q0 < k0 + wr + 15);
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int r = 8 * n + 2 * t + e;  // q row in the tile
+          const float lse2 = lse_b[r] * kLog2e, dl = dl_b[r];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int i = 2 * h + e;
+            float p = fast_exp2(fmaf(st[n][i], sl2, -lse2));
+            if (masked) {
+              const int col = k0 + wr + g + 8 * h;
+              if (!(col < lim && (!causal || col <= q0 + r))) p = 0.f;
+            }
+            st[n][i] = p;
+            dpt[n][i] = p * (dpt[n][i] - dl);
+          }
+        }
+
+      // dV += P^T dO and dK += dS^T Q, both A operands from registers.
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) {
+        uint32_t pa[4], da[4];
+        to_a(pa, st[2 * kk], st[2 * kk + 1]);
+        to_a(da, dpt[2 * kk], dpt[2 * kk + 1]);
+#pragma unroll
+        for (int cp = 0; cp < DT / 2; ++cp) {
+          uint32_t b[4];
+          ldsm4_t(b, bk_addr<D>(dOb, 16 * kk, cp, lane));
+          mma(dva[2 * cp], pa, b[0], b[1]);
+          mma(dva[2 * cp + 1], pa, b[2], b[3]);
+          ldsm4_t(b, bk_addr<D>(Qb, 16 * kk, cp, lane));
+          mma(dka[2 * cp], da, b[0], b[1]);
+          mma(dka[2 * cp + 1], da, b[2], b[3]);
+        }
+      }
+    }
+    __syncthreads();  // this slot is free for tile qb + 2
+  }
+
+  // Epilogue: dk carries the scale once, in fp32; dk and dv are staged in
+  // the warp's own K and V rows (only this warp read them), then stored 16
+  // bytes a lane.
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = wr + g + 8 * h;
+#pragma unroll
+    for (int d = 0; d < DT; ++d) {
+      *reinterpret_cast<uint32_t*>(Ks + swz<D>(r, d) + 2 * t) =
+          pack(dka[d][2 * h] * scale, dka[d][2 * h + 1] * scale);
+      *reinterpret_cast<uint32_t*>(Vs + swz<D>(r, d) + 2 * t) =
+          pack(dva[d][2 * h], dva[d][2 * h + 1]);
+    }
+  }
+  __syncwarp();
+  store_rows<16, D>(dk + base, Ks, k0, wr, L, lane);
+  store_rows<16, D>(dv + base, Vs, k0, wr, L, lane);
+}
+
+// Tile shapes of the bf16 instantiations: the forward's q strips per warp
+// (128 rows a block at D = 64, 64 at D = 128, where 128 would spill), and
+// dk/dv's q tile and whether K and V stay in registers.
+template <int D>
+struct Shape {
+  static constexpr int kFwdStrips = D == 64 ? 2 : 1;
+  static constexpr int kDkvQ = D == 64 ? 64 : 32;
+  static constexpr bool kDkvRegs = D == 64;
+};
+
+}  // namespace tc
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
@@ -514,28 +1101,97 @@ cudaError_t prepare(Fn fn, int smem_bytes) {
 }
 
 template <int D>
+constexpr int tc_fwd_smem() {
+  return tc::fwd_smem_bytes<D, tc::Shape<D>::kFwdStrips>();
+}
+template <int D>
+constexpr int tc_dkv_smem() {
+  return tc::dkv_smem_bytes<D, tc::Shape<D>::kDkvQ>();
+}
+
+constexpr long long larger(long long a, long long b) { return a > b ? a : b; }
+
+// The larger of the fp32 and the bf16 instantiations' needs.
+template <int D>
 long long smem_bytes(int kernel) {
   switch (kernel) {
-    case kFwd: return fwd_smem_floats<D>() * 4LL;
+    case kFwd: return larger(fwd_smem_floats<D>() * 4LL, tc_fwd_smem<D>());
     case kDq: return dq_smem_floats<D>() * 4LL;
-    case kDkv: return dkv_smem_floats<D>() * 4LL;
+    case kDkv: return larger(dkv_smem_floats<D>() * 4LL, tc_dkv_smem<D>());
     default: return -1;
   }
+}
+
+// The bf16 kernels move 16-byte chunks: every [bh, L, D] operand must start
+// on a 16-byte boundary (a misaligned one is refused, not launched).
+inline bool aligned16(std::initializer_list<const void*> ptrs) {
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
+  return true;
+}
+
+template <int D>
+cudaError_t launch_fwd_tc(const void* q, const void* k, const void* v,
+                          const void* vl, void* o, void* lse, int bh, int L,
+                          int limit, int causal, float scale,
+                          cudaStream_t s) {
+  using tc::bf16;
+  constexpr int WM = tc::Shape<D>::kFwdStrips, BM = tc::kWarps * WM * 16;
+  if (!aligned16({q, k, v, o})) return cudaErrorMisalignedAddress;
+  const int smem = tc_fwd_smem<D>();
+  cudaError_t err = prepare(tc::flash_fwd_kernel_tc<D, WM>, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(bh, (L + BM - 1) / BM);
+  tc::flash_fwd_kernel_tc<D, WM><<<grid, tc::kThreads, smem, s>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const int*>(vl),
+      static_cast<bf16*>(o), static_cast<float*>(lse), L, limit, causal,
+      scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dkv_tc(const void* q, const void* k, const void* v,
+                          const void* dout, const void* lse, const void* delta,
+                          const void* vl, void* dk, void* dv, int bh, int L,
+                          int limit, int causal, float scale,
+                          cudaStream_t s) {
+  using tc::bf16;
+  constexpr int BQ = tc::Shape<D>::kDkvQ;
+  constexpr bool kRegs = tc::Shape<D>::kDkvRegs;
+  if (!aligned16({q, k, v, dout, dk, dv})) return cudaErrorMisalignedAddress;
+  const int smem = tc_dkv_smem<D>();
+  cudaError_t err = prepare(tc::flash_dkv_kernel_tc<D, BQ, kRegs>, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(bh, (L + tc::kWarps * 16 - 1) / (tc::kWarps * 16));
+  tc::flash_dkv_kernel_tc<D, BQ, kRegs><<<grid, tc::kThreads, smem, s>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<const int*>(vl), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), L, limit, causal, scale);
+  return cudaGetLastError();
 }
 
 template <typename T, int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v,
                        const void* vl, void* o, void* lse, int bh, int L,
                        int limit, int causal, float scale, cudaStream_t s) {
-  const int smem = fwd_smem_floats<D>() * 4;
-  cudaError_t err = prepare(flash_fwd_kernel<T, D>, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid(bh, (L + kBlock - 1) / kBlock);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(vl),
-      static_cast<T*>(o), static_cast<float*>(lse), L, limit, causal, scale);
-  return cudaGetLastError();
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    return launch_fwd_tc<D>(q, k, v, vl, o, lse, bh, L, limit, causal, scale,
+                            s);
+  } else {
+    const int smem = fwd_smem_floats<D>() * 4;
+    cudaError_t err = prepare(flash_fwd_kernel<T, D>, smem);
+    if (err != cudaSuccess) return err;
+    dim3 grid(bh, (L + kBlock - 1) / kBlock);
+    flash_fwd_kernel<T, D><<<grid, kThreads, smem, s>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const int*>(vl),
+        static_cast<T*>(o), static_cast<float*>(lse), L, limit, causal,
+        scale);
+    return cudaGetLastError();
+  }
 }
 
 template <typename T, int D>
@@ -561,17 +1217,22 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
                        const void* vl, void* dk, void* dv, int bh, int L,
                        int limit, int causal, float scale, cudaStream_t s) {
-  const int smem = dkv_smem_floats<D>() * 4;
-  cudaError_t err = prepare(flash_dkv_kernel<T, D>, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid(bh, (L + kBlock - 1) / kBlock);
-  flash_dkv_kernel<T, D><<<grid, kThreads, smem, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<const int*>(vl), static_cast<T*>(dk), static_cast<T*>(dv),
-      L, limit, causal, scale);
-  return cudaGetLastError();
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    return launch_dkv_tc<D>(q, k, v, dout, lse, delta, vl, dk, dv, bh, L,
+                            limit, causal, scale, s);
+  } else {
+    const int smem = dkv_smem_floats<D>() * 4;
+    cudaError_t err = prepare(flash_dkv_kernel<T, D>, smem);
+    if (err != cudaSuccess) return err;
+    dim3 grid(bh, (L + kBlock - 1) / kBlock);
+    flash_dkv_kernel<T, D><<<grid, kThreads, smem, s>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<const int*>(vl), static_cast<T*>(dk),
+        static_cast<T*>(dv), L, limit, causal, scale);
+    return cudaGetLastError();
+  }
 }
 
 // Dispatch on (dtype, head_dim): f(T, D) instantiations for float and bf16

@@ -23,6 +23,7 @@ def _sources():
         ROOT / "chip_smoke.py", ROOT / "tools" / "torch_decode_profile.py",
         ROOT / "tools" / "torch_train_profile.py",
         ROOT / "tools" / "torch_cp_profile.py",
+        ROOT / "tools" / "torch_flash_tiles.py",
     ]
     return [p for p in files if "_build" not in p.parts]
 
