@@ -28,7 +28,8 @@
 // past L (a length that is no multiple of a tile) are zero-filled and hidden.
 //
 // Two designs share that skeleton.
-// - bf16 fwd and dk/dv (namespace tc): the tensor cores. bf16 operands go
+// - bf16 fwd and dk/dv (namespace tc, on the tile walks of tc_mma.cuh,
+//   which the bf16 ring kernels share): the tensor cores. bf16 operands go
 //   through mma.sync.m16n8k16 with fp32 accumulators. Tiles arrive in
 //   XOR-swizzled shared memory by 16-byte cp.async into a two-slot ring, so
 //   the next tile loads while this one is multiplied, and ldmatrix(.trans)
@@ -66,12 +67,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <initializer_list>
 #include <type_traits>
+
+#include "tc_mma.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;  // finite: exp(kNegInf - m) == 0, no NaN
 constexpr int kThreads = 256;
 constexpr int kBlock = 64;          // rows of a q tile and of a kv tile
 constexpr int kSP = kBlock + 1;     // pitch of a 64 x 64 score tile
@@ -529,189 +530,11 @@ __global__ void __launch_bounds__(kThreads)
 // bf16 forward and dk/dv on the tensor cores
 // ---------------------------------------------------------------------------
 //
-// mma.sync.m16n8k16 (bf16 in, fp32 accumulate). Per lane, g = lane / 4 and
-// t = lane % 4: an A fragment (16 x 16) holds rows g and g + 8 at columns
-// 2t, 2t + 1 and 2t + 8, 2t + 9; a B fragment (16 x 8) rows 2t, 2t + 1 and
-// 2t + 8, 2t + 9 of column g; the accumulator (16 x 8) rows g and g + 8 at
-// columns 2t, 2t + 1. Two neighbouring accumulator tiles are thus one A
-// fragment over their 16 columns once packed to bf16, which is how P (and
-// dS) feed the next product without leaving registers. Shared tiles are
-// bf16 [rows, D] with each 16-byte chunk c of row r stored at chunk
-// c ^ (r % 8), so the 8 rows an ldmatrix reads at one logical chunk fall
-// in 8 distinct bank groups.
+// The tile core (fragments, swizzled cp.async tiles, the two tile walks) is
+// tc_mma.cuh's, shared with the ring kernels; here are the flash kernels'
+// edges: the column limit, and o, lse, dk, dv in their output types.
 
 namespace tc {
-
-using bf16 = __nv_bfloat16;
-
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kKvCols = 64;  // forward: kv columns per tile
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-
-__device__ __forceinline__ uint32_t saddr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Element offset of logical 16-byte chunk `c` of row `r` in a swizzled tile.
-template <int D>
-__device__ __forceinline__ int swz(int r, int c) {
-  return r * D + ((c ^ (r & 7)) << 3);
-}
-
-// 16 bytes global -> shared; zero-filled (nothing read) when !ok.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
-                                          bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-               "l"(src), "r"(ok ? 4 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-__device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-
-// d += a b over one 16 x 8 x 16 tile.
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Accumulator tiles 2kk and 2kk + 1 of x as the A fragment of k-chunk kk.
-__device__ __forceinline__ void to_a(uint32_t (&a)[4], const float (&x0)[4],
-                                     const float (&x1)[4]) {
-  a[0] = pack(x0[0], x0[1]);
-  a[1] = pack(x0[2], x0[3]);
-  a[2] = pack(x1[0], x1[1]);
-  a[3] = pack(x1[2], x1[3]);
-}
-
-// ldmatrix lane addresses. A operand (16 rows x 16, k-chunk kk) from a
-// row-major tile; B operand of two n-tiles (rows n0..n0+15 as columns) from
-// a tile whose rows are the n index (non-transposed); B operand of two
-// n-tiles (columns c..c+15 at k rows k0..k0+15) from a tile whose rows are
-// the k index (transposed).
-template <int D>
-__device__ __forceinline__ uint32_t a_addr(const bf16* s, int r0, int kk,
-                                           int lane) {
-  return saddr(s + swz<D>(r0 + (lane & 15), 2 * kk + (lane >> 4)));
-}
-template <int D>
-__device__ __forceinline__ uint32_t bn_addr(const bf16* s, int n0, int kk,
-                                            int lane) {
-  return saddr(s + swz<D>(n0 + (lane & 7) + ((lane >> 4) << 3),
-                          2 * kk + ((lane >> 3) & 1)));
-}
-template <int D>
-__device__ __forceinline__ uint32_t bk_addr(const bf16* s, int k0, int cp,
-                                            int lane) {
-  return saddr(s + swz<D>(k0 + (lane & 7) + (((lane >> 3) & 1) << 3),
-                          2 * cp + (lane >> 4)));
-}
-
-// Rows [r0, r0 + ROWS) of src [L, D] into a swizzled tile, asynchronously;
-// rows past L zero-filled.
-template <int ROWS, int D>
-__device__ __forceinline__ void load_async(bf16* dst, const bf16* src, int r0,
-                                           int L) {
-  constexpr int kChunks = D / 8;
-  static_assert(ROWS * kChunks % kThreads == 0, "tile / threads");
-#pragma unroll
-  for (int i = 0; i < ROWS * kChunks / kThreads; ++i) {
-    const int idx = threadIdx.x + i * kThreads;
-    const int r = idx / kChunks, c = idx % kChunks;
-    const int row = r0 + r;
-    const bool ok = row < L;
-    cp_async16(saddr(dst + swz<D>(r, c)),
-               src + static_cast<size_t>(ok ? row : 0) * D + c * 8, ok);
-  }
-}
-
-// rows [r0, r0 + N) of a [L] fp32 row vector; past L zero.
-template <int N>
-__device__ __forceinline__ void load_rows_async(float* dst, const float* src,
-                                                int r0, int L) {
-  for (int r = threadIdx.x; r < N; r += kThreads) {
-    const bool ok = r0 + r < L;
-    cp_async4(saddr(dst + r), src + (ok ? r0 + r : 0), ok);
-  }
-}
-
-// The warp's rows of a staged tile to global rows [r0 + w0, ...), 16 bytes
-// a store, rows past L skipped.
-template <int ROWS, int D>
-__device__ __forceinline__ void store_rows(bf16* dst, const bf16* st, int r0,
-                                           int w0, int L, int lane) {
-  constexpr int kChunks = D / 8;
-#pragma unroll
-  for (int i = lane; i < ROWS * kChunks; i += 32) {
-    const int r = w0 + i / kChunks, c = i % kChunks;
-    if (r0 + r < L)
-      *reinterpret_cast<uint4*>(dst + static_cast<size_t>(r0 + r) * D +
-                                c * 8) =
-          *reinterpret_cast<const uint4*>(st + swz<D>(r, c));
-  }
-}
-
-// 2^x by the SFU's ex2.approx (2 ulp; results below 2^-126 flush to 0,
-// and the hidden scores' -1e30 gives 0). exp2f adds range handling around
-// the same instruction, ~5% of these kernels' time.
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// Forward: a block owns BM = 4 warps x WM strips x 16 q rows; the warps
-// walk 64-column kv tiles through a two-slot cp.async ring.
-template <int D, int WM>
-constexpr int fwd_smem_bytes() {
-  return (kWarps * WM * 16 * D + 2 * 2 * kKvCols * D) * 2;
-}
 
 template <int D, int WM>
 __global__ void __launch_bounds__(kThreads)
@@ -720,7 +543,7 @@ __global__ void __launch_bounds__(kThreads)
                         bf16* __restrict__ o, float* __restrict__ lse, int L,
                         int limit, int causal, float scale) {
   constexpr int BM = kWarps * WM * 16, BN = kKvCols;
-  constexpr int KC = D / 16, NT = BN / 8, DT = D / 8;
+  constexpr int DT = D / 8;
   extern __shared__ __align__(128) unsigned char tc_smem[];
   bf16* Qs = reinterpret_cast<bf16*>(tc_smem);
   bf16* Ks = Qs + BM * D;       // two slots of BN x D
@@ -749,126 +572,10 @@ __global__ void __launch_bounds__(kThreads)
   cp_async_wait<1>();
   __syncthreads();
 
-  uint32_t qa[WM][KC][4];
-#pragma unroll
-  for (int s = 0; s < WM; ++s)
-#pragma unroll
-    for (int kk = 0; kk < KC; ++kk)
-      ldsm4(qa[s][kk], a_addr<D>(Qs, wr + 16 * s, kk, lane));
-
   // Scores in log2 units: x = s * scale * log2(e), softmax by exp2.
-  const float sl2 = scale * kLog2e;
   float acc[WM][DT][4], m[WM][2], l[WM][2];
-#pragma unroll
-  for (int s = 0; s < WM; ++s) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      m[s][h] = kNegInf;
-      l[s][h] = 0.f;  // this lane's part of the row sum
-    }
-#pragma unroll
-    for (int d = 0; d < DT; ++d)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[s][d][e] = 0.f;
-  }
-
-  for (int j = 0; j < nkv; ++j) {
-    const int k0 = j * BN;
-    const bf16* Kb = Ks + (j & 1) * BN * D;
-    const bf16* Vb = Vs + (j & 1) * BN * D;
-    if (j + 1 < nkv) {
-      load_async<BN, D>(Ks + ((j + 1) & 1) * BN * D, k + base, k0 + BN, L);
-      load_async<BN, D>(Vs + ((j + 1) & 1) * BN * D, v + base, k0 + BN, L);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();  // tile j has landed
-    __syncthreads();
-
-    // A warp whose rows all lie above the tile's first column sees none of
-    // it (causal); it skips the tile.
-    if (!causal || k0 <= q0 + wr + WM * 16 - 1) {
-      float sc[WM][NT][4];
-#pragma unroll
-      for (int s = 0; s < WM; ++s)
-#pragma unroll
-        for (int n = 0; n < NT; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) sc[s][n][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KC; ++kk)
-#pragma unroll
-        for (int p = 0; p < NT / 2; ++p) {
-          uint32_t b[4];
-          ldsm4(b, bn_addr<D>(Kb, 16 * p, kk, lane));
-#pragma unroll
-          for (int s = 0; s < WM; ++s) {
-            mma(sc[s][2 * p], qa[s][kk], b[0], b[1]);
-            mma(sc[s][2 * p + 1], qa[s][kk], b[2], b[3]);
-          }
-        }
-
-      // Only tiles that cross the column limit or the warp's diagonal mask.
-      const bool masked =
-          k0 + BN > lim || (causal && k0 + BN - 1 > q0 + wr);
-#pragma unroll
-      for (int s = 0; s < WM; ++s)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int row = q0 + wr + 16 * s + g + 8 * h;
-          float mx = kNegInf;
-#pragma unroll
-          for (int n = 0; n < NT; ++n)
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              float x = sc[s][n][2 * h + e] * sl2;
-              if (masked) {
-                const int col = k0 + 8 * n + 2 * t + e;
-                if (!(col < lim && (!causal || col <= row))) x = kNegInf;
-              }
-              sc[s][n][2 * h + e] = x;
-              mx = fmaxf(mx, x);
-            }
-          const float m_new = fmaxf(m[s][h], quad_max(mx));
-          const float alpha = fast_exp2(m[s][h] - m_new);
-          float rs = 0.f;
-#pragma unroll
-          for (int n = 0; n < NT; ++n)
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const float p = fast_exp2(sc[s][n][2 * h + e] - m_new);
-              sc[s][n][2 * h + e] = p;
-              rs += p;
-            }
-          l[s][h] = l[s][h] * alpha + rs;
-          m[s][h] = m_new;
-#pragma unroll
-          for (int d = 0; d < DT; ++d) {
-            acc[s][d][2 * h] *= alpha;
-            acc[s][d][2 * h + 1] *= alpha;
-          }
-        }
-
-      // O += P V, P straight from the accumulators as bf16 A fragments.
-#pragma unroll
-      for (int kk = 0; kk < BN / 16; ++kk) {
-        uint32_t pa[WM][4];
-#pragma unroll
-        for (int s = 0; s < WM; ++s)
-          to_a(pa[s], sc[s][2 * kk], sc[s][2 * kk + 1]);
-#pragma unroll
-        for (int cp = 0; cp < DT / 2; ++cp) {
-          uint32_t b[4];
-          ldsm4_t(b, bk_addr<D>(Vb, 16 * kk, cp, lane));
-#pragma unroll
-          for (int s = 0; s < WM; ++s) {
-            mma(acc[s][2 * cp], pa[s], b[0], b[1]);
-            mma(acc[s][2 * cp + 1], pa[s], b[2], b[3]);
-          }
-        }
-      }
-    }
-    __syncthreads();  // slot j & 1 is free for tile j + 2
-  }
+  fwd_walk<D, WM>(Qs, Ks, Vs, k + base, v + base, L, lim, causal, q0, nkv,
+                  scale * kLog2e, acc, m, l);
 
   // Epilogue: o = acc / max(l, 1e-30) staged in the warp's own Q rows (only
   // this warp read them), then stored 16 bytes a lane; lse in fp32.
@@ -890,18 +597,6 @@ __global__ void __launch_bounds__(kThreads)
   store_rows<WM * 16, D>(o + base, Qs, q0, wr, L, lane);
 }
 
-// dk/dv: a block owns 64 kv rows (16 a warp) and walks q tiles of BQ rows
-// from the diagonal (causal) to the end through a two-slot cp.async ring of
-// Q, dO, lse and delta. With kv rows as the MMA's M, P^T and dS^T come out
-// as accumulators that are the A fragments of dV += P^T dO and
-// dK += dS^T Q. KV_REGS keeps the warp's K and V fragments in registers
-// across the loop (D = 64); at D = 128 they are read from shared memory at
-// each use, to stay clear of spills.
-template <int D, int BQ>
-constexpr int dkv_smem_bytes() {
-  return (2 * kWarps * 16 * D + 2 * 2 * BQ * D) * 2 + 2 * 2 * BQ * 4;
-}
-
 template <int D, int BQ, bool KV_REGS>
 __global__ void __launch_bounds__(kThreads)
     flash_dkv_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -913,14 +608,10 @@ __global__ void __launch_bounds__(kThreads)
                         bf16* __restrict__ dv, int L, int limit, int causal,
                         float scale) {
   constexpr int BN = kWarps * 16;
-  constexpr int KC = D / 16, NT = BQ / 8, DT = D / 8;
+  constexpr int DT = D / 8;
   extern __shared__ __align__(128) unsigned char tc_smem[];
   bf16* Ks = reinterpret_cast<bf16*>(tc_smem);
   bf16* Vs = Ks + BN * D;
-  bf16* Qs = Vs + BN * D;        // two slots of BQ x D
-  bf16* dOs = Qs + 2 * BQ * D;   // two slots of BQ x D
-  float* lse_s = reinterpret_cast<float*>(dOs + 2 * BQ * D);  // 2 x BQ
-  float* dl_s = lse_s + 2 * BQ;                               // 2 x BQ
 
   const int bh = blockIdx.x;
   // Under causal the first kv tiles see the most q tiles: they start first.
@@ -937,125 +628,10 @@ __global__ void __launch_bounds__(kThreads)
   const int qb0 = causal ? k0 / BQ : 0;
   const int qb1 = k0 < lim ? nq : qb0;
 
-  auto load_q = [&](int qb, int slot) {
-    load_async<BQ, D>(Qs + slot * BQ * D, q + base, qb * BQ, L);
-    load_async<BQ, D>(dOs + slot * BQ * D, dout + base, qb * BQ, L);
-    load_rows_async<BQ>(lse_s + slot * BQ, lse + rbase, qb * BQ, L);
-    load_rows_async<BQ>(dl_s + slot * BQ, delta + rbase, qb * BQ, L);
-  };
-
-  load_async<BN, D>(Ks, k + base, k0, L);
-  load_async<BN, D>(Vs, v + base, k0, L);
-  cp_async_commit();
-  if (qb0 < qb1) load_q(qb0, 0);
-  cp_async_commit();
-  cp_async_wait<1>();
-  __syncthreads();
-
-  uint32_t ka[KV_REGS ? KC : 1][4], va[KV_REGS ? KC : 1][4];
-  if constexpr (KV_REGS) {
-#pragma unroll
-    for (int kk = 0; kk < KC; ++kk) {
-      ldsm4(ka[kk], a_addr<D>(Ks, wr, kk, lane));
-      ldsm4(va[kk], a_addr<D>(Vs, wr, kk, lane));
-    }
-  }
-
-  const float sl2 = scale * kLog2e;
   float dka[DT][4], dva[DT][4];
-#pragma unroll
-  for (int d = 0; d < DT; ++d)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[d][e] = dva[d][e] = 0.f;
-
-  for (int qb = qb0; qb < qb1; ++qb) {
-    const int q0 = qb * BQ, slot = (qb - qb0) & 1;
-    const bf16* Qb = Qs + slot * BQ * D;
-    const bf16* dOb = dOs + slot * BQ * D;
-    const float* lse_b = lse_s + slot * BQ;
-    const float* dl_b = dl_s + slot * BQ;
-    if (qb + 1 < qb1) load_q(qb + 1, slot ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();  // tile qb has landed
-    __syncthreads();
-
-    // Causal: a tile whose rows all lie above the warp's first kv row sees
-    // none of its columns.
-    if (!causal || q0 + BQ - 1 >= k0 + wr) {
-      // S^T = K Q^T and dP^T = V dO^T, kv rows as M, q rows as N.
-      float st[NT][4], dpt[NT][4];
-#pragma unroll
-      for (int n = 0; n < NT; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KC; ++kk) {
-        uint32_t kf[4], vf[4];
-        if constexpr (KV_REGS) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            kf[e] = ka[kk][e];
-            vf[e] = va[kk][e];
-          }
-        } else {
-          ldsm4(kf, a_addr<D>(Ks, wr, kk, lane));
-          ldsm4(vf, a_addr<D>(Vs, wr, kk, lane));
-        }
-#pragma unroll
-        for (int p = 0; p < NT / 2; ++p) {
-          uint32_t b[4];
-          ldsm4(b, bn_addr<D>(Qb, 16 * p, kk, lane));
-          mma(st[2 * p], kf, b[0], b[1]);
-          mma(st[2 * p + 1], kf, b[2], b[3]);
-          ldsm4(b, bn_addr<D>(dOb, 16 * p, kk, lane));
-          mma(dpt[2 * p], vf, b[0], b[1]);
-          mma(dpt[2 * p + 1], vf, b[2], b[3]);
-        }
-      }
-
-      // P^T = exp2(S^T scale log2e - lse log2e), dS^T = P^T (dP^T - delta);
-      // only tiles that cross the column limit or the diagonal mask.
-      const bool masked =
-          k0 + wr + 16 > lim || (causal && q0 < k0 + wr + 15);
-#pragma unroll
-      for (int n = 0; n < NT; ++n)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int r = 8 * n + 2 * t + e;  // q row in the tile
-          const float lse2 = lse_b[r] * kLog2e, dl = dl_b[r];
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int i = 2 * h + e;
-            float p = fast_exp2(fmaf(st[n][i], sl2, -lse2));
-            if (masked) {
-              const int col = k0 + wr + g + 8 * h;
-              if (!(col < lim && (!causal || col <= q0 + r))) p = 0.f;
-            }
-            st[n][i] = p;
-            dpt[n][i] = p * (dpt[n][i] - dl);
-          }
-        }
-
-      // dV += P^T dO and dK += dS^T Q, both A operands from registers.
-#pragma unroll
-      for (int kk = 0; kk < BQ / 16; ++kk) {
-        uint32_t pa[4], da[4];
-        to_a(pa, st[2 * kk], st[2 * kk + 1]);
-        to_a(da, dpt[2 * kk], dpt[2 * kk + 1]);
-#pragma unroll
-        for (int cp = 0; cp < DT / 2; ++cp) {
-          uint32_t b[4];
-          ldsm4_t(b, bk_addr<D>(dOb, 16 * kk, cp, lane));
-          mma(dva[2 * cp], pa, b[0], b[1]);
-          mma(dva[2 * cp + 1], pa, b[2], b[3]);
-          ldsm4_t(b, bk_addr<D>(Qb, 16 * kk, cp, lane));
-          mma(dka[2 * cp], da, b[0], b[1]);
-          mma(dka[2 * cp + 1], da, b[2], b[3]);
-        }
-      }
-    }
-    __syncthreads();  // this slot is free for tile qb + 2
-  }
+  dkv_walk<D, BQ, KV_REGS>(Ks, q + base, k + base, v + base, dout + base,
+                           lse + rbase, delta + rbase, L, lim, causal, k0,
+                           qb0, qb1, scale, dka, dva);
 
   // Epilogue: dk carries the scale once, in fp32; dk and dv are staged in
   // the warp's own K and V rows (only this warp read them), then stored 16
@@ -1076,29 +652,11 @@ __global__ void __launch_bounds__(kThreads)
   store_rows<16, D>(dv + base, Vs, k0, wr, L, lane);
 }
 
-// Tile shapes of the bf16 instantiations: the forward's q strips per warp
-// (128 rows a block at D = 64, 64 at D = 128, where 128 would spill), and
-// dk/dv's q tile and whether K and V stay in registers.
-template <int D>
-struct Shape {
-  static constexpr int kFwdStrips = D == 64 ? 2 : 1;
-  static constexpr int kDkvQ = D == 64 ? 64 : 32;
-  static constexpr bool kDkvRegs = D == 64;
-};
-
 }  // namespace tc
 
 // ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
-
-template <typename Fn>
-cudaError_t prepare(Fn fn, int smem_bytes) {
-  // Above 48 KB a block's dynamic shared memory needs an opt-in, once per
-  // kernel instantiation.
-  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              smem_bytes);
-}
 
 template <int D>
 constexpr int tc_fwd_smem() {
@@ -1120,14 +678,6 @@ long long smem_bytes(int kernel) {
     case kDkv: return larger(dkv_smem_floats<D>() * 4LL, tc_dkv_smem<D>());
     default: return -1;
   }
-}
-
-// The bf16 kernels move 16-byte chunks: every [bh, L, D] operand must start
-// on a 16-byte boundary (a misaligned one is refused, not launched).
-inline bool aligned16(std::initializer_list<const void*> ptrs) {
-  for (const void* p : ptrs)
-    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
-  return true;
 }
 
 template <int D>

@@ -23,30 +23,44 @@
 // of each block, into separate output buffers (the wrapper hands fresh ones).
 //
 // Design. These are the flash kernels of flash_attention.cu with external
-// carries: the grid is (bh, 64-row q tiles) for ring_step and ring_dq and
-// (bh, 64-row kv tiles) for ring_dkv, and a loop inside the block walks the
-// other axis (to the diagonal tile in mode 1). Tiles are 64 x 64 in fp32
-// shared memory (rows padded by one float against bank conflicts); 256
-// threads each own 4 rows x 4 strided columns of a score tile and 4 rows x
-// D/16 strided columns of the accumulator, in registers, seeded from the
-// carries; row statistics are reduced over the 16 lanes that share a row.
-// The mode is a runtime argument: which block visits is known at run time.
+// carries: the grid is (bh, q tiles) for ring_step and ring_dq and (bh,
+// 64-row kv tiles) for ring_dkv, and a loop inside the block walks the
+// other axis (to the diagonal tile in mode 1). The mode is a runtime
+// argument: which block visits is known at run time. Two designs:
+// - bf16 ring_step and ring_dkv (namespace tc): the flash pair's tensor-core
+//   tile walks of tc_mma.cuh (mma.sync.m16n8k16 bf16 -> fp32 fed by
+//   16-byte cp.async into a two-slot swizzled ring, S/P/dP/dS in
+//   registers, P and dS rounded to bf16 inside the next product in
+//   ring_dkv; ring_step keeps P, and qf at D = 128, as two bf16 terms, so
+//   its unnormalised acc carry takes no bf16 rounding). The walk starts
+//   from an empty state and is merged into the fp32 carries once, in the
+//   epilogue, so no carry occupies registers across the loop.
+// - fp32 (every kernel) and bf16 ring_dq: fp32 products on the CUDA cores.
+//   Tiles are 64 x 64 in fp32 shared memory (rows padded by one float
+//   against bank conflicts); 256 threads each own 4 rows x 4 strided
+//   columns of a score tile and 4 rows x D/16 strided columns of the
+//   accumulator, in registers, seeded from the carries; row statistics are
+//   reduced over the 16 lanes that share a row. fp32 keeps it because the
+//   cp parity gate (losses within 1e-4 of one GPU's) needs fp32 products.
 //
 // Bound. At the cp=2 training shapes of GPT-2 124M (bh = 384, L = 512,
 // D = 64, bf16 k/v, fp32 carries) a mode-0 ring_step moves ~203 MB (qf and
 // acc in/out fp32, k and v bf16): ~0.06 ms at 3.35 TB/s, above its ~25.8
 // GFLOP over the bf16 tensor cores (~0.026 ms); the backward kernels move
-// 201 MB (dq) and 302 MB (dk/dv), so all three are bound by bytes. This
-// first version does the products in fp32 on the CUDA cores from shared
-// memory, far from that bound (its times are in PERF.md).
+// 201 MB (dq) and 302 MB (dk/dv), so all three are bound by bytes. Their
+// times against that bound are in PERF.md.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+#include <type_traits>
+
+#include "tc_mma.cuh"
+
 namespace {
 
-constexpr float kNegInf = -1e30f;  // finite: exp(kNegInf - m) == 0, no NaN
 constexpr int kThreads = 256;
 constexpr int kBlock = 64;       // rows of a q tile and of a kv tile
 constexpr int kSP = kBlock + 1;  // pitch of a 64 x 64 score tile
@@ -482,25 +496,245 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
+// bf16 ring_step and ring_dkv on the tensor cores
+// ---------------------------------------------------------------------------
+//
+// The flash pair's tile walks (tc_mma.cuh) with the ring's edges: every
+// column < L is visible in mode 0, col <= row in mode 1 (the walks'
+// lim = L, causal = mode), and fp32 carries in and out.
+
+namespace tc {
+
+// ring_step's tiles at head dim D: flash_fwd's strips. qf is the path's
+// bf16 q times D^-1/2, which at D = 64 is 2^-3, so one bf16 tile holds it
+// exactly; at D = 128 the scale is no power of two and qf goes in as two
+// bf16 tiles (fwd_walk's SPLIT_Q). At D = 64 the second term of P takes
+// the registers that Q's fragments held in flash_fwd (with them, 255
+// registers and a spill), so Q is read from shared memory at each use.
+template <int D>
+struct StepShape {
+  static constexpr int kStrips = Shape<D>::kFwdStrips;
+  static constexpr bool kQRegs = D != 64;
+  static constexpr bool kSplitQ = D != 64;
+};
+
+template <int D>
+constexpr int step_tc_smem_bytes() {
+  constexpr int WM = StepShape<D>::kStrips;
+  return fwd_smem_bytes<D, WM>() +
+         (StepShape<D>::kSplitQ ? kWarps * WM * 16 * D * 2 : 0);
+}
+
+// Rows [r0, r0 + ROWS) of fp32 src [L, D] into a swizzled bf16 tile, 16
+// bytes of bf16 (two float4 loads) a thread per chunk, and with SPLIT what
+// the rounding left into a second tile at dst + ROWS * D; rows past L zero.
+template <int ROWS, int D, bool SPLIT>
+__device__ __forceinline__ void load_f32_as_bf16(bf16* dst, const float* src,
+                                                 int r0, int L) {
+  constexpr int kChunks = D / 8;
+  static_assert(ROWS * kChunks % kThreads == 0, "tile / threads");
+#pragma unroll
+  for (int i = 0; i < ROWS * kChunks / kThreads; ++i) {
+    const int idx = threadIdx.x + i * kThreads;
+    const int r = idx / kChunks, c = idx % kChunks;
+    uint4 hi = make_uint4(0u, 0u, 0u, 0u), lo = hi;
+    if (r0 + r < L) {
+      const float4* s = reinterpret_cast<const float4*>(
+          src + static_cast<size_t>(r0 + r) * D + c * 8);
+      const float4 a = s[0], b = s[1];
+      hi = make_uint4(pack(a.x, a.y), pack(a.z, a.w), pack(b.x, b.y),
+                      pack(b.z, b.w));
+      if constexpr (SPLIT)
+        lo = make_uint4(pack_rest(a.x, a.y, hi.x), pack_rest(a.z, a.w, hi.y),
+                        pack_rest(b.x, b.y, hi.z), pack_rest(b.z, b.w, hi.w));
+    }
+    *reinterpret_cast<uint4*>(dst + swz<D>(r, c)) = hi;
+    if constexpr (SPLIT)
+      *reinterpret_cast<uint4*>(dst + ROWS * D + swz<D>(r, c)) = lo;
+  }
+}
+
+// ring_step: the block's q rows run flash_fwd's walk over the visiting
+// block from an empty state (m = -inf, l = 0, acc = 0), and the result
+// (m_b, l_b, acc_b) is merged into the carries once, at the end:
+//   m' = max(m, m_b), a = e^(m - m'), b = e^(m_b - m'),
+//   l' = l a + l_b b, acc' = acc a + acc_b b,
+// which is the Pallas kernel's fold up to fp32 rounding; no carry is held
+// in registers across the walk and acc is read once. Scores are in log2
+// units inside (x = qf k^T log2 e), so m crosses the boundary as m log2 e
+// in and m' ln 2 out; the first visit's m = -1e30 gives a = 0 (finite, no
+// NaN). Unlike flash_fwd, the walk rounds neither P nor Q to bf16: acc is
+// not normalised, it grows with l, and a bf16 P inside P V would leave it
+// ~0.4% of a row's scale off (1.7x a 2e-2 + 2e-2 |acc| tolerance at the
+// cp=2 training shape, by emulation); so P V takes P as two bf16 terms
+// (SPLIT_P), and qf comes in as one bf16 tile, exact at D = 64 for the
+// path's qf, or as two (StepShape). A qf of other values is rounded to
+// bf16 at D = 64.
+template <int D, int WM>
+__global__ void __launch_bounds__(kThreads)
+    ring_step_kernel_tc(const float* __restrict__ qf,
+                        const bf16* __restrict__ k,
+                        const bf16* __restrict__ v,
+                        const float* __restrict__ m_in,
+                        const float* __restrict__ l_in,
+                        const float* __restrict__ acc_in,
+                        float* __restrict__ m_out, float* __restrict__ l_out,
+                        float* __restrict__ acc_out, int L, int mode) {
+  constexpr int BM = kWarps * WM * 16, BN = kKvCols;
+  constexpr int DT = D / 8;
+  constexpr bool kSplitQ = StepShape<D>::kSplitQ;
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(tc_smem);  // (with kSplitQ two) BM x D
+  bf16* Ks = Qs + (kSplitQ ? 2 : 1) * BM * D;  // two slots of BN x D
+  bf16* Vs = Ks + 2 * BN * D;                   // two slots of BN x D
+
+  const int bh = blockIdx.x;
+  // q tiles last-first: in mode 1 the long rows start first.
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = warp * WM * 16;
+  const size_t base = static_cast<size_t>(bh) * L * D;
+  const size_t rbase = static_cast<size_t>(bh) * L;
+  int end = L;
+  if (mode && q0 + BM < end) end = q0 + BM;
+  const int nkv = (end + BN - 1) / BN;  // >= 1: column 0 is always visible
+
+  load_async<BN, D>(Ks, k + base, 0, L);
+  load_async<BN, D>(Vs, v + base, 0, L);
+  cp_async_commit();
+  load_f32_as_bf16<BM, D, kSplitQ>(Qs, qf + base, q0, L);  // as tile 0 lands
+  __syncthreads();
+
+  float acc[WM][DT][4], m[WM][2], l[WM][2];
+  fwd_walk<D, WM, StepShape<D>::kQRegs, kSplitQ, true>(
+      Qs, Ks, Vs, k + base, v + base, L, L, mode, q0, nkv, kLog2e, acc, m, l);
+
+  // Epilogue: the merge, fp32 straight from the accumulator layout (a
+  // quad's lanes write 32 contiguous bytes of a row per store); rows past L
+  // are never written, their neighbours' carries sit there.
+#pragma unroll
+  for (int s = 0; s < WM; ++s)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = q0 + wr + 16 * s + g + 8 * h;
+      const float lb = quad_sum(l[s][h]);  // every lane takes part
+      if (row >= L) continue;
+      const float mc = m_in[rbase + row] * kLog2e;
+      const float mn = fmaxf(mc, m[s][h]);
+      const float a = fast_exp2(mc - mn), b = fast_exp2(m[s][h] - mn);
+      const size_t at = base + static_cast<size_t>(row) * D + 2 * t;
+#pragma unroll
+      for (int d = 0; d < DT; ++d) {
+        const float2 x = *reinterpret_cast<const float2*>(acc_in + at + 8 * d);
+        *reinterpret_cast<float2*>(acc_out + at + 8 * d) =
+            make_float2(x.x * a + acc[s][d][2 * h] * b,
+                        x.y * a + acc[s][d][2 * h + 1] * b);
+      }
+      if (t == 0) {
+        m_out[rbase + row] = mn * kLn2;
+        l_out[rbase + row] = l_in[rbase + row] * a + lb * b;
+      }
+    }
+}
+
+// ring_dkv: the block's 64 kv rows run flash_dkv's walk over this rank's
+// q tiles (from the diagonal tile in mode 1), then add to the carries once:
+// dk' = dk + scale sum dS^T Q, dv' = dv + sum P^T dO, fp32 straight from
+// the accumulator layout, rows past L never written. lse comes in natural
+// log units and goes to log2 inside the walk, as in flash_dkv; P and dS
+// are rounded to bf16 inside the products.
+template <int D, int BQ, bool KV_REGS>
+__global__ void __launch_bounds__(kThreads)
+    ring_dkv_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v,
+                       const bf16* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta,
+                       const float* __restrict__ dk_in,
+                       const float* __restrict__ dv_in,
+                       float* __restrict__ dk_out, float* __restrict__ dv_out,
+                       int L, int mode, float scale) {
+  constexpr int BN = kWarps * 16;
+  constexpr int DT = D / 8;
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  bf16* Ks = reinterpret_cast<bf16*>(tc_smem);
+
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * BN;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const size_t base = static_cast<size_t>(bh) * L * D;
+  const size_t rbase = static_cast<size_t>(bh) * L;
+  const int nq = (L + BQ - 1) / BQ;
+
+  float dka[DT][4], dva[DT][4];
+  dkv_walk<D, BQ, KV_REGS>(Ks, q + base, k + base, v + base, dout + base,
+                           lse + rbase, delta + rbase, L, L, mode, k0,
+                           mode ? k0 / BQ : 0, nq, scale, dka, dva);
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = k0 + warp * 16 + g + 8 * h;
+    if (row >= L) continue;
+    const size_t at = base + static_cast<size_t>(row) * D + 2 * t;
+#pragma unroll
+    for (int d = 0; d < DT; ++d) {
+      const float2 x = *reinterpret_cast<const float2*>(dk_in + at + 8 * d);
+      const float2 y = *reinterpret_cast<const float2*>(dv_in + at + 8 * d);
+      *reinterpret_cast<float2*>(dk_out + at + 8 * d) =
+          make_float2(x.x + scale * dka[d][2 * h],
+                      x.y + scale * dka[d][2 * h + 1]);
+      *reinterpret_cast<float2*>(dv_out + at + 8 * d) =
+          make_float2(y.x + dva[d][2 * h], y.y + dva[d][2 * h + 1]);
+    }
+  }
+}
+
+}  // namespace tc
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
-template <typename Fn>
-cudaError_t prepare(Fn fn, int smem_bytes) {
-  // Above 48 KB a block's dynamic shared memory needs an opt-in, once per
-  // kernel instantiation.
-  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              smem_bytes);
+template <int D>
+constexpr int tc_dkv_smem() {
+  return tc::dkv_smem_bytes<D, tc::Shape<D>::kDkvQ>();
 }
 
+// The larger of the fp32 and the bf16 instantiations' needs.
 template <int D>
 long long smem_bytes(int kernel) {
   switch (kernel) {
-    case kStep: return step_smem_floats<D>() * 4LL;
+    case kStep:
+      return std::max(step_smem_floats<D>() * 4, tc::step_tc_smem_bytes<D>());
     case kDq: return dq_smem_floats<D>() * 4LL;
-    case kDkv: return dkv_smem_floats<D>() * 4LL;
+    case kDkv: return std::max(dkv_smem_floats<D>() * 4, tc_dkv_smem<D>());
     default: return -1;
   }
+}
+
+template <int D>
+cudaError_t launch_step_tc(const void* qf, const void* k, const void* v,
+                           const void* m_in, const void* l_in,
+                           const void* acc_in, void* m_out, void* l_out,
+                           void* acc_out, int bh, int L, int mode,
+                           cudaStream_t s) {
+  using tc::bf16;
+  constexpr int WM = tc::StepShape<D>::kStrips, BM = tc::kWarps * WM * 16;
+  if (!aligned16({qf, k, v, acc_in, acc_out}))
+    return cudaErrorMisalignedAddress;
+  const int smem = tc::step_tc_smem_bytes<D>();
+  cudaError_t err = prepare(tc::ring_step_kernel_tc<D, WM>, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(bh, (L + BM - 1) / BM);
+  tc::ring_step_kernel_tc<D, WM><<<grid, tc::kThreads, smem, s>>>(
+      static_cast<const float*>(qf), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const float*>(m_in),
+      static_cast<const float*>(l_in), static_cast<const float*>(acc_in),
+      static_cast<float*>(m_out), static_cast<float*>(l_out),
+      static_cast<float*>(acc_out), L, mode);
+  return cudaGetLastError();
 }
 
 template <typename T, int D>
@@ -508,17 +742,22 @@ cudaError_t launch_step(const void* qf, const void* k, const void* v,
                         const void* m_in, const void* l_in, const void* acc_in,
                         void* m_out, void* l_out, void* acc_out, int bh, int L,
                         int mode, cudaStream_t s) {
-  const int smem = step_smem_floats<D>() * 4;
-  cudaError_t err = prepare(ring_step_kernel<T, D>, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid(bh, (L + kBlock - 1) / kBlock);
-  ring_step_kernel<T, D><<<grid, kThreads, smem, s>>>(
-      static_cast<const float*>(qf), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const float*>(m_in),
-      static_cast<const float*>(l_in), static_cast<const float*>(acc_in),
-      static_cast<float*>(m_out), static_cast<float*>(l_out),
-      static_cast<float*>(acc_out), L, mode);
-  return cudaGetLastError();
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    return launch_step_tc<D>(qf, k, v, m_in, l_in, acc_in, m_out, l_out,
+                             acc_out, bh, L, mode, s);
+  } else {
+    const int smem = step_smem_floats<D>() * 4;
+    cudaError_t err = prepare(ring_step_kernel<T, D>, smem);
+    if (err != cudaSuccess) return err;
+    dim3 grid(bh, (L + kBlock - 1) / kBlock);
+    ring_step_kernel<T, D><<<grid, kThreads, smem, s>>>(
+        static_cast<const float*>(qf), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const float*>(m_in),
+        static_cast<const float*>(l_in), static_cast<const float*>(acc_in),
+        static_cast<float*>(m_out), static_cast<float*>(l_out),
+        static_cast<float*>(acc_out), L, mode);
+    return cudaGetLastError();
+  }
 }
 
 template <typename T, int D>
@@ -539,19 +778,24 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t launch_dkv(const void* q, const void* k, const void* v,
-                       const void* dout, const void* lse, const void* delta,
-                       const void* dk_in, const void* dv_in, void* dk_out,
-                       void* dv_out, int bh, int L, int mode, float scale,
-                       cudaStream_t s) {
-  const int smem = dkv_smem_floats<D>() * 4;
-  cudaError_t err = prepare(ring_dkv_kernel<T, D>, smem);
+template <int D>
+cudaError_t launch_dkv_tc(const void* q, const void* k, const void* v,
+                          const void* dout, const void* lse, const void* delta,
+                          const void* dk_in, const void* dv_in, void* dk_out,
+                          void* dv_out, int bh, int L, int mode, float scale,
+                          cudaStream_t s) {
+  using tc::bf16;
+  constexpr int BQ = tc::Shape<D>::kDkvQ;
+  constexpr bool kRegs = tc::Shape<D>::kDkvRegs;
+  if (!aligned16({q, k, v, dout, dk_in, dv_in, dk_out, dv_out}))
+    return cudaErrorMisalignedAddress;
+  const int smem = tc_dkv_smem<D>();
+  cudaError_t err = prepare(tc::ring_dkv_kernel_tc<D, BQ, kRegs>, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid(bh, (L + kBlock - 1) / kBlock);
-  ring_dkv_kernel<T, D><<<grid, kThreads, smem, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
+  dim3 grid(bh, (L + tc::kWarps * 16 - 1) / (tc::kWarps * 16));
+  tc::ring_dkv_kernel_tc<D, BQ, kRegs><<<grid, tc::kThreads, smem, s>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<const float*>(dk_in), static_cast<const float*>(dv_in),
       static_cast<float*>(dk_out), static_cast<float*>(dv_out), L, mode,
@@ -559,8 +803,34 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+template <typename T, int D>
+cudaError_t launch_dkv(const void* q, const void* k, const void* v,
+                       const void* dout, const void* lse, const void* delta,
+                       const void* dk_in, const void* dv_in, void* dk_out,
+                       void* dv_out, int bh, int L, int mode, float scale,
+                       cudaStream_t s) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    return launch_dkv_tc<D>(q, k, v, dout, lse, delta, dk_in, dv_in, dk_out,
+                            dv_out, bh, L, mode, scale, s);
+  } else {
+    const int smem = dkv_smem_floats<D>() * 4;
+    cudaError_t err = prepare(ring_dkv_kernel<T, D>, smem);
+    if (err != cudaSuccess) return err;
+    dim3 grid(bh, (L + kBlock - 1) / kBlock);
+    ring_dkv_kernel<T, D><<<grid, kThreads, smem, s>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<const float*>(dk_in), static_cast<const float*>(dv_in),
+        static_cast<float*>(dk_out), static_cast<float*>(dv_out), L, mode,
+        scale);
+    return cudaGetLastError();
+  }
+}
+
 // Dispatch on (dtype, head_dim): f(T, D) instantiations for float and bf16
-// at D = 64 and 128; anything else is refused.
+// at D = 64 and 128 (bf16 ring_step and ring_dkv on the tensor cores, the
+// rest on the CUDA cores); anything else is refused.
 #define DDL_RING_DISPATCH(dtype, head_dim, CALL)                      \
   do {                                                                \
     if ((dtype) == kF32 && (head_dim) == 64) return CALL(float, 64);  \

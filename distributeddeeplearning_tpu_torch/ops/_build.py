@@ -1,15 +1,16 @@
 """Build the package's CUDA sources at first use and load them with ctypes.
 
 Each ``csrc/<name>.cu`` has a plain C interface, so ``nvcc`` compiles it in
-seconds into ``_build/lib<name>-<hash>.so`` (the hash covers the source and
-the flags, so an edited source never loads a stale library), and ``ctypes``
-loads it. Nothing here runs at import time: the CPU tests import every
-module on a host with no ``nvcc``.
+seconds into ``_build/lib<name>-<hash>.so`` (the hash covers the source,
+every header in ``csrc/`` and the flags, so an edited source or header never
+loads a stale library), and ``ctypes`` loads it. Nothing here runs at
+import time: the CPU tests import every module on a host with no ``nvcc``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -47,9 +48,14 @@ def nvcc_path() -> str:
 
 
 def _target(name: str) -> tuple[str, str]:
+    """(source, library path) of ``csrc/<name>.cu``. The sources include
+    headers of ``csrc/`` by name, so the hash takes every one of them."""
     src = os.path.join(CSRC_DIR, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    headers = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in (src, *headers):
+        with open(path, "rb") as f:
+            digest.update(os.path.basename(path).encode() + b"\0" + f.read())
     return src, os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 

@@ -10,9 +10,12 @@
   transport ``comms.py`` calls in place of torch.distributed).
 - Each ``*_plain`` kernel against the matching JAX Pallas kernel in
   interpret mode, mode 0 and mode 1.
+- The bf16 tensor-core kernels' roundings, emulated in plain torch, against
+  the plain versions: they stay inside the tolerances the card's checks
+  hold those kernels to.
 
-Tolerances are those of ``tests/test_context_parallel.py``: rtol 2e-4, atol
-2e-5 (fp32 throughout; only the order of the sums differs).
+Tolerances against JAX are those of ``tests/test_context_parallel.py``:
+rtol 2e-4, atol 2e-5 (fp32 throughout; only the order of the sums differs).
 """
 
 import importlib
@@ -225,6 +228,124 @@ def test_backward_plain_matches_pallas_kernels(kernel, mode):
     for a, b in zip(got, want):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=RTOL,
                                    atol=ATOL)
+
+
+# The bf16 ring_step and ring_dkv kernels run on the tensor cores. ring_dkv
+# rounds P and dS to bf16 inside its products, as the flash pair does, and
+# is held to its plain version on the card at 2e-2 + 2e-2 |ref|. ring_step
+# feeds P V with P as two bf16 terms, and at D = 128 qf too (the scale is
+# no power of two there), because its acc carry is not normalised: it is
+# held at the fp32 design's 2e-3. The emulations below round where the
+# kernels round, in plain torch, and show that each tolerance covers them.
+DKV_TOL, STEP_TOL = 2e-2, 2e-3
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _bf16_split(x):
+    """x as the sum of two bf16 terms: the kernels' SPLIT_Q and SPLIT_P."""
+    return _bf16(x) + _bf16(x - _bf16(x))
+
+
+def _ring_step_tc_emulated(qf, kt, vt, m, l, acc, mode, p_terms=2):
+    """ring_step as the tensor-core kernel computes it: qf into the Q tile
+    as one bf16 term at D = 64 and two at D = 128, P into P V as
+    ``p_terms`` bf16 terms (rounded relative to the block's row max; the
+    kernel's running max gives a rounding of the same relative size), and
+    the block's state from an empty start merged into the carries at the
+    end."""
+    d = qf.shape[-1]
+    s = rp._scores(_bf16(qf) if d == 64 else _bf16_split(qf), kt, mode)
+    m_b = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m_b)
+    pv = _bf16(p) if p_terms == 1 else _bf16_split(p)
+    acc_b = torch.einsum("bqk,bkd->bqd", pv, vt.float())
+    m_new = torch.maximum(m, m_b)
+    a, b = torch.exp(m - m_new), torch.exp(m_b - m_new)
+    return m_new, l * a + p.sum(-1, keepdim=True) * b, acc * a + acc_b * b
+
+
+def _ring_dkv_tc_emulated(q, kt, vt, do, lse, delta, dk, dv, mode,
+                          sm_scale):
+    """ring_dkv as the tensor-core kernel computes it: P rounded to bf16
+    inside P^T dO and dS inside dS^T Q."""
+    p, ds = rp._p_ds(q, kt, vt, do, lse, delta, mode, sm_scale)
+    return (dk + sm_scale * torch.einsum("bqk,bqd->bkd", _bf16(ds),
+                                         q.float()),
+            dv + torch.einsum("bqk,bqd->bkd", _bf16(p), do.float()))
+
+
+def _bf16_visit(d, mode, seed, bh=4, L=96):
+    """One visit's inputs as the cp path feeds the kernels: bf16 q, k, v,
+    dO (drawn standard normal, as the card's checks draw them), qf = scale
+    q in fp32, fp32 carries, lse of the block itself."""
+    rng = np.random.default_rng(seed)
+    scale = d ** -0.5
+    q, kt, vt, do = (torch.from_numpy(rng.standard_normal((bh, L, d))
+                                      .astype(np.float32)).to(torch.bfloat16)
+                     for _ in range(4))
+    m, l, acc = (torch.from_numpy(x) for x in _carries(rng, bh, L, d))
+    qf = q.float() * scale
+    lse = torch.logsumexp(rp._scores(qf, kt, mode), -1, keepdim=True)
+    delta, dk, dv = (torch.from_numpy(rng.standard_normal(shape)
+                                      .astype(np.float32))
+                     for shape in ((bh, L, 1), (bh, L, d), (bh, L, d)))
+    return dict(q=q, qf=qf, kt=kt, vt=vt, do=do, m=m, l=l, acc=acc, lse=lse,
+                delta=delta, dk=dk, dv=dv, scale=scale)
+
+
+def _tolerance_used(a, b, tol):
+    return ((a - b).abs() / (tol + tol * b.abs())).max().item()
+
+
+@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("mode", [0, 1])
+def test_tensor_core_roundings_stay_inside_the_tolerances(mode, head_dim):
+    x = _bf16_visit(head_dim, mode, seed=7 + mode)
+    carries = (x["m"], x["l"], x["acc"])
+    bwd = (x["q"], x["kt"], x["vt"], x["do"], x["lse"], x["delta"], x["dk"],
+           x["dv"], mode, x["scale"])
+    got = {"step": _ring_step_tc_emulated(x["qf"], x["kt"], x["vt"],
+                                          *carries, mode),
+           "dkv": _ring_dkv_tc_emulated(*bwd)}
+    want = {"step": rp.ring_step_plain(x["qf"], x["kt"], x["vt"], *carries,
+                                       mode),
+            "dkv": rp.ring_dkv_plain(*bwd)}
+    for kernel, names, tol in (("step", ("m", "l", "acc"), STEP_TOL),
+                               ("dkv", ("dk", "dv"), DKV_TOL)):
+        for name, a, b in zip(names, got[kernel], want[kernel]):
+            used = _tolerance_used(a, b, tol)
+            assert used <= 1, f"{name}: {used:.3f} of the tolerance"
+    # The roundings move ring_dkv's outputs: the check is not vacuous.
+    assert not torch.equal(got["dkv"][0], want["dkv"][0])
+    assert not torch.equal(got["dkv"][1], want["dkv"][1])
+
+
+def test_one_bf16_term_of_p_would_break_the_acc_carry_tolerance():
+    """Why ring_step splits P: at the cp=2 training shape's L and D, P
+    rounded to bf16 inside P V (the flash forward's rounding) leaves the
+    unnormalised acc carry beyond even 2e-2 + 2e-2 |ref|; two terms stay far
+    inside the fp32 design's 2e-3."""
+    x = _bf16_visit(64, 0, seed=11, bh=8, L=512)
+    args = (x["qf"], x["kt"], x["vt"], x["m"], x["l"], x["acc"], 0)
+    want = rp.ring_step_plain(*args)[2]
+    one = _ring_step_tc_emulated(*args, p_terms=1)[2]
+    two = _ring_step_tc_emulated(*args, p_terms=2)[2]
+    assert _tolerance_used(one, want, 2e-2) > 1
+    assert _tolerance_used(two, want, STEP_TOL) < 0.1
+
+
+def test_qf_rounding_is_exact_at_head_dim_64():
+    """At D = 64 the scale is 2^-3: a bf16 q times it is a bf16 number, so
+    the kernel's one bf16 Q tile holds qf exactly; at D = 128 it does not,
+    and two bf16 terms hold it to ~2^-16."""
+    for d, exact in ((64, True), (128, False)):
+        qf = _bf16_visit(d, 0, seed=3)["qf"]
+        assert torch.equal(_bf16(qf), qf) == exact
+        err = (_bf16_split(qf) - qf).abs().max().item()
+        assert err <= 2.0 ** -16 * qf.abs().max().item()
 
 
 def test_ring_shapes_and_impls_are_checked():

@@ -1,20 +1,26 @@
 #!/usr/bin/env python3
-"""Tile shapes of the bf16 tensor-core flash kernels, compared on the card.
+"""Tile shapes of the bf16 tensor-core attention kernels, compared on the card.
 
-Builds variants of ``csrc/flash_attention.cu`` that differ only in the
-constants of ``tc::Shape`` and ``tc::kWarps`` or in the softmax's exp2, each
-into its own library under ``_build/tiles/`` (one ``nvcc`` each, all started
-together), then times ``flash_fwd`` and ``flash_dkv`` of every variant at
-GPT-2 124M's training shape (bf16 causal [384, 1024, 64], L2 flushed before
-each call), the variants in turns over two rounds, and prints one JSON line
-per variant: ptxas's registers and spills of the bf16 kernels, the times,
-and the largest error against the plain versions. Needs an NVIDIA GPU:
+Builds variants of ``csrc/flash_attention.cu`` and ``csrc/ring_attention.cu``
+that differ only in tile constants (``tc::Shape``, ``tc::kWarps``,
+``tc::StepShape``), in where Q's fragments live, or in the softmax's exp2
+(the shared ones in ``csrc/tc_mma.cuh``, which each variant copies beside
+its source), each into its own library under ``_build/tiles/`` (one
+``nvcc`` each, all started together). Then it times every variant, the
+variants in turns over two rounds, L2 flushed before each call: the flash
+variants' ``flash_fwd`` and ``flash_dkv`` at GPT-2 124M's training shape
+(bf16 causal [384, 1024, 64]), the ring variants' ``ring_step`` and
+``ring_dkv`` at its cp=2 visit (bf16 mode 0 [384, 512, 64], the carries of a
+diagonal visit before it). It prints one JSON line per variant: ptxas's
+registers and spills of the tensor-core kernels, the times, and the largest
+error against the plain versions. Needs an NVIDIA GPU:
 
-    python3 tools/torch_flash_tiles.py
+    python3 tools/torch_flash_tiles.py [--lib flash_attention|ring_attention]
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import os
@@ -22,36 +28,58 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# name -> {text in the source: its replacement}; "shipped" is the source.
+# name -> (library, {text in the sources: its replacement}); a variant with
+# no substitutions is the shipped source.
 VARIANTS = {
-    "shipped": {},
-    "fwd_1_strip": {"kFwdStrips = D == 64 ? 2 : 1": "kFwdStrips = 1"},
-    "8_warps_1_strip": {"constexpr int kWarps = 4;": "constexpr int kWarps = 8;",
-                        "kFwdStrips = D == 64 ? 2 : 1": "kFwdStrips = 1"},
-    "dkv_q32": {"kDkvQ = D == 64 ? 64 : 32": "kDkvQ = 32"},
-    "dkv_q32_kv_smem": {"kDkvQ = D == 64 ? 64 : 32": "kDkvQ = 32",
-                        "kDkvRegs = D == 64": "kDkvRegs = false"},
-    "exp2f": {'asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));':
-              "y = exp2f(x);"},
+    "shipped": ("flash_attention", {}),
+    "fwd_1_strip": ("flash_attention",
+                    {"kFwdStrips = D == 64 ? 2 : 1": "kFwdStrips = 1"}),
+    "8_warps_1_strip": ("flash_attention", {
+        "constexpr int kWarps = 4;": "constexpr int kWarps = 8;",
+        "kFwdStrips = D == 64 ? 2 : 1": "kFwdStrips = 1"}),
+    "dkv_q32": ("flash_attention",
+                {"kDkvQ = D == 64 ? 64 : 32": "kDkvQ = 32"}),
+    "dkv_q32_kv_smem": ("flash_attention", {
+        "kDkvQ = D == 64 ? 64 : 32": "kDkvQ = 32",
+        "kDkvRegs = D == 64": "kDkvRegs = false"}),
+    "exp2f": ("flash_attention", {
+        'asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));':
+        "y = exp2f(x);"}),
+    "ring_shipped": ("ring_attention", {}),
+    "ring_step_q_regs": ("ring_attention",
+                         {"kQRegs = D != 64": "kQRegs = true"}),
+    "ring_step_1_strip_q_regs": ("ring_attention", {
+        "kStrips = Shape<D>::kFwdStrips": "kStrips = 1",
+        "kQRegs = D != 64": "kQRegs = true"}),
 }
 
 
-def build_variants(_build, chip_smoke):
-    src_path = os.path.join(_build.CSRC_DIR, "flash_attention.cu")
-    with open(src_path) as f:
-        src = f.read()
+def build_variants(_build, chip_smoke, names):
+    """Each variant's copy of its library's source and the headers it
+    includes, in a directory of its own, with every substitution made in
+    the one file that holds its text."""
+    headers = sorted(f for f in os.listdir(_build.CSRC_DIR)
+                     if f.endswith(".cuh"))
     out_dir = os.path.join(_build.BUILD_DIR, "tiles")
-    os.makedirs(out_dir, exist_ok=True)
     procs = {}
-    for name, subs in VARIANTS.items():
-        text = src
+    for name in names:
+        lib_name, subs = VARIANTS[name]
+        texts = {}
+        for fname in [f"{lib_name}.cu", *headers]:
+            with open(os.path.join(_build.CSRC_DIR, fname)) as f:
+                texts[fname] = f.read()
         for old, new in subs.items():
-            if old not in text:
-                raise RuntimeError(f"variant {name}: {old!r} not in the source")
-            text = text.replace(old, new)
-        cu = os.path.join(out_dir, f"{name}.cu")
-        with open(cu, "w") as f:
-            f.write(text)
+            where = [f for f, text in texts.items() if old in text]
+            if len(where) != 1:
+                raise RuntimeError(f"variant {name}: {old!r} in {where}, "
+                                   "expected one file")
+            texts[where[0]] = texts[where[0]].replace(old, new)
+        var_dir = os.path.join(out_dir, name)
+        os.makedirs(var_dir, exist_ok=True)
+        for fname, text in texts.items():
+            with open(os.path.join(var_dir, fname), "w") as f:
+                f.write(text)
+        cu = os.path.join(var_dir, f"{lib_name}.cu")
         so = os.path.join(out_dir, f"{name}.so")
         procs[name] = (so, subprocess.Popen(
             [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", so, cu],
@@ -68,7 +96,43 @@ def build_variants(_build, chip_smoke):
     return libs
 
 
-def main() -> int:
+def flash_calls(torch, chip_smoke, fa):
+    """(name -> (call, check)) of the flash kernels at the training shape;
+    check() is the largest error of the call's outputs against the plain
+    versions."""
+    case = chip_smoke.flash_case(torch, dtype=torch.bfloat16, bh=384, L=1024,
+                                 D=64, causal=True)
+    kw = dict(causal=True, sm_scale=case["sm_scale"], limit=case["limit"],
+              vl=None)
+    q, k, v, do = case["q"], case["k"], case["v"], case["do"]
+    o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, **kw)
+    _, delta = fa.flash_dq_plain(q, k, v, o_ref, do, lse_ref, **kw)
+    dk_ref, dv_ref = fa.flash_dkv_plain(q, k, v, do, lse_ref, delta, **kw)
+
+    def fwd():
+        return fa.flash_fwd(q, k, v, **kw)[:1]
+
+    def dkv():
+        return fa.flash_dkv(q, k, v, do, lse_ref, delta, **kw)
+
+    return {"fwd": (fwd, (o_ref,)), "dkv": (dkv, (dk_ref, dv_ref))}
+
+
+def ring_calls(torch, chip_smoke, rp):
+    """The same for ring_step and ring_dkv at the cp=2 mode-0 visit."""
+    case = chip_smoke.ring_case(torch, rp, dtype=torch.bfloat16, bh=384,
+                                L=512, D=64)
+    kern = chip_smoke.ring_calls(rp, case, 0)
+    plain = chip_smoke.ring_calls(rp, case, 0, plain=True)
+    return {"ring_step": (kern["ring_step"], plain["ring_step"]()),
+            "ring_dkv": (kern["ring_dkv"], plain["ring_dkv"]())}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--lib", choices=("flash_attention", "ring_attention"),
+                    help="build and time only this library's variants")
+    args = ap.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -78,41 +142,40 @@ def main() -> int:
     import chip_smoke
     from distributeddeeplearning_tpu_torch.ops import _build
     from distributeddeeplearning_tpu_torch.ops import flash_attention as fa
+    from distributeddeeplearning_tpu_torch.ops import ring_attention_pallas as rp
 
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip(), flush=True)
-    libs = build_variants(_build, chip_smoke)
-    case = chip_smoke.flash_case(torch, dtype=torch.bfloat16, bh=384, L=1024,
-                                 D=64, causal=True)
-    kw = dict(causal=True, sm_scale=case["sm_scale"], limit=case["limit"],
-              vl=None)
-    q, k, v, do = case["q"], case["k"], case["v"], case["do"]
-    o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, **kw)
-    _, delta = fa.flash_dq_plain(q, k, v, o_ref, do, lse_ref, **kw)
-    dk_ref, dv_ref = fa.flash_dkv_plain(q, k, v, do, lse_ref, delta, **kw)
-    times = {name: {"fwd_ms": [], "dkv_ms": []} for name in libs}
+    names = [n for n, (lib, _) in VARIANTS.items()
+             if args.lib in (None, lib)]
+    libs = build_variants(_build, chip_smoke, names)
+    calls = {}
+    if any(VARIANTS[n][0] == "flash_attention" for n in names):
+        calls["flash_attention"] = flash_calls(torch, chip_smoke, fa)
+    if any(VARIANTS[n][0] == "ring_attention" for n in names):
+        calls["ring_attention"] = ring_calls(torch, chip_smoke, rp)
+    times = {name: {} for name in names}
     errs = {}
     for _ in range(2):
-        for name, (lib, _) in libs.items():
-            _build._LIBS["flash_attention"] = lib
-            o, _ = fa.flash_fwd(q, k, v, **kw)
-            dk, dv = fa.flash_dkv(q, k, v, do, lse_ref, delta, **kw)
-            torch.cuda.synchronize()
-            errs[name] = max((a.float() - b.float()).abs().max().item()
-                             for a, b in ((o, o_ref), (dk, dk_ref),
-                                          (dv, dv_ref)))
-            times[name]["fwd_ms"].append(chip_smoke.time_ms(
-                torch, lambda: fa.flash_fwd(q, k, v, **kw), iters=20))
-            times[name]["dkv_ms"].append(chip_smoke.time_ms(
-                torch, lambda: fa.flash_dkv(q, k, v, do, lse_ref, delta,
-                                            **kw), iters=20))
-    _build._LIBS.pop("flash_attention", None)
-    for name, (_, regs) in libs.items():
+        for name in names:
+            lib_name = VARIANTS[name][0]
+            _build._LIBS[lib_name] = libs[name][0]
+            for kname, (call, refs) in calls[lib_name].items():
+                got = call()
+                torch.cuda.synchronize()
+                errs[name] = max([errs.get(name, 0.0)] + [
+                    (a.float() - b.float()).abs().max().item()
+                    for a, b in zip(got, refs)])
+                times[name].setdefault(f"{kname}_ms", []).append(
+                    chip_smoke.time_ms(torch, call, iters=20))
+    for lib_name in calls:
+        _build._LIBS.pop(lib_name, None)
+    for name in names:
         print(json.dumps({"variant": name, **times[name],
-                          "max_abs_err": errs[name], "ptxas": regs}),
-              flush=True)
+                          "max_abs_err": errs[name],
+                          "ptxas": libs[name][1]}), flush=True)
     return 0
 
 
