@@ -28,7 +28,7 @@
 // past L (a length that is no multiple of a tile) are zero-filled and hidden.
 //
 // Two designs share that skeleton.
-// - bf16 fwd and dk/dv (namespace tc, on the tile walks of tc_mma.cuh,
+// - bf16 fwd, dq and dk/dv (namespace tc, on the tile walks of tc_mma.cuh,
 //   which the bf16 ring kernels share): the tensor cores. bf16 operands go
 //   through mma.sync.m16n8k16 with fp32 accumulators. Tiles arrive in
 //   XOR-swizzled shared memory by 16-byte cp.async into a two-slot ring, so
@@ -37,31 +37,34 @@
 //   (64 at D = 128, where 128 would spill), 4 warps of 16-row strips with
 //   Q held as A fragments; S stays in registers, the online softmax runs in
 //   log2 units on the fragments (exp2, row reductions over the 4 lanes of a
-//   quad), and P goes to bf16 in registers as the A operand of P V. dk/dv's
-//   block owns 64 kv rows with kv rows as the MMA's M: S^T = K Q^T and
-//   dP^T = V dO^T, whose accumulators, as bf16, are the A operands of
-//   dV += P^T dO and dK += dS^T Q. Only tiles that cross the diagonal or the
-//   column limit are masked; the output is staged in shared memory for
-//   16-byte stores. P and dS are rounded to bf16 inside the products, as
-//   FA2 does.
-// - fp32 (every kernel) and bf16 dq: the first design, fp32 products on the
-//   CUDA cores. Tiles are 64 x 64 in shared memory, converted to fp32 at
-//   load (rows padded by one float so the column-strided reads are free of
-//   bank conflicts); 256 threads each own 4 rows x 4 strided columns of a
-//   score tile and 4 rows x D/16 strided columns of the output accumulator,
-//   kept in registers; row statistics are reduced over the 16 lanes that
-//   share a row with shuffles. fp32 keeps it because its products must stay
-//   fp32 end to end: it is the parity path whose losses are held to 1e-4 of
-//   the plain route, and no speed path runs it. bf16 dq is the next kernel
-//   to move to the tensor-core design.
+//   quad), and P goes to bf16 in registers as the A operand of P V. dq's
+//   block owns 64 q rows, one strip a warp, with Q and dO held as A
+//   fragments: S = Q K^T and dP = dO V^T stay in registers, and dS, as bf16, is the A
+//   operand of dQ += dS K; delta is computed in its prologue from the dO
+//   tile and O's rows. dk/dv's block owns 64 kv rows with kv rows as the
+//   MMA's M: S^T = K Q^T and dP^T = V dO^T, whose accumulators, as bf16,
+//   are the A operands of dV += P^T dO and dK += dS^T Q. Only tiles that
+//   cross the diagonal or the column limit are masked; the output is staged
+//   in shared memory for 16-byte stores. P and dS are rounded to bf16 inside
+//   the products, as FA2 does.
+// - fp32 (every kernel): the first design, fp32 products on the CUDA cores.
+//   Tiles are 64 x 64 in shared memory, converted to fp32 at load (rows
+//   padded by one float so the column-strided reads are free of bank
+//   conflicts); 256 threads each own 4 rows x 4 strided columns of a score
+//   tile and 4 rows x D/16 strided columns of the output accumulator, kept
+//   in registers; row statistics are reduced over the 16 lanes that share a
+//   row with shuffles. fp32 keeps it because its products must stay fp32
+//   end to end: it is the parity path whose losses are held to 1e-4 of the
+//   plain route, and no speed path runs it.
 //
 // Bound. At GPT-2 124M's training shapes (bh = 384, L = 1024, D = 64, bf16,
 // causal) the forward moves ~201 MB and does ~51.5 GFLOP of visible-tile
 // matrix work: ~256 flops per byte, at the H100's ~295 bf16 tensor-core
 // balance point, so its least time is the larger of the two, ~0.06 ms
-// (bytes). dk/dv does twice the forward's matrix work over 1.5x its bytes,
-// ~0.10 ms (operations). mma.sync reaches part of the tensor cores' rate;
-// wgmma fed by TMA is the step after this one (times in PERF.md).
+// (bytes). dq does 1.5x the forward's matrix work over 1.5x its bytes,
+// ~0.09 ms (bytes); dk/dv twice the forward's work over 1.5x its bytes, ~0.10 ms
+// (operations). mma.sync reaches part of the tensor cores' rate; wgmma fed
+// by TMA is the step after this one (times in PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -652,6 +655,103 @@ __global__ void __launch_bounds__(kThreads)
   store_rows<16, D>(dv + base, Vs, k0, wr, L, lane);
 }
 
+template <int D, int WM, bool QO_REGS>
+__global__ void __launch_bounds__(kThreads)
+    flash_dq_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, const bf16* __restrict__ o,
+                       const bf16* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       const int* __restrict__ vl, bf16* __restrict__ dq,
+                       float* __restrict__ delta, int L, int limit, int causal,
+                       float scale) {
+  constexpr int BM = kWarps * WM * 16, BN = kKvCols;
+  constexpr int DT = D / 8, kChunks = D / 8;
+  static_assert(32 % kChunks == 0, "a row's lanes in one warp");
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(tc_smem);
+  bf16* dOs = Qs + BM * D;
+  bf16* Ks = dOs + BM * D;      // two slots of BN x D
+  bf16* Vs = Ks + 2 * BN * D;   // two slots of BN x D
+  float* lse_s = reinterpret_cast<float*>(Vs + 2 * BN * D);
+  float* dl_s = lse_s + BM;
+
+  const int bh = blockIdx.x;
+  // q tiles last-first, as in the forward: under causal the long rows
+  // start first.
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = warp * WM * 16;
+  const size_t base = static_cast<size_t>(bh) * L * D;
+  const size_t rbase = static_cast<size_t>(bh) * L;
+  const int lim = col_limit(vl, bh, limit, L);
+  int end = lim;
+  if (causal && q0 + BM < end) end = q0 + BM;
+  const int nkv = end > 0 ? (end + BN - 1) / BN : 0;
+
+  load_async<BM, D>(Qs, q + base, q0, L);
+  load_async<BM, D>(dOs, dout + base, q0, L);
+  load_rows_async<BM>(lse_s, lse + rbase, q0, L);
+  cp_async_commit();
+  if (nkv > 0) {
+    load_async<BN, D>(Ks, k + base, 0, L);
+    load_async<BN, D>(Vs, v + base, 0, L);
+  }
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+
+  // delta = rowsum(dO * O) in fp32, for this walk and for flash_dkv: the
+  // kChunks lanes of a row each take a 16-byte chunk of dO from the tile
+  // and of O from global memory, and shuffles sum the row.
+#pragma unroll
+  for (int i = 0; i < BM * kChunks / kThreads; ++i) {
+    const int idx = threadIdx.x + i * kThreads;
+    const int r = idx / kChunks, c = idx % kChunks;
+    float part = 0.f;
+    if (q0 + r < L) {
+      const uint4 ov = *reinterpret_cast<const uint4*>(
+          o + base + static_cast<size_t>(q0 + r) * D + c * 8);
+      const uint4 dv = *reinterpret_cast<const uint4*>(dOs + swz<D>(r, c));
+      const __nv_bfloat162* a = reinterpret_cast<const __nv_bfloat162*>(&ov);
+      const __nv_bfloat162* b = reinterpret_cast<const __nv_bfloat162*>(&dv);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 x = __bfloat1622float2(a[e]), y = __bfloat1622float2(b[e]);
+        part = fmaf(x.x, y.x, fmaf(x.y, y.y, part));
+      }
+    }
+#pragma unroll
+    for (int off = kChunks / 2; off > 0; off >>= 1)
+      part += __shfl_xor_sync(0xffffffffu, part, off);
+    if (c == 0) {
+      dl_s[r] = part;
+      if (q0 + r < L) delta[rbase + q0 + r] = part;
+    }
+  }
+  __syncthreads();
+
+  float dqa[WM][DT][4];
+  dq_walk<D, WM, QO_REGS, false>(Qs, dOs, Ks, Vs, lse_s, dl_s, k + base,
+                                 v + base, L, lim, causal, q0, nkv,
+                                 scale * kLog2e, dqa);
+
+  // Epilogue: dq = scale acc staged in the warp's own Q rows (only this
+  // warp read them), then stored 16 bytes a lane.
+#pragma unroll
+  for (int s = 0; s < WM; ++s)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = wr + 16 * s + g + 8 * h;
+#pragma unroll
+      for (int d = 0; d < DT; ++d)
+        *reinterpret_cast<uint32_t*>(Qs + swz<D>(r, d) + 2 * t) =
+            pack(dqa[s][d][2 * h] * scale, dqa[s][d][2 * h + 1] * scale);
+    }
+  __syncwarp();
+  store_rows<WM * 16, D>(dq + base, Qs, q0, wr, L, lane);
+}
+
 }  // namespace tc
 
 // ---------------------------------------------------------------------------
@@ -666,6 +766,10 @@ template <int D>
 constexpr int tc_dkv_smem() {
   return tc::dkv_smem_bytes<D, tc::Shape<D>::kDkvQ>();
 }
+template <int D>
+constexpr int tc_dq_smem() {
+  return tc::dq_smem_bytes<D, tc::Shape<D>::kDqStrips>();
+}
 
 constexpr long long larger(long long a, long long b) { return a > b ? a : b; }
 
@@ -674,7 +778,7 @@ template <int D>
 long long smem_bytes(int kernel) {
   switch (kernel) {
     case kFwd: return larger(fwd_smem_floats<D>() * 4LL, tc_fwd_smem<D>());
-    case kDq: return dq_smem_floats<D>() * 4LL;
+    case kDq: return larger(dq_smem_floats<D>() * 4LL, tc_dq_smem<D>());
     case kDkv: return larger(dkv_smem_floats<D>() * 4LL, tc_dkv_smem<D>());
     default: return -1;
   }
@@ -697,6 +801,28 @@ cudaError_t launch_fwd_tc(const void* q, const void* k, const void* v,
       static_cast<const bf16*>(v), static_cast<const int*>(vl),
       static_cast<bf16*>(o), static_cast<float*>(lse), L, limit, causal,
       scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dq_tc(const void* q, const void* k, const void* v,
+                         const void* o, const void* dout, const void* lse,
+                         const void* vl, void* dq, void* delta, int bh, int L,
+                         int limit, int causal, float scale, cudaStream_t s) {
+  using tc::bf16;
+  constexpr int WM = tc::Shape<D>::kDqStrips, BM = tc::kWarps * WM * 16;
+  constexpr bool kRegs = tc::Shape<D>::kDqRegs;
+  if (!aligned16({q, k, v, o, dout, dq})) return cudaErrorMisalignedAddress;
+  const int smem = tc_dq_smem<D>();
+  cudaError_t err = prepare(tc::flash_dq_kernel_tc<D, WM, kRegs>, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(bh, (L + BM - 1) / BM);
+  tc::flash_dq_kernel_tc<D, WM, kRegs><<<grid, tc::kThreads, smem, s>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(o),
+      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+      static_cast<const int*>(vl), static_cast<bf16*>(dq),
+      static_cast<float*>(delta), L, limit, causal, scale);
   return cudaGetLastError();
 }
 
@@ -749,17 +875,22 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* o, const void* dout, const void* lse,
                       const void* vl, void* dq, void* delta, int bh, int L,
                       int limit, int causal, float scale, cudaStream_t s) {
-  const int smem = dq_smem_floats<D>() * 4;
-  cudaError_t err = prepare(flash_dq_kernel<T, D>, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid(bh, (L + kBlock - 1) / kBlock);
-  flash_dq_kernel<T, D><<<grid, kThreads, smem, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(o),
-      static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const int*>(vl), static_cast<T*>(dq),
-      static_cast<float*>(delta), L, limit, causal, scale);
-  return cudaGetLastError();
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    return launch_dq_tc<D>(q, k, v, o, dout, lse, vl, dq, delta, bh, L, limit,
+                           causal, scale, s);
+  } else {
+    const int smem = dq_smem_floats<D>() * 4;
+    cudaError_t err = prepare(flash_dq_kernel<T, D>, smem);
+    if (err != cudaSuccess) return err;
+    dim3 grid(bh, (L + kBlock - 1) / kBlock);
+    flash_dq_kernel<T, D><<<grid, kThreads, smem, s>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(o),
+        static_cast<const T*>(dout), static_cast<const float*>(lse),
+        static_cast<const int*>(vl), static_cast<T*>(dq),
+        static_cast<float*>(delta), L, limit, causal, scale);
+    return cudaGetLastError();
+  }
 }
 
 template <typename T, int D>

@@ -27,21 +27,23 @@
 // 64-row kv tiles) for ring_dkv, and a loop inside the block walks the
 // other axis (to the diagonal tile in mode 1). The mode is a runtime
 // argument: which block visits is known at run time. Two designs:
-// - bf16 ring_step and ring_dkv (namespace tc): the flash pair's tensor-core
-//   tile walks of tc_mma.cuh (mma.sync.m16n8k16 bf16 -> fp32 fed by
-//   16-byte cp.async into a two-slot swizzled ring, S/P/dP/dS in
-//   registers, P and dS rounded to bf16 inside the next product in
-//   ring_dkv; ring_step keeps P, and qf at D = 128, as two bf16 terms, so
-//   its unnormalised acc carry takes no bf16 rounding). The walk starts
-//   from an empty state and is merged into the fp32 carries once, in the
-//   epilogue, so no carry occupies registers across the loop.
-// - fp32 (every kernel) and bf16 ring_dq: fp32 products on the CUDA cores.
-//   Tiles are 64 x 64 in fp32 shared memory (rows padded by one float
-//   against bank conflicts); 256 threads each own 4 rows x 4 strided
-//   columns of a score tile and 4 rows x D/16 strided columns of the
-//   accumulator, in registers, seeded from the carries; row statistics are
-//   reduced over the 16 lanes that share a row. fp32 keeps it because the
-//   cp parity gate (losses within 1e-4 of one GPU's) needs fp32 products.
+// - bf16 ring_step, ring_dq and ring_dkv (namespace tc): the flash
+//   kernels' tensor-core tile walks of tc_mma.cuh (mma.sync.m16n8k16 bf16
+//   -> fp32 fed by 16-byte cp.async into a two-slot swizzled ring,
+//   S/P/dP/dS in registers, P and dS rounded to bf16 inside the next
+//   product in ring_dkv; ring_step keeps P, and qf at D = 128, as two bf16
+//   terms, so its unnormalised acc carry takes no bf16 rounding, and
+//   ring_dq keeps dS as two bf16 terms inside dS K, so its dq carry holds
+//   the fp32 design's tolerance). The walk starts from an empty state and
+//   is merged into the fp32 carries once, in the epilogue, so no carry
+//   occupies registers across the loop.
+// - fp32 (every kernel): fp32 products on the CUDA cores. Tiles are
+//   64 x 64 in fp32 shared memory (rows padded by one float against bank
+//   conflicts); 256 threads each own 4 rows x 4 strided columns of a score
+//   tile and 4 rows x D/16 strided columns of the accumulator, in
+//   registers, seeded from the carries; row statistics are reduced over the
+//   16 lanes that share a row. fp32 keeps it because the cp parity gate
+//   (losses within 1e-4 of one GPU's) needs fp32 products.
 //
 // Bound. At the cp=2 training shapes of GPT-2 124M (bh = 384, L = 512,
 // D = 64, bf16 k/v, fp32 carries) a mode-0 ring_step moves ~203 MB (qf and
@@ -496,10 +498,10 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// bf16 ring_step and ring_dkv on the tensor cores
+// bf16 ring_step, ring_dq and ring_dkv on the tensor cores
 // ---------------------------------------------------------------------------
 //
-// The flash pair's tile walks (tc_mma.cuh) with the ring's edges: every
+// The flash kernels' tile walks (tc_mma.cuh) with the ring's edges: every
 // column < L is visible in mode 0, col <= row in mode 1 (the walks'
 // lim = L, causal = mode), and fp32 carries in and out.
 
@@ -638,6 +640,77 @@ __global__ void __launch_bounds__(kThreads)
     }
 }
 
+// ring_dq: the block's q rows run flash_dq's walk over the visiting block
+// (through the diagonal tile in mode 1), with lse and delta read in, then
+// add to the carry once: dq' = dq + scale sum dS K, fp32 straight from the
+// accumulator layout, rows past L never written. dS enters dS K as two
+// bf16 terms (SPLIT_DS): on the diagonal block one term leaves dq outside
+// the fp32 design's 2e-3 + 2e-3 |ref|, two use under a tenth of it (the
+// emulation in tests/test_torch_ring_attention.py).
+template <int D, int WM, bool QO_REGS>
+__global__ void __launch_bounds__(kThreads)
+    ring_dq_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v,
+                      const bf16* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta,
+                      const float* __restrict__ dq_in,
+                      float* __restrict__ dq_out, int L, int mode,
+                      float scale) {
+  constexpr int BM = kWarps * WM * 16, BN = kKvCols;
+  constexpr int DT = D / 8;
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(tc_smem);
+  bf16* dOs = Qs + BM * D;
+  bf16* Ks = dOs + BM * D;      // two slots of BN x D
+  bf16* Vs = Ks + 2 * BN * D;   // two slots of BN x D
+  float* lse_s = reinterpret_cast<float*>(Vs + 2 * BN * D);
+  float* dl_s = lse_s + BM;
+
+  const int bh = blockIdx.x;
+  // q tiles last-first: in mode 1 the long rows start first.
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const size_t base = static_cast<size_t>(bh) * L * D;
+  const size_t rbase = static_cast<size_t>(bh) * L;
+  int end = L;
+  if (mode && q0 + BM < end) end = q0 + BM;
+  const int nkv = (end + BN - 1) / BN;  // >= 1: column 0 is always visible
+
+  load_async<BM, D>(Qs, q + base, q0, L);
+  load_async<BM, D>(dOs, dout + base, q0, L);
+  load_rows_async<BM>(lse_s, lse + rbase, q0, L);
+  load_rows_async<BM>(dl_s, delta + rbase, q0, L);
+  cp_async_commit();
+  load_async<BN, D>(Ks, k + base, 0, L);
+  load_async<BN, D>(Vs, v + base, 0, L);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+
+  float dqa[WM][DT][4];
+  dq_walk<D, WM, QO_REGS, true>(Qs, dOs, Ks, Vs, lse_s, dl_s, k + base,
+                                v + base, L, L, mode, q0, nkv,
+                                scale * kLog2e, dqa);
+
+#pragma unroll
+  for (int s = 0; s < WM; ++s)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = q0 + warp * WM * 16 + 16 * s + g + 8 * h;
+      if (row >= L) continue;
+      const size_t at = base + static_cast<size_t>(row) * D + 2 * t;
+#pragma unroll
+      for (int d = 0; d < DT; ++d) {
+        const float2 x = *reinterpret_cast<const float2*>(dq_in + at + 8 * d);
+        *reinterpret_cast<float2*>(dq_out + at + 8 * d) =
+            make_float2(x.x + scale * dqa[s][d][2 * h],
+                        x.y + scale * dqa[s][d][2 * h + 1]);
+      }
+    }
+}
+
 // ring_dkv: the block's 64 kv rows run flash_dkv's walk over this rank's
 // q tiles (from the diagonal tile in mode 1), then add to the carries once:
 // dk' = dk + scale sum dS^T Q, dv' = dv + sum P^T dO, fp32 straight from
@@ -701,6 +774,10 @@ template <int D>
 constexpr int tc_dkv_smem() {
   return tc::dkv_smem_bytes<D, tc::Shape<D>::kDkvQ>();
 }
+template <int D>
+constexpr int tc_dq_smem() {
+  return tc::dq_smem_bytes<D, tc::Shape<D>::kDqStrips>();
+}
 
 // The larger of the fp32 and the bf16 instantiations' needs.
 template <int D>
@@ -708,7 +785,7 @@ long long smem_bytes(int kernel) {
   switch (kernel) {
     case kStep:
       return std::max(step_smem_floats<D>() * 4, tc::step_tc_smem_bytes<D>());
-    case kDq: return dq_smem_floats<D>() * 4LL;
+    case kDq: return std::max(dq_smem_floats<D>() * 4, tc_dq_smem<D>());
     case kDkv: return std::max(dkv_smem_floats<D>() * 4, tc_dkv_smem<D>());
     default: return -1;
   }
@@ -760,22 +837,50 @@ cudaError_t launch_step(const void* qf, const void* k, const void* v,
   }
 }
 
+template <int D>
+cudaError_t launch_dq_tc(const void* q, const void* k, const void* v,
+                         const void* dout, const void* lse, const void* delta,
+                         const void* dq_in, void* dq_out, int bh, int L,
+                         int mode, float scale, cudaStream_t s) {
+  using tc::bf16;
+  constexpr int WM = tc::Shape<D>::kDqStrips, BM = tc::kWarps * WM * 16;
+  constexpr bool kRegs = tc::Shape<D>::kRingDqRegs;
+  if (!aligned16({q, k, v, dout, dq_in, dq_out}))
+    return cudaErrorMisalignedAddress;
+  const int smem = tc_dq_smem<D>();
+  cudaError_t err = prepare(tc::ring_dq_kernel_tc<D, WM, kRegs>, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(bh, (L + BM - 1) / BM);
+  tc::ring_dq_kernel_tc<D, WM, kRegs><<<grid, tc::kThreads, smem, s>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<const float*>(dq_in), static_cast<float*>(dq_out), L, mode,
+      scale);
+  return cudaGetLastError();
+}
+
 template <typename T, int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
                       const void* dq_in, void* dq_out, int bh, int L, int mode,
                       float scale, cudaStream_t s) {
-  const int smem = dq_smem_floats<D>() * 4;
-  cudaError_t err = prepare(ring_dq_kernel<T, D>, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid(bh, (L + kBlock - 1) / kBlock);
-  ring_dq_kernel<T, D><<<grid, kThreads, smem, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<const float*>(dq_in), static_cast<float*>(dq_out), L, mode,
-      scale);
-  return cudaGetLastError();
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    return launch_dq_tc<D>(q, k, v, dout, lse, delta, dq_in, dq_out, bh, L,
+                           mode, scale, s);
+  } else {
+    const int smem = dq_smem_floats<D>() * 4;
+    cudaError_t err = prepare(ring_dq_kernel<T, D>, smem);
+    if (err != cudaSuccess) return err;
+    dim3 grid(bh, (L + kBlock - 1) / kBlock);
+    ring_dq_kernel<T, D><<<grid, kThreads, smem, s>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<const float*>(dq_in), static_cast<float*>(dq_out), L,
+        mode, scale);
+    return cudaGetLastError();
+  }
 }
 
 template <int D>
@@ -829,8 +934,8 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 }
 
 // Dispatch on (dtype, head_dim): f(T, D) instantiations for float and bf16
-// at D = 64 and 128 (bf16 ring_step and ring_dkv on the tensor cores, the
-// rest on the CUDA cores); anything else is refused.
+// at D = 64 and 128 (bf16 on the tensor cores, fp32 on the CUDA cores);
+// anything else is refused.
 #define DDL_RING_DISPATCH(dtype, head_dim, CALL)                      \
   do {                                                                \
     if ((dtype) == kF32 && (head_dim) == 64) return CALL(float, 64);  \

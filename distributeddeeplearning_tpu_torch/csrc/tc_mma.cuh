@@ -1,7 +1,8 @@
 // The tensor-core tile core for Hopper (sm_90a), shared by the bf16
 // attention kernels of flash_attention.cu and ring_attention.cu: the
 // mma.sync fragment helpers, the cp.async loads into XOR-swizzled shared
-// tiles, the tile shapes, and the two tile walks those kernels are built on.
+// tiles, the tile shapes, and the three tile walks those kernels are built
+// on.
 //
 // - fwd_walk: a block of q rows walks 64-column kv tiles through a two-slot
 //   cp.async ring and folds each into its online-softmax state (acc, m, l)
@@ -10,6 +11,9 @@
 // - dkv_walk: a block of 64 kv rows walks q tiles through a two-slot ring
 //   of Q, dO, lse and delta and accumulates P^T dO and dS^T Q. flash_dkv
 //   writes them as bf16; ring_dkv adds them to the rotating fp32 carries.
+// - dq_walk: a block of q rows, holding its Q, dO, lse and delta, walks
+//   kv tiles through fwd_walk's ring and accumulates dS K. flash_dq writes
+//   it as bf16; ring_dq adds it to the fp32 dq carry.
 //
 // Each kernel library is one translation unit, and this header's code sits
 // in that unit's anonymous namespace, as if it were written in the source:
@@ -241,13 +245,20 @@ __device__ __forceinline__ float quad_sum(float v) {
 }
 
 // Tile shapes of the bf16 instantiations: the forward's q strips per warp
-// (128 rows a block at D = 64, 64 at D = 128, where 128 would spill), and
-// dk/dv's q tile and whether K and V stay in registers.
+// (128 rows a block at D = 64, 64 at D = 128, where 128 would spill),
+// dk/dv's q tile and whether K and V stay in registers, and dq's q strips
+// per warp (two spill) and whether Q and dO stay in registers: in flash_dq
+// they do; in ring_dq, whose second dS term needs more registers, they are
+// read from shared memory, which keeps it at 168 registers and 3 blocks an
+// SM at D = 64 (tools/torch_flash_tiles.py has the variants' times).
 template <int D>
 struct Shape {
   static constexpr int kFwdStrips = D == 64 ? 2 : 1;
   static constexpr int kDkvQ = D == 64 ? 64 : 32;
   static constexpr bool kDkvRegs = D == 64;
+  static constexpr int kDqStrips = 1;
+  static constexpr bool kDqRegs = true;
+  static constexpr bool kRingDqRegs = false;
 };
 
 // ---------------------------------------------------------------------------
@@ -606,6 +617,180 @@ __device__ __forceinline__ void dkv_walk(
       }
     }
     __syncthreads();  // this slot is free for tile qb + 2
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the dq walk
+// ---------------------------------------------------------------------------
+
+// dq: a block owns BM = 4 warps x WM strips x 16 q rows, as the forward's
+// does, and walks 64-column kv tiles of K and V through the same two-slot
+// ring. With q rows as the MMA's M, S = Q K^T and dP = dO V^T come out as
+// accumulators, and dS = P (dP - delta), packed to bf16, is the A operand
+// of dQ += dS K, K read transposed as V is in P V: dS never leaves
+// registers. Shared memory: Q and dO (BM x D each), the ring's two slots
+// of K and of V, then lse and delta of the block's rows.
+template <int D, int WM>
+constexpr int dq_smem_bytes() {
+  return (2 * kWarps * WM * 16 * D + 2 * 2 * kKvCols * D) * 2 +
+         2 * kWarps * WM * 16 * 4;
+}
+
+// The block's q rows [q0, q0 + BM) in the swizzled tiles Qs and dOs, with
+// their lse (natural log) at lse_s and delta at dl_s, walk kv tiles
+// 0 .. nkv - 1 of k, v [L, D] (this row's) through the two slots at Ks and
+// Vs; tile 0 must already be committed into slot 0, and Qs, dOs, lse_s and
+// dl_s visible to every warp. Column c is visible to row r when c < lim
+// and, under causal, c <= r. On return dqa = sum dS K over the warp's
+// strips, without the scale. QO_REGS holds Q's and dO's fragments in
+// registers across the walk; without it they are read from shared memory
+// at each use. SPLIT_DS feeds dS K with dS as two bf16 terms (~2^-16 of
+// dS left, where one term leaves bf16's 2^-9).
+template <int D, int WM, bool QO_REGS, bool SPLIT_DS>
+__device__ __forceinline__ void dq_walk(const bf16* Qs, const bf16* dOs,
+                                        bf16* Ks, bf16* Vs,
+                                        const float* lse_s, const float* dl_s,
+                                        const bf16* k, const bf16* v, int L,
+                                        int lim, int causal, int q0, int nkv,
+                                        float sl2,
+                                        float (&dqa)[WM][D / 8][4]) {
+  constexpr int BN = kKvCols;
+  constexpr int KC = D / 16, NT = BN / 8, DT = D / 8;
+  constexpr int RW = QO_REGS ? WM : 1, RK = QO_REGS ? KC : 1;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = warp * WM * 16;  // the warp's first row in the tile
+
+  uint32_t qa[RW][RK][4], oa[RW][RK][4];
+  if constexpr (QO_REGS) {
+#pragma unroll
+    for (int s = 0; s < WM; ++s)
+#pragma unroll
+      for (int kk = 0; kk < KC; ++kk) {
+        ldsm4(qa[s][kk], a_addr<D>(Qs, wr + 16 * s, kk, lane));
+        ldsm4(oa[s][kk], a_addr<D>(dOs, wr + 16 * s, kk, lane));
+      }
+  }
+
+  float lse2[WM][2], dl[WM][2];
+#pragma unroll
+  for (int s = 0; s < WM; ++s) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = wr + 16 * s + g + 8 * h;
+      lse2[s][h] = lse_s[r] * kLog2e;
+      dl[s][h] = dl_s[r];
+    }
+#pragma unroll
+    for (int d = 0; d < DT; ++d)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dqa[s][d][e] = 0.f;
+  }
+
+  for (int j = 0; j < nkv; ++j) {
+    const int k0 = j * BN;
+    const bf16* Kb = Ks + (j & 1) * BN * D;
+    const bf16* Vb = Vs + (j & 1) * BN * D;
+    if (j + 1 < nkv) {
+      load_async<BN, D>(Ks + ((j + 1) & 1) * BN * D, k, k0 + BN, L);
+      load_async<BN, D>(Vs + ((j + 1) & 1) * BN * D, v, k0 + BN, L);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // tile j has landed
+    __syncthreads();
+
+    // A warp whose rows all lie above the tile's first column sees none of
+    // it (causal); it skips the tile.
+    if (!causal || k0 <= q0 + wr + WM * 16 - 1) {
+      float sc[WM][NT][4], dp[WM][NT][4];
+#pragma unroll
+      for (int s = 0; s < WM; ++s)
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sc[s][n][e] = dp[s][n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KC; ++kk) {
+        uint32_t qs[WM][4], os[WM][4];
+        if constexpr (!QO_REGS) {
+#pragma unroll
+          for (int s = 0; s < WM; ++s) {
+            ldsm4(qs[s], a_addr<D>(Qs, wr + 16 * s, kk, lane));
+            ldsm4(os[s], a_addr<D>(dOs, wr + 16 * s, kk, lane));
+          }
+        }
+#pragma unroll
+        for (int p = 0; p < NT / 2; ++p) {
+          uint32_t b[4];
+          ldsm4(b, bn_addr<D>(Kb, 16 * p, kk, lane));
+#pragma unroll
+          for (int s = 0; s < WM; ++s) {
+            const uint32_t(&qf)[4] = QO_REGS ? qa[s % RW][kk % RK] : qs[s];
+            mma(sc[s][2 * p], qf, b[0], b[1]);
+            mma(sc[s][2 * p + 1], qf, b[2], b[3]);
+          }
+          ldsm4(b, bn_addr<D>(Vb, 16 * p, kk, lane));
+#pragma unroll
+          for (int s = 0; s < WM; ++s) {
+            const uint32_t(&of)[4] = QO_REGS ? oa[s % RW][kk % RK] : os[s];
+            mma(dp[s][2 * p], of, b[0], b[1]);
+            mma(dp[s][2 * p + 1], of, b[2], b[3]);
+          }
+        }
+      }
+
+      // P = exp2(S scale log2e - lse log2e), dS = P (dP - delta), in place
+      // of dP; only tiles that cross the column limit or the warp's
+      // diagonal mask.
+      const bool masked =
+          k0 + BN > lim || (causal && k0 + BN - 1 > q0 + wr);
+#pragma unroll
+      for (int s = 0; s < WM; ++s)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = q0 + wr + 16 * s + g + 8 * h;
+#pragma unroll
+          for (int n = 0; n < NT; ++n)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int i = 2 * h + e;
+              float p = fast_exp2(fmaf(sc[s][n][i], sl2, -lse2[s][h]));
+              if (masked) {
+                const int col = k0 + 8 * n + 2 * t + e;
+                if (!(col < lim && (!causal || col <= row))) p = 0.f;
+              }
+              dp[s][n][i] = p * (dp[s][n][i] - dl[s][h]);
+            }
+        }
+
+      // dQ += dS K, dS straight from the accumulators as bf16 A fragments.
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) {
+        uint32_t da[WM][4], dr[SPLIT_DS ? WM : 1][4];
+#pragma unroll
+        for (int s = 0; s < WM; ++s) {
+          to_a(da[s], dp[s][2 * kk], dp[s][2 * kk + 1]);
+          if constexpr (SPLIT_DS)
+            to_a_rest(dr[s], dp[s][2 * kk], dp[s][2 * kk + 1], da[s]);
+        }
+#pragma unroll
+        for (int cp = 0; cp < DT / 2; ++cp) {
+          uint32_t b[4];
+          ldsm4_t(b, bk_addr<D>(Kb, 16 * kk, cp, lane));
+#pragma unroll
+          for (int s = 0; s < WM; ++s) {
+            mma(dqa[s][2 * cp], da[s], b[0], b[1]);
+            mma(dqa[s][2 * cp + 1], da[s], b[2], b[3]);
+            if constexpr (SPLIT_DS) {
+              mma(dqa[s][2 * cp], dr[s], b[0], b[1]);
+              mma(dqa[s][2 * cp + 1], dr[s], b[2], b[3]);
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();  // slot j & 1 is free for tile j + 2
   }
 }
 

@@ -7,9 +7,11 @@ over L = 64 so every case crosses block edges; the port's plain versions
 agrees within 1e-5; bf16 within 2e-2 (both round o, dq, dk, dv to bf16's 8
 mantissa bits at the output, and may round a value to neighbouring bf16
 numbers). ``jax.grad`` of ``flash_attention`` is held against
-``torch.autograd`` through the port's ``autograd.Function``. The CUDA
-kernels themselves are held against the plain versions on the card by
-``tests/test_torch_kernels_gpu.py`` and ``chip_smoke.py``.
+``torch.autograd`` through the port's ``autograd.Function``. The bf16
+tensor-core ``flash_dq`` kernel's rounding of dS is emulated in plain torch
+and held to the card checks' tolerance. The CUDA kernels themselves are held
+against the plain versions on the card by ``tests/test_torch_kernels_gpu.py``
+and ``chip_smoke.py``.
 """
 
 import importlib
@@ -149,6 +151,40 @@ def test_grad_matches_jax_autodiff(case):
     _close(o.detach(), o_j, 1e-5)
     for a, b in zip(g, g_j):
         _close(a, b, 1e-5)
+
+
+def _flash_dq_tc_emulated(q, k, v, o, do, lse, **kw):
+    """flash_dq as the bf16 tensor-core kernel computes it: dS rounded to
+    bf16 inside dS K (one term, as flash_dkv rounds it), dq rounded to bf16
+    at the output."""
+    p = fa._probs(q, k, lse, **kw)
+    delta = (do.float() * o.float()).sum(-1)
+    dp = torch.einsum("bqd,bkd->bqk", do.float(), v.float())
+    ds = (p * (dp - delta[..., None])).to(torch.bfloat16).float()
+    dq = kw["sm_scale"] * torch.einsum("bqk,bkd->bqd", ds, k.float())
+    return dq.to(q.dtype), delta
+
+
+@pytest.mark.parametrize("head_dim", [64, 128])
+def test_tensor_core_dq_rounding_stays_inside_the_tolerance(head_dim):
+    """The bf16 flash_dq kernel's rounding of dS, causal with per-row kv
+    limits, against the plain version at the card checks' 2e-2 + 2e-2
+    |ref|; the rounding moves dq, so the check is not vacuous."""
+    rng = np.random.default_rng(7)
+    bh, n, tol = 4, 96, 2e-2
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((bh, n, head_dim))
+                                    .astype(np.float32)).to(torch.bfloat16)
+                   for _ in range(4))
+    kw = dict(causal=True, sm_scale=head_dim ** -0.5, limit=n,
+              vl=torch.tensor([96, 33, 40, 5], dtype=torch.int32))
+    o, lse = fa.flash_fwd_plain(q, k, v, **kw)
+    got, delta = _flash_dq_tc_emulated(q, k, v, o, do, lse, **kw)
+    want, delta_p = fa.flash_dq_plain(q, k, v, o, do, lse, **kw)
+    a, b = got.float(), want.float()
+    used = ((a - b).abs() / (tol + tol * b.abs())).max().item()
+    assert used <= 1, f"dq: {used:.3f} of the tolerance"
+    assert not torch.equal(got, want)
+    assert torch.equal(delta, delta_p)
 
 
 def test_wrappers_on_cpu_run_plain_versions_and_launch_nothing():

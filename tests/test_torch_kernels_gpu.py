@@ -9,18 +9,18 @@ Imports torch and the port only, so it runs on a GPU host without JAX:
 the ``gpu`` marker and skips where torch sees no CUDA device; the kernels
 have no CPU mode. Tolerances: flash in fp32 2e-5 (only the order of fp32
 sums differs), in bf16 2e-2 absolute and relative: one bf16 rounding step of
-the output is ~0.4%, and the tensor-core fwd and dk/dv kernels also round P
-and dS to bf16 inside the P V, P^T dO and dS^T Q products (~0.2% per term,
-with random signs, so it grows far slower than the sum); fused AdamW bit
-for bit (every operation rounds on its own in both). The ring kernels'
-outputs are fp32 carries: 2e-5 in fp32 (only the order of the fp32 sums
-differs). With bf16 inputs, ring_dq multiplies in fp32 on the CUDA cores,
-where the bf16 inputs are exact, so again only the order of the sums differs,
-over larger magnitudes: 2e-3. The bf16 ring_dkv runs on the tensor cores and
-rounds where the flash pair does (P inside P^T dO, dS inside dS^T Q): the
-flash pair's 2e-2 absolute and relative. The bf16 ring_step runs on the
-tensor cores too but feeds its products P, and qf at D = 128, as two bf16
-terms each (~2^-16 left), so its unnormalised acc carry keeps 2e-3.
+the output is ~0.4%, and the tensor-core fwd, dq and dk/dv kernels also
+round P and dS to bf16 inside the P V, dS K, P^T dO and dS^T Q products
+(~0.2% per term, with random signs, so it grows far slower than the sum);
+fused AdamW bit for bit (every operation rounds on its own in both). The
+ring kernels' outputs are fp32 carries: 2e-5 in fp32 (only the order of the
+fp32 sums differs). With bf16 inputs every ring kernel runs on the tensor
+cores, where the bf16 inputs are exact. ring_dkv rounds where the flash
+kernels do (P inside P^T dO, dS inside dS^T Q): their 2e-2 absolute and
+relative. ring_step feeds its products P, and qf at D = 128, as two bf16
+terms each, and ring_dq feeds dS K with dS as two bf16 terms (~2^-16 left
+of each), so their carries keep the fp32 design's 2e-3: again only the
+order of the sums differs, over larger magnitudes.
 """
 
 import numpy as np

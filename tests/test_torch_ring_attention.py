@@ -230,14 +230,15 @@ def test_backward_plain_matches_pallas_kernels(kernel, mode):
                                    atol=ATOL)
 
 
-# The bf16 ring_step and ring_dkv kernels run on the tensor cores. ring_dkv
-# rounds P and dS to bf16 inside its products, as the flash pair does, and
-# is held to its plain version on the card at 2e-2 + 2e-2 |ref|. ring_step
-# feeds P V with P as two bf16 terms, and at D = 128 qf too (the scale is
-# no power of two there), because its acc carry is not normalised: it is
-# held at the fp32 design's 2e-3. The emulations below round where the
+# The bf16 ring kernels run on the tensor cores. ring_dkv rounds P and dS
+# to bf16 inside its products, as the flash kernels do, and is held to its
+# plain version on the card at 2e-2 + 2e-2 |ref|. ring_step feeds P V with
+# P as two bf16 terms, and at D = 128 qf too (the scale is no power of two
+# there), because its acc carry is not normalised; ring_dq feeds dS K with
+# dS as two bf16 terms, because one misses its dq carry's tolerance: both
+# are held at the fp32 design's 2e-3. The emulations below round where the
 # kernels round, in plain torch, and show that each tolerance covers them.
-DKV_TOL, STEP_TOL = 2e-2, 2e-3
+DKV_TOL, STEP_TOL, DQ_TOL = 2e-2, 2e-3, 2e-3
 
 
 def _bf16(x):
@@ -277,6 +278,15 @@ def _ring_dkv_tc_emulated(q, kt, vt, do, lse, delta, dk, dv, mode,
             dv + torch.einsum("bqk,bqd->bkd", _bf16(p), do.float()))
 
 
+def _ring_dq_tc_emulated(q, kt, vt, do, lse, delta, dq, mode, sm_scale,
+                         ds_terms=2):
+    """ring_dq as the tensor-core kernel computes it: dS into dS K as
+    ``ds_terms`` bf16 terms, the sum added to the carry once."""
+    _, ds = rp._p_ds(q, kt, vt, do, lse, delta, mode, sm_scale)
+    dsk = _bf16(ds) if ds_terms == 1 else _bf16_split(ds)
+    return dq + sm_scale * torch.einsum("bqk,bkd->bqd", dsk, kt.float())
+
+
 def _bf16_visit(d, mode, seed, bh=4, L=96):
     """One visit's inputs as the cp path feeds the kernels: bf16 q, k, v,
     dO (drawn standard normal, as the card's checks draw them), qf = scale
@@ -289,11 +299,12 @@ def _bf16_visit(d, mode, seed, bh=4, L=96):
     m, l, acc = (torch.from_numpy(x) for x in _carries(rng, bh, L, d))
     qf = q.float() * scale
     lse = torch.logsumexp(rp._scores(qf, kt, mode), -1, keepdim=True)
-    delta, dk, dv = (torch.from_numpy(rng.standard_normal(shape)
-                                      .astype(np.float32))
-                     for shape in ((bh, L, 1), (bh, L, d), (bh, L, d)))
+    delta, dk, dv, dq = (torch.from_numpy(rng.standard_normal(shape)
+                                          .astype(np.float32))
+                         for shape in ((bh, L, 1), (bh, L, d), (bh, L, d),
+                                       (bh, L, d)))
     return dict(q=q, qf=qf, kt=kt, vt=vt, do=do, m=m, l=l, acc=acc, lse=lse,
-                delta=delta, dk=dk, dv=dv, scale=scale)
+                delta=delta, dk=dk, dv=dv, dq=dq, scale=scale)
 
 
 def _tolerance_used(a, b, tol):
@@ -307,20 +318,42 @@ def test_tensor_core_roundings_stay_inside_the_tolerances(mode, head_dim):
     carries = (x["m"], x["l"], x["acc"])
     bwd = (x["q"], x["kt"], x["vt"], x["do"], x["lse"], x["delta"], x["dk"],
            x["dv"], mode, x["scale"])
+    dq_args = (x["q"], x["kt"], x["vt"], x["do"], x["lse"], x["delta"],
+               x["dq"], mode, x["scale"])
     got = {"step": _ring_step_tc_emulated(x["qf"], x["kt"], x["vt"],
                                           *carries, mode),
+           "dq": (_ring_dq_tc_emulated(*dq_args),),
            "dkv": _ring_dkv_tc_emulated(*bwd)}
     want = {"step": rp.ring_step_plain(x["qf"], x["kt"], x["vt"], *carries,
                                        mode),
+            "dq": (rp.ring_dq_plain(*dq_args),),
             "dkv": rp.ring_dkv_plain(*bwd)}
     for kernel, names, tol in (("step", ("m", "l", "acc"), STEP_TOL),
+                               ("dq", ("dq",), DQ_TOL),
                                ("dkv", ("dk", "dv"), DKV_TOL)):
         for name, a, b in zip(names, got[kernel], want[kernel]):
             used = _tolerance_used(a, b, tol)
             assert used <= 1, f"{name}: {used:.3f} of the tolerance"
-    # The roundings move ring_dkv's outputs: the check is not vacuous.
+    # The roundings move ring_dq's and ring_dkv's outputs: the check is not
+    # vacuous.
+    assert not torch.equal(got["dq"][0], want["dq"][0])
     assert not torch.equal(got["dkv"][0], want["dkv"][0])
     assert not torch.equal(got["dkv"][1], want["dkv"][1])
+
+
+@pytest.mark.parametrize("head_dim", [64, 128])
+def test_one_bf16_term_of_ds_would_break_the_dq_carry_tolerance(head_dim):
+    """Why ring_dq splits dS: on the diagonal block (mode 1), dS rounded to
+    bf16 inside dS K (flash_dq's rounding) leaves the dq carry outside
+    2e-3 + 2e-3 |ref|; two terms stay far inside it."""
+    x = _bf16_visit(head_dim, 1, seed=8)
+    args = (x["q"], x["kt"], x["vt"], x["do"], x["lse"], x["delta"], x["dq"],
+            1, x["scale"])
+    want = rp.ring_dq_plain(*args)
+    assert _tolerance_used(_ring_dq_tc_emulated(*args, ds_terms=1), want,
+                           DQ_TOL) > 1
+    assert _tolerance_used(_ring_dq_tc_emulated(*args, ds_terms=2), want,
+                           DQ_TOL) < 0.1
 
 
 def test_one_bf16_term_of_p_would_break_the_acc_carry_tolerance():

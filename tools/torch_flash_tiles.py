@@ -3,19 +3,22 @@
 
 Builds variants of ``csrc/flash_attention.cu`` and ``csrc/ring_attention.cu``
 that differ only in tile constants (``tc::Shape``, ``tc::kWarps``,
-``tc::StepShape``), in where Q's fragments live, or in the softmax's exp2
-(the shared ones in ``csrc/tc_mma.cuh``, which each variant copies beside
-its source), each into its own library under ``_build/tiles/`` (one
-``nvcc`` each, all started together). Then it times every variant, the
+``tc::StepShape``), in where Q's (and dO's) fragments live, or in the
+softmax's exp2 (the shared ones in ``csrc/tc_mma.cuh``, which each variant
+copies beside its source), each into its own library under ``_build/tiles/``
+(one ``nvcc`` each, all started together). Then it times every variant, the
 variants in turns over two rounds, L2 flushed before each call: the flash
-variants' ``flash_fwd`` and ``flash_dkv`` at GPT-2 124M's training shape
-(bf16 causal [384, 1024, 64]), the ring variants' ``ring_step`` and
-``ring_dkv`` at its cp=2 visit (bf16 mode 0 [384, 512, 64], the carries of a
-diagonal visit before it). It prints one JSON line per variant: ptxas's
-registers and spills of the tensor-core kernels, the times, and the largest
-error against the plain versions. Needs an NVIDIA GPU:
+variants' ``flash_fwd``, ``flash_dq`` and ``flash_dkv`` at GPT-2 124M's
+training shape (bf16 causal [384, 1024, 64]) and ``flash_dq`` at D = 128
+(bf16 causal [192, 1024, 128]), the ring variants' ``ring_step``,
+``ring_dq`` and ``ring_dkv`` at its cp=2 visit (bf16 mode 0 [384, 512, 64],
+the carries of a diagonal visit before it) and ``ring_dq`` at D = 128
+([192, 512, 128]). It prints one JSON line per variant: ptxas's registers
+and spills of the tensor-core kernels, the times, and the largest error
+against the plain versions. Needs an NVIDIA GPU:
 
     python3 tools/torch_flash_tiles.py [--lib flash_attention|ring_attention]
+                                       [--variant NAME ...]
 """
 
 from __future__ import annotations
@@ -45,12 +48,25 @@ VARIANTS = {
     "exp2f": ("flash_attention", {
         'asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));':
         "y = exp2f(x);"}),
+    # dq: one strip a warp with Q and dO in registers (shipped), against
+    # two strips and one strip with Q and dO read from shared memory.
+    "dq_2_strips_smem": ("flash_attention", {
+        "kDqStrips = 1": "kDqStrips = D == 64 ? 2 : 1",
+        "kDqRegs = true": "kDqRegs = false"}),
+    "dq_1_strip_smem": ("flash_attention",
+                        {"kDqRegs = true": "kDqRegs = false"}),
     "ring_shipped": ("ring_attention", {}),
     "ring_step_q_regs": ("ring_attention",
                          {"kQRegs = D != 64": "kQRegs = true"}),
     "ring_step_1_strip_q_regs": ("ring_attention", {
         "kStrips = Shape<D>::kFwdStrips": "kStrips = 1",
         "kQRegs = D != 64": "kQRegs = true"}),
+    # ring_dq: one strip a warp with Q and dO read from shared memory
+    # (shipped), against two strips, and one strip with them in registers.
+    "ring_dq_2_strips_smem": ("ring_attention",
+                              {"kDqStrips = 1": "kDqStrips = D == 64 ? 2 : 1"}),
+    "ring_dq_regs": ("ring_attention",
+                     {"kRingDqRegs = false": "kRingDqRegs = true"}),
 }
 
 
@@ -97,41 +113,54 @@ def build_variants(_build, chip_smoke, names):
 
 
 def flash_calls(torch, chip_smoke, fa):
-    """(name -> (call, check)) of the flash kernels at the training shape;
-    check() is the largest error of the call's outputs against the plain
-    versions."""
-    case = chip_smoke.flash_case(torch, dtype=torch.bfloat16, bh=384, L=1024,
-                                 D=64, causal=True)
-    kw = dict(causal=True, sm_scale=case["sm_scale"], limit=case["limit"],
-              vl=None)
-    q, k, v, do = case["q"], case["k"], case["v"], case["do"]
-    o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, **kw)
-    _, delta = fa.flash_dq_plain(q, k, v, o_ref, do, lse_ref, **kw)
-    dk_ref, dv_ref = fa.flash_dkv_plain(q, k, v, do, lse_ref, delta, **kw)
+    """(name -> (call, the plain versions' outputs)) of the flash kernels at
+    the training shape, and of flash_dq at D = 128."""
 
-    def fwd():
-        return fa.flash_fwd(q, k, v, **kw)[:1]
+    def at(bh, D):
+        case = chip_smoke.flash_case(torch, dtype=torch.bfloat16, bh=bh,
+                                     L=1024, D=D, causal=True)
+        kw = dict(causal=True, sm_scale=case["sm_scale"],
+                  limit=case["limit"], vl=None)
+        q, k, v, do = case["q"], case["k"], case["v"], case["do"]
+        o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, **kw)
+        dq_ref, delta = fa.flash_dq_plain(q, k, v, o_ref, do, lse_ref, **kw)
+        dk_ref, dv_ref = fa.flash_dkv_plain(q, k, v, do, lse_ref, delta, **kw)
+        return {
+            "fwd": (lambda: fa.flash_fwd(q, k, v, **kw)[:1], (o_ref,)),
+            "dq": (lambda: fa.flash_dq(q, k, v, o_ref, do, lse_ref, **kw),
+                   (dq_ref, delta)),
+            "dkv": (lambda: fa.flash_dkv(q, k, v, do, lse_ref, delta, **kw),
+                    (dk_ref, dv_ref)),
+        }
 
-    def dkv():
-        return fa.flash_dkv(q, k, v, do, lse_ref, delta, **kw)
-
-    return {"fwd": (fwd, (o_ref,)), "dkv": (dkv, (dk_ref, dv_ref))}
+    out = at(384, 64)
+    out["dq_d128"] = at(192, 128)["dq"]
+    return out
 
 
 def ring_calls(torch, chip_smoke, rp):
-    """The same for ring_step and ring_dkv at the cp=2 mode-0 visit."""
-    case = chip_smoke.ring_case(torch, rp, dtype=torch.bfloat16, bh=384,
-                                L=512, D=64)
-    kern = chip_smoke.ring_calls(rp, case, 0)
-    plain = chip_smoke.ring_calls(rp, case, 0, plain=True)
-    return {"ring_step": (kern["ring_step"], plain["ring_step"]()),
-            "ring_dkv": (kern["ring_dkv"], plain["ring_dkv"]())}
+    """The same for the ring kernels at the cp=2 mode-0 visit, and for
+    ring_dq at D = 128."""
+    out = {}
+    for sfx, bh, D in (("", 384, 64), ("_d128", 192, 128)):
+        case = chip_smoke.ring_case(torch, rp, dtype=torch.bfloat16, bh=bh,
+                                    L=512, D=D)
+        kern = chip_smoke.ring_calls(rp, case, 0)
+        plain = chip_smoke.ring_calls(rp, case, 0, plain=True)
+        for name in (("ring_dq",) if sfx else
+                     ("ring_step", "ring_dq", "ring_dkv")):
+            want = plain[name]()
+            out[name + sfx] = (kern[name],
+                               want if isinstance(want, tuple) else (want,))
+    return out
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--lib", choices=("flash_attention", "ring_attention"),
                     help="build and time only this library's variants")
+    ap.add_argument("--variant", action="append", choices=sorted(VARIANTS),
+                    help="build and time only these variants (repeatable)")
     args = ap.parse_args(argv)
     import torch
 
@@ -149,7 +178,8 @@ def main(argv=None) -> int:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip(), flush=True)
     names = [n for n, (lib, _) in VARIANTS.items()
-             if args.lib in (None, lib)]
+             if args.lib in (None, lib)
+             and (not args.variant or n in args.variant)]
     libs = build_variants(_build, chip_smoke, names)
     calls = {}
     if any(VARIANTS[n][0] == "flash_attention" for n in names):
@@ -164,6 +194,7 @@ def main(argv=None) -> int:
             _build._LIBS[lib_name] = libs[name][0]
             for kname, (call, refs) in calls[lib_name].items():
                 got = call()
+                got = got if isinstance(got, tuple) else (got,)
                 torch.cuda.synchronize()
                 errs[name] = max([errs.get(name, 0.0)] + [
                     (a.float() - b.float()).abs().max().item()
