@@ -14,9 +14,14 @@ Phases, in order; any failure raises and the script exits non-zero:
      count of each flash and ring kernel's machine code; the bf16 flash
      fwd/dq/dkv and ring_step/ring_dq/ring_dkv kernels must spill nothing
      and hold HMMA, the fp32 kernels of the two libraries must hold none;
-  3. kernels vs plain: each kernel's wrapper against its plain torch
-     version at GPT-2 124M decode shapes, then their times, the bound of
-     the same work on the card, and a library yardstick;
+     every paged decode instantiation (split and merge kernels, each q
+     type, pool type and head dim) must spill nothing;
+  3. kernels vs plain: each paged kernel's wrapper against its plain torch
+     version at GPT-2 124M decode shapes (five cases), then their times,
+     the bound of the same work on the card, and a library yardstick; then
+     wide cases per kernel (64 rows, every cursor at 1023, every split
+     live; bf16 q, which shows whether the kernel streams at HBM rate, and
+     an fp32-q twin held to 2e-5), timed the same way;
   4. serve through the entry point: ``cli serve`` in-process on
      ``configs/gpt2_owt.py`` at 124M width (byte tokenizer), with the fp and
      the int8 KV pool; the launch counts must equal decode calls x layers;
@@ -105,6 +110,9 @@ REPLACES = {
     "ring_dkv": "distributeddeeplearning_tpu/ops/ring_attention_pallas.py:261",
 }
 TRAIN_STEPS = 8
+# Instantiations in csrc/paged_attention.cu: the split kernel for 2 q types
+# x 3 pool types x 3 head dims, the merge for 2 q types.
+PAGED_SPLIT_KERNELS, PAGED_MERGE_KERNELS = 18, 2
 # Symbol fragments of the bf16 instantiations on the tensor cores, per
 # library (two head dims each, so six instantiations a library).
 TC_KERNELS = {"flash_attention": ("flash_fwd_kernel_tc", "flash_dq_kernel_tc",
@@ -177,18 +185,37 @@ def check_tensor_core_build(_build):
                                  f"{other}")
 
 
+def check_paged_build(_build):
+    """Every instantiation of the paged decode library (the split kernel
+    for each q type, pool type and head dim, the merge for each q type):
+    ptxas must report no spills. Prints each one's registers."""
+    log = _build.BUILD_LOGS["paged_attention"]
+    if not log:  # "" when the library came from an earlier build
+        return
+    stats = {sym: regs_spills for sym, regs_spills in ptxas_stats(log).items()
+             if "paged_" in sym}
+    for sym, (regs, spill) in sorted(stats.items()):
+        print(f"  ptxas paged_attention {sym}: {regs} registers, {spill} "
+              "spill bytes")
+    want = PAGED_SPLIT_KERNELS + PAGED_MERGE_KERNELS
+    if len(stats) != want or any(spill for _, spill in stats.values()):
+        raise AssertionError(f"paged decode kernels: {len(stats)} of {want} "
+                             f"reported, or spilling: {stats}")
+
+
 # ---------------------------------------------------------------------------
 # 3. kernels vs plain
 # ---------------------------------------------------------------------------
 
 
-def decode_case(torch, *, pool, q_dtype, num_rep, seed=0):
+def decode_case(torch, *, pool, q_dtype, num_rep, seed=0, wide=False):
     """GPT-2 124M decode shapes: B=8, H=12, D=64, bs=16, 64 pages per row,
     mixed cursors up to 1023, two idle rows on the null block, scattered
-    block ids. ``pool`` is the pool's type, ``q_dtype`` the query's."""
-    B, H, D, bs, pages = 8, 12, 64, 16, 64
+    block ids. ``pool`` is the pool's type, ``q_dtype`` the query's.
+    ``wide``: 64 rows, every cursor at 1023 (a pool of 4,097 blocks)."""
+    B, H, D, bs, pages = (64 if wide else 8), 12, 64, 16, 64
     kvh = H // num_rep
-    lens = [0, 37, 255, 256, 511, 700, 0, 1023]
+    lens = [1023] * B if wide else [0, 37, 255, 256, 511, 700, 0, 1023]
     nb = 1 + B * pages
     g = torch.Generator(device="cuda").manual_seed(seed)
     dev = "cuda"
@@ -240,7 +267,10 @@ def bound(case):
 
 def time_ms(torch, fn, iters=30):
     """Mean device time of ``fn`` per call, L2 flushed before each call
-    (in decode, the 12 layers' pools do not fit the 50 MB L2 together)."""
+    (in decode, the 12 layers' pools do not fit the 50 MB L2 together).
+    The card spins for ~0.5 ms after each flush, so that the host has
+    enqueued the call before the start event: a call of a few microseconds
+    is timed on the device, not at the host's enqueue rate."""
     flush = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
     for _ in range(3):
         fn()
@@ -248,6 +278,7 @@ def time_ms(torch, fn, iters=30):
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     for s, e in zip(starts, ends):
         flush.zero_()
+        torch.cuda._sleep(1_000_000)  # clock cycles
         s.record()
         fn()
         e.record()
@@ -284,18 +315,28 @@ def library_call(torch, case):
 def check_kernels(torch, pa):
     bf16, f32, i8 = torch.bfloat16, torch.float32, torch.int8
     cases = {
-        # name: (pool type, q type, num_rep, atol, kernel). bf16 and
+        # name: (pool type, q type, num_rep, atol, kernel, wide). bf16 and
         # int8_bf16q are the serving path's cases (bf16 compute); the fp32
-        # cases hold the same kernels to a tight tolerance.
-        "bf16": (bf16, bf16, 1, 2e-2, "paged_decode"),
-        "fp32": (f32, f32, 1, 2e-5, "paged_decode"),
-        "gqa4_fp32": (f32, f32, 4, 2e-5, "paged_decode"),
-        "int8_bf16q": (i8, bf16, 1, 2e-2, "paged_decode_q8"),
-        "int8_fp32q": (i8, f32, 1, 2e-5, "paged_decode_q8"),
+        # cases hold the same kernels to a tight tolerance. The wide cases
+        # read 64 rows x 1024 columns (~0.06 ms of HBM bytes in bf16), with
+        # every split live: their outputs are ~0.01-0.05, so the bf16 ones
+        # are held to 2e-3 (a few bf16 roundings of the largest output),
+        # and an fp32-q twin of each holds the merge of all eight splits
+        # to 2e-5.
+        "bf16": (bf16, bf16, 1, 2e-2, "paged_decode", False),
+        "fp32": (f32, f32, 1, 2e-5, "paged_decode", False),
+        "gqa4_fp32": (f32, f32, 4, 2e-5, "paged_decode", False),
+        "int8_bf16q": (i8, bf16, 1, 2e-2, "paged_decode_q8", False),
+        "int8_fp32q": (i8, f32, 1, 2e-5, "paged_decode_q8", False),
+        "bf16_wide": (bf16, bf16, 1, 2e-3, "paged_decode", True),
+        "fp32_wide": (f32, f32, 1, 2e-5, "paged_decode", True),
+        "int8_bf16q_wide": (i8, bf16, 1, 2e-3, "paged_decode_q8", True),
+        "int8_fp32q_wide": (i8, f32, 1, 2e-5, "paged_decode_q8", True),
     }
     results = {}
-    for name, (pool, qdt, rep, atol, kernel) in cases.items():
-        case = decode_case(torch, pool=pool, q_dtype=qdt, num_rep=rep)
+    for name, (pool, qdt, rep, atol, kernel, wide) in cases.items():
+        case = decode_case(torch, pool=pool, q_dtype=qdt, num_rep=rep,
+                           wide=wide)
         args = {k: v for k, v in case.items() if k != "num_rep"}
         before = pa.LAUNCHES[kernel]
         out = pa.paged_attention(**args, num_rep=rep)
@@ -1284,6 +1325,7 @@ def main(argv=None) -> int:
                 print(f"  ptxas {name}: {line.strip()}")
 
     check_tensor_core_build(_build)
+    check_paged_build(_build)
 
     phase("3 kernels vs plain")
     kres = check_kernels(torch, pa)

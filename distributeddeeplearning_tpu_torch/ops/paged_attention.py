@@ -1,14 +1,16 @@
 """Paged-attention decode: the serving engine's hot read path.
 
 The decode loop (``serving/engine.py``) runs ONE token per row against the
-block-pooled KV cache. :func:`paged_attention` reads the pool in place,
-page by page through the page table, with no gathered copy: on a CUDA
-tensor it launches the hand-written Hopper kernel of
-``csrc/paged_attention.cu`` (one kernel per pool type: fp pools, and int8
-pools whose per-(slot, head) scales are applied on load); on a CPU tensor
-it runs :func:`paged_attention_plain`, the same math in plain torch, which
-is also what the CPU tests and ``chip_smoke.py`` hold the kernel against.
-There is no fallback: a CUDA input the kernel does not take raises.
+block-pooled KV cache. :func:`paged_attention` reads the pool in place
+through the page table, with no gathered copy: on a CUDA tensor it
+launches the hand-written Hopper kernels of ``csrc/paged_attention.cu``
+(fp pools, and int8 pools whose per-(slot, head) scales are applied on
+load): a split kernel, in which each block attends one split of a row's
+columns and writes its partial softmax to fp32 scratch allocated here, and
+a merge of the splits, both from one C call. On a CPU tensor it runs
+:func:`paged_attention_plain`, the same math in plain torch, which is also
+what the CPU tests and ``chip_smoke.py`` hold the kernel against. There is
+no fallback: a CUDA input the kernel does not take raises.
 
 Semantics: the caller has already scattered this step's k/v at position
 ``seq_lens[b]``, and row b attends columns ``0 .. seq_lens[b]`` inclusive.
@@ -30,7 +32,9 @@ _NEG_INF = -1e30  # finite: exp(_NEG_INF - m) == 0 exactly, no inf-inf NaNs
 LAUNCHES = {"paged_decode": 0, "paged_decode_q8": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-_MAX_STATIC_SMEM = 48 * 1024  # above it a launch needs an opt-in attribute
+# The head dims the kernel is built for: those of the JAX package's model
+# sizes (16 tiny; 64 GPT-2, BERT, ViT, Llama 300m/1b; 128 Llama 7b).
+HEAD_DIMS = (16, 64, 128)
 
 
 def reset_launches() -> None:
@@ -124,6 +128,28 @@ def paged_attention(q, pool_k, pool_v, page_table, seq_lens, *,
                    num_rep, float(sm_scale), quantized)
 
 
+def check_kernel_operands(q, pool_k, pool_v, page_table) -> None:
+    """What the CUDA kernel takes beyond the shapes, checked before any
+    launch: a head dim it was built for, and the pools on 16-byte
+    boundaries (``cp.async`` copies them 16 bytes at a time). The page
+    table, read 4 bytes at a time, is held to the same boundary: one rule
+    for every pointer the C entry takes, which the caching allocator and
+    the engine's own tables always meet."""
+    D = q.shape[-1]
+    if D not in HEAD_DIMS:
+        raise ValueError(
+            f"paged_attention kernel: head_dim {D} is not built; "
+            f"csrc/paged_attention.cu instantiates {HEAD_DIMS}"
+        )
+    for name, t in (("pool_k", pool_k), ("pool_v", pool_v),
+                    ("page_table", page_table)):
+        if t.data_ptr() % 16:
+            raise ValueError(
+                f"paged_attention kernel: {name} at {t.data_ptr():#x} is not "
+                "16-byte aligned"
+            )
+
+
 def _launch(q, pool_k, pool_v, page_table, seq_lens, scale_k, scale_v,
             num_rep, sm_scale, quantized):
     operands = {"q": q, "pool_k": pool_k, "pool_v": pool_v,
@@ -150,32 +176,34 @@ def _launch(q, pool_k, pool_v, page_table, seq_lens, scale_k, scale_v,
     if quantized and (scale_k.dtype != torch.float32
                       or scale_v.dtype != torch.float32):
         raise TypeError("paged_attention kernel: scales must be float32")
+    check_kernel_operands(q, pool_k, pool_v, page_table)
     B, H, D = q.shape
     _, block_size, kv_heads, _ = pool_k.shape
     num_pages = page_table.shape[-1]
-    if B >= 2**31 or kv_heads > 65535:
-        raise ValueError(
-            f"paged_attention kernel: grid (B={B}, kv_heads={kv_heads}) "
-            "exceeds the launch limits (2**31 - 1, 65535)"
-        )
     from ._build import load
 
     lib = _bind(load("paged_attention"))
-    smem = lib.ddl_paged_attention_smem_bytes(block_size, D, num_rep)
-    if smem > _MAX_STATIC_SMEM:
+    n_splits = -(-num_pages * block_size // lib.ddl_paged_attention_split())
+    if B * H >= 2**31 or n_splits > 65535:
         raise ValueError(
-            f"paged_attention kernel: block_size={block_size}, D={D}, "
-            f"num_rep={num_rep} need {smem} B of shared memory per block, "
-            f"over the {_MAX_STATIC_SMEM} B the launch takes"
+            f"paged_attention kernel: grid (B*H={B * H}, splits={n_splits}) "
+            "exceeds the launch limits (2**31 - 1, 65535)"
         )
     out = torch.empty_like(q)
+    # Each split's unnormalised o and its (m, l); the merge reads only the
+    # live splits, so nothing needs zeroing.
+    o_part = torch.empty(B, H, n_splits, D, dtype=torch.float32,
+                         device=q.device)
+    ml_part = torch.empty(2, B, H, n_splits, dtype=torch.float32,
+                          device=q.device)
     err = lib.ddl_paged_attention_decode(
         q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
         scale_k.data_ptr() if quantized else None,
         scale_v.data_ptr() if quantized else None,
         page_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-        B, H, D, block_size, kv_heads, num_pages, num_rep, sm_scale,
-        _DTYPE_CODES[q.dtype], _DTYPE_CODES[pool_k.dtype],
+        o_part.data_ptr(), ml_part[0].data_ptr(), ml_part[1].data_ptr(),
+        B, H, D, block_size, kv_heads, num_pages, num_rep, n_splits,
+        sm_scale, _DTYPE_CODES[q.dtype], _DTYPE_CODES[pool_k.dtype],
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
@@ -194,10 +222,10 @@ def _bind(lib):
         return lib
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     fn = lib.ddl_paged_attention_decode
-    fn.argtypes = [vp] * 8 + [i32] * 7 + [ctypes.c_float, i32, i32, vp]
+    fn.argtypes = [vp] * 11 + [i32] * 8 + [ctypes.c_float, i32, i32, vp]
     fn.restype = i32
-    lib.ddl_paged_attention_smem_bytes.argtypes = [i32, i32, i32]
-    lib.ddl_paged_attention_smem_bytes.restype = ctypes.c_longlong
+    lib.ddl_paged_attention_split.argtypes = []
+    lib.ddl_paged_attention_split.restype = i32
     lib.ddl_cuda_error_string.argtypes = [i32]
     lib.ddl_cuda_error_string.restype = ctypes.c_char_p
     lib._ddl_bound = True

@@ -5,19 +5,23 @@ the CPU, as tests/test_paged_attention.py runs it), the JAX gather oracle
 ``paged_attention_reference``, and the port's ``paged_attention`` — which on
 a CPU tensor is its plain torch version. fp32 cases hold atol 1e-5; int8
 pools hold 2e-5 (the quantized reference's bar); bf16 pools 2e-2 (one bf16
-rounding of unit-scale outputs). The CUDA kernel itself is held against the
-plain version on the card (``gpu`` marker, and chip_smoke.py).
+rounding of unit-scale outputs). ``split_merge`` emulates the CUDA kernel's
+arithmetic in plain torch (each split's partial softmax, then the merge)
+and is held against the Pallas kernel at the same tolerances. The CUDA
+kernel itself is held against the plain version on the card (``gpu``
+marker, and chip_smoke.py). JAX is imported inside the helpers that use it,
+so the ``gpu`` tests run on a GPU host without JAX:
+
+    python -m pytest tests/test_torch_paged_attention.py --noconftest -m gpu
 """
 
-import jax.numpy as jnp
+import functools
+import math
+
 import numpy as np
 import pytest
 import torch
 
-from distributeddeeplearning_tpu.ops import (
-    paged_attention as jax_paged_attention,
-    paged_attention_reference as jax_reference,
-)
 from distributeddeeplearning_tpu_torch.ops import paged_attention as pa
 
 torch.set_num_threads(2)
@@ -58,11 +62,20 @@ def _case(seed, *, B, kv_heads, num_rep, D, num_blocks, block_size, pages,
                 scale_v=scales[1])
 
 
-def _jax(args, num_rep, dtype=jnp.float32):
+def _jax(args, num_rep, bf16=False):
+    """The JAX Pallas kernel (interpret mode on the CPU) and the JAX gather
+    oracle on ``args``; fp32 operands go in as bf16 with ``bf16``."""
+    import jax.numpy as jnp
+
+    from distributeddeeplearning_tpu.ops import (
+        paged_attention as jax_paged_attention,
+        paged_attention_reference as jax_reference,
+    )
+
     a = {k: (None if v is None else jnp.asarray(v)) for k, v in args.items()}
     for k in ("q", "pool_k", "pool_v"):
-        if a[k].dtype == jnp.float32:
-            a[k] = a[k].astype(dtype)
+        if bf16 and a[k].dtype == jnp.float32:
+            a[k] = a[k].astype(jnp.bfloat16)
     pos = [a.pop(k) for k in ("q", "pool_k", "pool_v", "page_table",
                               "seq_lens")]
     kern = jax_paged_attention(*pos, num_rep=num_rep, **a)
@@ -110,7 +123,7 @@ def test_bf16_pool_matches_jax():
     cfg = dict(B=3, kv_heads=2, num_rep=2, D=16, num_blocks=16,
                block_size=8, pages=4, lens=[3, 17, 0])
     args = _case(2, **cfg)
-    kern, _ = _jax(args, 2, dtype=jnp.bfloat16)
+    kern, _ = _jax(args, 2, bf16=True)
     ours = _torch(args, 2, dtype=torch.bfloat16)
     np.testing.assert_allclose(ours, kern, atol=2e-2, rtol=2e-2)
 
@@ -146,6 +159,134 @@ def test_int8_pool_with_scales_matches_jax(num_rep):
     ours = _torch(args, num_rep)
     np.testing.assert_allclose(ours, kern, atol=2e-5, rtol=2e-5)
     np.testing.assert_allclose(ours, ref, atol=2e-5, rtol=2e-5)
+
+
+def split_merge(q, pool_k, pool_v, page_table, seq_lens, *, scale_k=None,
+                scale_v=None, num_rep=1, split=64):
+    """The CUDA kernel's arithmetic (``csrc/paged_attention.cu``) in plain
+    fp32 torch: row b's columns, clamped to the table, are cut into splits
+    of ``split``; each split that holds a visible column computes its
+    scores from the pre-scaled q (an int8 row's scale applied to the dot
+    product), its max m, l = sum exp(s - m) and the unnormalised o = sum
+    exp(s - m) * v (the int8 value scale folded into the weight); the merge
+    rescales each live split by exp(m_s - m_max) and divides by the
+    rescaled l. Returns [B, H, D] fp32."""
+    B, H, D = q.shape
+    _, bs, kv_heads, _ = pool_k.shape
+    columns = page_table.shape[1] * bs
+    n_splits = -(-columns // split)
+    qf = q.float() * torch.tensor(1.0 / math.sqrt(D), dtype=torch.float32)
+    qf = qf.reshape(B, kv_heads, num_rep, D)
+    o = torch.zeros(B, kv_heads, num_rep, n_splits, D)
+    m = torch.full((B, kv_heads, num_rep, n_splits), -1e30)
+    l_ = torch.zeros(B, kv_heads, num_rep, n_splits)
+    out = torch.zeros(B, kv_heads, num_rep, D)
+    for b in range(B):
+        last = min(int(seq_lens[b]), columns - 1)
+        live = 0 if last < 0 else last // split + 1
+        for sp in range(live):
+            cols = torch.arange(sp * split, min((sp + 1) * split, columns))
+            rows = page_table[b, cols // bs].long(), cols % bs
+            k, v = pool_k[rows].float(), pool_v[rows].float()  # [n, G, D]
+            s = torch.einsum("grd,ngd->grn", qf[b], k)
+            if scale_k is not None:
+                s = s * scale_k[rows].T[:, None, :]
+            s = torch.where(cols <= last, s, torch.tensor(-1e30))
+            m[b, ..., sp] = s.amax(-1)
+            p = torch.exp(s - m[b, ..., sp, None])
+            l_[b, ..., sp] = p.sum(-1)
+            if scale_v is not None:
+                p = p * scale_v[rows].T[:, None, :]
+            o[b, ..., sp, :] = torch.einsum("grn,ngd->grd", p, v)
+        if live:
+            w = torch.exp(m[b, ..., :live] - m[b, ..., :live].amax(-1, True))
+            total = (w * l_[b, ..., :live]).sum(-1)
+            acc = (w[..., None] * o[b, ..., :live, :]).sum(-2)
+            out[b] = acc / total.clamp_min(1e-30)[..., None]
+    return out.reshape(B, H, D)
+
+
+# Cursors on and around page (16) and split (64, 128) boundaries, an idle
+# row (0) and the deepest column of a 64-page table (1023).
+_SPLIT_LENS = [0, 1, 15, 16, 63, 64, 65, 127, 128, 1023]
+_SPLIT_CASES = {
+    "d64": dict(kv_heads=2, num_rep=1, D=64),
+    "d128": dict(kv_heads=2, num_rep=1, D=128),
+    "gqa_rep2": dict(kv_heads=2, num_rep=2, D=64),
+    "int8": dict(kv_heads=2, num_rep=1, D=64, quantized=True),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _split_case(name):
+    cfg = dict(_SPLIT_CASES[name])
+    lens = _SPLIT_LENS
+    pages_used = sum(n // 16 + 1 for n in lens if n)
+    args = _case(8, B=len(lens), block_size=16, pages=64, lens=lens,
+                 num_blocks=1 + pages_used, **cfg)
+    kern, _ = _jax(args, cfg["num_rep"])
+    return args, cfg["num_rep"], kern
+
+
+@pytest.mark.parametrize("split", [64, 128])
+@pytest.mark.parametrize("name", sorted(_SPLIT_CASES))
+def test_split_merge_emulation_matches_jax_kernel(name, split):
+    """The kernel's split-and-merge, emulated, against the Pallas kernel in
+    interpret mode: fp32 atol 1e-5, the int8 pool 2e-5."""
+    args, num_rep, kern = _split_case(name)
+    t = {k: (None if v is None else torch.from_numpy(v))
+         for k, v in args.items()}
+    ours = split_merge(t.pop("q"), t.pop("pool_k"), t.pop("pool_v"),
+                       t.pop("page_table"), t.pop("seq_lens"),
+                       num_rep=num_rep, split=split, **t).numpy()
+    atol = 2e-5 if name == "int8" else 1e-5
+    assert np.isfinite(ours).all()
+    np.testing.assert_allclose(ours, kern, atol=atol, rtol=atol)
+
+
+_OPERAND_ERRORS = {
+    "head_dim_32": "head_dim 32 is not built",
+    "pool_k_misaligned": "pool_k at 0x[0-9a-f]+ is not 16-byte aligned",
+    "pool_v_misaligned": "pool_v at 0x[0-9a-f]+ is not 16-byte aligned",
+    "page_table_misaligned": "page_table at 0x[0-9a-f]+ is not 16-byte",
+}
+
+
+@pytest.mark.parametrize("kind", sorted(_OPERAND_ERRORS))
+def test_kernel_operand_checks_by_name(kind):
+    """What the wrapper refuses before a CUDA launch, checked here on CPU
+    tensors: a head dim the kernel is not built for, and a pool or table
+    that does not start on a 16-byte boundary (a view one element in)."""
+    D = 32 if kind == "head_dim_32" else 64
+
+    def aligned(*shape, dtype):
+        return torch.zeros(math.prod(shape) + 16, dtype=dtype)[:math.prod(
+            shape)].view(shape)
+
+    def shifted(*shape, dtype):
+        return torch.zeros(math.prod(shape) + 16, dtype=dtype)[1:1 + math.prod(
+            shape)].view(shape)
+
+    ops = {"q": aligned(2, 2, D, dtype=torch.float32),
+           "pool_k": aligned(4, 16, 2, D, dtype=torch.bfloat16),
+           "pool_v": aligned(4, 16, 2, D, dtype=torch.bfloat16),
+           "page_table": aligned(2, 3, dtype=torch.int32)}
+    name = kind.replace("_misaligned", "")
+    if name in ops:
+        ops[name] = shifted(*ops[name].shape, dtype=ops[name].dtype)
+    with pytest.raises(ValueError, match=_OPERAND_ERRORS[kind]):
+        pa.check_kernel_operands(**ops)
+    assert all(t.data_ptr() % 16 == 0 for k, t in ops.items() if k != name)
+
+
+def test_kernel_operand_checks_pass_the_engine_layout():
+    # The pools and table as the engine allocates them: nothing to refuse.
+    for D in pa.HEAD_DIMS:
+        pa.check_kernel_operands(
+            torch.zeros(2, 4, D, dtype=torch.bfloat16),
+            torch.zeros(9, 16, 4, D, dtype=torch.int8),
+            torch.zeros(9, 16, 4, D, dtype=torch.int8),
+            torch.zeros(2, 4, dtype=torch.int32))
 
 
 def test_wrapper_on_cpu_runs_plain_version_and_launches_nothing():
@@ -201,21 +342,40 @@ def test_validation_errors_by_name(kind, fn):
            t.pop("seq_lens"), num_rep=1, **t)
 
 
+# name: (pool type, q bf16, num_rep, D, cursors). ``int8_bf16q`` is the
+# serving path's int8 case: a bf16 q (the model's compute dtype) over the
+# int8 pool; ``int8`` holds the same kernel at fp32 q to the tight
+# tolerance. ``split_cursors`` puts cursors on and beside 64- and
+# 128-column splits and the 16-slot pages.
+_LENS = [0, 1, 15, 16, 300, 511, 0, 1023]
+_GPU_CASES = {
+    "float32": ("float32", False, 1, 64, _LENS),
+    "bfloat16": ("float32", True, 1, 64, _LENS),
+    "int8": ("int8", False, 1, 64, _LENS),
+    "int8_bf16q": ("int8", True, 1, 64, _LENS),
+    "gqa4": ("float32", False, 4, 64, _LENS),
+    "bf16_d128": ("float32", True, 1, 128, _LENS),
+    "float32_d128": ("float32", False, 1, 128, _LENS),
+    "bf16_gqa2": ("float32", True, 2, 64, _LENS),
+    "bf16_d16": ("float32", True, 1, 16, _LENS),
+    "split_cursors": ("float32", True, 1, 64,
+                      [63, 64, 127, 128, 255, 256, 1022, 1023]),
+    "split_cursors_int8_fp32q": ("int8", False, 1, 64,
+                                 [0, 63, 64, 65, 127, 128, 129, 1023]),
+}
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize(
-    "pool", ["float32", "bfloat16", "int8", "int8_bf16q", "gqa4"])
+@pytest.mark.parametrize("pool", list(_GPU_CASES))
 def test_cuda_kernel_matches_plain_version(pool):
-    """``int8_bf16q`` is the serving path's int8 case: a bf16 q (the
-    model's compute dtype) over the int8 pool; ``int8`` holds the same
-    kernel at fp32 q to the tight tolerance."""
+    """The kernel against its plain version on the card: bf16 at 2e-2, fp32
+    q at 2e-5 (only the order of the fp32 sums differs)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    num_rep = 4 if pool == "gqa4" else 1
-    cfg = dict(B=8, kv_heads=12 // num_rep, num_rep=num_rep, D=64,
-               num_blocks=8 * 64 + 1, block_size=16, pages=64,
-               lens=[0, 1, 15, 16, 300, 511, 0, 1023])
-    args = _case(7, quantized=pool.startswith("int8"), **cfg)
-    bf16 = pool in ("bfloat16", "int8_bf16q")
+    kind, bf16, num_rep, D, lens = _GPU_CASES[pool]
+    cfg = dict(B=8, kv_heads=12 // num_rep, num_rep=num_rep, D=D,
+               num_blocks=8 * 64 + 1, block_size=16, pages=64, lens=lens)
+    args = _case(7, quantized=kind == "int8", **cfg)
     dtype = torch.bfloat16 if bf16 else torch.float32
     t = {k: (None if v is None else torch.from_numpy(v).cuda())
          for k, v in args.items()}
@@ -231,3 +391,18 @@ def test_cuda_kernel_matches_plain_version(pool):
     ref = pa.paged_attention_plain(*pos, num_rep=num_rep, **t)
     atol = 2e-2 if bf16 else 2e-5
     torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=atol)
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_refuses_head_dim_by_name():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    args = _case(9, B=2, kv_heads=2, num_rep=1, D=32, num_blocks=8,
+                 block_size=16, pages=3, lens=[3, 40])
+    t = {k: (None if v is None else torch.from_numpy(v).cuda())
+         for k, v in args.items()}
+    before = dict(pa.LAUNCHES)
+    with pytest.raises(ValueError, match="head_dim 32 is not built"):
+        pa.paged_attention(t.pop("q"), t.pop("pool_k"), t.pop("pool_v"),
+                           t.pop("page_table"), t.pop("seq_lens"))
+    assert pa.LAUNCHES == before

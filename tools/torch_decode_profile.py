@@ -6,7 +6,9 @@ Serves GPT-2 124M (vocab 50257) through ``distributeddeeplearning_tpu_torch``'s
 ``torch.profiler`` and prints one JSON line per configuration: host wall time
 per step (p50 without the profiler, mean under it), device busy time per step (the
 sum of device-side kernel, copy and memset times), the device idle share
-under the profiler, and the kernels with the most device time. Needs an NVIDIA GPU:
+under the profiler, the paged decode kernels' device time per step and their
+share of the busy time, and the kernels with the most device time. Needs an
+NVIDIA GPU:
 
     python3 tools/torch_decode_profile.py [--steps 20] [--dtype bfloat16 ...]
 """
@@ -76,6 +78,7 @@ def profile(torch, cfg, dtype, kernel, kv_quant, steps):
         for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA
     }
     busy_us = sum(us for us, _ in kernels.values())
+    paged_us = sum(us for name, (us, _) in kernels.items() if "paged_" in name)
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
     return {
         "dtype": dtype, "attn_kernel": kernel, "kv_quant": kv_quant,
@@ -85,6 +88,8 @@ def profile(torch, cfg, dtype, kernel, kv_quant, steps):
         "device_busy_ms_per_step": busy_us / steps / 1e3,
         "device_idle_share": max(0.0, 1 - busy_us / 1e6 / wall),
         "device_ops_per_step": sum(c for _, c in kernels.values()) / steps,
+        "paged_kernels_ms_per_step": paged_us / steps / 1e3,
+        "paged_kernels_share_of_busy": paged_us / busy_us if busy_us else 0.0,
         "top_kernels_ms_per_step": [
             [name[:80], us / steps / 1e3, count / steps]
             for name, (us, count) in top

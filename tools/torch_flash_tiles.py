@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Tile shapes of the bf16 tensor-core attention kernels, compared on the card.
+"""Tile shapes of the port's attention kernels, compared on the card.
 
 Builds variants of ``csrc/flash_attention.cu`` and ``csrc/ring_attention.cu``
 that differ only in tile constants (``tc::Shape``, ``tc::kWarps``,
@@ -13,18 +13,25 @@ training shape (bf16 causal [384, 1024, 64]) and ``flash_dq`` at D = 128
 (bf16 causal [192, 1024, 128]), the ring variants' ``ring_step``,
 ``ring_dq`` and ``ring_dkv`` at its cp=2 visit (bf16 mode 0 [384, 512, 64],
 the carries of a diagonal visit before it) and ``ring_dq`` at D = 128
-([192, 512, 128]). It prints one JSON line per variant: ptxas's registers
-and spills of the tensor-core kernels, the times, and the largest error
-against the plain versions. Needs an NVIDIA GPU:
+([192, 512, 128]). The paged decode variants of ``csrc/paged_attention.cu``
+differ in the columns of a split (``kSplit``) and the keys a thread loads
+(``kKeysPerThread``); they are timed at ``chip_smoke.py``'s decode case (bf16 pool, and int8 pool with
+bf16 q), at its wide case (64 rows, every cursor at 1023) and at the wide
+case's bytes under one kv head. It prints one JSON line per variant:
+ptxas's registers and spills of the tensor-core (or paged) kernels, the
+times, and the largest error against the plain versions. Needs an NVIDIA
+GPU:
 
-    python3 tools/torch_flash_tiles.py [--lib flash_attention|ring_attention]
-                                       [--variant NAME ...]
+    python3 tools/torch_flash_tiles.py
+        [--lib flash_attention|ring_attention|paged_attention]
+        [--variant NAME ...]
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import json
 import os
 import subprocess
@@ -67,7 +74,20 @@ VARIANTS = {
                               {"kDqStrips = 1": "kDqStrips = D == 64 ? 2 : 1"}),
     "ring_dq_regs": ("ring_attention",
                      {"kRingDqRegs = false": "kRingDqRegs = true"}),
+    # paged decode: 128-column splits, 4 keys a thread (shipped), against
+    # 64-column splits and deeper loads.
+    "paged_shipped": ("paged_attention", {}),
+    "paged_split64": ("paged_attention",
+                      {"kSplit = 128;": "kSplit = 64;"}),
+    "paged_8_keys": ("paged_attention",
+                     {"kKeysPerThread = 4;": "kKeysPerThread = 8;"}),
+    "paged_split64_8_keys": ("paged_attention", {
+        "kSplit = 128;": "kSplit = 64;",
+        "kKeysPerThread = 4;": "kKeysPerThread = 8;"}),
 }
+# Symbol fragment of the kernels whose ptxas stats a variant reports.
+REPORTED = {"flash_attention": "_tc", "ring_attention": "_tc",
+            "paged_attention": "paged_split"}
 
 
 def build_variants(_build, chip_smoke, names):
@@ -107,7 +127,8 @@ def build_variants(_build, chip_smoke, names):
             raise RuntimeError(f"variant {name}: nvcc exited "
                                f"{proc.returncode}\n{log}")
         regs = {sym: stats for sym, stats in
-                chip_smoke.ptxas_stats(log).items() if "_tc" in sym}
+                chip_smoke.ptxas_stats(log).items()
+                if REPORTED[VARIANTS[name][0]] in sym}
         libs[name] = (ctypes.CDLL(so), regs)
     return libs
 
@@ -155,9 +176,56 @@ def ring_calls(torch, chip_smoke, rp):
     return out
 
 
+def one_head(torch, case):
+    """The same bytes as ``case`` (every page of every row in use, as in
+    the wide case) laid out under one kv head: each (row, head) becomes a
+    row of its own and each (block, head) a block, so a page's key rows are
+    one contiguous run."""
+    q, table = case["q"], case["page_table"].long()
+    B, H, D = q.shape
+
+    def relaid(x):  # [NB, bs, H, ...] -> [1 + (NB - 1) * H, bs, 1, ...]
+        body = x[1:].transpose(1, 2).reshape(-1, x.shape[1], 1, *x.shape[3:])
+        return torch.cat([x[:1, :, :1], body])
+
+    heads = torch.arange(H, device=q.device)
+    new_table = 1 + (table - 1)[:, None, :] * H + heads[None, :, None]
+    out = dict(q=q.reshape(B * H, 1, D), pool_k=relaid(case["pool_k"]),
+               pool_v=relaid(case["pool_v"]),
+               page_table=new_table.reshape(B * H, -1).to(torch.int32),
+               seq_lens=case["seq_lens"].repeat_interleave(H),
+               scale_k=None, scale_v=None)
+    if case["scale_k"] is not None:
+        for k in ("scale_k", "scale_v"):
+            out[k] = relaid(case[k][..., None])[..., 0]
+    return out
+
+
+def paged_calls(torch, chip_smoke, pa):
+    """The paged decode kernels at chip_smoke.py's decode case and its wide
+    case, bf16 pool and int8 pool under a bf16 q; and the wide case's bytes
+    laid out with one kv head (768 rows), where a page's key rows are one
+    contiguous run."""
+    out = {}
+    for name, pool in (("bf16", torch.bfloat16), ("int8_bf16q", torch.int8)):
+        for wide in (False, True):
+            case = chip_smoke.decode_case(torch, pool=pool,
+                                          q_dtype=torch.bfloat16, num_rep=1,
+                                          wide=wide)
+            args = {k: v for k, v in case.items() if k != "num_rep"}
+            layouts = {"": args} if not wide else {
+                "_wide": args, "_wide_1head": one_head(torch, args)}
+            for sfx, lay in layouts.items():
+                out[name + sfx] = (
+                    functools.partial(pa.paged_attention, **lay),
+                    (pa.paged_attention_plain(**lay),))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--lib", choices=("flash_attention", "ring_attention"),
+    ap.add_argument("--lib", choices=("flash_attention", "ring_attention",
+                                      "paged_attention"),
                     help="build and time only this library's variants")
     ap.add_argument("--variant", action="append", choices=sorted(VARIANTS),
                     help="build and time only these variants (repeatable)")
@@ -171,6 +239,7 @@ def main(argv=None) -> int:
     import chip_smoke
     from distributeddeeplearning_tpu_torch.ops import _build
     from distributeddeeplearning_tpu_torch.ops import flash_attention as fa
+    from distributeddeeplearning_tpu_torch.ops import paged_attention as pa
     from distributeddeeplearning_tpu_torch.ops import ring_attention_pallas as rp
 
     print(subprocess.run(
@@ -186,6 +255,8 @@ def main(argv=None) -> int:
         calls["flash_attention"] = flash_calls(torch, chip_smoke, fa)
     if any(VARIANTS[n][0] == "ring_attention" for n in names):
         calls["ring_attention"] = ring_calls(torch, chip_smoke, rp)
+    if any(VARIANTS[n][0] == "paged_attention" for n in names):
+        calls["paged_attention"] = paged_calls(torch, chip_smoke, pa)
     times = {name: {} for name in names}
     errs = {}
     for _ in range(2):
