@@ -56,7 +56,27 @@ Phases, in order; any failure raises and the script exits non-zero:
      flash kernels, 2 x steps of fused_adamw on each;
   11. fp32 parity at 124M width: 2 ranks at cp=2 (ring_pallas,
      adamw_fused) against phase 8's single-process flash route, 4 steps;
-     the losses must agree within 1e-4 relative and fall.
+     the losses must agree within 1e-4 relative and fall;
+  12. ZeRO-1 training through the entry point: ``cli train`` under
+     ``torchrun`` with 2 ranks on ``configs/gpt2_owt.py`` as shipped
+     (``zero1=True``, ``dp=-1`` -> 2, flash, adamw_fused, bf16, batch
+     32 x 1024) with ``grad_accum=2``, evaluation and checkpoints every 2
+     steps and the metrics writer, 4 steps: per rank, flash_dq and
+     flash_dkv launch 12 x steps x grad_accum times, flash_fwd that many
+     plus 12 x evaluations x eval_batches, fused_adamw 2 x steps; each
+     rank's moments are half the unsharded bytes (plus padding);
+     metrics.jsonl holds the train and eval lines; checkpoints exist at
+     steps 2 and 4, and a second launch to 6 steps resumes from step 4;
+     then 2 steps with ZeRO-1 off, for its memory. Both ranks share the
+     one card over gloo, so the step times are no data-parallel speed;
+  13. fp32 parity at 124M width: 2 ranks at dp=2 with ZeRO-1 and
+     grad_accum=2 (flash, adamw_fused) against phase 8's single-process
+     flash route, 4 steps: losses within 1e-4 relative and falling,
+     params within ZERO_PARAM_LIMIT (clip and weight decay on); then, in
+     fresh processes, 2 steps, a save, a resume and 2 more, equal to the
+     straight run bit for bit.
+Phase 6 also holds fused AdamW over one ZeRO-1 rank's shard of the 124M
+groups (dp=2, rank 1, starting inside the flat buffers) bit for bit.
 The line before the last is the kernels record; the last line is
 ``{"ok": true, "device": {...}}``. No GPU means no result line and a
 non-zero exit: nothing here falls back to the CPU.
@@ -755,6 +775,81 @@ def time_adamw(torch, fused, groups, cfg):
     return res
 
 
+def check_adamw_shard(torch, models, fused, cfg):
+    """One ZeRO-1 rank's update at GPT-2 124M over dp=2: rank 1's shard of
+    each group's flat buffer (the decay and no-decay groups, 62.2M
+    elements together), starting inside the buffer, one launch a group.
+    Bit for bit against the plain version; then timed beside the bound
+    (p, g, m, v read and p, m, v written: 28 B an element, over HBM) and
+    the library's fused AdamW over the same two shards."""
+    from distributeddeeplearning_tpu_torch.mesh import Mesh
+    from distributeddeeplearning_tpu_torch.parallel.zero import ZeroLayout
+
+    meta = models.get_model(cfg.model.name, **cfg.model.kwargs,
+                            device="meta")
+    lay = ZeroLayout(dict(meta.named_parameters()), Mesh({"dp": 2}, 1))
+    g = torch.Generator(device="cuda").manual_seed(5)
+
+    def draw(n, scale):
+        return torch.randn(n, generator=g, device="cuda") * scale
+
+    wds = {"decay": cfg.optim.weight_decay, "no_decay": 0.0}
+    shards = {}
+    for grp, n in lay.padded.items():
+        flat = draw(n, 0.02)
+        sl = lay.shard_slice(grp)
+        k = sl.stop - sl.start
+        shards[grp] = dict(p=flat[sl], g=draw(k, 1e-3), m=draw(k, 1e-4),
+                           v=draw(k, 1e-7).abs())
+        if sl.start * 4 % 16 or sl.start == 0:
+            raise AssertionError(f"shard of {grp} starts at {sl.start}")
+    hp = dict(lr=6e-4, b1=cfg.optim.b1, b2=cfg.optim.b2, eps=1e-8)
+    c1, c2 = fused.bias_corrections(hp["b1"], hp["b2"], 1000)
+    ref = {grp: {k: t[k].clone() for k in "pgmv"}
+           for grp, t in shards.items()}
+    before = fused.LAUNCHES["fused_adamw"]
+
+    def kernel():
+        for grp, t in shards.items():
+            fused.fused_adamw_group([t["p"]], [t["g"]], [t["m"]], [t["v"]],
+                                    wd=wds[grp], c1=c1, c2=c2, **hp)
+
+    def plain(sets=shards):
+        for grp, t in sets.items():
+            fused.fused_adamw_plain(t["p"], t["g"], t["m"], t["v"],
+                                    wd=wds[grp], c1=c1, c2=c2, **hp)
+
+    kernel()
+    plain(ref)
+    torch.cuda.synchronize()
+    if fused.LAUNCHES["fused_adamw"] != before + len(shards):
+        raise RuntimeError("fused_adamw shard: the wrapper did not launch")
+    err = max((shards[grp][k] - ref[grp][k]).abs().max().item()
+              for grp in shards for k in "pmv")
+    if err != 0.0:
+        raise AssertionError(f"fused_adamw shard disagrees with its plain "
+                             f"version: max_abs_err {err}")
+    params = []
+    for grp, t in shards.items():
+        q = torch.nn.Parameter(t["p"].clone())
+        q.grad = t["g"].clone()
+        params.append({"params": [q], "weight_decay": wds[grp]})
+    opt = torch.optim.AdamW(params, lr=hp["lr"], betas=(hp["b1"], hp["b2"]),
+                            eps=hp["eps"], fused=True)
+    elems = sum(t["p"].numel() for t in shards.values())
+    nbytes = 28 * elems
+    res = {"ms": time_ms(torch, kernel, iters=20),
+           "plain_ms": time_ms(torch, plain, iters=5),
+           "library_ms": time_ms(torch, opt.step, iters=20),
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+           "bytes": nbytes, "elements": elems,
+           "offsets": {grp: lay.shard_slice(grp).start for grp in shards},
+           "launches_per_step": len(shards), "max_abs_err": err}
+    print(f"  fused_adamw ZeRO-1 shard (dp=2, rank 1): {json.dumps(res)}",
+          flush=True)
+    return res
+
+
 def check_training_kernels(torch, models, cfg):
     from distributeddeeplearning_tpu_torch.ops import flash_attention as fa
     from distributeddeeplearning_tpu_torch.ops import fused_adamw as fused
@@ -795,6 +890,7 @@ def check_training_kernels(torch, models, cfg):
     err = check_adamw(torch, fused, groups, cfg)
     res["fused_adamw"] = {**time_adamw(torch, fused, groups, cfg),
                           "max_abs_err": err}
+    res["fused_adamw_shard"] = check_adamw_shard(torch, models, fused, cfg)
     return res
 
 
@@ -1193,8 +1289,11 @@ def cli_train_cp(torch, layers, steps=CP_STEPS):
     return losses, end, got
 
 
-def _cp_rank(rank, port, overrides, out_dir):
-    """One rank of phase 11 (a child process): build_all + fit at cp=2."""
+def _rank_fit(rank, port, overrides, out_dir, ckpt_dir=None, stop=None,
+              save_every=0):
+    """One of 2 ranks (a child process): build_all + fit to ``stop``
+    (default ``train.steps``); with ``ckpt_dir``, restored from its latest
+    step when it holds one and saved every ``save_every`` steps."""
     import torch
 
     os.environ.update(RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK=str(rank),
@@ -1206,6 +1305,9 @@ def _cp_rank(rank, port, overrides, out_dir):
     import torch.distributed as dist
 
     from distributeddeeplearning_tpu_torch import cli, data
+    from distributeddeeplearning_tpu_torch.checkpoint import (
+        CheckpointManager,
+    )
     from distributeddeeplearning_tpu_torch.config import (
         apply_overrides,
         load_config,
@@ -1215,6 +1317,7 @@ def _cp_rank(rank, port, overrides, out_dir):
         init_distributed,
         rank_device,
     )
+    from distributeddeeplearning_tpu_torch.ops import fused_adamw
     from distributeddeeplearning_tpu_torch.ops import ring_attention_pallas
     from distributeddeeplearning_tpu_torch.train import fit
 
@@ -1224,12 +1327,20 @@ def _cp_rank(rank, port, overrides, out_dir):
     mesh = build_mesh(cfg.mesh)
     _, trainer, dataset = cli.build_all(cfg, device, mesh)
     state = trainer.init(cfg.train.seed)
+    ckpt = None if ckpt_dir is None else CheckpointManager(ckpt_dir)
+    if ckpt is not None and ckpt.latest_step() is not None:
+        state, _ = ckpt.restore(state)
     state, hist = fit(trainer, state, data.prefetch(
-        data.sharded_batches(dataset.iter_from(0), mesh), device),
-        steps=cfg.train.steps, log_every=1, log_fn=lambda m: None)
+        data.sharded_batches(dataset.iter_from(state.step), mesh), device),
+        steps=stop or cfg.train.steps, log_every=1, log_fn=lambda m: None,
+        ckpt=ckpt, save_every=save_every)
     torch.cuda.synchronize()
+    if ckpt is not None:
+        ckpt.close()
     out = {"losses": [r["loss"] for r in hist],
-           "launches": dict(ring_attention_pallas.LAUNCHES)}
+           "launches": {**ring_attention_pallas.LAUNCHES,
+                        **fused_adamw.LAUNCHES},
+           "timings": [] if ckpt is None else ckpt.timings}
     if rank == 0:
         out["params"] = {k: p.detach().cpu() for k, p in state.params.items()}
     torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
@@ -1237,24 +1348,34 @@ def _cp_rank(rank, port, overrides, out_dir):
     dist.destroy_process_group()
 
 
-def cp_parity(torch, parity, steps=4):
-    """fp32 at 124M width: 2 ranks at cp=2 (ring_pallas, adamw_fused)
-    against phase 8's single-process flash route on the same weights and
-    batches."""
+def spawn_ranks(torch, overrides, out_dir, ckpt_dir=None, stop=None,
+                save_every=0):
+    """2 ranks of :func:`_rank_fit`, sharing the one card over gloo: each
+    rank's results."""
     import socket
-    import tempfile
 
-    overrides = parity["overrides"] + [
-        "model.kwargs.attn_impl=ring_pallas", "mesh.cp=2", "mesh.dp=1"]
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
     torch.cuda.empty_cache()
+    torch.multiprocessing.spawn(
+        _rank_fit,
+        args=(port, overrides, out_dir, ckpt_dir, stop, save_every),
+        nprocs=2, join=True)
+    return [torch.load(os.path.join(out_dir, f"rank{r}.pt"))
+            for r in range(2)]
+
+
+def cp_parity(torch, parity, steps=4):
+    """fp32 at 124M width: 2 ranks at cp=2 (ring_pallas, adamw_fused)
+    against phase 8's single-process flash route on the same weights and
+    batches."""
+    import tempfile
+
+    overrides = parity["overrides"] + [
+        "model.kwargs.attn_impl=ring_pallas", "mesh.cp=2", "mesh.dp=1"]
     with tempfile.TemporaryDirectory() as tmp:
-        torch.multiprocessing.spawn(_cp_rank, args=(port, overrides, tmp),
-                                    nprocs=2, join=True)
-        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"))
-                 for r in range(2)]
+        ranks = spawn_ranks(torch, overrides, tmp)
     la, lb = ranks[0]["losses"], parity["losses_kernels"]
     rel = max(abs(a - b) / abs(b) for a, b in zip(la, lb))
     pb = parity["params_kernels"]
@@ -1262,7 +1383,7 @@ def cp_parity(torch, parity, steps=4):
                 for k in pb)
     print(f"cp=2 fp32 parity: losses ring {la} flash {lb} max rel diff "
           f"{rel}; max abs param diff after {steps} steps {pdiff} "
-          f"(information); ring launches per rank "
+          f"(information); launches per rank "
           f"{[r['launches'] for r in ranks]}", flush=True)
     if ranks[1]["losses"] != la:
         raise AssertionError("cp=2 fp32 parity: the ranks' losses differ")
@@ -1272,6 +1393,170 @@ def cp_parity(torch, parity, steps=4):
         raise AssertionError(f"cp=2 fp32 parity: loss did not fall {la}")
     return {"losses_ring": la, "losses_flash": lb, "max_rel_diff": rel,
             "max_abs_param_diff": pdiff}
+
+
+# ---------------------------------------------------------------------------
+# 12. / 13. ZeRO-1 training
+# ---------------------------------------------------------------------------
+
+ZERO_STEPS, ZERO_ACCUM, EVAL_BATCHES = 4, 2, 2
+# Phase 13's largest param difference from the one-rank route after 4
+# steps (clip and weight decay on): 5.1e-5 on an H100, gated at about
+# twice that.
+ZERO_PARAM_LIMIT = 1e-4
+
+
+def torchrun_train(overrides, timeout=600):
+    """``cli train --sync-steps`` under torchrun with 2 ranks on
+    ``configs/gpt2_owt.py``: (rank 0's text lines, its JSON records, the
+    train_end record)."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "2", "-m",
+           "distributeddeeplearning_tpu_torch.cli", "train", "--config",
+           CONFIG, "--sync-steps"]
+    for o in overrides:
+        cmd += ["--override", o]
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=timeout)
+    if proc.returncode != 0:
+        raise RuntimeError(f"torchrun cli train exited {proc.returncode}:\n"
+                           f"{proc.stdout[-4000:]}\n{proc.stderr[-8000:]}")
+    lines = proc.stdout.strip().splitlines()
+    recs = [json.loads(x) for x in lines if x.startswith("{")]
+    end = next(r for r in recs if r.get("event") == "train_end")
+    return [x for x in lines if not x.startswith("{")], recs, end
+
+
+def zero1_expected(layers, steps, evals):
+    """Each rank's launches over ``steps`` steps and ``evals`` passes."""
+    train = layers * steps * ZERO_ACCUM
+    return {"flash_fwd": train + layers * evals * EVAL_BATCHES,
+            "flash_dq": train, "flash_dkv": train, "fused_adamw": 2 * steps,
+            "ring_step": 0, "ring_dq": 0, "ring_dkv": 0}
+
+
+def cli_train_zero1(torch, layers, n_params):
+    """``cli train`` under torchrun on gpt2_owt as shipped (zero1=True,
+    dp=-1 -> 2, flash, adamw_fused, bf16, batch 32 x 1024) with
+    grad_accum=2, evaluation and checkpoints every 2 steps and the metrics
+    writer: 4 steps, then a second launch resumes to 6; then 2 steps with
+    ZeRO-1 off for its memory. Returns the first launch's train_end record,
+    each rank's launches over both launches, and the numbers to report."""
+    import tempfile
+
+    full_bytes = 8 * n_params  # two fp32 moments, unsharded
+    with tempfile.TemporaryDirectory() as tmp:
+        ck, logs = os.path.join(tmp, "ckpt"), os.path.join(tmp, "logs")
+        base = [f"train.grad_accum={ZERO_ACCUM}", "train.save_every=2",
+                "train.eval_every=2", f"train.eval_batches={EVAL_BATCHES}",
+                "train.log_every=1", f"train.checkpoint_dir={ck}",
+                f"train.log_dir={logs}"]
+        text, recs, end = torchrun_train(base + [f"train.steps={ZERO_STEPS}"])
+        print("\n".join(text))
+        losses = [r["loss"] for r in recs if "loss" in r]
+        evals = [r["step"] for r in recs if "eval_loss" in r]
+        if len(losses) != ZERO_STEPS or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"zero1 cli train: losses {losses}")
+        if evals != [2, 4]:
+            raise AssertionError(f"zero1 cli train: eval records at {evals}")
+        want = zero1_expected(layers, ZERO_STEPS, len(evals))
+        got = [r["launches"] for r in end["ranks"]]
+        print(f"losses {losses}\nlaunches per rank {got} expected {want}",
+              flush=True)
+        if got != [want, want]:
+            raise AssertionError(f"zero1 train launches {got} != {want}")
+        opt = [r["opt_state_bytes"] for r in end["ranks"]]
+        # The padding: < dp x 4 = 8 elements in each of two groups, 8 bytes
+        # of moments an element.
+        if any(not 0 <= 2 * b - full_bytes < 2 * 8 * 8 for b in opt):
+            raise AssertionError(f"zero1: per-rank optimizer bytes {opt} "
+                                 f"are not half of {full_bytes}")
+        with open(os.path.join(logs, "metrics.jsonl")) as f:
+            jl = [json.loads(x) for x in f]
+        if ([r["step"] for r in jl if "loss" in r] != [1, 2, 3, 4]
+                or [r["step"] for r in jl if "eval_loss" in r] != [2, 4]
+                or any(r.get("schema") != 1 for r in jl)):
+            raise AssertionError(f"metrics.jsonl: {jl}")
+        steps_on_disk = sorted(int(n) for n in os.listdir(ck) if n.isdigit())
+        if steps_on_disk != [2, 4]:
+            raise AssertionError(f"checkpoints at {steps_on_disk}")
+        saves = end["ranks"][0]["checkpoints"]
+        text2, recs2, end2 = torchrun_train(base + ["train.steps=6"])
+        print("\n".join(text2))
+        if "resumed from step 4" not in text2:
+            raise AssertionError("the second launch did not resume from 4")
+        steps2 = [r["step"] for r in recs2 if "loss" in r]
+        want2 = zero1_expected(layers, 2, 1)
+        got2 = [r["launches"] for r in end2["ranks"]]
+        if steps2 != [5, 6] or got2 != [want2, want2]:
+            raise AssertionError(f"resumed run: steps {steps2}, launches "
+                                 f"{got2} != {want2}")
+        _, _, off = torchrun_train([f"train.grad_accum={ZERO_ACCUM}",
+                                    "train.zero1=false", "train.steps=2",
+                                    "train.log_every=1"])
+    step_s = end["step_s"][1:]  # the first step warms the libraries up
+    res = {
+        "backend": end["backend"], "ranks_on_one_card": 2,
+        "p50_step_ms": statistics.median(step_s) * 1e3,
+        "step_ms": [x * 1e3 for x in step_s],
+        "opt_state_bytes_per_rank": opt,
+        "opt_state_bytes_zero1_off": [r["opt_state_bytes"]
+                                      for r in off["ranks"]],
+        "peak_mem_gb": [r["peak_mem_gb"] for r in end["ranks"]],
+        "peak_mem_gb_zero1_off": [r["peak_mem_gb"] for r in off["ranks"]],
+        "checkpoint_saves": saves,
+    }
+    print(f"zero1 train: {json.dumps(res)} (both ranks share the one card "
+          "over gloo: not a data-parallel speed)", flush=True)
+    launches = [{k: a[k] + b[k] for k in a} for a, b in zip(got, got2)]
+    return res, launches
+
+
+def zero1_parity(torch, parity, steps=4):
+    """fp32 at 124M width: 2 ranks at dp=2 with ZeRO-1 and grad_accum=2
+    (flash, adamw_fused) against phase 8's single-process flash route,
+    then, in fresh processes, 2 steps, a save, a resume and 2 more, which
+    must equal the straight run bit for bit."""
+    import tempfile
+
+    overrides = parity["overrides"] + [
+        "mesh.dp=2", "train.zero1=true", f"train.grad_accum={ZERO_ACCUM}"]
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = spawn_ranks(torch, overrides, tmp)
+        ck = os.path.join(tmp, "ckpt")
+        first = spawn_ranks(torch, overrides, tmp, ck, stop=steps // 2,
+                            save_every=steps // 2)
+        second = spawn_ranks(torch, overrides, tmp, ck)
+    la, lb = ranks[0]["losses"], parity["losses_kernels"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(la, lb))
+    pb = parity["params_kernels"]
+    pdiff = max((ranks[0]["params"][k] - pb[k].cpu()).abs().max().item()
+                for k in pb)
+    resumed = [f["losses"] + s["losses"] for f, s in zip(first, second)]
+    print(f"zero1 fp32 parity: losses dp=2 zero1 accum=2 {la} one rank {lb} "
+          f"max rel diff {rel}; max abs param diff after {steps} steps "
+          f"{pdiff} (limit {ZERO_PARAM_LIMIT}); saved and resumed {resumed}; "
+          f"checkpoint "
+          f"saves {first[0]['timings']}", flush=True)
+    if ranks[1]["losses"] != la:
+        raise AssertionError("zero1 fp32 parity: the ranks' losses differ")
+    if not rel <= 1e-4:
+        raise AssertionError(f"zero1 fp32 parity: loss rel diff {rel} > 1e-4")
+    if not pdiff <= ZERO_PARAM_LIMIT:
+        raise AssertionError(f"zero1 fp32 parity: param diff {pdiff} > "
+                             f"{ZERO_PARAM_LIMIT}")
+    if not la[-1] < la[0]:
+        raise AssertionError(f"zero1 fp32 parity: loss did not fall {la}")
+    if any(r != la for r in resumed):
+        raise AssertionError(f"zero1 resume is not bit-exact: {resumed} "
+                             f"against {la}")
+    if any(not torch.equal(second[0]["params"][k], ranks[0]["params"][k])
+           for k in pb):
+        raise AssertionError("zero1 resume: params differ from the "
+                             "straight run")
+    return {"losses_zero1": la, "losses_one_rank": lb, "max_rel_diff": rel,
+            "max_abs_param_diff": pdiff, "resumed_losses": resumed}
 
 
 def main(argv=None) -> int:
@@ -1399,8 +1684,20 @@ def main(argv=None) -> int:
     for k in ("ring_step", "ring_dq", "ring_dkv"):
         launches[k] = sum(r[k] for r in per_rank)
 
+    launches["fused_adamw"] += sum(r["fused_adamw"] for r in per_rank)
+
     phase("11 fp32 parity at 124M width, cp=2 against one rank")
     cp_parity(torch, parity)
+
+    phase("12 ZeRO-1 train through the entry point (torchrun, dp=2)")
+    n_params = sum(p.numel() for p in models.get_model(
+        cfg.model.name, **cfg.model.kwargs, device="meta").parameters())
+    _, zero_launches = cli_train_zero1(torch, layers, n_params)
+    for k in ("flash_fwd", "flash_dq", "flash_dkv", "fused_adamw"):
+        launches[k] += sum(r[k] for r in zero_launches)
+
+    phase("13 fp32 parity at 124M width, ZeRO-1 dp=2 against one rank")
+    zero1_parity(torch, parity)
 
     # Each kernel's numbers come from its case at the main path's types.
     main_case = {"paged_decode": "bf16", "paged_decode_q8": "int8_bf16q",

@@ -1,6 +1,6 @@
 """PyTorch/CUDA port of ``distributeddeeplearning_tpu``, slice by slice.
 
-Three paths run on the GPU:
+The paths that run on the GPU:
 - serving: ``cli serve`` -> ``serving.ServingEngine`` -> GPT-2 in
   paged-decode mode, whose decode attention reads the paged KV pool through
   a CUDA kernel written for Hopper (``csrc/paged_attention.cu``);
@@ -10,7 +10,11 @@ Three paths run on the GPU:
 - context-parallel training: ``cli train`` under ``torchrun`` over a
   ``mesh.Mesh`` of dp x cp ranks, ring attention over the cp ranks with its
   block attention in ``csrc/ring_attention.cu``, gradients averaged over
-  every rank (``comms.py``).
+  every rank (``comms.py``);
+- ZeRO-1 over the dp ranks (``parallel/zero.py``: each rank updates its
+  shard of the moments with the fused AdamW kernel), gradient
+  accumulation, checkpoints with step-exact resume on any mesh
+  (``checkpoint.py``), evaluation (``cli eval``) and the metrics writer.
 The package imports torch and never JAX; entry points run on the GPU unless
 the caller asks for the CPU.
 """

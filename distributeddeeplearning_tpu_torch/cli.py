@@ -1,36 +1,26 @@
 """CLI entry points: ``python -m distributeddeeplearning_tpu_torch.cli
-{train,serve}``.
+{train,eval,serve}``.
 
 ``train`` runs the training path (``build_all`` -> ``Trainer`` -> ``fit``)
 on one rank, or on every rank ``torchrun`` starts (one process per rank,
-``mesh.dp`` x ``mesh.cp`` of them); ``serve`` the in-process serving engine.
-Both run on the GPU by default; ``--device cpu`` asks for the CPU (and gloo
-under ``torchrun``).
+``mesh.dp`` x ``mesh.cp`` of them), resuming from ``train.checkpoint_dir``;
+``eval`` evaluates its latest checkpoint; ``serve`` runs the in-process
+serving engine on its latest checkpoint's weights. All run on the GPU by
+default; ``--device cpu`` asks for the CPU (and gloo under ``torchrun``).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import itertools
 import json
-import os
 
 import torch
 
 from . import models, resolve_device
 from .config import Config, apply_overrides, load_config
-
-
-def _fresh_or_refuse(cfg: Config) -> None:
-    """Serving from a checkpoint is not ported: refuse a checkpoint dir that
-    holds one rather than quietly serve freshly initialized weights."""
-    d = cfg.train.checkpoint_dir
-    if d and os.path.isdir(d) and os.listdir(d):
-        raise NotImplementedError(
-            f"train.checkpoint_dir={d!r} holds a checkpoint: checkpoint "
-            "restore not yet ported to distributeddeeplearning_tpu_torch"
-        )
-    print("no checkpoint found — serving from freshly initialized params")
 
 
 def build_model(cfg: Config, device):
@@ -73,15 +63,6 @@ def _unported_train_knobs(cfg: Config, world_size: int = 1):
         for a, (what, item) in _UNPORTED_AXES.items()
     ]
     return [
-        ("train.checkpoint_dir", t.checkpoint_dir, "checkpoints", "A7"),
-        ("train.save_every", t.save_every, "checkpoints", "A7"),
-        ("train.eval_every", t.eval_every, "evaluation", "A7"),
-        ("train.log_dir", t.log_dir, "the metrics writer", "A7"),
-        ("train.profile_steps", t.profile_steps, "the profiler", "A7"),
-        ("train.grad_accum", t.grad_accum if t.grad_accum > 1 else 0,
-         "gradient accumulation", "A6"),
-        ("train.steps_per_call", t.steps_per_call if t.steps_per_call > 1
-         else 0, "fused multi-step dispatch", "A7"),
         ("health.enabled", cfg.health.enabled, "the health guard", "A9"),
         ("telemetry.enabled", cfg.telemetry.enabled, "telemetry", "A14"),
         ("train.fault_injection", t.fault_injection, "fault injection",
@@ -100,10 +81,6 @@ def _unported_train_knobs(cfg: Config, world_size: int = 1):
         ("train.remat", t.remat if t.remat != "none" else "",
          "rematerialization", "A3"),
         *mesh_knobs,
-        ("mesh", dataclasses.asdict(mesh)
-         if t.zero1 and sizes["dp"] > 1 else "",
-         f"train.zero1=True over mesh.dp={sizes['dp']} (ZeRO-1 across "
-         "GPUs; train.zero1=false or mesh.dp=1 runs)", "A6"),
         ("model.kwargs.attn_impl", attn if attn in ("ring", "ring_pallas")
          and sizes["cp"] == 1 else "",
          "a ring over one rank, mesh.cp=1 (the ring cores run on mesh.cp > "
@@ -113,10 +90,7 @@ def _unported_train_knobs(cfg: Config, world_size: int = 1):
 
 def check_train_composition(cfg: Config, world_size: int = 1) -> None:
     """Refuse by name, before anything is built, every training knob whose
-    feature is not ported yet, over a job of ``world_size`` ranks.
-    ``train.zero1=True`` passes over dp=1: JAX's ZeRO-1 is a placement of
-    the optimizer state over dp, and over one data-parallel rank that
-    placement is a no-op."""
+    feature is not ported yet, over a job of ``world_size`` ranks."""
     for knob, value, what, item in _unported_train_knobs(cfg, world_size):
         if value:
             raise NotImplementedError(
@@ -165,84 +139,195 @@ def build_all(cfg: Config, device, mesh=None):
         model, tx,
         get_task(cfg.train.task, mesh=mesh, head_chunk=cfg.train.head_chunk,
                  label_smoothing=cfg.train.label_smoothing),
-        device=device, precision=policy, mesh=mesh,
+        device=device, precision=policy, mesh=mesh, zero1=cfg.train.zero1,
+        grad_accum=cfg.train.grad_accum,
     )
     dataset = data.make_dataset(cfg.data.kind, **cfg.data.dataset_kwargs())
     return model, trainer, dataset
 
 
-def _rank_report(device, history) -> dict:
+def _rank_report(device, history, state, ckpt) -> dict:
     """What one rank reports at the end: its kernel launch counts, its peak
-    device memory and the losses it logged."""
+    device memory, its Adam moments' bytes (a shard of them under ZeRO-1),
+    the losses it logged and its checkpoint saves' timings."""
     from .ops import flash_attention, fused_adamw, ring_attention_pallas
 
     peak = (torch.cuda.max_memory_allocated(device) / 1e9
             if device.type == "cuda" else None)
+    opt = state.opt_state
+    opt_bytes = sum(m.numel() * m.element_size()
+                    for tree in (opt.mu, opt.nu) for m in tree.values())
     return {
         "launches": {**flash_attention.LAUNCHES, **fused_adamw.LAUNCHES,
                      **ring_attention_pallas.LAUNCHES},
         "peak_mem_gb": peak,
-        "losses": [r["loss"] for r in history],
+        "opt_state_bytes": opt_bytes,
+        "losses": [r["loss"] for r in history if "loss" in r],
+        "checkpoints": ckpt.timings if ckpt is not None else [],
     }
 
 
-def cmd_train(cfg: Config, *, device=None, sync_steps: bool = False) -> int:
-    """Train on this rank: one JSON record per ``train.log_every`` steps,
-    printed by rank 0. Under ``torchrun`` every rank joins the process
-    group first, and the mesh spans ``WORLD_SIZE`` ranks. ``sync_steps``
-    ends every step in a device sync and prints each step's seconds, with
-    every rank's report (:func:`_rank_report`), in a final ``train_end``
-    event record."""
+@contextlib.contextmanager
+def _joined(cfg: Config, device):
+    """This rank's (device, mesh, say) for the length of a command: under
+    ``torchrun`` the rank joins the process group first and leaves it at
+    the end, after every rank is done reading from the others. ``say``
+    prints on rank 0 only."""
     import torch.distributed as dist
 
-    from . import data
     from .comms import psum
     from .mesh import DistEnv, build_mesh, init_distributed, rank_device
-    from .metrics import event_record
-    from .train import fit
 
     env = DistEnv.from_environ()
-    check_train_composition(cfg, world_size=env.world_size)
     device = resolve_device(device)
     joined = init_distributed(device, env)
     try:
         if joined:
             device = rank_device(device, env)
         mesh = build_mesh(cfg.mesh)
-        lead = mesh.rank == 0
 
         def say(text):
-            if lead:
+            if mesh.rank == 0:
                 print(text, flush=True)
 
-        _, trainer, dataset = build_all(cfg, device, mesh)
-        live = {a: n for a, n in mesh.shape.items() if n > 1}
-        say(f"devices: {mesh.size}  device: {device}  mesh: {live or {}}")
-        state = trainer.init(cfg.train.seed)
-        n = sum(p.numel() for p in state.params.values())
-        say(f"model: {cfg.model.name}  params: {n:,}")
-        batches = data.prefetch(
-            data.sharded_batches(dataset.iter_from(state.step), mesh),
-            device, size=cfg.data.prefetch_size)
-        step_s = [] if sync_steps else None
-        _, history = fit(trainer, state, batches, steps=cfg.train.steps,
-                         log_every=cfg.train.log_every,
-                         log_fn=lambda m: say(json.dumps(m)),
-                         step_times=step_s)
-        if sync_steps:
-            report = _rank_report(device, history)
-            extra = {"launches": report["launches"],
-                     "peak_mem_gb": report["peak_mem_gb"]}
-            if mesh.size > 1:
-                extra = {"backend": dist.get_backend(),
-                         "ranks": mesh.comm.gather_objects(report)}
-            say(json.dumps(event_record("train_end", cfg.train.steps,
-                                        step_s=step_s, **extra)))
+        yield device, mesh, say
         if joined:  # no rank leaves while another still reads from it
             psum(torch.zeros((), device=device), mesh)
     finally:
         if joined:
             dist.destroy_process_group()
+
+
+def make_eval_fn(cfg: Config, mesh, device, dataset=None):
+    """A callable returning a fresh iterable of this rank's eval-split
+    batches on ``device`` (``train.eval_batches`` of them, from index 0):
+    what ``fit(eval_fn=...)`` and :func:`cmd_eval` consume. ``dataset``
+    reuses an eval dataset already built."""
+    from . import data
+
+    eval_ds = dataset if dataset is not None else data.make_dataset(
+        cfg.data.kind, **cfg.data.eval_dataset_kwargs())
+
+    def eval_batches():
+        it = itertools.islice(eval_ds.iter_from(0), cfg.train.eval_batches)
+        return data.prefetch(data.sharded_batches(it, mesh), device,
+                             size=cfg.data.prefetch_size)
+
+    return eval_batches
+
+
+def _restore_or_init(cfg: Config, state, verb: str, say=print):
+    """``state`` restored from the latest checkpoint of
+    ``train.checkpoint_dir`` when it holds one, else as it is (freshly
+    initialized): the preamble of ``eval`` and ``serve``."""
+    from .checkpoint import CheckpointManager
+
+    if cfg.train.checkpoint_dir:
+        with CheckpointManager(cfg.train.checkpoint_dir) as ckpt:
+            if ckpt.latest_step() is not None:
+                state, _ = ckpt.restore(state)
+                say(f"{verb} checkpoint at step {state.step}")
+                return state
+    say(f"no checkpoint found — {verb} freshly initialized params")
+    return state
+
+
+def cmd_train(cfg: Config, *, device=None, sync_steps: bool = False) -> int:
+    """Train on this rank: one JSON record per ``train.log_every`` steps
+    (and per evaluation), printed by rank 0 and appended to
+    ``<train.log_dir>/metrics.jsonl``. Under ``torchrun`` every rank joins
+    the process group first, and the mesh spans ``WORLD_SIZE`` ranks. With
+    ``train.checkpoint_dir`` holding a checkpoint, training resumes from its
+    latest step and batch index (``resumed from step N``); checkpoints are
+    saved every ``train.save_every`` steps, and every save is on disk before
+    the command returns, on every exit path. ``sync_steps`` ends every step
+    in a device sync and prints each step's seconds, with every rank's
+    report (:func:`_rank_report`), in a final ``train_end`` event
+    record."""
+    import torch.distributed as dist
+
+    from . import data
+    from .checkpoint import CheckpointManager
+    from .mesh import DistEnv
+    from .metrics import MetricWriter, Profiler, event_record
+    from .train import check_fusion_cadences, fit
+
+    t = cfg.train
+    check_train_composition(cfg, world_size=DistEnv.from_environ().world_size)
+    # Cadence fences before the build: fit checks again with the resume
+    # step.
+    check_fusion_cadences(t.steps_per_call, steps=t.steps,
+                          log_every=t.log_every, eval_every=t.eval_every,
+                          save_every=t.save_every)
+    ckpt = writer = None
+    try:
+        with _joined(cfg, device) as (device, mesh, say):
+            _, trainer, dataset = build_all(cfg, device, mesh)
+            live = {a: n for a, n in mesh.shape.items() if n > 1}
+            say(f"devices: {mesh.size}  device: {device}  mesh: {live or {}}")
+            state = trainer.init(t.seed)
+            start_index = 0
+            if t.checkpoint_dir:
+                ckpt = CheckpointManager(t.checkpoint_dir)
+                if ckpt.latest_step() is not None:
+                    state, data_state = ckpt.restore(state)
+                    start_index = int(data_state.get("next_index",
+                                                     state.step))
+                    say(f"resumed from step {state.step}")
+            n = sum(p.numel() for p in state.params.values())
+            say(f"model: {cfg.model.name}  params: {n:,}")
+            placed = data.sharded_batches(dataset.iter_from(start_index),
+                                          mesh)
+            if t.steps_per_call > 1:
+                placed = data.stacked_batches(placed, t.steps_per_call)
+            batches = data.prefetch(placed, device,
+                                    size=cfg.data.prefetch_size)
+            writer = MetricWriter(t.log_dir)
+            step_s = [] if sync_steps else None
+            state, history = fit(
+                trainer, state, batches, steps=t.steps,
+                log_every=t.log_every, steps_per_call=t.steps_per_call,
+                log_fn=lambda m: say(json.dumps(m)), writer=writer,
+                profiler=Profiler(t.profile_steps, t.log_dir), ckpt=ckpt,
+                save_every=t.save_every, eval_every=t.eval_every,
+                eval_fn=(make_eval_fn(cfg, mesh, device) if t.eval_every
+                         else None),
+                step_times=step_s)
+            if ckpt is not None:
+                ckpt.wait()
+            if sync_steps:
+                report = _rank_report(device, history, state, ckpt)
+                extra = {k: report[k] for k in ("launches", "peak_mem_gb",
+                                                "opt_state_bytes",
+                                                "checkpoints")}
+                if mesh.size > 1:
+                    extra = {"backend": dist.get_backend(),
+                             "ranks": mesh.comm.gather_objects(report)}
+                say(json.dumps(event_record("train_end", t.steps,
+                                            step_s=step_s, **extra)))
+    finally:
+        # An abandoned in-flight save would quietly roll a resume back by
+        # save_every steps: drain it on every exit path.
+        if ckpt is not None:
+            ckpt.close()
+        if writer is not None:
+            writer.close()
+    return 0
+
+
+def cmd_eval(cfg: Config, *, device=None) -> int:
+    """Evaluate the latest checkpoint of ``train.checkpoint_dir`` (or fresh
+    weights when it holds none) over ``train.eval_batches`` eval batches;
+    rank 0 prints one JSON record of the mean ``eval_*`` metrics and the
+    step."""
+    from .train import evaluate
+
+    with _joined(cfg, device) as (device, mesh, say):
+        _, trainer, _ = build_all(cfg, device, mesh)
+        state = _restore_or_init(cfg, trainer.init(cfg.train.seed),
+                                 "evaluating", say)
+        metrics = evaluate(trainer, state, make_eval_fn(cfg, mesh, device)())
+        say(json.dumps({**metrics, "step": state.step}))
     return 0
 
 
@@ -271,9 +356,14 @@ def cmd_serve(cfg: Config, prompts: list[str], max_new_tokens: int,
             "completions decoded back. Use serving.ServingEngine directly "
             "for other tokenizers."
         )
+    from .train import TrainState
+
     device = resolve_device(device)
-    _fresh_or_refuse(cfg)
     model = build_model(cfg, device)
+    state = _restore_or_init(
+        cfg, TrainState(step=0, params=dict(model.named_parameters()),
+                        opt_state=None, rng=int(cfg.train.seed)),
+        "serving from")
     engine = ServingEngine(model, cfg.serving, seed=seed, device=device)
     engine.warmup()
     for p in prompts:
@@ -291,7 +381,7 @@ def cmd_serve(cfg: Config, prompts: list[str], max_new_tokens: int,
         ).decode("utf-8", errors="replace")
         results.append(m)
     record = {
-        "step": 0,
+        "step": state.step,
         "results": results,
         "stats": engine.stats(),
         "events": engine.events,
@@ -322,6 +412,8 @@ def main(argv=None) -> int:
         help="end every step in a device sync and print the step times in "
         "a final train_end record",
     )
+    e = sub.add_parser("eval")
+    common(e)
     p = sub.add_parser("serve")
     common(p)
     p.add_argument(
@@ -346,6 +438,9 @@ def main(argv=None) -> int:
     if args.cmd == "train":
         cfg = apply_overrides(load_config(args.config), args.override)
         return cmd_train(cfg, device=args.device, sync_steps=args.sync_steps)
+    if args.cmd == "eval":
+        cfg = apply_overrides(load_config(args.config), args.override)
+        return cmd_eval(cfg, device=args.device)
     if args.telemetry is not None:
         args.override = list(args.override) + ["telemetry.enabled=True"]
         if args.telemetry:

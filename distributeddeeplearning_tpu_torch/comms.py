@@ -7,6 +7,11 @@ Here they are calls on ``torch.distributed`` groups, made by each rank:
 - :func:`psum` / :func:`pmean`: all-reduce over an axis group (or the
   world), the gradient sync and the metric average;
 - :func:`pmean_tensors`: the same over many tensors in a few flat buckets;
+- :func:`reduce_scatter_mean` / :func:`all_gather`: a flat buffer's mean
+  over an axis, each member keeping only its chunk, and the chunks gathered
+  back into one buffer: ZeRO-1's gradient sync and parameter gather
+  (``parallel/zero.py``), which XLA emits around the sharded update in JAX;
+  :func:`gather` the same onto one member (a checkpoint's moments);
 - :func:`ring_shift`: rotate tensors around an axis ring, the KV rotation of
   ring attention (``lax.ppermute`` in JAX), differentiable: its backward
   shifts the other way, as the transpose of a ``ppermute`` does;
@@ -19,6 +24,8 @@ they travel as they are.
 """
 
 from __future__ import annotations
+
+import warnings
 
 import torch
 
@@ -56,6 +63,52 @@ class DistComm:
             buf = t.clone()
         dist.all_reduce(buf, group=self.groups[axis])
         return buf.to(t.device, non_blocking=True)
+
+    def reduce_scatter_sum(self, t: torch.Tensor, axis: str) -> torch.Tensor:
+        """Chunk ``i`` of the sum over ``axis`` of the flat ``t`` (whose
+        length the axis size divides), on member ``i``."""
+        import torch.distributed as dist
+
+        group = self.groups[axis]
+        buf = self._out(t)
+        out = torch.empty(buf.numel() // dist.get_world_size(group),
+                          dtype=buf.dtype, device=buf.device)
+        with warnings.catch_warnings():  # renamed, not removed, in torch 2.13
+            warnings.simplefilter("ignore", FutureWarning)
+            dist.reduce_scatter_tensor(out, buf, group=group)
+        return out.to(t.device, non_blocking=True)
+
+    def all_gather(self, t: torch.Tensor, axis: str,
+                   out: torch.Tensor) -> torch.Tensor:
+        """Every member's flat ``t``, in member order, into ``out``. Under
+        NCCL ``t`` may be ``out``'s own chunk (NCCL gathers in place); under
+        gloo the chunks meet in a host buffer, copied into ``out``."""
+        import torch.distributed as dist
+
+        buf = self._out(t)
+        dst = self._buffer(out) if self.stage_on_host else out
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", FutureWarning)
+            dist.all_gather_into_tensor(dst, buf, group=self.groups[axis])
+        if dst is not out:
+            out.copy_(dst, non_blocking=True)
+        return out
+
+    def gather(self, t: torch.Tensor, axis: str) -> torch.Tensor | None:
+        """Every member's flat ``t``, in member order, on member 0 of
+        ``axis`` (in host memory under gloo); None on the others."""
+        import torch.distributed as dist
+
+        group = self.groups[axis]
+        root = dist.get_global_rank(group, 0)
+        buf = self._out(t)
+        out = chunks = None
+        if dist.get_rank() == root:
+            out = torch.empty(buf.numel() * dist.get_world_size(group),
+                              dtype=buf.dtype, device=buf.device)
+            chunks = list(out.chunk(dist.get_world_size(group)))
+        dist.gather(buf, chunks, dst=root, group=group)
+        return out
 
     def shift(self, tensors, axis: str, ranks: list[int], index: int,
               shift: int):
@@ -136,6 +189,43 @@ def pmean_tensors(tensors: list, mesh, axis: str = "world") -> list:
             out.append(piece.view(t.shape).to(t.dtype))
         start = end
     return out
+
+
+def reduce_scatter_mean(flat: torch.Tensor, mesh,
+                        axis: str = "dp") -> torch.Tensor:
+    """This member's chunk of the mean over ``axis`` (of more than one
+    member) of the 1-D ``flat``: member ``i`` of ``n`` keeps elements
+    ``[i*len/n, (i+1)*len/n)``. The axis size must divide the length."""
+    n = axis_size(mesh, axis)
+    if flat.dim() != 1 or flat.numel() % n:
+        raise ValueError(f"reduce_scatter_mean: {tuple(flat.shape)} is no "
+                         f"flat buffer that {axis}={n} divides")
+    return _comm(mesh, "reduce_scatter_mean").reduce_scatter_sum(
+        flat.detach(), axis) / n
+
+
+def all_gather(chunk: torch.Tensor, mesh, axis: str = "dp",
+               out: torch.Tensor | None = None) -> torch.Tensor:
+    """The 1-D chunks of every member of ``axis`` (more than one),
+    concatenated in member order (the inverse of
+    :func:`reduce_scatter_mean`'s split), into ``out`` (a new buffer when
+    None)."""
+    n = axis_size(mesh, axis)
+    if out is None:
+        out = torch.empty(chunk.numel() * n, dtype=chunk.dtype,
+                          device=chunk.device)
+    if out.numel() != chunk.numel() * n:
+        raise ValueError(f"all_gather: {n} chunks of {chunk.numel()} do not "
+                         f"fill {out.numel()} elements")
+    return _comm(mesh, "all_gather").all_gather(chunk.detach(), axis, out)
+
+
+def gather(chunk: torch.Tensor, mesh, axis: str = "dp") -> torch.Tensor | None:
+    """:func:`all_gather` onto member 0 of ``axis`` alone: there the chunks
+    of every member concatenated in member order (on the chunk's device),
+    None on the others."""
+    out = _comm(mesh, "gather").gather(chunk.detach(), axis)
+    return None if out is None else out.to(chunk.device)
 
 
 def _shift(tensors, mesh, axis: str, shift: int):

@@ -13,6 +13,7 @@ import ast
 import dataclasses
 import importlib.util
 import json
+import sys
 from typing import Any
 
 
@@ -72,6 +73,34 @@ class DataConfig:
         names = {f.name for f in dataclasses.fields(DATASET_KINDS[self.kind])}
         return {k: getattr(self, k) for k in names if hasattr(self, k)}
 
+    def eval_dataset_kwargs(self) -> dict[str, Any]:
+        """:meth:`dataset_kwargs` on the eval split: ``eval_seed`` (when
+        >= 0) in place of ``seed``, ``eval_path`` in place of a file-backed
+        kind's ``path``, and never augmented (the reference's rules)."""
+        kwargs = self.dataset_kwargs()
+        if "augment" in kwargs:
+            kwargs["augment"] = False
+        if "path" in kwargs:  # file-backed kind
+            if self.eval_path:
+                kwargs["path"] = self.eval_path
+            elif self.eval_seed >= 0:
+                raise ValueError(
+                    f"data.eval_seed with file-backed kind {self.kind!r} only "
+                    "reshuffles the training file — set data.eval_path to a "
+                    "held-out file instead"
+                )
+            else:
+                print(
+                    f"WARNING: file-backed kind {self.kind!r} has no "
+                    "data.eval_path — eval_* metrics will be computed on "
+                    "the TRAINING file (training loss, not held-out eval)",
+                    file=sys.stderr, flush=True,
+                )
+            return kwargs
+        if self.eval_seed >= 0 and "seed" in kwargs:
+            kwargs["seed"] = self.eval_seed
+        return kwargs
+
 
 @dataclasses.dataclass(frozen=True)
 class OptimConfig:
@@ -101,8 +130,6 @@ class TrainConfig:
     grad_accum: int = 1
     remat: str = "none"
     zero1: bool = False
-    # Serving refuses a directory that holds a checkpoint: restore is not
-    # ported yet, and serving fresh weights in its place would be silent.
     checkpoint_dir: str = ""
     save_every: int = 0
     eval_every: int = 0

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import itertools
 from collections.abc import Iterator
 
 import numpy as np
@@ -89,6 +90,24 @@ def sharded_batches(it, mesh) -> Iterator[dict]:
             per = x.shape[0] // n
             out[k] = x[idx * per:(idx + 1) * per]
         yield out
+
+
+def stacked_batches(it, steps_per_call: int) -> Iterator[dict]:
+    """Group ``steps_per_call`` consecutive batches into one stacked
+    superbatch (leaves ``[K, B, ...]``) for multi-step dispatch
+    (``Trainer.fused_train_step``), on the host, so it crosses to the
+    device as one transfer. A partial tail group is dropped: fused runs
+    fence their step counts to multiples of K
+    (``train.check_fusion_cadences``). Stacking this rank's batches of
+    :func:`sharded_batches` gives this rank's superbatches."""
+    if steps_per_call < 1:
+        raise ValueError(f"steps_per_call={steps_per_call} must be >= 1")
+    it = iter(it)
+    while True:
+        group = list(itertools.islice(it, steps_per_call))
+        if len(group) < steps_per_call:
+            return
+        yield {k: np.stack([b[k] for b in group]) for k in group[0]}
 
 
 def to_device(batch: dict, device) -> dict:

@@ -141,6 +141,14 @@ def init_distributed(device="cuda", env: DistEnv | None = None) -> bool:
     return True
 
 
+def is_rank0() -> bool:
+    """True on rank 0 of the process group, or where there is none: the
+    rank that prints, writes metrics and writes checkpoints."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def coords_of(shape: dict[str, int], rank: int) -> dict[str, int]:
     """Rank -> its coordinate on every axis, row-major over MESH_AXES."""
     coords, rest = {}, rank

@@ -8,6 +8,11 @@ corrections at the post-increment one), and the split at
 kernel-sized leaves are grouped by (dtype, weight decay), one kernel launch
 per group.
 
+Under ZeRO-1 (``parallel/zero.py``) :meth:`FusedAdamW.update_shard` updates
+one rank's flat shard of each decay group, one launch a group, its weight
+decay the group's; the clip scales by the global norm the ranks computed
+together.
+
 :func:`fused_adamw_group` launches the kernel of ``csrc/fused_adamw.cu`` on
 CUDA tensors, over a device table of the group's leaves, and updates p, m
 and v IN PLACE (the reference's buffers are donated step-local copies; the
@@ -151,10 +156,12 @@ def global_norm(grads: dict):
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads: dict, clip: float) -> dict:
+def clip_by_global_norm(grads: dict, clip: float, norm=None) -> dict:
     """The reference's ``_clip_by_global_norm``: g * clip / max(norm,
-    clip). Returns new tensors."""
-    scale = clip / torch.clamp(global_norm(grads), min=clip)
+    clip), ``norm`` the global norm of ``grads`` unless given (a ZeRO-1
+    rank's shards are not the whole gradient). Returns new tensors."""
+    norm = global_norm(grads) if norm is None else norm
+    scale = clip / torch.clamp(norm, min=clip)
     return {k: g * scale.to(g.dtype) for k, g in grads.items()}
 
 
@@ -195,16 +202,49 @@ class FusedAdamW:
 
         return FusedAdamWState(count=0, mu=zeros(), nu=zeros())
 
+    def init_shard(self, layout):
+        """The state of one ZeRO-1 rank (``parallel.zero.ZeroState``): its
+        shard of each group's moments, zeros."""
+        from ..parallel.zero import ZeroState
+
+        def zeros():
+            return {g: f.new_zeros(layout.shard_size[g])
+                    for g, f in layout.flats.items()}
+
+        return ZeroState(count=0, mu=zeros(), nu=zeros(), layout=layout)
+
+    def _hyper(self, count: int) -> dict:
+        """The update's hyperparameters at the pre-increment ``count``."""
+        lr = (self.learning_rate(count)
+              if callable(self.learning_rate) else self.learning_rate)
+        c1, c2 = bias_corrections(self.b1, self.b2, count + 1)
+        return dict(lr=lr, b1=self.b1, b2=self.b2, eps=self.eps, c1=c1,
+                    c2=c2)
+
+    @torch.no_grad()
+    def update_shard(self, grads: dict, state, params: dict, norm):
+        """One ZeRO-1 rank's update: ``grads`` and ``params`` map each group
+        (``parallel.zero.GROUPS``) to this rank's flat shard, ``norm`` is
+        the global gradient norm. The clip scales every shard by the global
+        norm; each group is one kernel launch (a table of one entry), its
+        weight decay the group's. Updates ``params`` and the moments in
+        place and returns the state with the count advanced."""
+        if self.grad_clip:
+            grads = clip_by_global_norm(grads, self.grad_clip, norm)
+        hp = self._hyper(state.count)
+        for g, p in params.items():
+            wd = self.weight_decay if g == "decay" else 0.0
+            fused_adamw_group([p], [grads[g]], [state.mu[g]], [state.nu[g]],
+                              wd=wd, **hp)
+        return state._replace(count=state.count + 1)
+
     @torch.no_grad()
     def update(self, grads: dict, state: FusedAdamWState,
                params: dict) -> FusedAdamWState:
         if self.grad_clip:
             grads = clip_by_global_norm(grads, self.grad_clip)
-        lr = (self.learning_rate(state.count)
-              if callable(self.learning_rate) else self.learning_rate)
         count = state.count + 1
-        c1, c2 = bias_corrections(self.b1, self.b2, count)
-        hp = dict(lr=lr, b1=self.b1, b2=self.b2, eps=self.eps, c1=c1, c2=c2)
+        hp = self._hyper(state.count)
         plain, groups = split_leaves(params, self.weight_decay)
         for name, wd in plain:
             fused_adamw_plain(params[name], grads[name], state.mu[name],

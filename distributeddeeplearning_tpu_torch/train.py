@@ -13,11 +13,16 @@ runs the step eagerly on its device, over its slice of the global batch
   kernel, or the plain optax-semantics AdamW);
 - the host loop logs ``{"loss", "perplexity", "step", "wall_s"}`` every
   ``log_every`` steps with one interval of lag, never draining the device
-  queue for logging.
+  queue for logging;
+- ZeRO-1 over dp > 1 (``parallel.zero``): a reduce-scatter of the
+  gradients, each rank's update of its shard, an all-gather of the masters;
+- ``grad_accum`` microbatches a step, ``steps_per_call`` steps a call
+  (:meth:`Trainer.fused_train_step`), and :func:`evaluate`; ``fit`` runs
+  the cadences of logging, evaluation and checkpoints
+  (``checkpoint.CheckpointManager``).
 
-ZeRO-1 across devices, gradient accumulation, fused multi-step dispatch,
-checkpoints, evaluation and the health guard come in later slices; ``cli
-train`` refuses their knobs by name.
+The health guard comes in a later slice; ``cli train`` refuses its knob by
+name.
 """
 
 from __future__ import annotations
@@ -210,34 +215,53 @@ class AdamW(FusedAdamW):
     'adamw'``, which runs no kernel. Its state has the fused optimizer's
     (count, mu, nu) layout, as optax's ``ScaleByAdamState`` does."""
 
+    def _clip(self, grads: dict, norm) -> dict:
+        # optax.clip_by_global_norm: g unchanged below the threshold, else
+        # (g / norm) * clip.
+        clip = self.grad_clip
+        return {k: torch.where(norm < clip, g, (g / norm) * clip)
+                for k, g in grads.items()}
+
+    def _step(self, count: int, leaves) -> None:
+        """The update at the pre-increment ``count`` over ``leaves``, (p,
+        g, mu, nu, decayed) each."""
+        lr = f32(self.learning_rate(count)
+                 if callable(self.learning_rate) else self.learning_rate)
+        bc1 = float(_F(1) - np.power(_F(self.b1), _F(count + 1)))
+        bc2 = float(_F(1) - np.power(_F(self.b2), _F(count + 1)))
+        b1, b2 = f32(self.b1), f32(self.b2)
+        omb1, omb2 = f32(1 - self.b1), f32(1 - self.b2)
+        eps, wd = f32(self.eps), f32(self.weight_decay)
+        for p, g, mu, nu, decayed in leaves:
+            g = g.float()
+            mu.copy_(g * omb1 + mu * b1)
+            nu.copy_((g * g) * omb2 + nu * b2)
+            u = (mu / bc1) / (torch.sqrt(nu / bc2) + eps)
+            if wd and decayed:
+                u = u + p * wd
+            p.add_(u * -lr)
+
     @torch.no_grad()
     def update(self, grads: dict, state: FusedAdamWState,
                params: dict) -> FusedAdamWState:
         if self.grad_clip:
-            # optax.clip_by_global_norm: g unchanged below the threshold,
-            # else (g / norm) * clip.
-            norm = global_norm(grads)
-            clip = self.grad_clip
-            grads = {k: torch.where(norm < clip, g, (g / norm) * clip)
-                     for k, g in grads.items()}
-        lr = f32(self.learning_rate(state.count)
-                 if callable(self.learning_rate) else self.learning_rate)
-        count = state.count + 1
-        bc1 = float(_F(1) - np.power(_F(self.b1), _F(count)))
-        bc2 = float(_F(1) - np.power(_F(self.b2), _F(count)))
-        b1, b2 = f32(self.b1), f32(self.b2)
-        omb1, omb2 = f32(1 - self.b1), f32(1 - self.b2)
-        eps, wd = f32(self.eps), f32(self.weight_decay)
-        for name, p in params.items():
-            g = grads[name].float()
-            mu, nu = state.mu[name], state.nu[name]
-            mu.copy_(g * omb1 + mu * b1)
-            nu.copy_((g * g) * omb2 + nu * b2)
-            u = (mu / bc1) / (torch.sqrt(nu / bc2) + eps)
-            if wd and decay_leaf(p):
-                u = u + p * wd
-            p.add_(u * -lr)
-        return FusedAdamWState(count=count, mu=state.mu, nu=state.nu)
+            grads = self._clip(grads, global_norm(grads))
+        self._step(state.count, (
+            (p, grads[k], state.mu[k], state.nu[k], decay_leaf(p))
+            for k, p in params.items()))
+        return FusedAdamWState(count=state.count + 1, mu=state.mu,
+                               nu=state.nu)
+
+    @torch.no_grad()
+    def update_shard(self, grads: dict, state, params: dict, norm):
+        """:meth:`FusedAdamW.update_shard`'s contract, in plain torch: each
+        group's weight decay is the group's."""
+        if self.grad_clip:
+            grads = self._clip(grads, norm)
+        self._step(state.count, (
+            (p, grads[g], state.mu[g], state.nu[g], g == "decay")
+            for g, p in params.items()))
+        return state._replace(count=state.count + 1)
 
 
 def make_optimizer(name: str = "sgd", lr: float = 0.1, *,
@@ -289,7 +313,8 @@ def fold_in_step(seed: int, step: int) -> int:
     """The per-step dropout seed from the root seed and the step: the
     counterpart of the reference's ``fold_in_step`` (JAX's and torch's
     generators differ, so the bits do too; the derivation is as
-    deterministic)."""
+    deterministic). Folding the microbatch index into a step's seed the
+    same way stands for the reference's ``fold_in(rng, idx)``."""
     return int(np.random.SeedSequence([int(seed), int(step)])
                .generate_state(1, np.uint64)[0])
 
@@ -312,10 +337,19 @@ class Trainer:
     """Trainer of one rank over a model, an optimizer (``AdamW`` or
     ``FusedAdamW``) and a task. ``mesh`` (``mesh.Mesh``, default one rank):
     the ranks the step's gradients and metrics are averaged over; the
-    model and the task must have been built on the same mesh."""
+    model and the task must have been built on the same mesh.
+
+    ``zero1``: over ``mesh.dp > 1``, ZeRO-1 (``parallel.zero``): the
+    model's masters become views into flat group buffers, each rank keeps
+    its shard of the moments only, and the step's gradient sync is a
+    reduce-scatter, a shard update and an all-gather. Over dp = 1 it is a
+    no-op, as the reference's placement is. ``grad_accum``: each step
+    splits this rank's rows into that many equal microbatches and
+    averages their fp32 gradients and metrics."""
 
     def __init__(self, model, tx, task: Task, *, device,
-                 precision: str | Policy = "fp32", mesh=None):
+                 precision: str | Policy = "fp32", mesh=None,
+                 zero1: bool = False, grad_accum: int = 1):
         self.model, self.tx, self.task = model, tx, task
         self.mesh = mesh
         cp = 1 if mesh is None else mesh.shape["cp"]
@@ -331,6 +365,9 @@ class Trainer:
                 and getattr(model, "mesh", None) is not mesh):
             raise ValueError("the model was built on another mesh than the "
                              "trainer's")
+        if grad_accum < 1:
+            raise ValueError(f"grad_accum={grad_accum} must be >= 1")
+        self.grad_accum = grad_accum
         self.device = torch.device(device)
         self.precision = get_policy(precision)
         if self.precision.mixed and model.dtype != self.precision.compute_dtype:
@@ -341,26 +378,39 @@ class Trainer:
                 "at another dtype would cast it straight back at every use"
             )
         self._generator = torch.Generator(device=self.device)
+        self.layout = None
+        if zero1 and mesh is not None and mesh.shape["dp"] > 1:
+            from .parallel.zero import ZeroLayout
+
+            self.layout = ZeroLayout(dict(model.named_parameters()), mesh)
+            self.layout.bind(dict(model.named_parameters()))
 
     def init(self, seed: int) -> TrainState:
         """Draw the weights from ``seed`` and make the optimizer state."""
         self.model.init_weights(torch.Generator().manual_seed(int(seed)))
         params = dict(self.model.named_parameters())
-        return TrainState(step=0, params=params,
-                          opt_state=self.tx.init(params), rng=int(seed))
+        opt_state = (self.tx.init(params) if self.layout is None
+                     else self.tx.init_shard(self.layout))
+        return TrainState(step=0, params=params, opt_state=opt_state,
+                          rng=int(seed))
 
-    def train_step(self, state: TrainState, batch: dict):
-        """One step: (new state, metrics as device scalars)."""
-        self._generator.manual_seed(fold_in_step(state.rng, state.step))
-        # Mixed precision: ONE compute copy per step, differentiated
+    def _forward(self, state: TrainState, params: dict, batch: dict,
+                 train: bool):
+        """The model's output on ``batch`` from ``params``: the masters
+        themselves (the model's own parameters) or a compute copy."""
+        inputs = self.task.input_fn(batch)
+        kw = {"train": train,
+              "generator": self._generator if train else None}
+        if params is state.params:
+            return self.model(*inputs, **kw)
+        return torch.func.functional_call(self.model, params, inputs, kw)
+
+    def _grads(self, state: TrainState, batch: dict):
+        """(fp32 gradients, metrics) of this rank's loss on ``batch``."""
+        # Mixed precision: ONE compute copy per call, differentiated
         # directly; fp32 returns the masters themselves.
         cparams = cast_to_compute(self.precision, state.params)
-        inputs = self.task.input_fn(batch)
-        kw = {"train": True, "generator": self._generator}
-        if cparams is state.params:
-            out = self.model(*inputs, **kw)
-        else:
-            out = torch.func.functional_call(self.model, cparams, inputs, kw)
+        out = self._forward(state, cparams, batch, train=True)
         loss, metrics = self.task.loss_fn(out, batch)
         names = list(cparams)
         grads = torch.autograd.grad(loss, [cparams[k] for k in names],
@@ -368,59 +418,245 @@ class Trainer:
         grads = {k: torch.zeros_like(cparams[k]) if g is None else g
                  for k, g in zip(names, grads)}
         grads = cast_grads_to_update(self.precision, grads)
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        if self.mesh is not None and self.mesh.size > 1:
-            # Each rank's loss is the mean over an equal share of the
-            # tokens, so the world average of the gradients (and metrics)
-            # is that of the global mean loss, as the reference's. Before
-            # the update, so its clip sees the global norm.
+        return grads, {k: v.detach() for k, v in metrics.items()}
+
+    def _accumulated_grads(self, state: TrainState, batch: dict):
+        """The mean of the microbatches' fp32 gradients and metrics."""
+        n, a = next(iter(batch.values())).shape[0], self.grad_accum
+        if n % a:
+            raise ValueError(f"grad_accum={a} must divide this rank's batch "
+                             f"of {n} rows")
+        step_seed = fold_in_step(state.rng, state.step)
+        grads = metrics = None
+        for i in range(a):
+            micro = {k: v[i * (n // a):(i + 1) * (n // a)]
+                     for k, v in batch.items()}
+            self._generator.manual_seed(fold_in_step(step_seed, i))
+            g, m = self._grads(state, micro)
+            if grads is None:
+                grads = {k: v.float() for k, v in g.items()}
+                metrics = {k: v.float() for k, v in m.items()}
+                continue
+            for k, v in g.items():
+                grads[k].add_(v.float())
+            for k, v in m.items():
+                metrics[k] = metrics[k] + v.float()
+        return ({k: v / a for k, v in grads.items()},
+                {k: v / a for k, v in metrics.items()})
+
+    def train_step(self, state: TrainState, batch: dict):
+        """One step: (new state, metrics as device scalars)."""
+        if self.grad_accum == 1:
+            self._generator.manual_seed(fold_in_step(state.rng, state.step))
+            grads, metrics = self._grads(state, batch)
+        else:
+            grads, metrics = self._accumulated_grads(state, batch)
+        if self.layout is not None:
+            # ZeRO-1: this rank's shard of the world-mean gradient, the
+            # clip on the global norm, the update of this rank's shard of
+            # the masters and moments, then every rank's shard gathered.
             keys = list(metrics)
-            synced = pmean_tensors(
-                [grads[k] for k in names] + [metrics[k] for k in keys],
-                self.mesh)
-            grads = dict(zip(names, synced[:len(names)]))
-            metrics = dict(zip(keys, synced[len(names):]))
+            metrics = dict(zip(keys, pmean_tensors(
+                [metrics[k] for k in keys], self.mesh)))
+            shards = self.layout.reduce_scatter_grads(grads)
+            del grads
+            norm = (self.layout.global_norm(shards) if self.tx.grad_clip
+                    else None)
+            opt_state = self.tx.update_shard(
+                shards, state.opt_state, self.layout.param_shards(), norm)
+            self.layout.gather_params()
+        else:
+            if self.mesh is not None and self.mesh.size > 1:
+                # Each rank's loss is the mean over an equal share of the
+                # tokens, so the world average of the gradients (and
+                # metrics) is that of the global mean loss, as the
+                # reference's. Before the update, so its clip sees the
+                # global norm.
+                names, keys = list(grads), list(metrics)
+                synced = pmean_tensors(
+                    [grads[k] for k in names] + [metrics[k] for k in keys],
+                    self.mesh)
+                grads = dict(zip(names, synced[:len(names)]))
+                metrics = dict(zip(keys, synced[len(names):]))
+            opt_state = self.tx.update(grads, state.opt_state, state.params)
         metrics = self.task.finish_metrics(metrics)
-        opt_state = self.tx.update(grads, state.opt_state, state.params)
         return dataclasses.replace(state, step=state.step + 1,
                                    opt_state=opt_state), metrics
 
+    def fused_train_step(self, steps_per_call: int):
+        """K-step dispatch: a callable ``(state, superbatch) -> (state,
+        metrics)`` that runs :meth:`train_step` over each of the K batches
+        of a stacked superbatch (leaves ``[K, B, ...]``), back to back with
+        no host read between them, and returns the metrics stacked over the
+        K steps (leaves ``[K]``). ``steps_per_call=1`` returns
+        ``train_step`` itself."""
+        if steps_per_call < 1:
+            raise ValueError(f"steps_per_call={steps_per_call} must be >= 1")
+        if steps_per_call == 1:
+            return self.train_step
+
+        def fused(state: TrainState, superbatch: dict):
+            k = next(iter(superbatch.values())).shape[0]
+            if k != steps_per_call:
+                raise ValueError(f"superbatch of {k} steps, expected "
+                                 f"steps_per_call={steps_per_call}")
+            out = []
+            for j in range(k):
+                state, m = self.train_step(
+                    state, {x: v[j] for x, v in superbatch.items()})
+                out.append(m)
+            return state, {x: torch.stack([m[x] for m in out])
+                           for x in out[0]}
+
+        return fused
+
+    @torch.no_grad()
+    def eval_step(self, state: TrainState, batch: dict) -> dict:
+        """The task's metrics on ``batch`` from a forward with ``train=
+        False``, in fp32, averaged over the ranks."""
+        out = self._forward(
+            state, cast_to_compute(self.precision, state.params), batch,
+            train=False)
+        _, metrics = self.task.loss_fn(out, batch)
+        keys = list(metrics)
+        vals = [metrics[k].float() for k in keys]
+        if self.mesh is not None and self.mesh.size > 1:
+            vals = pmean_tensors(vals, self.mesh)
+        return self.task.finish_metrics(dict(zip(keys, vals)))
+
+
+def evaluate(trainer: Trainer, state: TrainState, batches) -> dict:
+    """:meth:`Trainer.eval_step` over an iterable of this rank's batches:
+    the batch mean of every metric, prefixed ``eval_``. The sums stay on
+    the device in fp32 and come to the host in one pull per pass. For the
+    LM task ``eval_perplexity`` is exp(eval_loss), as the reference's (a
+    mean of per-batch exp(loss) would overstate it)."""
+    sums, count = None, 0
+    for batch in batches:
+        m = trainer.eval_step(state, batch)
+        sums = m if sums is None else {k: sums[k] + v for k, v in m.items()}
+        count += 1
+    if count == 0:
+        raise ValueError("evaluate() got an empty batch iterable")
+    keys = list(sums)
+    host = torch.stack([sums[k] for k in keys]).cpu().tolist()
+    out = {f"eval_{k}": v / count for k, v in zip(keys, host)}
+    if "perplexity" in sums and "loss" in sums:
+        out["eval_perplexity"] = math.exp(out["eval_loss"])
+    return out
+
+
+def check_fusion_cadences(steps_per_call: int, *, steps: int, start: int = 0,
+                          log_every: int = 0, eval_every: int = 0,
+                          save_every: int = 0) -> None:
+    """The reference's fences for multi-step dispatch: the host regains
+    control only every ``steps_per_call`` steps, so every cadence (steps,
+    log, eval, save) and the resume step must land on a call edge."""
+    k = steps_per_call
+    if k < 1:
+        raise ValueError(f"steps_per_call={k} must be >= 1")
+    if k == 1:
+        return
+    for name, every in (("steps", steps), ("log_every", log_every),
+                        ("eval_every", eval_every),
+                        ("save_every", save_every)):
+        if every and every % k:
+            raise ValueError(
+                f"steps_per_call={k} must divide {name}={every}: fused calls "
+                f"advance {k} steps at a time, so every cadence boundary has "
+                "to land on a call edge"
+            )
+    if start % k:
+        raise ValueError(
+            f"resume step {start} is not a multiple of steps_per_call={k}: "
+            "align save_every to the fused cadence (it is fenced above) or "
+            "finish the partial interval with steps_per_call=1"
+        )
+
 
 def fit(trainer: Trainer, state: TrainState, batches, steps: int,
-        log_every: int = 10, log_fn=print, step_times: list | None = None):
-    """Host step loop from ``state.step`` to ``steps``.
+        log_every: int = 10, steps_per_call: int = 1, log_fn=print,
+        writer=None, profiler=None, ckpt=None, save_every: int = 0,
+        eval_every: int = 0, eval_fn=None, step_times: list | None = None):
+    """Host step loop from ``state.step`` to ``steps`` (callers start
+    ``batches`` at the same index).
 
     Every ``log_every`` steps a record ``{metric, ..., "step", "wall_s"}``
-    goes to ``log_fn`` with one interval of lag (``DeferredMetrics``); the
-    last interval is flushed before returning. ``step_times``: when a list,
-    each step ends in a device sync and its seconds are appended (for
-    timing; the loop otherwise never waits on the device outside its log
-    records). Returns (state, history)."""
+    goes to ``log_fn`` (and ``writer``, a ``metrics.MetricWriter``) with one
+    interval of lag (``DeferredMetrics``); the last interval is flushed
+    before returning. ``steps_per_call`` = K > 1 runs
+    :meth:`Trainer.fused_train_step` over stacked superbatches (leaves
+    ``[K, B, ...]``, ``data.stacked_batches``), and K must divide ``steps``
+    and every cadence (:func:`check_fusion_cadences`). ``eval_every`` > 0
+    runs :func:`evaluate` over ``eval_fn()`` (a fresh iterable of this
+    rank's eval batches) every that many steps and after the last, its
+    record keyed ``eval_*``. ``ckpt`` (a ``checkpoint.CheckpointManager``)
+    saves the state with ``{"next_index": step}`` every ``save_every``
+    steps. ``profiler`` (a ``metrics.Profiler``) sees every step's index.
+    ``step_times``: when a list, each call ends in a device sync and its
+    seconds are appended (for timing; the loop otherwise never waits on
+    the device outside its log records and evaluations). Returns (state,
+    history)."""
     from .metrics import DeferredMetrics
 
+    if eval_every and eval_fn is None:
+        raise ValueError("eval_every > 0 requires eval_fn")
+    k, start = steps_per_call, int(state.step)
+    check_fusion_cadences(k, steps=steps, start=start, log_every=log_every,
+                          eval_every=eval_every, save_every=save_every)
+    step_call = trainer.fused_train_step(k)
     history = []
 
     def emit(m):
         history.append(m)
         log_fn(m)
+        if writer is not None and "event" not in m:
+            writer.write(m["step"],
+                         {x: v for x, v in m.items() if x != "step"})
 
     deferred = DeferredMetrics(emit)
+
+    def run_eval(at):
+        # evaluate() syncs anyway; the train line of step N goes first.
+        deferred.flush()
+        emit({**evaluate(trainer, state, eval_fn()), "step": at})
+
     t0 = time.perf_counter()
     it = iter(batches)
-    for i in range(state.step, steps):
-        try:
-            batch = next(it)
-        except StopIteration:
-            break
-        t_step = time.perf_counter()
-        state, metrics = trainer.train_step(state, batch)
-        if step_times is not None:
-            if trainer.device.type == "cuda":
-                torch.cuda.synchronize(trainer.device)
-            step_times.append(time.perf_counter() - t_step)
-        end = i + 1
-        if log_every and end % log_every == 0:
-            deferred.push(end, metrics,
-                          wall_s=round(time.perf_counter() - t0, 3))
-    deferred.flush()
+    end = start
+    try:
+        for i in range(start, steps, k):
+            try:
+                batch = next(it)
+            except StopIteration:
+                break
+            t_step = time.perf_counter()
+            state, metrics = step_call(state, batch)
+            if step_times is not None:
+                if trainer.device.type == "cuda":
+                    torch.cuda.synchronize(trainer.device)
+                step_times.append(time.perf_counter() - t_step)
+            end = i + k
+            if profiler is not None:
+                for j in range(i, end):
+                    profiler.step(j)
+            if log_every and end % log_every == 0:
+                # Fused metrics come back stacked [K]: the logged step is
+                # the interval's last, as the unfused loop's.
+                last = (metrics if k == 1
+                        else {x: v[-1] for x, v in metrics.items()})
+                deferred.push(end, last,
+                              wall_s=round(time.perf_counter() - t0, 3))
+            if eval_every and end % eval_every == 0:
+                run_eval(end)
+            if ckpt is not None and save_every and end % save_every == 0:
+                ckpt.save(end, state, {"next_index": end})
+        if eval_every and end % eval_every and end > start:
+            run_eval(end)  # a final eval, so short runs still report one
+        deferred.flush()
+    finally:
+        if profiler is not None:
+            profiler.close()
+        if writer is not None:
+            writer.flush()
     return state, history

@@ -4,11 +4,14 @@ The port's modules keep the JAX parameter names and layouts, so a JAX
 parameter tree maps to a torch ``state_dict`` by flattening its path:
 ``{"h": {"block_0": {"attn": {"query": {"kernel": ...}}}}}`` becomes
 ``"h.block_0.attn.query.kernel"``. :func:`opt_state_from_jax` bridges an
-Adam optimizer state the same way. The trees arrive as numpy arrays — this
+Adam optimizer state the same way, and :func:`state_from_jax` a whole
+training state, onto any mesh. The trees arrive as numpy arrays — this
 module imports no JAX.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -44,20 +47,47 @@ def _find_adam_moments(opt_state):
 def opt_state_from_jax(opt_state, like):
     """A JAX Adam optimizer state (numpy leaves) -> the port's state of the
     same kind as ``like`` (``tx.init(params)`` of the port's ``AdamW`` or
-    ``FusedAdamW``): its count and its mu/nu trees flattened like
-    :func:`from_jax_params`, on the device of ``like``'s moments."""
+    ``FusedAdamW``, or a ZeRO-1 rank's ``tx.init_shard(layout)``): its count
+    and its mu/nu trees flattened like :func:`from_jax_params` (and cut to
+    the rank's shards under ZeRO-1), on the device of ``like``'s
+    moments."""
+    from .parallel.zero import ZeroState
+
     node = _find_adam_moments(opt_state)
     if node is None:
         raise ValueError("no (count, mu, nu) Adam state in the JAX "
                          "optimizer state")
+    sharded = isinstance(like, ZeroState)
+    names = set(like.layout.shapes) if sharded else set(like.mu)
 
     def moments(tree, ref):
         flat = from_jax_params(tree)
-        if set(flat) != set(ref):
-            raise KeyError(f"moment names differ: {sorted(set(flat) ^ set(ref))}")
+        if set(flat) != names:
+            raise KeyError(f"moment names differ: {sorted(set(flat) ^ names)}")
+        if sharded:
+            flat = like.layout.shard(flat)
         return {k: flat[k].to(device=ref[k].device, dtype=torch.float32)
                 for k in ref}
 
     return like._replace(count=int(np.asarray(node.count)),
                          mu=moments(node.mu, like.mu),
                          nu=moments(node.nu, like.nu))
+
+
+@torch.no_grad()
+def state_from_jax(jax_state, like):
+    """A JAX ``TrainState`` pulled to the host (numpy leaves: ``params``,
+    ``opt_state``, ``step``) -> the port's ``TrainState`` on any mesh: the
+    params copied in place into ``like``'s (a trainer's ``init``, whose
+    masters may be views into ZeRO-1 buffers), the Adam moments through
+    :func:`opt_state_from_jax`. The root dropout seed stays ``like``'s:
+    JAX's key has no torch counterpart."""
+    params = from_jax_params(jax_state.params)
+    if set(params) != set(like.params):
+        raise KeyError(f"param names differ: "
+                       f"{sorted(set(params) ^ set(like.params))}")
+    for k, p in like.params.items():
+        p.copy_(params[k])
+    return dataclasses.replace(
+        like, step=int(np.asarray(jax_state.step)),
+        opt_state=opt_state_from_jax(jax_state.opt_state, like.opt_state))

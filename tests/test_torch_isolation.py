@@ -52,7 +52,8 @@ def test_sources_exist():
             "fused_adamw.py", "train.py", "data.py", "dataset_base.py",
             "precision.py", "chunked_xent.py", "mesh.py", "comms.py",
             "sp_ring.py", "ring_attention.py",
-            "ring_attention_pallas.py"} <= names
+            "ring_attention_pallas.py", "checkpoint.py", "zero.py",
+            "metrics.py", "weights.py"} <= names
     csrc = {p.name for p in (PORT / "csrc").glob("*.cu")}
     assert {"paged_attention.cu", "flash_attention.cu",
             "fused_adamw.cu", "ring_attention.cu"} <= csrc
@@ -123,11 +124,6 @@ def test_cli_train_default_device_is_the_gpu(capsys):
 
 
 @pytest.mark.parametrize("override,knob", [
-    ("train.checkpoint_dir=/nonexistent/ckpt", "train.checkpoint_dir"),
-    ("train.save_every=10", "train.save_every"),
-    ("train.eval_every=10", "train.eval_every"),
-    ("train.grad_accum=2", "train.grad_accum"),
-    ("train.steps_per_call=2", "train.steps_per_call"),
     ("health.enabled=True", "health.enabled"),
     ("telemetry.enabled=True", "telemetry.enabled"),
     ("train.fault_injection=nan:3", "train.fault_injection"),
@@ -136,14 +132,40 @@ def test_cli_train_default_device_is_the_gpu(capsys):
     ("train.update_sharding=sharded", "train.update_sharding"),
     ("train.sequence_parallel=True", "train.sequence_parallel"),
     ("train.remat=full", "train.remat"),
-    ("mesh.dp=2", "mesh"),
     ("mesh.tp=2", "mesh"),
-    ("train.log_dir=/nonexistent/logs", "train.log_dir"),
 ])
 def test_unported_train_knobs_are_refused_by_name(override, knob):
     with pytest.raises(NotImplementedError,
                        match=rf"^{knob}=.*ROADMAP queue A\d+"):
         _train(override)
+
+
+@pytest.mark.parametrize("override,knob", [
+    ("train.checkpoint_dir={tmp}/ckpt", "train.checkpoint_dir"),
+    ("train.save_every=10", "train.save_every"),
+    ("train.eval_every=10", "train.eval_every"),
+    ("train.grad_accum=2", "train.grad_accum"),
+    ("train.steps_per_call=2", "train.steps_per_call"),
+    ("mesh.dp=2", "mesh"),
+    ("train.log_dir={tmp}/logs", "train.log_dir"),
+])
+def test_ported_train_knobs_run(override, knob, tmp_path):
+    """The knobs of ZeRO-1, accumulation, checkpoints, evaluation and the
+    metrics writer run on the CPU at tiny width. ``mesh.dp=2`` in one
+    process is a mesh that needs 2 ranks: ``build_mesh`` names the world
+    size."""
+    override = override.format(tmp=tmp_path)
+    assert override.startswith(knob)
+    extra = ["train.steps=2"] if knob == "train.steps_per_call" else []
+    if knob == "mesh":
+        with pytest.raises(ValueError, match="needs 2 devices, have 1"):
+            _train(override, *extra)
+        return
+    assert _train(override, *extra, "model.kwargs.dtype=float32") == 0
+    if knob == "train.checkpoint_dir":
+        assert os.listdir(tmp_path / "ckpt") == []  # save_every=0
+    if knob == "train.log_dir":
+        assert (tmp_path / "logs" / "metrics.jsonl").exists()
 
 
 @pytest.mark.parametrize("override,exc,match", [
@@ -174,9 +196,9 @@ def test_unported_mesh_axes_are_refused_by_name(override, axis):
         _train(override, "mesh.dp=1")
 
 
-def test_zero1_over_dp_is_refused_by_name():
+def test_zero1_over_dp_composes():
     """gpt2_owt sets train.zero1=True: over dp > 1 that is ZeRO-1 across
-    ranks, still to come."""
+    ranks (``parallel/zero.py``), composed with cp too."""
     from distributeddeeplearning_tpu_torch import cli
     from distributeddeeplearning_tpu_torch.config import (
         apply_overrides,
@@ -184,13 +206,10 @@ def test_zero1_over_dp_is_refused_by_name():
     )
 
     cfg = apply_overrides(load_config(str(ROOT / CONFIG)), TINY)
-    with pytest.raises(NotImplementedError,
-                       match=r"train\.zero1=True over mesh\.dp=4 .*A6"):
-        cli.check_train_composition(cfg, world_size=4)
+    assert cfg.train.zero1
+    cli.check_train_composition(cfg, world_size=4)
     cli.check_train_composition(
-        apply_overrides(cfg, ["train.zero1=false"]), world_size=4)
-    cli.check_train_composition(
-        apply_overrides(cfg, ["mesh.dp=1", "mesh.cp=4",
+        apply_overrides(cfg, ["mesh.dp=2", "mesh.cp=2",
                               "model.kwargs.attn_impl=ring_pallas"]),
         world_size=4)
 

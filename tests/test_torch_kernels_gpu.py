@@ -141,6 +141,47 @@ def test_fused_adamw_kernel_matches_plain_bitwise(wd, count):
             assert torch.equal(a, b)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("rank", [0, 1, 3])
+def test_fused_adamw_kernel_over_an_offset_padded_shard(rank):
+    """A ZeRO-1 rank's update: a flat buffer of a group's leaves, padded to
+    a multiple of 4 x 4 ranks, cut into 4 shards; the shard of ``rank``
+    starts inside the buffer (16-byte aligned) and ends in the padding for
+    the last rank. Bit for bit against the plain version, the padding
+    untouched."""
+    from distributeddeeplearning_tpu_torch.mesh import Mesh
+    from distributeddeeplearning_tpu_torch.parallel.zero import ZeroLayout
+
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(rank)
+    shapes = {"a.kernel": (768, 2304), "b.kernel": (1027, 3), "c.bias": (5,)}
+    params = {k: torch.randn(s, generator=g, device="cuda") * 0.02
+              for k, s in shapes.items()}
+    lay = ZeroLayout(params, Mesh({"dp": 4}, rank))
+    lay.bind(params)
+    flat = lay.flats["decay"]
+    sl = lay.shard_slice("decay")
+    assert sl.start > 0 or rank == 0
+    p = flat[sl]
+    gr, m = (torch.randn(p.shape, generator=g, device="cuda") * sc
+             for sc in (1e-3, 1e-4))
+    v = (torch.randn(p.shape, generator=g, device="cuda") * 1e-7).abs()
+    used = sum(params[k].numel() for k in lay.names["decay"])
+    for x in (gr, m, v):  # the padding's gradient and moments are zero
+        x[max(used - sl.start, 0):].zero_()
+    ref = [x.clone() for x in (p, gr, m, v)]
+    c1, c2 = fused.bias_corrections(0.9, 0.95, 10)
+    hp = dict(lr=6e-4, b1=0.9, b2=0.95, eps=1e-8, wd=0.1, c1=c1, c2=c2)
+    before = fused.LAUNCHES["fused_adamw"]
+    fused.fused_adamw_group([p], [gr], [m], [v], **hp)
+    fused.fused_adamw_plain(*ref, **hp)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES["fused_adamw"] == before + 1
+    for a, b in zip((p, m, v), (ref[0], ref[2], ref[3])):
+        assert torch.equal(a, b)
+    assert not flat[used:].any()
+
+
 # L = 100 and 200 are no multiple of the kernels' 64-row tiles (nor of the
 # bf16 ring_step's 128-row q tiles): the kernels hide the ragged edge
 # themselves. Tolerances per kernel (module docstring).

@@ -205,8 +205,8 @@ def test_unported_knobs_are_refused_by_name(weights, knob):
         ServingEngine(_port_model(weights[1]), cfg.serving, device="cpu")
 
 
-@pytest.mark.parametrize("case", ["llama", "fleet", "telemetry",
-                                  "checkpoint", "static", "engine_tel"])
+@pytest.mark.parametrize("case", ["llama", "fleet", "telemetry", "static",
+                                  "engine_tel"])
 def test_other_unported_paths_are_refused(weights, tmp_path, case):
     cfg = _serve_cfg()
     if case == "llama":
@@ -220,22 +220,72 @@ def test_other_unported_paths_are_refused(weights, tmp_path, case):
         cfg = apply_overrides(cfg, ["telemetry.enabled=true"])
         with pytest.raises(NotImplementedError, match="telemetry"):
             check_serving_composition(cfg)
-    elif case == "checkpoint":
-        (tmp_path / "100").mkdir()
-        with pytest.raises(NotImplementedError, match="checkpoint restore"):
-            cli.main([
-                "serve", "--config", _CONFIG, "--device", "cpu",
-                "--override", "model.kwargs.vocab_size=256",
-                "--override", "model.kwargs.attn_impl=xla",
-                "--override", f"train.checkpoint_dir={tmp_path}",
-                "--prompt", "x",
-            ])
     else:
         kw = ({"static_batching": True} if case == "static"
               else {"telemetry": object()})
         with pytest.raises(NotImplementedError, match="not yet ported"):
             ServingEngine(_port_model(weights[1]), cfg.serving,
                           device="cpu", **kw)
+
+
+def test_cli_serve_restores_the_checkpoint(tmp_path):
+    """``cli serve`` serves the latest checkpoint's weights: greedy tokens
+    equal the JAX engine's on the same params, under the Pallas config. A
+    directory whose only step cannot be read is an error, never a quiet
+    fresh init."""
+    from distributeddeeplearning_tpu_torch.checkpoint import (
+        CheckpointManager,
+    )
+    from distributeddeeplearning_tpu_torch.ops.fused_adamw import FusedAdamW
+    from distributeddeeplearning_tpu_torch.train import TrainState
+
+    kw = dict(_KW, vocab_size=256)
+    jm = jax_models.get_model("gpt2", **kw)
+    params = jax.tree.map(np.asarray, nn.meta.unbox(jm.init(
+        jax.random.PRNGKey(3), np.zeros((1, 8), np.int32))["params"]))
+    model = models.get_model("gpt2", **kw)
+    model.load_state_dict(from_jax_params(params), strict=True)
+    pdict = dict(model.named_parameters())
+    with CheckpointManager(str(tmp_path / "ok")) as ckpt:
+        ckpt.save(3, TrainState(step=3, params=pdict, rng=0,
+                                opt_state=FusedAdamW(1e-3).init(pdict)))
+    (tmp_path / "bad" / "100").mkdir(parents=True)
+
+    def serve(directory):
+        argv = ["serve", "--config", _CONFIG, "--device", "cpu",
+                "--prompt", "hello", "--prompt", "paged attention",
+                "--max-new-tokens", "7"]
+        for o in (f"model.kwargs.size={kw['size']}",
+                  "model.kwargs.vocab_size=256",
+                  f"model.kwargs.max_len={kw['max_len']}",
+                  "model.kwargs.attn_impl=xla", "model.kwargs.dtype=float32",
+                  "model.kwargs.chunked_head=False",
+                  f"serving.prompt_buckets={_PALLAS['prompt_buckets']}",
+                  f"serving.block_size={_PALLAS['block_size']}",
+                  "serving.attn_kernel=pallas",
+                  f"train.checkpoint_dir={directory}"):
+            argv += ["--override", o]
+        buf = io.StringIO()
+        with redirect_stdout(buf):
+            assert cli.main(argv) == 0
+        return buf.getvalue().strip().splitlines()
+
+    lines = serve(tmp_path / "ok")
+    assert lines[0] == "serving from checkpoint at step 3"
+    rec = json.loads(lines[-1])
+    assert rec["step"] == 3
+    jeng = JaxEngine(jm, params, JaxServing(
+        prompt_buckets=_PALLAS["prompt_buckets"],
+        block_size=_PALLAS["block_size"], attn_kernel="pallas"))
+    for p in ("hello", "paged attention"):
+        jeng.submit(JaxRequest(prompt=list(p.encode()), max_new_tokens=7))
+    for r, j in zip(rec["results"], jeng.run()):
+        assert r["new_tokens"] == len(j.generated) == 7
+        assert r["completion"] == bytes(
+            t for t in j.generated if 0 <= t < 256).decode(
+            "utf-8", errors="replace")
+    with pytest.raises(RuntimeError, match="no restorable checkpoint"):
+        serve(tmp_path / "bad")
 
 
 @pytest.mark.parametrize("case,exc,match", [

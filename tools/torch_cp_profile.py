@@ -10,14 +10,17 @@ device sync, then traces a window of steps with ``torch.profiler``. Rank 0
 prints one JSON line: the backend, GPUs and ranks per GPU, p50 step time and
 tokens/s, and per rank its device busy time per step, device idle share,
 device time per kernel group (the ring kernels, matrix products, copies,
-the rest) and its top kernels, and the host time per step inside the
-transport's calls (``DistComm.shift`` and ``all_reduce_sum``, timed by
-wrapping them here). Ranks share the GPUs round-robin when
+NCCL's collectives, the rest) and its top kernels, and the host time per
+step inside the transport's calls (``DistComm.shift``, ``all_reduce_sum``,
+and ZeRO-1's ``reduce_scatter_sum`` and ``all_gather``, timed by wrapping
+them here). ``mesh.dp > 1`` runs ZeRO-1 off unless ``--override
+train.zero1=true``. Ranks share the GPUs round-robin when
 there are fewer GPUs than ranks (gloo); with one GPU each they run NCCL.
 ``--ranks 1 --cp 1`` profiles the single-GPU flash route for comparison.
 Needs an NVIDIA GPU:
 
     python3 tools/torch_cp_profile.py [--ranks 2] [--cp 2] [--steps 4]
+        [--override train.zero1=true]
 """
 
 from __future__ import annotations
@@ -40,11 +43,14 @@ GROUPS = (
     ("ring_step", "ring_step_kernel"), ("ring_dq", "ring_dq_kernel"),
     ("ring_dkv", "ring_dkv_kernel"), ("flash", "flash_"),
     ("fused_adamw", "fused_adamw_kernel"),
+    ("nccl_reduce_scatter", "ReduceScatter"),
+    ("nccl_all_gather", "AllGather"), ("nccl_all_reduce", "AllReduce"),
+    ("nccl_sendrecv", "SendRecv"),
     ("matmul", "gemm"), ("matmul", "sm90_xmma"), ("matmul", "cutlass"),
     ("matmul", "nvjet"), ("copy", "Memcpy"), ("copy", "copy_kernel"),
     ("copy", "Memset"),
 )
-COMM_CALLS = ("shift", "all_reduce_sum")
+COMM_CALLS = ("shift", "all_reduce_sum", "reduce_scatter_sum", "all_gather")
 
 
 def group_of(name: str) -> str:
@@ -166,6 +172,7 @@ def rank_main(rank, ranks, port, cp, steps, extra, out_dir):
             sorted(kernels.items(), key=lambda kv: -kv[1])[:8]],
         "comm_host_ms_per_step_unprofiled": comm_ms,
         "peak_mem_gb": torch.cuda.max_memory_allocated(device) / 1e9,
+        "zero1": trainer.layout is not None,
     }
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(report, f)
