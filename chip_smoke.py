@@ -75,9 +75,27 @@ Phases, in order; any failure raises and the script exits non-zero:
      params within ZERO_PARAM_LIMIT (clip and weight decay on); then, in
      fresh processes, 2 steps, a save, a resume and 2 more, equal to the
      straight run bit for bit.
+  14. ResNet-50 training through the entry point: ``cli train`` in-process
+     on ``configs/resnet50_imagenet.py`` as shipped (batch 256 x 224², bf16
+     convs, SGD, label smoothing) for 8 steps, then 4 with the C++ loader
+     (``data.kind=native_image``): images/s over steps 2..N, p50 step,
+     peak memory, every loss finite; the path launches none of the nine
+     hand kernels (its convs are cuDNN's, as the JAX package's are XLA's);
+  15. ``cli benchmark`` on that config: the images/sec/chip record (p50,
+     p90, MFU against the card's bf16 peak, peak memory), printed again
+     on a line before the last;
+  16. ResNet-50 at dp=2 under ``torchrun``, 2 ranks sharing the one card
+     over gloo: fp32 (TF32 off) at a global batch of 16, grad_accum 1 and
+     2, 4 steps against one process on the same batches (losses within
+     1e-4 relative and falling, BatchNorm running statistics within
+     ``BN_STATS_TOL``); then the shipped config with eval and
+     checkpoints every 2 steps for 4 steps, and a launch in fresh
+     processes resuming from step 2 that repeats steps 3 and 4 bit for
+     bit. The step times are no data-parallel speed.
 Phase 6 also holds fused AdamW over one ZeRO-1 rank's shard of the 124M
 groups (dp=2, rank 1, starting inside the flat buffers) bit for bit.
-The line before the last is the kernels record; the last line is
+Before the last line come the kernels record, the card's name and power
+limit, and the benchmark record; the last line is
 ``{"ok": true, "device": {...}}``. No GPU means no result line and a
 non-zero exit: nothing here falls back to the CPU.
 """
@@ -1290,10 +1308,10 @@ def cli_train_cp(torch, layers, steps=CP_STEPS):
 
 
 def _rank_fit(rank, port, overrides, out_dir, ckpt_dir=None, stop=None,
-              save_every=0):
-    """One of 2 ranks (a child process): build_all + fit to ``stop``
-    (default ``train.steps``); with ``ckpt_dir``, restored from its latest
-    step when it holds one and saved every ``save_every`` steps."""
+              save_every=0, config=CONFIG):
+    """One of 2 ranks (a child process): build_all + fit of ``config`` to
+    ``stop`` (default ``train.steps``); with ``ckpt_dir``, restored from its
+    latest step when it holds one and saved every ``save_every`` steps."""
     import torch
 
     os.environ.update(RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK=str(rank),
@@ -1323,7 +1341,7 @@ def _rank_fit(rank, port, overrides, out_dir, ckpt_dir=None, stop=None,
 
     init_distributed("cuda")
     device = rank_device("cuda")
-    cfg = apply_overrides(load_config(CONFIG), overrides)
+    cfg = apply_overrides(load_config(config), overrides)
     mesh = build_mesh(cfg.mesh)
     _, trainer, dataset = cli.build_all(cfg, device, mesh)
     state = trainer.init(cfg.train.seed)
@@ -1331,7 +1349,8 @@ def _rank_fit(rank, port, overrides, out_dir, ckpt_dir=None, stop=None,
     if ckpt is not None and ckpt.latest_step() is not None:
         state, _ = ckpt.restore(state)
     state, hist = fit(trainer, state, data.prefetch(
-        data.sharded_batches(dataset.iter_from(state.step), mesh), device),
+        data.sharded_batches(dataset.iter_from(state.step), mesh,
+                             cfg.train.grad_accum), device),
         steps=stop or cfg.train.steps, log_every=1, log_fn=lambda m: None,
         ckpt=ckpt, save_every=save_every)
     torch.cuda.synchronize()
@@ -1343,13 +1362,15 @@ def _rank_fit(rank, port, overrides, out_dir, ckpt_dir=None, stop=None,
            "timings": [] if ckpt is None else ckpt.timings}
     if rank == 0:
         out["params"] = {k: p.detach().cpu() for k, p in state.params.items()}
+        out["model_state"] = {k: b.detach().cpu()
+                              for k, b in state.model_state.items()}
     torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     dist.barrier()
     dist.destroy_process_group()
 
 
 def spawn_ranks(torch, overrides, out_dir, ckpt_dir=None, stop=None,
-                save_every=0):
+                save_every=0, config=CONFIG):
     """2 ranks of :func:`_rank_fit`, sharing the one card over gloo: each
     rank's results."""
     import socket
@@ -1360,7 +1381,7 @@ def spawn_ranks(torch, overrides, out_dir, ckpt_dir=None, stop=None,
     torch.cuda.empty_cache()
     torch.multiprocessing.spawn(
         _rank_fit,
-        args=(port, overrides, out_dir, ckpt_dir, stop, save_every),
+        args=(port, overrides, out_dir, ckpt_dir, stop, save_every, config),
         nprocs=2, join=True)
     return [torch.load(os.path.join(out_dir, f"rank{r}.pt"))
             for r in range(2)]
@@ -1406,14 +1427,14 @@ ZERO_STEPS, ZERO_ACCUM, EVAL_BATCHES = 4, 2, 2
 ZERO_PARAM_LIMIT = 1e-4
 
 
-def torchrun_train(overrides, timeout=600):
-    """``cli train --sync-steps`` under torchrun with 2 ranks on
-    ``configs/gpt2_owt.py``: (rank 0's text lines, its JSON records, the
-    train_end record)."""
+def torchrun_train(overrides, timeout=600, config=CONFIG):
+    """``cli train --sync-steps`` under torchrun with 2 ranks on ``config``
+    (default ``configs/gpt2_owt.py``): (rank 0's text lines, its JSON
+    records, the train_end record)."""
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            "--nproc_per_node", "2", "-m",
            "distributeddeeplearning_tpu_torch.cli", "train", "--config",
-           CONFIG, "--sync-steps"]
+           config, "--sync-steps"]
     for o in overrides:
         cmd += ["--override", o]
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -1559,6 +1580,224 @@ def zero1_parity(torch, parity, steps=4):
             "max_abs_param_diff": pdiff, "resumed_losses": resumed}
 
 
+# ---------------------------------------------------------------------------
+# 14. - 16. ResNet-50 data-parallel training (no hand kernel on the path)
+# ---------------------------------------------------------------------------
+
+RESNET = os.path.join(ROOT, "distributeddeeplearning_tpu_torch", "configs",
+                      "resnet50_imagenet.py")
+RESNET_STEPS, NATIVE_STEPS = 8, 4
+# Phase 16's fp32 parity at a global batch of 16 (8 a rank), one batch
+# repeated at a constant lr low enough that the loss falls smoothly in 4
+# steps. The runs agree to ~4e-7 through step 3, and then rounding grows
+# by x20-x200 a step: at lr 0.1 the loss overshoots by step 3 and step 4
+# parts by 3.5e-3; at 0.01 by 8.4e-5 (H100 runs of this phase).
+RESNET_PARITY = ["model.kwargs.dtype=float32", "data.batch_size=16",
+                 "data.n_distinct=1", "optim.schedule=constant",
+                 "optim.warmup_steps=0", "optim.lr=0.002", "train.steps=4"]
+# Phase 16's BatchNorm running statistics against one process after 4
+# steps, each tensor's largest difference over its largest value: flax's
+# E[x²] - E[x]² loses ~1e-7 of E[x²] to the order of the sums, which is
+# much of a small variance's value.
+BN_STATS_TOL = 1e-3
+
+
+def all_launches():
+    """Every hand kernel's launch count, by name."""
+    from distributeddeeplearning_tpu_torch.ops import (
+        flash_attention,
+        fused_adamw,
+        paged_attention,
+        ring_attention_pallas,
+    )
+
+    return {**paged_attention.LAUNCHES, **flash_attention.LAUNCHES,
+            **fused_adamw.LAUNCHES, **ring_attention_pallas.LAUNCHES}
+
+
+def reset_all_launches():
+    from distributeddeeplearning_tpu_torch.ops import (
+        flash_attention,
+        fused_adamw,
+        paged_attention,
+        ring_attention_pallas,
+    )
+
+    for mod in (paged_attention, flash_attention, fused_adamw,
+                ring_attention_pallas):
+        mod.reset_launches()
+
+
+def resnet_cli_train(torch, cli, steps, overrides=()):
+    """``cli train --sync-steps`` in-process on resnet50_imagenet.py as
+    shipped (batch 256 x 224², bf16, SGD): (losses, step seconds after the
+    first, train_end record, text lines)."""
+    argv = ["train", "--config", RESNET, "--device", "cuda", "--sync-steps",
+            "--override", f"train.steps={steps}",
+            "--override", "train.log_every=1"]
+    for o in overrides:
+        argv += ["--override", o]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    if rc != 0:
+        raise RuntimeError(f"resnet cli train exited {rc}")
+    lines = buf.getvalue().strip().splitlines()
+    recs = [json.loads(x) for x in lines if x.startswith("{")]
+    losses = [r["loss"] for r in recs if "loss" in r]
+    end = next(r for r in recs if r.get("event") == "train_end")
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"resnet cli train: losses {losses}")
+    return losses, end["step_s"][1:], end, [
+        x for x in lines if not x.startswith("{")]
+
+
+def resnet_train(torch, cli, batch):
+    """Phase 14: 8 steps of the shipped config, then 4 with the C++
+    loader; no hand kernel launches on this path."""
+    out = {}
+    for kind, steps, extra in (
+            ("synthetic_image", RESNET_STEPS, ()),
+            ("native_image", NATIVE_STEPS, ("data.kind=native_image",))):
+        reset_all_launches()  # this path's counts start here
+        torch.cuda.reset_peak_memory_stats()
+        losses, step_s, end, text = resnet_cli_train(torch, cli, steps,
+                                                     extra)
+        launched = all_launches()
+        print("\n".join(text))
+        res = {"data": kind, "losses": losses,
+               "images_per_s": batch / statistics.mean(step_s),
+               "p50_step_ms": statistics.median(step_s) * 1e3,
+               "step_ms": [x * 1e3 for x in step_s],
+               "peak_mem_gb": end["peak_mem_gb"],
+               "opt_state_bytes": end["opt_state_bytes"]}
+        print(f"resnet50 train: {json.dumps(res)}", flush=True)
+        if any(launched.values()):
+            raise AssertionError(f"resnet path launched hand kernels "
+                                 f"{launched}: it should run none")
+        out[kind] = res
+    print("launches on the resnet path: none of the nine (as expected)",
+          flush=True)
+    return out
+
+
+def resnet_benchmark(cli):
+    """Phase 15: ``cli benchmark`` on the shipped config; its record."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["benchmark", "--config", RESNET, "--device", "cuda"])
+    if rc != 0:
+        raise RuntimeError(f"cli benchmark exited {rc}")
+    rec = json.loads(buf.getvalue().strip().splitlines()[-1])
+    for key in ("value", "p50_step_ms", "p90_step_ms", "mfu",
+                "hbm_peak_bytes", "model_tflops_per_step"):
+        if not isinstance(rec.get(key), (int, float)) or not rec[key] > 0:
+            raise AssertionError(f"benchmark record: {key}={rec.get(key)!r}")
+    if rec["platform"] != "gpu" or not math.isfinite(rec["loss"]):
+        raise AssertionError(f"benchmark record: {rec}")
+    return rec
+
+
+def resnet_one_process(torch, cli, load_config, apply_overrides, accum):
+    """Phase 16's reference: the parity config in this process."""
+    from distributeddeeplearning_tpu_torch import data
+    from distributeddeeplearning_tpu_torch.train import fit
+
+    cfg = apply_overrides(load_config(RESNET), RESNET_PARITY + [
+        f"train.grad_accum={accum}"])
+    _, trainer, dataset = cli.build_all(cfg, "cuda")
+    state = trainer.init(cfg.train.seed)
+    state, hist = fit(trainer, state, data.prefetch(data.sharded_batches(
+        dataset.iter_from(0), None, accum), "cuda"),
+        steps=cfg.train.steps, log_every=1, log_fn=lambda m: None)
+    torch.cuda.synchronize()
+    out = ([r["loss"] for r in hist],
+           {k: b.detach().cpu() for k, b in state.model_state.items()})
+    del trainer, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def resnet_dp2(torch, cli, load_config, apply_overrides):
+    """Phase 16: fp32 parity of dp=2 (grad_accum 1 and 2) against one
+    process, then the shipped config under torchrun at dp=2 with eval and
+    checkpoints every 2 steps, and a resume in fresh processes that
+    repeats steps 3 and 4 bit for bit."""
+    import tempfile
+
+    parity = {}
+    for accum in (1, 2):
+        la, sa = resnet_one_process(torch, cli, load_config,
+                                    apply_overrides, accum)
+        with tempfile.TemporaryDirectory() as tmp:
+            ranks = spawn_ranks(torch, RESNET_PARITY + [
+                "mesh.dp=2", f"train.grad_accum={accum}"], tmp,
+                config=RESNET)
+        lb, sb = ranks[0]["losses"], ranks[0]["model_state"]
+        rels = [abs(a - b) / abs(b) for a, b in zip(lb, la)]
+        rel = max(rels)
+        sdiff = max(((sb[k] - sa[k]).abs().max()
+                     / sa[k].abs().max()).item() for k in sa)
+        print(f"resnet50 fp32 dp=2 grad_accum={accum}: losses {lb} one "
+              f"process {la} rel diff by step {rels}; running statistics' "
+              f"largest diff over the tensor's largest value {sdiff} "
+              f"(limit {BN_STATS_TOL}); launches per rank "
+              f"{[r['launches'] for r in ranks]}", flush=True)
+        if ranks[1]["losses"] != lb:
+            raise AssertionError("resnet dp=2: the ranks' losses differ")
+        if not rel <= 1e-4:
+            raise AssertionError(f"resnet dp=2: loss rel diff {rel} > 1e-4")
+        if not (lb[-1] < lb[0] and la[-1] < la[0]):
+            raise AssertionError(f"resnet dp=2: loss did not fall {lb} {la}")
+        if not sdiff <= BN_STATS_TOL:
+            raise AssertionError(f"resnet dp=2: running statistics off by "
+                                 f"{sdiff}")
+        if any(any(r["launches"].values()) for r in ranks):
+            raise AssertionError("resnet dp=2 launched hand kernels")
+        parity[accum] = {"losses_dp2": lb, "losses_one": la,
+                         "max_rel_diff": rel, "bn_stats_diff": sdiff}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ck, logs = os.path.join(tmp, "ckpt"), os.path.join(tmp, "logs")
+        base = ["train.save_every=2", "train.eval_every=2",
+                "train.eval_batches=1", "train.log_every=1",
+                f"train.checkpoint_dir={ck}", f"train.log_dir={logs}"]
+        text, recs, end = torchrun_train(base + ["train.steps=4"],
+                                         config=RESNET, timeout=900)
+        print("\n".join(text))
+        losses = [r["loss"] for r in recs if "loss" in r]
+        evals = [r["step"] for r in recs if "eval_loss" in r]
+        if len(losses) != 4 or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"resnet dp=2 cli train: losses {losses}")
+        if evals != [2, 4] or end["backend"] != "gloo":
+            raise AssertionError(f"resnet dp=2 cli train: evals {evals}, "
+                                 f"backend {end['backend']}")
+        if any(r["losses"] != losses for r in end["ranks"]):
+            raise AssertionError("resnet dp=2 cli train: ranks differ")
+        steps_on_disk = sorted(int(n) for n in os.listdir(ck) if n.isdigit())
+        if steps_on_disk != [2, 4]:
+            raise AssertionError(f"checkpoints at {steps_on_disk}")
+        shutil.rmtree(os.path.join(ck, "4"))  # resume from step 2
+        text2, recs2, _ = torchrun_train(base + ["train.steps=4"],
+                                         config=RESNET, timeout=900)
+        print("\n".join(text2))
+        resumed = [r["loss"] for r in recs2 if "loss" in r]
+        if "resumed from step 2" not in text2 or resumed != losses[2:]:
+            raise AssertionError(f"resnet resume: {resumed} against "
+                                 f"{losses[2:]}")
+    step_s = end["step_s"][1:]
+    res = {"backend": end["backend"], "ranks_on_one_card": 2,
+           "p50_step_ms": statistics.median(step_s) * 1e3,
+           "step_ms": [x * 1e3 for x in step_s], "losses": losses,
+           "resumed_losses": resumed,
+           "peak_mem_gb": [r["peak_mem_gb"] for r in end["ranks"]],
+           "checkpoint_saves": end["ranks"][0]["checkpoints"],
+           "parity": parity}
+    print(f"resnet50 dp=2 train: {json.dumps(res)} (both ranks share the one "
+          "card over gloo: not a data-parallel speed)", flush=True)
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -1699,6 +1938,16 @@ def main(argv=None) -> int:
     phase("13 fp32 parity at 124M width, ZeRO-1 dp=2 against one rank")
     zero1_parity(torch, parity)
 
+    phase("14 ResNet-50 train through the entry point")
+    rcfg = load_config(RESNET)
+    resnet_train(torch, cli, rcfg.data.batch_size)
+
+    phase("15 cli benchmark on ResNet-50")
+    bench = resnet_benchmark(cli)
+
+    phase("16 ResNet-50 dp=2 (torchrun, 2 ranks on one card over gloo)")
+    resnet_dp2(torch, cli, load_config, apply_overrides)
+
     # Each kernel's numbers come from its case at the main path's types.
     main_case = {"paged_decode": "bf16", "paged_decode_q8": "int8_bf16q",
                  "flash_fwd": "flash_fwd", "flash_dq": "flash_dq",
@@ -1717,6 +1966,8 @@ def main(argv=None) -> int:
             "library_ms": r["library_ms"],
         })
     print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"benchmark": bench}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -14,7 +14,11 @@ The paths that run on the GPU:
 - ZeRO-1 over the dp ranks (``parallel/zero.py``: each rank updates its
   shard of the moments with the fused AdamW kernel), gradient
   accumulation, checkpoints with step-exact resume on any mesh
-  (``checkpoint.py``), evaluation (``cli eval``) and the metrics writer.
+  (``checkpoint.py``), evaluation (``cli eval``) and the metrics writer;
+- ResNet-18/50 training (``models/resnet.py``: cuDNN convs, BatchNorm
+  statistics synced over the dp ranks, SGD) on synthetic or C++-loaded
+  images, and ``cli benchmark`` (``benchmark.py``), which prints the
+  images/sec/chip record.
 The package imports torch and never JAX; entry points run on the GPU unless
 the caller asks for the CPU.
 """

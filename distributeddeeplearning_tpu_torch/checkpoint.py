@@ -5,9 +5,11 @@ The JAX package's ``checkpoint.py`` keeps the same interface over orbax
 (async, restoring into any mesh's placement). Here:
 
 - **On disk**, ``<dir>/<step>/state.pt`` holds the step, the root dropout
-  seed, the optimizer count, and the params and both Adam moments as full
-  params-shaped trees of CPU tensors; ``<dir>/<step>/data.json`` the input
-  pipeline's position (``{"next_index": N}``), so resume is step-exact.
+  seed, the optimizer count, the params, the model's buffers
+  (``model_state``: BatchNorm's running statistics) and the optimizer's
+  trees (both Adam moments, or SGD's trace) as full params-shaped trees of
+  CPU tensors; ``<dir>/<step>/data.json`` the input pipeline's position
+  (``{"next_index": N}``), so resume is step-exact.
 - **Atomic**: a step is written into ``<dir>/.tmp-<step>`` and renamed to
   ``<dir>/<step>`` once both files are on disk, so :meth:`latest_step`
   never names a half-written step.
@@ -42,64 +44,80 @@ from .mesh import is_rank0
 # What a damaged step's files raise from torch.load / json.load.
 _LOAD_ERRORS = (OSError, EOFError, RuntimeError, ValueError, KeyError,
                 pickle.UnpicklingError, zipfile.BadZipFile)
-_KEYS = ("step", "rng", "count", "params", "mu", "nu")
+_KEYS = ("step", "rng", "count", "params")
 
 
-def _full_moments(opt_state):
-    """(mu, nu) as params-shaped trees: a ZeRO-1 state's shards gathered
-    on rank 0 (a collective of rank 0's dp group; (None, None) on every
-    other rank), a replicated state's trees as they are."""
+def _full_opt_trees(opt_state) -> dict | None:
+    """The optimizer state's params-shaped trees (``train.opt_state_trees``:
+    Adam's mu and nu, or SGD's trace): a ZeRO-1 state's shards gathered on
+    rank 0 (a collective of rank 0's dp group; None on every other rank),
+    a replicated state's trees as they are."""
     from .parallel.zero import ZeroState
+    from .train import opt_state_trees
 
     if isinstance(opt_state, ZeroState):
         layout = opt_state.layout
-        return layout.gather(opt_state.mu), layout.gather(opt_state.nu)
-    return opt_state.mu, opt_state.nu
+        mu, nu = layout.gather(opt_state.mu), layout.gather(opt_state.nu)
+        return None if mu is None else {"mu": mu, "nu": nu}
+    return opt_state_trees(opt_state)
 
 
-def _host(state, mu: dict, nu: dict) -> dict:
-    """A copy of ``state`` (with full moments ``mu``, ``nu``) in host
-    memory, in the layout of ``state.pt``."""
+def _host(state, opt_trees: dict) -> dict:
+    """A copy of ``state`` (with the optimizer's full trees ``opt_trees``)
+    in host memory, in the layout of ``state.pt``."""
     def host(tree):
         return {k: v.detach().to("cpu", copy=True) for k, v in tree.items()}
 
     return {"step": int(state.step), "rng": int(state.rng),
             "count": int(state.opt_state.count), "params": host(state.params),
-            "mu": host(mu), "nu": host(nu)}
+            "model_state": host(state.model_state),
+            **{name: host(tree) for name, tree in opt_trees.items()}}
+
+
+def _check_tree(tree: dict, name: str, like: dict) -> None:
+    """Refuse a checkpoint's ``tree`` whose names or shapes are not
+    ``like``'s."""
+    if set(tree) != set(like):
+        raise ValueError(f"checkpoint {name} do not match the model: "
+                         f"{sorted(set(tree) ^ set(like))[:8]}")
+    for k, p in like.items():
+        if tuple(tree[k].shape) != tuple(p.shape):
+            raise ValueError(f"checkpoint {name} {k}: shape "
+                             f"{tuple(tree[k].shape)}, the model's "
+                             f"{tuple(p.shape)}")
 
 
 @torch.no_grad()
 def load_into(state, host: dict):
     """``state`` (the live state of a trainer, or a serving model's params
     with ``opt_state=None``) with the values of ``host`` (a checkpoint's
-    ``state.pt``): params and moments copied in place, the moments cut to
-    the state's ZeRO-1 shards where it has them. A checkpoint of another
-    model is refused by name."""
+    ``state.pt``): params, the model's buffers (BatchNorm statistics) and
+    the optimizer's trees copied in place, Adam's moments cut to the
+    state's ZeRO-1 shards where it has them. A checkpoint of another model
+    or optimizer is refused by name."""
     from .parallel.zero import ZeroState
+    from .train import opt_state_trees
 
-    for tree in ("params", "mu", "nu"):
-        if tree != "params" and state.opt_state is None:
-            continue
-        names = set(host[tree])
-        if names != set(state.params):
-            raise ValueError(
-                f"checkpoint {tree} do not match the model: "
-                f"{sorted(names ^ set(state.params))[:8]}")
-        for k, p in state.params.items():
-            if tuple(host[tree][k].shape) != tuple(p.shape):
-                raise ValueError(f"checkpoint {tree} {k}: shape "
-                                 f"{tuple(host[tree][k].shape)}, the model's "
-                                 f"{tuple(p.shape)}")
+    opt = state.opt_state
+    trees = {} if opt is None else opt_state_trees(opt)
+    host_state = host.get("model_state", {})
+    for name in ("params", *trees):
+        if name not in host:
+            raise ValueError(f"checkpoint has no {name}: another "
+                             "optimizer's state")
+        _check_tree(host[name], name, state.params)
+    _check_tree(host_state, "model_state", state.model_state)
     for k, p in state.params.items():
         p.copy_(host["params"][k])
-    opt = state.opt_state
+    for k, b in state.model_state.items():
+        b.copy_(host_state[k])
     if opt is not None:
-        mu, nu = host["mu"], host["nu"]
-        if isinstance(opt, ZeroState):
-            mu, nu = opt.layout.shard(mu), opt.layout.shard(nu)
-        for k, m in opt.mu.items():
-            m.copy_(mu[k])
-            opt.nu[k].copy_(nu[k])
+        for name, tree in trees.items():
+            full = host[name]
+            if isinstance(opt, ZeroState):
+                full = opt.layout.shard(full)
+            for k, t in tree.items():
+                t.copy_(full[k])
         opt = opt._replace(count=int(host["count"]))
     return dataclasses.replace(state, step=int(host["step"]),
                                rng=int(host["rng"]), opt_state=opt)
@@ -143,11 +161,11 @@ class CheckpointManager:
             return False
         self._latest_saved = step
         t0 = time.perf_counter()
-        mu, nu = _full_moments(state.opt_state)
+        opt_trees = _full_opt_trees(state.opt_state)
         if not self._writer:
             return True
-        host = _host(state, mu, nu)
-        del mu, nu
+        host = _host(state, opt_trees)
+        del opt_trees
         record = {"step": step, "host_s": time.perf_counter() - t0}
         self.timings.append(record)
         self._pending.append(self._pool.submit(

@@ -1,12 +1,14 @@
 """CLI entry points: ``python -m distributeddeeplearning_tpu_torch.cli
-{train,eval,serve}``.
+{train,eval,benchmark,serve}``.
 
 ``train`` runs the training path (``build_all`` -> ``Trainer`` -> ``fit``)
 on one rank, or on every rank ``torchrun`` starts (one process per rank,
 ``mesh.dp`` x ``mesh.cp`` of them), resuming from ``train.checkpoint_dir``;
-``eval`` evaluates its latest checkpoint; ``serve`` runs the in-process
-serving engine on its latest checkpoint's weights. All run on the GPU by
-default; ``--device cpu`` asks for the CPU (and gloo under ``torchrun``).
+``eval`` evaluates its latest checkpoint; ``benchmark`` times the config's
+training step (``benchmark.run_benchmark``: images or tokens per second per
+GPU); ``serve`` runs the in-process serving engine on its latest
+checkpoint's weights. All run on the GPU by default; ``--device cpu`` asks
+for the CPU (and gloo under ``torchrun``).
 """
 
 from __future__ import annotations
@@ -80,6 +82,10 @@ def _unported_train_knobs(cfg: Config, world_size: int = 1):
          "sequence parallelism", "A13"),
         ("train.remat", t.remat if t.remat != "none" else "",
          "rematerialization", "A3"),
+        ("train.zero1", t.zero1 and cfg.optim.name == "sgd"
+         and sizes["dp"] > 1,
+         "ZeRO-1 of the SGD momentum trace (optim.name='sgd'; the port "
+         "shards AdamW's moments)", "A8"),
         *mesh_knobs,
         ("model.kwargs.attn_impl", attn if attn in ("ring", "ring_pallas")
          and sizes["cp"] == 1 else "",
@@ -101,7 +107,9 @@ def check_train_composition(cfg: Config, world_size: int = 1) -> None:
 
 def build_all(cfg: Config, device, mesh=None):
     """Construct (model, trainer, dataset) from a config on ``device``, for
-    this rank of ``mesh`` (default: the one-rank mesh). The model's compute
+    this rank of ``mesh`` (default: the one-rank mesh), which the model
+    gets too (ResNet syncs its BatchNorm statistics over its dp ranks, the
+    ring attention cores rotate over its cp ranks). The model's compute
     dtype follows ``train.precision.policy`` when the policy is mixed, as in
     the reference."""
     from . import data
@@ -148,15 +156,15 @@ def build_all(cfg: Config, device, mesh=None):
 
 def _rank_report(device, history, state, ckpt) -> dict:
     """What one rank reports at the end: its kernel launch counts, its peak
-    device memory, its Adam moments' bytes (a shard of them under ZeRO-1),
-    the losses it logged and its checkpoint saves' timings."""
+    device memory, its optimizer state's bytes (Adam's moments, a shard of
+    them under ZeRO-1, or SGD's trace), the losses it logged and its
+    checkpoint saves' timings."""
     from .ops import flash_attention, fused_adamw, ring_attention_pallas
+    from .train import opt_state_bytes
 
     peak = (torch.cuda.max_memory_allocated(device) / 1e9
             if device.type == "cuda" else None)
-    opt = state.opt_state
-    opt_bytes = sum(m.numel() * m.element_size()
-                    for tree in (opt.mu, opt.nu) for m in tree.values())
+    opt_bytes = opt_state_bytes(state.opt_state)
     return {
         "launches": {**flash_attention.LAUNCHES, **fused_adamw.LAUNCHES,
                      **ring_attention_pallas.LAUNCHES},
@@ -277,7 +285,7 @@ def cmd_train(cfg: Config, *, device=None, sync_steps: bool = False) -> int:
             n = sum(p.numel() for p in state.params.values())
             say(f"model: {cfg.model.name}  params: {n:,}")
             placed = data.sharded_batches(dataset.iter_from(start_index),
-                                          mesh)
+                                          mesh, t.grad_accum)
             if t.steps_per_call > 1:
                 placed = data.stacked_batches(placed, t.steps_per_call)
             batches = data.prefetch(placed, device,
@@ -328,6 +336,19 @@ def cmd_eval(cfg: Config, *, device=None) -> int:
                                  "evaluating", say)
         metrics = evaluate(trainer, state, make_eval_fn(cfg, mesh, device)())
         say(json.dumps({**metrics, "step": state.step}))
+    return 0
+
+
+def cmd_benchmark(cfg: Config, *, device=None) -> int:
+    """Time the config's training step on this rank (every rank under
+    ``torchrun``); rank 0 prints the one-line JSON record of
+    ``benchmark.run_benchmark``."""
+    from .benchmark import run_benchmark
+    from .mesh import DistEnv
+
+    check_train_composition(cfg, world_size=DistEnv.from_environ().world_size)
+    with _joined(cfg, device) as (device, mesh, say):
+        say(json.dumps(run_benchmark(cfg, device, mesh)))
     return 0
 
 
@@ -414,6 +435,8 @@ def main(argv=None) -> int:
     )
     e = sub.add_parser("eval")
     common(e)
+    b = sub.add_parser("benchmark")
+    common(b)
     p = sub.add_parser("serve")
     common(p)
     p.add_argument(
@@ -441,6 +464,9 @@ def main(argv=None) -> int:
     if args.cmd == "eval":
         cfg = apply_overrides(load_config(args.config), args.override)
         return cmd_eval(cfg, device=args.device)
+    if args.cmd == "benchmark":
+        cfg = apply_overrides(load_config(args.config), args.override)
+        return cmd_benchmark(cfg, device=args.device)
     if args.telemetry is not None:
         args.override = list(args.override) + ["telemetry.enabled=True"]
         if args.telemetry:

@@ -6,6 +6,8 @@ Here they are calls on ``torch.distributed`` groups, made by each rank:
 
 - :func:`psum` / :func:`pmean`: all-reduce over an axis group (or the
   world), the gradient sync and the metric average;
+  :func:`psum_differentiable` the same under autograd (its backward
+  all-reduces the gradient), for synced BatchNorm statistics;
 - :func:`pmean_tensors`: the same over many tensors in a few flat buckets;
 - :func:`reduce_scatter_mean` / :func:`all_gather`: a flat buffer's mean
   over an axis, each member keeping only its chunk, and the chunks gathered
@@ -160,6 +162,33 @@ def psum(x: torch.Tensor, mesh, axis: str = "world") -> torch.Tensor:
     if axis_size(mesh, axis) == 1:
         return x
     return _comm(mesh, "psum").all_reduce_sum(x.detach(), axis)
+
+
+class _PsumGrad(torch.autograd.Function):
+    """:func:`psum` under autograd: every member's output depends on every
+    member's input, so the backward all-reduces the incoming gradient."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return _comm(mesh, "psum").all_reduce_sum(x.detach(), axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (_comm(ctx.mesh, "psum").all_reduce_sum(grad.contiguous(),
+                                                       ctx.axis),
+                None, None)
+
+
+def psum_differentiable(x: torch.Tensor, mesh,
+                        axis: str = "world") -> torch.Tensor:
+    """All-reduce sum over ``axis`` that autograd differentiates through:
+    the backward is the all-reduce sum of the gradient, so a loss that
+    reads the sum on every member gets the cross-member terms (synced
+    BatchNorm's statistics)."""
+    if axis_size(mesh, axis) == 1:
+        return x
+    return _PsumGrad.apply(x, mesh, axis)
 
 
 def pmean(x: torch.Tensor, mesh, axis: str = "world") -> torch.Tensor:

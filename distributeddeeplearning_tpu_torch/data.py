@@ -1,8 +1,12 @@
-"""Input pipeline of the training slice: synthetic token batches, each
-rank's share of them, and their transfer to the device.
+"""Input pipeline of the training slices: synthetic token and image
+batches, the native loader's kinds, each rank's share of a batch, and their
+transfer to the device.
 
-:class:`SyntheticTokens` draws exactly the reference's batches (the same
-numpy generator and seed), so the two packages train on identical data.
+:class:`SyntheticTokens` and :class:`SyntheticImages` draw exactly the
+reference's batches (the same numpy generator and seed), and
+:func:`augment_images` is the reference's crop-and-flip bit for bit, so the
+two packages train on identical data. ``native_image`` and
+``record_file_image`` come from the C++ loader (``native/loader.py``).
 :func:`prefetch` keeps batches in flight as pinned host tensors copied to
 the device with ``non_blocking`` transfers, so H2D overlaps the step.
 """
@@ -18,6 +22,83 @@ import numpy as np
 import torch
 
 from .dataset_base import IndexedDataset
+from .native.loader import (
+    NativeSyntheticImages,
+    RecordFileImages,
+    splitmix64,
+)
+
+_U64 = (1 << 64) - 1
+
+
+def _splitmix64_vec(x: np.ndarray) -> np.ndarray:
+    """:func:`native.loader.splitmix64` over a uint64 array (arrays wrap
+    silently where Python ints would grow)."""
+    with np.errstate(over="ignore"):
+        x = (x + 0x9E3779B97F4A7C15).astype(np.uint64)
+        x = (x ^ (x >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+        x = (x ^ (x >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+        return x ^ (x >> np.uint64(31))
+
+
+def augment_bits(seed: int, base_index: int, n: int,
+                 pad: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(dy, dx, flip) per sample: a pure function of ``seed`` and the GLOBAL
+    sample index ``base_index + i``, splitmix64-mixed (the C++ loader's
+    augmentation draws the same bits)."""
+    idx = np.arange(n, dtype=np.uint64) + np.uint64(base_index & _U64)
+    h = _splitmix64_vec(idx ^ np.uint64(splitmix64(seed & _U64)))
+    span = np.uint64(2 * pad + 1)
+    dy = (h % span).astype(np.int64)
+    dx = ((h >> np.uint64(16)) % span).astype(np.int64)
+    flip = ((h >> np.uint64(32)) & np.uint64(1)).astype(bool)
+    return dy, dx, flip
+
+
+def augment_images(images: np.ndarray, *, seed: int, base_index: int,
+                   pad: int = 4, flip: bool = True) -> np.ndarray:
+    """Random crop (zero-pad ``pad``, crop back) and horizontal flip of
+    ``[B, H, W, C]`` images, each sample's draw a pure function of ``(seed,
+    base_index + i)`` (:func:`augment_bits`), so resume and every rank's
+    share of a batch see the same crops."""
+    b, h, w, _ = images.shape
+    padded = np.pad(images, ((0, 0), (pad, pad), (pad, pad), (0, 0)),
+                    mode="constant")
+    dy, dx, do_flip = augment_bits(seed, base_index, b, pad)
+    rows = dy[:, None] + np.arange(h)[None, :]
+    cols = dx[:, None] + np.arange(w)[None, :]
+    out = padded[np.arange(b)[:, None, None], rows[:, :, None],
+                 cols[:, None, :]]
+    if flip:
+        out[do_flip] = out[do_flip][:, :, ::-1]
+    return out
+
+
+@dataclasses.dataclass
+class SyntheticImages(IndexedDataset):
+    """Deterministic random images and labels: ``{'image': [B, S, S, C]
+    float32 normals, 'label': [B] int32}``. ``n_distinct`` > 0 cycles
+    through that many fixed batches (a memorisable toy set: the loss must
+    fall); 0 streams fresh batches (throughput)."""
+
+    batch_size: int
+    image_size: int = 32
+    channels: int = 3
+    num_classes: int = 10
+    seed: int = 0
+    n_distinct: int = 8
+
+    def batch(self, index: int) -> dict[str, np.ndarray]:
+        if self.n_distinct:
+            index = index % self.n_distinct
+        rng = np.random.default_rng((self.seed << 20) + index)
+        return {
+            "image": rng.standard_normal(
+                (self.batch_size, self.image_size, self.image_size,
+                 self.channels), dtype=np.float32),
+            "label": rng.integers(0, self.num_classes, (self.batch_size,),
+                                  dtype=np.int32),
+        }
 
 
 @dataclasses.dataclass
@@ -49,9 +130,14 @@ class SyntheticTokens(IndexedDataset):
         }
 
 
-# The kinds this slice ports; the reference's other kinds (images, MLM,
-# token files) are refused by name until their slice.
-DATASET_KINDS: dict[str, type] = {"synthetic_tokens": SyntheticTokens}
+# The kinds ported so far; the reference's MLM and token-file kinds are
+# refused by name until their slice.
+DATASET_KINDS: dict[str, type] = {
+    "synthetic_image": SyntheticImages,
+    "synthetic_tokens": SyntheticTokens,
+    "native_image": NativeSyntheticImages,
+    "record_file_image": RecordFileImages,
+}
 
 
 def make_dataset(kind: str, **kwargs):
@@ -59,19 +145,25 @@ def make_dataset(kind: str, **kwargs):
         raise NotImplementedError(
             f"dataset kind {kind!r} not yet ported to "
             "distributeddeeplearning_tpu_torch (ported: "
-            f"{sorted(DATASET_KINDS)}; the image kinds come with ResNet, "
-            "ROADMAP queue A8, the MLM and token-file kinds with queues A9 "
-            "and A14)"
+            f"{sorted(DATASET_KINDS)}; the MLM and token-file kinds come "
+            "with ROADMAP queues A9 and A14)"
         )
     return DATASET_KINDS[kind](**kwargs)
 
 
-def sharded_batches(it, mesh) -> Iterator[dict]:
+def sharded_batches(it, mesh, grad_accum: int = 1) -> Iterator[dict]:
     """This rank's rows of each global host batch: every rank draws the same
-    global batch from the seed and keeps its contiguous slice of the batch
-    dim over the batch axes (dp, fsdp), as the reference's multi-process
+    global batch from the seed and keeps its share of the batch dim over
+    the batch axes (dp, fsdp), as the reference's multi-process
     ``sharded_batches`` does. The sequence split over cp is the task's,
-    after the LM shift (``train.lm_task``)."""
+    after the LM shift (``train.lm_task``).
+
+    The reference splits the GLOBAL batch into ``grad_accum`` contiguous
+    microbatches and shards each over the ranks. So a rank's rows are its
+    contiguous slice of each global microbatch in turn, and the trainer's
+    contiguous split of them gives it its share of the reference's
+    microbatch ``i`` (which matters where a microbatch's statistics do:
+    BatchNorm). With ``grad_accum=1`` that is one contiguous slice."""
     from .mesh import BATCH_AXES
 
     n, idx = 1, 0
@@ -84,11 +176,15 @@ def sharded_batches(it, mesh) -> Iterator[dict]:
             continue
         out = {}
         for k, x in batch.items():
-            if x.shape[0] % n:
-                raise ValueError(f"batch dim {x.shape[0]} of {k!r} not "
-                                 f"divisible by {n} data-parallel ranks")
-            per = x.shape[0] // n
-            out[k] = x[idx * per:(idx + 1) * per]
+            if x.shape[0] % (n * grad_accum):
+                raise ValueError(
+                    f"batch dim {x.shape[0]} of {k!r} not divisible by "
+                    f"{n} data-parallel ranks x grad_accum={grad_accum}")
+            micro = x.shape[0] // grad_accum
+            per = micro // n
+            parts = [x[i * micro + idx * per:i * micro + (idx + 1) * per]
+                     for i in range(grad_accum)]
+            out[k] = parts[0] if grad_accum == 1 else np.concatenate(parts)
         yield out
 
 

@@ -1,5 +1,5 @@
-"""Model zoo of the port. This slice carries GPT-2; the other models of the
-JAX package register here as later slices port them."""
+"""Model zoo of the port: GPT-2 and ResNet-18/50 so far; the other models
+of the JAX package register here as later slices port them."""
 
 from __future__ import annotations
 
@@ -25,4 +25,4 @@ def available() -> list[str]:
     return sorted(_REGISTRY)
 
 
-from . import gpt2  # noqa: E402,F401
+from . import gpt2, resnet  # noqa: E402,F401

@@ -10,7 +10,9 @@ runs the step eagerly on its device, over its slice of the global batch
 - gradients to fp32 and averaged over every rank (``comms.pmean_tensors``,
   a few flat buckets), then the optimizer: global-norm clip before the
   update, and ``p += delta`` in place on the masters (the fused AdamW
-  kernel, or the plain optax-semantics AdamW);
+  kernel, or the plain optax-semantics AdamW or SGD);
+- the model's buffers (BatchNorm's running statistics) are
+  ``TrainState.model_state``, updated in place by the training forward;
 - the host loop logs ``{"loss", "perplexity", "step", "wall_s"}`` every
   ``log_every`` steps with one interval of lag, never draining the device
   queue for logging;
@@ -31,7 +33,7 @@ import dataclasses
 import math
 import time
 from collections.abc import Callable
-from typing import Any
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
@@ -118,8 +120,32 @@ def lm_task(head_chunk: int = 128, mesh=None) -> Task:
                 finish_metrics=finish_metrics)
 
 
+def classification_task(label_smoothing: float = 0.0) -> Task:
+    """Image classification: the mean softmax cross-entropy of the fp32
+    logits against ``(1 - eps) onehot + eps / K`` (``label_smoothing`` eps;
+    the MLPerf ResNet-50 recipe uses 0.1). Metrics: ``loss`` (the
+    objective), ``xent`` (the plain cross-entropy, comparable across
+    smoothing settings) and top-1 ``accuracy``."""
+
+    def loss_fn(logits, batch):
+        labels = batch["label"].long()
+        logits = logits.float()
+        xent = F.cross_entropy(logits, labels)
+        if label_smoothing:
+            k = logits.shape[-1]
+            soft = (F.one_hot(labels, k).float() * (1.0 - label_smoothing)
+                    + label_smoothing / k)
+            loss = -(soft * F.log_softmax(logits, -1)).sum(-1).mean()
+        else:
+            loss = xent
+        acc = (logits.argmax(-1) == labels).float().mean()
+        return loss, {"loss": loss, "xent": xent, "accuracy": acc}
+
+    return Task(input_fn=lambda b: (b["image"],), loss_fn=loss_fn)
+
+
 _TASK_KNOBS = {"head_chunk", "label_smoothing"}  # every task's, reference
-_UNPORTED_TASKS = {"classification": "A8", "mlm": "A9"}
+_UNPORTED_TASKS = {"mlm": "A9"}
 
 
 def get_task(name: str, mesh=None, **task_kwargs) -> Task:
@@ -133,8 +159,10 @@ def get_task(name: str, mesh=None, **task_kwargs) -> Task:
         raise NotImplementedError(
             f"train.task={name!r} not yet ported to "
             "distributeddeeplearning_tpu_torch (ROADMAP queue "
-            f"{_UNPORTED_TASKS[name]}); 'lm' is"
+            f"{_UNPORTED_TASKS[name]}); 'lm' and 'classification' are"
         )
+    if name == "classification":
+        return classification_task(task_kwargs.get("label_smoothing", 0.0))
     if name != "lm":
         raise KeyError(f"unknown task {name!r}")
     return lm_task(mesh=mesh, **{k: v for k, v in task_kwargs.items()
@@ -208,19 +236,19 @@ def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
 # ---------------------------------------------------------------------------
 
 
+def clip_to(grads: dict, norm, clip: float) -> dict:
+    """optax ``clip_by_global_norm`` at a global ``norm``: g unchanged below
+    the threshold, else (g / norm) * clip."""
+    return {k: torch.where(norm < clip, g, (g / norm) * clip)
+            for k, g in grads.items()}
+
+
 class AdamW(FusedAdamW):
     """``optax.chain(clip_by_global_norm(clip), optax.adamw(sched, b1, b2,
     weight_decay=wd, mask=decay_leaf))`` in plain torch, updating the
     params and moments in place: the reference path of ``optim.name=
     'adamw'``, which runs no kernel. Its state has the fused optimizer's
     (count, mu, nu) layout, as optax's ``ScaleByAdamState`` does."""
-
-    def _clip(self, grads: dict, norm) -> dict:
-        # optax.clip_by_global_norm: g unchanged below the threshold, else
-        # (g / norm) * clip.
-        clip = self.grad_clip
-        return {k: torch.where(norm < clip, g, (g / norm) * clip)
-                for k, g in grads.items()}
 
     def _step(self, count: int, leaves) -> None:
         """The update at the pre-increment ``count`` over ``leaves``, (p,
@@ -245,7 +273,7 @@ class AdamW(FusedAdamW):
     def update(self, grads: dict, state: FusedAdamWState,
                params: dict) -> FusedAdamWState:
         if self.grad_clip:
-            grads = self._clip(grads, global_norm(grads))
+            grads = clip_to(grads, global_norm(grads), self.grad_clip)
         self._step(state.count, (
             (p, grads[k], state.mu[k], state.nu[k], decay_leaf(p))
             for k, p in params.items()))
@@ -257,11 +285,66 @@ class AdamW(FusedAdamW):
         """:meth:`FusedAdamW.update_shard`'s contract, in plain torch: each
         group's weight decay is the group's."""
         if self.grad_clip:
-            grads = self._clip(grads, norm)
+            grads = clip_to(grads, norm, self.grad_clip)
         self._step(state.count, (
             (p, grads[g], state.mu[g], state.nu[g], g == "decay")
             for g, p in params.items()))
         return state._replace(count=state.count + 1)
+
+
+class SGDState(NamedTuple):
+    count: int  # completed updates
+    trace: dict  # name -> fp32 momentum trace, params-shaped
+
+
+class SGD:
+    """``optax.chain(clip_by_global_norm(clip), add_decayed_weights(wd,
+    mask=decay_leaf), optax.sgd(sched, momentum, nesterov=False))`` in plain
+    torch, in place on the params and the trace: ``g`` clipped on the
+    global norm, ``+ wd * p`` on the decayed leaves (ndim >= 2), ``t = g +
+    momentum * t``, ``p += -lr(count) * t``. The state is (count, trace),
+    as optax's schedule count and ``TraceState``."""
+
+    def __init__(self, learning_rate, momentum: float = 0.9,
+                 weight_decay: float = 0.0, grad_clip: float = 0.0):
+        self.learning_rate, self.momentum = learning_rate, momentum
+        self.weight_decay, self.grad_clip = weight_decay, grad_clip
+
+    def init(self, params: dict) -> SGDState:
+        return SGDState(count=0, trace={
+            k: torch.zeros_like(p, dtype=torch.float32)
+            for k, p in params.items()})
+
+    @torch.no_grad()
+    def update(self, grads: dict, state: SGDState, params: dict) -> SGDState:
+        if self.grad_clip:
+            grads = clip_to(grads, global_norm(grads), self.grad_clip)
+        lr = f32(self.learning_rate(state.count)
+                 if callable(self.learning_rate) else self.learning_rate)
+        wd, mom = f32(self.weight_decay), f32(self.momentum)
+        for k, p in params.items():
+            g, t = grads[k].float(), state.trace[k]
+            if wd and decay_leaf(p):
+                g = g + p * wd
+            t.copy_(g + t * mom)
+            p.add_(t * -lr)
+        return SGDState(count=state.count + 1, trace=state.trace)
+
+
+def opt_state_trees(opt_state) -> dict:
+    """The params-shaped trees of an optimizer state, by name: Adam's
+    ``mu`` and ``nu`` (a ZeRO-1 rank's shards of them), or SGD's
+    ``trace``."""
+    if isinstance(opt_state, SGDState):
+        return {"trace": opt_state.trace}
+    return {"mu": opt_state.mu, "nu": opt_state.nu}
+
+
+def opt_state_bytes(opt_state) -> int:
+    """The bytes of :func:`opt_state_trees` on this rank."""
+    return sum(t.numel() * t.element_size()
+               for tree in opt_state_trees(opt_state).values()
+               for t in tree.values())
 
 
 def make_optimizer(name: str = "sgd", lr: float = 0.1, *,
@@ -270,11 +353,10 @@ def make_optimizer(name: str = "sgd", lr: float = 0.1, *,
                    warmup_steps: int = 0, schedule: str = "constant",
                    total_steps: int = 0, grad_clip: float = 0.0,
                    precision: str | Policy = "fp32"):
-    """The reference's optimizer factory. ``adamw`` is the plain AdamW
-    (optax semantics, decay mask, outer clip); ``adamw_fused`` the fused
-    kernel with the clip inside its update. ``sgd`` and the ``bf16_full``
-    policy are refused by name."""
-    del momentum  # sgd's, refused below
+    """The reference's optimizer factory. ``sgd`` is SGD with a momentum
+    trace (optax semantics, decay mask, outer clip); ``adamw`` the plain
+    AdamW (the same); ``adamw_fused`` the fused kernel with the clip inside
+    its update. The ``bf16_full`` policy is refused by name."""
     if schedule == "constant":
         sched = constant_schedule(lr)
     elif schedule == "cosine":
@@ -290,11 +372,8 @@ def make_optimizer(name: str = "sgd", lr: float = 0.1, *,
         raise ValueError(f"unknown schedule {schedule!r}")
     check_precision_composition(precision, optim_name=name)
     if name == "sgd":
-        raise NotImplementedError(
-            "optim.name='sgd' not yet ported to "
-            "distributeddeeplearning_tpu_torch (ROADMAP queue A8, with "
-            "ResNet-50); 'adamw' and 'adamw_fused' are"
-        )
+        return SGD(sched, momentum=momentum, weight_decay=weight_decay,
+                   grad_clip=grad_clip)
     if name == "adamw":
         return AdamW(sched, b1=b1, b2=b2, weight_decay=weight_decay,
                      grad_clip=grad_clip)
@@ -322,22 +401,31 @@ def fold_in_step(seed: int, step: int) -> int:
 @dataclasses.dataclass
 class TrainState:
     """The training state: ``params`` are the model's own fp32 master
-    parameters (updated in place), ``rng`` the root dropout seed."""
+    parameters (updated in place), ``rng`` the root dropout seed,
+    ``model_state`` the model's own buffers that are no parameters
+    (BatchNorm's running statistics; updated in place by the training
+    forward, as JAX's ``model_state``)."""
 
     step: int
     params: dict
     opt_state: Any
     rng: int
+    model_state: dict = dataclasses.field(default_factory=dict)
 
 
 CP_ATTN = ("ring", "ring_pallas")
+ZERO1_SGD = ("train.zero1=True with optim.name='sgd' over dp > 1: ZeRO-1 of "
+             "the SGD momentum trace not yet ported to "
+             "distributeddeeplearning_tpu_torch (ROADMAP queue A8; the port "
+             "shards AdamW's moments)")
 
 
 class Trainer:
-    """Trainer of one rank over a model, an optimizer (``AdamW`` or
-    ``FusedAdamW``) and a task. ``mesh`` (``mesh.Mesh``, default one rank):
-    the ranks the step's gradients and metrics are averaged over; the
-    model and the task must have been built on the same mesh.
+    """Trainer of one rank over a model, an optimizer (``AdamW``,
+    ``FusedAdamW`` or ``SGD``) and a task. ``mesh`` (``mesh.Mesh``,
+    default one rank): the ranks the step's gradients and metrics are
+    averaged over; the model and the task must have been built on the same
+    mesh.
 
     ``zero1``: over ``mesh.dp > 1``, ZeRO-1 (``parallel.zero``): the
     model's masters become views into flat group buffers, each rank keeps
@@ -380,6 +468,8 @@ class Trainer:
         self._generator = torch.Generator(device=self.device)
         self.layout = None
         if zero1 and mesh is not None and mesh.shape["dp"] > 1:
+            if isinstance(tx, SGD):
+                raise NotImplementedError(ZERO1_SGD)
             from .parallel.zero import ZeroLayout
 
             self.layout = ZeroLayout(dict(model.named_parameters()), mesh)
@@ -392,12 +482,15 @@ class Trainer:
         opt_state = (self.tx.init(params) if self.layout is None
                      else self.tx.init_shard(self.layout))
         return TrainState(step=0, params=params, opt_state=opt_state,
-                          rng=int(seed))
+                          rng=int(seed),
+                          model_state=dict(self.model.named_buffers()))
 
     def _forward(self, state: TrainState, params: dict, batch: dict,
                  train: bool):
         """The model's output on ``batch`` from ``params``: the masters
-        themselves (the model's own parameters) or a compute copy."""
+        themselves (the model's own parameters) or a compute copy. The
+        model's buffers (``state.model_state``) are its own either way, so
+        a training forward updates them in place."""
         inputs = self.task.input_fn(batch)
         kw = {"train": train,
               "generator": self._generator if train else None}

@@ -53,7 +53,8 @@ def test_sources_exist():
             "precision.py", "chunked_xent.py", "mesh.py", "comms.py",
             "sp_ring.py", "ring_attention.py",
             "ring_attention_pallas.py", "checkpoint.py", "zero.py",
-            "metrics.py", "weights.py"} <= names
+            "metrics.py", "weights.py", "resnet.py", "benchmark.py",
+            "loader.py"} <= names
     csrc = {p.name for p in (PORT / "csrc").glob("*.cu")}
     assert {"paged_attention.cu", "flash_attention.cu",
             "fused_adamw.cu", "ring_attention.cu"} <= csrc
@@ -170,9 +171,9 @@ def test_ported_train_knobs_run(override, knob, tmp_path):
 
 @pytest.mark.parametrize("override,exc,match", [
     ("train.task=mlm", NotImplementedError, "train.task='mlm'"),
-    ("optim.name=sgd", NotImplementedError, "optim.name='sgd'"),
     ("train.precision.policy=bf16_full", ValueError, "bf16_full"),
-    ("data.kind=synthetic_image", NotImplementedError, "synthetic_image"),
+    ("data.kind=synthetic_mlm", NotImplementedError, "synthetic_mlm"),
+    ("data.kind=token_file_lm", NotImplementedError, "token_file_lm"),
     ("model.kwargs.attn_impl=ring", NotImplementedError, "attn_impl='ring'"),
 ])
 def test_unported_paths_are_refused_by_name(override, exc, match):

@@ -3,9 +3,11 @@
 time.
 
 Starts ``--ranks`` processes (as ``torchrun`` would, on this host), each a
-rank of ``configs/gpt2_owt.py`` at full width (GPT-2 124M, batch 32 x 1024,
-bf16 compute) with ``mesh.cp=--cp``, ``mesh.dp=ranks/cp`` and
-``attn_impl=ring_pallas``. Each rank warms up, times steps that end in a
+rank of ``--config`` (default ``configs/gpt2_owt.py`` at full width: GPT-2
+124M, batch 32 x 1024, bf16 compute) with ``mesh.cp=--cp``,
+``mesh.dp=ranks/cp`` and ``attn_impl=ring_pallas`` (``--cp 1`` is plain
+dp: ``--config configs/resnet50_imagenet.py --cp 1`` is ResNet-50 data
+parallel, its BatchNorm statistics all-reduced over the ranks). Each rank warms up, times steps that end in a
 device sync, then traces a window of steps with ``torch.profiler``. Rank 0
 prints one JSON line: the backend, GPUs and ranks per GPU, p50 step time and
 tokens/s, and per rank its device busy time per step, device idle share,
@@ -15,12 +17,16 @@ step inside the transport's calls (``DistComm.shift``, ``all_reduce_sum``,
 and ZeRO-1's ``reduce_scatter_sum`` and ``all_gather``, timed by wrapping
 them here). ``mesh.dp > 1`` runs ZeRO-1 off unless ``--override
 train.zero1=true``. Ranks share the GPUs round-robin when
-there are fewer GPUs than ranks (gloo); with one GPU each they run NCCL.
+there are fewer GPUs than ranks (gloo); with one GPU each they run NCCL,
+and each rank also reports the compute stream's milliseconds a step
+across its all-reduces, split by size: up to 65,536 elements (BatchNorm
+statistics, metrics) and above (the gradient buckets), from CUDA events
+around each call.
 ``--ranks 1 --cp 1`` profiles the single-GPU flash route for comparison.
 Needs an NVIDIA GPU:
 
-    python3 tools/torch_cp_profile.py [--ranks 2] [--cp 2] [--steps 4]
-        [--override train.zero1=true]
+    python3 tools/torch_cp_profile.py [--config PATH] [--ranks 2] [--cp 2]
+        [--steps 4] [--override train.zero1=true]
 """
 
 from __future__ import annotations
@@ -51,6 +57,9 @@ GROUPS = (
     ("copy", "Memset"),
 )
 COMM_CALLS = ("shift", "all_reduce_sum", "reduce_scatter_sum", "all_gather")
+# All-reduces up to this many elements count as small (BatchNorm
+# statistics, metrics); larger ones are gradient buckets.
+SMALL_ALL_REDUCE = 1 << 16
 
 
 def group_of(name: str) -> str:
@@ -85,7 +94,28 @@ def time_comm(comm, totals: dict) -> None:
         setattr(comm, name, timed)
 
 
-def rank_main(rank, ranks, port, cp, steps, extra, out_dir):
+def time_all_reduce_on_device(comm, events: list) -> None:
+    """Wrap ``all_reduce_sum`` on this instance: CUDA events on the
+    compute stream before and after each call (the stream waits for the
+    collective) go to ``events`` as (kind, start, end)."""
+    import torch
+
+    fn = comm.all_reduce_sum
+
+    def timed(t, axis):
+        kind = ("small" if t.numel() <= SMALL_ALL_REDUCE else "large")
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(t, axis)
+        end.record()
+        events.append((kind, start, end))
+        return out
+
+    comm.all_reduce_sum = timed
+
+
+def rank_main(rank, ranks, port, cp, steps, extra, out_dir, config=CONFIG):
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
@@ -110,16 +140,19 @@ def rank_main(rank, ranks, port, cp, steps, extra, out_dir):
 
     joined = init_distributed("cuda")
     device = rank_device("cuda") if joined else torch.device("cuda")
-    cfg = apply_overrides(load_config(CONFIG),
+    cfg = apply_overrides(load_config(config),
                           overrides_for(ranks, cp) + extra)
     mesh = build_mesh(cfg.mesh)
     comm_s: dict[str, float] = {}
+    nccl_events: list = []
     if mesh.comm is not None:
         time_comm(mesh.comm, comm_s)
+        if not mesh.comm.stage_on_host:
+            time_all_reduce_on_device(mesh.comm, nccl_events)
     _, trainer, dataset = cli.build_all(cfg, device, mesh)
     state = trainer.init(cfg.train.seed)
-    batches = data.prefetch(
-        data.sharded_batches(dataset.iter_from(0), mesh), device)
+    batches = data.prefetch(data.sharded_batches(
+        dataset.iter_from(0), mesh, cfg.train.grad_accum), device)
 
     def step():
         nonlocal state
@@ -135,12 +168,20 @@ def rank_main(rank, ranks, port, cp, steps, extra, out_dir):
     sync()
     step_s, losses = [], []
     comm_s.clear()
+    nccl_events.clear()
     for _ in range(steps):
         t0 = time.perf_counter()
         losses.append(float(step()["loss"]))
         torch.cuda.synchronize(device)
         step_s.append(time.perf_counter() - t0)
     comm_ms = {k: v / steps * 1e3 for k, v in comm_s.items()}
+    all_reduce_ms: dict[str, float] = {}
+    for kind, start, end in nccl_events:
+        all_reduce_ms[kind] = (all_reduce_ms.get(kind, 0.0)
+                               + start.elapsed_time(end) / steps)
+    calls = {k: sum(e[0] == k for e in nccl_events) / steps
+             for k in all_reduce_ms}
+    nccl_events.clear()
     sync()
     with tprofile(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as prof:
@@ -171,6 +212,8 @@ def rank_main(rank, ranks, port, cp, steps, extra, out_dir):
             [name[:80], us / steps / 1e3] for name, us in
             sorted(kernels.items(), key=lambda kv: -kv[1])[:8]],
         "comm_host_ms_per_step_unprofiled": comm_ms,
+        "all_reduce_stream_ms_per_step_unprofiled": all_reduce_ms,
+        "all_reduce_calls_per_step": calls,
         "peak_mem_gb": torch.cuda.max_memory_allocated(device) / 1e9,
         "zero1": trainer.layout is not None,
     }
@@ -185,6 +228,7 @@ def rank_main(rank, ranks, port, cp, steps, extra, out_dir):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--config", default=CONFIG)
     ap.add_argument("--ranks", type=int, default=2)
     ap.add_argument("--cp", type=int, default=2)
     ap.add_argument("--steps", type=int, default=4)
@@ -214,7 +258,7 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         torch.multiprocessing.spawn(
             rank_main, args=(args.ranks, port, args.cp, args.steps,
-                             args.override, tmp),
+                             args.override, tmp, args.config),
             nprocs=args.ranks, join=True)
         ranks = [json.load(open(os.path.join(tmp, f"rank{r}.json")))
                  for r in range(args.ranks)]
@@ -223,17 +267,20 @@ def main(argv=None) -> int:
         load_config,
     )
 
-    cfg = apply_overrides(load_config(CONFIG), args.override)
-    tokens = cfg.data.batch_size * cfg.data.seq_len
+    cfg = apply_overrides(load_config(args.config), args.override)
+    images = cfg.train.task == "classification"
+    items = cfg.data.batch_size * (1 if images else cfg.data.seq_len)
+    unit = "images" if images else "tokens"
     p50 = ranks[0]["p50_step_ms_unprofiled"]
     print(json.dumps({
-        "config": "gpt2_owt", "ranks": args.ranks, "cp": args.cp,
+        "config": os.path.basename(args.config), "ranks": args.ranks,
+        "cp": args.cp,
         "dp": args.ranks // args.cp, "gpus": min(gpus, args.ranks),
         "backend": ("none" if args.ranks == 1 else
                     pick_backend("cuda", args.ranks, gpus)),
         "overrides": overrides_for(args.ranks, args.cp) + args.override,
         "steps": args.steps, "p50_step_ms_unprofiled": p50,
-        "tokens_per_s_unprofiled": tokens / statistics.mean(
+        f"{unit}_per_s_unprofiled": items / statistics.mean(
             ranks[0]["step_ms_unprofiled"]) * 1e3,
         "per_rank": ranks,
     }), flush=True)

@@ -1,17 +1,22 @@
 #!/usr/bin/env python3
 """Where a training step of the PyTorch port spends its time.
 
-Builds the trainer of ``configs/gpt2_owt.py`` through ``cli.build_all`` at
-full width (GPT-2 124M, batch 32 x 1024, bf16 compute, flash attention,
-fused AdamW), warms it up, times steps that each end in a device sync, then
-traces a window of steps with ``torch.profiler`` and prints one JSON line:
-host wall time per step, device busy time per step (the sum of device-side
-kernel, copy and memset times), the device idle share under the profiler,
-device time per kernel group (the port's flash and AdamW kernels, matrix
-products, the rest), and the kernels with the most device time. Needs an
+Builds the trainer of ``--config`` (default ``configs/gpt2_owt.py``:
+GPT-2 124M, batch 32 x 1024, bf16 compute, flash attention, fused AdamW;
+``configs/resnet50_imagenet.py`` is ResNet-50 at batch 256 x 224²) through
+``cli.build_all`` at full width, warms it up, times steps that each end in
+a device sync, then traces a window of steps with ``torch.profiler`` and
+prints one JSON line: host wall time per step, device busy time per step
+(the sum of device-side kernel, copy and memset times), the device idle
+share under the profiler, device time per kernel group (the port's flash
+and AdamW kernels, convolutions, matrix products, reductions, copies, the
+rest), and the kernels with the most device time. Each step draws its batch
+on the host and copies it over (``data.prefetch``), as ``cli train`` does,
+so an input path slower than the step shows as idle device time. Needs an
 NVIDIA GPU:
 
-    python3 tools/torch_train_profile.py [--steps 5] [--override a.b=v ...]
+    python3 tools/torch_train_profile.py [--config PATH] [--steps 5]
+        [--override a.b=v ...]
 """
 
 from __future__ import annotations
@@ -31,9 +36,11 @@ CONFIG = os.path.join(ROOT, "distributeddeeplearning_tpu_torch", "configs",
 GROUPS = (
     ("flash_fwd", "flash_fwd_kernel"), ("flash_dq", "flash_dq_kernel"),
     ("flash_dkv", "flash_dkv_kernel"), ("fused_adamw", "fused_adamw_kernel"),
-    ("matmul", "gemm"), ("matmul", "sm90_xmma"), ("matmul", "cutlass"),
+    ("conv", "conv"), ("conv", "dgrad"), ("conv", "wgrad"),
+    ("conv", "fprop"), ("conv", "cudnn"), ("matmul", "gemm"), ("matmul", "sm90_xmma"), ("matmul", "cutlass"),
     ("matmul", "nvjet"), ("copy", "Memcpy"), ("copy", "copy_kernel"),
-    ("copy", "Memset"),
+    ("copy", "Memset"), ("reduce", "reduce_kernel"),
+    ("pool", "pool"),
 )
 
 
@@ -46,6 +53,7 @@ def group_of(name: str) -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--config", default=CONFIG)
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--override", action="append", default=[])
     args = ap.parse_args(argv)
@@ -68,7 +76,7 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip())
-    cfg = apply_overrides(load_config(CONFIG), args.override)
+    cfg = apply_overrides(load_config(args.config), args.override)
     _, trainer, dataset = cli.build_all(cfg, "cuda")
     state = trainer.init(cfg.train.seed)
     batches = data.prefetch(dataset.iter_from(0), "cuda")
@@ -107,12 +115,14 @@ def main(argv=None) -> int:
         g = group_of(name)
         groups[g] = groups.get(g, 0.0) + us / n / 1e3
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:15]
-    tokens = cfg.data.batch_size * cfg.data.seq_len
+    images = cfg.train.task == "classification"
+    items = cfg.data.batch_size * (1 if images else cfg.data.seq_len)
+    unit = "images" if images else "tokens"
     print(json.dumps({
-        "config": "gpt2_owt", "overrides": args.override, "steps": n,
-        "tokens_per_step": tokens,
+        "config": os.path.basename(args.config), "overrides": args.override,
+        "steps": n, f"{unit}_per_step": items,
         "p50_step_ms_unprofiled": statistics.median(step_s) * 1e3,
-        "tokens_per_s_unprofiled": tokens / statistics.mean(step_s),
+        f"{unit}_per_s_unprofiled": items / statistics.mean(step_s),
         "host_ms_per_step": wall / n * 1e3,
         "device_busy_ms_per_step": busy_us / n / 1e3,
         "device_idle_share": max(0.0, 1 - busy_us / 1e6 / wall),
