@@ -72,9 +72,13 @@ def _sync(device) -> None:
 
 def _items(batch: dict) -> tuple[int, str]:
     """(items a global batch holds, unit): images for the vision tasks,
-    trained tokens for the LM (whose batches carry seq_len + 1 tokens)."""
+    trained tokens for the LM (whose batches carry seq_len + 1 tokens) and
+    the MLM (``input_tokens``, pad positions included, as the
+    reference counts them)."""
     if "image" in batch:
         return batch["image"].shape[0], "images/sec/chip"
+    if "input_tokens" in batch:
+        return batch["input_tokens"].size, "tokens/sec/chip"
     tokens = batch["tokens"]
     return tokens.shape[0] * (tokens.shape[1] - 1), "tokens/sec/chip"
 

@@ -80,8 +80,6 @@ def _unported_train_knobs(cfg: Config, world_size: int = 1):
          "sharded weight update", "A13"),
         ("train.sequence_parallel", t.sequence_parallel,
          "sequence parallelism", "A13"),
-        ("train.remat", t.remat if t.remat != "none" else "",
-         "rematerialization", "A3"),
         ("train.zero1", t.zero1 and cfg.optim.name == "sgd"
          and sizes["dp"] > 1,
          "ZeRO-1 of the SGD momentum trace (optim.name='sgd'; the port "
@@ -110,8 +108,9 @@ def build_all(cfg: Config, device, mesh=None):
     this rank of ``mesh`` (default: the one-rank mesh), which the model
     gets too (ResNet syncs its BatchNorm statistics over its dp ranks, the
     ring attention cores rotate over its cp ranks). The model's compute
-    dtype follows ``train.precision.policy`` when the policy is mixed, as in
-    the reference."""
+    dtype follows ``train.precision.policy`` when the policy is mixed, and
+    ``train.remat`` other than 'none' sets the model's per-block activation
+    checkpointing, as in the reference."""
     from . import data
     from .mesh import single_device_mesh
     from .models.gpt2 import as_torch_dtype
@@ -134,7 +133,12 @@ def build_all(cfg: Config, device, mesh=None):
                 "policy owns the compute dtype"
             )
         kwargs["dtype"] = policy.compute_dtype
+    if cfg.train.remat != "none":
+        kwargs["remat"] = cfg.train.remat
     model = models.get_model(cfg.model.name, **kwargs, mesh=mesh).to(device)
+    if cfg.train.remat != "none" and getattr(model, "remat",
+                                             None) != cfg.train.remat:
+        raise ValueError(f"model {cfg.model.name!r} does not support remat")
     tx = make_optimizer(
         cfg.optim.name, cfg.optim.lr, momentum=cfg.optim.momentum,
         b1=cfg.optim.b1, b2=cfg.optim.b2,

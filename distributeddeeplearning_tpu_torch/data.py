@@ -2,8 +2,8 @@
 batches, the native loader's kinds, each rank's share of a batch, and their
 transfer to the device.
 
-:class:`SyntheticTokens` and :class:`SyntheticImages` draw exactly the
-reference's batches (the same numpy generator and seed), and
+:class:`SyntheticTokens`, :class:`SyntheticImages` and :class:`SyntheticMLM`
+draw exactly the reference's batches (the same numpy generator and seed), and
 :func:`augment_images` is the reference's crop-and-flip bit for bit, so the
 two packages train on identical data. ``native_image`` and
 ``record_file_image`` come from the C++ loader (``native/loader.py``).
@@ -130,11 +130,61 @@ class SyntheticTokens(IndexedDataset):
         }
 
 
-# The kinds ported so far; the reference's MLM and token-file kinds are
-# refused by name until their slice.
+@dataclasses.dataclass
+class SyntheticMLM(IndexedDataset):
+    """MLM batches with host-side masking (the data-collator approach): 15%
+    of positions replaced by ``mask_token_id`` in ``input_tokens``;
+    ``labels`` holds the original token there and -1 (ignore) elsewhere.
+    Masking depends only on ``(seed, index)``, so a resume draws the same
+    batches.
+
+    ``pad_min_len`` > 0: variable-length rows, each sample's true length
+    drawn uniformly from [pad_min_len, seq_len]; the tail is pad token 0
+    with an ``attention_mask`` of 0 and label -1 (outside the loss), the
+    padded-batch shape of the reference's wiki MLM batches."""
+
+    batch_size: int
+    seq_len: int = 128
+    vocab_size: int = 1024
+    mask_prob: float = 0.15
+    mask_token_id: int = 3
+    seed: int = 0
+    n_distinct: int = 8
+    pad_min_len: int = 0
+
+    def batch(self, index: int) -> dict[str, np.ndarray]:
+        if self.n_distinct:
+            index = index % self.n_distinct
+        rng = np.random.default_rng((self.seed << 20) + index)
+        tokens = rng.integers(
+            10, self.vocab_size, (self.batch_size, self.seq_len),
+            dtype=np.int32)
+        masked = rng.random(tokens.shape) < self.mask_prob
+        inputs = np.where(masked, np.int32(self.mask_token_id), tokens)
+        labels = np.where(masked, tokens, np.int32(-1))
+        if not self.pad_min_len:
+            return {"input_tokens": inputs, "labels": labels}
+        if not 0 < self.pad_min_len <= self.seq_len:
+            raise ValueError(
+                f"pad_min_len={self.pad_min_len} must be in [1, "
+                f"seq_len={self.seq_len}]")
+        lens = rng.integers(self.pad_min_len, self.seq_len + 1,
+                            (self.batch_size,))
+        attn = (np.arange(self.seq_len)[None, :]
+                < lens[:, None]).astype(np.int32)
+        return {
+            "input_tokens": np.where(attn.astype(bool), inputs, np.int32(0)),
+            "labels": np.where(attn.astype(bool), labels, np.int32(-1)),
+            "attention_mask": attn,
+        }
+
+
+# The kinds ported so far; the reference's token-file kinds are refused by
+# name until their slice.
 DATASET_KINDS: dict[str, type] = {
     "synthetic_image": SyntheticImages,
     "synthetic_tokens": SyntheticTokens,
+    "synthetic_mlm": SyntheticMLM,
     "native_image": NativeSyntheticImages,
     "record_file_image": RecordFileImages,
 }
@@ -145,8 +195,8 @@ def make_dataset(kind: str, **kwargs):
         raise NotImplementedError(
             f"dataset kind {kind!r} not yet ported to "
             "distributeddeeplearning_tpu_torch (ported: "
-            f"{sorted(DATASET_KINDS)}; the MLM and token-file kinds come "
-            "with ROADMAP queues A9 and A14)"
+            f"{sorted(DATASET_KINDS)}; the token-file kinds come with "
+            "ROADMAP queue A14)"
         )
     return DATASET_KINDS[kind](**kwargs)
 

@@ -64,7 +64,7 @@ class GPT2(nn.Module):
         self.embed_dim, self.head_dim = embed_dim, embed_dim // num_heads
         self.num_kv_heads = num_heads
         # Dropout applies in training only (``forward(train=True)``); remat
-        # is carried for the config and refused by ``cli train``.
+        # checkpoints each block (``models/remat.py``).
         self.dropout_rate, self.remat = dropout_rate, remat
         self.attn_impl, self.mesh = attn_impl, mesh
         self.chunked_head = chunked_head
@@ -73,7 +73,7 @@ class GPT2(nn.Module):
         self.wpe = Embed(max_len, embed_dim, self.dtype, device)
         self.h = TransformerStack(
             num_layers, embed_dim, num_heads, self.head_dim, 4 * embed_dim,
-            1e-5, self.dtype, device, attn_impl=attn_impl,
+            1e-5, self.dtype, device, remat=remat, attn_impl=attn_impl,
             dropout_rate=dropout_rate, mesh=mesh,
         )
         self.ln_f = LayerNorm(embed_dim, 1e-5, self.dtype, device)

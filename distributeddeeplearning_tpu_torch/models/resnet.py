@@ -17,7 +17,10 @@
   all-reduces the gradient), then ``mean = S/N``, ``var = max(E[x²] -
   mean², 0)`` (flax's biased ``use_fast_variance``), eps 1e-5. The running
   statistics move as ``ra = 0.9 ra + 0.1 batch`` in the training forward,
-  in place on the module's fp32 buffers.
+  in place on the module's fp32 buffers, and not in a remat recompute.
+- ``remat`` ('none' | 'full' | 'dots') checkpoints each residual block
+  (``models/remat.py``); 'dots' saves no conv (a conv is no dot, as in
+  JAX), so it recomputes what 'full' does.
 - Names follow the flax tree (``ConvBN_0.Conv_0``, ``BottleneckBlock_3``,
   ``Dense_0``); a parameter in torch's layout is named ``weight`` where
   flax's is ``kernel`` (OIHW against HWIO, [out, in] against [in, out]),
@@ -34,6 +37,7 @@ from torch import nn
 
 from . import register
 from .gpt2 import as_torch_dtype
+from .remat import check_remat, checkpoint_block, recomputing
 
 BN_MOMENTUM, BN_EPS = 0.9, 1e-5
 
@@ -135,9 +139,12 @@ class BatchNorm(nn.Module):
         n = stats[2 * c]
         mean, mean2 = stats[:c] / n, stats[c:2 * c] / n
         var = torch.clamp(mean2 - mean * mean, min=0.0)
-        with torch.no_grad():
-            self.mean.copy_(BN_MOMENTUM * self.mean + (1 - BN_MOMENTUM) * mean)
-            self.var.copy_(BN_MOMENTUM * self.var + (1 - BN_MOMENTUM) * var)
+        if not recomputing():  # the forward moved them already
+            with torch.no_grad():
+                self.mean.copy_(BN_MOMENTUM * self.mean
+                                + (1 - BN_MOMENTUM) * mean)
+                self.var.copy_(BN_MOMENTUM * self.var
+                               + (1 - BN_MOMENTUM) * var)
         return _Normalize.apply(x, mean, torch.rsqrt(var + BN_EPS),
                                 self.scale, self.bias, self.dtype)
 
@@ -253,12 +260,7 @@ class ResNet(nn.Module):
                  small_stem: bool = False, remat: str = "none",
                  dtype="float32", mesh=None, device=None):
         super().__init__()
-        if remat != "none":
-            raise NotImplementedError(
-                f"resnet remat={remat!r} not yet ported to "
-                "distributeddeeplearning_tpu_torch (activation checkpointing "
-                "comes with ViT, ROADMAP queue A9)"
-            )
+        self.remat = check_remat(remat)
         self.dtype, self.mesh = as_torch_dtype(dtype), mesh
         self.small_stem, self.num_classes = small_stem, num_classes
         kw = dict(dtype=self.dtype, mesh=mesh, device=device)
@@ -315,7 +317,9 @@ class ResNet(nn.Module):
             x, _ = _pad_same(x, 3, 2, value=-math.inf)
             x = F.max_pool2d(x, 3, 2)
         for k in range(self.num_blocks):
-            x = getattr(self, f"{self.block_name}_{k}")(x, train)
+            block = getattr(self, f"{self.block_name}_{k}")
+            x = checkpoint_block(lambda y, b=block: b(y, train), x,
+                                 remat=self.remat)
         x = _f32(x).mean((2, 3)).to(self.dtype)
         return self.Dense_0(x).float()
 

@@ -1,4 +1,6 @@
-"""Transformer backbone of the port: the pre-LN block GPT-2 uses, its
+"""Transformer backbone of the port: the block and stack GPT-2 (causal,
+pre-LN, tanh GELU), ViT (pre-LN, exact GELU) and BERT (post-LN, exact GELU,
+key-padding masks) share, with per-block remat (``models/remat.py``), the
 attention core, and the paged KV cache the serving engine decodes against.
 
 Parameters keep the JAX package's names and layouts (attention projections
@@ -12,6 +14,7 @@ scores and the softmax run in fp32 whatever the compute dtype.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
@@ -19,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..comms_quant import block_quantize
+from .remat import check_remat, checkpoint_block
 
 _NEG_INF = -1e30
 
@@ -276,8 +280,9 @@ class LayerNorm(nn.Module):
 
 
 class SelfAttention(nn.Module):
-    """Causal multi-head self-attention with ``query``/``key``/``value``
-    [E, H, D] and ``out`` [H, D, E] projections. With a
+    """Multi-head self-attention, ``causal`` or not, with
+    ``query``/``key``/``value`` [E, H, D] and ``out`` [H, D, E]
+    projections. With a
     :class:`PagedKVCache` it runs :func:`paged_decode_attention` on layer
     ``layer``'s pools; without, the ``attn_impl`` core:
 
@@ -291,11 +296,12 @@ class SelfAttention(nn.Module):
     """
 
     def __init__(self, embed_dim, num_heads, head_dim, dtype, device=None,
-                 *, attn_impl: str = "xla", dropout_rate: float = 0.0,
-                 mesh=None):
+                 *, causal: bool = True, attn_impl: str = "xla",
+                 dropout_rate: float = 0.0, mesh=None):
         super().__init__()
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"unknown attn_impl {attn_impl!r}")
+        self.causal = causal
         self.dtype, self.attn_impl = dtype, attn_impl
         self.dropout_rate, self.mesh = dropout_rate, mesh
         for name in ("query", "key", "value"):
@@ -318,8 +324,9 @@ class SelfAttention(nn.Module):
                     "ring attention supports mask=None and no active "
                     "attention-dropout"
                 )
-            out = attention_core(q, k, v, impl=self.attn_impl, causal=True,
-                                 dtype=self.dtype, mesh=self.mesh)
+            out = attention_core(q, k, v, impl=self.attn_impl,
+                                 causal=self.causal, dtype=self.dtype,
+                                 mesh=self.mesh)
         elif self.attn_impl == "flash":
             if self.dropout_rate and generator is not None:
                 raise NotImplementedError(
@@ -339,7 +346,7 @@ class SelfAttention(nn.Module):
                 cols = torch.arange(mask.shape[-1], device=mask.device)
                 prefix = cols[None, :] < kv_valid[:, None]
                 not_prefix = (mask.bool() != prefix).any(-1)
-            out = attention_core(q, k, v, impl="flash", causal=True,
+            out = attention_core(q, k, v, impl="flash", causal=self.causal,
                                  dtype=self.dtype, kv_valid=kv_valid)
             if not_prefix is not None:
                 out = torch.where(not_prefix[:, None, None, None],
@@ -349,7 +356,7 @@ class SelfAttention(nn.Module):
         else:
             rate, mesh = self.dropout_rate, self.mesh
             out = attention_core(
-                q, k, v, causal=True, dtype=self.dtype, mask=mask,
+                q, k, v, causal=self.causal, dtype=self.dtype, mask=mask,
                 dropout=lambda p: dropout(p, rate, generator, mesh),
             )
         return self.out(out)
@@ -360,59 +367,93 @@ def gelu_tanh(x):
     return F.gelu(x, approximate="tanh")
 
 
+def gelu_exact(x):
+    # ViT's and BERT's erf GELU.
+    return F.gelu(x)
+
+
+ACTIVATIONS = {"gelu_exact": gelu_exact, "gelu_tanh": gelu_tanh}
+
+
 class Mlp(nn.Module):
     def __init__(self, embed_dim, hidden_dim, dtype, device=None,
-                 dropout_rate: float = 0.0, mesh=None):
+                 dropout_rate: float = 0.0, mesh=None,
+                 activation: str = "gelu_tanh"):
         super().__init__()
+        if activation not in ACTIVATIONS:
+            raise ValueError(f"activation must be one of "
+                             f"{sorted(ACTIVATIONS)}, got {activation!r}")
+        self.act = ACTIVATIONS[activation]
         self.dropout_rate, self.mesh = dropout_rate, mesh
         self.fc_in = Dense((embed_dim,), (hidden_dim,), dtype, device)
         self.fc_out = Dense((hidden_dim,), (embed_dim,), dtype, device)
 
     def forward(self, x, generator=None):
-        h = self.fc_out(gelu_tanh(self.fc_in(x)))
+        h = self.fc_out(self.act(self.fc_in(x)))
         return dropout(h, self.dropout_rate, generator, self.mesh)
 
 
 class TransformerBlock(nn.Module):
-    """Pre-LN block (GPT-2): x + drop(attn(ln1(x))), then x + mlp(ln2(x))
-    (the MLP applies its own output dropout)."""
+    """Pre-LN (GPT-2, ViT): x + drop(attn(ln1(x))), then x + mlp(ln2(x));
+    post-LN (BERT): ln1(x + drop(attn(x))), then ln2(x + mlp(x)). The MLP
+    applies its own output dropout. ``mask``: the attention core's
+    key-padding mask."""
 
     def __init__(self, embed_dim, num_heads, head_dim, mlp_dim, ln_eps,
-                 dtype, device=None, *, attn_impl: str = "xla",
-                 dropout_rate: float = 0.0, mesh=None):
+                 dtype, device=None, *, pre_ln: bool = True,
+                 causal: bool = True, activation: str = "gelu_tanh",
+                 attn_impl: str = "xla", dropout_rate: float = 0.0,
+                 mesh=None):
         super().__init__()
+        self.pre_ln = pre_ln
         self.dropout_rate, self.mesh = dropout_rate, mesh
         self.attn = SelfAttention(embed_dim, num_heads, head_dim, dtype,
-                                  device, attn_impl=attn_impl,
+                                  device, causal=causal, attn_impl=attn_impl,
                                   dropout_rate=dropout_rate, mesh=mesh)
-        self.mlp = Mlp(embed_dim, mlp_dim, dtype, device, dropout_rate, mesh)
+        self.mlp = Mlp(embed_dim, mlp_dim, dtype, device, dropout_rate, mesh,
+                       activation)
         self.ln1 = LayerNorm(embed_dim, ln_eps, dtype, device)
         self.ln2 = LayerNorm(embed_dim, ln_eps, dtype, device)
 
-    def forward(self, x, cache=None, layer: int = 0, *, generator=None):
-        a = self.attn(self.ln1(x), cache, layer, generator=generator)
-        x = x + dropout(a, self.dropout_rate, generator, self.mesh)
-        return x + self.mlp(self.ln2(x), generator)
+    def forward(self, x, cache=None, layer: int = 0, *, mask=None,
+                generator=None):
+        def drop(a):
+            return dropout(a, self.dropout_rate, generator, self.mesh)
+
+        if self.pre_ln:
+            x = x + drop(self.attn(self.ln1(x), cache, layer, mask=mask,
+                                   generator=generator))
+            return x + self.mlp(self.ln2(x), generator)
+        x = self.ln1(x + drop(self.attn(x, cache, layer, mask=mask,
+                                        generator=generator)))
+        return self.ln2(x + self.mlp(x, generator))
 
 
 class TransformerStack(nn.Module):
     """N identically-configured blocks named ``block_{i}``. ``generator``
     (a ``torch.Generator`` on the activations' device) turns dropout on:
     training passes one, evaluation and serving pass none. ``mesh``: the
-    ranks the activations are split over (dropout masks, the ring cores)."""
+    ranks the activations are split over (dropout masks, the ring cores).
+    ``remat`` ('none' | 'full' | 'dots', ``models/remat.py``) checkpoints
+    each block of a forward without a KV cache."""
 
     def __init__(self, num_layers, embed_dim, num_heads, head_dim, mlp_dim,
-                 ln_eps, dtype, device=None, *, attn_impl: str = "xla",
+                 ln_eps, dtype, device=None, *, pre_ln: bool = True,
+                 causal: bool = True, activation: str = "gelu_tanh",
+                 remat: str = "none", attn_impl: str = "xla",
                  dropout_rate: float = 0.0, mesh=None):
         super().__init__()
-        self.num_layers = num_layers
+        self.num_layers, self.remat = num_layers, check_remat(remat)
         for i in range(num_layers):
             self.add_module(f"block_{i}", TransformerBlock(
                 embed_dim, num_heads, head_dim, mlp_dim, ln_eps, dtype,
-                device, attn_impl=attn_impl, dropout_rate=dropout_rate,
-                mesh=mesh))
+                device, pre_ln=pre_ln, causal=causal, activation=activation,
+                attn_impl=attn_impl, dropout_rate=dropout_rate, mesh=mesh))
 
-    def forward(self, x, cache=None, *, generator=None):
+    def forward(self, x, cache=None, *, mask=None, generator=None):
+        remat = self.remat if cache is None else "none"
         for i in range(self.num_layers):
-            x = getattr(self, f"block_{i}")(x, cache, i, generator=generator)
+            block = functools.partial(getattr(self, f"block_{i}"), cache=cache,
+                                      layer=i, mask=mask, generator=generator)
+            x = checkpoint_block(block, x, remat=remat, generator=generator)
         return x

@@ -1,0 +1,129 @@
+"""ViT image classifier, the reference's workload 5 (``BASELINE.json:11``:
+"ViT-L/16 on ImageNet-21k, DP + activation checkpointing"): the JAX
+package's ``models/vit.py`` in torch.
+
+- The patch embedding is flax's VALID stride-p p x p conv, run as what it
+  is: each patch flattened in (row, column, channel) order against the
+  HWIO kernel ``patch_embed.kernel`` [p, p, C, E] read as [p*p*C, E]
+  (:class:`~.transformer.Dense` over the trailing (p, p, C) dims), so the
+  kernel keeps JAX's layout.
+- A CLS token, learned position embeddings, the pre-LN encoder with exact
+  GELU and LayerNorm eps 1e-12, non-causal; the CLS token's final state
+  through the ``head`` gives fp32 logits.
+- The fp32 ``cls_token`` and ``pos_embed`` promote the bf16 patch
+  embeddings to fp32, as jnp's promotion does, so the residual stream is
+  fp32 and each block's LayerNorm casts its input to the compute dtype.
+- Names are the flax tree's (``patch_embed``, ``cls_token``, ``pos_embed``,
+  ``encoder.block_{i}``, ``ln_f``, ``head``): ``weights.from_jax_params``
+  loads a JAX init one to one.
+
+With ``attn_impl='flash'`` the 197 tokens of ViT-L/16 at 224² are padded
+to 256, the padded columns hidden by the kernels' static limit.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from . import register
+from .gpt2 import as_torch_dtype
+from .transformer import Dense, LayerNorm, TransformerStack, dropout
+
+CHANNELS = 3  # RGB, as every image kind draws
+
+
+class ViT(nn.Module):
+    def __init__(self, num_classes: int = 21843, image_size: int = 224,
+                 patch_size: int = 16, num_layers: int = 24,
+                 num_heads: int = 16, embed_dim: int = 1024,
+                 mlp_ratio: int = 4, dropout_rate: float = 0.0,
+                 remat: str = "none", dtype="float32",
+                 attn_impl: str = "xla", mesh=None, device=None):
+        super().__init__()
+        if attn_impl not in ("xla", "flash"):
+            raise NotImplementedError(
+                f"vit attn_impl={attn_impl!r} not yet ported to "
+                "distributeddeeplearning_tpu_torch (ROADMAP queue A13); "
+                "'xla' and 'flash' are")
+        if image_size % patch_size:
+            raise ValueError(f"image_size {image_size} is no multiple of "
+                             f"patch_size {patch_size}")
+        self.num_classes, self.image_size = num_classes, image_size
+        self.patch_size = patch_size
+        self.num_layers, self.num_heads = num_layers, num_heads
+        self.embed_dim, self.head_dim = embed_dim, embed_dim // num_heads
+        self.dropout_rate, self.remat = dropout_rate, remat
+        self.attn_impl, self.mesh = attn_impl, mesh
+        self.dtype = as_torch_dtype(dtype)
+        p, n_tokens = patch_size, (image_size // patch_size) ** 2 + 1
+        self.patch_embed = Dense((p, p, CHANNELS), (embed_dim,), self.dtype,
+                                 device)
+        self.cls_token = nn.Parameter(torch.empty(1, embed_dim,
+                                                  device=device))
+        self.pos_embed = nn.Parameter(torch.empty(n_tokens, embed_dim,
+                                                  device=device))
+        self.encoder = TransformerStack(
+            num_layers, embed_dim, num_heads, self.head_dim,
+            mlp_ratio * embed_dim, 1e-12, self.dtype, device, pre_ln=True,
+            causal=False, activation="gelu_exact", remat=remat,
+            attn_impl=attn_impl, dropout_rate=dropout_rate, mesh=mesh)
+        self.ln_f = LayerNorm(embed_dim, 1e-12, self.dtype, device)
+        self.head = Dense((embed_dim,), (num_classes,), self.dtype, device)
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> None:
+        """The JAX init's distributions, drawn on the CPU from
+        ``generator``: the patch kernel, ``pos_embed`` and the encoder's
+        kernels normal(0.02); ``cls_token``, the head and every bias zero;
+        LayerNorm scales one."""
+        for name, p in self.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if name == "pos_embed" or (leaf == "kernel"
+                                       and not name.startswith("head.")):
+                p.copy_(torch.empty(p.shape).normal_(std=0.02,
+                                                     generator=generator))
+            elif leaf == "scale":
+                nn.init.ones_(p)
+            else:
+                nn.init.zeros_(p)
+
+    def forward(self, images: torch.Tensor, *, train: bool = False,
+                generator=None) -> torch.Tensor:
+        """``images`` [B, H, W, C] (NHWC, as the JAX batches) -> fp32
+        logits [B, num_classes]. ``train=True`` applies dropout from
+        ``generator``."""
+        B, H, W, C = images.shape
+        if (H, W, C) != (self.image_size, self.image_size, CHANNELS):
+            raise ValueError(f"images {tuple(images.shape[1:])} but the "
+                             f"model takes {self.image_size}² x {CHANNELS}")
+        if train and self.dropout_rate and generator is None:
+            raise ValueError("train=True with dropout_rate > 0 needs a "
+                             "dropout generator")
+        gen = generator if train else None
+        p = self.patch_size
+        patches = images.reshape(B, H // p, p, W // p, p, C).permute(
+            0, 1, 3, 2, 4, 5).reshape(B, -1, p, p, C)
+        x = self.patch_embed(patches)  # [B, n_patches, E]
+        dt = torch.promote_types(x.dtype, self.cls_token.dtype)
+        cls = self.cls_token.to(dt)[None].expand(B, 1, self.embed_dim)
+        x = torch.cat([cls, x.to(dt)], dim=1)
+        x = x + self.pos_embed[None]
+        x = dropout(x, self.dropout_rate, gen, self.mesh)
+        x = self.encoder(x, generator=gen)
+        x = self.ln_f(x)[:, 0]  # the CLS token
+        return self.head(x).float()
+
+
+@register("vit")
+def vit(size: str = "l16", **kwargs) -> ViT:
+    sizes = {
+        # (layers, heads, embed, patch)
+        "tiny": (2, 4, 64, 8),
+        "b16": (12, 12, 768, 16),
+        "l16": (24, 16, 1024, 16),
+    }
+    n_l, n_h, d, p = sizes[size]
+    defaults = dict(num_layers=n_l, num_heads=n_h, embed_dim=d, patch_size=p)
+    defaults.update(kwargs)
+    return ViT(**defaults)

@@ -24,10 +24,13 @@ ChunkedHeadOut = dict
 
 
 def head_output(hidden, emb, bias=None) -> ChunkedHeadOut:
-    """What a ``chunked_head=True`` model returns."""
-    out = {"hidden": hidden, "emb": emb}
+    """What a ``chunked_head=True`` model returns. A parameter passed as it
+    is (an fp32 decoder, a bias) is returned as a view: a module's output
+    that is a leaf tensor breaks module backward hooks, such as those of
+    ``FlopCounterMode`` in the benchmark."""
+    out = {"hidden": hidden, "emb": emb.view_as(emb)}
     if bias is not None:
-        out["bias"] = bias
+        out["bias"] = bias.view_as(bias)
     return out
 
 

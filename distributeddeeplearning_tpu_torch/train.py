@@ -39,7 +39,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .comms import pmean_tensors
+from .comms import pmean_tensors, psum
 from .ops.fused_adamw import (
     FusedAdamW,
     FusedAdamWState,
@@ -144,8 +144,39 @@ def classification_task(label_smoothing: float = 0.0) -> Task:
     return Task(input_fn=lambda b: (b["image"],), loss_fn=loss_fn)
 
 
+def mlm_task(head_chunk: int = 128, mesh=None) -> Task:
+    """Masked LM: the loss on the masked positions only (label -1 is
+    ignored), ``sum(xent * [label >= 0]) / max(count, 1)``. A batch's
+    ``attention_mask`` (``synthetic_mlm`` with ``pad_min_len``) goes to the
+    model as its key-padding mask; pad positions carry label -1, so they
+    are outside the loss already. Metrics: ``loss`` and
+    ``masked_fraction``.
+
+    On a ``mesh`` of n > 1 ranks the count is the whole (micro)batch's, as
+    the reference's loss over the global batch divides by it: a rank's
+    loss is ``n * sum_rank / max(count, 1)``, so the mean over the ranks
+    (the gradient and metric sync) is the global loss."""
+    ranks = 1 if mesh is None else mesh.size
+
+    def input_fn(batch):
+        if "attention_mask" in batch:
+            return (batch["input_tokens"], batch["attention_mask"])
+        return (batch["input_tokens"],)
+
+    def loss_fn(out, batch):
+        labels = batch["labels"]
+        weights = (labels >= 0).float()
+        per_tok = _per_token_xent(out, labels.clamp_min(0), head_chunk)
+        count = weights.sum()
+        if ranks > 1:
+            count = psum(count, mesh)
+        loss = (per_tok * weights).sum() / (count.clamp_min(1.0) / ranks)
+        return loss, {"loss": loss, "masked_fraction": weights.mean()}
+
+    return Task(input_fn=input_fn, loss_fn=loss_fn)
+
+
 _TASK_KNOBS = {"head_chunk", "label_smoothing"}  # every task's, reference
-_UNPORTED_TASKS = {"mlm": "A9"}
 
 
 def get_task(name: str, mesh=None, **task_kwargs) -> Task:
@@ -155,18 +186,14 @@ def get_task(name: str, mesh=None, **task_kwargs) -> Task:
     unknown = set(task_kwargs) - _TASK_KNOBS
     if unknown:
         raise TypeError(f"unknown task knob(s) {sorted(unknown)}")
-    if name in _UNPORTED_TASKS:
-        raise NotImplementedError(
-            f"train.task={name!r} not yet ported to "
-            "distributeddeeplearning_tpu_torch (ROADMAP queue "
-            f"{_UNPORTED_TASKS[name]}); 'lm' and 'classification' are"
-        )
     if name == "classification":
         return classification_task(task_kwargs.get("label_smoothing", 0.0))
+    chunk = {k: v for k, v in task_kwargs.items() if k == "head_chunk"}
+    if name == "mlm":
+        return mlm_task(mesh=mesh, **chunk)
     if name != "lm":
         raise KeyError(f"unknown task {name!r}")
-    return lm_task(mesh=mesh, **{k: v for k, v in task_kwargs.items()
-                                 if k == "head_chunk"})
+    return lm_task(mesh=mesh, **chunk)
 
 
 # ---------------------------------------------------------------------------

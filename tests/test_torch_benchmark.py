@@ -1,10 +1,13 @@
 """``benchmark.run_benchmark`` and ``cli benchmark`` keep the record's
 contract on the CPU (the device chosen explicitly), and ``cli train`` and
-``cli eval`` run the classification configs. The record's numbers from
+``cli eval`` run the classification configs and the two encoder configs
+(ViT-L/16 and BERT-base MLM, cut to a tiny width); the MLM record counts
+the batch's ``input_tokens``. The record's numbers from
 the CPU are CPU numbers: ``platform`` says so, and the device-only fields
 (``hbm_peak_bytes``, ``mfu``) are null or absent."""
 
 import json
+import math
 import pathlib
 
 import pytest
@@ -24,6 +27,17 @@ TINY = {
     "resnet50_imagenet": ["model.kwargs.width=4", "data.batch_size=4",
                           "data.image_size=32", "data.num_classes=10",
                           "model.kwargs.num_classes=10"],
+}
+# Tiny cuts of the encoder configs: remat 'full' as shipped (ViT), padded
+# MLM rows with grad_accum 4 as shipped (BERT).
+ENCODERS = {
+    "vit_imagenet21k": ["model.kwargs.size=tiny", "model.kwargs.image_size=32",
+                        "data.image_size=32", "model.kwargs.num_classes=10",
+                        "data.num_classes=10", "data.batch_size=4"],
+    "bert_mlm": ["model.kwargs.size=tiny", "model.kwargs.vocab_size=256",
+                 "data.vocab_size=256", "data.seq_len=32",
+                 "data.batch_size=8", "data.pad_min_len=8",
+                 "train.head_chunk=16"],
 }
 KEYS = {"metric", "value", "unit", "steps_per_sec", "params",
         "device_count", "platform", "device_kind", "loss", "p50_step_ms",
@@ -87,7 +101,7 @@ def test_peak_table_needs_a_card():
 
 def _main(cmd, name, *extra, device="cpu"):
     argv = [cmd, "--config", str(CONFIGS / f"{name}.py"), "--device", device]
-    for o in TINY[name] + list(extra):
+    for o in {**TINY, **ENCODERS}[name] + list(extra):
         argv += ["--override", o]
     return cli.main(argv)
 
@@ -130,3 +144,38 @@ def test_zero1_over_sgd_is_refused_before_the_build():
     with pytest.raises(NotImplementedError,
                        match=r"^train.zero1=True: ZeRO-1 of the SGD .*A8"):
         cli.check_train_composition(cfg, world_size=2)
+
+
+@pytest.mark.parametrize("name,unit,items", [
+    ("bert_mlm", "tokens/sec/chip", 8 * 32),
+    ("vit_imagenet21k", "images/sec/chip", 4)])
+def test_cli_benchmark_on_the_encoder_configs(name, unit, items, capsys):
+    assert _main("benchmark", name) == 0
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    model = name.split("_")[0]
+    task = "mlm" if model == "bert" else "classification"
+    assert rec["metric"] == f"{model}_{task}_throughput"
+    assert rec["unit"] == unit and rec["platform"] == "cpu"
+    assert rec["value"] == pytest.approx(items * rec["steps_per_sec"],
+                                         rel=1e-3)
+    assert rec["model_tflops_per_step"] > 0
+
+
+@pytest.mark.parametrize("name,keys", [
+    ("bert_mlm", {"loss", "masked_fraction"}),
+    ("vit_imagenet21k", {"loss", "xent", "accuracy"})])
+def test_cli_train_and_eval_run_the_encoder_configs(name, keys, capsys,
+                                                    tmp_path):
+    extra = ["train.steps=2", "train.log_every=1", "train.save_every=2",
+             f"train.checkpoint_dir={tmp_path}", "train.eval_batches=1"]
+    assert _main("train", name, *extra) == 0
+    recs = [json.loads(x) for x in capsys.readouterr().out.splitlines()
+            if x.startswith("{")]
+    assert [r["step"] for r in recs] == [1, 2]
+    assert set(recs[0]) == keys | {"step", "wall_s"}
+    assert all(math.isfinite(r["loss"]) for r in recs)
+    assert _main("eval", name, *extra) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert "evaluating checkpoint at step 2" in out
+    assert set(json.loads(out[-1])) == {f"eval_{k}" for k in keys} | {
+        "step"}

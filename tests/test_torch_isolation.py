@@ -54,7 +54,8 @@ def test_sources_exist():
             "sp_ring.py", "ring_attention.py",
             "ring_attention_pallas.py", "checkpoint.py", "zero.py",
             "metrics.py", "weights.py", "resnet.py", "benchmark.py",
-            "loader.py"} <= names
+            "loader.py", "vit.py", "bert.py", "remat.py",
+            "vit_imagenet21k.py", "bert_mlm.py"} <= names
     csrc = {p.name for p in (PORT / "csrc").glob("*.cu")}
     assert {"paged_attention.cu", "flash_attention.cu",
             "fused_adamw.cu", "ring_attention.cu"} <= csrc
@@ -132,7 +133,7 @@ def test_cli_train_default_device_is_the_gpu(capsys):
     ("train.grad_bucket_mb=4.0", "train.grad_bucket_mb"),
     ("train.update_sharding=sharded", "train.update_sharding"),
     ("train.sequence_parallel=True", "train.sequence_parallel"),
-    ("train.remat=full", "train.remat"),
+    ("train.debug_nans=True", "train.debug_nans"),
     ("mesh.tp=2", "mesh"),
 ])
 def test_unported_train_knobs_are_refused_by_name(override, knob):
@@ -149,10 +150,12 @@ def test_unported_train_knobs_are_refused_by_name(override, knob):
     ("train.steps_per_call=2", "train.steps_per_call"),
     ("mesh.dp=2", "mesh"),
     ("train.log_dir={tmp}/logs", "train.log_dir"),
+    ("train.remat=full", "train.remat"),
+    ("train.remat=dots", "train.remat"),
 ])
 def test_ported_train_knobs_run(override, knob, tmp_path):
-    """The knobs of ZeRO-1, accumulation, checkpoints, evaluation and the
-    metrics writer run on the CPU at tiny width. ``mesh.dp=2`` in one
+    """The knobs of ZeRO-1, accumulation, checkpoints, evaluation, the
+    metrics writer and remat run on the CPU at tiny width. ``mesh.dp=2`` in one
     process is a mesh that needs 2 ranks: ``build_mesh`` names the world
     size."""
     override = override.format(tmp=tmp_path)
@@ -170,9 +173,10 @@ def test_ported_train_knobs_run(override, knob, tmp_path):
 
 
 @pytest.mark.parametrize("override,exc,match", [
-    ("train.task=mlm", NotImplementedError, "train.task='mlm'"),
+    ("model.kwargs.attn_impl=ulysses", NotImplementedError,
+     "attn_impl='ulysses'"),
     ("train.precision.policy=bf16_full", ValueError, "bf16_full"),
-    ("data.kind=synthetic_mlm", NotImplementedError, "synthetic_mlm"),
+    ("data.kind=token_file_mlm", NotImplementedError, "token_file_mlm"),
     ("data.kind=token_file_lm", NotImplementedError, "token_file_lm"),
     ("model.kwargs.attn_impl=ring", NotImplementedError, "attn_impl='ring'"),
 ])

@@ -266,14 +266,17 @@ def test_precision_fences_follow_the_reference(policy, optim):
 
 @pytest.mark.parametrize("task", ["classification", "mlm"])
 def test_unported_tasks_refused_by_name(task):
-    """``mlm`` waits for BERT; ``classification`` is ported with ResNet
-    (``tests/test_torch_resnet.py`` holds it against JAX's)."""
+    """Every task of the reference is ported: ``classification`` with
+    ResNet (``tests/test_torch_resnet.py`` holds it against JAX's), ``mlm``
+    with BERT (``tests/test_torch_bert.py``); an unknown name is refused."""
     if task == "classification":
         assert train.get_task(task, label_smoothing=0.1).input_fn(
             {"image": 1}) == (1,)
     else:
-        with pytest.raises(NotImplementedError,
-                           match=f"train.task='{task}'"):
-            train.get_task(task)
+        t = train.get_task(task, head_chunk=16)
+        assert t.input_fn({"input_tokens": 1}) == (1,)
+        assert t.input_fn({"input_tokens": 1, "attention_mask": 2}) == (1, 2)
+    with pytest.raises(KeyError, match="unknown task"):
+        train.get_task("nsp")
     with pytest.raises(TypeError, match="unknown task knob"):
         train.get_task("lm", head_chunks=3)
