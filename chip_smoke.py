@@ -114,6 +114,25 @@ Phases, in order; any failure raises and the script exits non-zero:
      within 1e-4 relative and against the flash route without remat
      within 1e-6 (bit-equality printed); BERT-base with padded rows and
      grad_accum 2, flash against xla within 1e-4; every loss falls.
+  21. Llama-300M training through the entry point: ``cli train`` on
+     ``configs/llama_lm.py`` as shipped (16 x 2048, bf16, flash over K and
+     V repeated from 8 to 16 heads, chunked head over the untied 32000-word
+     ``lm_head``, adamw_fused, zero1 at dp = 1) for 6 steps: each flash
+     kernel launches 12 times a step, fused_adamw once a group; every loss
+     finite; tokens/s over steps 2..N, p50 step, peak memory;
+  22. ``cli benchmark`` on that config, its record printed before the
+     last line with the flash kernels' FLOPs a step (causal pairs);
+  23. fp32 parity at full width, batch 2 x 2048, 3 steps on one batch:
+     Llama-300M (flash, adamw_fused) against (xla, adamw) within 1e-4
+     relative, every loss falling;
+  24. Llama-300M serving at full width (vocab 32000, bf16, 8 slots, the
+     paged kernels at num_rep = 2) with the fp and the int8 pool, the fp32
+     pair kernel against gather token for token, then ``cli serve`` on the
+     config with the byte tokenizer (launches = decode calls x 12).
+Phase 3 also holds the paged kernels at Llama-300M's decode shape (16 q
+heads over 8 KV heads: bf16 and int8 pools with bf16 q at 2e-2, an fp32
+twin at 2e-5), and phase 6 the flash kernels at its training shape, bf16
+causal [256, 2048, 64], each timed beside its bound and the library.
 Phase 6 also holds fused AdamW over one ZeRO-1 rank's shard of the 124M
 groups (dp=2, rank 1, starting inside the flat buffers) bit for bit, and
 the flash kernels at the encoders' shapes, non-causal, each timed beside
@@ -122,7 +141,7 @@ fp32, BERT-base's [768, 128, 64] whole and ragged, and a BERT
 microbatch's [192, 128, 64] ragged; each error's share of its tolerance
 is printed.
 Before the last line come the kernels record, the card's name and power
-limit, and the three benchmark records; the last line is
+limit, and the four benchmark records; the last line is
 ``{"ok": true, "device": {...}}``. No GPU means no result line and a
 non-zero exit: nothing here falls back to the CPU.
 """
@@ -273,12 +292,14 @@ def check_paged_build(_build):
 # ---------------------------------------------------------------------------
 
 
-def decode_case(torch, *, pool, q_dtype, num_rep, seed=0, wide=False):
+def decode_case(torch, *, pool, q_dtype, num_rep, seed=0, wide=False,
+                heads=12):
     """GPT-2 124M decode shapes: B=8, H=12, D=64, bs=16, 64 pages per row,
     mixed cursors up to 1023, two idle rows on the null block, scattered
     block ids. ``pool`` is the pool's type, ``q_dtype`` the query's.
-    ``wide``: 64 rows, every cursor at 1023 (a pool of 4,097 blocks)."""
-    B, H, D, bs, pages = (64 if wide else 8), 12, 64, 16, 64
+    ``wide``: 64 rows, every cursor at 1023 (a pool of 4,097 blocks).
+    ``heads``: the query heads (Llama-300M: 16 over 8 KV heads)."""
+    B, H, D, bs, pages = (64 if wide else 8), heads, 64, 16, 64
     kvh = H // num_rep
     lens = [1023] * B if wide else [0, 37, 255, 256, 511, 700, 0, 1023]
     nb = 1 + B * pages
@@ -397,11 +418,19 @@ def check_kernels(torch, pa):
         "fp32_wide": (f32, f32, 1, 2e-5, "paged_decode", True),
         "int8_bf16q_wide": (i8, bf16, 1, 2e-3, "paged_decode_q8", True),
         "int8_fp32q_wide": (i8, f32, 1, 2e-5, "paged_decode_q8", True),
+        # Llama-300M's serving path: 16 q heads over 8 KV heads (num_rep
+        # 2) at the decode shape, in bf16 and over the int8 pool, and an
+        # fp32 twin held to 2e-5.
+        "llama_gqa_bf16": (bf16, bf16, 2, 2e-2, "paged_decode", False),
+        "llama_gqa_int8_bf16q": (i8, bf16, 2, 2e-2, "paged_decode_q8",
+                                 False),
+        "llama_gqa_fp32": (f32, f32, 2, 2e-5, "paged_decode", False),
     }
     results = {}
     for name, (pool, qdt, rep, atol, kernel, wide) in cases.items():
         case = decode_case(torch, pool=pool, q_dtype=qdt, num_rep=rep,
-                           wide=wide)
+                           wide=wide,
+                           heads=16 if name.startswith("llama") else 12)
         args = {k: v for k, v in case.items() if k != "num_rep"}
         before = pa.LAUNCHES[kernel]
         out = pa.paged_attention(**args, num_rep=rep)
@@ -437,11 +466,11 @@ def check_kernels(torch, pa):
 # ---------------------------------------------------------------------------
 
 
-def cli_serve(cli, kv_quant):
+def cli_serve(cli, kv_quant, config=CONFIG):
     prompts = ["The H100 decodes", "paged attention reads the pool in place",
                "hello", "continuous batching over four lanes",
                "GPT-2 124M"]
-    argv = ["serve", "--config", CONFIG, "--device", "cuda"]
+    argv = ["serve", "--config", config, "--device", "cuda"]
     for o in OVERRIDES + ["model.kwargs.vocab_size=256",
                           "serving.attn_kernel=pallas",
                           f"serving.kv_quant={kv_quant}"]:
@@ -458,7 +487,7 @@ def cli_serve(cli, kv_quant):
     res = rec["results"]
     if len(res) != len(prompts) or any(r["new_tokens"] != 24 for r in res):
         raise AssertionError(f"cli serve ({kv_quant}): incomplete {res}")
-    print(f"cli serve kv_quant={kv_quant}: "
+    print(f"cli serve {os.path.basename(config)} kv_quant={kv_quant}: "
           f"{json.dumps([r['completion'] for r in res])} "
           f"decode calls {rec['stats']['calls']['decode']}", flush=True)
     return rec["stats"]["calls"]["decode"]
@@ -494,13 +523,17 @@ def make_engine_cls(ServingEngine):
 
 
 def serve_full_width(torch, pa, cli, ServingEngine, ServingConfig, Request,
-                     load_config, apply_overrides):
+                     load_config, apply_overrides, config=CONFIG):
+    """The engine on ``config``'s model at full width (GPT-2 124M, vocab
+    50257, or Llama-300M, vocab 32000; bf16): 16 requests over 8 lanes with
+    the fp and the int8 pool, then an fp32 pair, kernel against gather.
+    Returns the stats of each bf16 run."""
     import numpy as np
 
     from distributeddeeplearning_tpu_torch import models
 
-    cfg = apply_overrides(load_config(CONFIG), OVERRIDES)
-    model = cli.build_model(cfg, "cuda")  # 124M, vocab 50257, bf16
+    cfg = apply_overrides(load_config(config), OVERRIDES)
+    model = cli.build_model(cfg, "cuda")
     rng = np.random.default_rng(0)
     lens = rng.integers(32, 501, 16)
     prompts = [list(map(int, rng.integers(0, model.vocab_size, n)))
@@ -543,17 +576,18 @@ def serve_full_width(torch, pa, cli, ServingEngine, ServingConfig, Request,
             "wall_s": wall,
             "num_blocks": eng.num_blocks,
         }
-        print(f"full width: {json.dumps(stats)}", flush=True)
-        return done, eng
+        print(f"full width {cfg.model.name}: {json.dumps(stats)}",
+              flush=True)
+        return done, eng, stats
 
-    serve(model, attn_kernel="pallas", kv_quant="off")
-    serve(model, attn_kernel="pallas", kv_quant="int8")
+    out = {q: serve(model, attn_kernel="pallas", kv_quant=q)[2]
+           for q in ("off", "int8")}
     model32 = models.get_model(cfg.model.name, **{
         **cfg.model.kwargs, "dtype": "float32"}).to("cuda")
     model32.load_state_dict(model.state_dict())
     del model
-    a_done, a_eng = serve(model32, attn_kernel="pallas")
-    b_done, b_eng = serve(model32, attn_kernel="reference")
+    a_done, a_eng, _ = serve(model32, attn_kernel="pallas")
+    b_done, b_eng, _ = serve(model32, attn_kernel="reference")
     for a, b in zip(a_done, b_done):
         if a.generated != b.generated:
             rid = a.request.request_id
@@ -564,8 +598,9 @@ def serve_full_width(torch, pa, cli, ServingEngine, ServingConfig, Request,
                   f"logit gap {a_eng.gaps[rid][t]} (kernel) "
                   f"{b_eng.gaps[rid][t]} (gather)", flush=True)
             raise AssertionError("fp32 greedy tokens differ, kernel vs gather")
-    print(f"fp32 kernel vs gather: {len(a_done)} requests x 64 greedy tokens "
-          "identical", flush=True)
+    print(f"fp32 kernel vs gather ({cfg.model.name}): {len(a_done)} requests "
+          "x 64 greedy tokens identical", flush=True)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -983,6 +1018,14 @@ def check_training_kernels(torch, models, cfg):
                 flash_case(torch, dtype=f32, bh=24, L=256, D=128,
                            causal=False, limit=197), 2e-5, timed=False)
     res["encoder"] = check_encoder_flash(torch, fa)
+    # Llama-300M's training shape: 16 x 16 heads at 2048 tokens, causal
+    # (K and V repeated to 16 heads before the kernels). Held on the full
+    # shape: the plain versions' [256, 2048, 2048] fp32 scores take 4.3 GB
+    # each, ~20 GB at their peak.
+    res["llama"] = check_flash(
+        torch, fa, "bf16 causal [256, 2048, 64] (Llama-300M)",
+        flash_case(torch, dtype=bf16, bh=256, L=2048, D=64, causal=True,
+                   heads=16), 2e-2, timed=True)
     groups = adamw_leaves(torch, models, cfg, fused)
     err = check_adamw(torch, fused, groups, cfg)
     res["fused_adamw"] = {**time_adamw(torch, fused, groups, cfg),
@@ -1912,9 +1955,9 @@ def model_shape(models, load_config, apply_overrides, config, overrides=()):
             sum(p.numel() for p in params.values()), meta)
 
 
-def encoder_train(torch, cli, name, config, steps, layers, groups, fwd_per,
-                  accum, overrides=()):
-    """``cli train`` on an encoder config: (record, launches). Per step
+def flash_model_train(torch, cli, name, config, steps, layers, groups,
+                      fwd_per, accum, overrides=()):
+    """``cli train`` on a flash config: (record, launches). Per step
     ``flash_fwd`` launches layers x fwd_per x accum times (fwd_per 2 under
     remat: the forward and the recompute), ``flash_dq`` and ``flash_dkv``
     layers x accum, ``fused_adamw`` once a group."""
@@ -1955,11 +1998,12 @@ def vit_train(torch, cli, models, load_config, apply_overrides):
     print(f"vit: {layers} layers, {n:,} params, {groups} AdamW groups; "
           f"per step flash_fwd {2 * layers}, flash_dq and flash_dkv "
           f"{layers} each, fused_adamw {groups}", flush=True)
-    full, launched = encoder_train(torch, cli, "vit remat=full", VIT,
-                                   VIT_STEPS, layers, groups, 2, 1)
+    full, launched = flash_model_train(torch, cli, "vit remat=full", VIT,
+                                       VIT_STEPS, layers, groups, 2, 1)
     full["images_per_s"] = batch / (statistics.mean(full["step_ms"]) / 1e3)
-    none, more = encoder_train(torch, cli, "vit remat=none", VIT, 2, layers,
-                               groups, 1, 1, ["train.remat=none"])
+    none, more = flash_model_train(torch, cli, "vit remat=none", VIT, 2,
+                                   layers, groups, 1, 1,
+                                   ["train.remat=none"])
     none["images_per_s"] = batch / (statistics.mean(none["step_ms"]) / 1e3)
     print(f"vit: remat full {full['images_per_s']:.1f} images/s, p50 "
           f"{full['p50_step_ms']:.2f} ms, peak {full['peak_mem_gb']:.2f} "
@@ -1984,8 +2028,9 @@ def bert_train(torch, cli, models, load_config, apply_overrides):
     out, launches = {}, []
     for key, steps, extra in (("dense", BERT_STEPS, ()),
                               ("padded", 2, ("data.pad_min_len=32",))):
-        res, launched = encoder_train(torch, cli, f"bert {key}", BERT, steps,
-                                      layers, groups, 1, accum, extra)
+        res, launched = flash_model_train(torch, cli, f"bert {key}", BERT,
+                                          steps, layers, groups, 1, accum,
+                                          extra)
         res["tokens_per_s"] = tokens / (statistics.mean(res["step_ms"]) / 1e3)
         launches.append(launched)
         out[key] = res
@@ -2002,23 +2047,30 @@ def bert_train(torch, cli, models, load_config, apply_overrides):
     return out, launches
 
 
+CAUSAL_LMS = ("gpt2", "llama")
+
+
 def flash_flops_per_step(cfg, meta):
     """The flash kernels' matrix FLOPs in one training step of ``cfg``'s
     model (``meta``), from the shapes: 4·D a visible pair forward (twice
-    under remat), 6·D dq, 8·D dkv. ``FlopCounterMode`` does not see
-    them."""
+    under remat), 6·D dq, 8·D dkv; a causal LM's row of L tokens sees
+    L (L + 1) / 2 pairs. ``FlopCounterMode`` does not see them."""
     tokens = (meta.pos_embed.shape[0] if hasattr(meta, "pos_embed")
               else cfg.data.seq_len)
     fwd = 2 if cfg.train.remat != "none" else 1
-    pairs = cfg.data.batch_size * meta.num_heads * tokens * tokens
+    per_row = (tokens * (tokens + 1) // 2 if cfg.model.name in CAUSAL_LMS
+               else tokens * tokens)
+    pairs = cfg.data.batch_size * meta.num_heads * per_row
     return meta.num_layers * (4 * fwd + 6 + 8) * meta.head_dim * pairs
 
 
-def encoder_benchmarks(torch, cli, models, load_config, apply_overrides):
-    """Phase 18: ``cli benchmark`` on both encoder configs as shipped;
-    each record, with the flash kernels' share of the step's FLOPs."""
+def flash_benchmarks(torch, cli, models, load_config, apply_overrides,
+                     configs):
+    """Phases 18 and 22: ``cli benchmark`` on each ``(name, config)`` as
+    shipped; each record, with the flash kernels' share of the step's
+    FLOPs."""
     out = {}
-    for name, config in (("vit", VIT), ("bert", BERT)):
+    for name, config in configs:
         torch.cuda.empty_cache()
         rec = config_benchmark(cli, config)
         cfg = load_config(config)
@@ -2065,15 +2117,45 @@ def rel_diff(a, b):
     return max(abs(x - y) / abs(y) for x, y in zip(a, b))
 
 
+def parity_runs(torch, cli, load_config, apply_overrides, routes, pairs):
+    """fp32 training on each route of ``routes`` ((key, config,
+    overrides)), then each pair of ``pairs`` ((a, b, limit)): the losses
+    of a within ``limit`` relative of b's. Every run's loss falls; the
+    routes whose key names ``kernels`` launch kernels, the others none."""
+    runs = {}
+    for key, config, extra in routes:
+        runs[key] = route_run(torch, cli, load_config, apply_overrides,
+                              config, extra)
+        losses, _, launched = runs[key]
+        if (launched > 0) != ("kernels" in key):
+            raise AssertionError(f"parity route {key}: {launched} launches")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"parity route {key}: loss did not fall "
+                                 f"{losses}")
+    out = {}
+    for a, b, limit in pairs:
+        (la, pa, _), (lb, pb, _) = runs[a], runs[b]
+        rel = rel_diff(la, lb)
+        pdiff = max((pa[k] - pb[k]).abs().max().item() for k in pa)
+        equal = la == lb and all(torch.equal(pa[k], pb[k]) for k in pa)
+        print(f"fp32 parity {a} vs {b}: losses {la} vs {lb}, max rel diff "
+              f"{rel} (limit {limit}); max abs param diff {pdiff}; "
+              f"bit-equal {equal}", flush=True)
+        if not rel <= limit:
+            raise AssertionError(f"fp32 parity {a} vs {b}: {rel} > {limit}")
+        out[f"{a}_vs_{b}"] = {"losses": [la, lb], "max_rel_diff": rel,
+                              "max_abs_param_diff": pdiff,
+                              "bit_equal": equal}
+    return out
+
+
 def encoder_parity(torch, cli, load_config, apply_overrides):
     """Phase 20: fp32 at full width, batch 4, 3 steps from one seed's
     weights on one batch: ViT-L/16 (flash, adamw_fused, remat full)
     against (xla, adamw, remat none) within 1e-4 relative, and against
     (flash, adamw_fused, remat none) within 1e-6; BERT-base with padded
-    rows and grad_accum 2, flash against xla within 1e-4. Every run's loss
-    falls; the kernel routes launch kernels, the plain ones none."""
-    runs = {}
-    for key, config, extra in (
+    rows and grad_accum 2, flash against xla within 1e-4."""
+    routes = [(key, config, ENCODER_PARITY + extra) for key, config, extra in (
             ("vit_kernels", VIT, ["model.kwargs.attn_impl=flash",
                                   "optim.name=adamw_fused",
                                   "train.remat=full"]),
@@ -2088,32 +2170,59 @@ def encoder_parity(torch, cli, load_config, apply_overrides):
                                     "train.grad_accum=2"]),
             ("bert_plain", BERT, ["model.kwargs.attn_impl=xla",
                                   "optim.name=adamw", "data.pad_min_len=32",
-                                  "train.grad_accum=2"])):
-        runs[key] = route_run(torch, cli, load_config, apply_overrides,
-                              config, ENCODER_PARITY + extra)
-        losses, _, launched = runs[key]
-        if (launched > 0) != ("kernels" in key):
-            raise AssertionError(f"parity route {key}: {launched} launches")
-        if not losses[-1] < losses[0]:
-            raise AssertionError(f"parity route {key}: loss did not fall "
-                                 f"{losses}")
-    out = {}
-    for a, b, limit in (("vit_kernels", "vit_plain", 1e-4),
-                        ("vit_kernels", "vit_kernels_no_remat", 1e-6),
-                        ("bert_kernels", "bert_plain", 1e-4)):
-        (la, pa, _), (lb, pb, _) = runs[a], runs[b]
-        rel = rel_diff(la, lb)
-        pdiff = max((pa[k] - pb[k]).abs().max().item() for k in pa)
-        equal = la == lb and all(torch.equal(pa[k], pb[k]) for k in pa)
-        print(f"fp32 parity {a} vs {b}: losses {la} vs {lb}, max rel diff "
-              f"{rel} (limit {limit}); max abs param diff {pdiff}; "
-              f"bit-equal {equal}", flush=True)
-        if not rel <= limit:
-            raise AssertionError(f"fp32 parity {a} vs {b}: {rel} > {limit}")
-        out[f"{a}_vs_{b}"] = {"losses": [la, lb], "max_rel_diff": rel,
-                              "max_abs_param_diff": pdiff,
-                              "bit_equal": equal}
-    return out
+                                  "train.grad_accum=2"]))]
+    return parity_runs(torch, cli, load_config, apply_overrides, routes, (
+        ("vit_kernels", "vit_plain", 1e-4),
+        ("vit_kernels", "vit_kernels_no_remat", 1e-6),
+        ("bert_kernels", "bert_plain", 1e-4)))
+
+
+# ---------------------------------------------------------------------------
+# 21. - 24. Llama-300M
+# ---------------------------------------------------------------------------
+
+LLAMA = os.path.join(ROOT, "distributeddeeplearning_tpu_torch", "configs",
+                     "llama_lm.py")
+LLAMA_STEPS = 6
+# Phase 23's fp32 pair: one batch of 2 x 2048 repeated at the config's lr
+# held constant, as phases 8 and 20.
+LLAMA_PARITY = ["model.kwargs.dtype=float32", "data.batch_size=2",
+                "data.n_distinct=1", "optim.schedule=constant",
+                "optim.warmup_steps=0", "optim.grad_clip=1.0",
+                "train.steps=3"]
+
+
+def llama_train(torch, cli, models, load_config, apply_overrides):
+    """Phase 21: Llama-300M as shipped (16 x 2048, bf16, flash over K and V
+    repeated to 16 heads, chunked head, adamw_fused, zero1 at dp = 1) for
+    6 steps: each flash kernel 12 launches a step, fused_adamw once a
+    group; tokens/s over steps 2..N, p50 step, peak memory."""
+    layers, groups, n, _ = model_shape(models, load_config,
+                                       apply_overrides, LLAMA)
+    cfg = load_config(LLAMA)
+    tokens = cfg.data.batch_size * cfg.data.seq_len
+    print(f"llama: {layers} layers, {n:,} params, {groups} AdamW groups; "
+          f"per step each flash kernel {layers}, fused_adamw {groups}",
+          flush=True)
+    res, launched = flash_model_train(torch, cli, "llama", LLAMA,
+                                      LLAMA_STEPS, layers, groups, 1, 1)
+    res["tokens_per_s"] = tokens / (statistics.mean(res["step_ms"]) / 1e3)
+    print(f"llama: {res['tokens_per_s']:.0f} tokens/s, p50 "
+          f"{res['p50_step_ms']:.2f} ms, peak {res['peak_mem_gb']:.2f} GB",
+          flush=True)
+    return res, launched
+
+
+def llama_parity(torch, cli, load_config, apply_overrides):
+    """Phase 23: fp32 at full width, batch 2 x 2048, 3 steps on one batch:
+    (flash, adamw_fused) against (xla, adamw) within 1e-4 relative."""
+    routes = [
+        ("llama_kernels", LLAMA, LLAMA_PARITY + [
+            "model.kwargs.attn_impl=flash", "optim.name=adamw_fused"]),
+        ("llama_plain", LLAMA, LLAMA_PARITY + [
+            "model.kwargs.attn_impl=xla", "optim.name=adamw"])]
+    return parity_runs(torch, cli, load_config, apply_overrides, routes,
+                       (("llama_kernels", "llama_plain", 1e-4),))
 
 
 def main(argv=None) -> int:
@@ -2271,8 +2380,9 @@ def main(argv=None) -> int:
     _, counts = vit_train(torch, cli, models, load_config, apply_overrides)
 
     phase("18 cli benchmark on ViT-L/16 and BERT-base")
-    encoder_bench = encoder_benchmarks(torch, cli, models, load_config,
-                                       apply_overrides)
+    encoder_bench = flash_benchmarks(torch, cli, models, load_config,
+                                     apply_overrides,
+                                     (("vit", VIT), ("bert", BERT)))
 
     phase("19 BERT-base MLM train through the entry point")
     _, more = bert_train(torch, cli, models, load_config, apply_overrides)
@@ -2282,6 +2392,38 @@ def main(argv=None) -> int:
 
     phase("20 fp32 parity at full width: ViT-L/16 and BERT-base")
     encoder_parity(torch, cli, load_config, apply_overrides)
+
+    phase("21 Llama-300M train through the entry point")
+    _, llama_launched = llama_train(torch, cli, models, load_config,
+                                    apply_overrides)
+    for k in ("flash_fwd", "flash_dq", "flash_dkv", "fused_adamw"):
+        launches[k] += llama_launched[k]
+
+    phase("22 cli benchmark on Llama-300M")
+    llama_bench = flash_benchmarks(torch, cli, models, load_config,
+                                   apply_overrides, (("llama", LLAMA),))
+
+    phase("23 fp32 parity at full width: Llama-300M")
+    llama_parity(torch, cli, load_config, apply_overrides)
+
+    phase("24 Llama-300M serving at full width, then cli serve")
+    torch.cuda.empty_cache()
+    pa.reset_launches()  # each run checks its own count: calls x layers
+    serve_full_width(torch, pa, cli, ServingEngine, ServingConfig, Request,
+                     load_config, apply_overrides, config=LLAMA)
+    full = dict(pa.LAUNCHES)
+    llama_layers = model_shape(models, load_config, apply_overrides,
+                               LLAMA)[0]
+    pa.reset_launches()  # cli serve's counts start here
+    calls = {q: cli_serve(cli, q, LLAMA) for q in ("off", "int8")}
+    served = dict(pa.LAUNCHES)
+    want = {"paged_decode": calls["off"] * llama_layers,
+            "paged_decode_q8": calls["int8"] * llama_layers}
+    print(f"launches {served} expected {want}", flush=True)
+    if served != want:
+        raise AssertionError(f"llama cli serve launches {served} != {want}")
+    for k in served:
+        launches[k] += full[k] + served[k]
 
     # Each kernel's numbers come from its case at the main path's types.
     main_case = {"paged_decode": "bf16", "paged_decode_q8": "int8_bf16q",
@@ -2303,7 +2445,7 @@ def main(argv=None) -> int:
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"benchmark": bench}))
-    for rec in encoder_bench.values():
+    for rec in (*encoder_bench.values(), *llama_bench.values()):
         print(json.dumps({"benchmark": rec}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

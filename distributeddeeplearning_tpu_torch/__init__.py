@@ -18,7 +18,13 @@ The paths that run on the GPU:
 - ResNet-18/50 training (``models/resnet.py``: cuDNN convs, BatchNorm
   statistics synced over the dp ranks, SGD) on synthetic or C++-loaded
   images, and ``cli benchmark`` (``benchmark.py``), which prints the
-  images/sec/chip record.
+  images/sec/chip record;
+- ViT-L/16 and BERT-base training on the flash kernels' encoder masks,
+  with per-block activation checkpointing (``models/remat.py``);
+- Llama (``models/llama.py``: RoPE, RMSNorm, SwiGLU, grouped-query
+  attention) trained on the flash kernels and served through the paged
+  decode kernels at ``num_rep > 1``; ``hf_port.py`` carries HF weights
+  into the port's models.
 The package imports torch and never JAX; entry points run on the GPU unless
 the caller asks for the CPU.
 """

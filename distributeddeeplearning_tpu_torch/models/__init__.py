@@ -1,5 +1,5 @@
-"""Model zoo of the port: GPT-2, ResNet-18/50, ViT and BERT so far; the
-other models of the JAX package register here as later slices port
+"""Model zoo of the port: GPT-2, ResNet-18/50, ViT, BERT and Llama so far;
+the other models of the JAX package register here as later slices port
 them."""
 
 from __future__ import annotations
@@ -26,4 +26,4 @@ def available() -> list[str]:
     return sorted(_REGISTRY)
 
 
-from . import bert, gpt2, resnet, vit  # noqa: E402,F401
+from . import bert, gpt2, llama, resnet, vit  # noqa: E402,F401

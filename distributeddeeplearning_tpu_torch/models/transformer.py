@@ -243,23 +243,27 @@ def paged_decode_attention(q, k, v, *, dtype, pools: dict,
 
 class Dense(nn.Module):
     """flax ``DenseGeneral``: ``kernel`` [*in_shape, *out_shape] and
-    ``bias`` [*out_shape], in fp32, cast to ``dtype`` at use."""
+    ``bias`` [*out_shape], in fp32, cast to ``dtype`` at use. With
+    ``use_bias=False`` there is no ``bias`` parameter at all, as flax
+    creates none (Llama's projections)."""
 
-    def __init__(self, in_shape, out_shape, dtype, device=None):
+    def __init__(self, in_shape, out_shape, dtype, device=None, *,
+                 use_bias: bool = True):
         super().__init__()
         self.in_shape, self.out_shape = tuple(in_shape), tuple(out_shape)
         self.dtype = dtype
         self.kernel = nn.Parameter(torch.empty(
             self.in_shape + self.out_shape, device=device))
-        self.bias = nn.Parameter(torch.empty(self.out_shape, device=device))
+        self.bias = (nn.Parameter(torch.empty(self.out_shape, device=device))
+                     if use_bias else None)
 
     def forward(self, x):
         n_in = len(self.in_shape)
         lead = x.shape[: x.ndim - n_in]
         w = self.kernel.to(self.dtype).reshape(
             math.prod(self.in_shape), math.prod(self.out_shape))
-        y = F.linear(x.reshape(-1, w.shape[0]).to(self.dtype), w.t(),
-                     self.bias.to(self.dtype).reshape(-1))
+        b = None if self.bias is None else self.bias.to(self.dtype).reshape(-1)
+        y = F.linear(x.reshape(-1, w.shape[0]).to(self.dtype), w.t(), b)
         return y.reshape(*lead, *self.out_shape)
 
 

@@ -46,7 +46,6 @@ from .scheduler import KVBlockPool, Request, RequestState, Scheduler, blocks_for
 
 KV_QUANT_MODES = ("off", "int8")
 SERVABLE_MODELS = ("gpt2", "llama")
-PORTED_MODELS = ("gpt2",)
 ROUTER_POLICIES = ("round_robin", "least_loaded", "prefix_affinity")
 SHED_POLICIES = ("off", "deadline")
 SERVING_ROLES = ("unified", "prefill", "decode")
@@ -422,8 +421,6 @@ def check_serving_composition(cfg, *, fleet: int = 0) -> None:
         )
     _check_fleet_healing(s, fleet)
     # --- the port's refusals ---------------------------------------------
-    if name not in PORTED_MODELS:
-        raise NotImplementedError(f"serving model {name!r} {_NOT_PORTED}")
     if fleet:
         raise NotImplementedError(f"serve --fleet {fleet} {_NOT_PORTED}")
     if cfg.telemetry.enabled:
@@ -444,9 +441,9 @@ class ServingEngine:
     lanes, admits from the queue (one bucketed prefill per admission), and
     runs ONE decode call for the whole batch. ``run()`` drains to idle.
 
-    ``model`` is a GPT-2 of this package with its weights loaded; the
-    engine moves it to ``device`` (``None`` = the GPU; the CPU only when
-    asked). ``cfg`` is a ``ServingConfig``. ``clock`` is injectable for
+    ``model`` is a GPT-2 or a Llama of this package with its weights
+    loaded; the engine moves it to ``device`` (``None`` = the GPU; the CPU
+    only when asked). ``cfg`` is a ``ServingConfig``. ``clock`` is injectable for
     deterministic tests; ``emit`` receives ``metrics.serving_event``
     records (default: collected on ``self.events``).
     """

@@ -55,7 +55,8 @@ def test_sources_exist():
             "ring_attention_pallas.py", "checkpoint.py", "zero.py",
             "metrics.py", "weights.py", "resnet.py", "benchmark.py",
             "loader.py", "vit.py", "bert.py", "remat.py",
-            "vit_imagenet21k.py", "bert_mlm.py"} <= names
+            "vit_imagenet21k.py", "bert_mlm.py", "llama.py", "hf_port.py",
+            "llama_lm.py"} <= names
     csrc = {p.name for p in (PORT / "csrc").glob("*.cu")}
     assert {"paged_attention.cu", "flash_attention.cu",
             "fused_adamw.cu", "ring_attention.cu"} <= csrc

@@ -1,5 +1,7 @@
 """The training kernels of the port against their plain versions, on the card:
-flash attention, fused AdamW and the ring attention block kernels.
+flash attention, fused AdamW and the ring attention block kernels; and the
+paged decode kernels under grouped-query attention at Llama-300M's decode
+shape (the other paged cases are in ``tests/test_torch_paged_attention.py``).
 
 Imports torch and the port only, so it runs on a GPU host without JAX:
 
@@ -7,7 +9,8 @@ Imports torch and the port only, so it runs on a GPU host without JAX:
 
 (``--noconftest``: the suite's conftest sets JAX up.) Every test carries
 the ``gpu`` marker and skips where torch sees no CUDA device; the kernels
-have no CPU mode. Tolerances: flash in fp32 2e-5 (only the order of fp32
+have no CPU mode. Tolerances: paged decode with bf16 q 2e-2 (the output is
+rounded to bf16, and P is rounded to bf16 inside P V); flash in fp32 2e-5 (only the order of fp32
 sums differs), in bf16 2e-2 absolute and relative: one bf16 rounding step of
 the output is ~0.4%, and the tensor-core fwd, dq and dk/dv kernels also
 round P and dS to bf16 inside the P V, dS K, P^T dO and dS^T Q products
@@ -47,6 +50,8 @@ FLASH_CASES = {
     "kv_valid_lens_L100": (False, [100, 7, 64, 65], None, 100),
     "causal_L1000": (True, None, None, 1000),
     "kv_valid_lens_L200": (False, [200, 1, 129, 64], None, 200),
+    # Llama-300M's training sequence: 32 q tiles of the causal walk.
+    "causal_L2048": (True, None, None, 2048),
 }
 DTYPES = {"float32": (torch.float32, 2e-5), "bfloat16": (torch.bfloat16, 2e-2)}
 
@@ -238,3 +243,49 @@ def test_ring_kernel_refuses_head_dim_by_name():
     c = torch.zeros(2, 8, 1, device="cuda")
     with pytest.raises(ValueError, match="head_dim 32 not in"):
         rp.ring_step(x, x, x, c, c, x, 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pool", ["bfloat16", "int8"])
+def test_paged_decode_gqa_at_llama_shape(pool):
+    """Llama-300M's decode step: 8 rows, 16 query heads over 8 KV heads
+    (num_rep = 2), D = 64, 64 pages of 16 per row, cursors up to 1023 (two
+    idle rows on the null block 0, live rows on shuffled blocks), bf16 q
+    over a bf16 pool or an int8 pool with f32 scales."""
+    from distributeddeeplearning_tpu_torch.ops import paged_attention as pa
+
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(11)
+    B, kvh, rep, D, bs, pages = 8, 8, 2, 64, 16, 64
+    lens = [0, 37, 255, 256, 511, 700, 0, 1023]
+    nb = 1 + B * pages
+    shape = (nb, bs, kvh, D)
+    q = torch.randn(B, kvh * rep, D, generator=g, device="cuda").to(
+        torch.bfloat16)
+    sk = sv = None
+    if pool == "int8":
+        pk, pv = (torch.randint(-127, 128, shape, generator=g, device="cuda",
+                                dtype=torch.int8) for _ in "kv")
+        sk, sv = (torch.rand(shape[:3], generator=g, device="cuda") / 127
+                  for _ in "kv")
+    else:
+        pk, pv = (torch.randn(shape, generator=g, device="cuda").to(
+            torch.bfloat16) for _ in "kv")
+    perm = torch.randperm(nb - 1, generator=g, device="cuda") + 1
+    table = torch.zeros(B, pages, dtype=torch.int32, device="cuda")
+    used = 0
+    for b, n in enumerate(lens):
+        if n:
+            table[b, :n // bs + 1] = perm[used:used + n // bs + 1].int()
+            used += n // bs + 1
+    seq_lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    args = (q, pk, pv, table, seq_lens)
+    before = dict(pa.LAUNCHES)
+    out = pa.paged_attention(*args, num_rep=rep, scale_k=sk, scale_v=sv)
+    torch.cuda.synchronize()
+    kernel = "paged_decode_q8" if pool == "int8" else "paged_decode"
+    assert pa.LAUNCHES[kernel] == before[kernel] + 1
+    ref = pa.paged_attention_plain(*args, num_rep=rep, scale_k=sk,
+                                   scale_v=sv)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
+                               rtol=2e-2)

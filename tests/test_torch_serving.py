@@ -205,15 +205,11 @@ def test_unported_knobs_are_refused_by_name(weights, knob):
         ServingEngine(_port_model(weights[1]), cfg.serving, device="cpu")
 
 
-@pytest.mark.parametrize("case", ["llama", "fleet", "telemetry", "static",
+@pytest.mark.parametrize("case", ["fleet", "telemetry", "static",
                                   "engine_tel"])
 def test_other_unported_paths_are_refused(weights, tmp_path, case):
     cfg = _serve_cfg()
-    if case == "llama":
-        cfg = dataclasses.replace(cfg, model=ModelConfig(name="llama"))
-        with pytest.raises(NotImplementedError, match="'llama' not yet"):
-            check_serving_composition(cfg)
-    elif case == "fleet":
+    if case == "fleet":
         with pytest.raises(NotImplementedError, match="--fleet 2 not yet"):
             check_serving_composition(cfg, fleet=2)
     elif case == "telemetry":

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Where a decode step of the PyTorch port's serving engine spends its time.
 
-Serves GPT-2 124M (vocab 50257) through ``distributeddeeplearning_tpu_torch``'s
-``ServingEngine`` with 8 busy lanes, then traces a window of decode steps with
+Serves ``--config``'s model (default ``configs/gpt2_owt.py``: GPT-2 124M,
+vocab 50257; ``configs/llama_lm.py`` is Llama-300M, vocab 32000) through
+``distributeddeeplearning_tpu_torch``'s ``ServingEngine`` with 8 busy
+lanes, then traces a window of decode steps with
 ``torch.profiler`` and prints one JSON line per configuration: host wall time
 per step (p50 without the profiler, mean under it), device busy time per step (the
 sum of device-side kernel, copy and memset times), the device idle share
@@ -10,7 +12,8 @@ under the profiler, the paged decode kernels' device time per step and their
 share of the busy time, and the kernels with the most device time. Needs an
 NVIDIA GPU:
 
-    python3 tools/torch_decode_profile.py [--steps 20] [--dtype bfloat16 ...]
+    python3 tools/torch_decode_profile.py [--config PATH] [--steps 20]
+        [--dtype bfloat16 ...]
 """
 
 from __future__ import annotations
@@ -53,8 +56,8 @@ def profile(torch, cfg, dtype, kernel, kv_quant, steps):
     eng.warmup()
     rng = np.random.default_rng(0)
     for n in rng.integers(256, 501, 8):
-        eng.submit(Request(prompt=list(map(int, rng.integers(0, 50257, n))),
-                           max_new_tokens=2 * steps + 10))
+        prompt = list(map(int, rng.integers(0, model.vocab_size, n)))
+        eng.submit(Request(prompt=prompt, max_new_tokens=2 * steps + 10))
     for _ in range(5):  # admit all 8 and warm the decode path
         eng.step()
     torch.cuda.synchronize()
@@ -99,6 +102,7 @@ def profile(torch, cfg, dtype, kernel, kv_quant, steps):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--config", default=CONFIG)
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--dtype", nargs="+", default=["bfloat16", "float32"])
     ap.add_argument("--rounds", type=int, default=2,
@@ -120,7 +124,8 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip())
-    cfg = apply_overrides(load_config(CONFIG), ["model.kwargs.attn_impl=xla"])
+    cfg = apply_overrides(load_config(args.config),
+                          ["model.kwargs.attn_impl=xla"])
     for rnd in range(args.rounds):
         for dtype in args.dtype:
             for kernel, kv_quant in (("pallas", "off"), ("reference", "off"),
