@@ -129,6 +129,30 @@ Phases, in order; any failure raises and the script exits non-zero:
      paged kernels at num_rep = 2) with the fp and the int8 pool, the fp32
      pair kernel against gather token for token, then ``cli serve`` on the
      config with the byte tokenizer (launches = decode calls x 12).
+  25. llama_moe 8x300m training through the entry point: ``cli train`` on
+     ``configs/llama_moe.py`` as shipped (16 x 2048, bf16, every MLP top-2
+     of 8 SwiGLU experts at capacity 640, flash as Llama-300M's, the plain
+     AdamW as the reference ships it) for 6 steps: each flash kernel
+     launches 12 times a step, fused_adamw never; every loss, aux_loss and
+     moe_dropped_frac finite; tokens/s over steps 2..N, p50, peak memory;
+  26. ``cli benchmark`` on that config: the record printed before the last
+     line, with the flash kernels' FLOPs a step and the dense one-hot
+     dispatch and combine einsums' FLOPs, which the MFU counts;
+  27. gpt2_moe training through the entry point: ``configs/gpt2_moe.py``
+     as shipped (32 x 1024, 6 routed blocks of 12) for 6 steps, the same
+     checks (each flash kernel 12 a step: every block has attention);
+  28. fp32 parity at full width: llama_moe, batch 2 x 2048, 3 steps on one
+     batch at the shipped capacity factor, (flash, adamw) against (xla,
+     adamw) in lockstep (each step from the flash route's state, since one
+     routing flip parts the trajectories): per step the losses and
+     aux_loss within 1e-4 relative, moe_dropped_frac within one assignment
+     a layer, drops present, the loss falling;
+  29. token files: a byte corpus of the repository's own text written by
+     the port's ``prepare_data``, then ``cli train`` on
+     ``configs/gpt2_owt_file.py`` at full width for 4 steps straight, and
+     2 steps with a checkpoint and a resume to 4 whose losses equal the
+     straight run's bit for bit; launch counts exact (flash 12 a step,
+     fused_adamw 2).
 Phase 3 also holds the paged kernels at Llama-300M's decode shape (16 q
 heads over 8 KV heads: bf16 and int8 pools with bf16 q at 2e-2, an fp32
 twin at 2e-5), and phase 6 the flash kernels at its training shape, bf16
@@ -141,7 +165,7 @@ fp32, BERT-base's [768, 128, 64] whole and ragged, and a BERT
 microbatch's [192, 128, 64] ragged; each error's share of its tolerance
 is printed.
 Before the last line come the kernels record, the card's name and power
-limit, and the four benchmark records; the last line is
+limit, and the five benchmark records; the last line is
 ``{"ok": true, "device": {...}}``. No GPU means no result line and a
 non-zero exit: nothing here falls back to the CPU.
 """
@@ -150,6 +174,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -1750,10 +1775,11 @@ def reset_all_launches():
         mod.reset_launches()
 
 
-def config_cli_train(cli, config, steps, overrides=()):
+def config_cli_train(cli, config, steps, overrides=(), start=0):
     """``cli train --sync-steps`` in-process on ``config`` as shipped but
-    for ``overrides``: (losses, step seconds after the first, train_end
-    record, text lines, step records)."""
+    for ``overrides``, to step ``steps`` from step ``start`` (a resume):
+    (losses, step seconds after the first, train_end record, text lines,
+    step records)."""
     argv = ["train", "--config", config, "--device", "cuda", "--sync-steps",
             "--override", f"train.steps={steps}",
             "--override", "train.log_every=1"]
@@ -1770,7 +1796,8 @@ def config_cli_train(cli, config, steps, overrides=()):
     steps_recs = [r for r in recs if "loss" in r]
     losses = [r["loss"] for r in steps_recs]
     end = next(r for r in recs if r.get("event") == "train_end")
-    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+    if (len(losses) != steps - start
+            or not all(math.isfinite(x) for x in losses)):
         raise AssertionError(f"{name} cli train: losses {losses}")
     return losses, end["step_s"][1:], end, [
         x for x in lines if not x.startswith("{")], steps_recs
@@ -1956,22 +1983,24 @@ def model_shape(models, load_config, apply_overrides, config, overrides=()):
 
 
 def flash_model_train(torch, cli, name, config, steps, layers, groups,
-                      fwd_per, accum, overrides=()):
-    """``cli train`` on a flash config: (record, launches). Per step
-    ``flash_fwd`` launches layers x fwd_per x accum times (fwd_per 2 under
-    remat: the forward and the recompute), ``flash_dq`` and ``flash_dkv``
-    layers x accum, ``fused_adamw`` once a group."""
+                      fwd_per, accum, overrides=(), start=0):
+    """``cli train`` on a flash config, to ``steps`` from ``start`` (a
+    resume): (record, launches). Per step ``flash_fwd`` launches layers x
+    fwd_per x accum times (fwd_per 2 under remat: the forward and the
+    recompute), ``flash_dq`` and ``flash_dkv`` layers x accum,
+    ``fused_adamw`` once a group."""
     reset_all_launches()  # this path's counts start here
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     losses, step_s, end, text, recs = config_cli_train(cli, config, steps,
-                                                       overrides)
+                                                       overrides, start)
     launched = all_launches()
+    ran = steps - start
     want = {k: 0 for k in launched}
-    want.update(flash_fwd=layers * fwd_per * accum * steps,
-                flash_dq=layers * accum * steps,
-                flash_dkv=layers * accum * steps,
-                fused_adamw=groups * steps)
+    want.update(flash_fwd=layers * fwd_per * accum * ran,
+                flash_dq=layers * accum * ran,
+                flash_dkv=layers * accum * ran,
+                fused_adamw=groups * ran)
     print("\n".join(text))
     res = {"config": os.path.basename(config), "overrides": list(overrides),
            "losses": losses, "p50_step_ms": statistics.median(step_s) * 1e3,
@@ -1979,9 +2008,10 @@ def flash_model_train(torch, cli, name, config, steps, layers, groups,
            "peak_mem_gb": end["peak_mem_gb"],
            "opt_state_bytes": end["opt_state_bytes"],
            "launches": launched}
-    extra = [r.get("masked_fraction") for r in recs]
-    if extra[0] is not None:
-        res["masked_fraction"] = extra
+    for key in ("masked_fraction", "aux_loss", "moe_dropped_frac"):
+        extra = [r.get(key) for r in recs]
+        if extra[0] is not None:
+            res[key] = extra
     print(f"{name} train: {json.dumps(res)}", flush=True)
     print(f"launches {launched} expected {want}", flush=True)
     if launched != want:
@@ -2047,7 +2077,7 @@ def bert_train(torch, cli, models, load_config, apply_overrides):
     return out, launches
 
 
-CAUSAL_LMS = ("gpt2", "llama")
+CAUSAL_LMS = ("gpt2", "llama", "gpt2_moe", "llama_moe")
 
 
 def flash_flops_per_step(cfg, meta):
@@ -2223,6 +2253,231 @@ def llama_parity(torch, cli, load_config, apply_overrides):
             "model.kwargs.attn_impl=xla", "optim.name=adamw"])]
     return parity_runs(torch, cli, load_config, apply_overrides, routes,
                        (("llama_kernels", "llama_plain", 1e-4),))
+
+
+# ---------------------------------------------------------------------------
+# 25. - 29. the MoE models and the token-file path
+# ---------------------------------------------------------------------------
+
+LLAMA_MOE = os.path.join(ROOT, "distributeddeeplearning_tpu_torch",
+                         "configs", "llama_moe.py")
+GPT2_MOE = os.path.join(ROOT, "distributeddeeplearning_tpu_torch", "configs",
+                        "gpt2_moe.py")
+OWT_FILE = os.path.join(ROOT, "distributeddeeplearning_tpu_torch", "configs",
+                        "gpt2_owt_file.py")
+MOE_STEPS = 6
+# Phase 28's fp32 pair: one batch of 2 x 2048 at the config's lr held
+# constant, at the shipped capacity factor (a fresh router's loads already
+# overflow 640 slots: about a third of the assignments drop).
+MOE_PARITY = ["model.kwargs.dtype=float32", "data.batch_size=2",
+              "data.n_distinct=1", "optim.schedule=constant",
+              "optim.warmup_steps=0", "optim.grad_clip=1.0",
+              "train.steps=3"]
+OWT_FILE_STEPS = 4
+
+
+def moe_onehot_flops(models, load_config, apply_overrides, config,
+                     overrides=()):
+    """The one-hot dispatch and combine einsums' FLOPs in one training step
+    of ``config`` (``models.moe.onehot_flops``, from the shapes)."""
+    from distributeddeeplearning_tpu_torch.models.moe import (
+        moe_mlps,
+        onehot_flops,
+    )
+
+    cfg = apply_overrides(load_config(config), list(overrides))
+    meta = models.get_model(cfg.model.name, **cfg.model.kwargs,
+                            device="meta")
+    fwd = 2 if cfg.train.remat != "none" else 1
+    return sum(onehot_flops(m, cfg.data.batch_size, cfg.data.seq_len, fwd)
+               for m in moe_mlps(meta))
+
+
+def moe_train(torch, cli, models, load_config, apply_overrides, name,
+              config, overrides=()):
+    """Phases 25 and 27: an MoE config as shipped (but for ``overrides``)
+    for MOE_STEPS steps: each flash kernel launches once a layer a step
+    (twice for flash_fwd under remat), fused_adamw never (the configs ship
+    the plain AdamW, as the reference's do); every loss, aux_loss and
+    moe_dropped_frac finite; tokens/s over steps 2..N, p50 step, peak
+    memory."""
+    cfg = apply_overrides(load_config(config), list(overrides))
+    layers, _, n, _ = model_shape(models, load_config, apply_overrides,
+                                  config, overrides)
+    fwd = 2 if cfg.train.remat != "none" else 1
+    tokens = cfg.data.batch_size * cfg.data.seq_len
+    print(f"{name}: {layers} layers, {n:,} params, optim {cfg.optim.name}, "
+          f"remat {cfg.train.remat}; per step flash_fwd {fwd * layers}, "
+          f"flash_dq and flash_dkv {layers} each, fused_adamw 0", flush=True)
+    if cfg.optim.name != "adamw":
+        raise AssertionError(f"{name}: optim {cfg.optim.name}, not adamw")
+    res, launched = flash_model_train(torch, cli, name, config, MOE_STEPS,
+                                      layers, 0, fwd, 1, overrides)
+    for key in ("aux_loss", "moe_dropped_frac"):
+        vals = res.get(key)
+        if not vals or not all(math.isfinite(v) for v in vals):
+            raise AssertionError(f"{name} {key}: {vals}")
+    res["tokens_per_s"] = tokens / (statistics.mean(res["step_ms"]) / 1e3)
+    print(f"{name}: {res['tokens_per_s']:.0f} tokens/s, p50 "
+          f"{res['p50_step_ms']:.2f} ms, peak {res['peak_mem_gb']:.2f} GB; "
+          f"aux_loss {res['aux_loss']}; moe_dropped_frac "
+          f"{res['moe_dropped_frac']}", flush=True)
+    return res, launched
+
+
+def moe_benchmark(torch, cli, models, load_config, apply_overrides):
+    """Phase 26: ``cli benchmark`` on llama_moe as shipped, its record printed with the flash kernels' FLOPs and the one-hot einsums'
+    share of the counted FLOPs beside the MFU."""
+    config = LLAMA_MOE
+    out = flash_benchmarks(torch, cli, models, load_config, apply_overrides,
+                           (("llama_moe", config),))
+    rec = out["llama_moe"]
+    onehot = moe_onehot_flops(models, load_config, apply_overrides, config)
+    counted = rec["model_tflops_per_step"] * 1e12
+    if not math.isclose(rec["onehot_tflops_per_step"] * 1e12, onehot,
+                        rel_tol=1e-9):
+        raise AssertionError(f"one-hot FLOPs {rec['onehot_tflops_per_step']}"
+                             f" != {onehot / 1e12}")
+    print(f"llama_moe benchmark: {rec['value']:.0f} tokens/sec/chip, p50 "
+          f"{rec['p50_step_ms']:.2f} ms, p90 {rec['p90_step_ms']:.2f} ms, "
+          f"MFU {rec['mfu']:.4f}; the one-hot einsums' {onehot / 1e12:.2f} "
+          f"TFLOP a step are {onehot / counted:.1%} of the "
+          f"{counted / 1e12:.2f} TFLOP counted: MFU without them "
+          f"{rec['mfu'] * (1 - onehot / counted):.4f}", flush=True)
+    return out
+
+
+def moe_parity(torch, cli, load_config, apply_overrides):
+    """Phase 28: fp32 llama_moe at full width, batch 2 x 2048, 3 steps on
+    one batch, (flash, adamw) against (xla, adamw) in lockstep: before
+    each step the xla trainer takes the flash trainer's params and Adam
+    state, so each step is compared from the same state. (Apart, one
+    routing flip, a near-tie in a top-k choice that the two attention
+    cores' last bits decide, moves every weight the token touched by about
+    the learning rate under Adam, and the trajectories part.) Per step the
+    losses and aux_loss within 1e-4 relative, moe_dropped_frac within one
+    assignment a layer (1 / (tokens x k)), drops present, the flash route's
+    losses falling; only the flash route launches kernels."""
+    from distributeddeeplearning_tpu_torch import data
+
+    routes = {"kernels": "flash", "plain": "xla"}
+    trainers, states = {}, {}
+    for key, impl in routes.items():
+        cfg = apply_overrides(load_config(LLAMA_MOE), MOE_PARITY + [
+            f"model.kwargs.attn_impl={impl}"])
+        _, trainers[key], dataset = cli.build_all(cfg, "cuda")
+        states[key] = trainers[key].init(cfg.train.seed)
+    k = cfg.model.kwargs["num_selected"]
+    one = 1 / (cfg.data.batch_size * cfg.data.seq_len * k)
+    records = {key: [] for key in routes}
+    launched = dict.fromkeys(routes, 0)
+    for step in range(cfg.train.steps):
+        a, b = states["kernels"], states["plain"]
+        with torch.no_grad():
+            for name, p in a.params.items():
+                b.params[name].copy_(p)
+            for tree in ("mu", "nu"):
+                for name, t in getattr(a.opt_state, tree).items():
+                    getattr(b.opt_state, tree)[name].copy_(t)
+        states["plain"] = dataclasses.replace(
+            b, step=a.step, opt_state=b.opt_state._replace(
+                count=a.opt_state.count))
+        batch = data.to_device(dataset.batch(step), "cuda")
+        for key in routes:
+            before = sum(all_launches().values())
+            states[key], m = trainers[key].train_step(states[key], batch)
+            torch.cuda.synchronize()
+            launched[key] += sum(all_launches().values()) - before
+            records[key].append({x: float(v) for x, v in m.items()})
+    ra, rb = records["kernels"], records["plain"]
+    res = {key: {x: [r[x] for r in records[key]]
+                 for x in ("loss", "aux_loss", "moe_dropped_frac")}
+           for key in routes}
+    res.update(
+        loss_max_rel_diff=rel_diff([r["loss"] for r in ra],
+                                   [r["loss"] for r in rb]),
+        aux_loss_max_rel_diff=rel_diff([r["aux_loss"] for r in ra],
+                                       [r["aux_loss"] for r in rb]),
+        dropped_max_abs_diff=max(abs(x["moe_dropped_frac"]
+                                     - y["moe_dropped_frac"])
+                                 for x, y in zip(ra, rb)),
+        one_assignment=one, launches=launched)
+    print(f"moe fp32 parity (lockstep): {json.dumps(res)}", flush=True)
+    del trainers, states
+    torch.cuda.empty_cache()
+    if not (launched["kernels"] > 0 and launched["plain"] == 0):
+        raise AssertionError(f"moe parity launches {launched}")
+    for key in ("loss", "aux_loss"):
+        if not res[f"{key}_max_rel_diff"] <= 1e-4:
+            raise AssertionError(f"moe parity {key}: "
+                                 f"{res[f'{key}_max_rel_diff']} > 1e-4")
+    if not res["dropped_max_abs_diff"] <= one:
+        raise AssertionError(f"moe parity dropped: "
+                             f"{res['dropped_max_abs_diff']} > {one}")
+    if not all(r["moe_dropped_frac"] > 0 for r in ra + rb):
+        raise AssertionError("moe parity: no assignment dropped")
+    losses = res["kernels"]["loss"]
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"moe parity: loss did not fall {losses}")
+    return res
+
+
+def token_file_train(torch, cli, models, load_config, apply_overrides):
+    """Phase 29: a byte corpus of the repository's own text written by the
+    port's ``prepare_data``; ``cli train`` on ``configs/gpt2_owt_file.py``
+    at full width for 4 steps straight, then 2 steps with a checkpoint and
+    a resume to 4: the resumed losses equal the straight run's bit for bit;
+    per step flash 12 launches each, fused_adamw one a group."""
+    import tempfile
+
+    from distributeddeeplearning_tpu_torch import data_text, prepare_data
+
+    layers, groups, _, _ = model_shape(models, load_config,
+                                       apply_overrides, OWT_FILE)
+    cfg = load_config(OWT_FILE)
+    texts = sorted(f for f in os.listdir(ROOT) if f.endswith(".md"))
+    with tempfile.TemporaryDirectory() as tmp:
+        src, tok = os.path.join(tmp, "corpus.txt"), os.path.join(
+            tmp, "corpus.tok")
+        with open(src, "wb") as out:
+            for name in texts:
+                with open(os.path.join(ROOT, name), "rb") as f:
+                    out.write(f.read())
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            prepare_data.main(["--input", src, "--output", tok,
+                               "--tokenizer", "byte"])
+        print(buf.getvalue().strip(), f"from {len(texts)} files", flush=True)
+        n_tokens = len(data_text.read_token_file(tok)[0])
+        rows = cfg.data.batch_size * cfg.data.seq_len
+        if n_tokens // cfg.data.seq_len < cfg.data.batch_size:
+            raise AssertionError(f"corpus of {n_tokens} tokens holds no "
+                                 f"batch of {rows}")
+        base = [f"data.path={tok}"]
+        runs = {}
+        for key, steps, extra in (
+                ("straight", OWT_FILE_STEPS, ()),
+                ("first", 2, ("train.save_every=2",
+                              f"train.checkpoint_dir={tmp}/ckpt")),
+                ("resumed", OWT_FILE_STEPS, (
+                    "train.save_every=2",
+                    f"train.checkpoint_dir={tmp}/ckpt"))):
+            if key == "straight":
+                extra = (f"train.checkpoint_dir={tmp}/none",)
+            done = 2 if key == "resumed" else 0
+            res, launched = flash_model_train(
+                torch, cli, f"gpt2_owt_file {key}", OWT_FILE, steps, layers,
+                groups, 1, 1, base + list(extra), start=done)
+            runs[key] = (res, launched)
+    straight = runs["straight"][0]["losses"]
+    resumed = runs["first"][0]["losses"] + runs["resumed"][0]["losses"]
+    print(f"gpt2_owt_file: straight {straight}, resumed {resumed}, "
+          f"bit-equal {straight == resumed}; {n_tokens:,} tokens, "
+          f"{n_tokens // cfg.data.seq_len} rows of {cfg.data.seq_len}",
+          flush=True)
+    if straight != resumed:
+        raise AssertionError("token-file resume is not step-exact")
+    return runs
 
 
 def main(argv=None) -> int:
@@ -2425,6 +2680,31 @@ def main(argv=None) -> int:
     for k in served:
         launches[k] += full[k] + served[k]
 
+    phase("25 llama_moe 8x300m train through the entry point")
+    _, moe_launched = moe_train(torch, cli, models, load_config,
+                                apply_overrides, "llama_moe", LLAMA_MOE)
+    for k in ("flash_fwd", "flash_dq", "flash_dkv", "fused_adamw"):
+        launches[k] += moe_launched[k]
+
+    phase("26 cli benchmark on llama_moe 8x300m")
+    moe_bench = moe_benchmark(torch, cli, models, load_config,
+                              apply_overrides)
+
+    phase("27 gpt2_moe train through the entry point")
+    _, moe_launched = moe_train(torch, cli, models, load_config,
+                                apply_overrides, "gpt2_moe", GPT2_MOE)
+    for k in ("flash_fwd", "flash_dq", "flash_dkv", "fused_adamw"):
+        launches[k] += moe_launched[k]
+
+    phase("28 fp32 parity at full width: llama_moe 8x300m with drops")
+    moe_parity(torch, cli, load_config, apply_overrides)
+
+    phase("29 token files: prepare_data, then gpt2_owt_file train and resume")
+    for _, launched in token_file_train(torch, cli, models, load_config,
+                                        apply_overrides).values():
+        for k in ("flash_fwd", "flash_dq", "flash_dkv", "fused_adamw"):
+            launches[k] += launched[k]
+
     # Each kernel's numbers come from its case at the main path's types.
     main_case = {"paged_decode": "bf16", "paged_decode_q8": "int8_bf16q",
                  "flash_fwd": "flash_fwd", "flash_dq": "flash_dq",
@@ -2445,7 +2725,8 @@ def main(argv=None) -> int:
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"benchmark": bench}))
-    for rec in (*encoder_bench.values(), *llama_bench.values()):
+    for rec in (*encoder_bench.values(), *llama_bench.values(),
+                *moe_bench.values()):
         print(json.dumps({"benchmark": rec}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

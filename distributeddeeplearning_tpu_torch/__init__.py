@@ -24,7 +24,11 @@ The paths that run on the GPU:
 - Llama (``models/llama.py``: RoPE, RMSNorm, SwiGLU, grouped-query
   attention) trained on the flash kernels and served through the paged
   decode kernels at ``num_rep > 1``; ``hf_port.py`` carries HF weights
-  into the port's models.
+  into the port's models;
+- the MoE decoders (``models/moe.py``: gpt2_moe, llama_moe) trained on the
+  flash kernels with top-k capacity routing (``parallel/ep.py``), the
+  router's aux loss and dropped fraction sown into the Trainer's step;
+- the token-file corpus path (``data_text.py``, ``prepare_data.py``).
 The package imports torch and never JAX; entry points run on the GPU unless
 the caller asks for the CPU.
 """

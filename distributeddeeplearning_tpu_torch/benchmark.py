@@ -20,7 +20,10 @@ FLOPs: one more step under ``torch.utils.flop_counter.FlopCounterMode``
 counts the step's matrix products and convolutions (forward and backward,
 this rank's share), from which ``achieved_tflops_per_sec`` and ``mfu``
 against the card's own dense bf16 peak, looked up by
-``torch.cuda.get_device_name()``; an unknown card gets no ``mfu``.
+``torch.cuda.get_device_name()``; an unknown card gets no ``mfu``. An MoE
+model's dense dispatch and combine einsums multiply one-hots; they are
+counted like any product, and ``onehot_tflops_per_step`` with its share of
+the count says how much of the MFU they are (``models.moe.onehot_flops``).
 
 Left out of the JAX record: ``vs_baseline`` (``BENCH_BASELINE.json`` holds
 TPU numbers, no baseline of this card), the XLA compile and memory
@@ -37,6 +40,7 @@ import torch
 
 from . import data as data_lib
 from .config import Config
+from .models.moe import moe_mlps, onehot_flops
 
 # Dense bf16 tensor-core peak in TFLOP/s, by a fragment of the card's name
 # (NVIDIA's data sheets, at each part's full power limit); first match.
@@ -204,4 +208,15 @@ def run_benchmark(cfg: Config, device, mesh=None, *, warmup: int = 5,
         peak = peak_tflops(device)
         if peak:
             record["mfu"] = round(achieved / peak, 4)
+    mlps = moe_mlps(trainer.model)
+    if mlps and flops > 0:
+        # Counted above as any product is, as the reference's cost model
+        # counts the dense einsums: the share of the MFU that multiplies
+        # one-hots.
+        rows = staged[0]["tokens"].shape[0]
+        onehot = sum(onehot_flops(m, rows, cfg.data.seq_len,
+                                  2 if cfg.train.remat != "none" else 1)
+                     for m in mlps)
+        record["onehot_tflops_per_step"] = onehot / 1e12
+        record["onehot_share_of_counted_flops"] = round(onehot / flops, 4)
     return record

@@ -134,6 +134,9 @@ def build_all(cfg: Config, device, mesh=None):
             )
         kwargs["dtype"] = policy.compute_dtype
     if cfg.train.remat != "none":
+        if not models.supports_remat(cfg.model.name):
+            raise ValueError(
+                f"model {cfg.model.name!r} does not support remat")
         kwargs["remat"] = cfg.train.remat
     model = models.get_model(cfg.model.name, **kwargs, mesh=mesh).to(device)
     if cfg.train.remat != "none" and getattr(model, "remat",

@@ -1,6 +1,7 @@
 """Input pipeline of the training slices: synthetic token and image
-batches, the native loader's kinds, each rank's share of a batch, and their
-transfer to the device.
+batches, the native loader's kinds, the token-file kinds
+(``data_text.py``), each rank's share of a batch, and their transfer to the
+device.
 
 :class:`SyntheticTokens`, :class:`SyntheticImages` and :class:`SyntheticMLM`
 draw exactly the reference's batches (the same numpy generator and seed), and
@@ -21,6 +22,7 @@ from collections.abc import Iterator
 import numpy as np
 import torch
 
+from .data_text import TokenFileLM, TokenFileMLM
 from .dataset_base import IndexedDataset
 from .native.loader import (
     NativeSyntheticImages,
@@ -179,25 +181,32 @@ class SyntheticMLM(IndexedDataset):
         }
 
 
-# The kinds ported so far; the reference's token-file kinds are refused by
-# name until their slice.
+# One registry: config.dataset_kwargs takes its field intersection from it.
 DATASET_KINDS: dict[str, type] = {
     "synthetic_image": SyntheticImages,
     "synthetic_tokens": SyntheticTokens,
     "synthetic_mlm": SyntheticMLM,
     "native_image": NativeSyntheticImages,
     "record_file_image": RecordFileImages,
+    "token_file_lm": TokenFileLM,
+    "token_file_mlm": TokenFileMLM,
+}
+# The reference's kinds the port does not build: kind -> why.
+REFUSED_KINDS = {
+    "grain_token_file_lm": "it reads the token file through the grain "
+                           "package, which the port does not use; "
+                           "token_file_lm reads the same file",
 }
 
 
 def make_dataset(kind: str, **kwargs):
-    if kind not in DATASET_KINDS:
+    if kind in REFUSED_KINDS:
         raise NotImplementedError(
-            f"dataset kind {kind!r} not yet ported to "
-            "distributeddeeplearning_tpu_torch (ported: "
-            f"{sorted(DATASET_KINDS)}; the token-file kinds come with "
-            "ROADMAP queue A14)"
+            f"dataset kind {kind!r} not ported to "
+            f"distributeddeeplearning_tpu_torch: {REFUSED_KINDS[kind]}"
         )
+    if kind not in DATASET_KINDS:
+        raise ValueError(f"unknown dataset kind {kind!r}")
     return DATASET_KINDS[kind](**kwargs)
 
 

@@ -1,18 +1,27 @@
-"""Model zoo of the port: GPT-2, ResNet-18/50, ViT, BERT and Llama so far;
-the other models of the JAX package register here as later slices port
-them."""
+"""Model zoo of the port: GPT-2, ResNet-18/50, ViT, BERT, Llama and the MoE
+decoders so far; the other models of the JAX package register here as later
+slices port them."""
 
 from __future__ import annotations
 
 _REGISTRY: dict[str, callable] = {}
+# Models without activation checkpointing: the reference's have no
+# ``remat`` field, and its ``cli`` refuses ``train.remat`` for them.
+_NO_REMAT: set[str] = set()
 
 
-def register(name: str):
+def register(name: str, *, remat: bool = True):
     def deco(fn):
         _REGISTRY[name] = fn
+        if not remat:
+            _NO_REMAT.add(name)
         return fn
 
     return deco
+
+
+def supports_remat(name: str) -> bool:
+    return name not in _NO_REMAT
 
 
 def get_model(name: str, **kwargs):
@@ -26,4 +35,4 @@ def available() -> list[str]:
     return sorted(_REGISTRY)
 
 
-from . import bert, gpt2, llama, resnet, vit  # noqa: E402,F401
+from . import bert, gpt2, llama, moe, resnet, vit  # noqa: E402,F401

@@ -480,6 +480,21 @@ class Trainer:
                 and getattr(model, "mesh", None) is not mesh):
             raise ValueError("the model was built on another mesh than the "
                              "trainer's")
+        if hasattr(model, "num_experts"):
+            from .parallel.ep import check_moe_shapes
+
+            ep = 1 if mesh is None else mesh.shape["ep"]
+            check_moe_shapes(model.num_experts, ep)
+            if cp > 1:
+                # A cp rank holds its block of each row, but the reference
+                # routes a row whole: its capacity slots count every token
+                # of the row before this one.
+                raise NotImplementedError(
+                    f"mesh cp={cp} x MoE model {type(model).__name__}: "
+                    "routing over a row split across the cp ranks not yet "
+                    "ported to distributeddeeplearning_tpu_torch (ROADMAP "
+                    "queue A13)"
+                )
         if grad_accum < 1:
             raise ValueError(f"grad_accum={grad_accum} must be >= 1")
         self.grad_accum = grad_accum
@@ -526,12 +541,27 @@ class Trainer:
         return torch.func.functional_call(self.model, params, inputs, kw)
 
     def _grads(self, state: TrainState, batch: dict):
-        """(fp32 gradients, metrics) of this rank's loss on ``batch``."""
+        """(fp32 gradients, metrics) of this rank's loss on ``batch``. What
+        the training forward sows (``models/sow.py``) joins the step as the
+        reference's ``losses`` and ``metrics`` collections do: the objective
+        is the task's loss plus every sown loss, ``metrics["loss"]`` stays
+        the task's, ``metrics["aux_loss"]`` is the sum of the sown losses,
+        and each sown metric is its mean over the modules that sowed it."""
+        from .models.sow import collecting
+
         # Mixed precision: ONE compute copy per call, differentiated
         # directly; fp32 returns the masters themselves.
         cparams = cast_to_compute(self.precision, state.params)
-        out = self._forward(state, cparams, batch, train=True)
+        with collecting() as sown:
+            out = self._forward(state, cparams, batch, train=True)
         loss, metrics = self.task.loss_fn(out, batch)
+        if sown.losses:
+            aux = sum(v for _, v in sown.losses)
+            loss = loss + aux
+            metrics = {**metrics, "aux_loss": aux}
+        metrics = {**metrics, **{
+            name: torch.stack([v.float() for v in vals]).mean()
+            for name, vals in sown.metrics.items()}}
         names = list(cparams)
         grads = torch.autograd.grad(loss, [cparams[k] for k in names],
                                     allow_unused=True)

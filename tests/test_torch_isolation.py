@@ -56,7 +56,9 @@ def test_sources_exist():
             "metrics.py", "weights.py", "resnet.py", "benchmark.py",
             "loader.py", "vit.py", "bert.py", "remat.py",
             "vit_imagenet21k.py", "bert_mlm.py", "llama.py", "hf_port.py",
-            "llama_lm.py"} <= names
+            "llama_lm.py", "moe.py", "ep.py", "sow.py", "data_text.py",
+            "prepare_data.py", "gpt2_moe.py", "llama_moe.py",
+            "gpt2_owt_file.py"} <= names
     csrc = {p.name for p in (PORT / "csrc").glob("*.cu")}
     assert {"paged_attention.cu", "flash_attention.cu",
             "fused_adamw.cu", "ring_attention.cu"} <= csrc
@@ -177,8 +179,8 @@ def test_ported_train_knobs_run(override, knob, tmp_path):
     ("model.kwargs.attn_impl=ulysses", NotImplementedError,
      "attn_impl='ulysses'"),
     ("train.precision.policy=bf16_full", ValueError, "bf16_full"),
-    ("data.kind=token_file_mlm", NotImplementedError, "token_file_mlm"),
-    ("data.kind=token_file_lm", NotImplementedError, "token_file_lm"),
+    ("data.kind=grain_token_file_lm", NotImplementedError,
+     "grain_token_file_lm"),
     ("model.kwargs.attn_impl=ring", NotImplementedError, "attn_impl='ring'"),
 ])
 def test_unported_paths_are_refused_by_name(override, exc, match):

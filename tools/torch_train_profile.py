@@ -12,7 +12,11 @@ share under the profiler, device time per kernel group (the port's flash
 and AdamW kernels, convolutions, matrix products, reductions, copies, the
 rest), and the kernels with the most device time. Each step draws its batch
 on the host and copies it over (``data.prefetch``), as ``cli train`` does,
-so an input path slower than the step shows as idle device time. Needs an
+so an input path slower than the step shows as idle device time. For an
+MoE model (``configs/llama_moe.py``, ``configs/gpt2_moe.py``) it also times,
+with CUDA events at the step's shapes, one routed layer's pieces (the
+routing, the dispatch and combine einsums over the one-hots, the experts,
+each forward and backward) and gives their share of the busy step. Needs an
 NVIDIA GPU:
 
     python3 tools/torch_train_profile.py [--config PATH] [--steps 5]
@@ -49,6 +53,88 @@ def group_of(name: str) -> str:
         if frag in name:
             return group
     return "other"
+
+
+def _event_ms(torch, fn, iters=10):
+    """Median ms of ``fn()`` over ``iters`` calls, each between CUDA
+    events, after one warm call."""
+    fn()
+    times = []
+    for _ in range(iters):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def moe_pieces(torch, trainer, cfg):
+    """ms of one routed layer's pieces at the step's shapes (this rank's
+    rows, the compute dtype), forward and backward, and their sum over the
+    model's routed layers; None for a model without experts."""
+    import torch.nn.functional as F
+
+    from distributeddeeplearning_tpu_torch.models.moe import moe_mlps
+    from distributeddeeplearning_tpu_torch.parallel.ep import route_top_k
+
+    mlps = moe_mlps(trainer.model)
+    if not mlps:
+        return None
+    m, dt = mlps[0], trainer.precision.compute_dtype
+    if not trainer.precision.mixed:
+        dt = trainer.model.dtype
+    B, L, d = cfg.data.batch_size, cfg.data.seq_len, m.embed_dim
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(B, L, d, device="cuda", generator=gen).to(dt)
+    x.requires_grad_()
+    w = {k: p.detach().to(dt).requires_grad_()
+         for k, p in m.named_parameters() if k != "router.kernel"}
+    router = m.router.kernel.detach().float()
+
+    def route():
+        probs = torch.softmax(x.detach().float().reshape(-1, d) @ router,
+                              -1).reshape(B, L, -1)
+        return route_top_k(probs, m.num_selected, m.capacity(L), dtype=dt)
+
+    dispatch, combine, _, _ = route()
+    combine.requires_grad_()
+    expert_in = torch.einsum("gtec,gtd->egcd", dispatch, x)
+    ein = expert_in.detach().requires_grad_()
+
+    def experts(inp):
+        if m.mlp_style == "swiglu":
+            h = F.silu(torch.einsum("egcd,edh->egch", inp, w["w_gate"])) * (
+                torch.einsum("egcd,edh->egch", inp, w["w1"]))
+            return torch.einsum("egch,ehd->egcd", h, w["w2"])
+        h = m.act(torch.einsum("egcd,edh->egch", inp, w["w1"])
+                  + w["b1"][:, None, None, :])
+        return (torch.einsum("egch,ehd->egcd", h, w["w2"])
+                + w["b2"][:, None, None, :])
+
+    out = experts(ein).detach().requires_grad_()
+    g_in, g_out = torch.randn_like(expert_in), torch.randn_like(x)
+
+    def dispatch_fb():
+        y = torch.einsum("gtec,gtd->egcd", dispatch, x)
+        torch.autograd.grad(y, x, g_in)
+
+    def experts_fb():
+        torch.autograd.grad(experts(ein), [ein, *w.values()], g_in)
+
+    def combine_fb():
+        y = torch.einsum("gtec,egcd->gtd", combine, out)
+        torch.autograd.grad(y, [combine, out], g_out)
+
+    layer = {"route_fwd": _event_ms(torch, route),
+             "dispatch_fwd_bwd": _event_ms(torch, dispatch_fb),
+             "experts_fwd_bwd": _event_ms(torch, experts_fb),
+             "combine_fwd_bwd": _event_ms(torch, combine_fb)}
+    n = len(mlps)
+    return {"layers": n, "capacity": m.capacity(L),
+            "layer_ms": layer,
+            "step_ms": {k: v * n for k, v in layer.items()}}
 
 
 def main(argv=None) -> int:
@@ -110,6 +196,14 @@ def main(argv=None) -> int:
     }
     n = args.steps
     busy_us = sum(us for us, _ in kernels.values())
+    moe = moe_pieces(torch, trainer, cfg)
+    if moe is not None:
+        busy_ms = busy_us / n / 1e3
+        moe["share_of_busy_step"] = {
+            k: v / busy_ms for k, v in moe["step_ms"].items()}
+        moe["onehot_share_of_busy_step"] = (
+            moe["step_ms"]["dispatch_fwd_bwd"]
+            + moe["step_ms"]["combine_fwd_bwd"]) / busy_ms
     groups: dict[str, float] = {}
     for name, (us, _) in kernels.items():
         g = group_of(name)
@@ -133,6 +227,7 @@ def main(argv=None) -> int:
             [name[:90], us / n / 1e3, count / n]
             for name, (us, count) in top
         ],
+        **({"moe_pieces": moe} if moe is not None else {}),
     }), flush=True)
     return 0
 
