@@ -50,48 +50,52 @@ Phases, in order; any failure raises and the script exits non-zero:
      bounds and library yardsticks;
   10. context-parallel training through the entry point: ``cli train``
      under ``torchrun`` with 2 ranks, ``mesh.cp=2``, ``ring_pallas``, at
-     full width for 6 steps. Both ranks share the one card over gloo, so
+     full width for 2 steps. Both ranks share the one card over gloo, so
      the step times are no context-parallel speed. Launches must be 12 x
      steps per ring kernel on rank 0 and 24 x steps on rank 1, none of the
      flash kernels, 2 x steps of fused_adamw on each;
   11. fp32 parity at 124M width: 2 ranks at cp=2 (ring_pallas,
      adamw_fused) against phase 8's single-process flash route, 4 steps;
-     the losses must agree within 1e-4 relative and fall;
+     the losses must agree within 1e-4 relative and fall; the same two
+     processes then run phase 13's straight run;
   12. ZeRO-1 training through the entry point: ``cli train`` under
      ``torchrun`` with 2 ranks on ``configs/gpt2_owt.py`` as shipped
-     (``zero1=True``, ``dp=-1`` -> 2, flash, adamw_fused, bf16, batch
-     32 x 1024) with ``grad_accum=2``, evaluation and checkpoints every 2
-     steps and the metrics writer, 4 steps: per rank, flash_dq and
-     flash_dkv launch 12 x steps x grad_accum times, flash_fwd that many
-     plus 12 x evaluations x eval_batches, fused_adamw 2 x steps; each
-     rank's moments are half the unsharded bytes (plus padding);
-     metrics.jsonl holds the train and eval lines; checkpoints exist at
-     steps 2 and 4, and a second launch to 6 steps resumes from step 4;
-     then 2 steps with ZeRO-1 off, for its memory. Both ranks share the
-     one card over gloo, so the step times are no data-parallel speed;
+     (``zero1=True``, ``dp=-1`` -> 2, flash, adamw_fused, bf16, batch 32 x
+     1024) with ``grad_accum=2``, evaluation and checkpoints every 2 steps
+     and the metrics writer, 2 steps: per rank, flash_dq and flash_dkv
+     launch 12 x steps x grad_accum times, flash_fwd that many plus 12 x
+     evaluations x eval_batches, fused_adamw 2 x steps; each rank's moments
+     are half the unsharded bytes (plus padding); metrics.jsonl holds the
+     train and eval lines; a checkpoint exists at step 2, and a second
+     launch to 4 steps resumes from step 2 (and saves nothing); then 2 steps
+     with ZeRO-1 off (its moments the whole 8 bytes a parameter), for its
+     memory. Both ranks share the one card over gloo, so the step times are
+     no data-parallel speed;
   13. fp32 parity at 124M width: 2 ranks at dp=2 with ZeRO-1 and
      grad_accum=2 (flash, adamw_fused) against phase 8's single-process
-     flash route, 4 steps: losses within 1e-4 relative and falling,
-     params within ZERO_PARAM_LIMIT (clip and weight decay on); then, in
-     fresh processes, 2 steps, a save, a resume and 2 more, equal to the
-     straight run bit for bit.
+     flash route, 4 steps: losses within 1e-4 relative and falling, params
+     within ZERO_PARAM_LIMIT (clip and weight decay on); that run (in phase
+     11's processes) saves at step 2, and fresh processes resume from the
+     save for steps 3 and 4, equal to the straight run bit for bit.
   14. ResNet-50 training through the entry point: ``cli train`` in-process
      on ``configs/resnet50_imagenet.py`` as shipped (batch 256 x 224², bf16
      convs, SGD, label smoothing) for 8 steps, then 4 with the C++ loader
      (``data.kind=native_image``): images/s over steps 2..N, p50 step,
      peak memory, every loss finite; the path launches none of the nine
      hand kernels (its convs are cuDNN's, as the JAX package's are XLA's);
-  15. ``cli benchmark`` on that config: the images/sec/chip record (p50,
-     p90, MFU against the card's bf16 peak, peak memory), printed again
-     on a line before the last;
+  15. ``cli benchmark`` on that config at 6 timed and 4 synced steps
+     with the multi-step probe at K = 2 (``--steps 6 --latency-steps 4
+     --probe 2``, as in phases 18, 22 and 26): the images/sec/chip record
+     (p50, p90, MFU against the card's bf16 peak, peak memory, dispatch
+     overhead a step), printed again on a line before the last;
   16. ResNet-50 at dp=2 under ``torchrun``, 2 ranks sharing the one card
-     over gloo: fp32 (TF32 off) at a global batch of 16, grad_accum 1 and
-     2, 4 steps against one process on the same batches (losses within
-     1e-4 relative and falling, BatchNorm running statistics within
-     ``BN_STATS_TOL``); then the shipped config with eval and
-     checkpoints every 2 steps for 4 steps, and a launch in fresh
-     processes resuming from step 2 that repeats steps 3 and 4 bit for
-     bit. The step times are no data-parallel speed.
+     over gloo: fp32 (TF32 off) at a global batch of 16, grad_accum 1 and 2,
+     both in one pair of processes, 4 steps against one process on the same
+     batches (losses within 1e-4 relative and falling, BatchNorm running
+     statistics within ``BN_STATS_TOL``); then the shipped config with eval
+     and checkpoints every 2 steps for 4 steps, and a launch in fresh
+     processes resuming from step 2 that repeats steps 3 and 4 bit for bit.
+     The step times are no data-parallel speed.
   17. ViT-L/16 training through the entry point: ``cli train`` on
      ``configs/vit_imagenet21k.py`` as shipped (batch 64 x 224², 21843
      classes, bf16, flash over 197 tokens padded to 256, adamw_fused,
@@ -99,10 +103,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      x 24 times (the forward and the recompute), flash_dq and flash_dkv 24,
      fused_adamw once per group; every loss finite; images/s over steps
      2..N, p50 step, peak memory; then 2 steps with ``train.remat=none``;
-  18. ``cli benchmark`` on the ViT-L/16 and BERT-base configs as shipped,
-     each record printed, with the flash kernels' FLOPs a step from the
-     shapes (``FlopCounterMode`` counts the recompute's products but not
-     the kernels' launches) and their share;
+  18. ``cli benchmark`` on the ViT-L/16 and BERT-base configs as shipped
+     (the depth of phase 15), each record printed, with the flash kernels'
+     FLOPs a step from the shapes (``FlopCounterMode`` counts the
+     recompute's products but not the kernels' launches) and their share;
   19. BERT-base MLM training through the entry point: ``cli train`` on
      ``configs/bert_mlm.py`` as shipped (64 x 128, 4 microbatches, bf16,
      flash, chunked head, adamw_fused) for 4 steps: per step each flash
@@ -120,8 +124,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      ``lm_head``, adamw_fused, zero1 at dp = 1) for 6 steps: each flash
      kernel launches 12 times a step, fused_adamw once a group; every loss
      finite; tokens/s over steps 2..N, p50 step, peak memory;
-  22. ``cli benchmark`` on that config, its record printed before the
-     last line with the flash kernels' FLOPs a step (causal pairs);
+  22. ``cli benchmark`` (as in phase 18) on that config, its record
+     printed before the last line with the flash kernels' FLOPs a step
+     (causal pairs);
   23. fp32 parity at full width, batch 2 x 2048, 3 steps on one batch:
      Llama-300M (flash, adamw_fused) against (xla, adamw) within 1e-4
      relative, every loss falling;
@@ -135,9 +140,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      AdamW as the reference ships it) for 6 steps: each flash kernel
      launches 12 times a step, fused_adamw never; every loss, aux_loss and
      moe_dropped_frac finite; tokens/s over steps 2..N, p50, peak memory;
-  26. ``cli benchmark`` on that config: the record printed before the last
-     line, with the flash kernels' FLOPs a step and the dense one-hot
-     dispatch and combine einsums' FLOPs, which the MFU counts;
+  26. ``cli benchmark`` (as in phase 18) on that config: the record
+     printed before the last line, with the flash kernels' FLOPs a step
+     and the dense one-hot dispatch and combine einsums' FLOPs, which the
+     MFU counts;
   27. gpt2_moe training through the entry point: ``configs/gpt2_moe.py``
      as shipped (32 x 1024, 6 routed blocks of 12) for 6 steps, the same
      checks (each flash kernel 12 a step: every block has attention);
@@ -153,6 +159,33 @@ Phases, in order; any failure raises and the script exits non-zero:
      2 steps with a checkpoint and a resume to 4 whose losses equal the
      straight run's bit for bit; launch counts exact (flash 12 a step,
      fused_adamw 2).
+  30. bf16_full: ``cli train`` on ``configs/gpt2_owt.py`` with
+     ``train.precision.policy=bf16_full`` and ``optim.name=adamw`` (bf16
+     moments with stochastic rounding, ``train.LowPrecisionAdamW``) for 6
+     steps: flash 12 a step each, fused_adamw none; the optimizer state
+     exactly 2 x 2 bytes a parameter, half fp32 AdamW's; p50, peak memory;
+  31. health guard: ``cli train`` on gpt2_owt as shipped for 6 steps with
+     the guard off, then on with ``train.fault_injection=nan:3``: the step
+     of pre-step counter 3 (logged as step 4) reports skipped 1 and
+     anomalies 1 and launches no fused_adamw (the guard decides on the
+     host before the update); p50 on and off; on the Trainer, the state
+     after that step equals the state before it bit for bit (fp32
+     params, moments, the optimizer's count); then ``cli train`` with
+     ``max_consecutive_anomalies=1``, a checkpoint every 2 steps and
+     ``nan:2``: one ``rollback_restart`` from step 2, the run ending at
+     step 4, launches exact;
+  32. generation: ``cli train`` on ``configs/gpt2_owt_file.py`` at full
+     width with the byte vocabulary on phase 29's corpus for 4 steps and
+     a save, then ``cli generate --bench --reps 20`` from that checkpoint
+     with two uneven prompts and 32 new tokens: its record (decode and
+     prefill tokens/s, decode seconds, medians of 20 timed runs) printed
+     before the last line;
+  33. generation parity, fp32: greedy tokens of ``generate`` on an uneven
+     batch equal each row's no-cache full-forward oracle exactly on GPT-2
+     124M, Llama-300M and llama_moe 8x300m (one-token prefill, capacity
+     factor raised so the oracle's routing drops nothing), and for GPT-2
+     and Llama the serving engine's on the same weights and prompts, its
+     decode steps through ``paged_decode`` (launches counted).
 Phase 3 also holds the paged kernels at Llama-300M's decode shape (16 q
 heads over 8 KV heads: bf16 and int8 pools with bf16 q at 2e-2, an fp32
 twin at 2e-5), and phase 6 the flash kernels at its training shape, bf16
@@ -164,8 +197,9 @@ its bound and SDPA: ViT-L/16's [1024, 256, 64] at limit 197 in bf16 and
 fp32, BERT-base's [768, 128, 64] whole and ragged, and a BERT
 microbatch's [192, 128, 64] ragged; each error's share of its tolerance
 is printed.
-Before the last line come the kernels record, the card's name and power
-limit, and the five benchmark records; the last line is
+Each phase's banner gives the seconds since the start. Before the last
+line come the kernels record, the card's name and power limit, the five
+benchmark records and phase 32's generate record; the last line is
 ``{"ok": true, "device": {...}}``. No GPU means no result line and a
 non-zero exit: nothing here falls back to the CPU.
 """
@@ -228,11 +262,15 @@ TC_KERNELS = {"flash_attention": ("flash_fwd_kernel_tc", "flash_dq_kernel_tc",
                                   "flash_dkv_kernel_tc"),
               "ring_attention": ("ring_step_kernel_tc", "ring_dq_kernel_tc",
                                  "ring_dkv_kernel_tc")}
-CP_STEPS = 6
+CP_STEPS = 2
+
+
+_T0 = time.perf_counter()
 
 
 def phase(name):
-    print(f"== {name}", flush=True)
+    """A phase's banner, with the seconds since the script started."""
+    print(f"== {name}  [t={time.perf_counter() - _T0:.1f} s]", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1454,11 +1492,11 @@ def cli_train_cp(torch, layers, steps=CP_STEPS):
     return losses, end, got
 
 
-def _rank_fit(rank, port, overrides, out_dir, ckpt_dir=None, stop=None,
-              save_every=0, config=CONFIG):
-    """One of 2 ranks (a child process): build_all + fit of ``config`` to
-    ``stop`` (default ``train.steps``); with ``ckpt_dir``, restored from its
-    latest step when it holds one and saved every ``save_every`` steps."""
+def _rank_fit(rank, port, jobs, out_dir):
+    """One of 2 ranks (a child process): for each job ``(overrides,
+    ckpt_dir, save_every, config)`` in turn, build_all + fit of the config
+    to ``train.steps``; with ``ckpt_dir``, restored from its latest step
+    when it holds one and saved every ``save_every`` steps."""
     import torch
 
     os.environ.update(RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK=str(rank),
@@ -1488,62 +1526,79 @@ def _rank_fit(rank, port, overrides, out_dir, ckpt_dir=None, stop=None,
 
     init_distributed("cuda")
     device = rank_device("cuda")
-    cfg = apply_overrides(load_config(config), overrides)
-    mesh = build_mesh(cfg.mesh)
-    _, trainer, dataset = cli.build_all(cfg, device, mesh)
-    state = trainer.init(cfg.train.seed)
-    ckpt = None if ckpt_dir is None else CheckpointManager(ckpt_dir)
-    if ckpt is not None and ckpt.latest_step() is not None:
-        state, _ = ckpt.restore(state)
-    state, hist = fit(trainer, state, data.prefetch(
-        data.sharded_batches(dataset.iter_from(state.step), mesh,
-                             cfg.train.grad_accum), device),
-        steps=stop or cfg.train.steps, log_every=1, log_fn=lambda m: None,
-        ckpt=ckpt, save_every=save_every)
-    torch.cuda.synchronize()
-    if ckpt is not None:
-        ckpt.close()
-    out = {"losses": [r["loss"] for r in hist],
-           "launches": {**ring_attention_pallas.LAUNCHES,
-                        **fused_adamw.LAUNCHES},
-           "timings": [] if ckpt is None else ckpt.timings}
-    if rank == 0:
-        out["params"] = {k: p.detach().cpu() for k, p in state.params.items()}
-        out["model_state"] = {k: b.detach().cpu()
-                              for k, b in state.model_state.items()}
-    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    for j, (overrides, ckpt_dir, save_every, config) in enumerate(jobs):
+        fused_adamw.reset_launches()
+        ring_attention_pallas.reset_launches()
+        cfg = apply_overrides(load_config(config), overrides)
+        mesh = build_mesh(cfg.mesh)
+        _, trainer, dataset = cli.build_all(cfg, device, mesh)
+        state = trainer.init(cfg.train.seed)
+        ckpt = None if ckpt_dir is None else CheckpointManager(ckpt_dir)
+        if ckpt is not None and ckpt.latest_step() is not None:
+            state, _ = ckpt.restore(state)
+        state, hist = fit(trainer, state, data.prefetch(
+            data.sharded_batches(dataset.iter_from(state.step), mesh,
+                                 cfg.train.grad_accum), device),
+            steps=cfg.train.steps, log_every=1, log_fn=lambda m: None,
+            ckpt=ckpt, save_every=save_every)
+        torch.cuda.synchronize()
+        if ckpt is not None:
+            ckpt.close()
+        out = {"losses": [r["loss"] for r in hist],
+               "launches": {**ring_attention_pallas.LAUNCHES,
+                            **fused_adamw.LAUNCHES},
+               "timings": [] if ckpt is None else ckpt.timings}
+        if rank == 0:
+            out["params"] = {k: p.detach().cpu()
+                             for k, p in state.params.items()}
+            out["model_state"] = {k: b.detach().cpu()
+                                  for k, b in state.model_state.items()}
+        torch.save(out, os.path.join(out_dir, f"rank{rank}_job{j}.pt"))
+        del trainer, state
+        torch.cuda.empty_cache()
     dist.barrier()
     dist.destroy_process_group()
 
 
-def spawn_ranks(torch, overrides, out_dir, ckpt_dir=None, stop=None,
-                save_every=0, config=CONFIG):
-    """2 ranks of :func:`_rank_fit`, sharing the one card over gloo: each
-    rank's results."""
+def spawn_ranks(torch, jobs, out_dir):
+    """2 ranks of :func:`_rank_fit` sharing the one card over gloo, which
+    run each job ``(overrides, ckpt_dir, save_every, config)`` in turn in
+    the same two processes: each job's [rank 0, rank 1] results."""
     import socket
 
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
     torch.cuda.empty_cache()
-    torch.multiprocessing.spawn(
-        _rank_fit,
-        args=(port, overrides, out_dir, ckpt_dir, stop, save_every, config),
-        nprocs=2, join=True)
-    return [torch.load(os.path.join(out_dir, f"rank{r}.pt"))
-            for r in range(2)]
+    t0 = time.perf_counter()
+    torch.multiprocessing.spawn(_rank_fit, args=(port, jobs, out_dir),
+                                nprocs=2, join=True)
+    print(f"spawned 2 ranks for {len(jobs)} job(s): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return [[torch.load(os.path.join(out_dir, f"rank{r}_job{j}.pt"))
+             for r in range(2)] for j in range(len(jobs))]
 
 
-def cp_parity(torch, parity, steps=4):
-    """fp32 at 124M width: 2 ranks at cp=2 (ring_pallas, adamw_fused)
-    against phase 8's single-process flash route on the same weights and
-    batches."""
+def zero1_overrides(parity):
+    """Phase 13's fp32 run: dp=2 with ZeRO-1 and grad_accum=2."""
+    return parity["overrides"] + [
+        "mesh.dp=2", "train.zero1=true", f"train.grad_accum={ZERO_ACCUM}"]
+
+
+def cp_parity(torch, parity, ck, steps=4):
+    """Phase 11: fp32 at 124M width, 2 ranks at cp=2 (ring_pallas,
+    adamw_fused) against phase 8's single-process flash route on the same
+    weights and batches. The same two processes then run phase 13's
+    straight ZeRO-1 job, saving halfway into ``ck`` (one start of the pair
+    fewer). Returns (the cp record, that job's [rank 0, rank 1])."""
     import tempfile
 
     overrides = parity["overrides"] + [
         "model.kwargs.attn_impl=ring_pallas", "mesh.cp=2", "mesh.dp=1"]
     with tempfile.TemporaryDirectory() as tmp:
-        ranks = spawn_ranks(torch, overrides, tmp)
+        ranks, zero = spawn_ranks(torch, [
+            (overrides, None, 0, CONFIG),
+            (zero1_overrides(parity), ck, steps // 2, CONFIG)], tmp)
     la, lb = ranks[0]["losses"], parity["losses_kernels"]
     rel = max(abs(a - b) / abs(b) for a, b in zip(la, lb))
     pb = parity["params_kernels"]
@@ -1560,14 +1615,14 @@ def cp_parity(torch, parity, steps=4):
     if not la[-1] < la[0]:
         raise AssertionError(f"cp=2 fp32 parity: loss did not fall {la}")
     return {"losses_ring": la, "losses_flash": lb, "max_rel_diff": rel,
-            "max_abs_param_diff": pdiff}
+            "max_abs_param_diff": pdiff}, zero
 
 
 # ---------------------------------------------------------------------------
 # 12. / 13. ZeRO-1 training
 # ---------------------------------------------------------------------------
 
-ZERO_STEPS, ZERO_ACCUM, EVAL_BATCHES = 4, 2, 2
+ZERO_STEPS, ZERO_ACCUM, EVAL_BATCHES = 2, 2, 2
 # Phase 13's largest param difference from the one-rank route after 4
 # steps (clip and weight decay on): 5.1e-5 on an H100, gated at about
 # twice that.
@@ -1585,11 +1640,14 @@ def torchrun_train(overrides, timeout=600, config=CONFIG):
     for o in overrides:
         cmd += ["--override", o]
     env = dict(os.environ, PYTHONPATH=ROOT)
+    t0 = time.perf_counter()
     proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
                           text=True, timeout=timeout)
     if proc.returncode != 0:
         raise RuntimeError(f"torchrun cli train exited {proc.returncode}:\n"
                            f"{proc.stdout[-4000:]}\n{proc.stderr[-8000:]}")
+    print(f"torchrun cli train ({len(overrides)} overrides): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     lines = proc.stdout.strip().splitlines()
     recs = [json.loads(x) for x in lines if x.startswith("{")]
     end = next(r for r in recs if r.get("event") == "train_end")
@@ -1608,9 +1666,11 @@ def cli_train_zero1(torch, layers, n_params):
     """``cli train`` under torchrun on gpt2_owt as shipped (zero1=True,
     dp=-1 -> 2, flash, adamw_fused, bf16, batch 32 x 1024) with
     grad_accum=2, evaluation and checkpoints every 2 steps and the metrics
-    writer: 4 steps, then a second launch resumes to 6; then 2 steps with
-    ZeRO-1 off for its memory. Returns the first launch's train_end record,
-    each rank's launches over both launches, and the numbers to report."""
+    writer: 2 steps, then a second launch resumes to 4; then 2 steps with
+    ZeRO-1 off (the gradient all-reduce, then fused_adamw over the whole
+    leaves) for its memory. Returns the first launch's train_end record,
+    each rank's launches over the first two launches, and the numbers to
+    report."""
     import tempfile
 
     full_bytes = 8 * n_params  # two fp32 moments, unsharded
@@ -1626,7 +1686,7 @@ def cli_train_zero1(torch, layers, n_params):
         evals = [r["step"] for r in recs if "eval_loss" in r]
         if len(losses) != ZERO_STEPS or not all(map(math.isfinite, losses)):
             raise AssertionError(f"zero1 cli train: losses {losses}")
-        if evals != [2, 4]:
+        if evals != [2]:
             raise AssertionError(f"zero1 cli train: eval records at {evals}")
         want = zero1_expected(layers, ZERO_STEPS, len(evals))
         got = [r["launches"] for r in end["ranks"]]
@@ -1642,35 +1702,43 @@ def cli_train_zero1(torch, layers, n_params):
                                  f"are not half of {full_bytes}")
         with open(os.path.join(logs, "metrics.jsonl")) as f:
             jl = [json.loads(x) for x in f]
-        if ([r["step"] for r in jl if "loss" in r] != [1, 2, 3, 4]
-                or [r["step"] for r in jl if "eval_loss" in r] != [2, 4]
+        if ([r["step"] for r in jl if "loss" in r] != [1, 2]
+                or [r["step"] for r in jl if "eval_loss" in r] != [2]
                 or any(r.get("schema") != 1 for r in jl)):
             raise AssertionError(f"metrics.jsonl: {jl}")
         steps_on_disk = sorted(int(n) for n in os.listdir(ck) if n.isdigit())
-        if steps_on_disk != [2, 4]:
+        if steps_on_disk != [2]:
             raise AssertionError(f"checkpoints at {steps_on_disk}")
         saves = end["ranks"][0]["checkpoints"]
-        text2, recs2, end2 = torchrun_train(base + ["train.steps=6"])
+        # No save at step 4: nothing reads it.
+        text2, recs2, end2 = torchrun_train(base + ["train.steps=4",
+                                                    "train.save_every=0"])
         print("\n".join(text2))
-        if "resumed from step 4" not in text2:
-            raise AssertionError("the second launch did not resume from 4")
+        if "resumed from step 2" not in text2:
+            raise AssertionError("the second launch did not resume from 2")
         steps2 = [r["step"] for r in recs2 if "loss" in r]
         want2 = zero1_expected(layers, 2, 1)
         got2 = [r["launches"] for r in end2["ranks"]]
-        if steps2 != [5, 6] or got2 != [want2, want2]:
+        if steps2 != [3, 4] or got2 != [want2, want2]:
             raise AssertionError(f"resumed run: steps {steps2}, launches "
                                  f"{got2} != {want2}")
         _, _, off = torchrun_train([f"train.grad_accum={ZERO_ACCUM}",
                                     "train.zero1=false", "train.steps=2",
                                     "train.log_every=1"])
+    off_opt = [r["opt_state_bytes"] for r in off["ranks"]]
+    want_off = zero1_expected(layers, 2, 0)
+    got_off = [r["launches"] for r in off["ranks"]]
+    if off_opt != [full_bytes, full_bytes] or got_off != [want_off] * 2:
+        raise AssertionError(f"zero1 off: optimizer bytes {off_opt} (want "
+                             f"{full_bytes}), launches {got_off} != "
+                             f"{want_off}")
     step_s = end["step_s"][1:]  # the first step warms the libraries up
     res = {
         "backend": end["backend"], "ranks_on_one_card": 2,
         "p50_step_ms": statistics.median(step_s) * 1e3,
         "step_ms": [x * 1e3 for x in step_s],
         "opt_state_bytes_per_rank": opt,
-        "opt_state_bytes_zero1_off": [r["opt_state_bytes"]
-                                      for r in off["ranks"]],
+        "opt_state_bytes_zero1_off": off_opt,
         "peak_mem_gb": [r["peak_mem_gb"] for r in end["ranks"]],
         "peak_mem_gb_zero1_off": [r["peak_mem_gb"] for r in off["ranks"]],
         "checkpoint_saves": saves,
@@ -1681,32 +1749,32 @@ def cli_train_zero1(torch, layers, n_params):
     return res, launches
 
 
-def zero1_parity(torch, parity, steps=4):
-    """fp32 at 124M width: 2 ranks at dp=2 with ZeRO-1 and grad_accum=2
-    (flash, adamw_fused) against phase 8's single-process flash route,
-    then, in fresh processes, 2 steps, a save, a resume and 2 more, which
-    must equal the straight run bit for bit."""
+def zero1_parity(torch, parity, ranks, ck, steps=4):
+    """Phase 13: fp32 at 124M width, 2 ranks at dp=2 with ZeRO-1 and
+    grad_accum=2 (flash, adamw_fused), run in phase 11's processes
+    (``ranks``), against phase 8's single-process flash route; then fresh
+    processes resume from its halfway save in ``ck`` and run the second
+    half, which must equal the straight run bit for bit."""
     import tempfile
 
-    overrides = parity["overrides"] + [
-        "mesh.dp=2", "train.zero1=true", f"train.grad_accum={ZERO_ACCUM}"]
+    on_disk = sorted(int(n) for n in os.listdir(ck) if n.isdigit())
+    if on_disk != [steps // 2, steps]:
+        raise AssertionError(f"zero1 parity: checkpoints at {on_disk}")
+    shutil.rmtree(os.path.join(ck, str(steps)))  # resume from halfway
     with tempfile.TemporaryDirectory() as tmp:
-        ranks = spawn_ranks(torch, overrides, tmp)
-        ck = os.path.join(tmp, "ckpt")
-        first = spawn_ranks(torch, overrides, tmp, ck, stop=steps // 2,
-                            save_every=steps // 2)
-        second = spawn_ranks(torch, overrides, tmp, ck)
+        second, = spawn_ranks(torch, [(zero1_overrides(parity), ck, 0,
+                                       CONFIG)], tmp)
     la, lb = ranks[0]["losses"], parity["losses_kernels"]
     rel = max(abs(a - b) / abs(b) for a, b in zip(la, lb))
     pb = parity["params_kernels"]
     pdiff = max((ranks[0]["params"][k] - pb[k].cpu()).abs().max().item()
                 for k in pb)
-    resumed = [f["losses"] + s["losses"] for f, s in zip(first, second)]
+    resumed = [s["losses"] for s in second]
     print(f"zero1 fp32 parity: losses dp=2 zero1 accum=2 {la} one rank {lb} "
           f"max rel diff {rel}; max abs param diff after {steps} steps "
           f"{pdiff} (limit {ZERO_PARAM_LIMIT}); saved and resumed {resumed}; "
           f"checkpoint "
-          f"saves {first[0]['timings']}", flush=True)
+          f"saves {ranks[0]['timings']}", flush=True)
     if ranks[1]["losses"] != la:
         raise AssertionError("zero1 fp32 parity: the ranks' losses differ")
     if not rel <= 1e-4:
@@ -1716,9 +1784,9 @@ def zero1_parity(torch, parity, steps=4):
                              f"{ZERO_PARAM_LIMIT}")
     if not la[-1] < la[0]:
         raise AssertionError(f"zero1 fp32 parity: loss did not fall {la}")
-    if any(r != la for r in resumed):
+    if any(r != la[steps // 2:] for r in resumed):
         raise AssertionError(f"zero1 resume is not bit-exact: {resumed} "
-                             f"against {la}")
+                             f"against {la[steps // 2:]}")
     if any(not torch.equal(second[0]["params"][k], ranks[0]["params"][k])
            for k in pb):
         raise AssertionError("zero1 resume: params differ from the "
@@ -1832,15 +1900,27 @@ def resnet_train(torch, cli, batch):
     return out
 
 
+# Every benchmark phase runs ``cli benchmark`` at this depth: 6 timed
+# steps and 4 synced ones after the 5 warm-up steps, and the multi-step
+# probe at K = 2 in 3 calls (the defaults, 30, 12 and K = 8 in 3 calls,
+# took 38 s on llama_moe).
+BENCH_DEPTH = ["--steps", "6", "--latency-steps", "4", "--probe", "2"]
+
+
 def config_benchmark(cli, config):
-    """Phases 15 and 18: ``cli benchmark`` on a shipped config; its
-    record."""
+    """Phases 15, 18, 22 and 26: ``cli benchmark`` on a shipped config at
+    ``BENCH_DEPTH``. The record, checked."""
+    argv = ["benchmark", "--config", config, "--device", "cuda",
+            *BENCH_DEPTH]
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        rc = cli.main(["benchmark", "--config", config, "--device", "cuda"])
+        rc = cli.main(argv)
     if rc != 0:
         raise RuntimeError(f"cli benchmark exited {rc}")
     rec = json.loads(buf.getvalue().strip().splitlines()[-1])
+    if not (rec.get("fused_steps_per_sec", 0) > 0
+            and isinstance(rec.get("dispatch_overhead_ms_per_step"), float)):
+        raise AssertionError(f"benchmark probe: {rec}")
     for key in ("value", "p50_step_ms", "p90_step_ms", "mfu",
                 "hbm_peak_bytes", "model_tflops_per_step"):
         if not isinstance(rec.get(key), (int, float)) or not rec[key] > 0:
@@ -1871,20 +1951,21 @@ def resnet_one_process(torch, cli, load_config, apply_overrides, accum):
 
 
 def resnet_dp2(torch, cli, load_config, apply_overrides):
-    """Phase 16: fp32 parity of dp=2 (grad_accum 1 and 2) against one
-    process, then the shipped config under torchrun at dp=2 with eval and
-    checkpoints every 2 steps, and a resume in fresh processes that
-    repeats steps 3 and 4 bit for bit."""
+    """Phase 16: fp32 parity of dp=2 (grad_accum 1 and 2, both in one
+    pair of processes) against one process, then the shipped config under
+    torchrun at dp=2 with eval and checkpoints every 2 steps, and a resume
+    in fresh processes that repeats steps 3 and 4 bit for bit."""
     import tempfile
 
+    accums = (1, 2)
+    one = [resnet_one_process(torch, cli, load_config, apply_overrides, a)
+           for a in accums]
+    with tempfile.TemporaryDirectory() as tmp:
+        dp2 = spawn_ranks(torch, [(RESNET_PARITY + [
+            "mesh.dp=2", f"train.grad_accum={a}"], None, 0, RESNET)
+            for a in accums], tmp)
     parity = {}
-    for accum in (1, 2):
-        la, sa = resnet_one_process(torch, cli, load_config,
-                                    apply_overrides, accum)
-        with tempfile.TemporaryDirectory() as tmp:
-            ranks = spawn_ranks(torch, RESNET_PARITY + [
-                "mesh.dp=2", f"train.grad_accum={accum}"], tmp,
-                config=RESNET)
+    for accum, (la, sa), ranks in zip(accums, one, dp2):
         lb, sb = ranks[0]["losses"], ranks[0]["model_state"]
         rels = [abs(a - b) / abs(b) for a, b in zip(lb, la)]
         rel = max(rels)
@@ -1983,12 +2064,13 @@ def model_shape(models, load_config, apply_overrides, config, overrides=()):
 
 
 def flash_model_train(torch, cli, name, config, steps, layers, groups,
-                      fwd_per, accum, overrides=(), start=0):
+                      fwd_per, accum, overrides=(), start=0, skipped=0):
     """``cli train`` on a flash config, to ``steps`` from ``start`` (a
     resume): (record, launches). Per step ``flash_fwd`` launches layers x
     fwd_per x accum times (fwd_per 2 under remat: the forward and the
     recompute), ``flash_dq`` and ``flash_dkv`` layers x accum,
-    ``fused_adamw`` once a group."""
+    ``fused_adamw`` once a group on each step the health guard did not
+    skip (``skipped`` of them)."""
     reset_all_launches()  # this path's counts start here
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2000,7 +2082,7 @@ def flash_model_train(torch, cli, name, config, steps, layers, groups,
     want.update(flash_fwd=layers * fwd_per * accum * ran,
                 flash_dq=layers * accum * ran,
                 flash_dkv=layers * accum * ran,
-                fused_adamw=groups * ran)
+                fused_adamw=groups * (ran - skipped))
     print("\n".join(text))
     res = {"config": os.path.basename(config), "overrides": list(overrides),
            "losses": losses, "p50_step_ms": statistics.median(step_s) * 1e3,
@@ -2008,7 +2090,8 @@ def flash_model_train(torch, cli, name, config, steps, layers, groups,
            "peak_mem_gb": end["peak_mem_gb"],
            "opt_state_bytes": end["opt_state_bytes"],
            "launches": launched}
-    for key in ("masked_fraction", "aux_loss", "moe_dropped_frac"):
+    for key in ("masked_fraction", "aux_loss", "moe_dropped_frac",
+                "skipped", "anomalies"):
         extra = [r.get(key) for r in recs]
         if extra[0] is not None:
             res[key] = extra
@@ -2096,9 +2179,9 @@ def flash_flops_per_step(cfg, meta):
 
 def flash_benchmarks(torch, cli, models, load_config, apply_overrides,
                      configs):
-    """Phases 18 and 22: ``cli benchmark`` on each ``(name, config)`` as
-    shipped; each record, with the flash kernels' share of the step's
-    FLOPs."""
+    """Phases 18, 22 and 26: ``cli benchmark`` (at ``BENCH_DEPTH``) on each
+    ``(name, config)`` as shipped; each record, with the flash kernels'
+    share of the step's FLOPs."""
     out = {}
     for name, config in configs:
         torch.cuda.empty_cache()
@@ -2326,8 +2409,9 @@ def moe_train(torch, cli, models, load_config, apply_overrides, name,
 
 
 def moe_benchmark(torch, cli, models, load_config, apply_overrides):
-    """Phase 26: ``cli benchmark`` on llama_moe as shipped, its record printed with the flash kernels' FLOPs and the one-hot einsums'
-    share of the counted FLOPs beside the MFU."""
+    """Phase 26: ``cli benchmark`` on llama_moe as shipped, its record
+    printed with the flash kernels' FLOPs and the one-hot einsums' share
+    of the counted FLOPs beside the MFU."""
     config = LLAMA_MOE
     out = flash_benchmarks(torch, cli, models, load_config, apply_overrides,
                            (("llama_moe", config),))
@@ -2422,6 +2506,26 @@ def moe_parity(torch, cli, load_config, apply_overrides):
     return res
 
 
+def write_byte_corpus(tmp) -> str:
+    """The repository's own Markdown files as a byte corpus, written into
+    ``tmp`` by the port's ``prepare_data``; the token file's path."""
+    from distributeddeeplearning_tpu_torch import prepare_data
+
+    texts = sorted(f for f in os.listdir(ROOT) if f.endswith(".md"))
+    src, tok = os.path.join(tmp, "corpus.txt"), os.path.join(tmp,
+                                                             "corpus.tok")
+    with open(src, "wb") as out:
+        for name in texts:
+            with open(os.path.join(ROOT, name), "rb") as f:
+                out.write(f.read())
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        prepare_data.main(["--input", src, "--output", tok, "--tokenizer",
+                           "byte"])
+    print(buf.getvalue().strip(), f"from {len(texts)} files", flush=True)
+    return tok
+
+
 def token_file_train(torch, cli, models, load_config, apply_overrides):
     """Phase 29: a byte corpus of the repository's own text written by the
     port's ``prepare_data``; ``cli train`` on ``configs/gpt2_owt_file.py``
@@ -2430,24 +2534,13 @@ def token_file_train(torch, cli, models, load_config, apply_overrides):
     per step flash 12 launches each, fused_adamw one a group."""
     import tempfile
 
-    from distributeddeeplearning_tpu_torch import data_text, prepare_data
+    from distributeddeeplearning_tpu_torch import data_text
 
     layers, groups, _, _ = model_shape(models, load_config,
                                        apply_overrides, OWT_FILE)
     cfg = load_config(OWT_FILE)
-    texts = sorted(f for f in os.listdir(ROOT) if f.endswith(".md"))
     with tempfile.TemporaryDirectory() as tmp:
-        src, tok = os.path.join(tmp, "corpus.txt"), os.path.join(
-            tmp, "corpus.tok")
-        with open(src, "wb") as out:
-            for name in texts:
-                with open(os.path.join(ROOT, name), "rb") as f:
-                    out.write(f.read())
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            prepare_data.main(["--input", src, "--output", tok,
-                               "--tokenizer", "byte"])
-        print(buf.getvalue().strip(), f"from {len(texts)} files", flush=True)
+        tok = write_byte_corpus(tmp)
         n_tokens = len(data_text.read_token_file(tok)[0])
         rows = cfg.data.batch_size * cfg.data.seq_len
         if n_tokens // cfg.data.seq_len < cfg.data.batch_size:
@@ -2480,11 +2573,320 @@ def token_file_train(torch, cli, models, load_config, apply_overrides):
     return runs
 
 
+BF16_FULL = ["train.precision.policy=bf16_full", "optim.name=adamw"]
+BF16_FULL_STEPS = 6
+
+
+def bf16_full_train(torch, cli, models, load_config, apply_overrides):
+    """Phase 30: ``cli train`` on gpt2_owt as shipped but for the
+    ``bf16_full`` policy with ``optim.name=adamw`` (the reference fences
+    bf16 moments to the plain AdamW), 6 steps: each flash kernel 12 a
+    step, fused_adamw never (``LowPrecisionAdamW`` is plain torch); the
+    moments are bf16, so the optimizer state is 2 x 2 bytes a parameter,
+    half the plain fp32 AdamW's 2 x 4; p50 and peak memory."""
+    layers, _, n, _ = model_shape(models, load_config, apply_overrides,
+                                  CONFIG)
+    res, launched = flash_model_train(torch, cli, "gpt2 bf16_full", CONFIG,
+                                      BF16_FULL_STEPS, layers, 0, 1, 1,
+                                      BF16_FULL)
+    fp32_bytes = 2 * 4 * n
+    print(f"bf16_full: optimizer state {res['opt_state_bytes']:,} bytes "
+          f"against fp32 AdamW's {fp32_bytes:,} "
+          f"({res['opt_state_bytes'] / fp32_bytes:.3f}); p50 "
+          f"{res['p50_step_ms']:.2f} ms, peak {res['peak_mem_gb']:.2f} GB",
+          flush=True)
+    if res["opt_state_bytes"] != 2 * 2 * n:
+        raise AssertionError(f"bf16_full moments: {res['opt_state_bytes']} "
+                             f"bytes, not bf16's {2 * 2 * n}")
+    return res, launched
+
+
+HEALTH_STEPS, FAULT_STEP = 6, 3
+HEALTH = ["health.enabled=true", f"train.fault_injection=nan:{FAULT_STEP}"]
+
+
+def skip_is_exact(torch, cli, load_config, apply_overrides):
+    """Phase 31's exactness check, on the Trainer that ``cli train`` runs:
+    the state after the step whose gradients the fault poisons equals the
+    state before it, bit for bit (fp32 masters, both moments, the
+    optimizer's count), the step counter advanced; that step runs the
+    forward and backward (flash) and launches no fused_adamw, since the
+    guard decides on the host before the update."""
+    from distributeddeeplearning_tpu_torch import data
+
+    cfg = apply_overrides(load_config(CONFIG), HEALTH)
+    _, trainer, dataset = cli.build_all(cfg, "cuda",
+                                        fault_nan_step=FAULT_STEP)
+    state = trainer.init(cfg.train.seed)
+    batches = data.prefetch(data.sharded_batches(
+        dataset.iter_from(0), trainer.mesh), "cuda")
+    for _ in range(FAULT_STEP):
+        state, m = trainer.train_step(state, next(batches))
+    before = {
+        "params": {k: p.detach().clone() for k, p in state.params.items()},
+        "mu": {k: v.clone() for k, v in state.opt_state.mu.items()},
+        "nu": {k: v.clone() for k, v in state.opt_state.nu.items()}}
+    count, step = state.opt_state.count, state.step
+    launched0 = all_launches()
+    state, m = trainer.train_step(state, next(batches))
+    torch.cuda.synchronize()
+    delta = {k: v - launched0[k] for k, v in all_launches().items()}
+    adamw = delta["fused_adamw"]
+    flash = delta["flash_fwd"] + delta["flash_dq"] + delta["flash_dkv"]
+    after = {"params": state.params, "mu": state.opt_state.mu,
+             "nu": state.opt_state.nu}
+    equal = all(torch.equal(after[t][k], before[t][k])
+                for t in before for k in before[t])
+    res = {"skipped": int(m["skipped"]), "anomalies": int(m["anomalies"]),
+           "bit_equal": equal, "count": [count, state.opt_state.count],
+           "step": [step, state.step], "fused_adamw_on_skip": adamw,
+           "flash_on_skip": flash}
+    print(f"skipped step {FAULT_STEP} (pre-step counter): {json.dumps(res)}",
+          flush=True)
+    if not (res["skipped"] == res["anomalies"] == 1 and equal
+            and count == state.opt_state.count and state.step == step + 1
+            and adamw == 0 and flash > 0):
+        raise AssertionError(f"skip-update is not exact: {res}")
+    del trainer, state, before
+    torch.cuda.empty_cache()
+    return res
+
+
+def rollback_run(torch, cli, layers, groups):
+    """Phase 31's rollback: ``cli train`` to 4 steps with the guard,
+    ``max_consecutive_anomalies=1``, a checkpoint every 2 steps and the
+    fault at step 2: the streak is read one logging interval late (at step
+    4's dispatch), the run restarts from step 2 with the fault disarmed
+    (one ``rollback_restart``) and ends at step 4. 6 steps run (4, then 2),
+    5 of them update."""
+    import tempfile
+
+    reset_all_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["train", "--config", CONFIG, "--device", "cuda"]
+        for o in ("train.steps=4", "train.log_every=1",
+                  "health.enabled=true", "train.fault_injection=nan:2",
+                  "health.max_consecutive_anomalies=1",
+                  "train.save_every=2", f"train.checkpoint_dir={tmp}/ckpt"):
+            argv += ["--override", o]
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+    text = buf.getvalue()
+    recs = [json.loads(x) for x in text.splitlines() if x.startswith("{")]
+    events = [r["event"] for r in recs if "event" in r]
+    steps = [r["step"] for r in recs if "event" not in r]
+    skipped = [int(r["skipped"]) for r in recs if "event" not in r]
+    launched = all_launches()
+    want = {k: 0 for k in launched}
+    want.update(flash_fwd=6 * layers, flash_dq=6 * layers,
+                flash_dkv=6 * layers, fused_adamw=5 * groups)
+    res = {"rc": rc, "events": events, "steps": steps, "skipped": skipped,
+           "resumed_from_2": "resumed from step 2" in text,
+           "launches": launched}
+    print(f"rollback: {json.dumps(res)}", flush=True)
+    if not (rc == 0 and events == ["health_rollback", "rollback_restart"]
+            and steps == [1, 2, 3, 3, 4] and skipped == [0, 0, 1, 0, 0]
+            and res["resumed_from_2"] and launched == want):
+        raise AssertionError(f"rollback run: {res}, launches expected {want}")
+    return res, launched
+
+
+def health_guard(torch, cli, models, load_config, apply_overrides):
+    """Phase 31: ``cli train`` on gpt2_owt as shipped (adamw_fused, ZeRO-1
+    a no-op at dp = 1) for 6 steps with the guard off, then on with the
+    fault ``nan:3``: the step of pre-step counter 3 (logged as step 4)
+    reports skipped 1 and anomalies 1, and launches no fused_adamw (2
+    launches a step on the other 5); p50 with the guard on (one host read
+    of the loss and gradient norm a step) and off. Then the exactness
+    check and the rollback."""
+    layers, groups, _, _ = model_shape(models, load_config, apply_overrides,
+                                       CONFIG)
+    off, off_launched = flash_model_train(
+        torch, cli, "gpt2 guard off", CONFIG, HEALTH_STEPS, layers, groups,
+        1, 1, ["health.enabled=false"])
+    on, on_launched = flash_model_train(
+        torch, cli, "gpt2 guard on", CONFIG, HEALTH_STEPS, layers, groups,
+        1, 1, HEALTH, skipped=1)
+    want = [int(i == FAULT_STEP) for i in range(HEALTH_STEPS)]
+    anomalies = [int(i >= FAULT_STEP) for i in range(HEALTH_STEPS)]
+    if ([int(x) for x in on["skipped"]] != want
+            or [int(x) for x in on["anomalies"]] != anomalies):
+        raise AssertionError(f"guard records: skipped {on['skipped']}, "
+                             f"anomalies {on['anomalies']}")
+    print(f"health guard: p50 on {on['p50_step_ms']:.2f} ms, off "
+          f"{off['p50_step_ms']:.2f} ms (the host read a step: "
+          f"{on['p50_step_ms'] - off['p50_step_ms']:+.2f} ms)", flush=True)
+    exact = skip_is_exact(torch, cli, load_config, apply_overrides)
+    rollback, rb_launched = rollback_run(torch, cli, layers, groups)
+    launched = {k: off_launched[k] + on_launched[k] + rb_launched[k]
+                for k in off_launched}
+    return {"p50_on_ms": on["p50_step_ms"], "p50_off_ms": off["p50_step_ms"],
+            "exact": exact, "rollback": rollback}, launched
+
+
+GEN_PROMPTS = ["The H100 decodes from a contiguous KV cache", "generate"]
+GEN_NEW = 32
+GEN_STEPS = 4
+# Timed runs of each stage: one run of the 31 decode steps lasts about
+# half a second, so the median of 3 moved with the host's jitter.
+GEN_REPS = 20
+
+
+def generate_full_width(torch, cli, models, load_config, apply_overrides):
+    """Phase 32: ``cli train`` on gpt2_owt_file at full width with the
+    byte vocabulary (``model.kwargs.vocab_size=256``, as the reference's
+    own test overrides it) on the repository's byte corpus, 4 steps and a
+    save; then ``cli generate --bench`` from that checkpoint with two
+    uneven prompts and 32 new tokens (bf16, the cache attention in plain
+    torch), ``GEN_REPS`` timed runs: its record, decode and prefill
+    rates."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tok = write_byte_corpus(tmp)
+        base = [f"data.path={tok}", "model.kwargs.vocab_size=256",
+                f"train.checkpoint_dir={tmp}/ckpt",
+                f"train.save_every={GEN_STEPS}"]
+        layers, groups, _, _ = model_shape(models, load_config,
+                                           apply_overrides, OWT_FILE, base)
+        res, launched = flash_model_train(
+            torch, cli, "gpt2_owt_file byte vocab", OWT_FILE, GEN_STEPS,
+            layers, groups, 1, 1, base)
+        argv = ["generate", "--config", OWT_FILE, "--device", "cuda"]
+        for o in base:
+            argv += ["--override", o]
+        for p in GEN_PROMPTS:
+            argv += ["--prompt", p]
+        argv += ["--max-new-tokens", str(GEN_NEW), "--bench", "--reps",
+                 str(GEN_REPS)]
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+    lines = buf.getvalue().strip().splitlines()
+    rec = json.loads(lines[-1])
+    print(f"cli generate: {json.dumps(rec)}", flush=True)
+    if not (rc == 0 and lines[0] == f"generating from checkpoint at step "
+            f"{GEN_STEPS}" and rec["step"] == GEN_STEPS
+            and len(rec["results"]) == len(GEN_PROMPTS)
+            and rec["reps"] == GEN_REPS):
+        raise AssertionError(f"cli generate: rc {rc}, {lines[:2]}")
+    for key in ("decode_tokens_per_sec", "prefill_tokens_per_sec",
+                "decode_time_s", "e2e_tokens_per_sec"):
+        if not (isinstance(rec.get(key), float) and rec[key] > 0):
+            raise AssertionError(f"cli generate record: {key}={rec.get(key)}")
+    if rec["generated_tokens"] != len(GEN_PROMPTS) * (GEN_NEW - 1):
+        raise AssertionError(f"cli generate: {rec['generated_tokens']} "
+                             "generated tokens")
+    return rec, launched
+
+
+GEN_PARITY_NEW = 32
+GEN_PARITY_LENS = (61, 37)
+
+
+def _oracle_row(torch, model, prompt, new):
+    """No-cache greedy continuation of one row: a full forward over the
+    growing prefix a token. Returns (tokens, the top-2 logit gap at each
+    pick)."""
+    from distributeddeeplearning_tpu_torch.generate import _logits_of
+
+    buf = torch.tensor([prompt], device="cuda")
+    gaps = []
+    with torch.no_grad():
+        for _ in range(new):
+            logits = _logits_of(model(buf))[:, -1].float()
+            top2 = logits.topk(2, dim=-1).values[0]
+            gaps.append(float(top2[0] - top2[1]))
+            buf = torch.cat([buf, logits.argmax(-1)[:, None]], dim=1)
+    return buf[0, len(prompt):].tolist(), gaps
+
+
+def generation_parity(torch, cli, load_config, apply_overrides, pa,
+                      ServingEngine, ServingConfig, Request):
+    """Phase 33: fp32 at full width (xla attention core for the oracle;
+    TF32 off). Greedy tokens of ``generate`` on an uneven, left-padded
+    batch of two rows must equal, exactly, each row's no-cache oracle (a
+    full forward over the growing prefix, the row alone) on GPT-2 124M,
+    Llama-300M and llama_moe 8x300m; for GPT-2 and Llama also the serving
+    engine's on the same weights and prompts, whose decode steps run
+    ``paged_decode`` (launches = decode calls x layers). llama_moe decodes
+    through the one-token prefill; its capacity factor is raised to
+    experts / selected (4.0), so the oracle's batched routing of a whole
+    row has a slot for every token and drops none, as a one-token decode
+    step never does (at the shipped 1.25 the oracle would drop tokens
+    that the decode keeps, a different function)."""
+    import numpy as np
+
+    from distributeddeeplearning_tpu_torch.generate import (
+        generate,
+        pad_prompts,
+    )
+
+    out, paged = {}, {"paged_decode": 0}
+    for name, config, extra in (
+            ("gpt2", CONFIG, ()), ("llama", LLAMA, ()),
+            ("llama_moe", LLAMA_MOE, ("model.kwargs.capacity_factor=4.0",))):
+        cfg = apply_overrides(load_config(config), [
+            "model.kwargs.dtype=float32", "model.kwargs.attn_impl=xla",
+            *extra])
+        torch.cuda.empty_cache()
+        model = cli.build_model(cfg, "cuda")
+        rng = np.random.default_rng(0)
+        prompts = [list(map(int, rng.integers(0, model.vocab_size, n)))
+                   for n in GEN_PARITY_LENS]
+        padded, lens = pad_prompts(prompts)
+        P = padded.shape[1]
+        got = generate(model, padded, max_new_tokens=GEN_PARITY_NEW,
+                       prompt_lens=lens)[:, P:].tolist()
+        res = {"rows": len(prompts), "new_tokens": GEN_PARITY_NEW}
+        for i, p in enumerate(prompts):
+            want, gaps = _oracle_row(torch, model, p, GEN_PARITY_NEW)
+            if got[i] != want:
+                t = next(j for j, (a, b) in enumerate(zip(got[i], want))
+                         if a != b)
+                raise AssertionError(
+                    f"{name} row {i} token {t}: generate {got[i][t]}, "
+                    f"oracle {want[t]}, top-2 gap {gaps[t]}")
+            res[f"min_top2_gap_row{i}"] = min(gaps)
+        if name != "llama_moe":
+            eng = ServingEngine(model, ServingConfig(
+                slots=2, block_size=16, max_seq_len=128,
+                prompt_buckets=(64,), hbm_budget_mb=256,
+                attn_kernel="pallas"), seed=0, device="cuda")
+            eng.warmup()
+            before = sum(pa.LAUNCHES.values())
+            for p in prompts:
+                eng.submit(Request(prompt=p, max_new_tokens=GEN_PARITY_NEW))
+            served = {tuple(st.request.prompt): st.generated
+                      for st in eng.run()}
+            torch.cuda.synchronize()
+            launched = sum(pa.LAUNCHES.values()) - before
+            if launched != eng.calls["decode"] * model.num_layers:
+                raise AssertionError(f"{name} engine: {launched} paged "
+                                     "launches")
+            for i, p in enumerate(prompts):
+                if list(served[tuple(p)]) != got[i]:
+                    raise AssertionError(f"{name} row {i}: engine "
+                                         f"{served[tuple(p)]} != generate "
+                                         f"{got[i]}")
+            res["engine_paged_launches"] = launched
+            paged["paged_decode"] += launched
+        out[name] = res
+        print(f"generation parity {name} (fp32): generate == oracle"
+              f"{' == engine' if name != 'llama_moe' else ''}, "
+              f"{json.dumps(res)}", flush=True)
+        del model
+    return out, paged
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
                     help="stop after the kernels-vs-plain phase")
     args = ap.parse_args(argv)
+    import tempfile
+
     import torch
 
     if not torch.cuda.is_available():
@@ -2607,8 +3009,11 @@ def main(argv=None) -> int:
 
     launches["fused_adamw"] += sum(r["fused_adamw"] for r in per_rank)
 
-    phase("11 fp32 parity at 124M width, cp=2 against one rank")
-    cp_parity(torch, parity)
+    phase("11 fp32 parity at 124M width, cp=2 against one rank (then "
+          "phase 13's ZeRO-1 run in the same processes)")
+    zero_ck = tempfile.TemporaryDirectory()  # its halfway save, for 13
+    _, zero_ranks = cp_parity(torch, parity,
+                              os.path.join(zero_ck.name, "ckpt"))
 
     phase("12 ZeRO-1 train through the entry point (torchrun, dp=2)")
     n_params = sum(p.numel() for p in models.get_model(
@@ -2617,8 +3022,11 @@ def main(argv=None) -> int:
     for k in ("flash_fwd", "flash_dq", "flash_dkv", "fused_adamw"):
         launches[k] += sum(r[k] for r in zero_launches)
 
-    phase("13 fp32 parity at 124M width, ZeRO-1 dp=2 against one rank")
-    zero1_parity(torch, parity)
+    phase("13 fp32 parity at 124M width, ZeRO-1 dp=2 against one rank, "
+          "and its resume")
+    zero1_parity(torch, parity, zero_ranks,
+                 os.path.join(zero_ck.name, "ckpt"))
+    zero_ck.cleanup()
 
     phase("14 ResNet-50 train through the entry point")
     rcfg = load_config(RESNET)
@@ -2705,6 +3113,27 @@ def main(argv=None) -> int:
         for k in ("flash_fwd", "flash_dq", "flash_dkv", "fused_adamw"):
             launches[k] += launched[k]
 
+    # Phases 30-33 each return (result, launches on the main path).
+    phase("30 bf16_full train through the entry point")
+    late = [bf16_full_train(torch, cli, models, load_config,
+                            apply_overrides)[1]]
+    phase("31 health guard: nan:3 skipped exactly, then a rollback")
+    late.append(health_guard(torch, cli, models, load_config,
+                             apply_overrides)[1])
+    phase("32 cli generate at full width from a trained checkpoint")
+    gen_rec, launched = generate_full_width(torch, cli, models, load_config,
+                                            apply_overrides)
+    late.append(launched)
+    phase("33 generation parity on the card, fp32: oracle and engine")
+    late.append(generation_parity(torch, cli, load_config, apply_overrides,
+                                  pa, ServingEngine, ServingConfig,
+                                  Request)[1])
+    for launched in late:
+        for k, v in launched.items():
+            launches[k] += v
+    print(f"chip_smoke: 33 phases in {time.perf_counter() - _T0:.1f} s",
+          flush=True)
+
     # Each kernel's numbers come from its case at the main path's types.
     main_case = {"paged_decode": "bf16", "paged_decode_q8": "int8_bf16q",
                  "flash_fwd": "flash_fwd", "flash_dq": "flash_dq",
@@ -2728,6 +3157,8 @@ def main(argv=None) -> int:
     for rec in (*encoder_bench.values(), *llama_bench.values(),
                 *moe_bench.values()):
         print(json.dumps({"benchmark": rec}))
+    print(json.dumps({"generate": {k: v for k, v in gen_rec.items()
+                                   if k != "results"}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -6,9 +6,10 @@ The JAX package's ``checkpoint.py`` keeps the same interface over orbax
 
 - **On disk**, ``<dir>/<step>/state.pt`` holds the step, the root dropout
   seed, the optimizer count, the params, the model's buffers
-  (``model_state``: BatchNorm's running statistics) and the optimizer's
-  trees (both Adam moments, or SGD's trace) as full params-shaped trees of
-  CPU tensors; ``<dir>/<step>/data.json`` the input pipeline's position
+  (``model_state``: BatchNorm's running statistics), the optimizer's
+  trees (both Adam moments in their own dtype, bf16 under ``bf16_full``, or
+  SGD's trace) as full params-shaped trees of CPU tensors, and the health
+  guard's counters when the guard is on; ``<dir>/<step>/data.json`` the input pipeline's position
   (``{"next_index": N}``), so resume is step-exact.
 - **Atomic**: a step is written into ``<dir>/.tmp-<step>`` and renamed to
   ``<dir>/<step>`` once both files are on disk, so :meth:`latest_step`
@@ -68,10 +69,13 @@ def _host(state, opt_trees: dict) -> dict:
     def host(tree):
         return {k: v.detach().to("cpu", copy=True) for k, v in tree.items()}
 
-    return {"step": int(state.step), "rng": int(state.rng),
-            "count": int(state.opt_state.count), "params": host(state.params),
-            "model_state": host(state.model_state),
-            **{name: host(tree) for name, tree in opt_trees.items()}}
+    out = {"step": int(state.step), "rng": int(state.rng),
+           "count": int(state.opt_state.count), "params": host(state.params),
+           "model_state": host(state.model_state),
+           **{name: host(tree) for name, tree in opt_trees.items()}}
+    if state.health is not None:
+        out["health"] = state.health.as_dict()
+    return out
 
 
 def _check_tree(tree: dict, name: str, like: dict) -> None:
@@ -119,8 +123,14 @@ def load_into(state, host: dict):
             for k, t in tree.items():
                 t.copy_(full[k])
         opt = opt._replace(count=int(host["count"]))
+    health = state.health
+    if health is not None and "health" in host:
+        from .health import HealthState
+
+        health = HealthState.from_dict(host["health"])
     return dataclasses.replace(state, step=int(host["step"]),
-                               rng=int(host["rng"]), opt_state=opt)
+                               rng=int(host["rng"]), opt_state=opt,
+                               health=health)
 
 
 class CheckpointManager:

@@ -1,14 +1,15 @@
 """CLI entry points: ``python -m distributeddeeplearning_tpu_torch.cli
-{train,eval,benchmark,serve}``.
+{train,eval,benchmark,generate,serve}``.
 
 ``train`` runs the training path (``build_all`` -> ``Trainer`` -> ``fit``)
 on one rank, or on every rank ``torchrun`` starts (one process per rank,
 ``mesh.dp`` x ``mesh.cp`` of them), resuming from ``train.checkpoint_dir``;
 ``eval`` evaluates its latest checkpoint; ``benchmark`` times the config's
 training step (``benchmark.run_benchmark``: images or tokens per second per
-GPU); ``serve`` runs the in-process serving engine on its latest
-checkpoint's weights. All run on the GPU by default; ``--device cpu`` asks
-for the CPU (and gloo under ``torchrun``).
+GPU); ``generate`` samples from its latest checkpoint's weights with the
+KV-cache decoder (``generate.py``); ``serve`` runs the in-process serving
+engine on them. All run on the GPU by default; ``--device cpu`` asks for the
+CPU (and gloo under ``torchrun``).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import contextlib
 import dataclasses
 import itertools
 import json
+import sys
 
 import torch
 
@@ -64,11 +66,13 @@ def _unported_train_knobs(cfg: Config, world_size: int = 1):
          f"mesh.{a}={sizes[a]} ({what})", item)
         for a, (what, item) in _UNPORTED_AXES.items()
     ]
+    fault = t.fault_injection.partition(":")[0]
     return [
-        ("health.enabled", cfg.health.enabled, "the health guard", "A9"),
         ("telemetry.enabled", cfg.telemetry.enabled, "telemetry", "A14"),
-        ("train.fault_injection", t.fault_injection, "fault injection",
-         "A14"),
+        ("train.fault_injection", t.fault_injection
+         if fault in ("step", "hang", "corrupt") else "",
+         f"fault injection of kind {fault!r} (the supervisor's crash, hang "
+         "and corrupt-checkpoint faults; 'nan:K' is ported)", "A14"),
         ("train.debug_nans", t.debug_nans, "NaN debugging", "A14"),
         ("train.debug_checks", t.debug_checks, "runtime checks", "A14"),
         ("train.grad_comm", t.grad_comm if t.grad_comm != "fp32" else "",
@@ -103,14 +107,16 @@ def check_train_composition(cfg: Config, world_size: int = 1) -> None:
             )
 
 
-def build_all(cfg: Config, device, mesh=None):
+def build_all(cfg: Config, device, mesh=None, fault_nan_step=None):
     """Construct (model, trainer, dataset) from a config on ``device``, for
     this rank of ``mesh`` (default: the one-rank mesh), which the model
     gets too (ResNet syncs its BatchNorm statistics over its dp ranks, the
     ring attention cores rotate over its cp ranks). The model's compute
     dtype follows ``train.precision.policy`` when the policy is mixed, and
     ``train.remat`` other than 'none' sets the model's per-block activation
-    checkpointing, as in the reference."""
+    checkpointing, as in the reference. The trainer carries the config's
+    health guard and ``fault_nan_step`` (the step whose gradients the
+    ``nan:K`` fault poisons)."""
     from . import data
     from .mesh import single_device_mesh
     from .models.gpt2 import as_torch_dtype
@@ -155,7 +161,8 @@ def build_all(cfg: Config, device, mesh=None):
         get_task(cfg.train.task, mesh=mesh, head_chunk=cfg.train.head_chunk,
                  label_smoothing=cfg.train.label_smoothing),
         device=device, precision=policy, mesh=mesh, zero1=cfg.train.zero1,
-        grad_accum=cfg.train.grad_accum,
+        grad_accum=cfg.train.grad_accum, health=cfg.health,
+        fault_nan_step=fault_nan_step,
     )
     dataset = data.make_dataset(cfg.data.kind, **cfg.data.dataset_kwargs())
     return model, trainer, dataset
@@ -257,69 +264,107 @@ def cmd_train(cfg: Config, *, device=None, sync_steps: bool = False) -> int:
     saved every ``train.save_every`` steps, and every save is on disk before
     the command returns, on every exit path. ``sync_steps`` ends every step
     in a device sync and prints each step's seconds, with every rank's
-    report (:func:`_rank_report`), in a final ``train_end`` event
-    record."""
-    import torch.distributed as dist
+    report (:func:`_rank_report`), in a final ``train_end`` event record.
 
-    from . import data
-    from .checkpoint import CheckpointManager
+    With the health guard on, ``max_consecutive_anomalies`` anomalous steps
+    in a row end the attempt (``train.HealthRollback``): training restarts
+    from the last checkpoint (a ``rollback_restart`` record), up to
+    ``health.max_rollbacks`` times, then gives up with exit code 1 (a
+    ``rollback_give_up`` record on stderr). A restart models a transient
+    fault, so an injected ``nan:K`` fault is disarmed for it."""
     from .mesh import DistEnv
-    from .metrics import MetricWriter, Profiler, event_record
-    from .train import check_fusion_cadences, fit
+    from .train import HealthRollback, check_fusion_cadences
+    from .train import parse_fault_injection
 
     t = cfg.train
     check_train_composition(cfg, world_size=DistEnv.from_environ().world_size)
+    fault = parse_fault_injection(t.fault_injection)
     # Cadence fences before the build: fit checks again with the resume
     # step.
     check_fusion_cadences(t.steps_per_call, steps=t.steps,
                           log_every=t.log_every, eval_every=t.eval_every,
                           save_every=t.save_every)
+    with _joined(cfg, device) as (device, mesh, say):
+        rollbacks = 0
+        while True:
+            try:
+                _train_once(cfg, device, mesh, say, sync_steps,
+                            fault_nan_step=fault.step if fault else None)
+                return 0
+            except HealthRollback as rb:
+                rollbacks += 1
+                if rollbacks > cfg.health.max_rollbacks:
+                    if mesh.rank == 0:
+                        print(json.dumps({
+                            "event": "rollback_give_up",
+                            "rollbacks": rollbacks - 1,
+                            "max_rollbacks": cfg.health.max_rollbacks,
+                            "step": rb.step,
+                        }), file=sys.stderr, flush=True)
+                    return 1
+                say(json.dumps({
+                    "event": "rollback_restart", "rollbacks": rollbacks,
+                    "step": rb.step, "consecutive": rb.consecutive,
+                }))
+                fault = None
+
+
+def _train_once(cfg: Config, device, mesh, say, sync_steps: bool,
+                fault_nan_step: int | None) -> None:
+    """One attempt of :func:`cmd_train` on this rank of ``mesh``: build,
+    resume from the latest checkpoint if any, and fit."""
+    import torch.distributed as dist
+
+    from . import data
+    from .checkpoint import CheckpointManager
+    from .metrics import MetricWriter, Profiler, event_record
+    from .train import fit
+
+    t = cfg.train
     ckpt = writer = None
     try:
-        with _joined(cfg, device) as (device, mesh, say):
-            _, trainer, dataset = build_all(cfg, device, mesh)
-            live = {a: n for a, n in mesh.shape.items() if n > 1}
-            say(f"devices: {mesh.size}  device: {device}  mesh: {live or {}}")
-            state = trainer.init(t.seed)
-            start_index = 0
-            if t.checkpoint_dir:
-                ckpt = CheckpointManager(t.checkpoint_dir)
-                if ckpt.latest_step() is not None:
-                    state, data_state = ckpt.restore(state)
-                    start_index = int(data_state.get("next_index",
-                                                     state.step))
-                    say(f"resumed from step {state.step}")
-            n = sum(p.numel() for p in state.params.values())
-            say(f"model: {cfg.model.name}  params: {n:,}")
-            placed = data.sharded_batches(dataset.iter_from(start_index),
-                                          mesh, t.grad_accum)
-            if t.steps_per_call > 1:
-                placed = data.stacked_batches(placed, t.steps_per_call)
-            batches = data.prefetch(placed, device,
-                                    size=cfg.data.prefetch_size)
-            writer = MetricWriter(t.log_dir)
-            step_s = [] if sync_steps else None
-            state, history = fit(
-                trainer, state, batches, steps=t.steps,
-                log_every=t.log_every, steps_per_call=t.steps_per_call,
-                log_fn=lambda m: say(json.dumps(m)), writer=writer,
-                profiler=Profiler(t.profile_steps, t.log_dir), ckpt=ckpt,
-                save_every=t.save_every, eval_every=t.eval_every,
-                eval_fn=(make_eval_fn(cfg, mesh, device) if t.eval_every
-                         else None),
-                step_times=step_s)
-            if ckpt is not None:
-                ckpt.wait()
-            if sync_steps:
-                report = _rank_report(device, history, state, ckpt)
-                extra = {k: report[k] for k in ("launches", "peak_mem_gb",
-                                                "opt_state_bytes",
-                                                "checkpoints")}
-                if mesh.size > 1:
-                    extra = {"backend": dist.get_backend(),
-                             "ranks": mesh.comm.gather_objects(report)}
-                say(json.dumps(event_record("train_end", t.steps,
-                                            step_s=step_s, **extra)))
+        _, trainer, dataset = build_all(cfg, device, mesh,
+                                        fault_nan_step=fault_nan_step)
+        live = {a: n for a, n in mesh.shape.items() if n > 1}
+        say(f"devices: {mesh.size}  device: {device}  mesh: {live or {}}")
+        state = trainer.init(t.seed)
+        start_index = 0
+        if t.checkpoint_dir:
+            ckpt = CheckpointManager(t.checkpoint_dir)
+            if ckpt.latest_step() is not None:
+                state, data_state = ckpt.restore(state)
+                start_index = int(data_state.get("next_index", state.step))
+                say(f"resumed from step {state.step}")
+        n = sum(p.numel() for p in state.params.values())
+        say(f"model: {cfg.model.name}  params: {n:,}")
+        placed = data.sharded_batches(dataset.iter_from(start_index), mesh,
+                                      t.grad_accum)
+        if t.steps_per_call > 1:
+            placed = data.stacked_batches(placed, t.steps_per_call)
+        batches = data.prefetch(placed, device, size=cfg.data.prefetch_size)
+        writer = MetricWriter(t.log_dir)
+        step_s = [] if sync_steps else None
+        state, history = fit(
+            trainer, state, batches, steps=t.steps, log_every=t.log_every,
+            steps_per_call=t.steps_per_call,
+            log_fn=lambda m: say(json.dumps(m)), writer=writer,
+            profiler=Profiler(t.profile_steps, t.log_dir), ckpt=ckpt,
+            save_every=t.save_every, eval_every=t.eval_every,
+            eval_fn=(make_eval_fn(cfg, mesh, device) if t.eval_every
+                     else None),
+            step_times=step_s,
+            health=cfg.health if cfg.health.enabled else None)
+        if ckpt is not None:
+            ckpt.wait()
+        if sync_steps:
+            report = _rank_report(device, history, state, ckpt)
+            extra = {k: report[k] for k in ("launches", "peak_mem_gb",
+                                            "opt_state_bytes", "checkpoints")}
+            if mesh.size > 1:
+                extra = {"backend": dist.get_backend(),
+                         "ranks": mesh.comm.gather_objects(report)}
+            say(json.dumps(event_record("train_end", t.steps, step_s=step_s,
+                                        **extra)))
     finally:
         # An abandoned in-flight save would quietly roll a resume back by
         # save_every steps: drain it on every exit path.
@@ -327,7 +372,6 @@ def cmd_train(cfg: Config, *, device=None, sync_steps: bool = False) -> int:
             ckpt.close()
         if writer is not None:
             writer.close()
-    return 0
 
 
 def cmd_eval(cfg: Config, *, device=None) -> int:
@@ -346,16 +390,104 @@ def cmd_eval(cfg: Config, *, device=None) -> int:
     return 0
 
 
-def cmd_benchmark(cfg: Config, *, device=None) -> int:
+def cmd_benchmark(cfg: Config, *, device=None, steps: int = 30,
+                  latency_steps=None, probe=None) -> int:
     """Time the config's training step on this rank (every rank under
     ``torchrun``); rank 0 prints the one-line JSON record of
-    ``benchmark.run_benchmark``."""
+    ``benchmark.run_benchmark`` at the depth given (its defaults unless
+    set)."""
     from .benchmark import run_benchmark
     from .mesh import DistEnv
 
     check_train_composition(cfg, world_size=DistEnv.from_environ().world_size)
     with _joined(cfg, device) as (device, mesh, say):
-        say(json.dumps(run_benchmark(cfg, device, mesh)))
+        say(json.dumps(run_benchmark(cfg, device, mesh, steps=steps,
+                                     latency_steps=latency_steps,
+                                     fused_probe=probe)))
+    return 0
+
+
+def cmd_generate(cfg: Config, prompts: list[str], max_new_tokens: int,
+                 temperature: float, seed: int, *, top_k: int = 0,
+                 top_p: float = 0.0, bench: bool = False, reps: int = 3,
+                 device=None) -> int:
+    """Sample text from the latest checkpoint of ``train.checkpoint_dir``
+    (or fresh weights) with the KV-cache decoder (``generate.py``). Byte
+    tokenizer: prompts are encoded as UTF-8 bytes, completions decoded
+    back. Repeating ``--prompt`` batches uneven prompts (left-padded);
+    ``--bench`` times prefill and the per-token decode loop apart
+    (``generate.decode_bench``, medians over ``reps`` runs) and adds its
+    record. Prints one JSON
+    record: the step, the bench fields, the results."""
+    import inspect
+
+    import numpy as np
+
+    from .generate import decode_bench, pad_prompts
+    from .generate import generate as run_generate
+    from .train import TrainState
+
+    # Cheap argument validation before the model build and restore.
+    if temperature == 0.0 and (top_k or top_p):
+        raise ValueError(
+            "--top-k/--top-p only apply when sampling — set --temperature"
+        )
+    if any(not p for p in prompts):
+        raise ValueError("prompt must be non-empty")
+    if bench and max_new_tokens < 2:
+        raise ValueError(
+            "--bench needs --max-new-tokens >= 2 (at least one per-token "
+            "decode step to time)"
+        )
+    if bench and reps < 3:
+        raise ValueError("--bench needs --reps >= 3 for a stable median")
+    device = resolve_device(device)
+    model, _, _ = build_all(cfg, device)
+    if "cache" not in inspect.signature(model.forward).parameters:
+        raise ValueError(
+            f"model {cfg.model.name!r} has no KV-cache decode support"
+        )
+    # Byte tokenizer only: a BPE model's ids are not bytes, so encoding
+    # and decoding would be silently meaningless.
+    vocab = getattr(model, "vocab_size", 0)
+    if vocab != 256:
+        raise ValueError(
+            f"cli generate requires a byte-tokenizer model "
+            f"(vocab_size=256, got {vocab}): prompts are encoded as UTF-8 "
+            "bytes and completions decoded back (prepare_data "
+            "--tokenizer byte). Use generate.generate() directly for "
+            "other tokenizers."
+        )
+    model.init_weights(torch.Generator().manual_seed(int(cfg.train.seed)))
+    state = _restore_or_init(
+        cfg, TrainState(step=0, params=dict(model.named_parameters()),
+                        opt_state=None, rng=int(cfg.train.seed),
+                        model_state=dict(model.named_buffers())),
+        "generating from")
+    encoded = [list(p.encode("utf-8")) for p in prompts]
+    tokens, lens = pad_prompts(encoded, pad_id=0)
+    if tokens.shape[1] + max_new_tokens > model.max_len:
+        raise ValueError(
+            f"prompt ({tokens.shape[1]}) + max_new_tokens "
+            f"({max_new_tokens}) exceeds model max_len {model.max_len}"
+        )
+    gen = torch.Generator(device=device).manual_seed(int(seed))
+    kw = dict(max_new_tokens=max_new_tokens, temperature=temperature,
+              top_k=top_k, top_p=top_p, generator=gen, prompt_lens=lens)
+    record: dict = {"step": state.step}
+    if bench:
+        out, bench_rec = decode_bench(model, tokens, reps=reps, **kw)
+        record.update(bench_rec)
+    else:
+        out = run_generate(model, tokens, **kw)
+    new = out[:, tokens.shape[1]:].cpu().numpy()
+    record["results"] = [
+        {"prompt": p,
+         "completion": bytes(int(t) for t in np.asarray(row)).decode(
+             "utf-8", errors="replace")}
+        for p, row in zip(prompts, new)
+    ]
+    print(json.dumps(record))
     return 0
 
 
@@ -444,22 +576,42 @@ def main(argv=None) -> int:
     common(e)
     b = sub.add_parser("benchmark")
     common(b)
+    b.add_argument("--steps", type=int, default=30,
+                   help="timed steps after the warm-up")
+    b.add_argument("--latency-steps", type=int, default=None,
+                   help="steps synced one by one for p50/p90 (default "
+                   "min(steps, 12))")
+    b.add_argument("--probe", type=int, default=None, metavar="K",
+                   help="steps per call of the multi-step probe (default "
+                   "train.steps_per_call when above 1, else 8; 0 turns it "
+                   "off)")
+
+    def sampling(p, what):
+        p.add_argument("--prompt", required=True, action="append",
+                       help=f"repeatable: a batch of (uneven) prompts {what}")
+        p.add_argument("--max-new-tokens", type=int, default=64)
+        p.add_argument("--temperature", type=float, default=0.0)
+        p.add_argument("--top-k", type=int, default=0)
+        p.add_argument("--top-p", type=float, default=0.0)
+        p.add_argument("--seed", type=int, default=0)
+
+    g = sub.add_parser("generate")
+    common(g)
+    sampling(g, "decodes together, left-padded")
+    g.add_argument(
+        "--bench", action="store_true",
+        help="time prefill and the per-token decode loop apart (>= 3 reps, "
+        "medians) and report decode tokens/sec",
+    )
+    g.add_argument("--reps", type=int, default=3,
+                   help="timed runs of each stage under --bench (>= 3)")
     p = sub.add_parser("serve")
     common(p)
     p.add_argument(
         "--telemetry", nargs="?", const="", default=None, metavar="DIR",
         help="enable telemetry (refused: not yet ported)",
     )
-    p.add_argument(
-        "--prompt", required=True, action="append",
-        help="repeatable: prompts decode together by continuous batching "
-        "over serving.slots lanes",
-    )
-    p.add_argument("--max-new-tokens", type=int, default=64)
-    p.add_argument("--temperature", type=float, default=0.0)
-    p.add_argument("--top-k", type=int, default=0)
-    p.add_argument("--top-p", type=float, default=0.0)
-    p.add_argument("--seed", type=int, default=0)
+    sampling(p, "decodes by continuous batching over serving.slots lanes")
     p.add_argument(
         "--fleet", type=int, default=0,
         help="cross-process fleet (refused: not yet ported)",
@@ -473,7 +625,16 @@ def main(argv=None) -> int:
         return cmd_eval(cfg, device=args.device)
     if args.cmd == "benchmark":
         cfg = apply_overrides(load_config(args.config), args.override)
-        return cmd_benchmark(cfg, device=args.device)
+        return cmd_benchmark(cfg, device=args.device, steps=args.steps,
+                             latency_steps=args.latency_steps,
+                             probe=args.probe)
+    if args.cmd == "generate":
+        cfg = apply_overrides(load_config(args.config), args.override)
+        return cmd_generate(
+            cfg, args.prompt, args.max_new_tokens, args.temperature,
+            args.seed, top_k=args.top_k, top_p=args.top_p, bench=args.bench,
+            reps=args.reps, device=args.device,
+        )
     if args.telemetry is not None:
         args.override = list(args.override) + ["telemetry.enabled=True"]
         if args.telemetry:

@@ -100,6 +100,10 @@ class DeferredMetrics:
         if pending is not None:
             self._materialize(pending)
 
+    def discard(self) -> None:
+        """Drop the pending interval without emitting it."""
+        self._pending = None
+
     def _materialize(self, item) -> None:
         step, host, event, extras = item
         if event is not None:

@@ -13,6 +13,7 @@ from torch import nn
 from . import register
 from .transformer import (
     ATTN_IMPLS,
+    KVCache,
     LayerNorm,
     PagedKVCache,
     TransformerStack,
@@ -96,13 +97,17 @@ class GPT2(nn.Module):
             else:
                 nn.init.zeros_(p)
 
-    def forward(self, tokens: torch.Tensor, cache: PagedKVCache | None = None,
-                *, train: bool = False, generator=None):
+    def forward(self, tokens: torch.Tensor,
+                cache: KVCache | PagedKVCache | None = None, *,
+                train: bool = False, generator=None):
         """``tokens`` [B, L] -> fp32 logits [B, L, V], or with
         ``chunked_head`` the ``ops.chunked_xent.head_output`` dict. With a
         paged ``cache`` positions are per row: ``seq_lens[b] + i``, clamped
         to ``max_len - 1`` (pad positions of a bucketed prefill may pass it;
-        their outputs are discarded). ``train=True`` applies dropout from
+        their outputs are discarded). With a contiguous ``KVCache`` they are
+        ``max(cache_index + i - start[b], 0)`` (a left-padded row's first
+        real token at position 0), unclamped: the cursor may not pass
+        ``max_len``. ``train=True`` applies dropout from
         ``generator`` (a ``torch.Generator`` on the tokens' device), at the
         embeddings, the attention probs (xla core), and each block's
         attention and MLP outputs.
@@ -123,6 +128,11 @@ class GPT2(nn.Module):
             # JAX sees the global sequence; a cp rank holds its block of it.
             offset = 0 if cp == 1 else self.mesh.coords["cp"] * L
             positions = steps + offset
+        elif isinstance(cache, KVCache):
+            if cache.cache_index + L > self.max_len:
+                raise ValueError(f"decode position {cache.cache_index + L} "
+                                 f"exceeds max_len {self.max_len}")
+            positions = cache.positions(L)
         else:
             positions = torch.clamp(
                 cache.seq_lens.long()[:, None] + steps, max=self.max_len - 1

@@ -9,9 +9,11 @@ JAX package's ``models/llama.py`` in torch.
   head ``g``: ``repeat_interleave`` on the heads axis, ``jnp.repeat`` in
   the reference) and runs any MHA core of ``transformer.attention_core``:
   ``xla``, ``flash`` (the hand kernels on the GPU), ``ring`` and
-  ``ring_pallas``. The paged serving cache holds the PRE-repeat k and v and
-  reads them through ``transformer.paged_decode_attention`` with
-  ``num_rep`` (the paged decode kernel folds the query groups itself).
+  ``ring_pallas``. The decode caches hold the PRE-repeat k and v and read
+  them with ``num_rep``: the contiguous ``KVCache`` of ``generate``
+  through ``transformer.decode_attention``, the paged serving cache through
+  ``transformer.paged_decode_attention`` (the paged decode kernel folds the
+  query groups itself).
 - Every projection is bias-free (no ``bias`` parameter), the LM head is the
   tied embedding or a bare ``lm_head`` [E, V] parameter, and names follow
   the flax tree (``embed.embedding``, ``block_{i}.attn.query.kernel``,
@@ -36,8 +38,10 @@ from .remat import checkpoint_block
 from .transformer import (
     ATTN_IMPLS,
     Dense,
+    KVCache,
     PagedKVCache,
     attention_core,
+    decode_attention,
     paged_decode_attention,
 )
 
@@ -110,13 +114,16 @@ class LlamaAttention(nn.Module):
         self.out = Dense((num_heads, head_dim), (embed_dim,), dtype, device,
                          use_bias=False)
 
-    def forward(self, x, rope, cache: PagedKVCache | None = None,
+    def forward(self, x, rope, cache: KVCache | PagedKVCache | None = None,
                 layer: int = 0):
         cos, sin = rope
         q = apply_rope(self.query(x), cos, sin)
         k = apply_rope(self.key(x), cos, sin)
         v = self.value(x)
-        if cache is not None:
+        if isinstance(cache, KVCache):
+            out = decode_attention(q, k, v, dtype=self.dtype, cache=cache,
+                                   layer=layer, num_rep=self.rep)
+        elif cache is not None:
             out = paged_decode_attention(
                 q, k, v, dtype=self.dtype, pools=cache.pools[layer],
                 page_table=cache.page_table, seq_lens=cache.seq_lens,
@@ -164,6 +171,17 @@ class LlamaBlock(nn.Module):
     def forward(self, x, rope, cache=None, layer: int = 0):
         x = x + self.attn(self.attn_norm(x), rope, cache, layer)
         return x + self.mlp(self.mlp_norm(x))
+
+
+def cache_positions(cache, length: int) -> torch.Tensor:
+    """[B, length] RoPE positions of a cached forward: ``max(cache_index + t
+    - start[b], 0)`` on the contiguous ``KVCache`` (a left-padded row's
+    first real token rotates at position 0), ``seq_lens[b] + t`` on the
+    paged cache (no clamp: RoPE has no table to overrun)."""
+    if isinstance(cache, KVCache):
+        return cache.positions(length)
+    steps = torch.arange(length, device=cache.seq_lens.device)
+    return cache.seq_lens.long()[:, None] + steps[None, :]
 
 
 def decoder_matrix(model) -> torch.Tensor:
@@ -225,12 +243,13 @@ class Llama(nn.Module):
                 p.copy_(torch.empty(p.shape).normal_(std=0.02,
                                                      generator=generator))
 
-    def forward(self, tokens: torch.Tensor, cache: PagedKVCache | None = None,
-                *, train: bool = False, generator=None):
+    def forward(self, tokens: torch.Tensor,
+                cache: KVCache | PagedKVCache | None = None, *,
+                train: bool = False, generator=None):
         """``tokens`` [B, L] -> fp32 logits [B, L, V], or with
         ``chunked_head`` the ``ops.chunked_xent.head_output`` dict. With a
-        paged ``cache`` the RoPE positions are per row, ``seq_lens[b] + i``
-        (no clamp: RoPE has no table to overrun). On a ``mesh`` with cp > 1
+        ``cache`` the RoPE positions are per row (:func:`cache_positions`).
+        On a ``mesh`` with cp > 1
         ``tokens`` is this rank's contiguous block of the sequence, its
         positions starting at ``cp_index * L``. Llama has no dropout:
         ``train`` and ``generator`` change nothing."""
@@ -240,12 +259,11 @@ class Llama(nn.Module):
         if L * cp > self.max_len:
             raise ValueError(f"seq_len {L * cp} exceeds max_len "
                              f"{self.max_len}")
-        steps = torch.arange(L, device=tokens.device)
         if cache is None:
             offset = 0 if cp == 1 else self.mesh.coords["cp"] * L
-            positions = steps + offset
+            positions = torch.arange(L, device=tokens.device) + offset
         else:
-            positions = cache.seq_lens.long()[:, None] + steps[None, :]
+            positions = cache_positions(cache, L)
         rope = rope_tables(positions, self.head_dim, self.rope_theta)
         x = self.embed(tokens)
         remat = self.remat if cache is None else "none"

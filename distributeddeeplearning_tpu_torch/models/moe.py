@@ -20,9 +20,12 @@
 
 Parameter names follow the flax tree (``block_1.moe_mlp.router.kernel``,
 ``block_1.moe_mlp.w1`` ``[e, d, h]``, ``…w_gate``, ``…b1``), so
-``weights.from_jax_params`` loads a JAX init one to one. Serving and KV-cache
-decoding of these models are not ported: the serving engine refuses them as
-the reference's does, and decoding comes with ``generate`` (ROADMAP A10).
+``weights.from_jax_params`` loads a JAX init one to one. :class:`LlamaMoe`
+decodes against ``generate``'s contiguous ``KVCache``; a decode step routes
+one token a row, so it never meets the capacity limit (a model whose batched
+forward drops tokens decodes slightly differently, the standard
+capacity-MoE asymmetry). :class:`MoeGPT2` has no decode, as in the
+reference, and the serving engine refuses both, as the reference's does.
 """
 
 from __future__ import annotations
@@ -36,7 +39,13 @@ from torch import nn
 from . import register
 from ..parallel.ep import expert_capacity, route_top_k
 from .gpt2 import Embed, as_torch_dtype
-from .llama import LlamaAttention, RMSNorm, decoder_matrix, rope_tables
+from .llama import (
+    LlamaAttention,
+    RMSNorm,
+    cache_positions,
+    decoder_matrix,
+    rope_tables,
+)
 from .remat import checkpoint_block
 from .sow import sow_loss, sow_metric
 from .transformer import (
@@ -286,8 +295,8 @@ class LlamaMoeBlock(nn.Module):
             num_selected=num_selected, capacity_factor=capacity_factor,
             mlp_style="swiglu")
 
-    def forward(self, x, rope):
-        x = x + self.attn(self.attn_norm(x), rope)
+    def forward(self, x, rope, cache=None, layer: int = 0):
+        x = x + self.attn(self.attn_norm(x), rope, cache, layer)
         return x + self.moe_mlp(self.mlp_norm(x))
 
 
@@ -339,21 +348,26 @@ class LlamaMoe(nn.Module):
                 p.copy_(torch.empty(p.shape).normal_(std=0.02,
                                                      generator=generator))
 
-    def forward(self, tokens: torch.Tensor, *, train: bool = False,
-                generator=None):
+    def forward(self, tokens: torch.Tensor, cache=None, *,
+                train: bool = False, generator=None):
         """``tokens`` [B, L] -> fp32 logits [B, L, V], or with
-        ``chunked_head`` the ``ops.chunked_xent.head_output`` dict. No
+        ``chunked_head`` the ``ops.chunked_xent.head_output`` dict. With a
+        contiguous ``KVCache`` (``generate``) the RoPE positions are Llama's
+        decode positions and each block writes and reads its cache. No
         dropout: ``train`` and ``generator`` change nothing."""
         del train, generator
         B, L = tokens.shape
         if L > self.max_len:
             raise ValueError(f"seq_len {L} exceeds max_len {self.max_len}")
-        rope = rope_tables(torch.arange(L, device=tokens.device),
-                           self.head_dim, self.rope_theta)
+        positions = (torch.arange(L, device=tokens.device) if cache is None
+                     else cache_positions(cache, L))
+        rope = rope_tables(positions, self.head_dim, self.rope_theta)
         x = self.embed(tokens)
+        remat = self.remat if cache is None else "none"
         for i in range(self.num_layers):
-            block = functools.partial(getattr(self, f"block_{i}"), rope=rope)
-            x = checkpoint_block(block, x, remat=self.remat)
+            block = functools.partial(getattr(self, f"block_{i}"), rope=rope,
+                                      cache=cache, layer=i)
+            x = checkpoint_block(block, x, remat=remat)
         x = self.norm(x)
         dec = decoder_matrix(self)
         if self.chunked_head:

@@ -1,7 +1,9 @@
 """Transformer backbone of the port: the block and stack GPT-2 (causal,
 pre-LN, tanh GELU), ViT (pre-LN, exact GELU) and BERT (post-LN, exact GELU,
 key-padding masks) share, with per-block remat (``models/remat.py``), the
-attention core, and the paged KV cache the serving engine decodes against.
+attention core, and the two KV caches a forward decodes against: the
+contiguous per-sequence cache of ``generate`` (:class:`KVCache`) and the
+paged cache of the serving engine (:class:`PagedKVCache`).
 
 Parameters keep the JAX package's names and layouts (attention projections
 ``kernel [E, H, D]``, out projection ``[H, D, E]``, LayerNorm ``scale`` /
@@ -27,6 +29,49 @@ from .remat import check_remat, checkpoint_block
 _NEG_INF = -1e30
 
 ATTN_IMPLS = ("xla", "flash", "ring", "ring_pallas")
+
+
+@dataclasses.dataclass
+class KVCache:
+    """The contiguous decode cache of ``generate`` (the reference's
+    ``'cache'`` collection of ``decode_attention``).
+
+    - ``layers``: one dict per layer, ``cached_key``/``cached_value``
+      ``[B, total, kv_heads, D]`` in the compute dtype, holding k and v
+      BEFORE the GQA repeat;
+    - ``cache_index``: the cursor, the number of positions written. A
+      forward writes its L tokens at ``cache_index .. cache_index + L - 1``;
+      ``generate.prefill`` advances it by L after the forward;
+    - ``start``: [B] int, row b's number of left pads. Columns below it are
+      never visible, and positions count from it (row b's first real token
+      sits at position 0).
+    """
+
+    layers: list
+    start: torch.Tensor
+    cache_index: int = 0
+
+    @classmethod
+    def empty(cls, num_layers: int, batch: int, total: int, kv_heads: int,
+              head_dim: int, dtype, device, start=None) -> KVCache:
+        """Zeroed caches of ``total`` positions, pad-free unless
+        ``start`` ([B] left-pad counts) is given."""
+        def zeros():
+            return torch.zeros(batch, total, kv_heads, head_dim, dtype=dtype,
+                               device=device)
+
+        if start is None:
+            start = torch.zeros(batch, dtype=torch.int64, device=device)
+        return cls(layers=[{"cached_key": zeros(), "cached_value": zeros()}
+                           for _ in range(num_layers)],
+                   start=torch.as_tensor(start, device=device).long())
+
+    def positions(self, length: int) -> torch.Tensor:
+        """[B, length] positions of this call's tokens: ``max(cache_index +
+        t - start[b], 0)``."""
+        steps = torch.arange(length, device=self.start.device)
+        return torch.clamp(self.cache_index + steps[None, :]
+                           - self.start[:, None], min=0)
 
 
 @dataclasses.dataclass
@@ -175,6 +220,32 @@ def _cache_attend(q, ck, cv, visible, num_rep: int, dtype):
     )
 
 
+def decode_attention(q, k, v, *, dtype, cache: KVCache, layer: int,
+                     num_rep: int = 1):
+    """Decode attention against the contiguous :class:`KVCache` (the
+    reference's ``decode_attention``): this call's k/v ([B, L, kv_heads,
+    D], before the GQA repeat) are written at the cursor, then query t
+    (absolute position ``cache_index + t``) attends the written columns up
+    to its own, except row b's pad columns below ``start[b]``. L == 1 is
+    one decode step, L > 1 a bulk prefill. Plain torch, as the reference
+    leaves it to XLA; the columns past the cursor, all masked in the
+    reference, are not read."""
+    ck = cache.layers[layer]["cached_key"]
+    cv = cache.layers[layer]["cached_value"]
+    i, L = cache.cache_index, k.shape[1]
+    if i + L > ck.shape[1]:
+        raise ValueError(f"KV cache of {ck.shape[1]} positions is full: "
+                         f"cursor {i} + {L} tokens")
+    ck[:, i:i + L] = k
+    cv[:, i:i + L] = v
+    cols = torch.arange(i + L, device=k.device)
+    qpos = i + torch.arange(L, device=k.device)
+    visible = ((cols[None, None, :] <= qpos[None, :, None])
+               & (cols[None, None, :] >= cache.start[:, None, None]))
+    return _cache_attend(q, ck[:, :i + L], cv[:, :i + L], visible, num_rep,
+                         dtype)
+
+
 def paged_decode_attention(q, k, v, *, dtype, pools: dict,
                            page_table: torch.Tensor, seq_lens: torch.Tensor,
                            num_rep: int = 1, kernel: str = "reference"):
@@ -286,9 +357,11 @@ class LayerNorm(nn.Module):
 class SelfAttention(nn.Module):
     """Multi-head self-attention, ``causal`` or not, with
     ``query``/``key``/``value`` [E, H, D] and ``out`` [H, D, E]
-    projections. With a
-    :class:`PagedKVCache` it runs :func:`paged_decode_attention` on layer
-    ``layer``'s pools; without, the ``attn_impl`` core:
+    projections. With a cache it dispatches on the cache's type: a
+    :class:`KVCache` runs :func:`decode_attention` on layer ``layer``'s
+    cache, a :class:`PagedKVCache` :func:`paged_decode_attention` on its
+    pools (both plain torch whatever ``attn_impl``, and neither takes a
+    mask); without, the ``attn_impl`` core:
 
     - ``xla``: einsum + softmax, with attention-prob dropout in training;
     - ``flash``: the fused flash kernels (``ops/flash_attention.py``). It
@@ -313,10 +386,18 @@ class SelfAttention(nn.Module):
                 (embed_dim,), (num_heads, head_dim), dtype, device))
         self.out = Dense((num_heads, head_dim), (embed_dim,), dtype, device)
 
-    def forward(self, x, cache: PagedKVCache | None = None, layer: int = 0,
-                *, mask=None, generator=None):
+    def forward(self, x, cache: KVCache | PagedKVCache | None = None,
+                layer: int = 0, *, mask=None, generator=None):
         q, k, v = self.query(x), self.key(x), self.value(x)
-        if cache is not None:
+        if cache is not None and mask is not None:
+            raise NotImplementedError(
+                "decode ignores key-padding masks — pad-free prompts only "
+                "(the cache visibility mask is cursor-based)"
+            )
+        if isinstance(cache, KVCache):
+            out = decode_attention(q, k, v, dtype=self.dtype, cache=cache,
+                                   layer=layer)
+        elif cache is not None:
             out = paged_decode_attention(
                 q, k, v, dtype=self.dtype, pools=cache.pools[layer],
                 page_table=cache.page_table, seq_lens=cache.seq_lens,

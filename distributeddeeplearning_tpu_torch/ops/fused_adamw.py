@@ -149,6 +149,37 @@ def _bind(lib):
     return lib
 
 
+def stochastic_round(x: torch.Tensor, bits: torch.Tensor,
+                     dtype=torch.bfloat16) -> torch.Tensor:
+    """fp32 -> bf16 with stochastic rounding: round up with probability
+    proportional to the distance to the next representable value.
+
+    bf16 is fp32's top 16 bits, so adding uniform random low-16 bits to the
+    fp32 bit pattern and truncating rounds each value up with probability
+    ``low_bits / 2^16``: unbiased in expectation, so a moment EMA keeps the
+    contributions below one bf16 ulp that round-to-nearest would drop.
+
+    ``bits`` (integers, ``x``'s shape) supply the randomness; only their low
+    16 bits are used. The reference draws them from a JAX key; torch cannot
+    replay that key chain, so they are an input here (the CPU tests feed
+    the reference's own bits and compare bit for bit). Non-finite values
+    bypass the add (a carry would walk inf into nan space) and cast
+    directly. Not a Pallas kernel in the reference: plain torch."""
+    if dtype != torch.bfloat16:
+        raise NotImplementedError(
+            f"stochastic_round targets bfloat16 (got {dtype}): the "
+            "truncation trick needs the target to be the source's high bits"
+        )
+    x = x.float()
+    noise = bits.to(torch.int32) & 0xFFFF
+    # A finite fp32 pattern plus < 2^16 never crosses the int32 sign or
+    # overflow boundary (only the nan patterns lie there), so the int32
+    # sum equals the reference's uint32 one.
+    rounded = (x.view(torch.int32) + noise) & -0x10000
+    out = rounded.view(torch.float32).to(torch.bfloat16)
+    return torch.where(torch.isfinite(x), out, x.to(torch.bfloat16))
+
+
 def global_norm(grads: dict):
     """sqrt of the sum of squares over every leaf, fp32, on the device."""
     return torch.linalg.vector_norm(torch.stack(

@@ -17,7 +17,7 @@ itself, over flat buffers:
   and one all-gather per group (:meth:`ZeroLayout.gather_params`) gives
   every rank the replicated parameters again;
 - :class:`ZeroState` holds this rank's shard of each moment and nothing
-  more; :meth:`ZeroLayout.shard` cuts a full (params-shaped) tree into this
+  more (fp32, or bf16 under the ``bf16_full`` policy); :meth:`ZeroLayout.shard` cuts a full (params-shaped) tree into this
   rank's shards and :meth:`ZeroLayout.gather` gathers one back onto rank 0
   (checkpoints).
 
@@ -46,7 +46,8 @@ def group_of(p) -> str:
 class ZeroState(NamedTuple):
     """Adam state of one ZeRO-1 rank: the (count, mu, nu) of
     ``FusedAdamWState`` with mu and nu mapping each group to this rank's
-    fp32 shard of it, and the ``layout`` that cut them."""
+    shard of it (fp32, or ``LowPrecisionAdamW``'s moment dtype), and the
+    ``layout`` that cut them."""
 
     count: int
     mu: dict
@@ -127,8 +128,14 @@ class ZeroLayout:
         hold the same shards and return at once."""
         if any(c for a, c in self.mesh.coords.items() if a != self.axis):
             return None
-        full = {g: gather(s, self.mesh, self.axis) for g, s in shards.items()}
-        return None if self.index else self.views(full)
+        # Moved in fp32 (a bf16 shard casts there and back exactly): gloo
+        # has no bf16 gather.
+        full = {g: gather(s.float(), self.mesh, self.axis)
+                for g, s in shards.items()}
+        if self.index:
+            return None
+        dtype = next(iter(shards.values())).dtype
+        return {k: v.to(dtype) for k, v in self.views(full).items()}
 
     def param_shards(self) -> dict:
         """This rank's shard of each bound master buffer, as views."""

@@ -7,11 +7,13 @@ the roles of the parameters:
 - **compute copy** (``compute_dtype``): cast from the masters once at the top
   of each step and differentiated directly, so the gradients come back in
   ``compute_dtype`` and are cast up to fp32 before clipping and the update;
-- **optimizer moments** (``moment_dtype``).
+- **optimizer moments** (``moment_dtype``): ``bf16_full`` stores Adam's
+  moments in bf16, written with stochastic rounding
+  (``ops.fused_adamw.stochastic_round``) by ``train.LowPrecisionAdamW``,
+  which computes every update in fp32.
 
 The ``fp32`` policy is a no-op: the cast helpers return their input
-unchanged. ``bf16_full`` (bf16 Adam moments with stochastic rounding) is
-refused by name: it needs the low-precision AdamW of a later slice.
+unchanged.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ class Policy:
     param_dtype: torch.dtype
     compute_dtype: torch.dtype
     moment_dtype: torch.dtype
+    stochastic_rounding: bool = False  # of the fp32 -> moment_dtype write
 
     @property
     def mixed(self) -> bool:
@@ -43,7 +46,8 @@ _F32, _BF16 = torch.float32, torch.bfloat16
 _POLICY_TABLE = {
     "fp32": Policy("fp32", _F32, _F32, _F32),
     "bf16": Policy("bf16", _F32, _BF16, _F32),
-    "bf16_full": Policy("bf16_full", _F32, _BF16, _BF16),
+    "bf16_full": Policy("bf16_full", _F32, _BF16, _BF16,
+                        stochastic_rounding=True),
 }
 assert tuple(_POLICY_TABLE) == POLICIES
 
@@ -86,8 +90,7 @@ def cast_grads_to_update(policy: Policy, grads: dict) -> dict:
 def check_precision_composition(policy: str | Policy, *,
                                 optim_name: str | None = None) -> Policy:
     """Config-time fences for the policy x optimizer axis, before anything
-    is built. The reference's fences for low-precision moments come first;
-    then the port refuses ``bf16_full`` itself by name."""
+    is built: low-precision moments are an ``adamw`` state layout."""
     p = get_policy(policy)
     if p.moment_dtype != p.param_dtype and optim_name is not None:
         if optim_name == "sgd":
@@ -109,10 +112,4 @@ def check_precision_composition(policy: str | Policy, *,
                 f"(got {optim_name!r}): low-precision moments are an Adam "
                 "state layout"
             )
-    if p.name == "bf16_full":
-        raise NotImplementedError(
-            "train.precision.policy='bf16_full' not yet ported to "
-            "distributeddeeplearning_tpu_torch: it needs low_precision_adamw "
-            "and stochastic_round (ROADMAP queue A9)"
-        )
     return p

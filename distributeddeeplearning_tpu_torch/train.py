@@ -23,8 +23,11 @@ runs the step eagerly on its device, over its slice of the global batch
   the cadences of logging, evaluation and checkpoints
   (``checkpoint.CheckpointManager``).
 
-The health guard comes in a later slice; ``cli train`` refuses its knob by
-name.
+- the health guard (``health.py``, ``Trainer(health=...)``): the step is
+  staged, its loss and global gradient norm read on the host before the
+  update, and an anomalous step skips the update; ``fit`` raises
+  :class:`HealthRollback` after ``max_consecutive_anomalies`` of them, and
+  ``Trainer(fault_nan_step=K)`` poisons step K's gradients to exercise it.
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ from .ops.fused_adamw import (
     decay_leaf,
     f32,
     global_norm,
+    stochastic_round,
 )
 from .precision import (
     Policy,
@@ -275,11 +279,28 @@ class AdamW(FusedAdamW):
     weight_decay=wd, mask=decay_leaf))`` in plain torch, updating the
     params and moments in place: the reference path of ``optim.name=
     'adamw'``, which runs no kernel. Its state has the fused optimizer's
-    (count, mu, nu) layout, as optax's ``ScaleByAdamState`` does."""
+    (count, mu, nu) layout, as optax's ``ScaleByAdamState`` does. Each
+    moment is advanced in fp32 and stored through :meth:`_store` (as it is
+    here; :class:`LowPrecisionAdamW` narrows it)."""
+
+    def _store(self, x32, bits):
+        """A moment advanced in fp32 -> its stored value (``bits``: the
+        random bits of a stochastic rounding, or None)."""
+        return x32
+
+    def _leaf_bits(self, count: int, i: int, p) -> tuple:
+        """(mu bits, nu bits) of the i-th leaf ``p`` at the incremented
+        ``count``: none here."""
+        return None, None
+
+    def _shard_bits(self, count: int, layout, group: str, device) -> tuple:
+        """(mu bits, nu bits) of this ZeRO-1 rank's shard of ``group``:
+        none here."""
+        return None, None
 
     def _step(self, count: int, leaves) -> None:
         """The update at the pre-increment ``count`` over ``leaves``, (p,
-        g, mu, nu, decayed) each."""
+        g, mu, nu, decayed, (mu bits, nu bits)) each."""
         lr = f32(self.learning_rate(count)
                  if callable(self.learning_rate) else self.learning_rate)
         bc1 = float(_F(1) - np.power(_F(self.b1), _F(count + 1)))
@@ -287,25 +308,27 @@ class AdamW(FusedAdamW):
         b1, b2 = f32(self.b1), f32(self.b2)
         omb1, omb2 = f32(1 - self.b1), f32(1 - self.b2)
         eps, wd = f32(self.eps), f32(self.weight_decay)
-        for p, g, mu, nu, decayed in leaves:
+        for p, g, mu, nu, decayed, (mu_bits, nu_bits) in leaves:
             g = g.float()
-            mu.copy_(g * omb1 + mu * b1)
-            nu.copy_((g * g) * omb2 + nu * b2)
-            u = (mu / bc1) / (torch.sqrt(nu / bc2) + eps)
+            mu32 = mu.float() * b1 + g * omb1
+            nu32 = nu.float() * b2 + (g * g) * omb2
+            u = (mu32 / bc1) / (torch.sqrt(nu32 / bc2) + eps)
             if wd and decayed:
                 u = u + p * wd
             p.add_(u * -lr)
+            mu.copy_(self._store(mu32, mu_bits))
+            nu.copy_(self._store(nu32, nu_bits))
 
     @torch.no_grad()
-    def update(self, grads: dict, state: FusedAdamWState,
-               params: dict) -> FusedAdamWState:
+    def update(self, grads: dict, state, params: dict):
         if self.grad_clip:
             grads = clip_to(grads, global_norm(grads), self.grad_clip)
+        count = state.count + 1
         self._step(state.count, (
-            (p, grads[k], state.mu[k], state.nu[k], decay_leaf(p))
-            for k, p in params.items()))
-        return FusedAdamWState(count=state.count + 1, mu=state.mu,
-                               nu=state.nu)
+            (p, grads[k], state.mu[k], state.nu[k], decay_leaf(p),
+             self._leaf_bits(count, i, p))
+            for i, (k, p) in enumerate(params.items())))
+        return state._replace(count=count)
 
     @torch.no_grad()
     def update_shard(self, grads: dict, state, params: dict, norm):
@@ -313,10 +336,115 @@ class AdamW(FusedAdamW):
         group's weight decay is the group's."""
         if self.grad_clip:
             grads = clip_to(grads, norm, self.grad_clip)
+        count = state.count + 1
         self._step(state.count, (
-            (p, grads[g], state.mu[g], state.nu[g], g == "decay")
+            (p, grads[g], state.mu[g], state.nu[g], g == "decay",
+             self._shard_bits(count, state.layout, g, p.device))
             for g, p in params.items()))
-        return state._replace(count=state.count + 1)
+        return state._replace(count=count)
+
+
+class LowPrecisionAdamWState(NamedTuple):
+    """AdamW state with the moments stored in a low-precision dtype (the
+    ``bf16_full`` policy): the (count, mu, nu) layout of ``FusedAdamWState``,
+    so ZeRO-1 and the checkpoints treat it alike, but its own type."""
+
+    count: int  # completed updates
+    mu: dict  # name -> first moment in moment_dtype, params-shaped
+    nu: dict  # name -> second moment in moment_dtype
+
+
+ROUNDING_SEED = 0x5F3759  # the reference's key for the rounding stream
+
+
+def rounding_bits(count: int, leaf: int, numel: int, device) -> torch.Tensor:
+    """The default random bits of :class:`LowPrecisionAdamW`: ``numel``
+    uniform 16-bit integers (int32) for the moment tree ``leaf`` at the
+    incremented ``count``, from a ``torch.Generator`` on ``device`` seeded
+    from ``(ROUNDING_SEED, count, leaf)``. The stream is a function of its
+    key alone, so a resume replays it, as the reference's ``fold_in`` key
+    chain does (whose bits torch cannot reproduce)."""
+    seed = np.random.SeedSequence([ROUNDING_SEED, int(count), int(leaf)])
+    gen = torch.Generator(device=device).manual_seed(
+        int(seed.generate_state(1, np.uint64)[0]))
+    return torch.randint(0, 1 << 16, (numel,), generator=gen, device=device,
+                         dtype=torch.int32)
+
+
+class LowPrecisionAdamW(AdamW):
+    """The reference's ``low_precision_adamw``: AdamW whose moments LIVE in
+    ``moment_dtype`` (bf16 under ``bf16_full``: half the bytes of fp32
+    moments) while every update is COMPUTED in fp32 (:class:`AdamW`'s
+    math): only the moments' store narrows, with
+    :func:`ops.fused_adamw.stochastic_round` (round-to-nearest on ``mu <-
+    b1*mu + (1-b1)*g`` would drop every ``g`` below one bf16 ulp of ``mu``,
+    and the moment would stall).
+
+    ``bits(count, leaf, numel, device)`` supplies the rounding's random
+    bits for moment tree ``leaf`` = ``2 * i`` (mu) or ``2 * i + 1`` (nu) of
+    the i-th leaf in the params' order, at the incremented ``count``;
+    default :func:`rounding_bits`. Under ZeRO-1 a rank takes the slice of
+    each leaf's bits that its shard holds, so the update equals the
+    unsharded one element for element."""
+
+    def __init__(self, learning_rate, b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-8, weight_decay: float = 0.0, *,
+                 grad_clip: float = 0.0, moment_dtype=torch.bfloat16,
+                 stochastic_rounding: bool = True, bits=rounding_bits):
+        super().__init__(learning_rate, b1, b2, eps, weight_decay,
+                         grad_clip=grad_clip)
+        self.moment_dtype = moment_dtype
+        self.stochastic_rounding, self.bits = stochastic_rounding, bits
+
+    def init(self, params: dict) -> LowPrecisionAdamWState:
+        def zeros():
+            return {k: torch.zeros(p.shape, dtype=self.moment_dtype,
+                                   device=p.device)
+                    for k, p in params.items()}
+
+        return LowPrecisionAdamWState(count=0, mu=zeros(), nu=zeros())
+
+    def init_shard(self, layout):
+        """One ZeRO-1 rank's state: its shard of each group's moments."""
+        from .parallel.zero import ZeroState
+
+        def zeros():
+            return {g: f.new_zeros(layout.shard_size[g],
+                                   dtype=self.moment_dtype)
+                    for g, f in layout.flats.items()}
+
+        return ZeroState(count=0, mu=zeros(), nu=zeros(), layout=layout)
+
+    def _store(self, x32, bits):
+        if not self.stochastic_rounding:
+            return x32.to(self.moment_dtype)
+        return stochastic_round(x32, bits, self.moment_dtype)
+
+    def _leaf_bits(self, count: int, i: int, p) -> tuple:
+        if not self.stochastic_rounding:
+            return None, None
+        return tuple(self.bits(count, 2 * i + m, p.numel(),
+                               p.device).view(p.shape) for m in (0, 1))
+
+    def _shard_bits(self, count: int, layout, group: str, device) -> tuple:
+        """The slice of each leaf's bits that this rank's shard of
+        ``group`` holds, zeros on the padding."""
+        if not self.stochastic_rounding:
+            return None, None
+        order = {k: i for i, k in enumerate(layout.shapes)}
+        lo = layout.shard_slice(group).start
+        hi = lo + layout.shard_size[group]
+        out = []
+        for m in (0, 1):
+            bits = torch.zeros(hi - lo, dtype=torch.int32, device=device)
+            for k in layout.names[group]:
+                o, n = layout.offsets[k], layout.shapes[k].numel()
+                a, b = max(o, lo), min(o + n, hi)
+                if a < b:
+                    bits[a - lo:b - lo] = self.bits(
+                        count, 2 * order[k] + m, n, device)[a - o:b - o]
+            out.append(bits)
+        return tuple(out)
 
 
 class SGDState(NamedTuple):
@@ -382,8 +510,9 @@ def make_optimizer(name: str = "sgd", lr: float = 0.1, *,
                    precision: str | Policy = "fp32"):
     """The reference's optimizer factory. ``sgd`` is SGD with a momentum
     trace (optax semantics, decay mask, outer clip); ``adamw`` the plain
-    AdamW (the same); ``adamw_fused`` the fused kernel with the clip inside
-    its update. The ``bf16_full`` policy is refused by name."""
+    AdamW (the same), or :class:`LowPrecisionAdamW` when the policy stores
+    the moments in a narrower dtype than the masters (``bf16_full``);
+    ``adamw_fused`` the fused kernel with the clip inside its update."""
     if schedule == "constant":
         sched = constant_schedule(lr)
     elif schedule == "cosine":
@@ -397,10 +526,15 @@ def make_optimizer(name: str = "sgd", lr: float = 0.1, *,
         )
     else:
         raise ValueError(f"unknown schedule {schedule!r}")
-    check_precision_composition(precision, optim_name=name)
+    policy = check_precision_composition(precision, optim_name=name)
     if name == "sgd":
         return SGD(sched, momentum=momentum, weight_decay=weight_decay,
                    grad_clip=grad_clip)
+    if name == "adamw" and policy.moment_dtype != policy.param_dtype:
+        return LowPrecisionAdamW(
+            sched, b1=b1, b2=b2, weight_decay=weight_decay,
+            grad_clip=grad_clip, moment_dtype=policy.moment_dtype,
+            stochastic_rounding=policy.stochastic_rounding)
     if name == "adamw":
         return AdamW(sched, b1=b1, b2=b2, weight_decay=weight_decay,
                      grad_clip=grad_clip)
@@ -431,13 +565,16 @@ class TrainState:
     parameters (updated in place), ``rng`` the root dropout seed,
     ``model_state`` the model's own buffers that are no parameters
     (BatchNorm's running statistics; updated in place by the training
-    forward, as JAX's ``model_state``)."""
+    forward, as JAX's ``model_state``), ``health`` the guard's counters."""
 
     step: int
     params: dict
     opt_state: Any
     rng: int
     model_state: dict = dataclasses.field(default_factory=dict)
+    # The health guard's counters (``health.HealthState``); None while the
+    # guard is off, so the state's schema (and its checkpoints) is unchanged.
+    health: Any = None
 
 
 CP_ATTN = ("ring", "ring_pallas")
@@ -460,13 +597,23 @@ class Trainer:
     reduce-scatter, a shard update and an all-gather. Over dp = 1 it is a
     no-op, as the reference's placement is. ``grad_accum``: each step
     splits this rank's rows into that many equal microbatches and
-    averages their fp32 gradients and metrics."""
+    averages their fp32 gradients and metrics.
+
+    ``health``: a ``config.HealthConfig`` with ``enabled=True`` guards every
+    step (``health.guard_step``); anything else leaves the step unguarded.
+    ``fault_nan_step``: the step whose pre-step counter equals it has its
+    gradients poisoned to NaN (``train.fault_injection=nan:K``), before the
+    guard's norm, so the guard sees what the optimizer would consume."""
 
     def __init__(self, model, tx, task: Task, *, device,
                  precision: str | Policy = "fp32", mesh=None,
-                 zero1: bool = False, grad_accum: int = 1):
+                 zero1: bool = False, grad_accum: int = 1, health=None,
+                 fault_nan_step: int | None = None):
         self.model, self.tx, self.task = model, tx, task
         self.mesh = mesh
+        self.health = health if (health is not None
+                                 and health.enabled) else None
+        self.fault_nan_step = fault_nan_step
         cp = 1 if mesh is None else mesh.shape["cp"]
         attn = getattr(model, "attn_impl", None)
         if cp > 1 and attn not in CP_ATTN:
@@ -523,9 +670,15 @@ class Trainer:
         params = dict(self.model.named_parameters())
         opt_state = (self.tx.init(params) if self.layout is None
                      else self.tx.init_shard(self.layout))
+        health = None
+        if self.health is not None:
+            from .health import init_health_state
+
+            health = init_health_state()
         return TrainState(step=0, params=params, opt_state=opt_state,
                           rng=int(seed),
-                          model_state=dict(self.model.named_buffers()))
+                          model_state=dict(self.model.named_buffers()),
+                          health=health)
 
     def _forward(self, state: TrainState, params: dict, batch: dict,
                  train: bool):
@@ -594,8 +747,25 @@ class Trainer:
         return ({k: v / a for k, v in grads.items()},
                 {k: v / a for k, v in metrics.items()})
 
-    def train_step(self, state: TrainState, batch: dict):
-        """One step: (new state, metrics as device scalars)."""
+    def _instrument_grads(self, grads: dict, step: int, metrics: dict,
+                          norm=None):
+        """The post-gradient hook of every step (whole or ZeRO-1 shards):
+        the NaN fault injection first, then the guard's ``grad_norm``
+        (``norm`` computes a sharded one), so the guard detects what the
+        optimizer would consume."""
+        if self.fault_nan_step is not None and step == self.fault_nan_step:
+            grads = {k: torch.full_like(g, float("nan"))
+                     for k, g in grads.items()}
+        if self.health is not None:
+            metrics = {**metrics, "grad_norm": (
+                global_norm(grads) if norm is None else norm(grads))}
+        return grads, metrics
+
+    def _staged_step(self, state: TrainState, batch: dict):
+        """One step up to its update: ``(metrics as device scalars,
+        commit)``, where ``commit()`` applies the update in place and
+        returns the new state (the health guard runs it on healthy steps
+        only)."""
         if self.grad_accum == 1:
             self._generator.manual_seed(fold_in_step(state.rng, state.step))
             grads, metrics = self._grads(state, batch)
@@ -610,11 +780,17 @@ class Trainer:
                 [metrics[k] for k in keys], self.mesh)))
             shards = self.layout.reduce_scatter_grads(grads)
             del grads
-            norm = (self.layout.global_norm(shards) if self.tx.grad_clip
-                    else None)
-            opt_state = self.tx.update_shard(
-                shards, state.opt_state, self.layout.param_shards(), norm)
-            self.layout.gather_params()
+            shards, metrics = self._instrument_grads(
+                shards, state.step, metrics, norm=self.layout.global_norm)
+
+            def commit():
+                norm = (self.layout.global_norm(shards) if self.tx.grad_clip
+                        else None)
+                opt_state = self.tx.update_shard(
+                    shards, state.opt_state, self.layout.param_shards(), norm)
+                self.layout.gather_params()
+                return dataclasses.replace(state, step=state.step + 1,
+                                           opt_state=opt_state)
         else:
             if self.mesh is not None and self.mesh.size > 1:
                 # Each rank's loss is the mean over an equal share of the
@@ -628,10 +804,26 @@ class Trainer:
                     self.mesh)
                 grads = dict(zip(names, synced[:len(names)]))
                 metrics = dict(zip(keys, synced[len(names):]))
-            opt_state = self.tx.update(grads, state.opt_state, state.params)
-        metrics = self.task.finish_metrics(metrics)
-        return dataclasses.replace(state, step=state.step + 1,
-                                   opt_state=opt_state), metrics
+            grads, metrics = self._instrument_grads(grads, state.step,
+                                                    metrics)
+
+            def commit():
+                opt_state = self.tx.update(grads, state.opt_state,
+                                           state.params)
+                return dataclasses.replace(state, step=state.step + 1,
+                                           opt_state=opt_state)
+        return self.task.finish_metrics(metrics), commit
+
+    def train_step(self, state: TrainState, batch: dict):
+        """One step: (new state, metrics as device scalars). Under the
+        health guard the step's loss and gradient norm are read on the host
+        before the update, which a bad step skips."""
+        if self.health is not None:
+            from .health import guard_step
+
+            return guard_step(self._staged_step, self.health)(state, batch)
+        metrics, commit = self._staged_step(state, batch)
+        return commit(), metrics
 
     def fused_train_step(self, steps_per_call: int):
         """K-step dispatch: a callable ``(state, superbatch) -> (state,
@@ -724,10 +916,52 @@ def check_fusion_cadences(steps_per_call: int, *, steps: int, start: int = 0,
         )
 
 
+FAULT_KINDS = ("step", "nan", "hang", "corrupt")
+
+
+class FaultSpec(NamedTuple):
+    """One injected fault (``train.fault_injection='kind:K'``): ``kind`` is
+    how the run breaks, ``step`` the pre-step counter it breaks at. The
+    port runs ``nan`` (Trainer ``fault_nan_step``: step K's gradients
+    poisoned); ``step``, ``hang`` and ``corrupt`` belong to the supervisor
+    and are refused by ``cli train``."""
+
+    kind: str
+    step: int
+
+
+def parse_fault_injection(spec: str) -> FaultSpec | None:
+    """'kind:K' -> FaultSpec(kind, K) for kind in FAULT_KINDS; '' -> None."""
+    if not spec:
+        return None
+    kind, _, arg = spec.partition(":")
+    if kind not in FAULT_KINDS or not arg.isdigit():
+        raise ValueError(
+            f"fault_injection {spec!r}: expected one of "
+            f"{'|'.join(FAULT_KINDS)}:K"
+        )
+    return FaultSpec(kind, int(arg))
+
+
+class HealthRollback(Exception):
+    """Raised by :func:`fit` when the health guard reports
+    ``max_consecutive_anomalies`` anomalous steps in a row: the in-memory
+    state is not worth continuing from, and the caller (``cli train``)
+    restores the last checkpoint and trains again."""
+
+    def __init__(self, step: int, consecutive: int):
+        super().__init__(
+            f"{consecutive} consecutive anomalous steps at step {step}"
+        )
+        self.step = step
+        self.consecutive = consecutive
+
+
 def fit(trainer: Trainer, state: TrainState, batches, steps: int,
         log_every: int = 10, steps_per_call: int = 1, log_fn=print,
         writer=None, profiler=None, ckpt=None, save_every: int = 0,
-        eval_every: int = 0, eval_fn=None, step_times: list | None = None):
+        eval_every: int = 0, eval_fn=None, step_times: list | None = None,
+        health=None):
     """Host step loop from ``state.step`` to ``steps`` (callers start
     ``batches`` at the same index).
 
@@ -745,9 +979,13 @@ def fit(trainer: Trainer, state: TrainState, batches, steps: int,
     steps. ``profiler`` (a ``metrics.Profiler``) sees every step's index.
     ``step_times``: when a list, each call ends in a device sync and its
     seconds are appended (for timing; the loop otherwise never waits on
-    the device outside its log records and evaluations). Returns (state,
+    the device outside its log records and evaluations). ``health`` (a
+    ``config.HealthConfig``): when the logged metric stream reports
+    ``max_consecutive_anomalies`` anomalous steps in a row (one logging
+    interval late, the deferred fetch's lag), a ``health_rollback`` event
+    is emitted and :class:`HealthRollback` raised. Returns (state,
     history)."""
-    from .metrics import DeferredMetrics
+    from .metrics import DeferredMetrics, event_record
 
     if eval_every and eval_fn is None:
         raise ValueError("eval_every > 0 requires eval_fn")
@@ -755,6 +993,8 @@ def fit(trainer: Trainer, state: TrainState, batches, steps: int,
     check_fusion_cadences(k, steps=steps, start=start, log_every=log_every,
                           eval_every=eval_every, save_every=save_every)
     step_call = trainer.fused_train_step(k)
+    max_consec = (health.max_consecutive_anomalies if health is not None
+                  else 0)
     history = []
 
     def emit(m):
@@ -763,6 +1003,9 @@ def fit(trainer: Trainer, state: TrainState, batches, steps: int,
         if writer is not None and "event" not in m:
             writer.write(m["step"],
                          {x: v for x, v in m.items() if x != "step"})
+        if max_consec and m.get("consecutive_anomalies", 0) >= max_consec:
+            raise HealthRollback(int(m.get("step", 0)),
+                                 int(m["consecutive_anomalies"]))
 
     deferred = DeferredMetrics(emit)
 
@@ -804,6 +1047,13 @@ def fit(trainer: Trainer, state: TrainState, batches, steps: int,
         if eval_every and end % eval_every and end > start:
             run_eval(end)  # a final eval, so short runs still report one
         deferred.flush()
+    except HealthRollback as rb:
+        # The pending interval describes state that is being rewound;
+        # emitting it could fire the policy again mid-unwind.
+        deferred.discard()
+        emit(event_record("health_rollback", rb.step,
+                          consecutive=rb.consecutive))
+        raise
     finally:
         if profiler is not None:
             profiler.close()

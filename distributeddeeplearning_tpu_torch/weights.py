@@ -29,8 +29,17 @@ def from_jax_params(tree, prefix: str = "") -> dict[str, torch.Tensor]:
         if hasattr(leaf, "items"):
             out.update(from_jax_params(leaf, f"{name}."))
             continue
-        out[name] = torch.from_numpy(np.array(leaf, copy=True))
+        out[name] = _to_torch(leaf)
     return out
+
+
+def _to_torch(leaf) -> torch.Tensor:
+    """A numpy leaf as a new tensor; bfloat16 (numpy's ``ml_dtypes``
+    extension type, which torch cannot read) by its bits."""
+    arr = np.array(leaf, copy=True)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 def to_torch_layout(flat: dict, names) -> dict:
@@ -94,8 +103,8 @@ def opt_state_from_jax(opt_state, like):
     ``AdamW``, ``FusedAdamW`` or ``SGD``, or a ZeRO-1 rank's
     ``tx.init_shard(layout)``). SGD: its momentum trace and count. Adam:
     its count and its mu/nu trees flattened like :func:`from_jax_params`
-    (and cut to the rank's shards under ZeRO-1), on the device of
-    ``like``'s moments."""
+    (and cut to the rank's shards under ZeRO-1), on the device and in the
+    dtype of ``like``'s moments."""
     from .parallel.zero import ZeroState
 
     if hasattr(like, "trace"):
@@ -113,7 +122,7 @@ def opt_state_from_jax(opt_state, like):
             raise KeyError(f"moment names differ: {sorted(set(flat) ^ names)}")
         if sharded:
             flat = like.layout.shard(flat)
-        return {k: flat[k].to(device=ref[k].device, dtype=torch.float32)
+        return {k: flat[k].to(device=ref[k].device, dtype=ref[k].dtype)
                 for k in ref}
 
     return like._replace(count=int(np.asarray(node.count)),

@@ -99,11 +99,11 @@ def test_peak_table_needs_a_card():
     assert names.index("H100 PCIe") < names.index("H100")
 
 
-def _main(cmd, name, *extra, device="cpu"):
+def _main(cmd, name, *extra, device="cpu", flags=()):
     argv = [cmd, "--config", str(CONFIGS / f"{name}.py"), "--device", device]
     for o in {**TINY, **ENCODERS}[name] + list(extra):
         argv += ["--override", o]
-    return cli.main(argv)
+    return cli.main(argv + list(flags))
 
 
 def test_cli_benchmark_prints_the_record(capsys):
@@ -112,6 +112,15 @@ def test_cli_benchmark_prints_the_record(capsys):
     rec = json.loads(lines[-1])
     assert rec["metric"] == "resnet50_classification_throughput"
     assert rec["precision"] == "fp32" and rec["platform"] == "cpu"
+
+
+@pytest.mark.parametrize("probe", [2, 0])
+def test_cli_benchmark_takes_its_depth(probe, capsys):
+    assert _main("benchmark", "resnet18_cifar10", flags=(
+        "--steps", "2", "--latency-steps", "1", "--probe", str(probe))) == 0
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rec["steps_per_sec"] > 0 and rec["p50_step_ms"] > 0
+    assert rec.get("steps_per_call_probe") == (probe or None)
 
 
 @pytest.mark.parametrize("name", sorted(TINY))

@@ -201,7 +201,9 @@ def test_refused_optimizers_and_policies_by_name():
     assert isinstance(train.make_optimizer("sgd", 0.1), train.SGD)
     with pytest.raises(ValueError, match="optim.name='sgd'"):
         train.make_optimizer("sgd", 0.1, precision="bf16_full")
-    with pytest.raises(NotImplementedError, match="bf16_full"):
-        train.make_optimizer("adamw", 0.1, precision="bf16_full")
+    # adamw under bf16_full is the low-precision AdamW (bf16 moments).
+    assert isinstance(train.make_optimizer("adamw", 0.1,
+                                           precision="bf16_full"),
+                      train.LowPrecisionAdamW)
     with pytest.raises(ValueError, match="adamw_fused"):
         train.make_optimizer("adamw_fused", 0.1, precision="bf16_full")

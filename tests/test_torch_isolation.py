@@ -24,6 +24,7 @@ def _sources():
         ROOT / "tools" / "torch_train_profile.py",
         ROOT / "tools" / "torch_cp_profile.py",
         ROOT / "tools" / "torch_flash_tiles.py",
+        ROOT / "tools" / "torch_launch_profile.py",
     ]
     return [p for p in files if "_build" not in p.parts]
 
@@ -58,7 +59,8 @@ def test_sources_exist():
             "vit_imagenet21k.py", "bert_mlm.py", "llama.py", "hf_port.py",
             "llama_lm.py", "moe.py", "ep.py", "sow.py", "data_text.py",
             "prepare_data.py", "gpt2_moe.py", "llama_moe.py",
-            "gpt2_owt_file.py"} <= names
+            "gpt2_owt_file.py", "generate.py", "health.py",
+            "torch_launch_profile.py"} <= names
     csrc = {p.name for p in (PORT / "csrc").glob("*.cu")}
     assert {"paged_attention.cu", "flash_attention.cu",
             "fused_adamw.cu", "ring_attention.cu"} <= csrc
@@ -128,10 +130,39 @@ def test_cli_train_default_device_is_the_gpu(capsys):
         _train(device=None)
 
 
+def _generate(config, *overrides, device="cpu"):
+    from distributeddeeplearning_tpu_torch import cli
+
+    argv = ["generate", "--config", str(ROOT / config), "--prompt", "hi",
+            "--max-new-tokens", "2"]
+    if device is not None:
+        argv += ["--device", device]
+    for o in overrides:
+        argv += ["--override", o]
+    return cli.main(argv)
+
+
+def test_cli_generate_default_device_is_the_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable here")
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        _generate(CONFIG, *TINY, device=None)
+
+
+def test_cli_generate_refuses_gpt2_moe_by_name():
+    """The reference's gpt2_moe has no KV-cache decode, and cli generate
+    refuses it with the reference's words."""
+    with pytest.raises(ValueError, match="'gpt2_moe' has no KV-cache decode "
+                       "support"):
+        _generate("distributeddeeplearning_tpu_torch/configs/gpt2_moe.py",
+                  "model.kwargs.size=tiny", "model.kwargs.vocab_size=256")
+
+
 @pytest.mark.parametrize("override,knob", [
-    ("health.enabled=True", "health.enabled"),
+    ("train.fault_injection=step:3", "train.fault_injection"),
     ("telemetry.enabled=True", "telemetry.enabled"),
-    ("train.fault_injection=nan:3", "train.fault_injection"),
+    ("train.fault_injection=hang:3", "train.fault_injection"),
+    ("train.fault_injection=corrupt:3", "train.fault_injection"),
     ("train.grad_comm=int8", "train.grad_comm"),
     ("train.grad_bucket_mb=4.0", "train.grad_bucket_mb"),
     ("train.update_sharding=sharded", "train.update_sharding"),

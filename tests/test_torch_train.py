@@ -244,8 +244,7 @@ def test_dropout_follows_the_step_generator():
 @pytest.mark.parametrize("optim", ["adamw", "adamw_fused", "sgd"])
 def test_precision_fences_follow_the_reference(policy, optim):
     """A pair the reference refuses, the port refuses with its message; a
-    pair it accepts, the port accepts, except bf16_full (refused by name:
-    its low-precision AdamW is a later slice's)."""
+    pair it accepts, the port accepts."""
     try:
         jax_precision.check_precision_composition(policy, optim_name=optim)
         j_err = None
@@ -255,12 +254,12 @@ def test_precision_fences_follow_the_reference(policy, optim):
         with pytest.raises(ValueError) as e:
             precision.check_precision_composition(policy, optim_name=optim)
         assert str(e.value).split(":")[0] == j_err.split(":")[0]
-    elif policy == "bf16_full":
-        with pytest.raises(NotImplementedError, match="bf16_full"):
-            precision.check_precision_composition(policy, optim_name=optim)
     else:
         p = precision.check_precision_composition(policy, optim_name=optim)
-        assert p.name == policy and p.mixed == (policy == "bf16")
+        assert p.name == policy
+        assert p.mixed == (policy in ("bf16", "bf16_full"))
+        assert p.moment_dtype == (torch.bfloat16 if policy == "bf16_full"
+                                  else torch.float32)
     assert precision.POLICIES == jax_precision.POLICIES
 
 
