@@ -66,17 +66,20 @@ Phases, in order; any failure raises and the script exits non-zero:
      launch 12 x steps x grad_accum times, flash_fwd that many plus 12 x
      evaluations x eval_batches, fused_adamw 2 x steps; each rank's moments
      are half the unsharded bytes (plus padding); metrics.jsonl holds the
-     train and eval lines; a checkpoint exists at step 2, and a second
-     launch to 4 steps resumes from step 2 (and saves nothing); then 2 steps
-     with ZeRO-1 off (its moments the whole 8 bytes a parameter), for its
-     memory. Both ranks share the one card over gloo, so the step times are
-     no data-parallel speed;
+     train and eval lines; a checkpoint exists at step 2, from which
+     phase 13's fresh pair resumes to step 4 (exact launches). Both ranks
+     share the one card over gloo, so the step times are no data-parallel
+     speed;
   13. fp32 parity at 124M width: 2 ranks at dp=2 with ZeRO-1 and
      grad_accum=2 (flash, adamw_fused) against phase 8's single-process
      flash route, 4 steps: losses within 1e-4 relative and falling, params
      within ZERO_PARAM_LIMIT (clip and weight decay on); that run (in phase
      11's processes) saves at step 2, and fresh processes resume from the
-     save for steps 3 and 4, equal to the straight run bit for bit.
+     save for steps 3 and 4, equal to the straight run bit for bit; the
+     same fresh pair then runs gpt2_owt as shipped with ZeRO-1 off for 2
+     steps (its moments the whole 8 bytes a parameter a rank), for its
+     memory beside phase 12's, and resumes phase 12's run from its step-2
+     save to step 4.
   14. ResNet-50 training through the entry point: ``cli train`` in-process
      on ``configs/resnet50_imagenet.py`` as shipped (batch 256 x 224², bf16
      convs, SGD, label smoothing) for 8 steps, then 4 with the C++ loader
@@ -89,13 +92,13 @@ Phases, in order; any failure raises and the script exits non-zero:
      (p50, p90, MFU against the card's bf16 peak, peak memory, dispatch
      overhead a step), printed again on a line before the last;
   16. ResNet-50 at dp=2 under ``torchrun``, 2 ranks sharing the one card
-     over gloo: fp32 (TF32 off) at a global batch of 16, grad_accum 1 and 2,
-     both in one pair of processes, 4 steps against one process on the same
-     batches (losses within 1e-4 relative and falling, BatchNorm running
-     statistics within ``BN_STATS_TOL``); then the shipped config with eval
-     and checkpoints every 2 steps for 4 steps, and a launch in fresh
-     processes resuming from step 2 that repeats steps 3 and 4 bit for bit.
-     The step times are no data-parallel speed.
+     over gloo: the shipped config with eval and checkpoints every 2 steps
+     for 4 steps; then one pair of fresh processes runs fp32 (TF32 off) at a
+     global batch of 16, grad_accum 1 and 2, 4 steps against one process on
+     the same batches (losses within 1e-4 relative and falling, BatchNorm
+     running statistics within ``BN_STATS_TOL``), and a resume from the
+     step-2 save that repeats steps 3 and 4 bit for bit. The step times are
+     no data-parallel speed.
   17. ViT-L/16 training through the entry point: ``cli train`` on
      ``configs/vit_imagenet21k.py`` as shipped (batch 64 x 224², 21843
      classes, bf16, flash over 197 tokens padded to 256, adamw_fused,
@@ -186,6 +189,23 @@ Phases, in order; any failure raises and the script exits non-zero:
      factor raised so the oracle's routing drops nothing), and for GPT-2
      and Llama the serving engine's on the same weights and prompts, its
      decode steps through ``paged_decode`` (launches counted).
+  34. pipeline parallelism through the entry point: ``cli train`` under
+     ``torchrun`` with 4 ranks on ``configs/gpt2_pp.py`` as shipped (pp=4,
+     dp=1 so ZeRO-1 is a no-op, 1f1b_interleaved over 8 microbatches,
+     bf16, 32 x 1024, vocab 50304) for 2 steps with an evaluation and a
+     checkpoint at step 2: every loss finite and equal on the 4 ranks, each
+     rank 14 = M + 2(S-1) ticks a step and 11 in the evaluation; per rank
+     its peak memory and its transport seconds and megabytes a step. The
+     four ranks share the one card over gloo: a path, not a speed;
+  35. four spawned ranks run, in turn, ``configs/bert_pp.py`` as shipped
+     (1f1b, 64 x 512, padded rows from 64 tokens, bf16) for 2 steps; fp32
+     gpt2_pp at 16 x 1024 (TF32 off, ``adamw_fused`` over each rank's
+     leaves: launches = steps x its kernel groups) to step 2 with a save,
+     then on to step 4 from it; fp32 bert_pp at 16 x 512 for 3 steps. This
+     process runs their pp=1 twins with the plain AdamW: losses within
+     1e-4 relative and falling; it restores the gpt2_pp step-2 checkpoint
+     at pp=1, whose params equal every rank's step-2 params bit for bit
+     (sha256 of each leaf's bytes).
 Phase 3 also holds the paged kernels at Llama-300M's decode shape (16 q
 heads over 8 KV heads: bf16 and int8 pools with bf16 q at 2e-2, an fp32
 twin at 2e-5), and phase 6 the flash kernels at its training shape, bf16
@@ -1492,16 +1512,20 @@ def cli_train_cp(torch, layers, steps=CP_STEPS):
     return losses, end, got
 
 
-def _rank_fit(rank, port, jobs, out_dir):
-    """One of 2 ranks (a child process): for each job ``(overrides,
-    ckpt_dir, save_every, config)`` in turn, build_all + fit of the config
-    to ``train.steps``; with ``ckpt_dir``, restored from its latest step
-    when it holds one and saved every ``save_every`` steps."""
+def _rank_fit(rank, port, jobs, out_dir, world=2):
+    """One of ``world`` ranks (a child process): for each job
+    ``(overrides, ckpt_dir, save_every, config[, options])`` in turn,
+    build_all + fit of the config to ``train.steps``; with ``ckpt_dir``,
+    restored from its latest step when it holds one and saved every
+    ``save_every`` steps. ``options``: ``{"hashes": True}`` records a
+    digest of every param this rank holds (in place of rank 0's params)
+    and its fused AdamW kernel groups; ``{"params": False}`` keeps no
+    params."""
     import torch
 
-    os.environ.update(RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK=str(rank),
-                      LOCAL_WORLD_SIZE="2", MASTER_ADDR="localhost",
-                      MASTER_PORT=str(port))
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
     sys.path.insert(0, ROOT)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1520,15 +1544,21 @@ def _rank_fit(rank, port, jobs, out_dir):
         init_distributed,
         rank_device,
     )
+    from distributeddeeplearning_tpu_torch.ops import flash_attention
     from distributeddeeplearning_tpu_torch.ops import fused_adamw
     from distributeddeeplearning_tpu_torch.ops import ring_attention_pallas
-    from distributeddeeplearning_tpu_torch.train import fit
+    from distributeddeeplearning_tpu_torch.parallel import pp
+    from distributeddeeplearning_tpu_torch.train import fit, opt_state_bytes
 
     init_distributed("cuda")
     device = rank_device("cuda")
-    for j, (overrides, ckpt_dir, save_every, config) in enumerate(jobs):
+    for j, (overrides, ckpt_dir, save_every, config, *opts) in enumerate(
+            jobs):
+        opts = opts[0] if opts else {}
+        flash_attention.reset_launches()
         fused_adamw.reset_launches()
         ring_attention_pallas.reset_launches()
+        pp.reset_ticks()
         cfg = apply_overrides(load_config(config), overrides)
         mesh = build_mesh(cfg.mesh)
         _, trainer, dataset = cli.build_all(cfg, device, mesh)
@@ -1536,6 +1566,7 @@ def _rank_fit(rank, port, jobs, out_dir):
         ckpt = None if ckpt_dir is None else CheckpointManager(ckpt_dir)
         if ckpt is not None and ckpt.latest_step() is not None:
             state, _ = ckpt.restore(state)
+        torch.cuda.reset_peak_memory_stats(device)
         state, hist = fit(trainer, state, data.prefetch(
             data.sharded_batches(dataset.iter_from(state.step), mesh,
                                  cfg.train.grad_accum), device),
@@ -1545,10 +1576,19 @@ def _rank_fit(rank, port, jobs, out_dir):
         if ckpt is not None:
             ckpt.close()
         out = {"losses": [r["loss"] for r in hist],
-               "launches": {**ring_attention_pallas.LAUNCHES,
+               "launches": {**flash_attention.LAUNCHES,
+                            **ring_attention_pallas.LAUNCHES,
                             **fused_adamw.LAUNCHES},
-               "timings": [] if ckpt is None else ckpt.timings}
-        if rank == 0:
+               "opt_state_bytes": opt_state_bytes(state.opt_state),
+               "timings": [] if ckpt is None else ckpt.timings,
+               "pipeline": dict(pp.TICKS), "coords": mesh.coords,
+               "peak_mem_gb": torch.cuda.max_memory_allocated(device) / 1e9}
+        if opts.get("hashes"):
+            out["hashes"] = {k: param_digest(p)
+                             for k, p in state.params.items()}
+            out["groups"] = len(fused_adamw.split_leaves(
+                state.params, cfg.optim.weight_decay)[1])
+        elif rank == 0 and opts.get("params", True):
             out["params"] = {k: p.detach().cpu()
                              for k, p in state.params.items()}
             out["model_state"] = {k: b.detach().cpu()
@@ -1560,10 +1600,22 @@ def _rank_fit(rank, port, jobs, out_dir):
     dist.destroy_process_group()
 
 
-def spawn_ranks(torch, jobs, out_dir):
-    """2 ranks of :func:`_rank_fit` sharing the one card over gloo, which
-    run each job ``(overrides, ckpt_dir, save_every, config)`` in turn in
-    the same two processes: each job's [rank 0, rank 1] results."""
+def param_digest(t) -> str:
+    """A digest of a tensor's bytes: equal digests, equal bits."""
+    import hashlib
+
+    import torch
+
+    flat = t.detach().contiguous().cpu().reshape(-1)
+    return hashlib.sha256(flat.view(torch.uint8).numpy().tobytes()
+                          ).hexdigest()
+
+
+def spawn_ranks(torch, jobs, out_dir, nranks=2):
+    """``nranks`` ranks of :func:`_rank_fit` sharing the one card over
+    gloo, which run each job ``(overrides, ckpt_dir, save_every, config[,
+    options])`` in turn in the same processes: each job's [rank 0, ...,
+    rank n-1] results."""
     import socket
 
     with socket.socket() as s:
@@ -1571,12 +1623,13 @@ def spawn_ranks(torch, jobs, out_dir):
         port = s.getsockname()[1]
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    torch.multiprocessing.spawn(_rank_fit, args=(port, jobs, out_dir),
-                                nprocs=2, join=True)
-    print(f"spawned 2 ranks for {len(jobs)} job(s): "
+    torch.multiprocessing.spawn(_rank_fit,
+                                args=(port, jobs, out_dir, nranks),
+                                nprocs=nranks, join=True)
+    print(f"spawned {nranks} ranks for {len(jobs)} job(s): "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     return [[torch.load(os.path.join(out_dir, f"rank{r}_job{j}.pt"))
-             for r in range(2)] for j in range(len(jobs))]
+             for r in range(nranks)] for j in range(len(jobs))]
 
 
 def zero1_overrides(parity):
@@ -1629,12 +1682,12 @@ ZERO_STEPS, ZERO_ACCUM, EVAL_BATCHES = 2, 2, 2
 ZERO_PARAM_LIMIT = 1e-4
 
 
-def torchrun_train(overrides, timeout=600, config=CONFIG):
-    """``cli train --sync-steps`` under torchrun with 2 ranks on ``config``
-    (default ``configs/gpt2_owt.py``): (rank 0's text lines, its JSON
-    records, the train_end record)."""
+def torchrun_train(overrides, timeout=600, config=CONFIG, nproc=2):
+    """``cli train --sync-steps`` under torchrun with ``nproc`` ranks on
+    ``config`` (default ``configs/gpt2_owt.py``): (rank 0's text lines, its
+    JSON records, the train_end record)."""
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           "--nproc_per_node", "2", "-m",
+           "--nproc_per_node", str(nproc), "-m",
            "distributeddeeplearning_tpu_torch.cli", "train", "--config",
            config, "--sync-steps"]
     for o in overrides:
@@ -1662,20 +1715,18 @@ def zero1_expected(layers, steps, evals):
             "ring_step": 0, "ring_dq": 0, "ring_dkv": 0}
 
 
-def cli_train_zero1(torch, layers, n_params):
+def cli_train_zero1(torch, layers, n_params, ck):
     """``cli train`` under torchrun on gpt2_owt as shipped (zero1=True,
     dp=-1 -> 2, flash, adamw_fused, bf16, batch 32 x 1024) with
-    grad_accum=2, evaluation and checkpoints every 2 steps and the metrics
-    writer: 2 steps, then a second launch resumes to 4; then 2 steps with
-    ZeRO-1 off (the gradient all-reduce, then fused_adamw over the whole
-    leaves) for its memory. Returns the first launch's train_end record,
-    each rank's launches over the first two launches, and the numbers to
-    report."""
+    grad_accum=2, evaluation and checkpoints every 2 steps into ``ck`` and
+    the metrics writer, 2 steps (phase 13's fresh pair resumes from the
+    save to 4 and runs ZeRO-1 off). Returns the numbers to report and each
+    rank's launches."""
     import tempfile
 
     full_bytes = 8 * n_params  # two fp32 moments, unsharded
     with tempfile.TemporaryDirectory() as tmp:
-        ck, logs = os.path.join(tmp, "ckpt"), os.path.join(tmp, "logs")
+        logs = os.path.join(tmp, "logs")
         base = [f"train.grad_accum={ZERO_ACCUM}", "train.save_every=2",
                 "train.eval_every=2", f"train.eval_batches={EVAL_BATCHES}",
                 "train.log_every=1", f"train.checkpoint_dir={ck}",
@@ -1710,51 +1761,32 @@ def cli_train_zero1(torch, layers, n_params):
         if steps_on_disk != [2]:
             raise AssertionError(f"checkpoints at {steps_on_disk}")
         saves = end["ranks"][0]["checkpoints"]
-        # No save at step 4: nothing reads it.
-        text2, recs2, end2 = torchrun_train(base + ["train.steps=4",
-                                                    "train.save_every=0"])
-        print("\n".join(text2))
-        if "resumed from step 2" not in text2:
-            raise AssertionError("the second launch did not resume from 2")
-        steps2 = [r["step"] for r in recs2 if "loss" in r]
-        want2 = zero1_expected(layers, 2, 1)
-        got2 = [r["launches"] for r in end2["ranks"]]
-        if steps2 != [3, 4] or got2 != [want2, want2]:
-            raise AssertionError(f"resumed run: steps {steps2}, launches "
-                                 f"{got2} != {want2}")
-        _, _, off = torchrun_train([f"train.grad_accum={ZERO_ACCUM}",
-                                    "train.zero1=false", "train.steps=2",
-                                    "train.log_every=1"])
-    off_opt = [r["opt_state_bytes"] for r in off["ranks"]]
-    want_off = zero1_expected(layers, 2, 0)
-    got_off = [r["launches"] for r in off["ranks"]]
-    if off_opt != [full_bytes, full_bytes] or got_off != [want_off] * 2:
-        raise AssertionError(f"zero1 off: optimizer bytes {off_opt} (want "
-                             f"{full_bytes}), launches {got_off} != "
-                             f"{want_off}")
     step_s = end["step_s"][1:]  # the first step warms the libraries up
     res = {
         "backend": end["backend"], "ranks_on_one_card": 2,
         "p50_step_ms": statistics.median(step_s) * 1e3,
         "step_ms": [x * 1e3 for x in step_s],
         "opt_state_bytes_per_rank": opt,
-        "opt_state_bytes_zero1_off": off_opt,
         "peak_mem_gb": [r["peak_mem_gb"] for r in end["ranks"]],
-        "peak_mem_gb_zero1_off": [r["peak_mem_gb"] for r in off["ranks"]],
         "checkpoint_saves": saves,
     }
     print(f"zero1 train: {json.dumps(res)} (both ranks share the one card "
           "over gloo: not a data-parallel speed)", flush=True)
-    launches = [{k: a[k] + b[k] for k in a} for a, b in zip(got, got2)]
-    return res, launches
+    return res, got
 
 
-def zero1_parity(torch, parity, ranks, ck, steps=4):
+def zero1_parity(torch, parity, ranks, ck, ck12, steps=4):
     """Phase 13: fp32 at 124M width, 2 ranks at dp=2 with ZeRO-1 and
     grad_accum=2 (flash, adamw_fused), run in phase 11's processes
     (``ranks``), against phase 8's single-process flash route; then fresh
     processes resume from its halfway save in ``ck`` and run the second
-    half, which must equal the straight run bit for bit."""
+    half, which must equal the straight run bit for bit. The same two
+    processes then run phase 12's ZeRO-1-off job: gpt2_owt as shipped with
+    grad_accum=2 for 2 steps (the gradient all-reduce, then fused_adamw
+    over the whole leaves), whose moments are the whole 8 bytes a
+    parameter a rank, for its memory beside phase 12's; and resume phase
+    12's run from its step-2 save in ``ck12`` to step 4 (exact launches).
+    Returns each rank's launches of that resumed run."""
     import tempfile
 
     on_disk = sorted(int(n) for n in os.listdir(ck) if n.isdigit())
@@ -1762,8 +1794,34 @@ def zero1_parity(torch, parity, ranks, ck, steps=4):
         raise AssertionError(f"zero1 parity: checkpoints at {on_disk}")
     shutil.rmtree(os.path.join(ck, str(steps)))  # resume from halfway
     with tempfile.TemporaryDirectory() as tmp:
-        second, = spawn_ranks(torch, [(zero1_overrides(parity), ck, 0,
-                                       CONFIG)], tmp)
+        second, off, resumed12 = spawn_ranks(torch, [
+            (zero1_overrides(parity), ck, 0, CONFIG),
+            ([f"train.grad_accum={ZERO_ACCUM}", "train.zero1=false",
+              "train.steps=2"], None, 0, CONFIG, {"params": False}),
+            ([f"train.grad_accum={ZERO_ACCUM}", "train.steps=4"], ck12, 0,
+             CONFIG, {"params": False})], tmp)
+    n_params = sum(p.numel() for p in parity["params_kernels"].values())
+    off_opt = [r["opt_state_bytes"] for r in off]
+    layers = sum(k.endswith("attn.query.kernel")
+                 for k in parity["params_kernels"])
+    want_off = zero1_expected(layers, 2, 0)
+    got_off = [r["launches"] for r in off]
+    print(f"zero1 off: optimizer bytes per rank {off_opt}, peak memory "
+          f"{[r['peak_mem_gb'] for r in off]} GB, losses "
+          f"{[r['losses'] for r in off]}, launches {got_off}", flush=True)
+    if off_opt != [8 * n_params] * 2 or got_off != [want_off] * 2:
+        raise AssertionError(f"zero1 off: optimizer bytes {off_opt} (want "
+                             f"{8 * n_params}), launches {got_off} != "
+                             f"{want_off}")
+    got12 = [r["launches"] for r in resumed12]
+    l12 = [r["losses"] for r in resumed12]
+    print(f"phase 12's run resumed from step 2 in fresh processes: losses "
+          f"{l12}, launches {got12}", flush=True)
+    if (len(l12[0]) != 2 or l12[1] != l12[0]
+            or not all(map(math.isfinite, l12[0]))
+            or got12 != [zero1_expected(layers, 2, 0)] * 2):
+        raise AssertionError(f"phase 12 resume: losses {l12}, launches "
+                             f"{got12}")
     la, lb = ranks[0]["losses"], parity["losses_kernels"]
     rel = max(abs(a - b) / abs(b) for a, b in zip(la, lb))
     pb = parity["params_kernels"]
@@ -1791,8 +1849,7 @@ def zero1_parity(torch, parity, ranks, ck, steps=4):
            for k in pb):
         raise AssertionError("zero1 resume: params differ from the "
                              "straight run")
-    return {"losses_zero1": la, "losses_one_rank": lb, "max_rel_diff": rel,
-            "max_abs_param_diff": pdiff, "resumed_losses": resumed}
+    return got12
 
 
 # ---------------------------------------------------------------------------
@@ -1951,19 +2008,45 @@ def resnet_one_process(torch, cli, load_config, apply_overrides, accum):
 
 
 def resnet_dp2(torch, cli, load_config, apply_overrides):
-    """Phase 16: fp32 parity of dp=2 (grad_accum 1 and 2, both in one
-    pair of processes) against one process, then the shipped config under
-    torchrun at dp=2 with eval and checkpoints every 2 steps, and a resume
-    in fresh processes that repeats steps 3 and 4 bit for bit."""
+    """Phase 16: the shipped config under torchrun at dp=2 with eval and
+    checkpoints every 2 steps; then one pair of fresh processes runs the
+    fp32 parity of dp=2 (grad_accum 1 and 2) against one process, and a
+    resume from the step-2 save that repeats steps 3 and 4 bit for bit."""
     import tempfile
 
     accums = (1, 2)
     one = [resnet_one_process(torch, cli, load_config, apply_overrides, a)
            for a in accums]
     with tempfile.TemporaryDirectory() as tmp:
-        dp2 = spawn_ranks(torch, [(RESNET_PARITY + [
+        ck, logs = os.path.join(tmp, "ckpt"), os.path.join(tmp, "logs")
+        base = ["train.save_every=2", "train.eval_every=2",
+                "train.eval_batches=1", "train.log_every=1",
+                f"train.checkpoint_dir={ck}", f"train.log_dir={logs}"]
+        text, recs, end = torchrun_train(base + ["train.steps=4"],
+                                         config=RESNET, timeout=900)
+        print("\n".join(text))
+        losses = [r["loss"] for r in recs if "loss" in r]
+        evals = [r["step"] for r in recs if "eval_loss" in r]
+        if len(losses) != 4 or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"resnet dp=2 cli train: losses {losses}")
+        if evals != [2, 4] or end["backend"] != "gloo":
+            raise AssertionError(f"resnet dp=2 cli train: evals {evals}, "
+                                 f"backend {end['backend']}")
+        if any(r["losses"] != losses for r in end["ranks"]):
+            raise AssertionError("resnet dp=2 cli train: ranks differ")
+        steps_on_disk = sorted(int(n) for n in os.listdir(ck) if n.isdigit())
+        if steps_on_disk != [2, 4]:
+            raise AssertionError(f"checkpoints at {steps_on_disk}")
+        shutil.rmtree(os.path.join(ck, "4"))  # resume from step 2
+        *dp2, resume = spawn_ranks(torch, [(RESNET_PARITY + [
             "mesh.dp=2", f"train.grad_accum={a}"], None, 0, RESNET)
-            for a in accums], tmp)
+            for a in accums] + [(["train.steps=4"], ck, 0, RESNET)], tmp)
+    resumed = resume[0]["losses"]
+    print(f"resnet dp=2 resumed from step 2 in fresh processes: {resumed} "
+          f"against {losses[2:]}", flush=True)
+    if resumed != losses[2:] or resume[1]["losses"] != resumed:
+        raise AssertionError(f"resnet resume: {resumed} against "
+                             f"{losses[2:]}")
     parity = {}
     for accum, (la, sa), ranks in zip(accums, one, dp2):
         lb, sb = ranks[0]["losses"], ranks[0]["model_state"]
@@ -1990,34 +2073,6 @@ def resnet_dp2(torch, cli, load_config, apply_overrides):
         parity[accum] = {"losses_dp2": lb, "losses_one": la,
                          "max_rel_diff": rel, "bn_stats_diff": sdiff}
 
-    with tempfile.TemporaryDirectory() as tmp:
-        ck, logs = os.path.join(tmp, "ckpt"), os.path.join(tmp, "logs")
-        base = ["train.save_every=2", "train.eval_every=2",
-                "train.eval_batches=1", "train.log_every=1",
-                f"train.checkpoint_dir={ck}", f"train.log_dir={logs}"]
-        text, recs, end = torchrun_train(base + ["train.steps=4"],
-                                         config=RESNET, timeout=900)
-        print("\n".join(text))
-        losses = [r["loss"] for r in recs if "loss" in r]
-        evals = [r["step"] for r in recs if "eval_loss" in r]
-        if len(losses) != 4 or not all(map(math.isfinite, losses)):
-            raise AssertionError(f"resnet dp=2 cli train: losses {losses}")
-        if evals != [2, 4] or end["backend"] != "gloo":
-            raise AssertionError(f"resnet dp=2 cli train: evals {evals}, "
-                                 f"backend {end['backend']}")
-        if any(r["losses"] != losses for r in end["ranks"]):
-            raise AssertionError("resnet dp=2 cli train: ranks differ")
-        steps_on_disk = sorted(int(n) for n in os.listdir(ck) if n.isdigit())
-        if steps_on_disk != [2, 4]:
-            raise AssertionError(f"checkpoints at {steps_on_disk}")
-        shutil.rmtree(os.path.join(ck, "4"))  # resume from step 2
-        text2, recs2, _ = torchrun_train(base + ["train.steps=4"],
-                                         config=RESNET, timeout=900)
-        print("\n".join(text2))
-        resumed = [r["loss"] for r in recs2 if "loss" in r]
-        if "resumed from step 2" not in text2 or resumed != losses[2:]:
-            raise AssertionError(f"resnet resume: {resumed} against "
-                                 f"{losses[2:]}")
     step_s = end["step_s"][1:]
     res = {"backend": end["backend"], "ranks_on_one_card": 2,
            "p50_step_ms": statistics.median(step_s) * 1e3,
@@ -2880,6 +2935,192 @@ def generation_parity(torch, cli, load_config, apply_overrides, pa,
     return out, paged
 
 
+# ---------------------------------------------------------------------------
+# 34. / 35. pipeline parallelism (no attention kernel in the stages)
+# ---------------------------------------------------------------------------
+
+GPT2_PP = os.path.join(ROOT, "distributeddeeplearning_tpu_torch", "configs",
+                       "gpt2_pp.py")
+BERT_PP = os.path.join(ROOT, "distributeddeeplearning_tpu_torch", "configs",
+                       "bert_pp.py")
+PP_RANKS, PP_STEPS = 4, 2
+# Phase 35's fp32 pairs: gpt2_pp at 16 x 1024 (adamw_fused on the ranks),
+# bert_pp at 16 x 512, on one repeated batch at a constant lr.
+PP_PARITY = ["model.kwargs.dtype=float32", "data.n_distinct=1",
+             "optim.schedule=constant", "optim.warmup_steps=0"]
+GPT2_PP_PARITY = PP_PARITY + ["data.batch_size=16"]
+BERT_PP_PARITY = PP_PARITY + ["data.batch_size=16", "train.steps=3"]
+
+
+def pp_cli_train(torch):
+    """Phase 34: ``cli train`` under torchrun with 4 ranks on
+    ``configs/gpt2_pp.py`` as shipped (pp=4, dp=1, 1f1b_interleaved, M=8,
+    bf16, 32 x 1024, vocab 50304) for 2 steps, an evaluation and a
+    checkpoint at step 2: every loss finite and equal on the 4 ranks, each
+    rank 14 = M + 2(S-1) ticks a step and M + S - 1 = 11 in the
+    evaluation; per rank its peak memory, the seconds inside the
+    transport's calls each step (waiting for the neighbours included) and
+    the megabytes it sent a step."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "ckpt")
+        text, recs, end = torchrun_train(
+            [f"train.steps={PP_STEPS}", "train.log_every=1",
+             "train.eval_every=2", "train.eval_batches=1",
+             "train.save_every=2", f"train.checkpoint_dir={ck}",
+             f"train.log_dir={tmp}/logs"], config=GPT2_PP, nproc=PP_RANKS)
+        on_disk = sorted(os.listdir(ck))
+    print("\n".join(text))
+    losses = [r["loss"] for r in recs if "loss" in r]
+    evals = [r["step"] for r in recs if "eval_loss" in r]
+    ranks = end["ranks"]
+    if (len(losses) != PP_STEPS or not all(map(math.isfinite, losses))
+            or evals != [2] or on_disk != ["2"]):
+        raise AssertionError(f"pp train: losses {losses}, evals at {evals}, "
+                             f"checkpoints {on_disk}")
+    if any(r["losses"] != ranks[0]["losses"] for r in ranks):
+        raise AssertionError(f"pp train: the ranks' losses differ "
+                             f"{[r['losses'] for r in ranks]}")
+    S, M = PP_RANKS, 8
+    per_rank = []
+    for i, r in enumerate(ranks):
+        t = r["pipeline"]
+        if (t["train_ticks"] != PP_STEPS * (M + 2 * (S - 1))
+                or t["eval_ticks"] != M + S - 1):
+            raise AssertionError(f"pp train rank {i}: ticks {t}")
+        per_rank.append({
+            "rank": i, "peak_mem_gb": r["peak_mem_gb"],
+            "transport_s_by_step": t["transport_s_by_step"],
+            "transport_mb_sent_per_step":
+                t["train_transport_bytes"] / PP_STEPS / 1e6,
+            "ticks_per_step": t["train_ticks"] // PP_STEPS,
+            "eval_ticks": t["eval_ticks"], "max_stash": t["max_stash"]})
+    res = {"backend": end["backend"], "ranks_on_one_card": PP_RANKS,
+           "losses": losses, "step_ms": [x * 1e3 for x in end["step_s"]],
+           "per_rank": per_rank, "launches": ranks[0]["launches"]}
+    print(f"pp train: {json.dumps(res)} (four ranks share the one card over "
+          "gloo: the step time is a path, not a speed)", flush=True)
+    return res
+
+
+def pp_jobs(tmp):
+    """Phase 35's jobs for 4 spawned ranks: bert_pp as shipped for 2
+    steps; fp32 gpt2_pp with adamw_fused to step 2 with a save, then on to
+    4 from it; fp32 bert_pp for 3 steps."""
+    ck = os.path.join(tmp, "gpt2_pp_ckpt")
+    hashes = {"hashes": True}
+    fused = GPT2_PP_PARITY + ["optim.name=adamw_fused"]
+    return [
+        (["train.steps=2"], None, 0, BERT_PP, hashes),
+        (fused + ["train.steps=2"], ck, 2, GPT2_PP, hashes),
+        (fused + ["train.steps=4"], ck, 0, GPT2_PP, hashes),
+        (BERT_PP_PARITY, None, 0, BERT_PP, hashes),
+    ], ck
+
+
+def pp_twin(torch, cli, load_config, apply_overrides, config, overrides):
+    """A pp=1 run of ``config`` in this process (the plain AdamW): its
+    losses and the trainer's state."""
+    from distributeddeeplearning_tpu_torch import data
+    from distributeddeeplearning_tpu_torch.train import fit
+
+    cfg = apply_overrides(load_config(config), overrides + [
+        "mesh.pp=1", "optim.name=adamw"])
+    _, trainer, dataset = cli.build_all(cfg, "cuda")
+    state = trainer.init(cfg.train.seed)
+    state, hist = fit(trainer, state, data.prefetch(data.sharded_batches(
+        dataset.iter_from(0), None), "cuda"), steps=cfg.train.steps,
+        log_every=1, log_fn=lambda m: None)
+    torch.cuda.synchronize()
+    return [r["loss"] for r in hist], trainer, state
+
+
+def pp_parity(torch, cli, load_config, apply_overrides):
+    """Phase 35: 4 spawned ranks run :func:`pp_jobs`; the shipped bert_pp
+    losses finite and equal on every rank; the fp32 gpt2_pp (4 steps,
+    fused_adamw over each rank's leaves: launches = steps x its kernel
+    groups) and bert_pp (3 steps) losses within 1e-4 relative of their
+    pp=1 twins here (plain AdamW) and falling; the step-2 checkpoint,
+    restored here at pp=1, equals every rank's step-2 params bit for bit.
+    Returns (the record, fused_adamw launches on the ranks)."""
+    import tempfile
+
+    from distributeddeeplearning_tpu_torch.checkpoint import (
+        CheckpointManager,
+    )
+
+    with tempfile.TemporaryDirectory() as tmp:
+        jobs, ck = pp_jobs(tmp)
+        bert, gpt_a, gpt_b, bert32 = spawn_ranks(torch, jobs, tmp,
+                                                 nranks=PP_RANKS)
+        for name, ranks in (("bert_pp", bert), ("gpt2_pp fp32", gpt_a),
+                            ("gpt2_pp fp32 resumed", gpt_b),
+                            ("bert_pp fp32", bert32)):
+            ls = [r["losses"] for r in ranks]
+            if any(x != ls[0] for x in ls) or not all(
+                    map(math.isfinite, ls[0])):
+                raise AssertionError(f"{name}: rank losses {ls}")
+        launched = 0
+        for ranks in (gpt_a, gpt_b):
+            for r in ranks:
+                want = len(r["losses"]) * r["groups"]
+                if r["launches"]["fused_adamw"] != want or want == 0:
+                    raise AssertionError(
+                        f"pp fused_adamw launches {r['launches']} != {want}")
+                launched += want
+        t0 = time.perf_counter()
+        twin_gpt, trainer, state = pp_twin(
+            torch, cli, load_config, apply_overrides, GPT2_PP,
+            GPT2_PP_PARITY + ["train.steps=4"])
+        with CheckpointManager(ck) as mgr:
+            state, _ = mgr.restore(state, step=2)
+        restored = {k: param_digest(p) for k, p in state.params.items()}
+        rows = state.stage_rows
+        mismatched = []
+        for r in gpt_a:
+            s = r["coords"]["pp"]
+            for k, h in r["hashes"].items():
+                p = state.params[k]
+                want = param_digest(p[s:s + 1]) if k in rows.names else \
+                    restored[k]
+                if h != want:
+                    mismatched.append((s, k))
+        del trainer, state
+        torch.cuda.empty_cache()
+        twin_bert, trainer, state = pp_twin(
+            torch, cli, load_config, apply_overrides, BERT_PP,
+            BERT_PP_PARITY)
+        del trainer, state
+        torch.cuda.empty_cache()
+        twin_s = time.perf_counter() - t0
+    pp_gpt = gpt_a[0]["losses"] + gpt_b[0]["losses"]
+    rel_gpt = max(abs(a - b) / abs(b) for a, b in zip(pp_gpt, twin_gpt))
+    rel_bert = max(abs(a - b) / abs(b)
+                   for a, b in zip(bert32[0]["losses"], twin_bert))
+    res = {"bert_pp_losses": bert[0]["losses"],
+           "bert_pp_peak_mem_gb": [r["peak_mem_gb"] for r in bert],
+           "bert_pp_per_rank_pipeline": [r["pipeline"] for r in bert],
+           "gpt2_pp_fp32": {"pp4": pp_gpt, "pp1": twin_gpt,
+                            "max_rel_diff": rel_gpt},
+           "bert_pp_fp32": {"pp4": bert32[0]["losses"], "pp1": twin_bert,
+                            "max_rel_diff": rel_bert},
+           "restore_at_pp1_mismatched_leaves": len(mismatched),
+           "checkpoint_saves": gpt_a[0]["timings"],
+           "fused_adamw_launches": launched, "twins_s": twin_s}
+    print(f"pp parity: {json.dumps(res)}", flush=True)
+    if mismatched:
+        raise AssertionError(f"pp restore at pp=1: {mismatched[:4]} differ")
+    for name, a, b, rel in (("gpt2_pp", pp_gpt, twin_gpt, rel_gpt),
+                            ("bert_pp", bert32[0]["losses"], twin_bert,
+                             rel_bert)):
+        if not rel <= 1e-4:
+            raise AssertionError(f"{name} fp32 pp=4 vs pp=1: rel {rel}")
+        if not (a[-1] < a[0] and b[-1] < b[0]):
+            raise AssertionError(f"{name} fp32: loss did not fall {a} {b}")
+    return res, launched
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -3018,14 +3259,17 @@ def main(argv=None) -> int:
     phase("12 ZeRO-1 train through the entry point (torchrun, dp=2)")
     n_params = sum(p.numel() for p in models.get_model(
         cfg.model.name, **cfg.model.kwargs, device="meta").parameters())
-    _, zero_launches = cli_train_zero1(torch, layers, n_params)
+    ck12 = os.path.join(zero_ck.name, "ck12")  # phase 12's save, for 13
+    _, zero_launches = cli_train_zero1(torch, layers, n_params, ck12)
     for k in ("flash_fwd", "flash_dq", "flash_dkv", "fused_adamw"):
         launches[k] += sum(r[k] for r in zero_launches)
 
     phase("13 fp32 parity at 124M width, ZeRO-1 dp=2 against one rank, "
           "and its resume")
-    zero1_parity(torch, parity, zero_ranks,
-                 os.path.join(zero_ck.name, "ckpt"))
+    resumed12 = zero1_parity(torch, parity, zero_ranks,
+                             os.path.join(zero_ck.name, "ckpt"), ck12)
+    for k in ("flash_fwd", "flash_dq", "flash_dkv", "fused_adamw"):
+        launches[k] += sum(r[k] for r in resumed12)
     zero_ck.cleanup()
 
     phase("14 ResNet-50 train through the entry point")
@@ -3131,7 +3375,14 @@ def main(argv=None) -> int:
     for launched in late:
         for k, v in launched.items():
             launches[k] += v
-    print(f"chip_smoke: 33 phases in {time.perf_counter() - _T0:.1f} s",
+
+    phase("34 gpt2_pp train through the entry point (torchrun, pp=4)")
+    pp_cli_train(torch)
+    phase("35 pipelined jobs on 4 spawned ranks: bert_pp as shipped, fp32 "
+          "gpt2_pp and bert_pp against pp=1, restore at pp=1")
+    _, launched = pp_parity(torch, cli, load_config, apply_overrides)
+    launches["fused_adamw"] += launched
+    print(f"chip_smoke: 35 phases in {time.perf_counter() - _T0:.1f} s",
           flush=True)
 
     # Each kernel's numbers come from its case at the main path's types.

@@ -20,7 +20,12 @@ The JAX package's ``checkpoint.py`` keeps the same interface over orbax
 - **Any mesh**: under ZeRO-1 every rank calls :meth:`save`, the moments are
   gathered to full leaf shape on rank 0 alone and rank 0 writes;
   :meth:`restore` cuts them to the target state's own layout, so a
-  checkpoint saved at dp=2 restores at dp=1 and the other way round.
+  checkpoint saved at dp=2 restores at dp=1 and the other way round. A
+  pipelined model's stage leaves are written whole, ``[num_stages, ...]``
+  as the reference's stacked layout: the save gathers every stage's rows
+  of the params and the optimizer's trees over ``pp`` (after ZeRO-1's
+  gather over dp), and a restore gives each rank its rows, so a ``pp=4``
+  checkpoint resumes at ``pp=1`` and the other way round.
 - **Fallback**: :meth:`restore` with no step walks the steps newest first;
   a step whose files fail to load is quarantined (renamed
   ``<step>.corrupt``) and the next earlier one is tried.
@@ -51,8 +56,8 @@ _KEYS = ("step", "rng", "count", "params")
 def _full_opt_trees(opt_state) -> dict | None:
     """The optimizer state's params-shaped trees (``train.opt_state_trees``:
     Adam's mu and nu, or SGD's trace): a ZeRO-1 state's shards gathered on
-    rank 0 (a collective of rank 0's dp group; None on every other rank),
-    a replicated state's trees as they are."""
+    member 0 of each dp group (a collective of the group; None on every
+    other rank), a replicated state's trees as they are."""
     from .parallel.zero import ZeroState
     from .train import opt_state_trees
 
@@ -63,14 +68,33 @@ def _full_opt_trees(opt_state) -> dict | None:
     return opt_state_trees(opt_state)
 
 
-def _host(state, opt_trees: dict) -> dict:
-    """A copy of ``state`` (with the optimizer's full trees ``opt_trees``)
-    in host memory, in the layout of ``state.pt``."""
+def _whole_trees(state) -> tuple:
+    """(params, the optimizer's trees) of the whole model on rank 0, in
+    the checkpoint's layout: a pipelined model's stage leaves gathered over
+    pp to all their rows. (None, None) on the other ranks, which take part
+    in the gathers."""
+    trees = _full_opt_trees(state.opt_state)
+    params = state.params
+    rows = state.stage_rows
+    if rows is not None and rows.mesh is not None:
+        params = rows.gather(params)
+        if trees is not None:
+            trees = {n: rows.gather(t) for n, t in trees.items()}
+    if params is None or trees is None or any(
+            t is None for t in trees.values()):
+        return None, None
+    return params, trees
+
+
+def _host(state, params: dict, opt_trees: dict) -> dict:
+    """A copy of ``state`` (with its whole ``params`` and the optimizer's
+    full trees ``opt_trees``) in host memory, in the layout of
+    ``state.pt``."""
     def host(tree):
         return {k: v.detach().to("cpu", copy=True) for k, v in tree.items()}
 
     out = {"step": int(state.step), "rng": int(state.rng),
-           "count": int(state.opt_state.count), "params": host(state.params),
+           "count": int(state.opt_state.count), "params": host(params),
            "model_state": host(state.model_state),
            **{name: host(tree) for name, tree in opt_trees.items()}}
     if state.health is not None:
@@ -96,14 +120,19 @@ def load_into(state, host: dict):
     """``state`` (the live state of a trainer, or a serving model's params
     with ``opt_state=None``) with the values of ``host`` (a checkpoint's
     ``state.pt``): params, the model's buffers (BatchNorm statistics) and
-    the optimizer's trees copied in place, Adam's moments cut to the
-    state's ZeRO-1 shards where it has them. A checkpoint of another model
-    or optimizer is refused by name."""
+    the optimizer's trees copied in place, a pipelined model's stage leaves
+    cut to the rows the state holds, Adam's moments cut to the state's
+    ZeRO-1 shards where it has them. A checkpoint of another model or
+    optimizer is refused by name."""
     from .parallel.zero import ZeroState
     from .train import opt_state_trees
 
     opt = state.opt_state
     trees = {} if opt is None else opt_state_trees(opt)
+    rows = getattr(state, "stage_rows", None)
+    if rows is not None:
+        host = {**host, **{name: rows.take(host[name])
+                           for name in ("params", *trees) if name in host}}
     host_state = host.get("model_state", {})
     for name in ("params", *trees):
         if name not in host:
@@ -171,11 +200,11 @@ class CheckpointManager:
             return False
         self._latest_saved = step
         t0 = time.perf_counter()
-        opt_trees = _full_opt_trees(state.opt_state)
+        params, opt_trees = _whole_trees(state)
         if not self._writer:
             return True
-        host = _host(state, opt_trees)
-        del opt_trees
+        host = _host(state, params, opt_trees)
+        del params, opt_trees
         record = {"step": step, "host_s": time.perf_counter() - t0}
         self.timings.append(record)
         self._pending.append(self._pool.submit(

@@ -3,7 +3,8 @@
 
 ``train`` runs the training path (``build_all`` -> ``Trainer`` -> ``fit``)
 on one rank, or on every rank ``torchrun`` starts (one process per rank,
-``mesh.dp`` x ``mesh.cp`` of them), resuming from ``train.checkpoint_dir``;
+``mesh.dp`` x ``mesh.pp`` x ``mesh.cp`` of them), resuming from
+``train.checkpoint_dir``;
 ``eval`` evaluates its latest checkpoint; ``benchmark`` times the config's
 training step (``benchmark.run_benchmark``: images or tokens per second per
 GPU); ``generate`` samples from its latest checkpoint's weights with the
@@ -49,7 +50,6 @@ def _mesh_sizes(cfg: Config, world_size: int) -> dict[str, int]:
 # Mesh axes whose parallel strategy is not ported: (what, ROADMAP item).
 _UNPORTED_AXES = {
     "fsdp": ("fully sharded data parallelism", "A13"),
-    "pp": ("pipeline parallelism", "A13"),
     "tp": ("tensor parallelism", "A13"),
     "ep": ("expert parallelism", "A13"),
     "dcn_dp": ("data parallelism across slices over DCN", "A13"),
@@ -171,9 +171,11 @@ def build_all(cfg: Config, device, mesh=None, fault_nan_step=None):
 def _rank_report(device, history, state, ckpt) -> dict:
     """What one rank reports at the end: its kernel launch counts, its peak
     device memory, its optimizer state's bytes (Adam's moments, a shard of
-    them under ZeRO-1, or SGD's trace), the losses it logged and its
-    checkpoint saves' timings."""
+    them under ZeRO-1, or SGD's trace), the losses it logged, its
+    checkpoint saves' timings, and what the pipeline schedules did on it
+    (``parallel.pp.TICKS``) when they ran."""
     from .ops import flash_attention, fused_adamw, ring_attention_pallas
+    from .parallel import pp
     from .train import opt_state_bytes
 
     peak = (torch.cuda.max_memory_allocated(device) / 1e9
@@ -186,6 +188,8 @@ def _rank_report(device, history, state, ckpt) -> dict:
         "opt_state_bytes": opt_bytes,
         "losses": [r["loss"] for r in history if "loss" in r],
         "checkpoints": ckpt.timings if ckpt is not None else [],
+        **({"pipeline": dict(pp.TICKS)} if pp.TICKS["train_ticks"]
+           else {}),
     }
 
 
@@ -318,10 +322,12 @@ def _train_once(cfg: Config, device, mesh, say, sync_steps: bool,
     from . import data
     from .checkpoint import CheckpointManager
     from .metrics import MetricWriter, Profiler, event_record
+    from .parallel import pp
     from .train import fit
 
     t = cfg.train
     ckpt = writer = None
+    pp.reset_ticks()  # the train_end record reports this attempt's
     try:
         _, trainer, dataset = build_all(cfg, device, mesh,
                                         fault_nan_step=fault_nan_step)
@@ -335,7 +341,8 @@ def _train_once(cfg: Config, device, mesh, say, sync_steps: bool,
                 state, data_state = ckpt.restore(state)
                 start_index = int(data_state.get("next_index", state.step))
                 say(f"resumed from step {state.step}")
-        n = sum(p.numel() for p in state.params.values())
+        n = (state.stage_rows.whole_numel(state.params) if state.stage_rows
+             else sum(p.numel() for p in state.params.values()))
         say(f"model: {cfg.model.name}  params: {n:,}")
         placed = data.sharded_batches(dataset.iter_from(start_index), mesh,
                                       t.grad_accum)
@@ -344,6 +351,8 @@ def _train_once(cfg: Config, device, mesh, say, sync_steps: bool,
         batches = data.prefetch(placed, device, size=cfg.data.prefetch_size)
         writer = MetricWriter(t.log_dir)
         step_s = [] if sync_steps else None
+        # The pipeline's transport seconds at the end of each step.
+        transport = []
         state, history = fit(
             trainer, state, batches, steps=t.steps, log_every=t.log_every,
             steps_per_call=t.steps_per_call,
@@ -353,11 +362,16 @@ def _train_once(cfg: Config, device, mesh, say, sync_steps: bool,
             eval_fn=(make_eval_fn(cfg, mesh, device) if t.eval_every
                      else None),
             step_times=step_s,
-            health=cfg.health if cfg.health.enabled else None)
+            health=cfg.health if cfg.health.enabled else None,
+            on_step=(lambda _: transport.append(
+                pp.TICKS["train_transport_s"])) if sync_steps else None)
         if ckpt is not None:
             ckpt.wait()
         if sync_steps:
             report = _rank_report(device, history, state, ckpt)
+            if "pipeline" in report:
+                report["pipeline"]["transport_s_by_step"] = [
+                    b - a for a, b in zip([0.0] + transport, transport)]
             extra = {k: report[k] for k in ("launches", "peak_mem_gb",
                                             "opt_state_bytes", "checkpoints")}
             if mesh.size > 1:

@@ -17,6 +17,11 @@ Here they are calls on ``torch.distributed`` groups, made by each rank:
 - :func:`ring_shift`: rotate tensors around an axis ring, the KV rotation of
   ring attention (``lax.ppermute`` in JAX), differentiable: its backward
   shifts the other way, as the transpose of a ``ppermute`` does;
+- :func:`chain_exchange`: one tick of a pipeline's traffic on the open
+  chain of an axis (``lax.ppermute`` over ``[(i, i + 1)]`` and its
+  reverse in JAX): a tensor to each neighbour and one from each, posted
+  together;
+- :func:`psum_tensors`: :func:`psum` of many tensors in a few flat buckets;
 - :func:`axis_index` / :func:`axis_size`.
 
 The transport is the mesh's ``comm``. :class:`DistComm` runs on
@@ -44,6 +49,7 @@ class DistComm:
     def __init__(self, groups: dict, stage_on_host: bool):
         self.groups = groups
         self.stage_on_host = stage_on_host
+        self._p2p_ready: set = set()
 
     def _out(self, t):
         """The tensor handed to the library: a host copy under gloo. The
@@ -132,6 +138,40 @@ class DistComm:
         return [b.to(t.device, non_blocking=True)
                 for b, t in zip(bufs, tensors)]
 
+    def exchange(self, axis: str, ranks: list[int], index: int, sends: dict,
+                 recvs: dict, device) -> dict:
+        """Member ``index`` of the ``axis`` chain ``ranks`` sends
+        ``sends[d]`` to member ``index + d`` and receives a tensor of
+        ``recvs[d] = (shape, dtype)`` from member ``index + d`` (d = +1 or
+        -1), every transfer posted in one ``batch_isend_irecv`` (blocking
+        sends in a fixed order would deadlock two neighbours that both send
+        first). Returns ``{d: tensor on device}``."""
+        import torch.distributed as dist
+
+        group = self.groups[axis]
+        if not self.stage_on_host and axis not in self._p2p_ready:
+            # NCCL: the first batched point-to-point call of a group must
+            # be joined by all its members, and a tick may have none.
+            dist.all_reduce(torch.zeros(1, device=device), group=group)
+            self._p2p_ready.add(axis)
+        ops, bufs = [], {}
+        for d, t in sends.items():
+            # tag 0: a message going up the chain, 1: going down
+            ops.append(dist.P2POp(dist.isend, self._out(t), ranks[index + d],
+                                  group, tag=int(d < 0)))
+        for d, (shape, dtype) in recvs.items():
+            if self.stage_on_host and torch.device(device).type == "cuda":
+                buf = torch.empty(shape, dtype=dtype, pin_memory=True)
+            else:
+                buf = torch.empty(shape, dtype=dtype, device=device)
+            bufs[d] = buf
+            ops.append(dist.P2POp(dist.irecv, buf, ranks[index + d], group,
+                                  tag=int(d > 0)))
+        if ops:
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
+        return {d: b.to(device, non_blocking=True) for d, b in bufs.items()}
+
     def gather_objects(self, obj) -> list:
         import torch.distributed as dist
 
@@ -201,6 +241,16 @@ def pmean_tensors(tensors: list, mesh, axis: str = "world") -> list:
     """:func:`pmean` of every tensor, through flat fp32 buckets of at most
     :data:`BUCKET_ELEMENTS` (tensors are grouped in order; one larger than
     a bucket gets its own)."""
+    return _bucketed(tensors, mesh, axis, mean=True)
+
+
+def psum_tensors(tensors: list, mesh, axis: str = "world") -> list:
+    """:func:`psum` of every tensor, in the buckets of
+    :func:`pmean_tensors`."""
+    return _bucketed(tensors, mesh, axis, mean=False)
+
+
+def _bucketed(tensors: list, mesh, axis: str, mean: bool) -> list:
     n = axis_size(mesh, axis)
     if n == 1:
         return list(tensors)
@@ -212,8 +262,10 @@ def pmean_tensors(tensors: list, mesh, axis: str = "world") -> list:
             count += tensors[end].numel()
             end += 1
         group = tensors[start:end]
-        flat = torch.cat([t.reshape(-1).float() for t in group])
-        flat = psum(flat, mesh, axis) / n
+        flat = psum(torch.cat([t.reshape(-1).float() for t in group]),
+                    mesh, axis)
+        if mean:
+            flat = flat / n
         for t, piece in zip(group, flat.split([t.numel() for t in group])):
             out.append(piece.view(t.shape).to(t.dtype))
         start = end
@@ -292,3 +344,29 @@ def ring_shift(tensors, mesh, axis: str = "cp", *, shift: int = 1) -> list:
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         return list(RingShift.apply(mesh, axis, shift, *tensors))
     return _shift(tensors, mesh, axis, shift)
+
+
+def chain_exchange(mesh, axis: str, *, up=None, down=None, from_below=None,
+                   from_above=None, device=None) -> tuple:
+    """One tick of pipeline traffic on the open chain of ``axis`` (member i
+    next to i - 1 and i + 1; no wrap): send ``up`` to member i + 1 and
+    ``down`` to i - 1, receive a tensor of ``from_below = (shape, dtype)``
+    from i - 1 and one of ``from_above`` from i + 1. None means no
+    traffic that way; the ends of the chain have no neighbour past them,
+    and nothing is staged for them. Returns (from below, from above), None
+    where nothing was received. Not differentiated through."""
+    i, n = axis_index(mesh, axis), axis_size(mesh, axis)
+    sends, recvs = {}, {}
+    if up is not None and i < n - 1:
+        sends[1] = up.detach()
+    if down is not None and i > 0:
+        sends[-1] = down.detach()
+    if from_below is not None and i > 0:
+        recvs[-1] = from_below
+    if from_above is not None and i < n - 1:
+        recvs[1] = from_above
+    if not sends and not recvs and _comm(mesh, "chain_exchange").stage_on_host:
+        return None, None
+    got = _comm(mesh, "chain_exchange").exchange(
+        axis, mesh.axis_ranks(axis), i, sends, recvs, device)
+    return got.get(-1), got.get(1)

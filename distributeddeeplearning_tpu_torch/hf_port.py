@@ -18,8 +18,15 @@ Supported: ``gpt2`` (GPT2LMHeadModel), ``bert`` (BertForMaskedLM), ``vit``
 returns the tree the JAX package's function of the same name returns.
 Architecture dims are read from ``hf_model.config``. The module imports
 neither ``transformers`` nor ``torch``: a port function only calls the HF
-model's own methods. (The JAX package's ``to_pipelined`` waits for the
-port's pipelining, ROADMAP queue A13.)
+model's own methods. :func:`to_pipelined` restacks a GPT-2 or Llama tree
+for ``gpt2_pp`` / ``llama_pp``; a pipeline rank then loads its rows of it
+(``weights.rank_rows``):
+
+    tree = hf_port.to_pipelined(hf_port.port_from_hf("gpt2", hf), 4)
+    model = models.get_model("gpt2_pp", size="124m", num_stages=4, mesh=m)
+    hf_port.validate_params(model, tree)
+    model.load_state_dict(weights.rank_rows(weights.from_jax_params(tree),
+                                            model.stage_rows))
 """
 
 from __future__ import annotations
@@ -291,6 +298,46 @@ def port_from_hf(model_name: str, hf_model):
     return PORTERS[model_name](hf_model)
 
 
+def to_pipelined(params, num_stages: int):
+    """A FLAT GPT-2 or Llama tree (an HF port's too) -> the stage-stacked
+    tree of ``gpt2_pp`` / ``llama_pp``: the per-layer blocks (GPT-2's
+    ``h/block_i``, Llama's top-level ``block_i``) grouped into
+    ``num_stages`` contiguous stages and stacked on a leading stage axis
+    under ``h/stages/block_j`` (j the stage-local layer); the embeddings,
+    the final norm and the head map through unchanged. The JAX package's
+    ``to_pipelined``, on numpy leaves."""
+    if "h" in params:  # GPT-2 family: blocks live under 'h'
+        blocks = dict(params["h"])
+        other = {k: v for k, v in params.items() if k != "h"}
+    else:  # Llama family: blocks at the top level
+        blocks = {k: v for k, v in params.items() if k.startswith("block_")}
+        other = {k: v for k, v in params.items()
+                 if not k.startswith("block_")}
+    n_layers = len(blocks)
+    missing = [f"block_{i}" for i in range(n_layers)
+               if f"block_{i}" not in blocks]
+    if missing or not n_layers:
+        raise ValueError(
+            f"unrecognized flat param tree (layers={n_layers}, "
+            f"missing={missing[:3]})"
+        )
+    if n_layers % num_stages:
+        raise ValueError(
+            f"num_layers={n_layers} not divisible by num_stages={num_stages}"
+        )
+    per = n_layers // num_stages
+
+    def stack(trees):
+        if hasattr(trees[0], "items"):
+            return {k: stack([t[k] for t in trees]) for k in trees[0]}
+        return np.stack([np.asarray(t) for t in trees])
+
+    stages = {f"block_{j}": stack([blocks[f"block_{s * per + j}"]
+                                   for s in range(num_stages)])
+              for j in range(per)}
+    return {**other, "h": {"stages": stages}}
+
+
 def _flat_shapes(tree, prefix: str = "") -> dict:
     """A nested dict tree -> {dotted leaf path: shape}: the names
     ``weights.from_jax_params`` gives the leaves."""
@@ -307,7 +354,8 @@ def _flat_shapes(tree, prefix: str = "") -> dict:
 def validate_params(model, params) -> None:
     """Raise if ``params`` (a ported tree) does not match ``model``'s own
     parameters, by flattened name and shape, naming the missing, the extra
-    and the mismatched leaves. A strict ``load_state_dict`` refuses such a
+    and the mismatched leaves. A pipelined model's stage leaves are held at
+    their whole ``[num_stages, ...]`` shape, whichever rows the rank holds. A strict ``load_state_dict`` refuses such a
     tree too, but without saying which checkpoint setting is at fault:
     run this after porting.
 
@@ -315,6 +363,9 @@ def validate_params(model, params) -> None:
         hf_port.validate_params(model, params)
     """
     want = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    rows = getattr(model, "stage_rows", None)
+    if rows is not None:  # a pipeline rank holds some rows of the stack
+        want = {k: rows.whole_shape(k, s) for k, s in want.items()}
     got = _flat_shapes(params)
     if want == got:
         return

@@ -1,6 +1,6 @@
-"""Model zoo of the port: GPT-2, ResNet-18/50, ViT, BERT, Llama and the MoE
-decoders so far; the other models of the JAX package register here as later
-slices port them."""
+"""Model zoo of the port: GPT-2, ResNet-18/50, ViT, BERT, Llama, the MoE
+decoders and the pipelined GPT-2, Llama and BERT; the other models of the
+JAX package register here as later slices port them."""
 
 from __future__ import annotations
 
@@ -35,4 +35,4 @@ def available() -> list[str]:
     return sorted(_REGISTRY)
 
 
-from . import bert, gpt2, llama, moe, resnet, vit  # noqa: E402,F401
+from . import bert, gpt2, llama, moe, pipeline, resnet, vit  # noqa: E402,F401,E501

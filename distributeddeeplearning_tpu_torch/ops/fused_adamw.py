@@ -270,10 +270,12 @@ class FusedAdamW:
         return state._replace(count=state.count + 1)
 
     @torch.no_grad()
-    def update(self, grads: dict, state: FusedAdamWState,
-               params: dict) -> FusedAdamWState:
+    def update(self, grads: dict, state: FusedAdamWState, params: dict,
+               norm=None) -> FusedAdamWState:
+        """``norm``: the global gradient norm when ``grads`` are not the
+        whole model's (a pipeline stage's); else computed from them."""
         if self.grad_clip:
-            grads = clip_by_global_norm(grads, self.grad_clip)
+            grads = clip_by_global_norm(grads, self.grad_clip, norm)
         count = state.count + 1
         hp = self._hyper(state.count)
         plain, groups = split_leaves(params, self.weight_decay)

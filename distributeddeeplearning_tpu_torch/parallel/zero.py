@@ -60,8 +60,13 @@ class ZeroLayout:
     contiguous shard of each buffer this rank owns over ``axis`` of
     ``mesh``. ``params``: name -> leaf, in the order the buffers follow."""
 
-    def __init__(self, params: dict, mesh, axis: str = "dp"):
+    def __init__(self, params: dict, mesh, axis: str = "dp",
+                 stage_rows=None):
         self.mesh, self.axis = mesh, axis
+        # A pipeline stage's layout (``parallel.pp.StageRows``): its norm
+        # counts every stage, and the shared leaves once.
+        self.stage_rows = stage_rows
+        self._shared_masks = None
         self.n, self.index = mesh.shape[axis], mesh.coords[axis]
         self.shapes = {k: p.shape for k, p in params.items()}
         names = {g: [] for g in GROUPS}
@@ -122,11 +127,13 @@ class ZeroLayout:
                 for g, flat in self.flatten(tree).items()}
 
     def gather(self, shards: dict) -> dict | None:
-        """The full params-shaped tree of every rank's ``shards`` on rank 0,
-        None on every other rank: a collective of rank 0's group along the
-        axis, whose members call it; the ranks of the other groups (cp > 1)
-        hold the same shards and return at once."""
-        if any(c for a, c in self.mesh.coords.items() if a != self.axis):
+        """The full params-shaped tree of every rank's ``shards`` on member 0
+        of the axis, None on every other rank: a collective of the axis
+        group, whose members call it. The ranks of the other groups (cp >
+        1) hold the same shards and return at once; under pp every stage's
+        group gathers its own leaves."""
+        if any(c for a, c in self.mesh.coords.items()
+               if a not in (self.axis, "pp")):
             return None
         # Moved in fp32 (a bf16 shard casts there and back exactly): gloo
         # has no bf16 gather.
@@ -159,6 +166,36 @@ class ZeroLayout:
     def global_norm(self, shards: dict) -> torch.Tensor:
         """The global gradient norm from every rank's shards: sqrt of the
         sum over the axis of each shard's sum of squares (the padding is
-        zero and adds nothing)."""
-        sq = torch.stack([(s * s).sum() for s in shards.values()]).sum()
-        return torch.sqrt(psum(sq, self.mesh, self.axis))
+        zero and adds nothing); a pipeline stage's over every stage, the
+        shared leaves once."""
+        if self.stage_rows is None:
+            sq = torch.stack([(s * s).sum() for s in shards.values()]).sum()
+            return torch.sqrt(psum(sq, self.mesh, self.axis))
+        from .pp import whole_sq
+
+        masks = self._shared(next(iter(shards.values())).device)
+        sq = [torch.stack([(s * s)[m].sum() for s, m in (
+            (shards[g], ~masks[g] if stage else masks[g]) for g in shards)
+        ]).sum() for stage in (True, False)]
+        stage, shared = psum(torch.stack(sq), self.mesh, self.axis)
+        return torch.sqrt(whole_sq(stage, shared, self.mesh))
+
+    def _shared(self, device) -> dict:
+        """Per group, True on the elements of this rank's shard that belong
+        to a shared (not stage-stacked) leaf."""
+        if self._shared_masks is None:
+            out = {}
+            for g, names in self.names.items():
+                sl = self.shard_slice(g)
+                m = torch.zeros(self.shard_size[g], dtype=torch.bool)
+                for k in names:
+                    if k in self.stage_rows.names:
+                        continue
+                    o = self.offsets[k]
+                    a = max(o, sl.start)
+                    b = min(o + self.shapes[k].numel(), sl.stop)
+                    if a < b:
+                        m[a - sl.start:b - sl.start] = True
+                out[g] = m.to(device)
+            self._shared_masks = out
+        return self._shared_masks

@@ -42,7 +42,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .comms import pmean_tensors, psum
+from .comms import axis_size, pmean_tensors, psum
 from .ops.fused_adamw import (
     FusedAdamW,
     FusedAdamWState,
@@ -72,6 +72,7 @@ class Task:
     loss_fn: Callable[[Any, dict], tuple]  # (output, batch) -> (loss, metrics)
     # metrics averaged over the ranks -> the logged metrics
     finish_metrics: Callable[[dict], dict] = lambda m: m
+    keys: tuple = ("loss",)  # the names of loss_fn's metrics
 
 
 def _xent(logits, labels):
@@ -145,7 +146,8 @@ def classification_task(label_smoothing: float = 0.0) -> Task:
         acc = (logits.argmax(-1) == labels).float().mean()
         return loss, {"loss": loss, "xent": xent, "accuracy": acc}
 
-    return Task(input_fn=lambda b: (b["image"],), loss_fn=loss_fn)
+    return Task(input_fn=lambda b: (b["image"],), loss_fn=loss_fn,
+                keys=("loss", "xent", "accuracy"))
 
 
 def mlm_task(head_chunk: int = 128, mesh=None) -> Task:
@@ -159,8 +161,11 @@ def mlm_task(head_chunk: int = 128, mesh=None) -> Task:
     On a ``mesh`` of n > 1 ranks the count is the whole (micro)batch's, as
     the reference's loss over the global batch divides by it: a rank's
     loss is ``n * sum_rank / max(count, 1)``, so the mean over the ranks
-    (the gradient and metric sync) is the global loss."""
-    ranks = 1 if mesh is None else mesh.size
+    (the gradient and metric sync) is the global loss. Under pipeline
+    parallelism the ranks of a ``pp`` group hold the same rows, and the
+    count sums over dp only."""
+    axis = "dp" if mesh is not None and mesh.shape["pp"] > 1 else "world"
+    ranks = 1 if mesh is None else axis_size(mesh, axis)
 
     def input_fn(batch):
         if "attention_mask" in batch:
@@ -173,11 +178,12 @@ def mlm_task(head_chunk: int = 128, mesh=None) -> Task:
         per_tok = _per_token_xent(out, labels.clamp_min(0), head_chunk)
         count = weights.sum()
         if ranks > 1:
-            count = psum(count, mesh)
+            count = psum(count, mesh, axis)
         loss = (per_tok * weights).sum() / (count.clamp_min(1.0) / ranks)
         return loss, {"loss": loss, "masked_fraction": weights.mean()}
 
-    return Task(input_fn=input_fn, loss_fn=loss_fn)
+    return Task(input_fn=input_fn, loss_fn=loss_fn,
+                keys=("loss", "masked_fraction"))
 
 
 _TASK_KNOBS = {"head_chunk", "label_smoothing"}  # every task's, reference
@@ -320,9 +326,12 @@ class AdamW(FusedAdamW):
             nu.copy_(self._store(nu32, nu_bits))
 
     @torch.no_grad()
-    def update(self, grads: dict, state, params: dict):
+    def update(self, grads: dict, state, params: dict, norm=None):
+        """``norm``: the global gradient norm when ``grads`` are not the
+        whole model's (a pipeline stage's); else computed from them."""
         if self.grad_clip:
-            grads = clip_to(grads, global_norm(grads), self.grad_clip)
+            grads = clip_to(grads, global_norm(grads) if norm is None
+                            else norm, self.grad_clip)
         count = state.count + 1
         self._step(state.count, (
             (p, grads[k], state.mu[k], state.nu[k], decay_leaf(p),
@@ -471,9 +480,11 @@ class SGD:
             for k, p in params.items()})
 
     @torch.no_grad()
-    def update(self, grads: dict, state: SGDState, params: dict) -> SGDState:
+    def update(self, grads: dict, state: SGDState, params: dict,
+               norm=None) -> SGDState:
         if self.grad_clip:
-            grads = clip_to(grads, global_norm(grads), self.grad_clip)
+            grads = clip_to(grads, global_norm(grads) if norm is None
+                            else norm, self.grad_clip)
         lr = f32(self.learning_rate(state.count)
                  if callable(self.learning_rate) else self.learning_rate)
         wd, mom = f32(self.weight_decay), f32(self.momentum)
@@ -575,6 +586,10 @@ class TrainState:
     # The health guard's counters (``health.HealthState``); None while the
     # guard is off, so the state's schema (and its checkpoints) is unchanged.
     health: Any = None
+    # A pipelined model's stage rows (``parallel.pp.StageRows``): which
+    # params leaves are stage-stacked and the rows this rank holds, for the
+    # checkpoints' whole layout; None for any other model.
+    stage_rows: Any = None
 
 
 CP_ATTN = ("ring", "ring_pallas")
@@ -615,7 +630,45 @@ class Trainer:
                                  and health.enabled) else None
         self.fault_nan_step = fault_nan_step
         cp = 1 if mesh is None else mesh.shape["cp"]
+        pp_size = 1 if mesh is None else mesh.shape["pp"]
         attn = getattr(model, "attn_impl", None)
+        if hasattr(model, "num_stages"):
+            # The reference's fences on a pipelined model.
+            dead = {a: mesh.shape[a] for a in ("ep", "cp")
+                    if mesh is not None and mesh.shape[a] > 1}
+            if dead:
+                raise NotImplementedError(
+                    f"pipeline x {'/'.join(dead)} is unsupported in v1 "
+                    f"(mesh has {dead}): pipelined stacks compose with "
+                    "dp/fsdp/tp/zero1 only"
+                )
+            if get_policy(precision).mixed:
+                raise NotImplementedError(
+                    f"precision={get_policy(precision).name!r} x pipelined "
+                    f"model {type(model).__name__} is unsupported in v1: the "
+                    "1f1b engine differentiates inside its schedule on the "
+                    "model's own dtype, so there is no seam for the "
+                    "master->compute cast — use precision='fp32'"
+                )
+        elif pp_size > 1:
+            raise ValueError(
+                f"mesh pp={pp_size} but model {type(model).__name__} is not "
+                "pipelined: the pp axis would silently replicate — use "
+                "gpt2_pp/llama_pp or drop the axis"
+            )
+        # The pipeline engines run the step (model.pipeline_value_and_grad)
+        # when the model pipelines over pp, and under the interleaved
+        # schedule on any pp, as the reference's Trainer dispatches.
+        self.engine = hasattr(model, "pipeline_value_and_grad") and (
+            model.pipelined or (model.pipeline
+                                and model.schedule == "1f1b_interleaved"))
+        # Gradients and metrics average over the ranks that split the
+        # batch: every rank, or under pp (whose ranks hold the same rows)
+        # the dp ranks.
+        self.sync_axis = "dp" if pp_size > 1 else "world"
+        # The whole model's gradient norm when a rank holds one stage.
+        self.stage_rows = (model.stage_rows
+                           if getattr(model, "pipelined", False) else None)
         if cp > 1 and attn not in CP_ATTN:
             raise ValueError(
                 f"mesh cp={cp} but model {type(model).__name__} attention "
@@ -661,7 +714,8 @@ class Trainer:
                 raise NotImplementedError(ZERO1_SGD)
             from .parallel.zero import ZeroLayout
 
-            self.layout = ZeroLayout(dict(model.named_parameters()), mesh)
+            self.layout = ZeroLayout(dict(model.named_parameters()), mesh,
+                                     stage_rows=self.stage_rows)
             self.layout.bind(dict(model.named_parameters()))
 
     def init(self, seed: int) -> TrainState:
@@ -678,7 +732,8 @@ class Trainer:
         return TrainState(step=0, params=params, opt_state=opt_state,
                           rng=int(seed),
                           model_state=dict(self.model.named_buffers()),
-                          health=health)
+                          health=health,
+                          stage_rows=getattr(self.model, "stage_rows", None))
 
     def _forward(self, state: TrainState, params: dict, batch: dict,
                  train: bool):
@@ -702,6 +757,10 @@ class Trainer:
         and each sown metric is its mean over the modules that sowed it."""
         from .models.sow import collecting
 
+        if self.engine:
+            _, grads, metrics = self.model.pipeline_value_and_grad(
+                batch, self.task)
+            return grads, {k: v.detach() for k, v in metrics.items()}
         # Mixed precision: ONE compute copy per call, differentiated
         # directly; fp32 returns the masters themselves.
         cparams = cast_to_compute(self.precision, state.params)
@@ -761,6 +820,15 @@ class Trainer:
                 global_norm(grads) if norm is None else norm(grads))}
         return grads, metrics
 
+    def _norm(self, grads: dict):
+        """The whole model's gradient norm from this rank's whole leaves:
+        over every pp stage, the shared leaves once."""
+        if self.stage_rows is None:
+            return global_norm(grads)
+        from .parallel.pp import whole_norm
+
+        return whole_norm(grads, self.stage_rows)
+
     def _staged_step(self, state: TrainState, batch: dict):
         """One step up to its update: ``(metrics as device scalars,
         commit)``, where ``commit()`` applies the update in place and
@@ -777,7 +845,7 @@ class Trainer:
             # the masters and moments, then every rank's shard gathered.
             keys = list(metrics)
             metrics = dict(zip(keys, pmean_tensors(
-                [metrics[k] for k in keys], self.mesh)))
+                [metrics[k] for k in keys], self.mesh, self.sync_axis)))
             shards = self.layout.reduce_scatter_grads(grads)
             del grads
             shards, metrics = self._instrument_grads(
@@ -801,17 +869,21 @@ class Trainer:
                 names, keys = list(grads), list(metrics)
                 synced = pmean_tensors(
                     [grads[k] for k in names] + [metrics[k] for k in keys],
-                    self.mesh)
+                    self.mesh, self.sync_axis)
                 grads = dict(zip(names, synced[:len(names)]))
                 metrics = dict(zip(keys, synced[len(names):]))
             grads, metrics = self._instrument_grads(grads, state.step,
-                                                    metrics)
+                                                    metrics, norm=self._norm)
 
             def commit():
+                norm = self._norm(grads) if self.tx.grad_clip else None
                 opt_state = self.tx.update(grads, state.opt_state,
-                                           state.params)
+                                           state.params, norm=norm)
                 return dataclasses.replace(state, step=state.step + 1,
                                            opt_state=opt_state)
+        if self.engine and self.model.schedule == "1f1b_interleaved":
+            # The reference's interleaved step reports its loss alone.
+            return metrics, commit
         return self.task.finish_metrics(metrics), commit
 
     def train_step(self, state: TrainState, batch: dict):
@@ -855,15 +927,20 @@ class Trainer:
     @torch.no_grad()
     def eval_step(self, state: TrainState, batch: dict) -> dict:
         """The task's metrics on ``batch`` from a forward with ``train=
-        False``, in fp32, averaged over the ranks."""
-        out = self._forward(
-            state, cast_to_compute(self.precision, state.params), batch,
-            train=False)
-        _, metrics = self.task.loss_fn(out, batch)
+        False``, in fp32, averaged over the ranks. A model pipelined over pp
+        runs its head on the last stage only
+        (``pipeline_eval``)."""
+        if self.stage_rows is not None:
+            metrics = self.model.pipeline_eval(batch, self.task)
+        else:
+            out = self._forward(
+                state, cast_to_compute(self.precision, state.params), batch,
+                train=False)
+            _, metrics = self.task.loss_fn(out, batch)
         keys = list(metrics)
         vals = [metrics[k].float() for k in keys]
         if self.mesh is not None and self.mesh.size > 1:
-            vals = pmean_tensors(vals, self.mesh)
+            vals = pmean_tensors(vals, self.mesh, self.sync_axis)
         return self.task.finish_metrics(dict(zip(keys, vals)))
 
 
@@ -961,7 +1038,7 @@ def fit(trainer: Trainer, state: TrainState, batches, steps: int,
         log_every: int = 10, steps_per_call: int = 1, log_fn=print,
         writer=None, profiler=None, ckpt=None, save_every: int = 0,
         eval_every: int = 0, eval_fn=None, step_times: list | None = None,
-        health=None):
+        health=None, on_step=None):
     """Host step loop from ``state.step`` to ``steps`` (callers start
     ``batches`` at the same index).
 
@@ -983,8 +1060,9 @@ def fit(trainer: Trainer, state: TrainState, batches, steps: int,
     ``config.HealthConfig``): when the logged metric stream reports
     ``max_consecutive_anomalies`` anomalous steps in a row (one logging
     interval late, the deferred fetch's lag), a ``health_rollback`` event
-    is emitted and :class:`HealthRollback` raised. Returns (state,
-    history)."""
+    is emitted and :class:`HealthRollback` raised. ``on_step(end)`` runs
+    after each call, at its last step (after ``step_times``' sync). Returns
+    (state, history)."""
     from .metrics import DeferredMetrics, event_record
 
     if eval_every and eval_fn is None:
@@ -1030,6 +1108,8 @@ def fit(trainer: Trainer, state: TrainState, batches, steps: int,
                     torch.cuda.synchronize(trainer.device)
                 step_times.append(time.perf_counter() - t_step)
             end = i + k
+            if on_step is not None:
+                on_step(end)
             if profiler is not None:
                 for j in range(i, end):
                     profiler.step(j)

@@ -9,7 +9,10 @@ torch's layout names it ``weight`` where flax names it ``kernel``
 [in, out] kernel [out, in]). :func:`opt_state_from_jax` bridges an Adam or
 SGD optimizer state the same way, and :func:`state_from_jax` a whole
 training state (with a model's BatchNorm ``batch_stats``), onto any mesh.
-The trees arrive as numpy arrays — this module imports no JAX.
+A pipelined model's stage-stacked leaves (``h.stages.block_j...``, leading
+``[num_stages]``) keep their names; :func:`rank_rows` gives a rank its
+rows of them, ``[s*S/pp, (s+1)*S/pp)``. The trees arrive as numpy arrays —
+this module imports no JAX.
 """
 
 from __future__ import annotations
@@ -40,6 +43,14 @@ def _to_torch(leaf) -> torch.Tensor:
     if arr.dtype.name == "bfloat16":
         return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
     return torch.from_numpy(arr)
+
+
+def rank_rows(flat: dict, rows) -> dict:
+    """``flat`` with each stage-stacked leaf cut to the rows this rank of a
+    pipeline holds (``rows``: a pipelined model's ``stage_rows``; None
+    leaves ``flat`` whole): ``[1, ...]`` on ``pp = num_stages`` ranks, the
+    whole ``[S, ...]`` at ``pp = 1``."""
+    return flat if rows is None else rows.take(flat)
 
 
 def to_torch_layout(flat: dict, names) -> dict:
@@ -78,7 +89,7 @@ def _find_adam_moments(opt_state):
     return _find_node(opt_state, ("count", "mu", "nu"))
 
 
-def _sgd_state_from_jax(opt_state, like):
+def _sgd_state_from_jax(opt_state, like, rows=None):
     """optax.sgd's state inside the chain (clip, masked decay, trace,
     schedule): the ``TraceState``'s momentum trace and the schedule's
     ``count``, onto ``like`` (the port's ``SGD.init``)."""
@@ -88,7 +99,8 @@ def _sgd_state_from_jax(opt_state, like):
     if trace is None or count is None:
         raise ValueError("no (trace, count) SGD state in the JAX optimizer "
                          "state")
-    flat = to_torch_layout(from_jax_params(trace.trace), set(like.trace))
+    flat = to_torch_layout(rank_rows(from_jax_params(trace.trace), rows),
+                           set(like.trace))
     if set(flat) != set(like.trace):
         raise KeyError(f"trace names differ: "
                        f"{sorted(set(flat) ^ set(like.trace))}")
@@ -97,18 +109,18 @@ def _sgd_state_from_jax(opt_state, like):
         for k, t in like.trace.items()})
 
 
-def opt_state_from_jax(opt_state, like):
+def opt_state_from_jax(opt_state, like, rows=None):
     """A JAX Adam or SGD optimizer state (numpy leaves) -> the port's state
     of the same kind as ``like`` (``tx.init(params)`` of the port's
     ``AdamW``, ``FusedAdamW`` or ``SGD``, or a ZeRO-1 rank's
     ``tx.init_shard(layout)``). SGD: its momentum trace and count. Adam:
     its count and its mu/nu trees flattened like :func:`from_jax_params`
-    (and cut to the rank's shards under ZeRO-1), on the device and in the
-    dtype of ``like``'s moments."""
+    (cut to a pipeline rank's ``rows``, then to the rank's shards under
+    ZeRO-1), on the device and in the dtype of ``like``'s moments."""
     from .parallel.zero import ZeroState
 
     if hasattr(like, "trace"):
-        return _sgd_state_from_jax(opt_state, like)
+        return _sgd_state_from_jax(opt_state, like, rows)
     node = _find_adam_moments(opt_state)
     if node is None:
         raise ValueError("no (count, mu, nu) Adam state in the JAX "
@@ -117,7 +129,7 @@ def opt_state_from_jax(opt_state, like):
     names = set(like.layout.shapes) if sharded else set(like.mu)
 
     def moments(tree, ref):
-        flat = from_jax_params(tree)
+        flat = rank_rows(from_jax_params(tree), rows)
         if set(flat) != names:
             raise KeyError(f"moment names differ: {sorted(set(flat) ^ names)}")
         if sharded:
@@ -136,16 +148,19 @@ def state_from_jax(jax_state, like):
     ``opt_state``, ``model_state``, ``step``) -> the port's ``TrainState``
     on any mesh: the params copied in place into ``like``'s (a trainer's
     ``init``, whose masters may be views into ZeRO-1 buffers) in torch's
-    layout (:func:`to_torch_layout`), the BatchNorm ``batch_stats`` into
+    layout (:func:`to_torch_layout`; a pipeline rank's rows of the stage
+    leaves, ``like.stage_rows``), the BatchNorm ``batch_stats`` into
     ``like.model_state``, the optimizer state through
     :func:`opt_state_from_jax`. The root dropout seed stays ``like``'s:
     JAX's key has no torch counterpart."""
+    rows = getattr(like, "stage_rows", None)
     for name, tree, into in (
             ("param", jax_state.params, like.params),
             ("model_state",
              dict(getattr(jax_state, "model_state", None) or {}).get(
                  "batch_stats", {}), like.model_state)):
-        flat = to_torch_layout(from_jax_params(tree), set(into))
+        flat = to_torch_layout(rank_rows(from_jax_params(tree), rows),
+                               set(into))
         if set(flat) != set(into):
             raise KeyError(f"{name} names differ: "
                            f"{sorted(set(flat) ^ set(into))}")
@@ -153,4 +168,5 @@ def state_from_jax(jax_state, like):
             t.copy_(flat[k])
     return dataclasses.replace(
         like, step=int(np.asarray(jax_state.step)),
-        opt_state=opt_state_from_jax(jax_state.opt_state, like.opt_state))
+        opt_state=opt_state_from_jax(jax_state.opt_state, like.opt_state,
+                                     rows))

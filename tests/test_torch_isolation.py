@@ -226,7 +226,7 @@ def test_zero1_on_one_device_is_accepted(capsys):
 
 
 @pytest.mark.parametrize("override,axis", [
-    ("mesh.fsdp=2", "fsdp"), ("mesh.pp=2", "pp"), ("mesh.ep=2", "ep"),
+    ("mesh.fsdp=2", "fsdp"), ("mesh.ep=2", "ep"),
     ("mesh.dcn_dp=2", "dcn_dp"), ("mesh.tp=4", "tp"),
 ])
 def test_unported_mesh_axes_are_refused_by_name(override, axis):

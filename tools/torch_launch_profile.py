@@ -8,7 +8,7 @@ Builds the kernels first (as ``chip_smoke.py`` phase 2 does), times
 then launches ``cli train --sync-steps`` under ``torchrun`` with 2 ranks
 (``--nproc``) on ``--config`` (default ``configs/gpt2_owt.py`` as shipped)
 with ``--override`` settings (default: ZeRO-1 off, grad_accum 2, 2 steps,
-the ZeRO-1-off launch of ``chip_smoke.py`` phase 12). Each worker prints
+the ZeRO-1-off run of ``chip_smoke.py`` phase 13's pair). Each worker prints
 the seconds since the launch began at each stage; the ``train_end``
 record gives every step's seconds. Needs an NVIDIA GPU:
 
