@@ -50,7 +50,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      bounds and library yardsticks;
   10. context-parallel training through the entry point: ``cli train``
      under ``torchrun`` with 2 ranks, ``mesh.cp=2``, ``ring_pallas``, at
-     full width for 2 steps. Both ranks share the one card over gloo, so
+     full width (the batch cut for time to 8 x 1024) for 2 steps. Both
+     ranks share the one card over gloo, so
      the step times are no context-parallel speed. Launches must be 12 x
      steps per ring kernel on rank 0 and 24 x steps on rank 1, none of the
      flash kernels, 2 x steps of fused_adamw on each;
@@ -74,20 +75,21 @@ Phases, in order; any failure raises and the script exits non-zero:
      grad_accum=2 (flash, adamw_fused) against phase 8's single-process
      flash route, 4 steps: losses within 1e-4 relative and falling, params
      within ZERO_PARAM_LIMIT (clip and weight decay on); that run (in phase
-     11's processes) saves at step 2, and fresh processes resume from the
-     save for steps 3 and 4, equal to the straight run bit for bit; the
-     same fresh pair then runs gpt2_owt as shipped with ZeRO-1 off for 2
-     steps (its moments the whole 8 bytes a parameter a rank), for its
-     memory beside phase 12's, and resumes phase 12's run from its step-2
-     save to step 4.
+     11's processes) saves at step 2, and fresh processes (phase 16's
+     pair, whose last jobs they are; phase 13's checks follow phase
+     16's) resume from the save for steps 3 and 4, equal to the
+     straight run bit for bit; the same fresh pair then runs gpt2_owt as
+     shipped with ZeRO-1 off for 2 steps (its moments the whole 8 bytes a
+     parameter a rank), for its memory beside phase 12's, and resumes
+     phase 12's run from its step-2 save to step 4.
   14. ResNet-50 training through the entry point: ``cli train`` in-process
      on ``configs/resnet50_imagenet.py`` as shipped (batch 256 x 224², bf16
      convs, SGD, label smoothing) for 8 steps, then 4 with the C++ loader
      (``data.kind=native_image``): images/s over steps 2..N, p50 step,
      peak memory, every loss finite; the path launches none of the nine
      hand kernels (its convs are cuDNN's, as the JAX package's are XLA's);
-  15. ``cli benchmark`` on that config at 6 timed and 4 synced steps
-     with the multi-step probe at K = 2 (``--steps 6 --latency-steps 4
+  15. ``cli benchmark`` on that config at 4 timed and 4 synced steps
+     with the multi-step probe at K = 2 (``--steps 4 --latency-steps 4
      --probe 2``, as in phases 18, 22 and 26): the images/sec/chip record
      (p50, p90, MFU against the card's bf16 peak, peak memory, dispatch
      overhead a step), printed again on a line before the last;
@@ -97,8 +99,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      global batch of 16, grad_accum 1 and 2, 4 steps against one process on
      the same batches (losses within 1e-4 relative and falling, BatchNorm
      running statistics within ``BN_STATS_TOL``), and a resume from the
-     step-2 save that repeats steps 3 and 4 bit for bit. The step times are
-     no data-parallel speed.
+     step-2 save that repeats steps 3 and 4 bit for bit; then phase 13's
+     jobs. The step times are no data-parallel speed.
   17. ViT-L/16 training through the entry point: ``cli train`` on
      ``configs/vit_imagenet21k.py`` as shipped (batch 64 x 224², 21843
      classes, bf16, flash over 197 tokens padded to 256, adamw_fused,
@@ -116,7 +118,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      kernel launches 12 x 4 times, fused_adamw once per group; every loss
      finite, masked_fraction 0.15 within 0.01; then 2 steps with
      ``data.pad_min_len=32`` (the attention mask as per-row key limits);
-  20. fp32 parity at full width, batch 4, 3 steps on one batch: ViT-L/16
+  20. fp32 parity at full width, batch 4, 2 steps on one batch: ViT-L/16
      (flash, adamw_fused, remat full) against (xla, adamw, remat none)
      within 1e-4 relative and against the flash route without remat
      within 1e-6 (bit-equality printed); BERT-base with padded rows and
@@ -150,7 +152,7 @@ Phases, in order; any failure raises and the script exits non-zero:
   27. gpt2_moe training through the entry point: ``configs/gpt2_moe.py``
      as shipped (32 x 1024, 6 routed blocks of 12) for 6 steps, the same
      checks (each flash kernel 12 a step: every block has attention);
-  28. fp32 parity at full width: llama_moe, batch 2 x 2048, 3 steps on one
+  28. fp32 parity at full width: llama_moe, batch 2 x 2048, 2 steps on one
      batch at the shipped capacity factor, (flash, adamw) against (xla,
      adamw) in lockstep (each step from the flash route's state, since one
      routing flip parts the trajectories): per step the losses and
@@ -201,11 +203,35 @@ Phases, in order; any failure raises and the script exits non-zero:
      (1f1b, 64 x 512, padded rows from 64 tokens, bf16) for 2 steps; fp32
      gpt2_pp at 16 x 1024 (TF32 off, ``adamw_fused`` over each rank's
      leaves: launches = steps x its kernel groups) to step 2 with a save,
-     then on to step 4 from it; fp32 bert_pp at 16 x 512 for 3 steps. This
-     process runs their pp=1 twins with the plain AdamW: losses within
-     1e-4 relative and falling; it restores the gpt2_pp step-2 checkpoint
-     at pp=1, whose params equal every rank's step-2 params bit for bit
-     (sha256 of each leaf's bytes).
+     then on to step 4 from it; fp32 bert_pp at 16 x 512 for 3 steps; then
+     phase 37's jobs. This process runs their pp=1 twins with the plain
+     AdamW: losses within 1e-4 relative and falling; it restores the
+     gpt2_pp step-2 checkpoint at pp=1, whose params equal every rank's
+     step-2 params bit for bit (sha256 of each leaf's bytes).
+  36. tensor parallelism with Megatron sequence parallelism and FSDP
+     through the entry point: ``cli train`` under ``torchrun`` with 4
+     ranks on ``configs/gpt2_owt.py`` at dp=1 x fsdp=2 x tp=2 with
+     ``train.sequence_parallel=true`` (bf16, flash, adamw_fused; the batch
+     cut for time to 8 x 1024) for 2 steps, an evaluation and a checkpoint
+     at step 2 (in the one-rank layout): every loss finite and equal on the
+     4 ranks; per rank each flash kernel 12 x steps launches (flash_fwd 12
+     more for the evaluation) at [4 rows x 6 heads, 1024, 64], fused_adamw
+     2 x steps over the rank's blocks; its param, gradient and moment bytes
+     against the whole 124M's, the tp and fsdp sharded fractions (each
+     above 0.5), peak memory and the transport's seconds a step. The four
+     ranks share the one card over gloo: a path, not a speed;
+  37. jobs of phase 35's four ranks: fp32 GPT-2 124M at tp2 x fsdp2 with
+     sequence parallelism on phase 8's batches (4 x 1024, 2 rows and 6
+     heads a rank), to step 2 with a save, then on to 4 from it: losses
+     within 1e-4 relative of phase 8's one process and falling, the whole
+     params after 4 steps within ``ZERO_PARAM_LIMIT``, flash at [12, 1024,
+     64]; this process restores the step-2 save and cuts it to each rank's
+     blocks, equal to that rank's step-2 params bit for bit (sha256);
+     Llama-300M at dp2 x tp2 with ZeRO-1: bf16 as shipped (the batch cut
+     for time to 8 x 2048) for 2 steps, each flash kernel 12 a step at [4
+     rows x 8 heads, 2048, 64], fused_adamw 2 a step over the rank's
+     shards; the fp32 pair at 2 x 2048 for 2 steps within 1e-4 relative
+     of phase 23's one-process kernel route and falling.
 Phase 3 also holds the paged kernels at Llama-300M's decode shape (16 q
 heads over 8 KV heads: bf16 and int8 pools with bf16 q at 2e-2, an fp32
 twin at 2e-5), and phase 6 the flash kernels at its training shape, bf16
@@ -283,6 +309,9 @@ TC_KERNELS = {"flash_attention": ("flash_fwd_kernel_tc", "flash_dq_kernel_tc",
               "ring_attention": ("ring_step_kernel_tc", "ring_dq_kernel_tc",
                                  "ring_dkv_kernel_tc")}
 CP_STEPS = 2
+# Phase 10's batch, cut for time from the config's 32: over gloo on one
+# card its step is ~98% transport, which scales with the rows.
+CP_BATCH = 8
 
 
 _T0 = time.perf_counter()
@@ -1475,7 +1504,8 @@ def check_ring_kernels(torch):
 def cli_train_cp(torch, layers, steps=CP_STEPS):
     """``cli train`` under torchrun: 2 ranks, cp=2, ring_pallas, full width.
     Returns (rank 0's step seconds, the train_end record, the text)."""
-    overrides = ["mesh.cp=2", "mesh.dp=1", "model.kwargs.attn_impl=ring_pallas",
+    overrides = [f"data.batch_size={CP_BATCH}", "mesh.cp=2", "mesh.dp=1",
+                 "model.kwargs.attn_impl=ring_pallas",
                  f"train.steps={steps}", "train.log_every=1"]
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            "--nproc_per_node", "2", "-m", "distributeddeeplearning_tpu_torch.cli",
@@ -1520,7 +1550,8 @@ def _rank_fit(rank, port, jobs, out_dir, world=2):
     ``save_every`` steps. ``options``: ``{"hashes": True}`` records a
     digest of every param this rank holds (in place of rank 0's params)
     and its fused AdamW kernel groups; ``{"params": False}`` keeps no
-    params."""
+    params; ``{"whole": True}``: rank 0 keeps the whole params of a model
+    cut over tp or fsdp (every rank takes part in the gather)."""
     import torch
 
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
@@ -1575,15 +1606,24 @@ def _rank_fit(rank, port, jobs, out_dir, world=2):
         torch.cuda.synchronize()
         if ckpt is not None:
             ckpt.close()
+        whole = None
+        if opts.get("whole"):
+            whole = state.shards.gather(state.params)
         out = {"losses": [r["loss"] for r in hist],
                "launches": {**flash_attention.LAUNCHES,
                             **ring_attention_pallas.LAUNCHES,
                             **fused_adamw.LAUNCHES},
+               "flash_shapes": {k: sorted(v) for k, v in
+                                flash_attention.SHAPES.items()},
                "opt_state_bytes": opt_state_bytes(state.opt_state),
                "timings": [] if ckpt is None else ckpt.timings,
                "pipeline": dict(pp.TICKS), "coords": mesh.coords,
                "peak_mem_gb": torch.cuda.max_memory_allocated(device) / 1e9}
-        if opts.get("hashes"):
+        if whole is not None:
+            out["params"] = {k: p.detach().cpu() for k, p in whole.items()}
+        elif opts.get("whole"):
+            pass  # the gather's other ranks
+        elif opts.get("hashes"):
             out["hashes"] = {k: param_digest(p)
                              for k, p in state.params.items()}
             out["groups"] = len(fused_adamw.split_leaves(
@@ -1775,31 +1815,36 @@ def cli_train_zero1(torch, layers, n_params, ck):
     return res, got
 
 
-def zero1_parity(torch, parity, ranks, ck, ck12, steps=4):
-    """Phase 13: fp32 at 124M width, 2 ranks at dp=2 with ZeRO-1 and
-    grad_accum=2 (flash, adamw_fused), run in phase 11's processes
-    (``ranks``), against phase 8's single-process flash route; then fresh
-    processes resume from its halfway save in ``ck`` and run the second
-    half, which must equal the straight run bit for bit. The same two
-    processes then run phase 12's ZeRO-1-off job: gpt2_owt as shipped with
-    grad_accum=2 for 2 steps (the gradient all-reduce, then fused_adamw
-    over the whole leaves), whose moments are the whole 8 bytes a
-    parameter a rank, for its memory beside phase 12's; and resume phase
-    12's run from its step-2 save in ``ck12`` to step 4 (exact launches).
-    Returns each rank's launches of that resumed run."""
-    import tempfile
-
+def zero1_jobs(parity, ck, ck12, steps=4):
+    """Phase 13's jobs for a pair of fresh processes (phase 16's): the
+    resume from the halfway save of phase 13's straight run in ``ck``;
+    phase 12's ZeRO-1-off job, gpt2_owt as shipped with grad_accum=2 for 2
+    steps; phase 12's run resumed from its step-2 save in ``ck12`` to 4."""
     on_disk = sorted(int(n) for n in os.listdir(ck) if n.isdigit())
     if on_disk != [steps // 2, steps]:
         raise AssertionError(f"zero1 parity: checkpoints at {on_disk}")
     shutil.rmtree(os.path.join(ck, str(steps)))  # resume from halfway
-    with tempfile.TemporaryDirectory() as tmp:
-        second, off, resumed12 = spawn_ranks(torch, [
-            (zero1_overrides(parity), ck, 0, CONFIG),
+    return [(zero1_overrides(parity), ck, 0, CONFIG),
             ([f"train.grad_accum={ZERO_ACCUM}", "train.zero1=false",
               "train.steps=2"], None, 0, CONFIG, {"params": False}),
             ([f"train.grad_accum={ZERO_ACCUM}", "train.steps=4"], ck12, 0,
-             CONFIG, {"params": False})], tmp)
+             CONFIG, {"params": False})]
+
+
+def zero1_parity(torch, parity, ranks, fresh, steps=4):
+    """Phase 13: fp32 at 124M width, 2 ranks at dp=2 with ZeRO-1 and
+    grad_accum=2 (flash, adamw_fused), run in phase 11's processes
+    (``ranks``), against phase 8's single-process flash route; then fresh
+    processes (phase 16's pair, running :func:`zero1_jobs`: ``fresh``, the
+    results) resume from its halfway save and run the second half, which
+    must equal the straight run bit for bit. The same two processes run
+    phase 12's ZeRO-1-off job: gpt2_owt as shipped with grad_accum=2 for 2
+    steps (the gradient all-reduce, then fused_adamw over the whole
+    leaves), whose moments are the whole 8 bytes a parameter a rank, for
+    its memory beside phase 12's; and resume phase 12's run from its
+    step-2 save to step 4 (exact launches). Returns each rank's launches
+    of that resumed run."""
+    second, off, resumed12 = fresh
     n_params = sum(p.numel() for p in parity["params_kernels"].values())
     off_opt = [r["opt_state_bytes"] for r in off]
     layers = sum(k.endswith("attn.query.kernel")
@@ -1957,11 +2002,11 @@ def resnet_train(torch, cli, batch):
     return out
 
 
-# Every benchmark phase runs ``cli benchmark`` at this depth: 6 timed
+# Every benchmark phase runs ``cli benchmark`` at this depth: 4 timed
 # steps and 4 synced ones after the 5 warm-up steps, and the multi-step
-# probe at K = 2 in 3 calls (the defaults, 30, 12 and K = 8 in 3 calls,
+# probe at K = 2 in 2 calls (the defaults, 30, 12 and K = 8 in 3 calls,
 # took 38 s on llama_moe).
-BENCH_DEPTH = ["--steps", "6", "--latency-steps", "4", "--probe", "2"]
+BENCH_DEPTH = ["--steps", "4", "--latency-steps", "4", "--probe", "2"]
 
 
 def config_benchmark(cli, config):
@@ -2007,11 +2052,13 @@ def resnet_one_process(torch, cli, load_config, apply_overrides, accum):
     return out
 
 
-def resnet_dp2(torch, cli, load_config, apply_overrides):
+def resnet_dp2(torch, cli, load_config, apply_overrides, extra=()):
     """Phase 16: the shipped config under torchrun at dp=2 with eval and
     checkpoints every 2 steps; then one pair of fresh processes runs the
-    fp32 parity of dp=2 (grad_accum 1 and 2) against one process, and a
-    resume from the step-2 save that repeats steps 3 and 4 bit for bit."""
+    fp32 parity of dp=2 (grad_accum 1 and 2) against one process, a
+    resume from the step-2 save that repeats steps 3 and 4 bit for bit,
+    and the ``extra`` jobs (phase 13's). Returns (the record, the extra
+    jobs' results)."""
     import tempfile
 
     accums = (1, 2)
@@ -2038,9 +2085,11 @@ def resnet_dp2(torch, cli, load_config, apply_overrides):
         if steps_on_disk != [2, 4]:
             raise AssertionError(f"checkpoints at {steps_on_disk}")
         shutil.rmtree(os.path.join(ck, "4"))  # resume from step 2
-        *dp2, resume = spawn_ranks(torch, [(RESNET_PARITY + [
+        out = spawn_ranks(torch, [(RESNET_PARITY + [
             "mesh.dp=2", f"train.grad_accum={a}"], None, 0, RESNET)
-            for a in accums] + [(["train.steps=4"], ck, 0, RESNET)], tmp)
+            for a in accums] + [(["train.steps=4"], ck, 0, RESNET)]
+            + list(extra), tmp)
+        *dp2, resume = out[:len(accums) + 1]
     resumed = resume[0]["losses"]
     print(f"resnet dp=2 resumed from step 2 in fresh processes: {resumed} "
           f"against {losses[2:]}", flush=True)
@@ -2083,7 +2132,7 @@ def resnet_dp2(torch, cli, load_config, apply_overrides):
            "parity": parity}
     print(f"resnet50 dp=2 train: {json.dumps(res)} (both ranks share the one "
           "card over gloo: not a data-parallel speed)", flush=True)
-    return res
+    return res, out[len(accums) + 1:]
 
 
 # ---------------------------------------------------------------------------
@@ -2100,7 +2149,7 @@ VIT_STEPS, BERT_STEPS = 6, 4
 ENCODER_PARITY = ["model.kwargs.dtype=float32", "data.batch_size=4",
                   "data.n_distinct=1", "optim.schedule=constant",
                   "optim.warmup_steps=0", "optim.grad_clip=1.0",
-                  "train.steps=3"]
+                  "train.steps=2"]
 MASKED_FRACTION_TOL = 0.01  # 8192 tokens a step: one sd of 0.15 is 0.004
 
 
@@ -2318,7 +2367,7 @@ def parity_runs(torch, cli, load_config, apply_overrides, routes, pairs):
 
 
 def encoder_parity(torch, cli, load_config, apply_overrides):
-    """Phase 20: fp32 at full width, batch 4, 3 steps from one seed's
+    """Phase 20: fp32 at full width, batch 4, 2 steps from one seed's
     weights on one batch: ViT-L/16 (flash, adamw_fused, remat full)
     against (xla, adamw, remat none) within 1e-4 relative, and against
     (flash, adamw_fused, remat none) within 1e-6; BERT-base with padded
@@ -2410,7 +2459,7 @@ MOE_STEPS = 6
 MOE_PARITY = ["model.kwargs.dtype=float32", "data.batch_size=2",
               "data.n_distinct=1", "optim.schedule=constant",
               "optim.warmup_steps=0", "optim.grad_clip=1.0",
-              "train.steps=3"]
+              "train.steps=2"]
 OWT_FILE_STEPS = 4
 
 
@@ -2487,7 +2536,7 @@ def moe_benchmark(torch, cli, models, load_config, apply_overrides):
 
 
 def moe_parity(torch, cli, load_config, apply_overrides):
-    """Phase 28: fp32 llama_moe at full width, batch 2 x 2048, 3 steps on
+    """Phase 28: fp32 llama_moe at full width, batch 2 x 2048, 2 steps on
     one batch, (flash, adamw) against (xla, adamw) in lockstep: before
     each step the xla trainer takes the flash trainer's params and Adam
     state, so each step is compared from the same state. (Apart, one
@@ -3036,14 +3085,17 @@ def pp_twin(torch, cli, load_config, apply_overrides, config, overrides):
     return [r["loss"] for r in hist], trainer, state
 
 
-def pp_parity(torch, cli, load_config, apply_overrides):
-    """Phase 35: 4 spawned ranks run :func:`pp_jobs`; the shipped bert_pp
+def pp_parity(torch, cli, load_config, apply_overrides, parity, tmp_tp):
+    """Phase 35: 4 spawned ranks run :func:`pp_jobs`, then phase 37's
+    :func:`tp_jobs` (their results returned, their checkpoint in
+    ``tmp_tp``: phase 8's ``parity`` sets them up); the shipped bert_pp
     losses finite and equal on every rank; the fp32 gpt2_pp (4 steps,
     fused_adamw over each rank's leaves: launches = steps x its kernel
     groups) and bert_pp (3 steps) losses within 1e-4 relative of their
     pp=1 twins here (plain AdamW) and falling; the step-2 checkpoint,
     restored here at pp=1, equals every rank's step-2 params bit for bit.
-    Returns (the record, fused_adamw launches on the ranks)."""
+    Returns (the record, fused_adamw launches on the ranks, phase 37's
+    results and checkpoint)."""
     import tempfile
 
     from distributeddeeplearning_tpu_torch.checkpoint import (
@@ -3052,8 +3104,9 @@ def pp_parity(torch, cli, load_config, apply_overrides):
 
     with tempfile.TemporaryDirectory() as tmp:
         jobs, ck = pp_jobs(tmp)
-        bert, gpt_a, gpt_b, bert32 = spawn_ranks(torch, jobs, tmp,
-                                                 nranks=PP_RANKS)
+        extra, tp_ck = tp_jobs(tmp_tp, parity)
+        out = spawn_ranks(torch, jobs + extra, tmp, nranks=PP_RANKS)
+        (bert, gpt_a, gpt_b, bert32), tp_results = out[:4], out[4:]
         for name, ranks in (("bert_pp", bert), ("gpt2_pp fp32", gpt_a),
                             ("gpt2_pp fp32 resumed", gpt_b),
                             ("bert_pp fp32", bert32)):
@@ -3118,6 +3171,236 @@ def pp_parity(torch, cli, load_config, apply_overrides):
             raise AssertionError(f"{name} fp32 pp=4 vs pp=1: rel {rel}")
         if not (a[-1] < a[0] and b[-1] < b[0]):
             raise AssertionError(f"{name} fp32: loss did not fall {a} {b}")
+    return res, launched, tp_results, tp_ck
+
+
+# ---------------------------------------------------------------------------
+# 36. - 37. tensor parallelism with sequence parallelism, and FSDP
+# ---------------------------------------------------------------------------
+
+TP_RANKS, TP_STEPS = 4, 2
+# Phase 36: gpt2_owt as shipped (bf16, flash, adamw_fused) at tp2 x fsdp2
+# with sequence parallelism, the batch cut for time to 8 x 1024 (4 rows a
+# rank over dp x fsdp = 2, 6 heads a rank).
+TP_MESH = ["mesh.dp=1", "mesh.fsdp=2", "mesh.tp=2",
+           "train.sequence_parallel=true"]
+# Phase 37's Llama-300M jobs at dp2 x tp2 with ZeRO-1 (the config's
+# zero1=True): the shipped bf16 run with the batch cut for time to 8 x
+# 2048 (4 rows a rank, 8 heads), and the fp32 pair of phase 23.
+LLAMA_TP = ["mesh.dp=2", "mesh.tp=2"]
+
+
+def tp_cli_train(torch, models, load_config, apply_overrides):
+    """Phase 36: ``cli train`` under torchrun with 4 ranks on
+    ``configs/gpt2_owt.py`` at dp=1 x fsdp=2 x tp=2 with sequence
+    parallelism (bf16, flash, adamw_fused, batch 8 x 1024) for 2 steps, an
+    evaluation and a checkpoint at step 2: every loss finite and equal on
+    the 4 ranks; per rank each flash kernel 12 x steps launches (flash_fwd
+    12 more for the evaluation) at [4 rows x 6 heads, 1024, 64], fused_adamw
+    2 x steps over the rank's blocks; its param (and gradient) and moment
+    bytes against the whole 124M's, the sharded fractions, peak memory and
+    the transport's seconds a step. The checkpoint holds the one-rank
+    layout. Returns (the record, each rank's launches)."""
+    import tempfile
+
+    cfg = apply_overrides(load_config(CONFIG), TP_MESH)
+    whole = {k: tuple(p.shape) for k, p in models.get_model(
+        cfg.model.name, **cfg.model.kwargs, device="meta").named_parameters()}
+    n_params = sum(math.prod(v) for v in whole.values())
+    layers = sum(k.endswith("attn.query.kernel") for k in whole)
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "ckpt")
+        text, recs, end = torchrun_train(
+            TP_MESH + ["data.batch_size=8", f"train.steps={TP_STEPS}",
+                       "train.log_every=1", "train.eval_every=2",
+                       "train.eval_batches=1", "train.save_every=2",
+                       f"train.checkpoint_dir={ck}",
+                       f"train.log_dir={tmp}/logs"], nproc=TP_RANKS)
+        on_disk = sorted(os.listdir(ck))
+        host = torch.load(os.path.join(ck, "2", "state.pt"), mmap=True,
+                          weights_only=True)
+        saved = {t: {k: tuple(v.shape) for k, v in host[t].items()}
+                 for t in ("params", "mu", "nu")}
+        del host
+    print("\n".join(text))
+    losses = [r["loss"] for r in recs if "loss" in r]
+    evals = [r["step"] for r in recs if "eval_loss" in r]
+    ranks = end["ranks"]
+    if (len(losses) != TP_STEPS or not all(map(math.isfinite, losses))
+            or evals != [2] or on_disk != ["2"]):
+        raise AssertionError(f"tp train: losses {losses}, evals at {evals}, "
+                             f"checkpoints {on_disk}")
+    if any(r["losses"] != ranks[0]["losses"] for r in ranks):
+        raise AssertionError(f"tp train: the ranks' losses differ "
+                             f"{[r['losses'] for r in ranks]}")
+    if any(v != whole for v in saved.values()):
+        raise AssertionError("tp train: the checkpoint is not in the "
+                             "one-rank layout")
+    steps = layers * TP_STEPS
+    want = {"flash_fwd": steps + layers, "flash_dq": steps,
+            "flash_dkv": steps, "fused_adamw": 2 * TP_STEPS,
+            "ring_step": 0, "ring_dq": 0, "ring_dkv": 0}
+    shape = [[4 * 6, 1024, 64]]
+    per_rank = []
+    for i, r in enumerate(ranks):
+        sh = r["shards"]
+        shapes = {k: [list(x) for x in v] for k, v in r["flash_shapes"].items()}
+        if r["launches"] != want or any(v != shape for v in shapes.values()):
+            raise AssertionError(f"tp train rank {i}: launches {r['launches']}"
+                                 f" != {want}, shapes {shapes} != {shape}")
+        if not (sh["sharded_fraction"]["tp"] > 0.5
+                and sh["sharded_fraction"]["fsdp"] > 0.5):
+            raise AssertionError(f"tp train rank {i}: {sh}")
+        if r["opt_state_bytes"] != 2 * sh["param_bytes"]:
+            raise AssertionError(f"tp train rank {i}: moments "
+                                 f"{r['opt_state_bytes']} != 2 x params")
+        per_rank.append({
+            "rank": i, "param_bytes": sh["param_bytes"],
+            "grad_bytes": sh["param_bytes"],
+            "moment_bytes": r["opt_state_bytes"],
+            "whole_param_bytes": sh["whole_param_bytes"],
+            "param_share": sh["param_bytes"] / sh["whole_param_bytes"],
+            "sharded_fraction": sh["sharded_fraction"],
+            "peak_mem_gb": r["peak_mem_gb"],
+            "transport_s_by_step": sh["transport_s_by_step"],
+            "launches": r["launches"], "flash_shape": shape[0]})
+    if sh["whole_param_bytes"] != 4 * n_params:
+        raise AssertionError(f"tp train: whole bytes {sh['whole_param_bytes']}"
+                             f" != 4 x {n_params}")
+    res = {"backend": end["backend"], "ranks_on_one_card": TP_RANKS,
+           "losses": losses, "step_ms": [x * 1e3 for x in end["step_s"]],
+           "per_rank": per_rank}
+    print(f"tp train: {json.dumps(res)} (four ranks share the one card over "
+          "gloo: the step time is a path, not a speed)", flush=True)
+    return res, [r["launches"] for r in ranks]
+
+
+def tp_jobs(tmp, parity):
+    """Phase 37's jobs, run in phase 35's four spawned ranks: fp32 GPT-2
+    124M at tp2 x fsdp2 with sequence parallelism on phase 8's overrides
+    (4 x 1024, flash, adamw_fused) to step 2 with a save, then on to 4 from
+    it (rank 0 gathering the whole params); Llama-300M at dp2 x tp2 with
+    ZeRO-1, bf16 as shipped at 8 x 2048 for 2 steps, then the fp32 pair of
+    phase 23 (2 x 2048; 2 of its 3 steps)."""
+    ck = os.path.join(tmp, "gpt2_tp_ckpt")
+    gpt = parity["overrides"] + TP_MESH
+    return [
+        (gpt + ["train.steps=2"], ck, 2, CONFIG, {"hashes": True}),
+        (gpt + ["train.steps=4"], ck, 0, CONFIG, {"whole": True}),
+        (LLAMA_TP + ["data.batch_size=8", "train.steps=2"], None, 0, LLAMA,
+         {"params": False}),
+        (LLAMA_TP + LLAMA_PARITY + ["model.kwargs.attn_impl=flash",
+                                    "optim.name=adamw_fused",
+                                    "train.steps=2"], None, 0,
+         LLAMA, {"params": False}),
+    ], ck
+
+
+def tp_parity(torch, cli, models, load_config, apply_overrides, parity,
+              llama_ref, results, ck):
+    """Phase 37: the results of :func:`tp_jobs`. fp32 GPT-2 at tp2 x fsdp2
+    with sequence parallelism: the 4 losses (2 straight, 2 after a restore
+    at the same mesh) within 1e-4 relative of phase 8's one process and
+    falling, the whole params after step 4 within ``ZERO_PARAM_LIMIT`` of
+    its params; the step-2 save, restored here in one process, cut to each
+    rank's blocks equals that rank's step-2 params bit for bit. Llama-300M
+    at dp2 x tp2 with ZeRO-1: the shipped bf16 run's losses finite and
+    equal on the ranks, each flash kernel 12 launches a step at [4 rows x
+    8 heads, 2048, 64], fused_adamw 2 a step over each rank's ZeRO-1
+    shards; the fp32 pair's losses within 1e-4 relative of phase 23's
+    kernel route. Returns (the record, the launches on these paths)."""
+    from distributeddeeplearning_tpu_torch.checkpoint import (
+        CheckpointManager,
+    )
+    from distributeddeeplearning_tpu_torch.mesh import Mesh
+
+    gpt_a, gpt_b, llama_bf16, llama32 = results
+    for name, ranks in (("gpt2 tp fp32", gpt_a), ("gpt2 tp fp32 resumed",
+                                                  gpt_b),
+                        ("llama tp bf16", llama_bf16),
+                        ("llama tp fp32", llama32)):
+        ls = [r["losses"] for r in ranks]
+        if any(x != ls[0] for x in ls) or not all(map(math.isfinite, ls[0])):
+            raise AssertionError(f"{name}: rank losses {ls}")
+    got = gpt_a[0]["losses"] + gpt_b[0]["losses"]
+    want = parity["losses_kernels"]
+    rel = rel_diff(got, want)
+    pk = parity["params_kernels"]
+    pdiff = max((gpt_b[0]["params"][k] - pk[k].cpu()).abs().max().item()
+                for k in pk)
+    # The step-2 save restored in one process, cut to each rank's blocks.
+    cfg = apply_overrides(load_config(CONFIG), parity["overrides"])
+    _, trainer, _ = cli.build_all(cfg, "cuda")
+    state = trainer.init(cfg.train.seed)
+    with CheckpointManager(ck) as mgr:
+        state, _ = mgr.restore(state, step=2)
+    restored = {k: p.detach().cpu() for k, p in state.params.items()}
+    del trainer, state
+    torch.cuda.empty_cache()
+    tcfg = apply_overrides(cfg, TP_MESH)
+    mismatched = []
+    for rank, r in enumerate(gpt_a):
+        mesh = Mesh({"fsdp": 2, "tp": 2}, rank=rank)
+        if mesh.coords != r["coords"]:
+            raise AssertionError(f"rank {rank}: coords {r['coords']}")
+        layout = models.get_model(
+            tcfg.model.name, **tcfg.model.kwargs, sequence_parallel=True,
+            mesh=mesh, device="meta").shards
+        for k, h in r["hashes"].items():
+            if param_digest(layout.take_leaf(k, restored[k])) != h:
+                mismatched.append((rank, k))
+    layers = model_shape(models, load_config, apply_overrides, LLAMA)[0]
+    bf16_want = {"flash_fwd": 2 * layers, "flash_dq": 2 * layers,
+                 "flash_dkv": 2 * layers, "fused_adamw": 2 * 2,
+                 "ring_step": 0, "ring_dq": 0, "ring_dkv": 0}
+    bf16_shape = [(4 * 8, 2048, 64)]
+    for r in llama_bf16:
+        shapes = {k: [tuple(x) for x in v] for k, v in
+                  r["flash_shapes"].items()}
+        if r["launches"] != bf16_want or any(v != bf16_shape
+                                             for v in shapes.values()):
+            raise AssertionError(f"llama tp bf16: launches {r['launches']} "
+                                 f"!= {bf16_want}, shapes {shapes}")
+    lref = llama_ref["llama_kernels_vs_llama_plain"]["losses"][0]
+    lrel = rel_diff(llama32[0]["losses"], lref)
+    gpt_shapes = sorted({tuple(x) for r in gpt_a + gpt_b
+                         for v in r["flash_shapes"].values() for x in v})
+    res = {"gpt2_tp2_fsdp2_sp_fp32": {"losses": got, "one_process": want,
+                                      "max_rel_diff": rel,
+                                      "max_abs_param_diff": pdiff,
+                                      "flash_shapes": gpt_shapes,
+                                      "peak_mem_gb": [r["peak_mem_gb"]
+                                                      for r in gpt_a]},
+           "restore_in_one_process_mismatched_leaves": len(mismatched),
+           "checkpoint_saves": gpt_a[0]["timings"],
+           "llama_dp2_tp2_zero1_bf16": {
+               "losses": llama_bf16[0]["losses"],
+               "peak_mem_gb": [r["peak_mem_gb"] for r in llama_bf16],
+               "opt_state_bytes": [r["opt_state_bytes"] for r in llama_bf16],
+               "launches": llama_bf16[0]["launches"],
+               "flash_shape": list(bf16_shape[0])},
+           "llama_dp2_tp2_zero1_fp32": {"losses": llama32[0]["losses"],
+                                        "one_process": lref,
+                                        "max_rel_diff": lrel}}
+    print(f"tp parity: {json.dumps(res)}", flush=True)
+    if mismatched:
+        raise AssertionError(f"tp restore in one process: {mismatched[:4]} "
+                             "differ")
+    if not rel <= 1e-4 or not got[-1] < got[0]:
+        raise AssertionError(f"gpt2 tp fp32: losses {got} vs {want}, rel "
+                             f"{rel}")
+    if not pdiff <= ZERO_PARAM_LIMIT:
+        raise AssertionError(f"gpt2 tp fp32: param diff {pdiff} > "
+                             f"{ZERO_PARAM_LIMIT}")
+    if gpt_shapes != [(2 * 6, 1024, 64)]:
+        raise AssertionError(f"gpt2 tp fp32: flash shapes {gpt_shapes}")
+    ls32 = llama32[0]["losses"]
+    if not lrel <= 1e-4 or not ls32[-1] < ls32[0]:
+        raise AssertionError(f"llama tp fp32: {llama32[0]['losses']} vs "
+                             f"{lref}, rel {lrel}")
+    launched = {k: sum(r["launches"][k] for job in results for r in job)
+                for k in ("flash_fwd", "flash_dq", "flash_dkv",
+                          "fused_adamw")}
     return res, launched
 
 
@@ -3242,7 +3525,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     _, end, per_rank = cli_train_cp(torch, layers)
     step_s = end["step_s"][1:]  # the first step warms the libraries up
-    print(f"cp train: {json.dumps({'backend': end['backend'], 'ranks_on_one_card': 2, 'tokens_per_s': tokens / statistics.mean(step_s), 'p50_step_ms': statistics.median(step_s) * 1e3, 'step_ms': [x * 1e3 for x in step_s], 'peak_mem_gb': [r['peak_mem_gb'] for r in end['ranks']]})}"
+    print(f"cp train: {json.dumps({'backend': end['backend'], 'ranks_on_one_card': 2, 'tokens_per_s': CP_BATCH * cfg.data.seq_len / statistics.mean(step_s), 'p50_step_ms': statistics.median(step_s) * 1e3, 'step_ms': [x * 1e3 for x in step_s], 'peak_mem_gb': [r['peak_mem_gb'] for r in end['ranks']]})}"
           " (both ranks share the one card over gloo: not a "
           "context-parallel speed)", flush=True)
     for k in ("ring_step", "ring_dq", "ring_dkv"):
@@ -3265,12 +3548,8 @@ def main(argv=None) -> int:
         launches[k] += sum(r[k] for r in zero_launches)
 
     phase("13 fp32 parity at 124M width, ZeRO-1 dp=2 against one rank, "
-          "and its resume")
-    resumed12 = zero1_parity(torch, parity, zero_ranks,
-                             os.path.join(zero_ck.name, "ckpt"), ck12)
-    for k in ("flash_fwd", "flash_dq", "flash_dkv", "fused_adamw"):
-        launches[k] += sum(r[k] for r in resumed12)
-    zero_ck.cleanup()
+          "and its resume (its fresh pair is phase 16's)")
+    jobs13 = zero1_jobs(parity, os.path.join(zero_ck.name, "ckpt"), ck12)
 
     phase("14 ResNet-50 train through the entry point")
     rcfg = load_config(RESNET)
@@ -3279,8 +3558,13 @@ def main(argv=None) -> int:
     phase("15 cli benchmark on ResNet-50")
     bench = config_benchmark(cli, RESNET)
 
-    phase("16 ResNet-50 dp=2 (torchrun, 2 ranks on one card over gloo)")
-    resnet_dp2(torch, cli, load_config, apply_overrides)
+    phase("16 ResNet-50 dp=2 (torchrun, 2 ranks on one card over gloo), "
+          "then phase 13's checks")
+    _, fresh = resnet_dp2(torch, cli, load_config, apply_overrides, jobs13)
+    resumed12 = zero1_parity(torch, parity, zero_ranks, fresh)
+    for k in ("flash_fwd", "flash_dq", "flash_dkv", "fused_adamw"):
+        launches[k] += sum(r[k] for r in resumed12)
+    zero_ck.cleanup()
 
     phase("17 ViT-L/16 train through the entry point (remat full, then "
           "none)")
@@ -3311,7 +3595,7 @@ def main(argv=None) -> int:
                                    apply_overrides, (("llama", LLAMA),))
 
     phase("23 fp32 parity at full width: Llama-300M")
-    llama_parity(torch, cli, load_config, apply_overrides)
+    llama_ref = llama_parity(torch, cli, load_config, apply_overrides)
 
     phase("24 Llama-300M serving at full width, then cli serve")
     torch.cuda.empty_cache()
@@ -3380,9 +3664,25 @@ def main(argv=None) -> int:
     pp_cli_train(torch)
     phase("35 pipelined jobs on 4 spawned ranks: bert_pp as shipped, fp32 "
           "gpt2_pp and bert_pp against pp=1, restore at pp=1")
-    _, launched = pp_parity(torch, cli, load_config, apply_overrides)
+    tmp_tp = tempfile.TemporaryDirectory()  # phase 37's save
+    _, launched, tp_results, tp_ck = pp_parity(
+        torch, cli, load_config, apply_overrides, parity, tmp_tp.name)
     launches["fused_adamw"] += launched
-    print(f"chip_smoke: 35 phases in {time.perf_counter() - _T0:.1f} s",
+    phase("36 tp2 x fsdp2 with sequence parallelism through the entry "
+          "point (torchrun, gpt2_owt)")
+    _, per_rank = tp_cli_train(torch, models, load_config, apply_overrides)
+    for r in per_rank:
+        for k in ("flash_fwd", "flash_dq", "flash_dkv", "fused_adamw"):
+            launches[k] += r[k]
+    phase("37 fp32 parity at tp2 x fsdp2 (GPT-2) and dp2 x tp2 (Llama-300M) "
+          "against one process, restore in one process (jobs of phase 35's "
+          "ranks)")
+    _, launched = tp_parity(torch, cli, models, load_config, apply_overrides,
+                            parity, llama_ref, tp_results, tp_ck)
+    tmp_tp.cleanup()
+    for k, v in launched.items():
+        launches[k] += v
+    print(f"chip_smoke: 37 phases in {time.perf_counter() - _T0:.1f} s",
           flush=True)
 
     # Each kernel's numbers come from its case at the main path's types.

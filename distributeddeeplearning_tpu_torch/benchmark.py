@@ -21,9 +21,11 @@ counts the step's matrix products and convolutions (forward and backward,
 this rank's share), from which ``achieved_tflops_per_sec`` and ``mfu``
 against the card's own dense bf16 peak, looked up by
 ``torch.cuda.get_device_name()``; an unknown card gets no ``mfu``. Under
-pipeline parallelism each rank counts its own stage's FLOPs; the counts sum
-over the ``pp`` group into ``model_tflops_per_step`` (the replica's step),
-and the per-GPU rate is that over the ``pp`` ranks. An MoE
+pipeline parallelism each rank counts its own stage's FLOPs, under tp its
+slice of the heads, MLP units and vocabulary, under fsdp its own rows: the
+counts sum over the ``pp``, ``tp`` and ``fsdp`` groups into
+``model_tflops_per_step`` (those ranks' step), and the per-GPU rate is that
+over the ``pp`` x ``tp`` x ``fsdp`` ranks. An MoE
 model's dense dispatch and combine einsums multiply one-hots; they are
 counted like any product, and ``onehot_tflops_per_step`` with its share of
 the count says how much of the MFU they are (``models.moe.onehot_flops``).
@@ -204,15 +206,19 @@ def run_benchmark(cfg: Config, device, mesh=None, *, warmup: int = 5,
         state, _ = step(state, staged[0])
     _sync(device)
     flops = float(counter.get_total_flops())
-    pp = mesh.shape["pp"]
-    if pp > 1:
+    group = [a for a in ("pp", "tp", "fsdp") if mesh.shape[a] > 1]
+    ranks = 1
+    for axis in group:
         from .comms import psum
 
         flops = float(psum(torch.tensor(flops, dtype=torch.float64,
-                                        device=device), mesh, "pp"))
-        record["params"] = state.stage_rows.whole_numel(state.params)
+                                        device=device), mesh, axis))
+        ranks *= mesh.shape[axis]
+    whole = state.stage_rows or state.shards
+    if whole is not None:
+        record["params"] = whole.whole_numel(state.params)
     if flops > 0:
-        achieved = flops * steps / elapsed / 1e12 / pp
+        achieved = flops * steps / elapsed / 1e12 / ranks
         record["model_tflops_per_step"] = flops / 1e12
         record["achieved_tflops_per_sec"] = round(achieved, 3)
         peak = peak_tflops(device)

@@ -25,7 +25,11 @@ The JAX package's ``checkpoint.py`` keeps the same interface over orbax
   as the reference's stacked layout: the save gathers every stage's rows
   of the params and the optimizer's trees over ``pp`` (after ZeRO-1's
   gather over dp), and a restore gives each rank its rows, so a ``pp=4``
-  checkpoint resumes at ``pp=1`` and the other way round.
+  checkpoint resumes at ``pp=1`` and the other way round. A model cut over
+  tp or fsdp is written in the one-rank layout (the JAX package's keys and
+  shapes): the save puts the blocks of the params and the optimizer's trees
+  together on rank 0 (``sharding.ShardLayout.gather``, after ZeRO-1's
+  gather), and a restore cuts them for any mesh.
 - **Fallback**: :meth:`restore` with no step walks the steps newest first;
   a step whose files fail to load is quarantined (renamed
   ``<step>.corrupt``) and the next earlier one is tried.
@@ -80,6 +84,12 @@ def _whole_trees(state) -> tuple:
         params = rows.gather(params)
         if trees is not None:
             trees = {n: rows.gather(t) for n, t in trees.items()}
+    shards = getattr(state, "shards", None)
+    if shards is not None and trees is not None:
+        # After ZeRO-1's gather over dp: every tp and fsdp block of the
+        # dp member 0s, put together on rank 0.
+        params = shards.gather(params)
+        trees = {n: shards.gather(t) for n, t in trees.items()}
     if params is None or trees is None or any(
             t is None for t in trees.values()):
         return None, None
@@ -132,6 +142,10 @@ def load_into(state, host: dict):
     rows = getattr(state, "stage_rows", None)
     if rows is not None:
         host = {**host, **{name: rows.take(host[name])
+                           for name in ("params", *trees) if name in host}}
+    shards = getattr(state, "shards", None)
+    if shards is not None:
+        host = {**host, **{name: shards.take(host[name])
                            for name in ("params", *trees) if name in host}}
     host_state = host.get("model_state", {})
     for name in ("params", *trees):

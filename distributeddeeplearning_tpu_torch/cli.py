@@ -3,8 +3,8 @@
 
 ``train`` runs the training path (``build_all`` -> ``Trainer`` -> ``fit``)
 on one rank, or on every rank ``torchrun`` starts (one process per rank,
-``mesh.dp`` x ``mesh.pp`` x ``mesh.cp`` of them), resuming from
-``train.checkpoint_dir``;
+``mesh.dp`` x ``mesh.fsdp`` x ``mesh.pp`` x ``mesh.tp`` x ``mesh.cp`` of
+them), resuming from ``train.checkpoint_dir``;
 ``eval`` evaluates its latest checkpoint; ``benchmark`` times the config's
 training step (``benchmark.run_benchmark``: images or tokens per second per
 GPU); ``generate`` samples from its latest checkpoint's weights with the
@@ -49,8 +49,6 @@ def _mesh_sizes(cfg: Config, world_size: int) -> dict[str, int]:
 
 # Mesh axes whose parallel strategy is not ported: (what, ROADMAP item).
 _UNPORTED_AXES = {
-    "fsdp": ("fully sharded data parallelism", "A13"),
-    "tp": ("tensor parallelism", "A13"),
     "ep": ("expert parallelism", "A13"),
     "dcn_dp": ("data parallelism across slices over DCN", "A13"),
 }
@@ -82,13 +80,22 @@ def _unported_train_knobs(cfg: Config, world_size: int = 1):
         ("train.update_sharding", t.update_sharding
          if t.update_sharding == "sharded" else "",
          "sharded weight update", "A13"),
-        ("train.sequence_parallel", t.sequence_parallel,
-         "sequence parallelism", "A13"),
         ("train.zero1", t.zero1 and cfg.optim.name == "sgd"
          and sizes["dp"] > 1,
          "ZeRO-1 of the SGD momentum trace (optim.name='sgd'; the port "
          "shards AdamW's moments)", "A8"),
+        ("train.sequence_parallel", t.sequence_parallel
+         and not models.supports_tp_fsdp(cfg.model.name),
+         f"sequence parallelism of model {cfg.model.name!r} (GPT-2's and "
+         "Llama's are ported)", "A13"),
         *mesh_knobs,
+        ("mesh", dataclasses.asdict(mesh)
+         if (sizes["tp"] > 1 or sizes["fsdp"] > 1)
+         and not models.supports_tp_fsdp(cfg.model.name) else "",
+         " ".join(f"mesh.{a}={sizes[a]}" for a in ("fsdp", "tp")
+                  if sizes[a] > 1) + f" on model {cfg.model.name!r} "
+         "(tensor and fully sharded parallelism of this model; GPT-2 and "
+         "Llama are ported)", "A13"),
         ("model.kwargs.attn_impl", attn if attn in ("ring", "ring_pallas")
          and sizes["cp"] == 1 else "",
          "a ring over one rank, mesh.cp=1 (the ring cores run on mesh.cp > "
@@ -144,6 +151,10 @@ def build_all(cfg: Config, device, mesh=None, fault_nan_step=None):
             raise ValueError(
                 f"model {cfg.model.name!r} does not support remat")
         kwargs["remat"] = cfg.train.remat
+    if cfg.train.sequence_parallel and mesh.shape["tp"] > 1:
+        # Megatron sequence parallelism (``parallel.tp.tp_rules``): the
+        # activations' seq over tp between the blocks; a no-op at tp = 1.
+        kwargs["sequence_parallel"] = True
     model = models.get_model(cfg.model.name, **kwargs, mesh=mesh).to(device)
     if cfg.train.remat != "none" and getattr(model, "remat",
                                              None) != cfg.train.remat:
@@ -168,12 +179,16 @@ def build_all(cfg: Config, device, mesh=None, fault_nan_step=None):
     return model, trainer, dataset
 
 
-def _rank_report(device, history, state, ckpt) -> dict:
-    """What one rank reports at the end: its kernel launch counts, its peak
-    device memory, its optimizer state's bytes (Adam's moments, a shard of
+def _rank_report(device, history, state, ckpt, transport=()) -> dict:
+    """What one rank reports at the end: its kernel launch counts (and the
+    flash kernels' folded [bh, L, D] shapes), its peak device memory, its optimizer state's bytes (Adam's moments, a shard of
     them under ZeRO-1, or SGD's trace), the losses it logged, its
     checkpoint saves' timings, and what the pipeline schedules did on it
-    (``parallel.pp.TICKS``) when they ran."""
+    (``parallel.pp.TICKS``) when they ran; for a model cut over tp or fsdp
+    its params' bytes (its gradients' are the same) against the whole
+    model's fp32 bytes, the sharded fractions, and the seconds inside the
+    transport's calls each step (``transport``: ``comms.TRANSPORT``'s
+    seconds at the end of each step)."""
     from .ops import flash_attention, fused_adamw, ring_attention_pallas
     from .parallel import pp
     from .train import opt_state_bytes
@@ -181,9 +196,11 @@ def _rank_report(device, history, state, ckpt) -> dict:
     peak = (torch.cuda.max_memory_allocated(device) / 1e9
             if device.type == "cuda" else None)
     opt_bytes = opt_state_bytes(state.opt_state)
-    return {
+    report = {
         "launches": {**flash_attention.LAUNCHES, **fused_adamw.LAUNCHES,
                      **ring_attention_pallas.LAUNCHES},
+        "flash_shapes": {k: sorted(v)
+                         for k, v in flash_attention.SHAPES.items()},
         "peak_mem_gb": peak,
         "opt_state_bytes": opt_bytes,
         "losses": [r["loss"] for r in history if "loss" in r],
@@ -191,6 +208,19 @@ def _rank_report(device, history, state, ckpt) -> dict:
         **({"pipeline": dict(pp.TICKS)} if pp.TICKS["train_ticks"]
            else {}),
     }
+    if state.shards is not None:
+        from .parallel.fsdp import sharded_fraction
+
+        report["shards"] = {
+            "param_bytes": sum(p.numel() * p.element_size()
+                               for p in state.params.values()),
+            "whole_param_bytes": 4 * state.shards.whole_numel(state.params),
+            "sharded_fraction": {a: sharded_fraction(state.shards, a)
+                                 for a in ("tp", "fsdp")},
+            "transport_s_by_step": [
+                b - a for a, b in zip([0.0, *transport], transport)],
+        }
+    return report
 
 
 @contextlib.contextmanager
@@ -319,7 +349,7 @@ def _train_once(cfg: Config, device, mesh, say, sync_steps: bool,
     resume from the latest checkpoint if any, and fit."""
     import torch.distributed as dist
 
-    from . import data
+    from . import comms, data
     from .checkpoint import CheckpointManager
     from .metrics import MetricWriter, Profiler, event_record
     from .parallel import pp
@@ -341,7 +371,8 @@ def _train_once(cfg: Config, device, mesh, say, sync_steps: bool,
                 state, data_state = ckpt.restore(state)
                 start_index = int(data_state.get("next_index", state.step))
                 say(f"resumed from step {state.step}")
-        n = (state.stage_rows.whole_numel(state.params) if state.stage_rows
+        whole = state.stage_rows or state.shards
+        n = (whole.whole_numel(state.params) if whole is not None
              else sum(p.numel() for p in state.params.values()))
         say(f"model: {cfg.model.name}  params: {n:,}")
         placed = data.sharded_batches(dataset.iter_from(start_index), mesh,
@@ -351,8 +382,10 @@ def _train_once(cfg: Config, device, mesh, say, sync_steps: bool,
         batches = data.prefetch(placed, device, size=cfg.data.prefetch_size)
         writer = MetricWriter(t.log_dir)
         step_s = [] if sync_steps else None
-        # The pipeline's transport seconds at the end of each step.
-        transport = []
+        # The pipeline's, and the transport's, seconds at the end of each
+        # step.
+        transport, calls_s = [], []
+        comms.reset_transport()
         state, history = fit(
             trainer, state, batches, steps=t.steps, log_every=t.log_every,
             steps_per_call=t.steps_per_call,
@@ -363,12 +396,14 @@ def _train_once(cfg: Config, device, mesh, say, sync_steps: bool,
                      else None),
             step_times=step_s,
             health=cfg.health if cfg.health.enabled else None,
-            on_step=(lambda _: transport.append(
-                pp.TICKS["train_transport_s"])) if sync_steps else None)
+            on_step=(lambda _: (
+                transport.append(pp.TICKS["train_transport_s"]),
+                calls_s.append(comms.TRANSPORT["seconds"])))
+            if sync_steps else None)
         if ckpt is not None:
             ckpt.wait()
         if sync_steps:
-            report = _rank_report(device, history, state, ckpt)
+            report = _rank_report(device, history, state, ckpt, calls_s)
             if "pipeline" in report:
                 report["pipeline"]["transport_s_by_step"] = [
                     b - a for a, b in zip([0.0] + transport, transport)]

@@ -22,16 +22,31 @@ Here they are calls on ``torch.distributed`` groups, made by each rank:
   reverse in JAX): a tensor to each neighbour and one from each, posted
   together;
 - :func:`psum_tensors`: :func:`psum` of many tensors in a few flat buckets;
+- the Megatron markers of tensor parallelism, under the JAX package's
+  names: :func:`identity_fwd_psum_bwd` (f, the entry of a tp region: the
+  identity, whose backward sums the rank's partial input gradients over
+  tp) and :func:`psum_identity_bwd` (g, after a row-parallel product: the
+  sum over tp, whose backward is the identity); and their sequence-parallel
+  forms, :func:`all_gather_fwd_reduce_scatter_bwd` (the seq shards
+  gathered at a block's entry) and :func:`reduce_scatter_fwd_all_gather_bwd`
+  (the partial sums scattered into seq shards at its exit), with
+  :func:`all_gather_dim` / :func:`reduce_scatter_dim` beneath them (also
+  the fsdp gather of a leaf and the scatter of its gradient);
+- :func:`pmax`: all-reduce max (the vocab-parallel softmax's shift);
 - :func:`axis_index` / :func:`axis_size`.
 
 The transport is the mesh's ``comm``. :class:`DistComm` runs on
 ``torch.distributed``; under gloo, whose point-to-point copies take CPU
 tensors only, CUDA tensors are staged through host memory, and under NCCL
-they travel as they are.
+they travel as they are. Under gloo, bf16 tensors cross in fp32 (exact
+both ways; the sum of a bf16 reduction is rounded once, at the end).
+:data:`TRANSPORT` counts the calls and the seconds spent inside them (the
+rank's wait for the others included; under NCCL, the launch only).
 """
 
 from __future__ import annotations
 
+import time
 import warnings
 
 import torch
@@ -39,6 +54,34 @@ import torch
 # Elements of one flat all-reduce bucket (128 MiB of fp32): GPT-2 124M's
 # gradients sync in 4 calls, not one per leaf.
 BUCKET_ELEMENTS = 1 << 25
+
+# Calls through :class:`DistComm`'s collectives and the seconds inside them
+# (``cli train --sync-steps`` reports them a step).
+TRANSPORT = {"calls": 0, "seconds": 0.0}
+
+
+def reset_transport() -> None:
+    TRANSPORT.update(calls=0, seconds=0.0)
+
+
+_DEPTH = [0]
+
+
+def _timed(fn):
+    def wrapper(*args, **kwargs):
+        if _DEPTH[0]:  # a bf16 call's fp32 crossing: counted once
+            return fn(*args, **kwargs)
+        _DEPTH[0] += 1
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            _DEPTH[0] -= 1
+            TRANSPORT["calls"] += 1
+            TRANSPORT["seconds"] += time.perf_counter() - t0
+
+    wrapper.__name__, wrapper.__doc__ = fn.__name__, fn.__doc__
+    return wrapper
 
 
 class DistComm:
@@ -63,20 +106,34 @@ class DistComm:
             return torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
         return torch.empty_like(t, memory_format=torch.contiguous_format)
 
-    def all_reduce_sum(self, t: torch.Tensor, axis: str) -> torch.Tensor:
+    def _wide(self, t) -> bool:
+        """A bf16 tensor under gloo crosses in fp32."""
+        return self.stage_on_host and t.dtype == torch.bfloat16
+
+    @_timed
+    def all_reduce_sum(self, t: torch.Tensor, axis: str,
+                       op: str = "sum") -> torch.Tensor:
+        """The sum (``op='max'``: the max) over ``axis`` of ``t``."""
         import torch.distributed as dist
 
+        if self._wide(t):
+            return self.all_reduce_sum(t.float(), axis, op).to(t.dtype)
         buf = self._out(t)
         if buf is t:
             buf = t.clone()
-        dist.all_reduce(buf, group=self.groups[axis])
+        dist.all_reduce(buf, group=self.groups[axis],
+                        op=dist.ReduceOp.MAX if op == "max"
+                        else dist.ReduceOp.SUM)
         return buf.to(t.device, non_blocking=True)
 
+    @_timed
     def reduce_scatter_sum(self, t: torch.Tensor, axis: str) -> torch.Tensor:
         """Chunk ``i`` of the sum over ``axis`` of the flat ``t`` (whose
         length the axis size divides), on member ``i``."""
         import torch.distributed as dist
 
+        if self._wide(t):
+            return self.reduce_scatter_sum(t.float(), axis).to(t.dtype)
         group = self.groups[axis]
         buf = self._out(t)
         out = torch.empty(buf.numel() // dist.get_world_size(group),
@@ -86,6 +143,7 @@ class DistComm:
             dist.reduce_scatter_tensor(out, buf, group=group)
         return out.to(t.device, non_blocking=True)
 
+    @_timed
     def all_gather(self, t: torch.Tensor, axis: str,
                    out: torch.Tensor) -> torch.Tensor:
         """Every member's flat ``t``, in member order, into ``out``. Under
@@ -93,6 +151,10 @@ class DistComm:
         gloo the chunks meet in a host buffer, copied into ``out``."""
         import torch.distributed as dist
 
+        if self._wide(t):
+            wide = self.all_gather(t.float(), axis, torch.empty(
+                out.shape, dtype=torch.float32, device=out.device))
+            return out.copy_(wide)
         buf = self._out(t)
         dst = self._buffer(out) if self.stage_on_host else out
         with warnings.catch_warnings():
@@ -370,3 +432,141 @@ def chain_exchange(mesh, axis: str, *, up=None, down=None, from_below=None,
     got = _comm(mesh, "chain_exchange").exchange(
         axis, mesh.axis_ranks(axis), i, sends, recvs, device)
     return got.get(-1), got.get(1)
+
+
+def pmax(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """All-reduce max over ``axis`` (not differentiated through)."""
+    if axis_size(mesh, axis) == 1:
+        return x
+    return _comm(mesh, "pmax").all_reduce_sum(x.detach(), axis, op="max")
+
+
+def all_gather_dim(x: torch.Tensor, mesh, axis: str, dim: int,
+                   size: int | None = None) -> torch.Tensor:
+    """Every member's ``x`` concatenated along ``dim`` in member order, cut
+    to ``size`` along it (a padded last block; default: no cut). Not
+    differentiated through. The result is a view of the flat buffer the
+    chunks were gathered into (``parallel.fsdp`` reads its storage)."""
+    n = axis_size(mesh, axis)
+    if n == 1:
+        return x if size is None else x.narrow(dim, 0, size)
+    moved = x.detach().movedim(dim, 0).contiguous()
+    flat = all_gather(moved.reshape(-1), mesh, axis)
+    out = flat.view(n * moved.shape[0], *moved.shape[1:])
+    if size is not None:
+        out = out.narrow(0, 0, size)
+    return out.movedim(0, dim)
+
+
+def reduce_scatter_dim(x: torch.Tensor, mesh, axis: str, dim: int,
+                       block: int | None = None) -> torch.Tensor:
+    """This member's block along ``dim`` of the sum over ``axis`` of ``x``
+    (member ``i`` keeps rows ``[i*block, (i+1)*block)``; ``x`` is padded
+    with zeros up to ``n * block`` rows, default ``block`` = the rows / n).
+    Not differentiated through."""
+    n = axis_size(mesh, axis)
+    if n == 1:
+        return x
+    moved = x.detach().movedim(dim, 0)
+    rows = moved.shape[0]
+    if block is None and rows % n:
+        raise ValueError(f"reduce_scatter_dim: {rows} rows over {axis}={n}")
+    block = rows // n if block is None else block
+    if block * n < rows:
+        raise ValueError(f"reduce_scatter_dim: {rows} rows exceed {n} "
+                         f"blocks of {block}")
+    if block * n != rows:
+        pad = moved.new_zeros((block * n - rows, *moved.shape[1:]))
+        moved = torch.cat([moved, pad])
+    flat = _comm(mesh, "reduce_scatter_dim").reduce_scatter_sum(
+        moved.contiguous().reshape(-1), axis)
+    return flat.view(block, *moved.shape[1:]).movedim(0, dim)
+
+
+class _IdentityPsumBwd(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return psum(grad.contiguous(), ctx.mesh, ctx.axis), None, None
+
+
+class _PsumIdentityBwd(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return psum(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+def identity_fwd_psum_bwd(x: torch.Tensor, mesh,
+                          axis: str = "tp") -> torch.Tensor:
+    """Megatron's f, at the entry of a tensor-parallel region where a
+    replicated activation fans out into the rank's slices: the identity,
+    whose backward sums the slices' shares of the input gradient over
+    ``axis``, so every rank gets the whole gradient."""
+    if axis_size(mesh, axis) == 1:
+        return x
+    return _IdentityPsumBwd.apply(x, mesh, axis)
+
+
+def psum_identity_bwd(x: torch.Tensor, mesh, axis: str = "tp") -> torch.Tensor:
+    """Megatron's g, after a row-parallel product: the sum over ``axis`` of
+    the ranks' partial outputs, whose backward is the identity (each rank's
+    partial output gets the whole output's gradient, once)."""
+    if axis_size(mesh, axis) == 1:
+        return x
+    return _PsumIdentityBwd.apply(x, mesh, axis)
+
+
+class _GatherScatterBwd(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return all_gather_dim(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (reduce_scatter_dim(grad, ctx.mesh, ctx.axis, ctx.dim),
+                None, None, None)
+
+
+class _ScatterGatherBwd(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return reduce_scatter_dim(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (all_gather_dim(grad, ctx.mesh, ctx.axis, ctx.dim),
+                None, None, None)
+
+
+def all_gather_fwd_reduce_scatter_bwd(x: torch.Tensor, mesh, axis: str = "tp",
+                                      dim: int = 1) -> torch.Tensor:
+    """f of sequence parallelism: the ranks' sequence shards gathered along
+    ``dim`` at a block's entry; the backward reduce-scatters the gradient
+    (each rank's slices contributed to every position) back into shards."""
+    if axis_size(mesh, axis) == 1:
+        return x
+    return _GatherScatterBwd.apply(x, mesh, axis, dim)
+
+
+def reduce_scatter_fwd_all_gather_bwd(x: torch.Tensor, mesh, axis: str = "tp",
+                                      dim: int = 1) -> torch.Tensor:
+    """g of sequence parallelism: the ranks' partial sums (a row-parallel
+    product, a vocab-parallel lookup) summed over ``axis`` and scattered
+    into shards along ``dim``; the backward gathers the shards' gradients."""
+    if axis_size(mesh, axis) == 1:
+        return x
+    if x.shape[dim] % axis_size(mesh, axis):
+        raise ValueError(f"sequence parallelism: dimension {dim} of "
+                         f"{tuple(x.shape)} is not divisible by {axis}="
+                         f"{axis_size(mesh, axis)}")
+    return _ScatterGatherBwd.apply(x, mesh, axis, dim)

@@ -20,8 +20,8 @@ from typing import Any
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
     """Sizes for each named mesh axis (``-1`` absorbs the remaining
-    ranks); ``mesh.axis_sizes`` resolves them. Training runs dp and cp;
-    ``cli train`` refuses the other axes by name."""
+    ranks); ``mesh.axis_sizes`` resolves them. Training runs dp, fsdp,
+    pp, tp and cp; ``cli train`` refuses the other axes by name."""
 
     dp: int = -1
     fsdp: int = 1

@@ -8,13 +8,18 @@ _REGISTRY: dict[str, callable] = {}
 # Models without activation checkpointing: the reference's have no
 # ``remat`` field, and its ``cli`` refuses ``train.remat`` for them.
 _NO_REMAT: set[str] = set()
+# Models whose leaves the port cuts over mesh.tp and mesh.fsdp
+# (``sharding.shard_model``); the others refuse both axes.
+_TP: set[str] = set()
 
 
-def register(name: str, *, remat: bool = True):
+def register(name: str, *, remat: bool = True, tp: bool = False):
     def deco(fn):
         _REGISTRY[name] = fn
         if not remat:
             _NO_REMAT.add(name)
+        if tp:
+            _TP.add(name)
         return fn
 
     return deco
@@ -22,6 +27,10 @@ def register(name: str, *, remat: bool = True):
 
 def supports_remat(name: str) -> bool:
     return name not in _NO_REMAT
+
+
+def supports_tp_fsdp(name: str) -> bool:
+    return name in _TP
 
 
 def get_model(name: str, **kwargs):

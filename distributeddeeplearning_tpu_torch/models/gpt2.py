@@ -2,7 +2,17 @@
 LN eps 1e-5. Default size is the reference workload's 124M config (12L, 12H,
 768d, vocab 50257). Parameter names follow the JAX package's ``models/gpt2``
 (``wte.embedding``, ``h.block_{i}...``, ``ln_f``), so
-``weights.from_jax_params`` loads a JAX init one to one."""
+``weights.from_jax_params`` loads a JAX init one to one.
+
+On a ``mesh`` with tp or fsdp above 1 the model holds this rank's blocks of
+its leaves (``sharding.shard_model``): the heads and MLP units over tp
+(``parallel.tp``), ``wte`` vocab-parallel with the tied head on the same
+slice (the last rank's padded where tp does not divide the vocabulary),
+``wpe`` and the LayerNorms replicated over tp, every ``embed`` dimension
+over fsdp (``parallel.fsdp``). ``sequence_parallel``: between the blocks
+the activations are the rank's shard of the sequence (``L / tp``
+positions); positions stay global, ``ln_f`` runs on the shard, and the head
+gathers the shards back."""
 
 from __future__ import annotations
 
@@ -10,6 +20,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.fsdp import full_param
+from ..parallel.tp import tp_rules
+from ..sharding import shard_model
 from . import register
 from .transformer import (
     ATTN_IMPLS,
@@ -39,7 +52,7 @@ class Embed(nn.Module):
                                                   device=device))
 
     def forward(self, ids):
-        return F.embedding(ids, self.embedding).to(self.dtype)
+        return F.embedding(ids, full_param(self, "embedding")).to(self.dtype)
 
 
 class GPT2(nn.Module):
@@ -48,7 +61,7 @@ class GPT2(nn.Module):
                  embed_dim: int = 768, dropout_rate: float = 0.0,
                  remat: str = "none", dtype="float32",
                  attn_impl: str = "xla", chunked_head: bool = False,
-                 mesh=None, device=None):
+                 sequence_parallel: bool = False, mesh=None, device=None):
         super().__init__()
         if attn_impl not in ATTN_IMPLS:
             # Ulysses is the context-parallel core still to come (ROADMAP
@@ -60,6 +73,9 @@ class GPT2(nn.Module):
             )
         if attn_impl in ("ring", "ring_pallas") and mesh is None:
             raise ValueError(f"attn_impl={attn_impl!r} requires mesh")
+        tp = check_tp_fsdp("gpt2", mesh, num_heads=num_heads,
+                           attn_impl=attn_impl, dropout_rate=dropout_rate,
+                           remat=remat)
         self.vocab_size, self.max_len = vocab_size, max_len
         self.num_layers, self.num_heads = num_layers, num_heads
         self.embed_dim, self.head_dim = embed_dim, embed_dim // num_heads
@@ -70,14 +86,19 @@ class GPT2(nn.Module):
         self.attn_impl, self.mesh = attn_impl, mesh
         self.chunked_head = chunked_head
         self.dtype = as_torch_dtype(dtype)
-        self.wte = Embed(vocab_size, embed_dim, self.dtype, device)
+        rules = tp_rules(sequence_parallel)
+        self.sequence_parallel = sequence_parallel and tp > 1
+        self.wte = Embed(-(-vocab_size // tp), embed_dim, self.dtype, device)
         self.wpe = Embed(max_len, embed_dim, self.dtype, device)
         self.h = TransformerStack(
             num_layers, embed_dim, num_heads, self.head_dim, 4 * embed_dim,
             1e-5, self.dtype, device, remat=remat, attn_impl=attn_impl,
             dropout_rate=dropout_rate, mesh=mesh,
+            sequence_parallel=self.sequence_parallel,
         )
         self.ln_f = LayerNorm(embed_dim, 1e-5, self.dtype, device)
+        # This rank's blocks of the leaves over tp and fsdp (None: whole).
+        self.shards = shard_model(self, mesh, rules, vocab_size)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
@@ -90,8 +111,7 @@ class GPT2(nn.Module):
             leaf = name.rsplit(".", 1)[-1]
             if name == "wpe.embedding" or leaf in ("embedding", "kernel"):
                 std = 0.01 if name == "wpe.embedding" else 0.02
-                p.copy_(torch.empty(p.shape).normal_(std=std,
-                                                     generator=generator))
+                p.copy_(draw_block(self.shards, name, p, std, generator))
             elif leaf == "scale":
                 nn.init.ones_(p)
             else:
@@ -137,6 +157,13 @@ class GPT2(nn.Module):
             positions = torch.clamp(
                 cache.seq_lens.long()[:, None] + steps, max=self.max_len - 1
             )
+        if self.shards is not None:
+            if cache is not None:
+                raise NotImplementedError(
+                    "decode of a model cut over tp or fsdp not yet ported to "
+                    "distributeddeeplearning_tpu_torch (ROADMAP queue A13): "
+                    "restore its checkpoint on one rank")
+            return self._sharded_forward(tokens, positions, gen)
         x = self.wte(tokens) + self.wpe(positions)
         x = dropout(x, self.dropout_rate, gen, self.mesh)
         x = self.h(x, cache, generator=gen)
@@ -149,8 +176,90 @@ class GPT2(nn.Module):
         # Tied LM head.
         return (x @ emb.t()).float()
 
+    def _sharded_forward(self, tokens, positions, gen):
+        """The forward of a model cut over tp or fsdp: the vocab-parallel
+        embedding, the blocks on the rank's heads (and seq shard under
+        sequence parallelism), and the head on the rank's vocabulary
+        slice, returned as a chunked head (``ops.chunked_xent``) whatever
+        ``chunked_head`` says: the softmax needs every slice."""
+        from ..ops.chunked_xent import head_output
+        from ..parallel.tp import VocabShard, enter, vocab_parallel_embed
 
-@register("gpt2")
+        sp = self.sequence_parallel
+        table = full_param(self.wte, "embedding")
+        if self.mesh.shape["tp"] > 1:
+            shard = VocabShard.of(self.mesh, self.vocab_size)
+            x = vocab_parallel_embed(tokens, table, shard, self.dtype, sp)
+        else:
+            shard = None
+            x = F.embedding(tokens, table).to(self.dtype)
+        if sp:
+            positions = seq_shard(positions, self.mesh)
+        x = x + self.wpe(positions)
+        x = self.h(x, None, generator=gen)
+        x = enter(self.ln_f(x), self.mesh, sp)
+        return head_output(x, table.to(self.dtype), vocab=shard)
+
+
+def seq_shard(positions, mesh):
+    """This tp rank's shard of ``positions`` ([L] or [B, L]) along the
+    sequence."""
+    tp = mesh.shape["tp"]
+    n = positions.shape[-1] // tp
+    r = mesh.coords["tp"]
+    return positions[..., r * n:(r + 1) * n]
+
+
+def check_tp_fsdp(name: str, mesh, *, num_heads: int, attn_impl: str,
+                  dropout_rate: float = 0.0, num_kv_heads: int | None = None,
+                  remat: str = "none") -> int:
+    """The fences of a decoder cut over tp or fsdp, by name; returns the tp
+    size."""
+    if mesh is None:
+        return 1
+    tp, fsdp = mesh.shape["tp"], mesh.shape["fsdp"]
+    if tp == 1 and fsdp == 1:
+        return 1
+    what = f"{name} at mesh tp={tp}, fsdp={fsdp}"
+    if mesh.shape["cp"] > 1:
+        raise NotImplementedError(
+            f"{what} x mesh.cp={mesh.shape['cp']}: tensor or fully sharded "
+            "parallelism with context parallelism not yet ported to "
+            "distributeddeeplearning_tpu_torch (ROADMAP queue A13)")
+    if attn_impl not in ("xla", "flash"):
+        raise NotImplementedError(
+            f"{what} x attn_impl={attn_impl!r}: only the xla and flash "
+            "cores run on a rank's heads in distributeddeeplearning_tpu_"
+            "torch (ROADMAP queue A13)")
+    if dropout_rate:
+        raise NotImplementedError(
+            f"{what} x dropout_rate={dropout_rate}: dropout masks over a "
+            "rank's heads and seq shard not yet ported to "
+            "distributeddeeplearning_tpu_torch (ROADMAP queue A13)")
+    if remat == "dots":
+        raise NotImplementedError(
+            f"{what} x remat='dots': the selective policy around the fsdp "
+            "gathers not yet ported to distributeddeeplearning_tpu_torch "
+            "(ROADMAP queue A13)")
+    if num_heads % tp:
+        raise ValueError(f"{what}: num_heads {num_heads} not divisible by "
+                         f"tp={tp}")
+    if num_kv_heads is not None and num_kv_heads % tp:
+        raise ValueError(f"{what}: num_kv_heads {num_kv_heads} not "
+                         f"divisible by tp={tp} (each rank holds whole KV "
+                         "heads of its query heads' groups)")
+    return tp
+
+
+def draw_block(shards, name: str, p, std: float, generator):
+    """This rank's block of a normal(0, std) draw of leaf ``name`` at its
+    whole shape, so every mesh holds the one-rank model's weights."""
+    shape = p.shape if shards is None else shards.whole_shape(name, p.shape)
+    full = torch.empty(shape).normal_(std=std, generator=generator)
+    return full if shards is None else shards.take_leaf(name, full)
+
+
+@register("gpt2", tp=True)
 def gpt2(size: str = "124m", **kwargs) -> GPT2:
     sizes = {
         # (layers, heads, embed) — 124m is the reference workload's config.

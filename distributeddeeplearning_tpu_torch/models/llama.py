@@ -21,6 +21,15 @@ JAX package's ``models/llama.py`` in torch.
   ``weights.from_jax_params`` loads a JAX init one to one.
 - ``remat`` is 'none' or 'full' (``models/remat.py``); the reference's Llama
   has no selective policy, and 'dots' raises its error.
+- On a ``mesh`` with tp or fsdp above 1 the model holds this rank's blocks
+  of its leaves (``sharding.shard_model``): ``H / tp`` query heads and
+  ``Hkv / tp`` KV heads (rank r's query heads read rank r's KV heads under
+  the group-major repeat, since ``H / tp = rep * Hkv / tp``), SwiGLU's
+  gate and up column-parallel and down row-parallel, the embedding and the
+  untied ``lm_head`` vocab-parallel, every ``embed`` dimension over fsdp
+  (the RMSNorm scales too). ``sequence_parallel``: between the blocks the
+  activations are the rank's seq shard, the RMSNorms run on it, and RoPE
+  rotates the gathered sequence at its global positions.
 """
 
 from __future__ import annotations
@@ -32,8 +41,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.fsdp import full_param
+from ..parallel.tp import tp_rules
+from ..sharding import shard_model
 from . import register
-from .gpt2 import Embed, as_torch_dtype
+from .gpt2 import Embed, as_torch_dtype, check_tp_fsdp, draw_block
 from .remat import checkpoint_block
 from .transformer import (
     ATTN_IMPLS,
@@ -41,6 +53,7 @@ from .transformer import (
     KVCache,
     PagedKVCache,
     attention_core,
+    block_scope,
     decode_attention,
     paged_decode_attention,
 )
@@ -58,7 +71,7 @@ class RMSNorm(nn.Module):
         x32 = x.float()
         normed = x32 * torch.rsqrt((x32 * x32).mean(-1, keepdim=True)
                                    + self.eps)
-        return (normed * self.scale.float()).to(self.dtype)
+        return (normed * full_param(self, "scale").float()).to(self.dtype)
 
 
 @functools.lru_cache(maxsize=None)
@@ -100,22 +113,43 @@ class LlamaAttention(nn.Module):
     ``value`` [E, Hkv, D], ``out`` [H, D, E], no biases."""
 
     def __init__(self, embed_dim, num_heads, num_kv_heads, head_dim, dtype,
-                 device=None, *, attn_impl: str = "xla", mesh=None):
+                 device=None, *, attn_impl: str = "xla", mesh=None,
+                 sequence_parallel: bool = False):
         super().__init__()
         if num_heads % num_kv_heads:
             raise ValueError(f"num_heads {num_heads} not a multiple of "
                              f"num_kv_heads {num_kv_heads}")
         self.rep = num_heads // num_kv_heads
         self.dtype, self.attn_impl, self.mesh = dtype, attn_impl, mesh
-        for name, heads in (("query", num_heads), ("key", num_kv_heads),
-                            ("value", num_kv_heads)):
-            self.add_module(name, Dense((embed_dim,), (heads, head_dim),
+        self.tp = 1 if mesh is None else mesh.shape["tp"]
+        self.sequence_parallel = sequence_parallel and self.tp > 1
+        heads, kv_heads = num_heads // self.tp, num_kv_heads // self.tp
+        for name, h in (("query", heads), ("key", kv_heads),
+                        ("value", kv_heads)):
+            self.add_module(name, Dense((embed_dim,), (h, head_dim),
                                         dtype, device, use_bias=False))
-        self.out = Dense((num_heads, head_dim), (embed_dim,), dtype, device,
-                         use_bias=False)
+        if self.tp > 1:
+            from ..parallel.tp import RowParallelDense
+
+            self.out = RowParallelDense(
+                (heads, head_dim), (embed_dim,), dtype, device,
+                use_bias=False, mesh=mesh,
+                sequence_parallel=self.sequence_parallel)
+        else:
+            self.out = Dense((heads, head_dim), (embed_dim,), dtype, device,
+                             use_bias=False)
 
     def forward(self, x, rope, cache: KVCache | PagedKVCache | None = None,
                 layer: int = 0):
+        if self.tp > 1:
+            if cache is not None:
+                raise NotImplementedError(
+                    "decode under tensor parallelism not yet ported to "
+                    "distributeddeeplearning_tpu_torch (ROADMAP queue A13): "
+                    "restore the checkpoint on one rank")
+            from ..parallel.tp import enter
+
+            x = enter(x, self.mesh, self.sequence_parallel)
         cos, sin = rope
         q = apply_rope(self.query(x), cos, sin)
         k = apply_rope(self.key(x), cos, sin)
@@ -141,16 +175,32 @@ class LlamaAttention(nn.Module):
 class LlamaMlp(nn.Module):
     """SwiGLU: ``down(silu(gate(x)) * up(x))`` in the compute dtype."""
 
-    def __init__(self, embed_dim, hidden_dim, dtype, device=None):
+    def __init__(self, embed_dim, hidden_dim, dtype, device=None, *,
+                 mesh=None, sequence_parallel: bool = False):
         super().__init__()
-        self.gate = Dense((embed_dim,), (hidden_dim,), dtype, device,
+        self.mesh = mesh
+        self.tp = 1 if mesh is None else mesh.shape["tp"]
+        self.sequence_parallel = sequence_parallel and self.tp > 1
+        hidden = hidden_dim // self.tp
+        self.gate = Dense((embed_dim,), (hidden,), dtype, device,
                           use_bias=False)
-        self.up = Dense((embed_dim,), (hidden_dim,), dtype, device,
+        self.up = Dense((embed_dim,), (hidden,), dtype, device,
                         use_bias=False)
-        self.down = Dense((hidden_dim,), (embed_dim,), dtype, device,
-                          use_bias=False)
+        if self.tp > 1:
+            from ..parallel.tp import RowParallelDense
+
+            self.down = RowParallelDense(
+                (hidden,), (embed_dim,), dtype, device, use_bias=False,
+                mesh=mesh, sequence_parallel=self.sequence_parallel)
+        else:
+            self.down = Dense((hidden,), (embed_dim,), dtype, device,
+                              use_bias=False)
 
     def forward(self, x):
+        if self.tp > 1:
+            from ..parallel.tp import enter
+
+            x = enter(x, self.mesh, self.sequence_parallel)
         return self.down(F.silu(self.gate(x)) * self.up(x))
 
 
@@ -159,14 +209,16 @@ class LlamaBlock(nn.Module):
 
     def __init__(self, embed_dim, num_heads, num_kv_heads, head_dim, mlp_dim,
                  rms_eps, dtype, device=None, *, attn_impl: str = "xla",
-                 mesh=None):
+                 mesh=None, sequence_parallel: bool = False):
         super().__init__()
         self.attn_norm = RMSNorm(embed_dim, rms_eps, dtype, device)
         self.attn = LlamaAttention(embed_dim, num_heads, num_kv_heads,
                                    head_dim, dtype, device,
-                                   attn_impl=attn_impl, mesh=mesh)
+                                   attn_impl=attn_impl, mesh=mesh,
+                                   sequence_parallel=sequence_parallel)
         self.mlp_norm = RMSNorm(embed_dim, rms_eps, dtype, device)
-        self.mlp = LlamaMlp(embed_dim, mlp_dim, dtype, device)
+        self.mlp = LlamaMlp(embed_dim, mlp_dim, dtype, device, mesh=mesh,
+                            sequence_parallel=sequence_parallel)
 
     def forward(self, x, rope, cache=None, layer: int = 0):
         x = x + self.attn(self.attn_norm(x), rope, cache, layer)
@@ -188,8 +240,8 @@ def decoder_matrix(model) -> torch.Tensor:
     """The LM head's decoder [V, E] in the compute dtype: the tied embedding
     table, or the untied ``lm_head`` [E, V] transposed."""
     if model.tie_embeddings:
-        return model.embed.embedding.to(model.dtype)
-    return model.lm_head.to(model.dtype).t()
+        return full_param(model.embed, "embedding").to(model.dtype)
+    return full_param(model, "lm_head", model.dtype).to(model.dtype).t()
 
 
 class Llama(nn.Module):
@@ -200,7 +252,7 @@ class Llama(nn.Module):
                  rms_eps: float = 1e-6, remat: str = "none",
                  dtype="float32", attn_impl: str = "xla",
                  chunked_head: bool = False, tie_embeddings: bool = False,
-                 mesh=None, device=None):
+                 sequence_parallel: bool = False, mesh=None, device=None):
         super().__init__()
         if attn_impl not in ATTN_IMPLS:
             # The serving engine fences everything but 'xla' itself.
@@ -213,6 +265,9 @@ class Llama(nn.Module):
             raise ValueError(f"attn_impl={attn_impl!r} requires mesh")
         if remat not in REMAT_MODES:
             raise ValueError(f"unknown remat {remat!r}")
+        tp = check_tp_fsdp("llama", mesh, num_heads=num_heads,
+                           attn_impl=attn_impl, num_kv_heads=num_kv_heads,
+                           remat=remat)
         self.vocab_size, self.max_len = vocab_size, max_len
         self.num_layers, self.num_heads = num_layers, num_heads
         self.num_kv_heads = num_kv_heads
@@ -221,15 +276,21 @@ class Llama(nn.Module):
         self.remat, self.attn_impl, self.mesh = remat, attn_impl, mesh
         self.chunked_head, self.tie_embeddings = chunked_head, tie_embeddings
         self.dtype = as_torch_dtype(dtype)
-        self.embed = Embed(vocab_size, embed_dim, self.dtype, device)
+        self.sequence_parallel = sequence_parallel and tp > 1
+        rows = -(-vocab_size // tp)  # this rank's vocabulary slice
+        self.embed = Embed(rows, embed_dim, self.dtype, device)
         for i in range(num_layers):
             self.add_module(f"block_{i}", LlamaBlock(
                 embed_dim, num_heads, num_kv_heads, self.head_dim, mlp_dim,
-                rms_eps, self.dtype, device, attn_impl=attn_impl, mesh=mesh))
+                rms_eps, self.dtype, device, attn_impl=attn_impl, mesh=mesh,
+                sequence_parallel=self.sequence_parallel))
         self.norm = RMSNorm(embed_dim, rms_eps, self.dtype, device)
         if not tie_embeddings:
-            self.lm_head = nn.Parameter(torch.empty(embed_dim, vocab_size,
+            self.lm_head = nn.Parameter(torch.empty(embed_dim, rows,
                                                     device=device))
+        # This rank's blocks of the leaves over tp and fsdp (None: whole).
+        self.shards = shard_model(self, mesh, tp_rules(sequence_parallel),
+                                  vocab_size)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
@@ -240,8 +301,7 @@ class Llama(nn.Module):
             if name.rsplit(".", 1)[-1] == "scale":
                 nn.init.ones_(p)
             else:
-                p.copy_(torch.empty(p.shape).normal_(std=0.02,
-                                                     generator=generator))
+                p.copy_(draw_block(self.shards, name, p, 0.02, generator))
 
     def forward(self, tokens: torch.Tensor,
                 cache: KVCache | PagedKVCache | None = None, *,
@@ -262,25 +322,55 @@ class Llama(nn.Module):
         if cache is None:
             offset = 0 if cp == 1 else self.mesh.coords["cp"] * L
             positions = torch.arange(L, device=tokens.device) + offset
+        elif self.shards is not None:
+            raise NotImplementedError(
+                "decode of a model cut over tp or fsdp not yet ported to "
+                "distributeddeeplearning_tpu_torch (ROADMAP queue A13): "
+                "restore its checkpoint on one rank")
         else:
             positions = cache_positions(cache, L)
         rope = rope_tables(positions, self.head_dim, self.rope_theta)
-        x = self.embed(tokens)
+        sharded = self.shards is not None
+        if sharded:
+            x, shard = self._sharded_embed(tokens)
+        else:
+            x = self.embed(tokens)
         remat = self.remat if cache is None else "none"
         for i in range(self.num_layers):
             block = functools.partial(getattr(self, f"block_{i}"), rope=rope,
                                       cache=cache, layer=i)
-            x = checkpoint_block(block, x, remat=remat)
+            with block_scope(self.mesh, remat):
+                x = checkpoint_block(block, x, remat=remat)
         x = self.norm(x)
         dec = decoder_matrix(self)
+        if sharded:
+            from ..ops.chunked_xent import head_output
+            from ..parallel.tp import enter
+
+            # The head reads every slice's logits: a chunked head always.
+            x = enter(x, self.mesh, self.sequence_parallel)
+            return head_output(x, dec, vocab=shard)
         if self.chunked_head:
             from ..ops.chunked_xent import head_output
 
             return head_output(x, dec)
         return torch.einsum("ble,ve->blv", x, dec).float()
 
+    def _sharded_embed(self, tokens):
+        """The embeddings of a model cut over tp or fsdp (the rank's seq
+        shard under sequence parallelism) and its vocabulary slice (None
+        at tp = 1)."""
+        from ..parallel.tp import VocabShard, vocab_parallel_embed
 
-@register("llama")
+        table = full_param(self.embed, "embedding")
+        if self.mesh.shape["tp"] == 1:
+            return F.embedding(tokens, table).to(self.dtype), None
+        shard = VocabShard.of(self.mesh, self.vocab_size)
+        return vocab_parallel_embed(tokens, table, shard, self.dtype,
+                                    self.sequence_parallel), shard
+
+
+@register("llama", tp=True)
 def llama(size: str = "tiny", **kwargs) -> Llama:
     sizes = {
         # (layers, heads, kv_heads, embed, mlp)

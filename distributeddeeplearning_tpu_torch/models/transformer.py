@@ -15,6 +15,7 @@ scores and the softmax run in fp32 whatever the compute dtype.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
@@ -24,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..comms_quant import block_quantize
+from ..parallel.fsdp import full_param, reshard_after_forward
 from .remat import check_remat, checkpoint_block
 
 _NEG_INF = -1e30
@@ -328,14 +330,29 @@ class Dense(nn.Module):
         self.bias = (nn.Parameter(torch.empty(self.out_shape, device=device))
                      if use_bias else None)
 
-    def forward(self, x):
+    def full_bias(self):
+        """The bias in the compute dtype (gathered whole under fsdp), or
+        None."""
+        if self.bias is None:
+            return None
+        return full_param(self, "bias", self.dtype).to(self.dtype)
+
+    def _apply_linear(self, x, bias: bool):
         n_in = len(self.in_shape)
         lead = x.shape[: x.ndim - n_in]
-        w = self.kernel.to(self.dtype).reshape(
+        w = full_param(self, "kernel", self.dtype).to(self.dtype).reshape(
             math.prod(self.in_shape), math.prod(self.out_shape))
-        b = None if self.bias is None else self.bias.to(self.dtype).reshape(-1)
+        b = self.full_bias() if bias else None
+        b = None if b is None else b.reshape(-1)
         y = F.linear(x.reshape(-1, w.shape[0]).to(self.dtype), w.t(), b)
         return y.reshape(*lead, *self.out_shape)
+
+    def product(self, x):
+        """The product with the kernel alone, no bias."""
+        return self._apply_linear(x, bias=False)
+
+    def forward(self, x):
+        return self._apply_linear(x, bias=True)
 
 
 class LayerNorm(nn.Module):
@@ -349,8 +366,9 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.empty(features, device=device))
 
     def forward(self, x):
-        y = F.layer_norm(x.float(), self.scale.shape, self.scale.float(),
-                         self.bias.float(), self.eps)
+        scale = full_param(self, "scale").float()
+        y = F.layer_norm(x.float(), scale.shape, scale,
+                         full_param(self, "bias").float(), self.eps)
         return y.to(self.dtype)
 
 
@@ -370,24 +388,50 @@ class SelfAttention(nn.Module):
       prefix are poisoned to NaN), and no active attention-dropout;
     - ``ring`` / ``ring_pallas``: ring attention over ``mesh``'s cp axis,
       with mask=None and no active attention-dropout.
+
+    On a ``mesh`` with tp > 1 the rank holds ``num_heads / tp`` heads
+    (``parallel.tp``): query/key/value are column-parallel after the
+    region's entry, ``out`` row-parallel, and the core runs on the rank's
+    heads; ``sequence_parallel``: ``x`` is the rank's seq shard, gathered
+    at the entry and scattered at the exit. No decode cache under tp.
     """
 
     def __init__(self, embed_dim, num_heads, head_dim, dtype, device=None,
                  *, causal: bool = True, attn_impl: str = "xla",
-                 dropout_rate: float = 0.0, mesh=None):
+                 dropout_rate: float = 0.0, mesh=None,
+                 sequence_parallel: bool = False):
         super().__init__()
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"unknown attn_impl {attn_impl!r}")
         self.causal = causal
         self.dtype, self.attn_impl = dtype, attn_impl
         self.dropout_rate, self.mesh = dropout_rate, mesh
+        self.tp = 1 if mesh is None else mesh.shape["tp"]
+        self.sequence_parallel = sequence_parallel and self.tp > 1
+        heads = num_heads // self.tp
         for name in ("query", "key", "value"):
             self.add_module(name, Dense(
-                (embed_dim,), (num_heads, head_dim), dtype, device))
-        self.out = Dense((num_heads, head_dim), (embed_dim,), dtype, device)
+                (embed_dim,), (heads, head_dim), dtype, device))
+        if self.tp > 1:
+            from ..parallel.tp import RowParallelDense
+
+            self.out = RowParallelDense(
+                (heads, head_dim), (embed_dim,), dtype, device, mesh=mesh,
+                sequence_parallel=self.sequence_parallel)
+        else:
+            self.out = Dense((heads, head_dim), (embed_dim,), dtype, device)
 
     def forward(self, x, cache: KVCache | PagedKVCache | None = None,
                 layer: int = 0, *, mask=None, generator=None):
+        if self.tp > 1:
+            if cache is not None:
+                raise NotImplementedError(
+                    "decode under tensor parallelism not yet ported to "
+                    "distributeddeeplearning_tpu_torch (ROADMAP queue A13): "
+                    "restore the checkpoint on one rank")
+            from ..parallel.tp import enter
+
+            x = enter(x, self.mesh, self.sequence_parallel)
         q, k, v = self.query(x), self.key(x), self.value(x)
         if cache is not None and mask is not None:
             raise NotImplementedError(
@@ -461,19 +505,38 @@ ACTIVATIONS = {"gelu_exact": gelu_exact, "gelu_tanh": gelu_tanh}
 
 
 class Mlp(nn.Module):
+    """fc_in, the activation, fc_out. On a ``mesh`` with tp > 1 the rank
+    holds ``hidden_dim / tp`` units: fc_in column-parallel after the
+    region's entry, fc_out row-parallel (``parallel.tp``)."""
+
     def __init__(self, embed_dim, hidden_dim, dtype, device=None,
                  dropout_rate: float = 0.0, mesh=None,
-                 activation: str = "gelu_tanh"):
+                 activation: str = "gelu_tanh",
+                 sequence_parallel: bool = False):
         super().__init__()
         if activation not in ACTIVATIONS:
             raise ValueError(f"activation must be one of "
                              f"{sorted(ACTIVATIONS)}, got {activation!r}")
         self.act = ACTIVATIONS[activation]
         self.dropout_rate, self.mesh = dropout_rate, mesh
-        self.fc_in = Dense((embed_dim,), (hidden_dim,), dtype, device)
-        self.fc_out = Dense((hidden_dim,), (embed_dim,), dtype, device)
+        self.tp = 1 if mesh is None else mesh.shape["tp"]
+        self.sequence_parallel = sequence_parallel and self.tp > 1
+        hidden = hidden_dim // self.tp
+        self.fc_in = Dense((embed_dim,), (hidden,), dtype, device)
+        if self.tp > 1:
+            from ..parallel.tp import RowParallelDense
+
+            self.fc_out = RowParallelDense(
+                (hidden,), (embed_dim,), dtype, device, mesh=mesh,
+                sequence_parallel=self.sequence_parallel)
+        else:
+            self.fc_out = Dense((hidden,), (embed_dim,), dtype, device)
 
     def forward(self, x, generator=None):
+        if self.tp > 1:
+            from ..parallel.tp import enter
+
+            x = enter(x, self.mesh, self.sequence_parallel)
         h = self.fc_out(self.act(self.fc_in(x)))
         return dropout(h, self.dropout_rate, generator, self.mesh)
 
@@ -488,15 +551,16 @@ class TransformerBlock(nn.Module):
                  dtype, device=None, *, pre_ln: bool = True,
                  causal: bool = True, activation: str = "gelu_tanh",
                  attn_impl: str = "xla", dropout_rate: float = 0.0,
-                 mesh=None):
+                 mesh=None, sequence_parallel: bool = False):
         super().__init__()
         self.pre_ln = pre_ln
         self.dropout_rate, self.mesh = dropout_rate, mesh
         self.attn = SelfAttention(embed_dim, num_heads, head_dim, dtype,
                                   device, causal=causal, attn_impl=attn_impl,
-                                  dropout_rate=dropout_rate, mesh=mesh)
+                                  dropout_rate=dropout_rate, mesh=mesh,
+                                  sequence_parallel=sequence_parallel)
         self.mlp = Mlp(embed_dim, mlp_dim, dtype, device, dropout_rate, mesh,
-                       activation)
+                       activation, sequence_parallel=sequence_parallel)
         self.ln1 = LayerNorm(embed_dim, ln_eps, dtype, device)
         self.ln2 = LayerNorm(embed_dim, ln_eps, dtype, device)
 
@@ -520,25 +584,41 @@ class TransformerStack(nn.Module):
     training passes one, evaluation and serving pass none. ``mesh``: the
     ranks the activations are split over (dropout masks, the ring cores).
     ``remat`` ('none' | 'full' | 'dots', ``models/remat.py``) checkpoints
-    each block of a forward without a KV cache."""
+    each block of a forward without a KV cache; without remat, a block's
+    leaves gathered over fsdp are freed when its forward ends
+    (``parallel.fsdp.reshard_after_forward``)."""
 
     def __init__(self, num_layers, embed_dim, num_heads, head_dim, mlp_dim,
                  ln_eps, dtype, device=None, *, pre_ln: bool = True,
                  causal: bool = True, activation: str = "gelu_tanh",
                  remat: str = "none", attn_impl: str = "xla",
-                 dropout_rate: float = 0.0, mesh=None):
+                 dropout_rate: float = 0.0, mesh=None,
+                 sequence_parallel: bool = False):
         super().__init__()
         self.num_layers, self.remat = num_layers, check_remat(remat)
+        self.mesh = mesh
         for i in range(num_layers):
             self.add_module(f"block_{i}", TransformerBlock(
                 embed_dim, num_heads, head_dim, mlp_dim, ln_eps, dtype,
                 device, pre_ln=pre_ln, causal=causal, activation=activation,
-                attn_impl=attn_impl, dropout_rate=dropout_rate, mesh=mesh))
+                attn_impl=attn_impl, dropout_rate=dropout_rate, mesh=mesh,
+                sequence_parallel=sequence_parallel))
 
     def forward(self, x, cache=None, *, mask=None, generator=None):
         remat = self.remat if cache is None else "none"
         for i in range(self.num_layers):
             block = functools.partial(getattr(self, f"block_{i}"), cache=cache,
                                       layer=i, mask=mask, generator=generator)
-            x = checkpoint_block(block, x, remat=remat, generator=generator)
+            with block_scope(self.mesh, remat):
+                x = checkpoint_block(block, x, remat=remat,
+                                     generator=generator)
         return x
+
+
+def block_scope(mesh, remat: str):
+    """The scope of one block's forward: under fsdp without remat, its
+    gathered leaves are freed at its end (under remat the checkpoint keeps
+    none of them)."""
+    if remat == "none":
+        return reshard_after_forward(mesh)
+    return contextlib.nullcontext()

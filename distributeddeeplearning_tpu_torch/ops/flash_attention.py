@@ -33,6 +33,8 @@ _NEG_INF = -1e30  # finite: exp(_NEG_INF - m) == 0 exactly, no inf-inf NaNs
 
 # Kernel launches by the wrappers, per kernel. Only a launch adds to it.
 LAUNCHES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+# The folded [bh, L, D] shapes each kernel launched at since the last reset.
+SHAPES: dict = {k: set() for k in LAUNCHES}
 
 HEAD_DIMS = (64, 128)  # the kernels' instantiations
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -43,6 +45,7 @@ _MAX_SMEM = 232448  # H100: dynamic shared memory one block may opt into
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+        SHAPES[k].clear()
 
 
 # ---------------------------------------------------------------------------
@@ -197,6 +200,7 @@ def flash_fwd(q, k, v, *, causal: bool, sm_scale: float, limit: int,
     )
     _raise_on(lib, "flash_fwd", err)
     LAUNCHES["flash_fwd"] += 1
+    SHAPES["flash_fwd"].add((bh, L, D))
     return o, lse
 
 
@@ -220,6 +224,7 @@ def flash_dq(q, k, v, o, do, lse, *, causal: bool, sm_scale: float,
     )
     _raise_on(lib, "flash_dq", err)
     LAUNCHES["flash_dq"] += 1
+    SHAPES["flash_dq"].add((bh, L, D))
     return dq, delta
 
 
@@ -243,6 +248,7 @@ def flash_dkv(q, k, v, do, lse, delta, *, causal: bool, sm_scale: float,
     )
     _raise_on(lib, "flash_dkv", err)
     LAUNCHES["flash_dkv"] += 1
+    SHAPES["flash_dkv"].add((bh, L, D))
     return dk, dv
 
 

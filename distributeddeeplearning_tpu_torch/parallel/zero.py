@@ -61,12 +61,17 @@ class ZeroLayout:
     ``mesh``. ``params``: name -> leaf, in the order the buffers follow."""
 
     def __init__(self, params: dict, mesh, axis: str = "dp",
-                 stage_rows=None):
+                 stage_rows=None, shards=None):
         self.mesh, self.axis = mesh, axis
         # A pipeline stage's layout (``parallel.pp.StageRows``): its norm
         # counts every stage, and the shared leaves once.
         self.stage_rows = stage_rows
         self._shared_masks = None
+        # A model cut over tp or fsdp (``sharding.ShardLayout``): the leaves
+        # here are the rank's blocks; the norm counts each block once, and
+        # each leaf replicated over tp or fsdp once.
+        self.shards = shards
+        self._class_ids = None
         self.n, self.index = mesh.shape[axis], mesh.coords[axis]
         self.shapes = {k: p.shape for k, p in params.items()}
         names = {g: [] for g in GROUPS}
@@ -133,7 +138,7 @@ class ZeroLayout:
         1) hold the same shards and return at once; under pp every stage's
         group gathers its own leaves."""
         if any(c for a, c in self.mesh.coords.items()
-               if a not in (self.axis, "pp")):
+               if a not in (self.axis, "pp", "tp", "fsdp")):
             return None
         # Moved in fp32 (a bf16 shard casts there and back exactly): gloo
         # has no bf16 gather.
@@ -168,6 +173,15 @@ class ZeroLayout:
         sum over the axis of each shard's sum of squares (the padding is
         zero and adds nothing); a pipeline stage's over every stage, the
         shared leaves once."""
+        if self.shards is not None:
+            from .fsdp import CLASSES, whole_sq
+
+            ids = self._classes(next(iter(shards.values())).device)
+            sq = torch.stack([torch.stack([
+                (s * s)[ids[g] == c].sum() for g, s in shards.items()]).sum()
+                for c in range(len(CLASSES))])
+            return torch.sqrt(whole_sq(psum(sq, self.mesh, self.axis),
+                                       self.mesh))
         if self.stage_rows is None:
             sq = torch.stack([(s * s).sum() for s in shards.values()]).sum()
             return torch.sqrt(psum(sq, self.mesh, self.axis))
@@ -179,6 +193,27 @@ class ZeroLayout:
         ]).sum() for stage in (True, False)]
         stage, shared = psum(torch.stack(sq), self.mesh, self.axis)
         return torch.sqrt(whole_sq(stage, shared, self.mesh))
+
+    def _classes(self, device) -> dict:
+        """Per group, the ``parallel.fsdp.CLASSES`` index of the leaf each
+        element of this rank's shard belongs to (the padding: 0)."""
+        if self._class_ids is None:
+            from .fsdp import leaf_class
+
+            out = {}
+            for g, names in self.names.items():
+                sl = self.shard_slice(g)
+                ids = torch.zeros(self.shard_size[g], dtype=torch.int8)
+                for k in names:
+                    o = self.offsets[k]
+                    a = max(o, sl.start)
+                    b = min(o + self.shapes[k].numel(), sl.stop)
+                    if a < b:
+                        ids[a - sl.start:b - sl.start] = leaf_class(
+                            self.shards, k)
+                out[g] = ids.to(device)
+            self._class_ids = out
+        return self._class_ids
 
     def _shared(self, device) -> dict:
         """Per group, True on the elements of this rank's shard that belong

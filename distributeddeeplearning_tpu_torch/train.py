@@ -18,6 +18,10 @@ runs the step eagerly on its device, over its slice of the global batch
   queue for logging;
 - ZeRO-1 over dp > 1 (``parallel.zero``): a reduce-scatter of the
   gradients, each rank's update of its shard, an all-gather of the masters;
+- a model cut over tp or fsdp (``sharding.shard_model``): each rank's
+  params are its blocks; the tp and fsdp share of the batch mean
+  (``parallel.fsdp.reduce_grads``) comes before the dp sync, the clip's
+  and the guard's norm counts each block and each replicated leaf once;
 - ``grad_accum`` microbatches a step, ``steps_per_call`` steps a call
   (:meth:`Trainer.fused_train_step`), and :func:`evaluate`; ``fit`` runs
   the cadences of logging, evaluation and checkpoints
@@ -590,6 +594,10 @@ class TrainState:
     # params leaves are stage-stacked and the rows this rank holds, for the
     # checkpoints' whole layout; None for any other model.
     stage_rows: Any = None
+    # A model cut over tp or fsdp: its ``sharding.ShardLayout`` (each
+    # leaf's whole shape and this rank's block), for the checkpoints' whole
+    # layout; None for any other model.
+    shards: Any = None
 
 
 CP_ATTN = ("ring", "ring_pallas")
@@ -634,13 +642,14 @@ class Trainer:
         attn = getattr(model, "attn_impl", None)
         if hasattr(model, "num_stages"):
             # The reference's fences on a pipelined model.
-            dead = {a: mesh.shape[a] for a in ("ep", "cp")
+            dead = {a: mesh.shape[a] for a in ("ep", "cp", "tp", "fsdp")
                     if mesh is not None and mesh.shape[a] > 1}
             if dead:
                 raise NotImplementedError(
-                    f"pipeline x {'/'.join(dead)} is unsupported in v1 "
-                    f"(mesh has {dead}): pipelined stacks compose with "
-                    "dp/fsdp/tp/zero1 only"
+                    f"pipeline x {'/'.join(dead)} (mesh has {dead}): the "
+                    "port's pipelined stacks compose with dp and zero1 only; "
+                    "pp x tp and fsdp x pp not yet ported to "
+                    "distributeddeeplearning_tpu_torch (ROADMAP queue A13)"
                 )
             if get_policy(precision).mixed:
                 raise NotImplementedError(
@@ -662,10 +671,17 @@ class Trainer:
         self.engine = hasattr(model, "pipeline_value_and_grad") and (
             model.pipelined or (model.pipeline
                                 and model.schedule == "1f1b_interleaved"))
+        # A model cut over tp or fsdp (``sharding.ShardLayout``), and the
+        # fences of what the port composes with it.
+        self.shards = getattr(model, "shards", None)
+        self._check_shards(model, tx, mesh)
         # Gradients and metrics average over the ranks that split the
         # batch: every rank, or under pp (whose ranks hold the same rows)
-        # the dp ranks.
-        self.sync_axis = "dp" if pp_size > 1 else "world"
+        # the dp ranks; under tp and fsdp the dp ranks after the fsdp
+        # ranks' share (``parallel.fsdp.reduce_grads``): tp ranks hold the
+        # same rows.
+        self.sync_axis = ("dp" if pp_size > 1 or self.shards is not None
+                          else "world")
         # The whole model's gradient norm when a rank holds one stage.
         self.stage_rows = (model.stage_rows
                            if getattr(model, "pipelined", False) else None)
@@ -715,8 +731,42 @@ class Trainer:
             from .parallel.zero import ZeroLayout
 
             self.layout = ZeroLayout(dict(model.named_parameters()), mesh,
-                                     stage_rows=self.stage_rows)
+                                     stage_rows=self.stage_rows,
+                                     shards=self.shards)
             self.layout.bind(dict(model.named_parameters()))
+
+    @staticmethod
+    def _check_shards(model, tx, mesh) -> None:
+        """Refuse by name what the port does not compose with mesh.tp or
+        mesh.fsdp above 1 (ROADMAP queue A13)."""
+        if mesh is None:
+            return
+        live = {a: mesh.shape[a] for a in ("tp", "fsdp") if mesh.shape[a] > 1}
+        if not live or hasattr(model, "num_stages"):
+            return  # the pipeline's fences name it
+        what = ", ".join(f"mesh.{a}={n}" for a, n in live.items())
+        if getattr(model, "shards", None) is None:
+            kind = ("MoE model " if hasattr(model, "num_experts")
+                    else "model ")
+            raise NotImplementedError(
+                f"{what} x {kind}{type(model).__name__}: tensor and fully "
+                "sharded parallelism of this model not yet ported to "
+                "distributeddeeplearning_tpu_torch (ROADMAP queue A13; GPT-2 "
+                "and Llama are)")
+        if isinstance(tx, (SGD, LowPrecisionAdamW)):
+            raise NotImplementedError(
+                f"{what} x {type(tx).__name__}: the port composes tp and "
+                "fsdp with AdamW and the fused AdamW only (ROADMAP queue "
+                "A13)")
+
+    def _batch_mean(self, tensors: list) -> list:
+        """The mean over the ranks that split the batch: the fsdp ranks'
+        first under a sharded model, then :attr:`sync_axis`'s."""
+        if self.mesh is None or self.mesh.size == 1:
+            return list(tensors)
+        if self.shards is not None:
+            tensors = pmean_tensors(tensors, self.mesh, "fsdp")
+        return pmean_tensors(tensors, self.mesh, self.sync_axis)
 
     def init(self, seed: int) -> TrainState:
         """Draw the weights from ``seed`` and make the optimizer state."""
@@ -733,7 +783,8 @@ class Trainer:
                           rng=int(seed),
                           model_state=dict(self.model.named_buffers()),
                           health=health,
-                          stage_rows=getattr(self.model, "stage_rows", None))
+                          stage_rows=getattr(self.model, "stage_rows", None),
+                          shards=self.shards)
 
     def _forward(self, state: TrainState, params: dict, batch: dict,
                  train: bool):
@@ -822,7 +873,12 @@ class Trainer:
 
     def _norm(self, grads: dict):
         """The whole model's gradient norm from this rank's whole leaves:
-        over every pp stage, the shared leaves once."""
+        over every pp stage, the shared leaves once; over every tp and
+        fsdp block, the replicated leaves once."""
+        if self.shards is not None:
+            from .parallel import fsdp
+
+            return fsdp.global_norm(grads, self.shards)
         if self.stage_rows is None:
             return global_norm(grads)
         from .parallel.pp import whole_norm
@@ -844,8 +900,12 @@ class Trainer:
             # clip on the global norm, the update of this rank's shard of
             # the masters and moments, then every rank's shard gathered.
             keys = list(metrics)
-            metrics = dict(zip(keys, pmean_tensors(
-                [metrics[k] for k in keys], self.mesh, self.sync_axis)))
+            metrics = dict(zip(keys, self._batch_mean(
+                [metrics[k] for k in keys])))
+            if self.shards is not None:
+                from .parallel.fsdp import reduce_grads
+
+                grads = reduce_grads(grads, self.shards)
             shards = self.layout.reduce_scatter_grads(grads)
             del grads
             shards, metrics = self._instrument_grads(
@@ -860,6 +920,15 @@ class Trainer:
                 return dataclasses.replace(state, step=state.step + 1,
                                            opt_state=opt_state)
         else:
+            if self.shards is not None:
+                from .parallel.fsdp import reduce_grads
+
+                # The tp and fsdp share of the batch mean; the dp share
+                # below.
+                grads = reduce_grads(grads, self.shards)
+                keys = list(metrics)
+                metrics = dict(zip(keys, pmean_tensors(
+                    [metrics[k] for k in keys], self.mesh, "fsdp")))
             if self.mesh is not None and self.mesh.size > 1:
                 # Each rank's loss is the mean over an equal share of the
                 # tokens, so the world average of the gradients (and
@@ -938,9 +1007,7 @@ class Trainer:
                 train=False)
             _, metrics = self.task.loss_fn(out, batch)
         keys = list(metrics)
-        vals = [metrics[k].float() for k in keys]
-        if self.mesh is not None and self.mesh.size > 1:
-            vals = pmean_tensors(vals, self.mesh, self.sync_axis)
+        vals = self._batch_mean([metrics[k].float() for k in keys])
         return self.task.finish_metrics(dict(zip(keys, vals)))
 
 

@@ -11,7 +11,9 @@ SGD optimizer state the same way, and :func:`state_from_jax` a whole
 training state (with a model's BatchNorm ``batch_stats``), onto any mesh.
 A pipelined model's stage-stacked leaves (``h.stages.block_j...``, leading
 ``[num_stages]``) keep their names; :func:`rank_rows` gives a rank its
-rows of them, ``[s*S/pp, (s+1)*S/pp)``. The trees arrive as numpy arrays —
+rows of them, ``[s*S/pp, (s+1)*S/pp)``; :func:`rank_shards` a rank's
+blocks of the leaves of a model cut over tp or fsdp (``model.shards``), so
+JAX's whole params load into any mesh. The trees arrive as numpy arrays —
 this module imports no JAX.
 """
 
@@ -53,6 +55,13 @@ def rank_rows(flat: dict, rows) -> dict:
     return flat if rows is None else rows.take(flat)
 
 
+def rank_shards(flat: dict, shards) -> dict:
+    """``flat`` (whole leaves, e.g. JAX's params) with each leaf of a model
+    cut over tp or fsdp cut to this rank's block (``shards``: the model's
+    ``sharding.ShardLayout``; None leaves ``flat`` whole)."""
+    return flat if shards is None else shards.take(flat)
+
+
 def to_torch_layout(flat: dict, names) -> dict:
     """``flat`` (flattened JAX names) with every ``<m>.kernel`` that
     ``names`` holds as ``<m>.weight`` renamed and transposed to torch's
@@ -89,7 +98,7 @@ def _find_adam_moments(opt_state):
     return _find_node(opt_state, ("count", "mu", "nu"))
 
 
-def _sgd_state_from_jax(opt_state, like, rows=None):
+def _sgd_state_from_jax(opt_state, like, rows=None, shards=None):
     """optax.sgd's state inside the chain (clip, masked decay, trace,
     schedule): the ``TraceState``'s momentum trace and the schedule's
     ``count``, onto ``like`` (the port's ``SGD.init``)."""
@@ -99,8 +108,8 @@ def _sgd_state_from_jax(opt_state, like, rows=None):
     if trace is None or count is None:
         raise ValueError("no (trace, count) SGD state in the JAX optimizer "
                          "state")
-    flat = to_torch_layout(rank_rows(from_jax_params(trace.trace), rows),
-                           set(like.trace))
+    flat = to_torch_layout(rank_shards(rank_rows(
+        from_jax_params(trace.trace), rows), shards), set(like.trace))
     if set(flat) != set(like.trace):
         raise KeyError(f"trace names differ: "
                        f"{sorted(set(flat) ^ set(like.trace))}")
@@ -109,18 +118,19 @@ def _sgd_state_from_jax(opt_state, like, rows=None):
         for k, t in like.trace.items()})
 
 
-def opt_state_from_jax(opt_state, like, rows=None):
+def opt_state_from_jax(opt_state, like, rows=None, shards=None):
     """A JAX Adam or SGD optimizer state (numpy leaves) -> the port's state
     of the same kind as ``like`` (``tx.init(params)`` of the port's
     ``AdamW``, ``FusedAdamW`` or ``SGD``, or a ZeRO-1 rank's
     ``tx.init_shard(layout)``). SGD: its momentum trace and count. Adam:
     its count and its mu/nu trees flattened like :func:`from_jax_params`
-    (cut to a pipeline rank's ``rows``, then to the rank's shards under
-    ZeRO-1), on the device and in the dtype of ``like``'s moments."""
+    (cut to a pipeline rank's ``rows``, or to its tp/fsdp blocks, then to
+    the rank's shards under ZeRO-1), on the device and in the dtype of
+    ``like``'s moments."""
     from .parallel.zero import ZeroState
 
     if hasattr(like, "trace"):
-        return _sgd_state_from_jax(opt_state, like, rows)
+        return _sgd_state_from_jax(opt_state, like, rows, shards)
     node = _find_adam_moments(opt_state)
     if node is None:
         raise ValueError("no (count, mu, nu) Adam state in the JAX "
@@ -129,7 +139,7 @@ def opt_state_from_jax(opt_state, like, rows=None):
     names = set(like.layout.shapes) if sharded else set(like.mu)
 
     def moments(tree, ref):
-        flat = rank_rows(from_jax_params(tree), rows)
+        flat = rank_shards(rank_rows(from_jax_params(tree), rows), shards)
         if set(flat) != names:
             raise KeyError(f"moment names differ: {sorted(set(flat) ^ names)}")
         if sharded:
@@ -149,18 +159,20 @@ def state_from_jax(jax_state, like):
     on any mesh: the params copied in place into ``like``'s (a trainer's
     ``init``, whose masters may be views into ZeRO-1 buffers) in torch's
     layout (:func:`to_torch_layout`; a pipeline rank's rows of the stage
-    leaves, ``like.stage_rows``), the BatchNorm ``batch_stats`` into
+    leaves, ``like.stage_rows``; a tp/fsdp rank's blocks, ``like.shards``),
+    the BatchNorm ``batch_stats`` into
     ``like.model_state``, the optimizer state through
     :func:`opt_state_from_jax`. The root dropout seed stays ``like``'s:
     JAX's key has no torch counterpart."""
     rows = getattr(like, "stage_rows", None)
+    shards = getattr(like, "shards", None)
     for name, tree, into in (
             ("param", jax_state.params, like.params),
             ("model_state",
              dict(getattr(jax_state, "model_state", None) or {}).get(
                  "batch_stats", {}), like.model_state)):
-        flat = to_torch_layout(rank_rows(from_jax_params(tree), rows),
-                               set(into))
+        flat = to_torch_layout(rank_shards(rank_rows(
+            from_jax_params(tree), rows), shards), set(into))
         if set(flat) != set(into):
             raise KeyError(f"{name} names differ: "
                            f"{sorted(set(flat) ^ set(into))}")
@@ -169,4 +181,4 @@ def state_from_jax(jax_state, like):
     return dataclasses.replace(
         like, step=int(np.asarray(jax_state.step)),
         opt_state=opt_state_from_jax(jax_state.opt_state, like.opt_state,
-                                     rows))
+                                     rows, shards))

@@ -171,9 +171,13 @@ def test_cli_generate_refuses_gpt2_moe_by_name():
     ("mesh.tp=2", "mesh"),
 ])
 def test_unported_train_knobs_are_refused_by_name(override, knob):
+    # GPT-2 and Llama run tp and sequence parallelism; the other models
+    # refuse them.
+    model = {"train.sequence_parallel": "vit", "mesh": "resnet50"}.get(knob)
+    extra = [f"model.name={model}"] if model else []
     with pytest.raises(NotImplementedError,
                        match=rf"^{knob}=.*ROADMAP queue A\d+"):
-        _train(override)
+        _train(override, *extra)
 
 
 @pytest.mark.parametrize("override,knob", [
@@ -230,9 +234,12 @@ def test_zero1_on_one_device_is_accepted(capsys):
     ("mesh.dcn_dp=2", "dcn_dp"), ("mesh.tp=4", "tp"),
 ])
 def test_unported_mesh_axes_are_refused_by_name(override, axis):
+    # GPT-2 and Llama run fsdp and tp; the other models refuse them.
+    model = {"fsdp": "vit", "tp": "resnet50"}.get(axis)
+    extra = [f"model.name={model}"] if model else []
     with pytest.raises(NotImplementedError,
                        match=rf"^mesh=.*mesh\.{axis}=\d+ .*ROADMAP queue A13"):
-        _train(override, "mesh.dp=1")
+        _train(override, "mesh.dp=1", *extra)
 
 
 def test_zero1_over_dp_composes():

@@ -1,0 +1,221 @@
+"""Shared by the tests of the port's tensor and fully sharded parallelism
+(``tests/test_torch_tp*.py``, ``tests/test_torch_fsdp.py``): gloo ranks
+spawned on the CPU, and the JAX package's Trainer on the same tiny models,
+weights and batches.
+
+The setting is JAX's ``tests/test_tp_fsdp.py``: the tiny GPT-2 (4 heads,
+width 64, vocab 256) or the tiny Llama (4 query heads over 2 KV heads) on
+``SyntheticTokens`` batches of 16 x 32 (4 distinct), AdamW at lr 1e-3 —
+here with weight decay 0.1 and the global norm clipped at 0.05, which every
+step's norm exceeds, so the sharded norm is load-bearing. The port's ranks
+start from the same init (the port's one-rank draw, handed to JAX as its
+tree), cut to each rank's blocks (``weights.rank_shards``).
+"""
+
+from __future__ import annotations
+
+import os
+import socket
+
+import numpy as np
+import torch
+
+RTOL, ATOL = 2e-4, 2e-5
+STEPS = 5
+MODEL = dict(size="tiny", vocab_size=256, max_len=64)
+DATA = dict(batch_size=16, seq_len=32, vocab_size=256, seed=0, n_distinct=4)
+OPT = dict(weight_decay=0.1, grad_clip=0.05)
+LR = 1e-3
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def join_world(rank: int, world: int, port: int) -> None:
+    """A spawned rank joins the gloo job (its prints silenced)."""
+    import contextlib
+    import io
+
+    from distributeddeeplearning_tpu_torch.mesh import init_distributed
+
+    torch.set_num_threads(1)
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert init_distributed("cpu")
+
+
+def spawn(worker, nranks: int, tmp, *args, parent=None):
+    """``worker(rank, nranks, port, tmp, *args)`` on ``nranks`` gloo ranks,
+    while ``parent()`` runs here (JAX's references); then each rank's
+    ``rank{r}.pt`` and what ``parent`` returned."""
+    ctx = torch.multiprocessing.spawn(
+        worker, args=(nranks, free_port(), str(tmp), *args), nprocs=nranks,
+        join=False)
+    here = parent() if parent is not None else None
+    while not ctx.join():
+        pass
+    ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+             for r in range(nranks)]
+    return ranks, here
+
+
+def flat_numpy(tree):
+    """A JAX params tree (boxed or not) -> a flat state_dict of tensors."""
+    import flax.linen as nn
+    import jax
+
+    from distributeddeeplearning_tpu_torch.weights import from_jax_params
+
+    return from_jax_params(jax.tree.map(np.asarray, nn.meta.unbox(tree)))
+
+
+def jax_tree(flat: dict) -> dict:
+    """A flat state_dict -> the nested tree of arrays JAX takes."""
+    import jax.numpy as jnp
+
+    tree = {}
+    for k, v in flat.items():
+        node = tree
+        *path, leaf = k.split(".")
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = jnp.asarray(v.numpy())
+    return tree
+
+
+def port_init(name: str) -> dict:
+    """The tiny ``name``'s weights the port draws from seed 0 (one rank),
+    as a flat state_dict: the init both packages start from."""
+    from distributeddeeplearning_tpu_torch import models
+
+    m = models.get_model(name, **MODEL)
+    m.init_weights(torch.Generator().manual_seed(0))
+    return {k: v.detach().clone() for k, v in m.state_dict().items()}
+
+
+def jax_run(name: str, init: dict, steps: int = STEPS, *,
+            precision: str = "fp32", grad_accum: int = 1,
+            health: bool = False, evals: int = 0, **model_kw) -> dict:
+    """JAX's Trainer on one device: ``steps`` steps of the tiny ``name``
+    (gpt2 or llama) from ``init`` (a flat state_dict). Returns the final
+    params as a flat state_dict, the losses, the metrics of each step
+    (``grad_norm`` under the guard) and, with ``evals`` > 0, ``evaluate``
+    over that many eval batches of the final state."""
+    import dataclasses
+
+    import jax.numpy as jnp
+    from distributeddeeplearning_tpu import config as jconfig
+    from distributeddeeplearning_tpu import data as jdata
+    from distributeddeeplearning_tpu import models as jmodels
+    from distributeddeeplearning_tpu.mesh import single_device_mesh
+    from distributeddeeplearning_tpu.train import (
+        Trainer,
+        evaluate,
+        get_task,
+        make_optimizer,
+    )
+
+    kw = dict(MODEL, **model_kw)
+    if precision != "fp32":
+        kw["dtype"] = jnp.bfloat16
+    model = jmodels.get_model(name, **kw)
+    ds = jdata.SyntheticTokens(**DATA)
+    mesh = single_device_mesh()
+    opt = make_optimizer("adamw", LR, precision=precision, **OPT)
+    trainer = Trainer(model, opt, get_task("lm"), mesh, donate=False,
+                      precision=precision, grad_accum=grad_accum,
+                      health=jconfig.HealthConfig(enabled=True)
+                      if health else None)
+    state = trainer.init(0, ds.batch(0))
+    state = dataclasses.replace(state, params=jax_tree(init))
+    losses, metrics = [], []
+    for i, batch in enumerate(jdata.sharded_batches(ds, mesh)):
+        if i >= steps:
+            break
+        state, m = trainer.train_step(state, batch)
+        losses.append(float(m["loss"]))
+        metrics.append({k: float(v) for k, v in m.items()})
+    out = {"losses": losses, "metrics": metrics,
+           "params": flat_numpy(state.params)}
+    if evals:
+        eds = jdata.SyntheticTokens(**{**DATA, "seed": 1})
+        out["eval"] = evaluate(trainer, state, (
+            b for _, b in zip(range(evals),
+                              jdata.sharded_batches(eds, mesh))))
+    return out
+
+
+def port_trainer(name: str, mesh, *, sequence_parallel: bool = False,
+                 precision: str = "fp32", attn_impl: str = "xla",
+                 zero1: bool = False, grad_accum: int = 1,
+                 health: bool = False, remat: str = "none", device="cpu"):
+    """(model, trainer) of the tiny ``name`` on ``mesh``, as ``jax_run``
+    sets it up."""
+    from distributeddeeplearning_tpu_torch import config, models, train
+
+    kw = dict(MODEL, attn_impl=attn_impl, remat=remat, mesh=mesh)
+    if sequence_parallel:
+        kw["sequence_parallel"] = True
+    if precision != "fp32":
+        kw["dtype"] = "bfloat16"
+    model = models.get_model(name, **kw).to(device)
+    tx = train.make_optimizer("adamw", LR, precision=precision, **OPT)
+    trainer = train.Trainer(
+        model, tx, train.get_task("lm", mesh=mesh), device=device,
+        precision=precision, mesh=mesh, zero1=zero1, grad_accum=grad_accum,
+        health=config.HealthConfig(enabled=True) if health else None)
+    return model, trainer
+
+
+def load_whole(state, whole: dict) -> None:
+    """``state``'s params (a rank's blocks, maybe views into ZeRO-1's
+    buffers) set to this rank's blocks of the whole ``whole``."""
+    from distributeddeeplearning_tpu_torch.weights import rank_shards
+
+    local = rank_shards(whole, state.shards)
+    with torch.no_grad():
+        for k, p in state.params.items():
+            p.copy_(local[k])
+
+
+def port_run(name: str, mesh, init: dict, steps: int = STEPS, **kw) -> dict:
+    """``steps`` Trainer steps of the tiny ``name`` on ``mesh`` from the
+    whole ``init``: the losses, each step's metrics, the whole params on
+    rank 0 (None elsewhere), and what says the sharding is real."""
+    from distributeddeeplearning_tpu_torch import data
+    from distributeddeeplearning_tpu_torch.parallel import fsdp
+
+    model, trainer = port_trainer(name, mesh, **kw)
+    state = trainer.init(0)
+    load_whole(state, init)
+    ds = data.SyntheticTokens(**DATA)
+    batches = data.sharded_batches(ds.iter_from(0), mesh,
+                                   kw.get("grad_accum", 1))
+    losses, metrics = [], []
+    for _, batch in zip(range(steps), batches):
+        state, m = trainer.train_step(
+            state, {k: torch.from_numpy(v) for k, v in batch.items()})
+        losses.append(float(m["loss"]))
+        metrics.append({k: float(v) for k, v in m.items()})
+    whole = (state.params if state.shards is None
+             else state.shards.gather(state.params))
+    return {"losses": losses, "metrics": metrics,
+            "params": None if whole is None else {
+                k: v.detach().clone() for k, v in whole.items()},
+            "fraction": {a: fsdp.sharded_fraction(model, a)
+                         for a in ("tp", "fsdp")},
+            "bytes": fsdp.per_device_bytes(model),
+            "coords": dict(mesh.coords), "state": state, "trainer": trainer}
+
+
+def assert_params_close(got: dict, want: dict, rtol=RTOL, atol=ATOL):
+    assert set(got) == set(want)
+    for k, v in want.items():
+        assert tuple(got[k].shape) == tuple(v.shape), k
+        np.testing.assert_allclose(got[k].numpy(), v.numpy(), rtol=rtol,
+                                   atol=atol, err_msg=k)
