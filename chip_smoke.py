@@ -49,18 +49,20 @@ Phases, in order; any failure raises and the script exits non-zero:
      their two-term bf16 products hold, ring_dkv 2e-2); then the times,
      bounds and library yardsticks;
   10. context-parallel training through the entry point: ``cli train``
-     under ``torchrun`` with 2 ranks, ``mesh.cp=2``, ``ring_pallas``, at
-     full width (the batch cut for time to 8 x 1024) for 2 steps. Both
-     ranks share the one card over gloo, so
+     on 2 spawned ranks (``spawn_ranks``, run as ``torchrun`` would run
+     it, in a process group of its own; the same pair then runs the jobs
+     of phases 11-13), ``mesh.cp=2``, ``ring_pallas``, at full width (the
+     batch cut for time to 8 x 1024) for 2 steps. Both ranks share the one
+     card over gloo, so
      the step times are no context-parallel speed. Launches must be 12 x
      steps per ring kernel on rank 0 and 24 x steps on rank 1, none of the
      flash kernels, 2 x steps of fused_adamw on each;
   11. fp32 parity at 124M width: 2 ranks at cp=2 (ring_pallas,
-     adamw_fused) against phase 8's single-process flash route, 4 steps;
-     the losses must agree within 1e-4 relative and fall; the same two
-     processes then run phase 13's straight run;
-  12. ZeRO-1 training through the entry point: ``cli train`` under
-     ``torchrun`` with 2 ranks on ``configs/gpt2_owt.py`` as shipped
+     adamw_fused) against phase 8's single-process flash route, 2 steps
+     (phase 8's first two); the losses must agree within 1e-4 relative and
+     fall; the same two processes then run phase 13's straight run;
+  12. ZeRO-1 training through the entry point: ``cli train`` on phase
+     10's 2 ranks on ``configs/gpt2_owt.py`` as shipped
      (``zero1=True``, ``dp=-1`` -> 2, flash, adamw_fused, bf16, batch 32 x
      1024) with ``grad_accum=2``, evaluation and checkpoints every 2 steps
      and the metrics writer, 2 steps: per rank, flash_dq and flash_dkv
@@ -93,9 +95,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      --probe 2``, as in phases 18, 22 and 26): the images/sec/chip record
      (p50, p90, MFU against the card's bf16 peak, peak memory, dispatch
      overhead a step), printed again on a line before the last;
-  16. ResNet-50 at dp=2 under ``torchrun``, 2 ranks sharing the one card
-     over gloo: the shipped config with eval and checkpoints every 2 steps
-     for 4 steps; then one pair of fresh processes runs fp32 (TF32 off) at a
+  16. ResNet-50 at dp=2, ``cli train`` on 2 spawned ranks sharing the one
+     card over gloo: the shipped config with eval and checkpoints every 2
+     steps for 4 steps; then the same pair runs fp32 (TF32 off) at a
      global batch of 16, grad_accum 1 and 2, 4 steps against one process on
      the same batches (losses within 1e-4 relative and falling, BatchNorm
      running statistics within ``BN_STATS_TOL``), and a resume from the
@@ -191,26 +193,29 @@ Phases, in order; any failure raises and the script exits non-zero:
      factor raised so the oracle's routing drops nothing), and for GPT-2
      and Llama the serving engine's on the same weights and prompts, its
      decode steps through ``paged_decode`` (launches counted).
-  34. pipeline parallelism through the entry point: ``cli train`` under
-     ``torchrun`` with 4 ranks on ``configs/gpt2_pp.py`` as shipped (pp=4,
-     dp=1 so ZeRO-1 is a no-op, 1f1b_interleaved over 8 microbatches,
-     bf16, 32 x 1024, vocab 50304) for 2 steps with an evaluation and a
-     checkpoint at step 2: every loss finite and equal on the 4 ranks, each
-     rank 14 = M + 2(S-1) ticks a step and 11 in the evaluation; per rank
-     its peak memory and its transport seconds and megabytes a step. The
-     four ranks share the one card over gloo: a path, not a speed;
-  35. four spawned ranks run, in turn, ``configs/bert_pp.py`` as shipped
-     (1f1b, 64 x 512, padded rows from 64 tokens, bf16) for 2 steps; fp32
-     gpt2_pp at 16 x 1024 (TF32 off, ``adamw_fused`` over each rank's
-     leaves: launches = steps x its kernel groups) to step 2 with a save,
-     then on to step 4 from it; fp32 bert_pp at 16 x 512 for 3 steps; then
-     phase 37's jobs. This process runs their pp=1 twins with the plain
-     AdamW: losses within 1e-4 relative and falling; it restores the
-     gpt2_pp step-2 checkpoint at pp=1, whose params equal every rank's
-     step-2 params bit for bit (sha256 of each leaf's bytes).
+  34. one spawn of four ranks sharing the one card over gloo
+     (``spawn_ranks``) runs every multi-rank job of phases 34-38 in turn,
+     the ``cli train`` ones as ``torchrun`` would (each in a process group
+     of its own). Phase 34's: pipeline parallelism through the entry
+     point, ``cli train`` on ``configs/gpt2_pp.py`` as shipped (pp=4, dp=1
+     so ZeRO-1 is a no-op, 1f1b_interleaved over 8 microbatches, bf16, 32
+     x 1024, vocab 50304) for 2 steps with an evaluation and a checkpoint
+     at step 2: every loss finite and equal on the 4 ranks, each rank 14 =
+     M + 2(S-1) ticks a step and 11 in the evaluation; per rank its peak
+     memory and its transport seconds and megabytes a step. A path, not a
+     speed;
+  35. the ranks' pipelined jobs: ``configs/bert_pp.py`` as shipped (1f1b,
+     64 x 512, padded rows from 64 tokens, bf16) for 2 steps; fp32 gpt2_pp
+     at 8 x 1024 (TF32 off, ``adamw_fused`` over each rank's leaves:
+     launches = steps x its kernel groups) to step 2 with a save, then on
+     to step 4 from it; fp32 bert_pp at 8 x 512 for 3 steps. This process
+     runs their pp=1 twins with the plain AdamW: losses within 1e-4
+     relative and falling; it restores the gpt2_pp step-2 checkpoint at
+     pp=1, whose params equal every rank's step-2 params bit for bit
+     (sha256 of each leaf's bytes).
   36. tensor parallelism with Megatron sequence parallelism and FSDP
-     through the entry point: ``cli train`` under ``torchrun`` with 4
-     ranks on ``configs/gpt2_owt.py`` at dp=1 x fsdp=2 x tp=2 with
+     through the entry point: the ranks' ``cli train`` on
+     ``configs/gpt2_owt.py`` at dp=1 x fsdp=2 x tp=2 with
      ``train.sequence_parallel=true`` (bf16, flash, adamw_fused; the batch
      cut for time to 8 x 1024) for 2 steps, an evaluation and a checkpoint
      at step 2 (in the one-rank layout): every loss finite and equal on the
@@ -218,20 +223,37 @@ Phases, in order; any failure raises and the script exits non-zero:
      more for the evaluation) at [4 rows x 6 heads, 1024, 64], fused_adamw
      2 x steps over the rank's blocks; its param, gradient and moment bytes
      against the whole 124M's, the tp and fsdp sharded fractions (each
-     above 0.5), peak memory and the transport's seconds a step. The four
-     ranks share the one card over gloo: a path, not a speed;
-  37. jobs of phase 35's four ranks: fp32 GPT-2 124M at tp2 x fsdp2 with
-     sequence parallelism on phase 8's batches (4 x 1024, 2 rows and 6
-     heads a rank), to step 2 with a save, then on to 4 from it: losses
-     within 1e-4 relative of phase 8's one process and falling, the whole
-     params after 4 steps within ``ZERO_PARAM_LIMIT``, flash at [12, 1024,
-     64]; this process restores the step-2 save and cuts it to each rank's
+     above 0.5), peak memory and the transport's seconds a step. A path,
+     not a speed;
+  37. the ranks' tp jobs: fp32 GPT-2 124M at tp2 x fsdp2 with sequence
+     parallelism on phase 8's batches (4 x 1024, 2 rows and 6 heads a
+     rank), to step 2 with a save, then on to 4 from it: losses within
+     1e-4 relative of phase 8's one process and falling, the whole params
+     after 4 steps within ``ZERO_PARAM_LIMIT``, flash at [12, 1024, 64];
+     this process restores the step-2 save and cuts it to each rank's
      blocks, equal to that rank's step-2 params bit for bit (sha256);
      Llama-300M at dp2 x tp2 with ZeRO-1: bf16 as shipped (the batch cut
-     for time to 8 x 2048) for 2 steps, each flash kernel 12 a step at [4
+     for time to 4 x 2048) for 2 steps, each flash kernel 12 a step at [2
      rows x 8 heads, 2048, 64], fused_adamw 2 a step over the rank's
      shards; the fp32 pair at 2 x 2048 for 2 steps within 1e-4 relative
      of phase 23's one-process kernel route and falling.
+  38. the ranks' expert-parallel jobs (``ep_parity``): gpt2_moe as shipped
+     (bf16, flash, top-2 of 8 at capacity factor 1.25, ZeRO-1) at dp2 x
+     ep2, the batch cut for time to 8 x 1024, for 2 steps, an evaluation
+     and a save: the losses equal on the ranks, drops present, each flash
+     kernel 12 a step (flash_fwd 12 more for the evaluation) at [48, 1024,
+     64]; per rank its param, gradient and moment bytes against the whole
+     model's (a share of ~0.65, the moments half that again), aux_loss,
+     moe_dropped_frac, peak memory and transport seconds a step; the save,
+     restored here at ep=1 and cut to each rank's blocks, equal to every
+     rank's params (sha256). llama_moe 8x300m as shipped at ep2 x tp2 with
+     sequence parallelism at 4 x 2048 for 2 steps: flash at [32, 2048,
+     64], a rank ~0.28 of the params. fp32 gpt2_moe (2 x 1024, one batch,
+     adamw_fused, drops present at the shipped capacity) at dp2 x ep2 and
+     at ep2 x cp2 on ``ring_pallas``, 3 steps each, against one process
+     here: losses and aux_loss within 1e-4 relative, moe_dropped_frac
+     within one assignment a layer, the losses falling, the ring kernels
+     on the cp ranks (12 x steps x (cp index + 1)).
 Phase 3 also holds the paged kernels at Llama-300M's decode shape (16 q
 heads over 8 KV heads: bf16 and int8 pools with bf16 q at 2e-2, an fp32
 twin at 2e-5), and phase 6 the flash kernels at its training shape, bf16
@@ -1501,27 +1523,19 @@ def check_ring_kernels(torch):
 # ---------------------------------------------------------------------------
 
 
-def cli_train_cp(torch, layers, steps=CP_STEPS):
-    """``cli train`` under torchrun: 2 ranks, cp=2, ring_pallas, full width.
-    Returns (rank 0's step seconds, the train_end record, the text)."""
-    overrides = [f"data.batch_size={CP_BATCH}", "mesh.cp=2", "mesh.dp=1",
-                 "model.kwargs.attn_impl=ring_pallas",
-                 f"train.steps={steps}", "train.log_every=1"]
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           "--nproc_per_node", "2", "-m", "distributeddeeplearning_tpu_torch.cli",
-           "train", "--config", CONFIG, "--sync-steps"]
-    for o in overrides:
-        cmd += ["--override", o]
-    env = dict(os.environ, PYTHONPATH=ROOT)
-    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
-                          text=True, timeout=600)
-    if proc.returncode != 0:
-        raise RuntimeError(f"torchrun cli train exited {proc.returncode}:\n"
-                           f"{proc.stdout[-4000:]}\n{proc.stderr[-8000:]}")
-    lines = proc.stdout.strip().splitlines()
-    recs = [json.loads(x) for x in lines if x.startswith("{")]
+def cp_cli_job(steps=CP_STEPS):
+    """Phase 10's job for the pair of :func:`pair_group`."""
+    return cli_job([f"data.batch_size={CP_BATCH}", "mesh.cp=2", "mesh.dp=1",
+                    "model.kwargs.attn_impl=ring_pallas",
+                    f"train.steps={steps}", "train.log_every=1"])
+
+
+def cli_train_cp(torch, layers, ranks, steps=CP_STEPS):
+    """Phase 10: ``cli train`` on 2 ranks (the job of :func:`cp_cli_job`),
+    cp=2, ring_pallas, full width. Returns (the losses, the train_end
+    record, each rank's launches)."""
+    lines, recs, end = cli_result(ranks)
     losses = [r["loss"] for r in recs if "loss" in r]
-    end = next(r for r in recs if r.get("event") == "train_end")
     if len(losses) != steps or not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"cp cli train: losses {losses}")
     if len(end["ranks"]) != 2 or any(r["losses"] != losses
@@ -1534,7 +1548,7 @@ def cli_train_cp(torch, layers, steps=CP_STEPS):
              "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
              "fused_adamw": 2 * steps} for i in range(2)]
     got = [r["launches"] for r in end["ranks"]]
-    print("\n".join(x for x in lines if not x.startswith("{")))
+    print("\n".join(lines))
     print(f"losses {losses}")
     print(f"launches per rank {got} expected {want}", flush=True)
     if got != want:
@@ -1542,7 +1556,7 @@ def cli_train_cp(torch, layers, steps=CP_STEPS):
     return losses, end, got
 
 
-def _rank_fit(rank, port, jobs, out_dir, world=2):
+def _rank_fit(rank, ports, jobs, out_dir, world=2):
     """One of ``world`` ranks (a child process): for each job
     ``(overrides, ckpt_dir, save_every, config[, options])`` in turn,
     build_all + fit of the config to ``train.steps``; with ``ckpt_dir``,
@@ -1551,18 +1565,28 @@ def _rank_fit(rank, port, jobs, out_dir, world=2):
     digest of every param this rank holds (in place of rank 0's params)
     and its fused AdamW kernel groups; ``{"params": False}`` keeps no
     params; ``{"whole": True}``: rank 0 keeps the whole params of a model
-    cut over tp or fsdp (every rank takes part in the gather)."""
+    cut over tp, fsdp or ep (every rank takes part in the gather);
+    ``{"eval": True}``: an evaluation after the last step (the config's
+    ``train.eval_batches``); ``{"restore_step": N}``: restore step N, not
+    the latest. Each result carries its job's ``seconds`` and each step's
+    (``step_s``). A job ``{"cli": argv}`` runs ``cli.main(argv)``
+    on these ranks as ``torchrun`` would run it on fresh ones (its own
+    process group, which it leaves at its end), keeping rank 0's standard
+    output. Job ``j`` that joins a group meets on ``ports[j]``."""
+    import contextlib
+    import io
+
     import torch
 
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
                       LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
-                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+                      MASTER_ADDR="localhost")
     sys.path.insert(0, ROOT)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     import torch.distributed as dist
 
-    from distributeddeeplearning_tpu_torch import cli, data
+    from distributeddeeplearning_tpu_torch import cli, comms, data
     from distributeddeeplearning_tpu_torch.checkpoint import (
         CheckpointManager,
     )
@@ -1578,38 +1602,68 @@ def _rank_fit(rank, port, jobs, out_dir, world=2):
     from distributeddeeplearning_tpu_torch.ops import flash_attention
     from distributeddeeplearning_tpu_torch.ops import fused_adamw
     from distributeddeeplearning_tpu_torch.ops import ring_attention_pallas
-    from distributeddeeplearning_tpu_torch.parallel import pp
+    from distributeddeeplearning_tpu_torch.parallel import fsdp, pp
     from distributeddeeplearning_tpu_torch.train import fit, opt_state_bytes
 
-    init_distributed("cuda")
     device = rank_device("cuda")
-    for j, (overrides, ckpt_dir, save_every, config, *opts) in enumerate(
-            jobs):
-        opts = opts[0] if opts else {}
+    torch.cuda.set_device(device)
+    for j, job in enumerate(jobs):
+        t_job = time.perf_counter()
         flash_attention.reset_launches()
         fused_adamw.reset_launches()
         ring_attention_pallas.reset_launches()
         pp.reset_ticks()
+        os.environ["MASTER_PORT"] = str(ports[j])
+        if isinstance(job, dict):
+            if dist.is_initialized():
+                dist.barrier()
+                dist.destroy_process_group()
+            buf = io.StringIO()
+            torch.cuda.reset_peak_memory_stats(device)
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(job["cli"])
+            out = {"rc": rc, "text": buf.getvalue() if rank == 0 else "",
+                   "seconds": time.perf_counter() - t_job}
+            torch.save(out, os.path.join(out_dir, f"rank{rank}_job{j}.pt"))
+            torch.cuda.empty_cache()
+            continue
+        overrides, ckpt_dir, save_every, config, *opts = job
+        opts = opts[0] if opts else {}
+        if not dist.is_initialized():
+            init_distributed("cuda")
         cfg = apply_overrides(load_config(config), overrides)
         mesh = build_mesh(cfg.mesh)
         _, trainer, dataset = cli.build_all(cfg, device, mesh)
         state = trainer.init(cfg.train.seed)
         ckpt = None if ckpt_dir is None else CheckpointManager(ckpt_dir)
         if ckpt is not None and ckpt.latest_step() is not None:
-            state, _ = ckpt.restore(state)
+            state, _ = ckpt.restore(state, step=opts.get("restore_step"))
         torch.cuda.reset_peak_memory_stats(device)
+        comms.reset_transport()
+        transport, step_s = [], []
+        steps = cfg.train.steps
         state, hist = fit(trainer, state, data.prefetch(
             data.sharded_batches(dataset.iter_from(state.step), mesh,
                                  cfg.train.grad_accum), device),
-            steps=cfg.train.steps, log_every=1, log_fn=lambda m: None,
-            ckpt=ckpt, save_every=save_every)
+            steps=steps, log_every=1, log_fn=lambda m: None,
+            ckpt=ckpt, save_every=save_every,
+            eval_every=steps if opts.get("eval") else 0,
+            eval_fn=(cli.make_eval_fn(cfg, mesh, device)
+                     if opts.get("eval") else None),
+            step_times=step_s,
+            on_step=lambda _: transport.append(comms.TRANSPORT["seconds"]))
         torch.cuda.synchronize()
         if ckpt is not None:
             ckpt.close()
         whole = None
         if opts.get("whole"):
             whole = state.shards.gather(state.params)
-        out = {"losses": [r["loss"] for r in hist],
+        train_recs = [r for r in hist if "loss" in r]
+        out = {"losses": [r["loss"] for r in train_recs],
+               "metrics": {k: [r[k] for r in train_recs]
+                           for k in ("aux_loss", "moe_dropped_frac")
+                           if train_recs and k in train_recs[0]},
+               "evals": [r for r in hist if "eval_loss" in r],
                "launches": {**flash_attention.LAUNCHES,
                             **ring_attention_pallas.LAUNCHES,
                             **fused_adamw.LAUNCHES},
@@ -1618,7 +1672,18 @@ def _rank_fit(rank, port, jobs, out_dir, world=2):
                "opt_state_bytes": opt_state_bytes(state.opt_state),
                "timings": [] if ckpt is None else ckpt.timings,
                "pipeline": dict(pp.TICKS), "coords": mesh.coords,
+               "transport_s_by_step": [
+                   b - a for a, b in zip([0.0, *transport], transport)],
+               "step_s": step_s,
                "peak_mem_gb": torch.cuda.max_memory_allocated(device) / 1e9}
+        if state.shards is not None:
+            out["shards"] = {
+                "param_bytes": sum(p.numel() * p.element_size()
+                                   for p in state.params.values()),
+                "whole_param_bytes":
+                    4 * state.shards.whole_numel(state.params),
+                "sharded_fraction": {a: fsdp.sharded_fraction(
+                    state.shards, a) for a in ("tp", "fsdp", "ep")}}
         if whole is not None:
             out["params"] = {k: p.detach().cpu() for k, p in whole.items()}
         elif opts.get("whole"):
@@ -1633,11 +1698,13 @@ def _rank_fit(rank, port, jobs, out_dir, world=2):
                              for k, p in state.params.items()}
             out["model_state"] = {k: b.detach().cpu()
                                   for k, b in state.model_state.items()}
+        out["seconds"] = time.perf_counter() - t_job
         torch.save(out, os.path.join(out_dir, f"rank{rank}_job{j}.pt"))
         del trainer, state
         torch.cuda.empty_cache()
-    dist.barrier()
-    dist.destroy_process_group()
+    if dist.is_initialized():
+        dist.barrier()
+        dist.destroy_process_group()
 
 
 def param_digest(t) -> str:
@@ -1654,22 +1721,27 @@ def param_digest(t) -> str:
 def spawn_ranks(torch, jobs, out_dir, nranks=2):
     """``nranks`` ranks of :func:`_rank_fit` sharing the one card over
     gloo, which run each job ``(overrides, ckpt_dir, save_every, config[,
-    options])`` in turn in the same processes: each job's [rank 0, ...,
-    rank n-1] results."""
+    options])`` or ``{"cli": argv}`` in turn in the same processes: each
+    job's [rank 0, ..., rank n-1] results."""
     import socket
 
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
+    socks = [socket.socket() for _ in jobs]
+    for so in socks:
+        so.bind(("localhost", 0))
+    ports = [so.getsockname()[1] for so in socks]
+    for so in socks:
+        so.close()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     torch.multiprocessing.spawn(_rank_fit,
-                                args=(port, jobs, out_dir, nranks),
+                                args=(ports, jobs, out_dir, nranks),
                                 nprocs=nranks, join=True)
+    out = [[torch.load(os.path.join(out_dir, f"rank{r}_job{j}.pt"))
+            for r in range(nranks)] for j in range(len(jobs))]
     print(f"spawned {nranks} ranks for {len(jobs)} job(s): "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-    return [[torch.load(os.path.join(out_dir, f"rank{r}_job{j}.pt"))
-             for r in range(nranks)] for j in range(len(jobs))]
+          f"{time.perf_counter() - t0:.1f} s; rank 0's seconds by job "
+          f"{[round(job[0]['seconds'], 1) for job in out]}", flush=True)
+    return out
 
 
 def zero1_overrides(parity):
@@ -1678,37 +1750,46 @@ def zero1_overrides(parity):
         "mesh.dp=2", "train.zero1=true", f"train.grad_accum={ZERO_ACCUM}"]
 
 
-def cp_parity(torch, parity, ck, steps=4):
-    """Phase 11: fp32 at 124M width, 2 ranks at cp=2 (ring_pallas,
-    adamw_fused) against phase 8's single-process flash route on the same
-    weights and batches. The same two processes then run phase 13's
-    straight ZeRO-1 job, saving halfway into ``ck`` (one start of the pair
-    fewer). Returns (the cp record, that job's [rank 0, rank 1])."""
+# Phase 11's steps (cut for time from phase 8's 4).
+CP_PARITY_STEPS = 2
+
+
+def pair_group(torch, parity, ck, ck12, logs, steps=4):
+    """Phase 10: one spawn of 2 ranks sharing the card over gloo runs, in
+    turn, phase 10's ``cli train`` (as ``torchrun`` would), phase 11's fp32
+    cp=2 run, phase 13's straight ZeRO-1 run (saving halfway into ``ck``)
+    and phase 12's ``cli train`` (saving into ``ck12``, its metrics in
+    ``logs``). Returns each job's [rank 0, rank 1]."""
     import tempfile
 
     overrides = parity["overrides"] + [
-        "model.kwargs.attn_impl=ring_pallas", "mesh.cp=2", "mesh.dp=1"]
+        "model.kwargs.attn_impl=ring_pallas", "mesh.cp=2", "mesh.dp=1",
+        f"train.steps={CP_PARITY_STEPS}"]
     with tempfile.TemporaryDirectory() as tmp:
-        ranks, zero = spawn_ranks(torch, [
-            (overrides, None, 0, CONFIG),
-            (zero1_overrides(parity), ck, steps // 2, CONFIG)], tmp)
-    la, lb = ranks[0]["losses"], parity["losses_kernels"]
+        return spawn_ranks(torch, [
+            cp_cli_job(),
+            (overrides, None, 0, CONFIG, {"params": False}),
+            (zero1_overrides(parity), ck, steps // 2, CONFIG),
+            zero1_cli_job(ck12, logs)], tmp)
+
+
+def cp_parity(torch, parity, ranks):
+    """Phase 11: fp32 at 124M width, 2 ranks at cp=2 (ring_pallas,
+    adamw_fused) for ``CP_PARITY_STEPS`` steps (a job of
+    :func:`pair_group`) against phase 8's first steps in one process (the
+    flash route) on the same weights and batches."""
+    la, lb = ranks[0]["losses"], parity["losses_kernels"][:CP_PARITY_STEPS]
     rel = max(abs(a - b) / abs(b) for a, b in zip(la, lb))
-    pb = parity["params_kernels"]
-    pdiff = max((ranks[0]["params"][k] - pb[k].cpu()).abs().max().item()
-                for k in pb)
     print(f"cp=2 fp32 parity: losses ring {la} flash {lb} max rel diff "
-          f"{rel}; max abs param diff after {steps} steps {pdiff} "
-          f"(information); launches per rank "
-          f"{[r['launches'] for r in ranks]}", flush=True)
+          f"{rel}; launches per rank {[r['launches'] for r in ranks]}",
+          flush=True)
     if ranks[1]["losses"] != la:
         raise AssertionError("cp=2 fp32 parity: the ranks' losses differ")
     if not rel <= 1e-4:
         raise AssertionError(f"cp=2 fp32 parity: loss rel diff {rel} > 1e-4")
     if not la[-1] < la[0]:
         raise AssertionError(f"cp=2 fp32 parity: loss did not fall {la}")
-    return {"losses_ring": la, "losses_flash": lb, "max_rel_diff": rel,
-            "max_abs_param_diff": pdiff}, zero
+    return {"losses_ring": la, "losses_flash": lb, "max_rel_diff": rel}
 
 
 # ---------------------------------------------------------------------------
@@ -1722,26 +1803,24 @@ ZERO_STEPS, ZERO_ACCUM, EVAL_BATCHES = 2, 2, 2
 ZERO_PARAM_LIMIT = 1e-4
 
 
-def torchrun_train(overrides, timeout=600, config=CONFIG, nproc=2):
-    """``cli train --sync-steps`` under torchrun with ``nproc`` ranks on
-    ``config`` (default ``configs/gpt2_owt.py``): (rank 0's text lines, its
-    JSON records, the train_end record)."""
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           "--nproc_per_node", str(nproc), "-m",
-           "distributeddeeplearning_tpu_torch.cli", "train", "--config",
-           config, "--sync-steps"]
+def cli_job(overrides, config=CONFIG):
+    """A job of :func:`spawn_ranks`: ``cli train --sync-steps`` on
+    ``config`` run by the spawned ranks as ``torchrun`` would run it."""
+    argv = ["train", "--config", config, "--sync-steps"]
     for o in overrides:
-        cmd += ["--override", o]
-    env = dict(os.environ, PYTHONPATH=ROOT)
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
-                          text=True, timeout=timeout)
-    if proc.returncode != 0:
-        raise RuntimeError(f"torchrun cli train exited {proc.returncode}:\n"
-                           f"{proc.stdout[-4000:]}\n{proc.stderr[-8000:]}")
-    print(f"torchrun cli train ({len(overrides)} overrides): "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-    lines = proc.stdout.strip().splitlines()
+        argv += ["--override", o]
+    return {"cli": argv}
+
+
+def cli_result(ranks):
+    """A :func:`cli_job`'s (rank 0's text lines, its JSON records, the
+    train_end record)."""
+    if any(r["rc"] != 0 for r in ranks):
+        raise RuntimeError(f"spawned cli train exited "
+                           f"{[r['rc'] for r in ranks]}:\n"
+                           f"{ranks[0]['text'][-4000:]}")
+    print(f"spawned cli train: {ranks[0]['seconds']:.1f} s", flush=True)
+    lines = ranks[0]["text"].strip().splitlines()
     recs = [json.loads(x) for x in lines if x.startswith("{")]
     end = next(r for r in recs if r.get("event") == "train_end")
     return [x for x in lines if not x.startswith("{")], recs, end
@@ -1755,52 +1834,53 @@ def zero1_expected(layers, steps, evals):
             "ring_step": 0, "ring_dq": 0, "ring_dkv": 0}
 
 
-def cli_train_zero1(torch, layers, n_params, ck):
-    """``cli train`` under torchrun on gpt2_owt as shipped (zero1=True,
-    dp=-1 -> 2, flash, adamw_fused, bf16, batch 32 x 1024) with
-    grad_accum=2, evaluation and checkpoints every 2 steps into ``ck`` and
-    the metrics writer, 2 steps (phase 13's fresh pair resumes from the
+def zero1_cli_job(ck, logs):
+    """Phase 12's job for the pair of :func:`pair_group`."""
+    return cli_job([f"train.grad_accum={ZERO_ACCUM}", "train.save_every=2",
+                    "train.eval_every=2", f"train.eval_batches={EVAL_BATCHES}",
+                    "train.log_every=1", f"train.checkpoint_dir={ck}",
+                    f"train.log_dir={logs}", f"train.steps={ZERO_STEPS}"])
+
+
+def cli_train_zero1(torch, layers, n_params, ck, ranks, logs):
+    """Phase 12: ``cli train`` on 2 ranks (the job of
+    :func:`zero1_cli_job`) on gpt2_owt as shipped (zero1=True, dp=-1 -> 2,
+    flash, adamw_fused, bf16, batch 32 x 1024) with grad_accum=2,
+    evaluation and checkpoints every 2 steps into ``ck`` and the metrics
+    writer into ``logs``, 2 steps (phase 13's fresh pair resumes from the
     save to 4 and runs ZeRO-1 off). Returns the numbers to report and each
     rank's launches."""
-    import tempfile
-
     full_bytes = 8 * n_params  # two fp32 moments, unsharded
-    with tempfile.TemporaryDirectory() as tmp:
-        logs = os.path.join(tmp, "logs")
-        base = [f"train.grad_accum={ZERO_ACCUM}", "train.save_every=2",
-                "train.eval_every=2", f"train.eval_batches={EVAL_BATCHES}",
-                "train.log_every=1", f"train.checkpoint_dir={ck}",
-                f"train.log_dir={logs}"]
-        text, recs, end = torchrun_train(base + [f"train.steps={ZERO_STEPS}"])
-        print("\n".join(text))
-        losses = [r["loss"] for r in recs if "loss" in r]
-        evals = [r["step"] for r in recs if "eval_loss" in r]
-        if len(losses) != ZERO_STEPS or not all(map(math.isfinite, losses)):
-            raise AssertionError(f"zero1 cli train: losses {losses}")
-        if evals != [2]:
-            raise AssertionError(f"zero1 cli train: eval records at {evals}")
-        want = zero1_expected(layers, ZERO_STEPS, len(evals))
-        got = [r["launches"] for r in end["ranks"]]
-        print(f"losses {losses}\nlaunches per rank {got} expected {want}",
-              flush=True)
-        if got != [want, want]:
-            raise AssertionError(f"zero1 train launches {got} != {want}")
-        opt = [r["opt_state_bytes"] for r in end["ranks"]]
-        # The padding: < dp x 4 = 8 elements in each of two groups, 8 bytes
-        # of moments an element.
-        if any(not 0 <= 2 * b - full_bytes < 2 * 8 * 8 for b in opt):
-            raise AssertionError(f"zero1: per-rank optimizer bytes {opt} "
-                                 f"are not half of {full_bytes}")
-        with open(os.path.join(logs, "metrics.jsonl")) as f:
-            jl = [json.loads(x) for x in f]
-        if ([r["step"] for r in jl if "loss" in r] != [1, 2]
-                or [r["step"] for r in jl if "eval_loss" in r] != [2]
-                or any(r.get("schema") != 1 for r in jl)):
-            raise AssertionError(f"metrics.jsonl: {jl}")
-        steps_on_disk = sorted(int(n) for n in os.listdir(ck) if n.isdigit())
-        if steps_on_disk != [2]:
-            raise AssertionError(f"checkpoints at {steps_on_disk}")
-        saves = end["ranks"][0]["checkpoints"]
+    text, recs, end = cli_result(ranks)
+    print("\n".join(text))
+    losses = [r["loss"] for r in recs if "loss" in r]
+    evals = [r["step"] for r in recs if "eval_loss" in r]
+    if len(losses) != ZERO_STEPS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"zero1 cli train: losses {losses}")
+    if evals != [2]:
+        raise AssertionError(f"zero1 cli train: eval records at {evals}")
+    want = zero1_expected(layers, ZERO_STEPS, len(evals))
+    got = [r["launches"] for r in end["ranks"]]
+    print(f"losses {losses}\nlaunches per rank {got} expected {want}",
+          flush=True)
+    if got != [want, want]:
+        raise AssertionError(f"zero1 train launches {got} != {want}")
+    opt = [r["opt_state_bytes"] for r in end["ranks"]]
+    # The padding: < dp x 4 = 8 elements in each of two groups, 8 bytes
+    # of moments an element.
+    if any(not 0 <= 2 * b - full_bytes < 2 * 8 * 8 for b in opt):
+        raise AssertionError(f"zero1: per-rank optimizer bytes {opt} "
+                             f"are not half of {full_bytes}")
+    with open(os.path.join(logs, "metrics.jsonl")) as f:
+        jl = [json.loads(x) for x in f]
+    if ([r["step"] for r in jl if "loss" in r] != [1, 2]
+            or [r["step"] for r in jl if "eval_loss" in r] != [2]
+            or any(r.get("schema") != 1 for r in jl)):
+        raise AssertionError(f"metrics.jsonl: {jl}")
+    steps_on_disk = sorted(int(n) for n in os.listdir(ck) if n.isdigit())
+    if steps_on_disk != [2]:
+        raise AssertionError(f"checkpoints at {steps_on_disk}")
+    saves = end["ranks"][0]["checkpoints"]
     step_s = end["step_s"][1:]  # the first step warms the libraries up
     res = {
         "backend": end["backend"], "ranks_on_one_card": 2,
@@ -2053,12 +2133,12 @@ def resnet_one_process(torch, cli, load_config, apply_overrides, accum):
 
 
 def resnet_dp2(torch, cli, load_config, apply_overrides, extra=()):
-    """Phase 16: the shipped config under torchrun at dp=2 with eval and
-    checkpoints every 2 steps; then one pair of fresh processes runs the
-    fp32 parity of dp=2 (grad_accum 1 and 2) against one process, a
-    resume from the step-2 save that repeats steps 3 and 4 bit for bit,
-    and the ``extra`` jobs (phase 13's). Returns (the record, the extra
-    jobs' results)."""
+    """Phase 16: one pair of fresh processes runs ``cli train`` on the
+    shipped config at dp=2 with eval and checkpoints every 2 steps (as
+    ``torchrun`` would), the fp32 parity of dp=2 (grad_accum 1 and 2)
+    against one process, a resume from the step-2 save that repeats steps
+    3 and 4 bit for bit, and the ``extra`` jobs (phase 13's). Returns (the
+    record, the extra jobs' results)."""
     import tempfile
 
     accums = (1, 2)
@@ -2069,8 +2149,13 @@ def resnet_dp2(torch, cli, load_config, apply_overrides, extra=()):
         base = ["train.save_every=2", "train.eval_every=2",
                 "train.eval_batches=1", "train.log_every=1",
                 f"train.checkpoint_dir={ck}", f"train.log_dir={logs}"]
-        text, recs, end = torchrun_train(base + ["train.steps=4"],
-                                         config=RESNET, timeout=900)
+        out = spawn_ranks(torch, [
+            cli_job(base + ["train.steps=4"], config=RESNET),
+            *[(RESNET_PARITY + ["mesh.dp=2", f"train.grad_accum={a}"], None,
+               0, RESNET) for a in accums],
+            (["train.steps=4"], ck, 0, RESNET, {"restore_step": 2}),
+            *extra], tmp)
+        text, recs, end = cli_result(out[0])
         print("\n".join(text))
         losses = [r["loss"] for r in recs if "loss" in r]
         evals = [r["step"] for r in recs if "eval_loss" in r]
@@ -2084,12 +2169,7 @@ def resnet_dp2(torch, cli, load_config, apply_overrides, extra=()):
         steps_on_disk = sorted(int(n) for n in os.listdir(ck) if n.isdigit())
         if steps_on_disk != [2, 4]:
             raise AssertionError(f"checkpoints at {steps_on_disk}")
-        shutil.rmtree(os.path.join(ck, "4"))  # resume from step 2
-        out = spawn_ranks(torch, [(RESNET_PARITY + [
-            "mesh.dp=2", f"train.grad_accum={a}"], None, 0, RESNET)
-            for a in accums] + [(["train.steps=4"], ck, 0, RESNET)]
-            + list(extra), tmp)
-        *dp2, resume = out[:len(accums) + 1]
+        *dp2, resume = out[1:len(accums) + 2]
     resumed = resume[0]["losses"]
     print(f"resnet dp=2 resumed from step 2 in fresh processes: {resumed} "
           f"against {losses[2:]}", flush=True)
@@ -2132,7 +2212,7 @@ def resnet_dp2(torch, cli, load_config, apply_overrides, extra=()):
            "parity": parity}
     print(f"resnet50 dp=2 train: {json.dumps(res)} (both ranks share the one "
           "card over gloo: not a data-parallel speed)", flush=True)
-    return res, out[len(accums) + 1:]
+    return res, out[len(accums) + 2:]
 
 
 # ---------------------------------------------------------------------------
@@ -2993,33 +3073,38 @@ GPT2_PP = os.path.join(ROOT, "distributeddeeplearning_tpu_torch", "configs",
 BERT_PP = os.path.join(ROOT, "distributeddeeplearning_tpu_torch", "configs",
                        "bert_pp.py")
 PP_RANKS, PP_STEPS = 4, 2
-# Phase 35's fp32 pairs: gpt2_pp at 16 x 1024 (adamw_fused on the ranks),
-# bert_pp at 16 x 512, on one repeated batch at a constant lr.
+# Phase 35's fp32 pairs: gpt2_pp at 8 x 1024 (adamw_fused on the ranks),
+# bert_pp at 8 x 512 (one row a microbatch; cut for time from 16), on one
+# repeated batch at a constant lr.
 PP_PARITY = ["model.kwargs.dtype=float32", "data.n_distinct=1",
              "optim.schedule=constant", "optim.warmup_steps=0"]
-GPT2_PP_PARITY = PP_PARITY + ["data.batch_size=16"]
-BERT_PP_PARITY = PP_PARITY + ["data.batch_size=16", "train.steps=3"]
+GPT2_PP_PARITY = PP_PARITY + ["data.batch_size=8"]
+BERT_PP_PARITY = PP_PARITY + ["data.batch_size=8", "train.steps=3"]
 
 
-def pp_cli_train(torch):
-    """Phase 34: ``cli train`` under torchrun with 4 ranks on
-    ``configs/gpt2_pp.py`` as shipped (pp=4, dp=1, 1f1b_interleaved, M=8,
-    bf16, 32 x 1024, vocab 50304) for 2 steps, an evaluation and a
-    checkpoint at step 2: every loss finite and equal on the 4 ranks, each
-    rank 14 = M + 2(S-1) ticks a step and M + S - 1 = 11 in the
+def pp_cli_job(tmp):
+    """Phase 34's job (the first of the four spawned ranks'): ``cli
+    train`` on ``configs/gpt2_pp.py`` as shipped for 2 steps, an
+    evaluation and a checkpoint at step 2. Returns (the job, its
+    checkpoint directory)."""
+    ck = os.path.join(tmp, "pp_cli_ckpt")
+    return cli_job([f"train.steps={PP_STEPS}", "train.log_every=1",
+                    "train.eval_every=2", "train.eval_batches=1",
+                    "train.save_every=2", f"train.checkpoint_dir={ck}",
+                    f"train.log_dir={tmp}/pp_logs"], config=GPT2_PP), ck
+
+
+def pp_cli_train(torch, ranks, ck):
+    """Phase 34: ``cli train`` with 4 ranks on ``configs/gpt2_pp.py`` as
+    shipped (pp=4, dp=1, 1f1b_interleaved, M=8, bf16, 32 x 1024, vocab
+    50304) for 2 steps, an evaluation and a checkpoint at step 2 (the job
+    of :func:`pp_cli_job`): every loss finite and equal on the 4 ranks,
+    each rank 14 = M + 2(S-1) ticks a step and M + S - 1 = 11 in the
     evaluation; per rank its peak memory, the seconds inside the
     transport's calls each step (waiting for the neighbours included) and
     the megabytes it sent a step."""
-    import tempfile
-
-    with tempfile.TemporaryDirectory() as tmp:
-        ck = os.path.join(tmp, "ckpt")
-        text, recs, end = torchrun_train(
-            [f"train.steps={PP_STEPS}", "train.log_every=1",
-             "train.eval_every=2", "train.eval_batches=1",
-             "train.save_every=2", f"train.checkpoint_dir={ck}",
-             f"train.log_dir={tmp}/logs"], config=GPT2_PP, nproc=PP_RANKS)
-        on_disk = sorted(os.listdir(ck))
+    text, recs, end = cli_result(ranks)
+    on_disk = sorted(os.listdir(ck))
     print("\n".join(text))
     losses = [r["loss"] for r in recs if "loss" in r]
     evals = [r["step"] for r in recs if "eval_loss" in r]
@@ -3085,68 +3170,81 @@ def pp_twin(torch, cli, load_config, apply_overrides, config, overrides):
     return [r["loss"] for r in hist], trainer, state
 
 
-def pp_parity(torch, cli, load_config, apply_overrides, parity, tmp_tp):
-    """Phase 35: 4 spawned ranks run :func:`pp_jobs`, then phase 37's
-    :func:`tp_jobs` (their results returned, their checkpoint in
-    ``tmp_tp``: phase 8's ``parity`` sets them up); the shipped bert_pp
-    losses finite and equal on every rank; the fp32 gpt2_pp (4 steps,
-    fused_adamw over each rank's leaves: launches = steps x its kernel
-    groups) and bert_pp (3 steps) losses within 1e-4 relative of their
-    pp=1 twins here (plain AdamW) and falling; the step-2 checkpoint,
-    restored here at pp=1, equals every rank's step-2 params bit for bit.
-    Returns (the record, fused_adamw launches on the ranks, phase 37's
-    results and checkpoint)."""
-    import tempfile
+def four_rank_group(torch, parity, tmp):
+    """Phase 34: one spawn of four ranks sharing the card over gloo runs,
+    in turn, ``cli train`` on gpt2_pp (phase 34) and on gpt2_owt at tp2 x
+    fsdp2 with SP (phase 36), as ``torchrun`` would run them, then the fit
+    jobs of phases 35 (:func:`pp_jobs`), 37 (:func:`tp_jobs`, set up by
+    phase 8's ``parity``) and 38 (:func:`ep_jobs`). Returns each phase's
+    results and checkpoint directories."""
+    pp_cli, pp_ck = pp_cli_job(tmp)
+    tp_cli, tp_cli_ck = tp_cli_job(tmp)
+    pp, pp_ck35 = pp_jobs(tmp)
+    tp, tp_ck = tp_jobs(tmp, parity)
+    ep, ep_ck = ep_jobs(tmp)
+    jobs = [pp_cli, tp_cli] + pp + tp + ep
+    out = spawn_ranks(torch, jobs, tmp, nranks=PP_RANKS)
+    n = len(pp)
+    return {"pp_cli": (out[0], pp_ck), "tp_cli": (out[1], tp_cli_ck),
+            "pp": (out[2:2 + n], pp_ck35),
+            "tp": (out[2 + n:2 + n + len(tp)], tp_ck),
+            "ep": (out[2 + n + len(tp):], ep_ck)}
 
+
+def pp_parity(torch, cli, load_config, apply_overrides, results, ck):
+    """Phase 35: the results of :func:`pp_jobs` (jobs of phase 34's
+    ranks): the shipped bert_pp losses finite and equal on every rank; the
+    fp32 gpt2_pp (4 steps, fused_adamw over each rank's leaves: launches
+    = steps x its kernel groups) and bert_pp (3 steps) losses within 1e-4
+    relative of their pp=1 twins here (plain AdamW) and falling; the
+    step-2 checkpoint ``ck``, restored here at pp=1, equals every rank's
+    step-2 params bit for bit. Returns (the record, fused_adamw launches
+    on the ranks)."""
     from distributeddeeplearning_tpu_torch.checkpoint import (
         CheckpointManager,
     )
 
-    with tempfile.TemporaryDirectory() as tmp:
-        jobs, ck = pp_jobs(tmp)
-        extra, tp_ck = tp_jobs(tmp_tp, parity)
-        out = spawn_ranks(torch, jobs + extra, tmp, nranks=PP_RANKS)
-        (bert, gpt_a, gpt_b, bert32), tp_results = out[:4], out[4:]
-        for name, ranks in (("bert_pp", bert), ("gpt2_pp fp32", gpt_a),
-                            ("gpt2_pp fp32 resumed", gpt_b),
-                            ("bert_pp fp32", bert32)):
-            ls = [r["losses"] for r in ranks]
-            if any(x != ls[0] for x in ls) or not all(
-                    map(math.isfinite, ls[0])):
-                raise AssertionError(f"{name}: rank losses {ls}")
-        launched = 0
-        for ranks in (gpt_a, gpt_b):
-            for r in ranks:
-                want = len(r["losses"]) * r["groups"]
-                if r["launches"]["fused_adamw"] != want or want == 0:
-                    raise AssertionError(
-                        f"pp fused_adamw launches {r['launches']} != {want}")
-                launched += want
-        t0 = time.perf_counter()
-        twin_gpt, trainer, state = pp_twin(
-            torch, cli, load_config, apply_overrides, GPT2_PP,
-            GPT2_PP_PARITY + ["train.steps=4"])
-        with CheckpointManager(ck) as mgr:
-            state, _ = mgr.restore(state, step=2)
-        restored = {k: param_digest(p) for k, p in state.params.items()}
-        rows = state.stage_rows
-        mismatched = []
-        for r in gpt_a:
-            s = r["coords"]["pp"]
-            for k, h in r["hashes"].items():
-                p = state.params[k]
-                want = param_digest(p[s:s + 1]) if k in rows.names else \
-                    restored[k]
-                if h != want:
-                    mismatched.append((s, k))
-        del trainer, state
-        torch.cuda.empty_cache()
-        twin_bert, trainer, state = pp_twin(
-            torch, cli, load_config, apply_overrides, BERT_PP,
-            BERT_PP_PARITY)
-        del trainer, state
-        torch.cuda.empty_cache()
-        twin_s = time.perf_counter() - t0
+    bert, gpt_a, gpt_b, bert32 = results
+    for name, ranks in (("bert_pp", bert), ("gpt2_pp fp32", gpt_a),
+                        ("gpt2_pp fp32 resumed", gpt_b),
+                        ("bert_pp fp32", bert32)):
+        ls = [r["losses"] for r in ranks]
+        if any(x != ls[0] for x in ls) or not all(
+                map(math.isfinite, ls[0])):
+            raise AssertionError(f"{name}: rank losses {ls}")
+    launched = 0
+    for ranks in (gpt_a, gpt_b):
+        for r in ranks:
+            want = len(r["losses"]) * r["groups"]
+            if r["launches"]["fused_adamw"] != want or want == 0:
+                raise AssertionError(
+                    f"pp fused_adamw launches {r['launches']} != {want}")
+            launched += want
+    t0 = time.perf_counter()
+    twin_gpt, trainer, state = pp_twin(
+        torch, cli, load_config, apply_overrides, GPT2_PP,
+        GPT2_PP_PARITY + ["train.steps=4"])
+    with CheckpointManager(ck) as mgr:
+        state, _ = mgr.restore(state, step=2)
+    restored = {k: param_digest(p) for k, p in state.params.items()}
+    rows = state.stage_rows
+    mismatched = []
+    for r in gpt_a:
+        s = r["coords"]["pp"]
+        for k, h in r["hashes"].items():
+            p = state.params[k]
+            want = param_digest(p[s:s + 1]) if k in rows.names else \
+                restored[k]
+            if h != want:
+                mismatched.append((s, k))
+    del trainer, state
+    torch.cuda.empty_cache()
+    twin_bert, trainer, state = pp_twin(
+        torch, cli, load_config, apply_overrides, BERT_PP,
+        BERT_PP_PARITY)
+    del trainer, state
+    torch.cuda.empty_cache()
+    twin_s = time.perf_counter() - t0
     pp_gpt = gpt_a[0]["losses"] + gpt_b[0]["losses"]
     rel_gpt = max(abs(a - b) / abs(b) for a, b in zip(pp_gpt, twin_gpt))
     rel_bert = max(abs(a - b) / abs(b)
@@ -3171,7 +3269,7 @@ def pp_parity(torch, cli, load_config, apply_overrides, parity, tmp_tp):
             raise AssertionError(f"{name} fp32 pp=4 vs pp=1: rel {rel}")
         if not (a[-1] < a[0] and b[-1] < b[0]):
             raise AssertionError(f"{name} fp32: loss did not fall {a} {b}")
-    return res, launched, tp_results, tp_ck
+    return res, launched
 
 
 # ---------------------------------------------------------------------------
@@ -3185,43 +3283,46 @@ TP_RANKS, TP_STEPS = 4, 2
 TP_MESH = ["mesh.dp=1", "mesh.fsdp=2", "mesh.tp=2",
            "train.sequence_parallel=true"]
 # Phase 37's Llama-300M jobs at dp2 x tp2 with ZeRO-1 (the config's
-# zero1=True): the shipped bf16 run with the batch cut for time to 8 x
-# 2048 (4 rows a rank, 8 heads), and the fp32 pair of phase 23.
+# zero1=True): the shipped bf16 run with the batch cut for time to 4 x
+# 2048 (2 rows a rank, 8 heads), and the fp32 pair of phase 23.
 LLAMA_TP = ["mesh.dp=2", "mesh.tp=2"]
 
 
-def tp_cli_train(torch, models, load_config, apply_overrides):
-    """Phase 36: ``cli train`` under torchrun with 4 ranks on
-    ``configs/gpt2_owt.py`` at dp=1 x fsdp=2 x tp=2 with sequence
-    parallelism (bf16, flash, adamw_fused, batch 8 x 1024) for 2 steps, an
-    evaluation and a checkpoint at step 2: every loss finite and equal on
-    the 4 ranks; per rank each flash kernel 12 x steps launches (flash_fwd
-    12 more for the evaluation) at [4 rows x 6 heads, 1024, 64], fused_adamw
-    2 x steps over the rank's blocks; its param (and gradient) and moment
-    bytes against the whole 124M's, the sharded fractions, peak memory and
-    the transport's seconds a step. The checkpoint holds the one-rank
-    layout. Returns (the record, each rank's launches)."""
-    import tempfile
+def tp_cli_job(tmp):
+    """Phase 36's job (the second of the four spawned ranks'): ``cli
+    train`` on ``configs/gpt2_owt.py`` at tp2 x fsdp2 with SP. Returns
+    (the job, its checkpoint directory)."""
+    ck = os.path.join(tmp, "tp_cli_ckpt")
+    return cli_job(TP_MESH + [
+        "data.batch_size=8", f"train.steps={TP_STEPS}", "train.log_every=1",
+        "train.eval_every=2", "train.eval_batches=1", "train.save_every=2",
+        f"train.checkpoint_dir={ck}", f"train.log_dir={tmp}/tp_logs"]), ck
 
+
+def tp_cli_train(torch, models, load_config, apply_overrides, ranks, ck):
+    """Phase 36: ``cli train`` with 4 ranks on ``configs/gpt2_owt.py`` at
+    dp=1 x fsdp=2 x tp=2 with sequence parallelism (bf16, flash,
+    adamw_fused, batch 8 x 1024) for 2 steps, an evaluation and a
+    checkpoint at step 2 (the job of :func:`tp_cli_job`): every loss
+    finite and equal on the 4 ranks; per rank each flash kernel 12 x steps
+    launches (flash_fwd 12 more for the evaluation) at [4 rows x 6 heads,
+    1024, 64], fused_adamw 2 x steps over the rank's blocks; its param
+    (and gradient) and moment bytes against the whole 124M's, the sharded
+    fractions, peak memory and the transport's seconds a step. The
+    checkpoint holds the one-rank layout. Returns (the record, each
+    rank's launches)."""
     cfg = apply_overrides(load_config(CONFIG), TP_MESH)
     whole = {k: tuple(p.shape) for k, p in models.get_model(
         cfg.model.name, **cfg.model.kwargs, device="meta").named_parameters()}
     n_params = sum(math.prod(v) for v in whole.values())
     layers = sum(k.endswith("attn.query.kernel") for k in whole)
-    with tempfile.TemporaryDirectory() as tmp:
-        ck = os.path.join(tmp, "ckpt")
-        text, recs, end = torchrun_train(
-            TP_MESH + ["data.batch_size=8", f"train.steps={TP_STEPS}",
-                       "train.log_every=1", "train.eval_every=2",
-                       "train.eval_batches=1", "train.save_every=2",
-                       f"train.checkpoint_dir={ck}",
-                       f"train.log_dir={tmp}/logs"], nproc=TP_RANKS)
-        on_disk = sorted(os.listdir(ck))
-        host = torch.load(os.path.join(ck, "2", "state.pt"), mmap=True,
-                          weights_only=True)
-        saved = {t: {k: tuple(v.shape) for k, v in host[t].items()}
-                 for t in ("params", "mu", "nu")}
-        del host
+    text, recs, end = cli_result(ranks)
+    on_disk = sorted(os.listdir(ck))
+    host = torch.load(os.path.join(ck, "2", "state.pt"), mmap=True,
+                      weights_only=True)
+    saved = {t: {k: tuple(v.shape) for k, v in host[t].items()}
+             for t in ("params", "mu", "nu")}
+    del host
     print("\n".join(text))
     losses = [r["loss"] for r in recs if "loss" in r]
     evals = [r["step"] for r in recs if "eval_loss" in r]
@@ -3260,7 +3361,8 @@ def tp_cli_train(torch, models, load_config, apply_overrides):
             "moment_bytes": r["opt_state_bytes"],
             "whole_param_bytes": sh["whole_param_bytes"],
             "param_share": sh["param_bytes"] / sh["whole_param_bytes"],
-            "sharded_fraction": sh["sharded_fraction"],
+            "sharded_fraction": {a: sh["sharded_fraction"][a]
+                                 for a in ("tp", "fsdp")},
             "peak_mem_gb": r["peak_mem_gb"],
             "transport_s_by_step": sh["transport_s_by_step"],
             "launches": r["launches"], "flash_shape": shape[0]})
@@ -3280,14 +3382,14 @@ def tp_jobs(tmp, parity):
     124M at tp2 x fsdp2 with sequence parallelism on phase 8's overrides
     (4 x 1024, flash, adamw_fused) to step 2 with a save, then on to 4 from
     it (rank 0 gathering the whole params); Llama-300M at dp2 x tp2 with
-    ZeRO-1, bf16 as shipped at 8 x 2048 for 2 steps, then the fp32 pair of
-    phase 23 (2 x 2048; 2 of its 3 steps)."""
+    ZeRO-1, bf16 as shipped at 4 x 2048 (cut for time) for 2 steps, then
+    the fp32 pair of phase 23 (2 x 2048; 2 of its 3 steps)."""
     ck = os.path.join(tmp, "gpt2_tp_ckpt")
     gpt = parity["overrides"] + TP_MESH
     return [
         (gpt + ["train.steps=2"], ck, 2, CONFIG, {"hashes": True}),
         (gpt + ["train.steps=4"], ck, 0, CONFIG, {"whole": True}),
-        (LLAMA_TP + ["data.batch_size=8", "train.steps=2"], None, 0, LLAMA,
+        (LLAMA_TP + ["data.batch_size=4", "train.steps=2"], None, 0, LLAMA,
          {"params": False}),
         (LLAMA_TP + LLAMA_PARITY + ["model.kwargs.attn_impl=flash",
                                     "optim.name=adamw_fused",
@@ -3305,7 +3407,7 @@ def tp_parity(torch, cli, models, load_config, apply_overrides, parity,
     its params; the step-2 save, restored here in one process, cut to each
     rank's blocks equals that rank's step-2 params bit for bit. Llama-300M
     at dp2 x tp2 with ZeRO-1: the shipped bf16 run's losses finite and
-    equal on the ranks, each flash kernel 12 launches a step at [4 rows x
+    equal on the ranks, each flash kernel 12 launches a step at [2 rows x
     8 heads, 2048, 64], fused_adamw 2 a step over each rank's ZeRO-1
     shards; the fp32 pair's losses within 1e-4 relative of phase 23's
     kernel route. Returns (the record, the launches on these paths)."""
@@ -3353,7 +3455,7 @@ def tp_parity(torch, cli, models, load_config, apply_overrides, parity,
     bf16_want = {"flash_fwd": 2 * layers, "flash_dq": 2 * layers,
                  "flash_dkv": 2 * layers, "fused_adamw": 2 * 2,
                  "ring_step": 0, "ring_dq": 0, "ring_dkv": 0}
-    bf16_shape = [(4 * 8, 2048, 64)]
+    bf16_shape = [(2 * 8, 2048, 64)]
     for r in llama_bf16:
         shapes = {k: [tuple(x) for x in v] for k, v in
                   r["flash_shapes"].items()}
@@ -3401,6 +3503,260 @@ def tp_parity(torch, cli, models, load_config, apply_overrides, parity,
     launched = {k: sum(r["launches"][k] for job in results for r in job)
                 for k in ("flash_fwd", "flash_dq", "flash_dkv",
                           "fused_adamw")}
+    return res, launched
+
+
+# ---------------------------------------------------------------------------
+# 38. expert parallelism
+# ---------------------------------------------------------------------------
+
+EP_STEPS = 2
+# (a) gpt2_moe as shipped (bf16, flash, top-2 of 8 at capacity factor
+# 1.25, 6 routed blocks of 12, the plain AdamW, ZeRO-1) at dp2 x ep2, the
+# batch cut for time to 8 x 1024 (4 rows a dp rank, 12 heads).
+GPT2_MOE_EP = ["mesh.dp=2", "mesh.ep=2", "data.batch_size=8",
+               f"train.steps={EP_STEPS}", "train.eval_batches=1"]
+# (b) llama_moe 8x300m as shipped at ep2 x tp2 with sequence parallelism
+# (JAX's GQA composition), the batch cut for time to 4 x 2048 (8 heads a
+# rank).
+LLAMA_MOE_EP = ["mesh.dp=1", "mesh.ep=2", "mesh.tp=2",
+                "train.sequence_parallel=true", "data.batch_size=4",
+                f"train.steps={EP_STEPS}"]
+# (c) fp32 gpt2_moe on one batch of 2 x 1024 at the config's lr held
+# constant, adamw_fused, the shipped capacity (a fresh router drops 18-44%
+# of a layer's assignments), 3 steps, against one process; at dp2 x ep2
+# (ZeRO-1 over dp) and at ep2 x cp2 on ring_pallas.
+EP_PARITY = ["model.kwargs.dtype=float32", "data.batch_size=2",
+             "data.n_distinct=1", "optim.schedule=constant",
+             "optim.warmup_steps=0", "optim.name=adamw_fused",
+             "train.steps=3"]
+EP_PARITY_MESHES = {
+    "dp2_ep2": ["mesh.dp=2", "mesh.ep=2"],
+    "ep2_cp2": ["mesh.dp=1", "mesh.ep=2", "mesh.cp=2",
+                "model.kwargs.attn_impl=ring_pallas"],
+}
+
+
+def ep_jobs(tmp):
+    """Phase 38's jobs, run in phase 34's four spawned ranks: (a) gpt2_moe
+    as shipped at dp2 x ep2 for 2 steps, an evaluation and a save; (b)
+    llama_moe as shipped at ep2 x tp2 with SP for 2 steps; (c) the fp32
+    gpt2_moe runs of ``EP_PARITY`` at dp2 x ep2 and ep2 x cp2. Returns
+    (the jobs, (a)'s checkpoint directory)."""
+    ck = os.path.join(tmp, "gpt2_moe_ep_ckpt")
+    return [
+        (GPT2_MOE_EP, ck, EP_STEPS, GPT2_MOE, {"hashes": True, "eval": True}),
+        (LLAMA_MOE_EP, None, 0, LLAMA_MOE, {"params": False}),
+        *[(EP_PARITY + mesh, None, 0, GPT2_MOE, {"params": False})
+          for mesh in EP_PARITY_MESHES.values()],
+    ], ck
+
+
+def ep_one_process(torch, cli, load_config, apply_overrides):
+    """(c)'s reference: the fp32 ``EP_PARITY`` run of gpt2_moe in this
+    process (flash, adamw_fused): each step's loss, aux_loss and
+    moe_dropped_frac."""
+    from distributeddeeplearning_tpu_torch import data
+    from distributeddeeplearning_tpu_torch.train import fit
+
+    cfg = apply_overrides(load_config(GPT2_MOE), EP_PARITY)
+    _, trainer, dataset = cli.build_all(cfg, "cuda")
+    state = trainer.init(cfg.train.seed)
+    _, hist = fit(trainer, state, data.prefetch(dataset.iter_from(0),
+                                                "cuda"),
+                  steps=cfg.train.steps, log_every=1, log_fn=lambda m: None)
+    torch.cuda.synchronize()
+    del trainer, state
+    torch.cuda.empty_cache()
+    return {k: [r[k] for r in hist]
+            for k in ("loss", "aux_loss", "moe_dropped_frac")}
+
+
+def _same_on_ranks(name, ranks):
+    ls = [r["losses"] for r in ranks]
+    if any(x != ls[0] for x in ls) or not all(map(math.isfinite, ls[0])):
+        raise AssertionError(f"{name}: rank losses {ls}")
+
+
+def ep_parity(torch, cli, models, load_config, apply_overrides, results,
+              ck):
+    """Phase 38: the results of :func:`ep_jobs`.
+
+    (a) gpt2_moe at dp2 x ep2: losses, aux_loss and moe_dropped_frac
+    finite, the losses equal on the 4 ranks, drops present; per rank each
+    flash kernel 12 launches a step (flash_fwd 12 more for the evaluation)
+    at [4 rows x 12 heads, 1024, 64], no fused_adamw (the config's plain
+    AdamW); a rank's params are its 4 of the 8 experts and the rest whole
+    (a share of ~0.65 of the 322.8M), its moments half that again
+    (ZeRO-1); the save, restored here in one process at ep=1 and cut to
+    each rank's blocks, equals every rank's params (sha256). (b) llama_moe
+    at ep2 x tp2 with SP: losses finite and equal, each flash kernel 12 a
+    step at [4 rows x 8 heads, 2048, 64], a rank ~0.28 of the 933.9M
+    params. (c) fp32 gpt2_moe at dp2 x ep2 and ep2 x cp2 (ring_pallas)
+    against one process: losses and aux_loss within 1e-4 relative each
+    step, moe_dropped_frac within one assignment a layer (1 / (tokens x
+    k)), drops present, the losses falling; the ring kernels launched on
+    the cp ranks (12 x steps x (cp index + 1) each), fused_adamw on every
+    rank. Every rank's peak memory and transport seconds a step are
+    printed: four ranks share one card over gloo, so no time here is a
+    speed. Returns (the record, the launches on these paths)."""
+    from distributeddeeplearning_tpu_torch.checkpoint import (
+        CheckpointManager,
+    )
+    from distributeddeeplearning_tpu_torch.mesh import Mesh
+
+    gpt, llama, *pars = results
+    _same_on_ranks("gpt2_moe dp2 x ep2", gpt)
+    _same_on_ranks("llama_moe ep2 x tp2", llama)
+    cfg = apply_overrides(load_config(GPT2_MOE), GPT2_MOE_EP)
+    layers, _, n_gpt, meta = model_shape(models, load_config,
+                                         apply_overrides, GPT2_MOE)
+    experts = sum(math.prod(p.shape) for k, p in meta.named_parameters()
+                  if ".moe_mlp." in k)
+    want = {"flash_fwd": layers * (EP_STEPS + 1),
+            "flash_dq": layers * EP_STEPS, "flash_dkv": layers * EP_STEPS,
+            "fused_adamw": 0, "ring_step": 0, "ring_dq": 0, "ring_dkv": 0}
+    shape = [(4 * meta.num_heads, cfg.data.seq_len, meta.head_dim)]
+    per_rank = []
+    for i, r in enumerate(gpt):
+        sh = r["shards"]
+        share = sh["param_bytes"] / sh["whole_param_bytes"]
+        shapes = {k: [tuple(x) for x in v]
+                  for k, v in r["flash_shapes"].items()}
+        if r["launches"] != want or any(v != shape for v in shapes.values()):
+            raise AssertionError(f"gpt2_moe ep rank {i}: launches "
+                                 f"{r['launches']} != {want}, shapes "
+                                 f"{shapes}")
+        m = r["metrics"]
+        if not (all(math.isfinite(x) for x in m["aux_loss"])
+                and all(0 < x < 1 for x in m["moe_dropped_frac"])
+                and len(r["evals"]) == 1):
+            raise AssertionError(f"gpt2_moe ep rank {i}: {m}, evals "
+                                 f"{r['evals']}")
+        if not (0.6 < share < 0.7 and sh["sharded_fraction"]["ep"] > 0.6):
+            raise AssertionError(f"gpt2_moe ep rank {i}: {sh}")
+        if not 0 <= r["opt_state_bytes"] - sh["param_bytes"] < 2 ** 20:
+            raise AssertionError(f"gpt2_moe ep rank {i}: moments "
+                                 f"{r['opt_state_bytes']}, params "
+                                 f"{sh['param_bytes']}")
+        per_rank.append({
+            "rank": i, "coords": {a: r["coords"][a] for a in ("dp", "ep")},
+            "param_bytes": sh["param_bytes"],
+            "grad_bytes": sh["param_bytes"],
+            "moment_bytes": r["opt_state_bytes"],
+            "whole_param_bytes": sh["whole_param_bytes"],
+            "param_share": share, "sharded_fraction": sh["sharded_fraction"],
+            "peak_mem_gb": r["peak_mem_gb"], "step_s": r["step_s"],
+            "transport_s_by_step": r["transport_s_by_step"],
+            "aux_loss": m["aux_loss"],
+            "moe_dropped_frac": m["moe_dropped_frac"],
+            "eval_loss": r["evals"][0]["eval_loss"]})
+    # The save, restored in one process at ep=1, cut to each rank's blocks.
+    one = apply_overrides(cfg, ["mesh.dp=1", "mesh.ep=1"])
+    _, trainer, _ = cli.build_all(one, "cuda")
+    state = trainer.init(one.train.seed)
+    with CheckpointManager(ck) as mgr:
+        state, _ = mgr.restore(state, step=EP_STEPS)
+    restored = {k: p.detach().cpu() for k, p in state.params.items()}
+    del trainer, state
+    torch.cuda.empty_cache()
+    mismatched = []
+    for rank, r in enumerate(gpt):
+        mesh = Mesh({"dp": 2, "ep": 2}, rank=rank)
+        layout = models.get_model(cfg.model.name, **cfg.model.kwargs,
+                                  mesh=mesh, device="meta").shards
+        for k, h in r["hashes"].items():
+            if param_digest(layout.take_leaf(k, restored[k])) != h:
+                mismatched.append((rank, k))
+    # (b)
+    lcfg = apply_overrides(load_config(LLAMA_MOE), LLAMA_MOE_EP)
+    llayers, _, n_llama, lmeta = model_shape(models, load_config,
+                                             apply_overrides, LLAMA_MOE)
+    lwant = {k: llayers * EP_STEPS for k in ("flash_fwd", "flash_dq",
+                                             "flash_dkv")}
+    lshape = [(lcfg.data.batch_size * lmeta.num_heads // 2,
+               lcfg.data.seq_len, lmeta.head_dim)]
+    llama_ranks = []
+    for i, r in enumerate(llama):
+        sh = r["shards"]
+        share = sh["param_bytes"] / sh["whole_param_bytes"]
+        shapes = {k: [tuple(x) for x in v]
+                  for k, v in r["flash_shapes"].items()}
+        got = {k: r["launches"][k] for k in lwant}
+        if got != lwant or any(v != lshape for v in shapes.values()):
+            raise AssertionError(f"llama_moe ep rank {i}: launches {got} != "
+                                 f"{lwant}, shapes {shapes}")
+        if not 0.25 < share < 0.31:
+            raise AssertionError(f"llama_moe ep rank {i}: {sh}")
+        llama_ranks.append({
+            "rank": i, "param_share": share,
+            "sharded_fraction": sh["sharded_fraction"],
+            "moment_bytes": r["opt_state_bytes"],
+            "peak_mem_gb": r["peak_mem_gb"], "step_s": r["step_s"],
+            "transport_s_by_step": r["transport_s_by_step"],
+            "aux_loss": r["metrics"]["aux_loss"],
+            "moe_dropped_frac": r["metrics"]["moe_dropped_frac"]})
+    # (c)
+    ref = ep_one_process(torch, cli, load_config, apply_overrides)
+    pcfg = apply_overrides(load_config(GPT2_MOE), EP_PARITY)
+    one_assignment = 1 / (pcfg.data.batch_size * pcfg.data.seq_len
+                          * pcfg.model.kwargs["num_selected"])
+    parity = {"one_process": ref, "one_assignment": one_assignment}
+    for (name, mesh), ranks in zip(EP_PARITY_MESHES.items(), pars):
+        _same_on_ranks(f"gpt2_moe fp32 {name}", ranks)
+        m = ranks[0]["metrics"]
+        rec = {"losses": ranks[0]["losses"], "aux_loss": m["aux_loss"],
+               "moe_dropped_frac": m["moe_dropped_frac"],
+               "loss_max_rel_diff": rel_diff(ranks[0]["losses"],
+                                             ref["loss"]),
+               "aux_loss_max_rel_diff": rel_diff(m["aux_loss"],
+                                                 ref["aux_loss"]),
+               "dropped_max_abs_diff": max(
+                   abs(a - b) for a, b in zip(m["moe_dropped_frac"],
+                                              ref["moe_dropped_frac"])),
+               "launches": [r["launches"] for r in ranks],
+               "peak_mem_gb": [r["peak_mem_gb"] for r in ranks]}
+        parity[name] = rec
+        for i, r in enumerate(ranks):
+            c = r["coords"]["cp"]
+            ring = {k: r["launches"][k] for k in ("ring_step", "ring_dq",
+                                                   "ring_dkv")}
+            steps = len(r["losses"])
+            rwant = dict.fromkeys(ring, layers * steps * (c + 1)
+                                  if "cp" in name else 0)
+            if ring != rwant or r["launches"]["fused_adamw"] == 0:
+                raise AssertionError(f"gpt2_moe fp32 {name} rank {i}: "
+                                     f"launches {r['launches']}, ring "
+                                     f"{rwant}")
+    res = {"gpt2_moe_dp2_ep2": {"losses": gpt[0]["losses"],
+                                "per_rank": per_rank,
+                                "flash_shape": list(shape[0]),
+                                "n_params": n_gpt, "expert_params": experts,
+                                "checkpoint_saves": gpt[0]["timings"]},
+           "restore_at_ep1_mismatched_leaves": len(mismatched),
+           "llama_moe_ep2_tp2_sp": {"losses": llama[0]["losses"],
+                                    "per_rank": llama_ranks,
+                                    "flash_shape": list(lshape[0]),
+                                    "n_params": n_llama},
+           "fp32_parity": parity}
+    print(f"ep parity: {json.dumps(res)} (four ranks share the one card "
+          "over gloo: paths, not speeds)", flush=True)
+    if mismatched:
+        raise AssertionError(f"ep restore at ep=1: {mismatched[:4]} differ")
+    for name in EP_PARITY_MESHES:
+        rec = parity[name]
+        if not (rec["loss_max_rel_diff"] <= 1e-4
+                and rec["aux_loss_max_rel_diff"] <= 1e-4):
+            raise AssertionError(f"gpt2_moe fp32 {name}: {rec}")
+        if not rec["dropped_max_abs_diff"] <= one_assignment:
+            raise AssertionError(f"gpt2_moe fp32 {name} dropped: {rec}")
+        if not (all(x > 0 for x in rec["moe_dropped_frac"])
+                and rec["losses"][-1] < rec["losses"][0]):
+            raise AssertionError(f"gpt2_moe fp32 {name}: {rec}")
+    launched = {k: sum(r["launches"][k] for job in results for r in job)
+                for k in ("flash_fwd", "flash_dq", "flash_dkv",
+                          "fused_adamw", "ring_step", "ring_dq",
+                          "ring_dkv")}
     return res, launched
 
 
@@ -3520,10 +3876,17 @@ def main(argv=None) -> int:
     phase("9 ring kernels vs plain")
     kres.update(check_ring_kernels(torch))
 
-    phase("10 context-parallel train through the entry point (torchrun)")
+    phase("10 context-parallel train through the entry point (cli train "
+          "on 2 spawned ranks, then the jobs of phases 11-13)")
     # The ranks are fresh processes: their counts start at 0 with the run.
     torch.cuda.empty_cache()
-    _, end, per_rank = cli_train_cp(torch, layers)
+    zero_ck = tempfile.TemporaryDirectory()  # the pair's saves, for 13
+    ck13 = os.path.join(zero_ck.name, "ckpt")
+    ck12 = os.path.join(zero_ck.name, "ck12")
+    logs12 = os.path.join(zero_ck.name, "logs12")
+    cp_cli, cp_fit, zero_ranks, zero_cli = pair_group(
+        torch, parity, ck13, ck12, logs12)
+    _, end, per_rank = cli_train_cp(torch, layers, cp_cli)
     step_s = end["step_s"][1:]  # the first step warms the libraries up
     print(f"cp train: {json.dumps({'backend': end['backend'], 'ranks_on_one_card': 2, 'tokens_per_s': CP_BATCH * cfg.data.seq_len / statistics.mean(step_s), 'p50_step_ms': statistics.median(step_s) * 1e3, 'step_ms': [x * 1e3 for x in step_s], 'peak_mem_gb': [r['peak_mem_gb'] for r in end['ranks']]})}"
           " (both ranks share the one card over gloo: not a "
@@ -3533,23 +3896,22 @@ def main(argv=None) -> int:
 
     launches["fused_adamw"] += sum(r["fused_adamw"] for r in per_rank)
 
-    phase("11 fp32 parity at 124M width, cp=2 against one rank (then "
-          "phase 13's ZeRO-1 run in the same processes)")
-    zero_ck = tempfile.TemporaryDirectory()  # its halfway save, for 13
-    _, zero_ranks = cp_parity(torch, parity,
-                              os.path.join(zero_ck.name, "ckpt"))
+    phase("11 fp32 parity at 124M width, cp=2 against one rank (a job of "
+          "phase 10's ranks)")
+    cp_parity(torch, parity, cp_fit)
 
-    phase("12 ZeRO-1 train through the entry point (torchrun, dp=2)")
+    phase("12 ZeRO-1 train through the entry point (cli train on phase 10's "
+          "ranks, dp=2)")
     n_params = sum(p.numel() for p in models.get_model(
         cfg.model.name, **cfg.model.kwargs, device="meta").parameters())
-    ck12 = os.path.join(zero_ck.name, "ck12")  # phase 12's save, for 13
-    _, zero_launches = cli_train_zero1(torch, layers, n_params, ck12)
+    _, zero_launches = cli_train_zero1(torch, layers, n_params, ck12,
+                                       zero_cli, logs12)
     for k in ("flash_fwd", "flash_dq", "flash_dkv", "fused_adamw"):
         launches[k] += sum(r[k] for r in zero_launches)
 
     phase("13 fp32 parity at 124M width, ZeRO-1 dp=2 against one rank, "
           "and its resume (its fresh pair is phase 16's)")
-    jobs13 = zero1_jobs(parity, os.path.join(zero_ck.name, "ckpt"), ck12)
+    jobs13 = zero1_jobs(parity, ck13, ck12)
 
     phase("14 ResNet-50 train through the entry point")
     rcfg = load_config(RESNET)
@@ -3558,8 +3920,8 @@ def main(argv=None) -> int:
     phase("15 cli benchmark on ResNet-50")
     bench = config_benchmark(cli, RESNET)
 
-    phase("16 ResNet-50 dp=2 (torchrun, 2 ranks on one card over gloo), "
-          "then phase 13's checks")
+    phase("16 ResNet-50 dp=2 (cli train on 2 spawned ranks sharing the "
+          "card over gloo), then phase 13's checks")
     _, fresh = resnet_dp2(torch, cli, load_config, apply_overrides, jobs13)
     resumed12 = zero1_parity(torch, parity, zero_ranks, fresh)
     for k in ("flash_fwd", "flash_dq", "flash_dkv", "fused_adamw"):
@@ -3660,29 +4022,39 @@ def main(argv=None) -> int:
         for k, v in launched.items():
             launches[k] += v
 
-    phase("34 gpt2_pp train through the entry point (torchrun, pp=4)")
-    pp_cli_train(torch)
-    phase("35 pipelined jobs on 4 spawned ranks: bert_pp as shipped, fp32 "
-          "gpt2_pp and bert_pp against pp=1, restore at pp=1")
-    tmp_tp = tempfile.TemporaryDirectory()  # phase 37's save
-    _, launched, tp_results, tp_ck = pp_parity(
-        torch, cli, load_config, apply_overrides, parity, tmp_tp.name)
+    phase("34 one spawn of 4 ranks on the card over gloo: cli train on "
+          "gpt2_pp (pp=4), then phase 36's cli train and the jobs of "
+          "phases 35, 37 and 38")
+    tmp4 = tempfile.TemporaryDirectory()  # the group's saves
+    group = four_rank_group(torch, parity, tmp4.name)
+    pp_cli_train(torch, *group["pp_cli"])
+    phase("35 pipelined jobs: bert_pp as shipped, fp32 gpt2_pp and bert_pp "
+          "against pp=1, restore at pp=1")
+    _, launched = pp_parity(torch, cli, load_config, apply_overrides,
+                            *group["pp"])
     launches["fused_adamw"] += launched
     phase("36 tp2 x fsdp2 with sequence parallelism through the entry "
-          "point (torchrun, gpt2_owt)")
-    _, per_rank = tp_cli_train(torch, models, load_config, apply_overrides)
+          "point (cli train on the 4 ranks, gpt2_owt)")
+    _, per_rank = tp_cli_train(torch, models, load_config, apply_overrides,
+                               *group["tp_cli"])
     for r in per_rank:
         for k in ("flash_fwd", "flash_dq", "flash_dkv", "fused_adamw"):
             launches[k] += r[k]
     phase("37 fp32 parity at tp2 x fsdp2 (GPT-2) and dp2 x tp2 (Llama-300M) "
-          "against one process, restore in one process (jobs of phase 35's "
-          "ranks)")
+          "against one process, restore in one process")
     _, launched = tp_parity(torch, cli, models, load_config, apply_overrides,
-                            parity, llama_ref, tp_results, tp_ck)
-    tmp_tp.cleanup()
+                            parity, llama_ref, *group["tp"])
     for k, v in launched.items():
         launches[k] += v
-    print(f"chip_smoke: 37 phases in {time.perf_counter() - _T0:.1f} s",
+    phase("38 expert parallelism: gpt2_moe at dp2 x ep2 and llama_moe at "
+          "ep2 x tp2 as shipped, fp32 gpt2_moe at dp2 x ep2 and ep2 x cp2 "
+          "against one process, restore at ep=1")
+    _, launched = ep_parity(torch, cli, models, load_config, apply_overrides,
+                            *group["ep"])
+    tmp4.cleanup()
+    for k, v in launched.items():
+        launches[k] += v
+    print(f"chip_smoke: 38 phases in {time.perf_counter() - _T0:.1f} s",
           flush=True)
 
     # Each kernel's numbers come from its case at the main path's types.

@@ -22,13 +22,16 @@ this rank's share), from which ``achieved_tflops_per_sec`` and ``mfu``
 against the card's own dense bf16 peak, looked up by
 ``torch.cuda.get_device_name()``; an unknown card gets no ``mfu``. Under
 pipeline parallelism each rank counts its own stage's FLOPs, under tp its
-slice of the heads, MLP units and vocabulary, under fsdp its own rows: the
-counts sum over the ``pp``, ``tp`` and ``fsdp`` groups into
-``model_tflops_per_step`` (those ranks' step), and the per-GPU rate is that
-over the ``pp`` x ``tp`` x ``fsdp`` ranks. An MoE
-model's dense dispatch and combine einsums multiply one-hots; they are
-counted like any product, and ``onehot_tflops_per_step`` with its share of
-the count says how much of the MFU they are (``models.moe.onehot_flops``).
+slice of the heads, MLP units and vocabulary, under fsdp its own rows,
+under ep its own experts: the counts sum over the ``pp``, ``tp``, ``fsdp``
+and ``ep`` groups into ``model_tflops_per_step`` (those ranks' step), and
+the per-GPU rate is that over the ``pp`` x ``tp`` x ``fsdp`` x ``ep``
+ranks. They are model FLOPs: work a group's ranks repeat is counted once
+(:func:`model_share`: under ep, everything outside the routed MLPs; under
+tp, a routed MLP's router and one-hot products). An MoE model's dense
+dispatch and combine einsums multiply one-hots; they are counted like any
+product, and ``onehot_tflops_per_step`` with its share of the count says
+how much of the MFU they are (``models.moe.onehot_flops``).
 
 Left out of the JAX record: ``vs_baseline`` (``BENCH_BASELINE.json`` holds
 TPU numbers, no baseline of this card), the XLA compile and memory
@@ -45,7 +48,7 @@ import torch
 
 from . import data as data_lib
 from .config import Config
-from .models.moe import moe_mlps, onehot_flops
+from .models.moe import MoeMlp, moe_mlps, onehot_flops
 
 # Dense bf16 tensor-core peak in TFLOP/s, by a fragment of the card's name
 # (NVIDIA's data sheets, at each part's full power limit); first match.
@@ -77,6 +80,29 @@ def _percentile(sorted_vals: list[float], q: float) -> float:
 def _sync(device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def model_share(counts: dict, model, mesh) -> float:
+    """This rank's share of the step's model FLOPs, from a
+    ``FlopCounterMode``'s per-module ``counts``: the work a rank repeats
+    with the other ranks of a group divided by the group's size, so the
+    sum over the groups counts it once. Over ep every rank runs the same
+    rows through everything outside the routed MLPs, whose experts and
+    router columns it holds a slice of; over tp each rank of a routed MLP
+    runs the router and the one-hot products whole."""
+    def flops(key):
+        return float(sum(counts.get(key, {}).values()))
+
+    total = flops("Global")
+    root = type(model).__name__
+    routed = [f"{root}.{n}" for n, m in model.named_modules()
+              if isinstance(m, MoeMlp)]
+    moe = sum(flops(k) for k in routed)
+    repeated_tp = sum(flops(f"{k}.{c}") for k in routed
+                      for c in ("router", "dispatch_in", "combine_out"))
+    tp, ep = mesh.shape["tp"], mesh.shape["ep"]
+    moe = moe - repeated_tp + repeated_tp / tp
+    return (total - sum(flops(k) for k in routed)) / ep + moe
 
 
 def _items(batch: dict) -> tuple[int, str]:
@@ -205,8 +231,8 @@ def run_benchmark(cfg: Config, device, mesh=None, *, warmup: int = 5,
     with FlopCounterMode(display=False) as counter:
         state, _ = step(state, staged[0])
     _sync(device)
-    flops = float(counter.get_total_flops())
-    group = [a for a in ("pp", "tp", "fsdp") if mesh.shape[a] > 1]
+    flops = model_share(counter.get_flop_counts(), trainer.model, mesh)
+    group = [a for a in ("pp", "tp", "fsdp", "ep") if mesh.shape[a] > 1]
     ranks = 1
     for axis in group:
         from .comms import psum
@@ -229,7 +255,8 @@ def run_benchmark(cfg: Config, device, mesh=None, *, warmup: int = 5,
         # Counted above as any product is, as the reference's cost model
         # counts the dense einsums: the share of the MFU that multiplies
         # one-hots.
-        rows = staged[0]["tokens"].shape[0]
+        # The rows of the ranks the count sums over.
+        rows = staged[0]["tokens"].shape[0] * mesh.shape["fsdp"]
         onehot = sum(onehot_flops(m, rows, cfg.data.seq_len,
                                   2 if cfg.train.remat != "none" else 1)
                      for m in mlps)

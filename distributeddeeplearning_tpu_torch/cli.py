@@ -3,8 +3,8 @@
 
 ``train`` runs the training path (``build_all`` -> ``Trainer`` -> ``fit``)
 on one rank, or on every rank ``torchrun`` starts (one process per rank,
-``mesh.dp`` x ``mesh.fsdp`` x ``mesh.pp`` x ``mesh.tp`` x ``mesh.cp`` of
-them), resuming from ``train.checkpoint_dir``;
+``mesh.dp`` x ``mesh.fsdp`` x ``mesh.pp`` x ``mesh.tp`` x ``mesh.cp`` x
+``mesh.ep`` of them), resuming from ``train.checkpoint_dir``;
 ``eval`` evaluates its latest checkpoint; ``benchmark`` times the config's
 training step (``benchmark.run_benchmark``: images or tokens per second per
 GPU); ``generate`` samples from its latest checkpoint's weights with the
@@ -49,7 +49,6 @@ def _mesh_sizes(cfg: Config, world_size: int) -> dict[str, int]:
 
 # Mesh axes whose parallel strategy is not ported: (what, ROADMAP item).
 _UNPORTED_AXES = {
-    "ep": ("expert parallelism", "A13"),
     "dcn_dp": ("data parallelism across slices over DCN", "A13"),
 }
 
@@ -86,8 +85,8 @@ def _unported_train_knobs(cfg: Config, world_size: int = 1):
          "shards AdamW's moments)", "A8"),
         ("train.sequence_parallel", t.sequence_parallel
          and not models.supports_tp_fsdp(cfg.model.name),
-         f"sequence parallelism of model {cfg.model.name!r} (GPT-2's and "
-         "Llama's are ported)", "A13"),
+         f"sequence parallelism of model {cfg.model.name!r} (GPT-2's, "
+         "Llama's and the MoE models' are ported)", "A13"),
         *mesh_knobs,
         ("mesh", dataclasses.asdict(mesh)
          if (sizes["tp"] > 1 or sizes["fsdp"] > 1)
@@ -105,13 +104,22 @@ def _unported_train_knobs(cfg: Config, world_size: int = 1):
 
 def check_train_composition(cfg: Config, world_size: int = 1) -> None:
     """Refuse by name, before anything is built, every training knob whose
-    feature is not ported yet, over a job of ``world_size`` ranks."""
+    feature is not ported yet, over a job of ``world_size`` ranks; and, as
+    the reference's Trainer does, ``mesh.ep`` over a model without experts
+    (a pipelined model's own fence names it, in the Trainer)."""
     for knob, value, what, item in _unported_train_knobs(cfg, world_size):
         if value:
             raise NotImplementedError(
                 f"{knob}={value!r}: {what} not yet ported to "
                 f"distributeddeeplearning_tpu_torch (ROADMAP queue {item})"
             )
+    ep = _mesh_sizes(cfg, world_size)["ep"]
+    name = cfg.model.name
+    if ep > 1 and not (models.has_experts(name) or models.is_pipelined(name)):
+        raise ValueError(
+            f"mesh ep={ep} but model {name!r} has no experts: the ep axis "
+            "would silently replicate — use an MoE model (gpt2_moe/"
+            "llama_moe) or drop the axis")
 
 
 def build_all(cfg: Config, device, mesh=None, fault_nan_step=None):
@@ -184,7 +192,8 @@ def _rank_report(device, history, state, ckpt, transport=()) -> dict:
     flash kernels' folded [bh, L, D] shapes), its peak device memory, its optimizer state's bytes (Adam's moments, a shard of
     them under ZeRO-1, or SGD's trace), the losses it logged, its
     checkpoint saves' timings, and what the pipeline schedules did on it
-    (``parallel.pp.TICKS``) when they ran; for a model cut over tp or fsdp
+    (``parallel.pp.TICKS``) when they ran; for a model cut over tp, fsdp or
+    ep
     its params' bytes (its gradients' are the same) against the whole
     model's fp32 bytes, the sharded fractions, and the seconds inside the
     transport's calls each step (``transport``: ``comms.TRANSPORT``'s
@@ -216,7 +225,7 @@ def _rank_report(device, history, state, ckpt, transport=()) -> dict:
                                for p in state.params.values()),
             "whole_param_bytes": 4 * state.shards.whole_numel(state.params),
             "sharded_fraction": {a: sharded_fraction(state.shards, a)
-                                 for a in ("tp", "fsdp")},
+                                 for a in ("tp", "fsdp", "ep")},
             "transport_s_by_step": [
                 b - a for a, b in zip([0.0, *transport], transport)],
         }

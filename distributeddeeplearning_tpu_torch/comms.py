@@ -26,7 +26,8 @@ Here they are calls on ``torch.distributed`` groups, made by each rank:
   names: :func:`identity_fwd_psum_bwd` (f, the entry of a tp region: the
   identity, whose backward sums the rank's partial input gradients over
   tp) and :func:`psum_identity_bwd` (g, after a row-parallel product: the
-  sum over tp, whose backward is the identity); and their sequence-parallel
+  sum over tp, whose backward is the identity), over any axis (a routed
+  MLP's ep region, ``models.moe``); and their sequence-parallel
   forms, :func:`all_gather_fwd_reduce_scatter_bwd` (the seq shards
   gathered at a block's entry) and :func:`reduce_scatter_fwd_all_gather_bwd`
   (the partial sums scattered into seq shards at its exit), with

@@ -6,10 +6,14 @@ over fp32 params, flash attention, the chunked tied head, the plain AdamW
 (``optim.name='adamw'``, as the reference ships it) and ZeRO-1 over the dp
 ranks.
 
-``mesh.ep`` stays 1: expert parallelism is not ported yet (ROADMAP queue
-A13), so the experts run on every rank. The model has no activation
-checkpointing (``train.remat`` is refused, as the reference refuses it),
-and serving it is refused (the capacity-MoE serving fence)."""
+``mesh.ep`` is 1 as shipped: every rank runs every expert. As the JAX
+config says, ``--override mesh.ep=4 --override mesh.dp=2`` cuts the experts
+over 4 ep ranks (``models/moe.py``); ``mesh.tp`` (with
+``train.sequence_parallel``), ``mesh.fsdp`` and ``mesh.cp`` (with
+``model.kwargs.attn_impl=ring`` or ``ring_pallas``) compose with it. The
+model has no activation checkpointing (``train.remat`` is refused, as the
+reference refuses it), and serving it is refused (the capacity-MoE serving
+fence)."""
 
 from distributeddeeplearning_tpu_torch.config import (
     Config,

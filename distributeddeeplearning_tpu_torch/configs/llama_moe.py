@@ -7,9 +7,11 @@ bf16 compute over fp32 params, flash attention, the chunked head over the
 untied 32000-word ``lm_head``, the plain AdamW (``optim.name='adamw'``, as
 the reference ships it) and ZeRO-1 over the dp ranks.
 
-``mesh.ep`` stays 1: expert parallelism is not ported yet (ROADMAP queue
-A13). ``--override train.remat=full`` checkpoints each block; 'dots' is
-refused, as the reference refuses it."""
+``mesh.ep`` is 1 as shipped; ``--override mesh.ep=4 --override
+mesh.dp=2`` cuts the experts over 4 ep ranks, and ``mesh.tp`` (with
+``train.sequence_parallel``), ``mesh.fsdp`` and ``mesh.cp`` (ring
+attention) compose with it. ``--override train.remat=full`` checkpoints
+each block; 'dots' is refused, as the reference refuses it."""
 
 from distributeddeeplearning_tpu_torch.config import (
     Config,

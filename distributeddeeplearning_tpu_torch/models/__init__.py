@@ -11,15 +11,20 @@ _NO_REMAT: set[str] = set()
 # Models whose leaves the port cuts over mesh.tp and mesh.fsdp
 # (``sharding.shard_model``); the others refuse both axes.
 _TP: set[str] = set()
+# Models with routed experts (mesh.ep cuts them) and pipelined models (the
+# Trainer's pipeline fence refuses mesh.ep on them).
+_EXPERTS: set[str] = set()
+_PIPELINED: set[str] = set()
 
 
-def register(name: str, *, remat: bool = True, tp: bool = False):
+def register(name: str, *, remat: bool = True, tp: bool = False,
+             experts: bool = False, pipelined: bool = False):
     def deco(fn):
         _REGISTRY[name] = fn
-        if not remat:
-            _NO_REMAT.add(name)
-        if tp:
-            _TP.add(name)
+        for on, where in ((not remat, _NO_REMAT), (tp, _TP),
+                          (experts, _EXPERTS), (pipelined, _PIPELINED)):
+            if on:
+                where.add(name)
         return fn
 
     return deco
@@ -31,6 +36,14 @@ def supports_remat(name: str) -> bool:
 
 def supports_tp_fsdp(name: str) -> bool:
     return name in _TP
+
+
+def has_experts(name: str) -> bool:
+    return name in _EXPERTS
+
+
+def is_pipelined(name: str) -> bool:
+    return name in _PIPELINED
 
 
 def get_model(name: str, **kwargs):

@@ -245,6 +245,9 @@ def decoder_matrix(model) -> torch.Tensor:
 
 
 class Llama(nn.Module):
+    # The name the fences give (``LlamaMoe`` shares this body).
+    NAME = "llama"
+
     def __init__(self, vocab_size: int = 32000, max_len: int = 4096,
                  num_layers: int = 8, num_heads: int = 8,
                  num_kv_heads: int = 4, embed_dim: int = 512,
@@ -257,7 +260,7 @@ class Llama(nn.Module):
         if attn_impl not in ATTN_IMPLS:
             # The serving engine fences everything but 'xla' itself.
             raise NotImplementedError(
-                f"llama attn_impl={attn_impl!r} not yet ported to "
+                f"{self.NAME} attn_impl={attn_impl!r} not yet ported to "
                 "distributeddeeplearning_tpu_torch (the ulysses cores: "
                 f"ROADMAP queue A13); {', '.join(map(repr, ATTN_IMPLS))} are"
             )
@@ -265,7 +268,7 @@ class Llama(nn.Module):
             raise ValueError(f"attn_impl={attn_impl!r} requires mesh")
         if remat not in REMAT_MODES:
             raise ValueError(f"unknown remat {remat!r}")
-        tp = check_tp_fsdp("llama", mesh, num_heads=num_heads,
+        tp = check_tp_fsdp(self.NAME, mesh, num_heads=num_heads,
                            attn_impl=attn_impl, num_kv_heads=num_kv_heads,
                            remat=remat)
         self.vocab_size, self.max_len = vocab_size, max_len
@@ -280,7 +283,7 @@ class Llama(nn.Module):
         rows = -(-vocab_size // tp)  # this rank's vocabulary slice
         self.embed = Embed(rows, embed_dim, self.dtype, device)
         for i in range(num_layers):
-            self.add_module(f"block_{i}", LlamaBlock(
+            self.add_module(f"block_{i}", self.make_block(
                 embed_dim, num_heads, num_kv_heads, self.head_dim, mlp_dim,
                 rms_eps, self.dtype, device, attn_impl=attn_impl, mesh=mesh,
                 sequence_parallel=self.sequence_parallel))
@@ -291,6 +294,10 @@ class Llama(nn.Module):
         # This rank's blocks of the leaves over tp and fsdp (None: whole).
         self.shards = shard_model(self, mesh, tp_rules(sequence_parallel),
                                   vocab_size)
+
+    def make_block(self, *args, **kwargs) -> nn.Module:
+        """One block (``LlamaMoe`` routes its MLP)."""
+        return LlamaBlock(*args, **kwargs)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
@@ -324,7 +331,7 @@ class Llama(nn.Module):
             positions = torch.arange(L, device=tokens.device) + offset
         elif self.shards is not None:
             raise NotImplementedError(
-                "decode of a model cut over tp or fsdp not yet ported to "
+                "decode of a model cut over tp, fsdp or ep not yet ported to "
                 "distributeddeeplearning_tpu_torch (ROADMAP queue A13): "
                 "restore its checkpoint on one rank")
         else:

@@ -521,7 +521,7 @@ class PipelinedBERT(_Pipelined):
 
 # The reference registers them without a remat field: its cli refuses
 # train.remat for them.
-@register("bert_pp", remat=False)
+@register("bert_pp", remat=False, pipelined=True)
 def bert_pp(size: str = "base", **kwargs) -> PipelinedBERT:
     sizes = {"tiny": (2, 4, 64), "base": (12, 12, 768),
              "large": (24, 16, 1024)}
@@ -531,7 +531,7 @@ def bert_pp(size: str = "base", **kwargs) -> PipelinedBERT:
     return PipelinedBERT(**defaults)
 
 
-@register("llama_pp", remat=False)
+@register("llama_pp", remat=False, pipelined=True)
 def llama_pp(size: str = "tiny", **kwargs) -> PipelinedLlama:
     sizes = {
         # (layers, heads, kv_heads, embed, mlp)
@@ -546,7 +546,7 @@ def llama_pp(size: str = "tiny", **kwargs) -> PipelinedLlama:
     return PipelinedLlama(**defaults)
 
 
-@register("gpt2_pp", remat=False)
+@register("gpt2_pp", remat=False, pipelined=True)
 def gpt2_pp(size: str = "124m", **kwargs) -> PipelinedGPT2:
     sizes = {
         "tiny": (4, 4, 64),

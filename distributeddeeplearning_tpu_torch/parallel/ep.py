@@ -7,8 +7,17 @@ renormalised gate, and overflowing assignments are dropped (an all-zero
 row). Routing is deterministic in token order, so a batch row routes the
 same whichever rank holds it.
 
-Expert parallelism over ``mesh.ep > 1`` is not ported yet (ROADMAP queue
-A13): the experts run on every rank, as the reference's do at ``ep = 1``.
+Over ``mesh.ep > 1`` (the JAX package's ``expert`` logical axis on the
+``ep`` mesh axis) every ep rank holds the same rows and routes them alike;
+a rank runs the experts of :func:`expert_range` over its columns of the
+dispatch and sums its share of the combine over ep (``models.moe``).
+
+Over ``mesh.cp > 1`` a rank holds one block of each row, while the
+reference routes the row whole. :func:`route_top_k` then carries the
+counts of the assignments queued ahead of the block (:func:`carried_counts`,
+one all-gather over cp), takes the capacity from the whole row, and means
+the aux loss's two factors over cp before their product, so each block's
+slots and the aux loss are the whole row's.
 """
 
 from __future__ import annotations
@@ -17,6 +26,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from .. import comms
 
 
 def expert_capacity(tokens_per_group: int, num_experts: int,
@@ -34,8 +45,36 @@ def top_k_lower_index_first(probs: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+def expert_range(num_experts: int, mesh) -> tuple[int, int]:
+    """(first expert, count) of this rank's experts over ep."""
+    ep = 1 if mesh is None else mesh.shape["ep"]
+    check_moe_shapes(num_experts, ep)
+    n = num_experts // ep
+    return (0 if ep == 1 else mesh.coords["ep"] * n), n
+
+
+def carried_counts(onehots: list, mesh=None) -> torch.Tensor:
+    """``[k, g, 1, e]``: for choice ``i``, the assignments queued at each
+    expert ahead of this rank's block of each row: choices before ``i``
+    over the whole row, and choice ``i`` in the blocks of the lower cp
+    ranks. ``onehots``: the k choices' ``[g, t, e]`` integer one-hots of
+    the block. At cp = 1 (the block is the row) this is the reference's
+    running count of the earlier choices; over cp one all-gather of the
+    blocks' ``[k, g, e]`` counts gives both terms."""
+    local = torch.stack([o.sum(1) for o in onehots])  # [k, g, e]
+    cp = 1 if mesh is None else mesh.shape["cp"]
+    if cp == 1:
+        ahead, whole = torch.zeros_like(local), local
+    else:
+        every = comms.all_gather(local.reshape(-1), mesh, "cp").view(
+            cp, *local.shape)
+        ahead = every[:mesh.coords["cp"]].sum(0)
+        whole = every.sum(0)
+    return (torch.cumsum(whole, 0) - whole + ahead)[:, :, None, :]
+
+
 def route_top_k(router_probs: torch.Tensor, num_selected: int,
-                capacity: int, dtype: torch.dtype | None = None):
+                capacity: int, dtype: torch.dtype | None = None, mesh=None):
     """Token-choice top-k routing with per-group capacity.
 
     ``router_probs``: [groups, tokens, experts] softmax outputs. Returns
@@ -59,19 +98,24 @@ def route_top_k(router_probs: torch.Tensor, num_selected: int,
     gate, and building them in the compute dtype equals the reference's
     fp32 tensors cast to it. They are built by a scatter into zeros, the
     reference's products of one-hots without their fp32 temporaries.
+
+    On a ``mesh`` with cp > 1, ``router_probs`` is this rank's block of
+    each row and ``capacity`` the whole row's: the slots, the aux loss and
+    ``kept`` are the whole row's (``kept`` summed over the blocks).
     """
     g, t, e = router_probs.shape
     dtype = router_probs.dtype if dtype is None else dtype
+    cp = 1 if mesh is None else mesh.shape["cp"]
     gate_vals, expert_idx = top_k_lower_index_first(router_probs,
                                                     num_selected)
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
 
-    counts = torch.zeros(g, 1, e, dtype=torch.int64,
-                         device=router_probs.device)
+    onehots = [F.one_hot(expert_idx[..., i], e)  # [g, t, e] each
+               for i in range(num_selected)]
+    counts = carried_counts(onehots, mesh)
     cols, keeps = [], []
-    for i in range(num_selected):
-        onehot_e = F.one_hot(expert_idx[..., i], e)  # [g, t, e]
-        pos = torch.cumsum(onehot_e, dim=1) - onehot_e + counts
+    for i, onehot_e in enumerate(onehots):
+        pos = torch.cumsum(onehot_e, dim=1) - onehot_e + counts[i]
         slot = (pos * onehot_e).sum(-1)  # [g, t]
         keep = slot < capacity
         # Column of (expert, slot) in the flattened [e * c] axis; a dropped
@@ -80,7 +124,6 @@ def route_top_k(router_probs: torch.Tensor, num_selected: int,
         cols.append(expert_idx[..., i] * capacity
                     + torch.where(keep, slot, torch.zeros_like(slot)))
         keeps.append(keep)
-        counts = counts + onehot_e.sum(1, keepdim=True)
     index = torch.stack(cols, -1).reshape(g * t, num_selected)
     keep = torch.stack(keeps, -1)  # [g, t, k]
     ones = keep.to(dtype).reshape(g * t, num_selected)
@@ -93,8 +136,41 @@ def route_top_k(router_probs: torch.Tensor, num_selected: int,
     first = F.one_hot(expert_idx[..., 0], e).to(router_probs.dtype)
     fraction = first.mean(1)  # [g, e]: tokens whose top-1 is e
     prob_mean = router_probs.mean(1)  # [g, e]
+    kept = keep.sum()
+    if cp > 1:
+        # Each factor's mean over the whole row (equal blocks: the mean of
+        # the blocks' means) before the product. prob_mean keeps its own
+        # block's gradient: the step's mean over cp of every block's
+        # gradient is then the whole row's.
+        both = comms.psum(torch.cat([
+            fraction, prob_mean.detach(),
+            kept.to(fraction.dtype).reshape(1, 1).expand(1, e)]), mesh, "cp")
+        fraction = both[:g] / cp
+        prob_mean = prob_mean + (both[g:2 * g] / cp - prob_mean).detach()
+        kept = both[2 * g, 0].round().to(kept.dtype)
     aux_loss = (e * (fraction * prob_mean).sum(-1)).mean()
-    return dispatch, combine, aux_loss, keep.sum()
+    return dispatch, combine, aux_loss, kept
+
+
+class _ScaleGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale):
+        ctx.scale = scale
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad * ctx.scale, None
+
+
+def scale_grad(x: torch.Tensor, scale: float) -> torch.Tensor:
+    """The identity, whose backward scales the gradient by ``scale``: a
+    term every rank of a group computes whole, inside a region whose
+    backward sums the group's partial gradients, enters that sum once
+    (``scale`` = 1 / the group's size)."""
+    if scale == 1:
+        return x
+    return _ScaleGrad.apply(x, scale)
 
 
 def check_moe_shapes(num_experts: int, ep: int) -> None:

@@ -23,10 +23,11 @@ data parallelism whose parameters are sharded.
   recompute gathers them again;
 - :func:`reduce_grads`: the rest of the batch-axis mean that the fsdp and tp
   ranks owe before the dp sync (the gradient of a leaf that sequence
-  parallelism ran on a seq shard summed over tp; an fsdp block's summed
-  gradient divided by fsdp; the mean over fsdp of a leaf fsdp keeps whole);
+  parallelism ran on a seq shard, or that a routed MLP used inside its tp
+  region, summed over tp; an fsdp block's summed gradient divided by fsdp;
+  the mean over fsdp of a leaf fsdp keeps whole);
 - :func:`global_norm` / :func:`whole_sq`: the whole model's gradient norm,
-  each tp and fsdp block counted once and each replicated leaf once;
+  each tp, fsdp and ep block counted once and each replicated leaf once;
 - :func:`sharded_fraction` / :func:`per_device_bytes`: the JAX package's
   inspection helpers, which say that the sharding is real.
 
@@ -37,11 +38,13 @@ norm, the head) are gathered once a forward and kept through the backward.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import math
 
 import torch
 
 from .. import comms
+from ..sharding import SHARD_AXES, tp_partial
 
 _ACTIVE: list = []  # the open reshard_after_forward scopes, innermost last
 # Leaves gathered over fsdp: in a forward, and again in a backward (a
@@ -184,16 +187,23 @@ def reduce_grads(grads: dict, layout) -> dict:
     (``comms.pmean_tensors`` or ZeRO-1's reduce-scatter over dp):
 
     - under sequence parallelism, each leaf not cut over tp ran on the
-      rank's seq shard: its gradient is summed over tp;
+      rank's seq shard: its gradient is summed over tp; without it, the
+      leaves a routed MLP uses inside its tp region
+      (``sharding.TP_PARTIAL``) are;
     - a leaf cut over fsdp has the sum over fsdp from its gather's
       backward: divided by fsdp; a leaf fsdp keeps whole: the mean over
       fsdp.
 
-    A leaf cut over tp needs nothing: its block's gradient is whole."""
+    A leaf cut over tp needs nothing: its block's gradient is whole. So
+    does every leaf over ep: its ranks hold the same rows, and the routed
+    MLP's markers make each rank's gradient whole (its experts' blocks)."""
     mesh = layout.mesh
     grads = dict(grads)
-    if layout.sequence_parallel:
-        names = [k for k in grads if "tp" not in layout.axes_of(k)]
+    if mesh.shape["tp"] > 1:
+        if layout.sequence_parallel:
+            names = [k for k in grads if "tp" not in layout.axes_of(k)]
+        else:
+            names = [k for k in grads if tp_partial(k)]
         grads.update(zip(names, comms.psum_tensors(
             [grads[k] for k in names], mesh, "tp")))
     n = mesh.shape["fsdp"]
@@ -209,7 +219,8 @@ def reduce_grads(grads: dict, layout) -> dict:
 
 # The classes of a leaf by the live axes that cut it: a norm's sums of
 # squares are kept apart by class until they meet over those axes.
-CLASSES = ((), ("tp",), ("fsdp",), ("tp", "fsdp"))
+CLASSES = tuple(c for n in range(len(SHARD_AXES) + 1)
+                for c in itertools.combinations(SHARD_AXES, n))
 
 
 def leaf_class(layout, name: str) -> int:
@@ -222,7 +233,7 @@ def whole_sq(sq: torch.Tensor, mesh) -> torch.Tensor:
     class (``[len(CLASSES)]``): a class cut over an axis sums over it, a
     class whole on an axis counts member 0's copy. Every rank gets the same
     value, so every rank takes the same clip and health decision."""
-    for axis in ("tp", "fsdp"):
+    for axis in SHARD_AXES:
         if mesh.shape[axis] == 1:
             continue
         keep = torch.tensor([axis in c or mesh.coords[axis] == 0

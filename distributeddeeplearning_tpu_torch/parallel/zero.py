@@ -67,9 +67,9 @@ class ZeroLayout:
         # counts every stage, and the shared leaves once.
         self.stage_rows = stage_rows
         self._shared_masks = None
-        # A model cut over tp or fsdp (``sharding.ShardLayout``): the leaves
-        # here are the rank's blocks; the norm counts each block once, and
-        # each leaf replicated over tp or fsdp once.
+        # A model cut over tp, fsdp or ep (``sharding.ShardLayout``): the
+        # leaves here are the rank's blocks; the norm counts each block
+        # once, and each leaf replicated over tp, fsdp or ep once.
         self.shards = shards
         self._class_ids = None
         self.n, self.index = mesh.shape[axis], mesh.coords[axis]
@@ -138,7 +138,7 @@ class ZeroLayout:
         1) hold the same shards and return at once; under pp every stage's
         group gathers its own leaves."""
         if any(c for a, c in self.mesh.coords.items()
-               if a not in (self.axis, "pp", "tp", "fsdp")):
+               if a not in (self.axis, "pp", "tp", "fsdp", "ep")):
             return None
         # Moved in fp32 (a bf16 shard casts there and back exactly): gloo
         # has no bf16 gather.

@@ -1,29 +1,35 @@
-"""Where every parameter of a tensor- or fully-sharded model lives: the
-counterpart of the JAX package's ``sharding.py``.
+"""Where every parameter of a tensor-, fully- or expert-sharded model lives:
+the counterpart of the JAX package's ``sharding.py``.
 
 JAX attaches logical axis names to each parameter dimension and maps them
 onto mesh axes with one rules table (``DEFAULT_LOGICAL_RULES``); XLA then
 places the collectives. The port keeps the same two tables and reads them
 once, here:
 
-- :data:`LOGICAL_AXES`: each GPT-2 and Llama leaf, by name, to its logical
-  axes, copied from the JAX models' annotations (``models/transformer.py``
-  ``("embed", "heads", "kv")`` for the attention projections, ``("heads",
-  "kv", "embed")`` for ``out``, ``("embed", "mlp")`` / ``("mlp", "embed")``
-  for the MLP, ``("vocab", "embed")`` for the embeddings, ``("embed",
-  "vocab")`` for Llama's untied ``lm_head``, ``("norm",)`` for GPT-2's
-  LayerNorms and ``("embed",)`` for Llama's RMSNorm scales);
+- :data:`LOGICAL_AXES`: each GPT-2, Llama and MoE leaf, by name, to its
+  logical axes, copied from the JAX models' annotations
+  (``models/transformer.py`` ``("embed", "heads", "kv")`` for the attention
+  projections, ``("heads", "kv", "embed")`` for ``out``, ``("embed",
+  "mlp")`` / ``("mlp", "embed")`` for the MLP, ``("vocab", "embed")`` for
+  the embeddings, ``("embed", "vocab")`` for Llama's untied ``lm_head``,
+  ``("norm",)`` for GPT-2's LayerNorms and ``("embed",)`` for Llama's
+  RMSNorm scales; ``models/moe.py`` ``("embed", "expert")`` for the router,
+  ``("expert", "embed", "mlp")`` / ``("expert", "mlp", "embed")`` for the
+  experts' matrices, ``("expert", "mlp")`` / ``("expert", "embed")`` for
+  their biases);
 - :data:`DEFAULT_LOGICAL_RULES`: logical axis -> mesh axis (``embed`` over
-  ``fsdp``; ``heads``, ``mlp`` and ``vocab`` over ``tp``; the rest
-  replicated), with :func:`validate_logical_spec`'s refusal of two
-  dimensions of one leaf on one mesh axis.
+  ``fsdp``; ``heads``, ``mlp`` and ``vocab`` over ``tp``; ``expert`` over
+  ``ep``; the rest replicated), with :func:`validate_logical_spec`'s
+  refusal of two dimensions of one leaf on one mesh axis.
 
 :class:`ShardLayout` applies them to one model on one mesh: each leaf's
 whole shape, the dimension each live axis (size > 1) cuts, and this rank's
 block of it. A dimension of ``n`` over ``k`` ranks is cut into blocks of
 ``ceil(n / k)``; the last rank's block is padded with zeros where ``k``
 does not divide ``n`` (GPT-2's vocabulary of 50257 over tp, as XLA pads
-it). ``heads`` and ``mlp`` must divide: a padded head would be a head.
+it). ``heads``, ``mlp`` and ``expert`` must divide: a padded head would be
+a head (JAX's ``check_moe_shapes`` refuses experts that ``ep`` does not
+divide).
 """
 
 from __future__ import annotations
@@ -50,7 +56,19 @@ LOGICAL_AXES: tuple[tuple[str, tuple[str, ...]], ...] = (
     (r"\.mlp\.(fc_out|down)\.kernel$", ("mlp", "embed")),
     (r"(^|\.)(ln1|ln2|ln_f)\.(scale|bias)$", ("norm",)),
     (r"(^|\.)(attn_norm|mlp_norm|norm)\.scale$", ("embed",)),
+    (r"\.moe_mlp\.router\.kernel$", ("embed", "expert")),
+    (r"\.moe_mlp\.(w1|w_gate)$", ("expert", "embed", "mlp")),
+    (r"\.moe_mlp\.w2$", ("expert", "mlp", "embed")),
+    (r"\.moe_mlp\.b1$", ("expert", "mlp")),
+    (r"\.moe_mlp\.b2$", ("expert", "embed")),
 )
+
+# Leaves replicated over tp that a routed MLP uses inside its tp region
+# (``models.moe.MoeMlp``): the router, whose logits feed a combine over the
+# rank's slice of the experts' hidden units, and ``b2``, added on tp member
+# 0 alone (once, as a row-parallel bias). Their gradient on a tp rank is a
+# partial sum over tp (``parallel.fsdp.reduce_grads``).
+TP_PARTIAL = (r"\.moe_mlp\.router\.kernel$", r"\.moe_mlp\.b2$")
 
 # Logical axis -> mesh axis (None: replicated). ``seq`` is the activations'
 # sequence dimension: ``parallel.tp.tp_rules(sequence_parallel=True)`` maps
@@ -65,12 +83,14 @@ DEFAULT_LOGICAL_RULES: dict[str, str | None] = {
     "vocab": "tp",
     "pos": None,
     "norm": None,
+    "expert": "ep",
 }
 
 # Logical axes whose size the mesh axis must divide (no padded heads or
 # hidden units); the others are padded up to a multiple.
-_EXACT = ("heads", "mlp")
-SHARD_AXES = ("tp", "fsdp")
+_EXACT = ("heads", "mlp", "expert")
+# The mesh axes a leaf is cut over, in the order a save gathers them.
+SHARD_AXES = ("fsdp", "tp", "ep")
 
 
 def make_rules(**overrides) -> dict:
@@ -80,13 +100,19 @@ def make_rules(**overrides) -> dict:
 
 def logical_axes(name: str) -> tuple[str, ...]:
     """The logical axes of leaf ``name``; a leaf no entry names is
-    refused (a tp/fsdp model's every leaf must be placed)."""
+    refused (a tp/fsdp/ep model's every leaf must be placed)."""
     for pattern, axes in LOGICAL_AXES:
         if re.search(pattern, name):
             return axes
     raise ValueError(f"leaf {name!r} has no logical axes in "
-                     "sharding.LOGICAL_AXES: it cannot be placed over tp or "
-                     "fsdp")
+                     "sharding.LOGICAL_AXES: it cannot be placed over tp, "
+                     "fsdp or ep")
+
+
+def tp_partial(name: str) -> bool:
+    """Leaf ``name`` is replicated over tp but used inside a routed MLP's
+    tp region (:data:`TP_PARTIAL`)."""
+    return any(re.search(p, name) for p in TP_PARTIAL)
 
 
 def validate_logical_spec(name: str, mesh_axes: tuple) -> None:
@@ -114,8 +140,8 @@ def mesh_axes(name: str, shape, mesh_shape: dict,
 
 
 class ShardLayout:
-    """The placement of a model's leaves over the ``tp`` and ``fsdp`` axes
-    of ``mesh``.
+    """The placement of a model's leaves over the ``tp``, ``fsdp`` and
+    ``ep`` axes of ``mesh``.
 
     - ``whole``: name -> the leaf's whole shape (the one-rank model's);
     - ``dims``: name -> {mesh axis: the dimension it cuts};
@@ -196,16 +222,17 @@ class ShardLayout:
 
     def gather(self, tree: dict) -> dict | None:
         """The whole tree of every rank's blocks on rank 0, None on every
-        other rank. A collective of the ranks whose coordinates off tp and
-        fsdp are 0 (the others hold copies and return at once): over fsdp
-        first, then over tp among the fsdp members 0. Moved in fp32, as the
-        other checkpoint gathers (gloo has no bf16 gather)."""
+        other rank. A collective of the ranks whose coordinates off tp, fsdp
+        and ep are 0 (the others hold copies and return at once): over fsdp
+        first, then over tp among the fsdp members 0, then over ep among
+        the members 0 of both. Moved in fp32, as the other checkpoint
+        gathers (gloo has no bf16 gather)."""
         if any(c for a, c in self.mesh.coords.items() if a not in SHARD_AXES):
             return None
-        for axis in ("fsdp", "tp"):
+        for i, axis in enumerate(SHARD_AXES):
             if self.mesh.shape[axis] == 1:
                 continue
-            if axis == "tp" and self.mesh.coords["fsdp"]:
+            if any(self.mesh.coords[a] for a in SHARD_AXES[:i]):
                 return None
             names = [k for k in tree if axis in self.dims.get(k, {})]
             if not names:
@@ -231,28 +258,30 @@ class ShardLayout:
 
 def shard_model(model, mesh, rules: dict | None = None,
                 vocab_size: int | None = None) -> ShardLayout | None:
-    """Place a model built with its tp-local sizes (heads, mlp and vocab
-    cut over tp) on ``mesh``: the layout of its leaves, each fsdp-cut leaf
-    replaced by an empty parameter of this rank's block (``init_weights``
-    or a restore fills it), and each owning module told which dimension of
-    which leaf to gather over fsdp before use
-    (``parallel.fsdp.full_param``). None when tp and fsdp are both 1."""
+    """Place a model built with its local sizes (heads, mlp and vocab cut
+    over tp, experts over ep) on ``mesh``: the layout of its leaves, each
+    fsdp-cut leaf replaced by an empty parameter of this rank's block
+    (``init_weights`` or a restore fills it), and each owning module told
+    which dimension of which leaf to gather over fsdp before use
+    (``parallel.fsdp.full_param``). None when tp, fsdp and ep are all 1."""
     if mesh is None or all(mesh.shape[a] == 1 for a in SHARD_AXES):
         return None
-    tp = mesh.shape["tp"]
+    rules = DEFAULT_LOGICAL_RULES if rules is None else rules
     whole = {}
     for k, p in model.named_parameters():
         shape = list(p.shape)
         for d, ax in enumerate(logical_axes(k)):
-            if (rules or DEFAULT_LOGICAL_RULES).get(ax) == "tp" and tp > 1:
-                shape[d] = vocab_size if ax == "vocab" else shape[d] * tp
+            axis = rules.get(ax)
+            if axis in ("tp", "ep") and mesh.shape[axis] > 1:
+                shape[d] = (vocab_size if ax == "vocab"
+                            else shape[d] * mesh.shape[axis])
         whole[k] = tuple(shape)
     layout = ShardLayout(whole, mesh, rules)
     for k, p in list(model.named_parameters()):
         for a, d in layout.dims[k].items():
-            if a == "tp" and p.shape[d] != layout.local[k][d]:
+            if a in ("tp", "ep") and p.shape[d] != layout.local[k][d]:
                 raise ValueError(f"leaf {k!r}: built with {p.shape[d]} "
-                                 f"rows on tp, the layout holds "
+                                 f"rows on {a}, the layout holds "
                                  f"{layout.local[k][d]}")
         if "fsdp" not in layout.dims[k]:
             continue

@@ -18,9 +18,10 @@ runs the step eagerly on its device, over its slice of the global batch
   queue for logging;
 - ZeRO-1 over dp > 1 (``parallel.zero``): a reduce-scatter of the
   gradients, each rank's update of its shard, an all-gather of the masters;
-- a model cut over tp or fsdp (``sharding.shard_model``): each rank's
+- a model cut over tp, fsdp or ep (``sharding.shard_model``): each rank's
   params are its blocks; the tp and fsdp share of the batch mean
-  (``parallel.fsdp.reduce_grads``) comes before the dp sync, the clip's
+  (``parallel.fsdp.reduce_grads``) comes before the cp and dp sync (tp and
+  ep ranks hold the same rows: nothing is averaged over them), the clip's
   and the guard's norm counts each block and each replicated leaf once;
 - ``grad_accum`` microbatches a step, ``steps_per_call`` steps a call
   (:meth:`Trainer.fused_train_step`), and :func:`evaluate`; ``fit`` runs
@@ -671,15 +672,27 @@ class Trainer:
         self.engine = hasattr(model, "pipeline_value_and_grad") and (
             model.pipelined or (model.pipeline
                                 and model.schedule == "1f1b_interleaved"))
-        # A model cut over tp or fsdp (``sharding.ShardLayout``), and the
-        # fences of what the port composes with it.
+        if hasattr(model, "num_experts"):
+            from .parallel.ep import check_moe_shapes
+
+            check_moe_shapes(model.num_experts,
+                             1 if mesh is None else mesh.shape["ep"])
+        elif mesh is not None and mesh.shape["ep"] > 1:
+            raise ValueError(
+                f"mesh ep={mesh.shape['ep']} but model "
+                f"{type(model).__name__} has no experts: the ep axis would "
+                "silently replicate — use an MoE model (gpt2_moe/llama_moe) "
+                "or drop the axis"
+            )
+        # A model cut over tp, fsdp or ep (``sharding.ShardLayout``), and
+        # the fences of what the port composes with it.
         self.shards = getattr(model, "shards", None)
         self._check_shards(model, tx, mesh)
         # Gradients and metrics average over the ranks that split the
         # batch: every rank, or under pp (whose ranks hold the same rows)
-        # the dp ranks; under tp and fsdp the dp ranks after the fsdp
-        # ranks' share (``parallel.fsdp.reduce_grads``): tp ranks hold the
-        # same rows.
+        # the dp ranks; under tp, fsdp and ep the dp ranks after the fsdp
+        # and cp ranks' share (``parallel.fsdp.reduce_grads``,
+        # :meth:`_batch_mean`): tp and ep ranks hold the same rows.
         self.sync_axis = ("dp" if pp_size > 1 or self.shards is not None
                           else "world")
         # The whole model's gradient norm when a rank holds one stage.
@@ -696,21 +709,6 @@ class Trainer:
                 and getattr(model, "mesh", None) is not mesh):
             raise ValueError("the model was built on another mesh than the "
                              "trainer's")
-        if hasattr(model, "num_experts"):
-            from .parallel.ep import check_moe_shapes
-
-            ep = 1 if mesh is None else mesh.shape["ep"]
-            check_moe_shapes(model.num_experts, ep)
-            if cp > 1:
-                # A cp rank holds its block of each row, but the reference
-                # routes a row whole: its capacity slots count every token
-                # of the row before this one.
-                raise NotImplementedError(
-                    f"mesh cp={cp} x MoE model {type(model).__name__}: "
-                    "routing over a row split across the cp ranks not yet "
-                    "ported to distributeddeeplearning_tpu_torch (ROADMAP "
-                    "queue A13)"
-                )
         if grad_accum < 1:
             raise ValueError(f"grad_accum={grad_accum} must be >= 1")
         self.grad_accum = grad_accum
@@ -737,35 +735,37 @@ class Trainer:
 
     @staticmethod
     def _check_shards(model, tx, mesh) -> None:
-        """Refuse by name what the port does not compose with mesh.tp or
-        mesh.fsdp above 1 (ROADMAP queue A13)."""
+        """Refuse by name what the port does not compose with mesh.tp,
+        mesh.fsdp or mesh.ep above 1 (ROADMAP queue A13)."""
         if mesh is None:
             return
-        live = {a: mesh.shape[a] for a in ("tp", "fsdp") if mesh.shape[a] > 1}
+        live = {a: mesh.shape[a] for a in ("tp", "fsdp", "ep")
+                if mesh.shape[a] > 1}
         if not live or hasattr(model, "num_stages"):
             return  # the pipeline's fences name it
         what = ", ".join(f"mesh.{a}={n}" for a, n in live.items())
         if getattr(model, "shards", None) is None:
-            kind = ("MoE model " if hasattr(model, "num_experts")
-                    else "model ")
             raise NotImplementedError(
-                f"{what} x {kind}{type(model).__name__}: tensor and fully "
+                f"{what} x model {type(model).__name__}: tensor and fully "
                 "sharded parallelism of this model not yet ported to "
-                "distributeddeeplearning_tpu_torch (ROADMAP queue A13; GPT-2 "
-                "and Llama are)")
+                "distributeddeeplearning_tpu_torch (ROADMAP queue A13; GPT-2, "
+                "Llama and the MoE models are)")
         if isinstance(tx, (SGD, LowPrecisionAdamW)):
             raise NotImplementedError(
-                f"{what} x {type(tx).__name__}: the port composes tp and "
-                "fsdp with AdamW and the fused AdamW only (ROADMAP queue "
+                f"{what} x {type(tx).__name__}: the port composes tp, fsdp "
+                "and ep with AdamW and the fused AdamW only (ROADMAP queue "
                 "A13)")
 
-    def _batch_mean(self, tensors: list) -> list:
-        """The mean over the ranks that split the batch: the fsdp ranks'
-        first under a sharded model, then :attr:`sync_axis`'s."""
+    def _batch_mean(self, tensors: list, *, fsdp: bool = True) -> list:
+        """The mean over the ranks that split the batch: under a sharded
+        model the fsdp ranks' (unless ``fsdp`` is False: done already)
+        and the cp ranks' first, then :attr:`sync_axis`'s."""
         if self.mesh is None or self.mesh.size == 1:
             return list(tensors)
         if self.shards is not None:
-            tensors = pmean_tensors(tensors, self.mesh, "fsdp")
+            if fsdp:
+                tensors = pmean_tensors(tensors, self.mesh, "fsdp")
+            tensors = pmean_tensors(tensors, self.mesh, "cp")
         return pmean_tensors(tensors, self.mesh, self.sync_axis)
 
     def init(self, seed: int) -> TrainState:
@@ -873,8 +873,8 @@ class Trainer:
 
     def _norm(self, grads: dict):
         """The whole model's gradient norm from this rank's whole leaves:
-        over every pp stage, the shared leaves once; over every tp and
-        fsdp block, the replicated leaves once."""
+        over every pp stage, the shared leaves once; over every tp, fsdp
+        and ep block, the replicated leaves once."""
         if self.shards is not None:
             from .parallel import fsdp
 
@@ -923,8 +923,8 @@ class Trainer:
             if self.shards is not None:
                 from .parallel.fsdp import reduce_grads
 
-                # The tp and fsdp share of the batch mean; the dp share
-                # below.
+                # The tp and fsdp share of the batch mean; the cp and dp
+                # shares below.
                 grads = reduce_grads(grads, self.shards)
                 keys = list(metrics)
                 metrics = dict(zip(keys, pmean_tensors(
@@ -936,9 +936,9 @@ class Trainer:
                 # reference's. Before the update, so its clip sees the
                 # global norm.
                 names, keys = list(grads), list(metrics)
-                synced = pmean_tensors(
+                synced = self._batch_mean(
                     [grads[k] for k in names] + [metrics[k] for k in keys],
-                    self.mesh, self.sync_axis)
+                    fsdp=False)
                 grads = dict(zip(names, synced[:len(names)]))
                 metrics = dict(zip(keys, synced[len(names):]))
             grads, metrics = self._instrument_grads(grads, state.step,

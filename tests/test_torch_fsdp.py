@@ -11,10 +11,16 @@ spawned once:
   tp2 x fsdp2 with ZeRO-1 on 8 ranks (a second spawn), and its three
   4-rank pairs, ``dp2_tp2_zero1``, ``dp2_fsdp2_zero1`` and ``tp2_fsdp2``;
 - the tiny Llama at fsdp=4 (its RMSNorm scales cut too) and at tp2 x
-  fsdp2.
+  fsdp2;
+- remat 'full' under tp and fsdp (GPT-2 at tp2 x fsdp2 and at dp2 x tp2
+  with SP, Llama at tp2 x fsdp2) against JAX's ``remat='full'``, and the
+  bf16 policy under fsdp (GPT-2 at fsdp=4, Llama at dp2 x fsdp2 with
+  ZeRO-1) against JAX's bf16 run.
 
 Each run's losses and final params (gathered whole) match JAX's within
-rtol 2e-4 / atol 2e-5, and every rank logs the same losses. Beside them,
+rtol 2e-4 / atol 2e-5 (a bf16 run's losses within two bf16 roundings,
+rtol 2**-6, as ``tests/test_torch_tp_lifecycle.py`` holds bf16 at tp=2),
+and every rank logs the same losses. Beside them,
 the block schedule: a block's leaves are gathered in its forward, freed
 at its end and gathered again in its backward."""
 
@@ -32,7 +38,31 @@ JOBS = {
     "tp2_fsdp2": ("gpt2", dict(dp=1, fsdp=2, tp=2), {}),
     "llama_fsdp4": ("llama", dict(dp=1, fsdp=4), {}),
     "llama_tp2_fsdp2": ("llama", dict(dp=1, fsdp=2, tp=2), {}),
+    "remat_tp2_fsdp2": ("gpt2", dict(dp=1, fsdp=2, tp=2), {"remat": "full"}),
+    "remat_dp2_tp2_sp": ("gpt2", dict(dp=2, tp=2),
+                         {"remat": "full", "sequence_parallel": True}),
+    "llama_remat_tp2_fsdp2": ("llama", dict(dp=1, fsdp=2, tp=2),
+                              {"remat": "full"}),
+    "bf16_fsdp4": ("gpt2", dict(dp=1, fsdp=4), {"precision": "bf16"}),
+    "llama_bf16_dp2_fsdp2_zero1": ("llama", dict(dp=2, fsdp=2),
+                                   {"precision": "bf16", "zero1": True}),
 }
+BF16_RTOL = 2 ** -6
+
+
+def ref_key(job: str) -> tuple:
+    """The JAX run a job is held against: (model, remat, precision)."""
+    name, _, kw = JOBS[job]
+    return name, kw.get("remat", "none"), kw.get("precision", "fp32")
+
+
+def jax_refs(inits: dict) -> dict:
+    out = {}
+    for key in dict.fromkeys(ref_key(j) for j in JOBS):
+        name, remat, precision = key
+        kw = {"remat": remat} if remat != "none" else {}
+        out[key] = ts.jax_run(name, inits[name], precision=precision, **kw)
+    return out
 
 
 def _gathers(mesh):
@@ -96,21 +126,28 @@ def run(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("fsdp")
     inits = {name: ts.port_init(name) for name in ("gpt2", "llama")}
     torch.save(inits, tmp / "inits.pt")
-    ranks, jax_ref = ts.spawn(
-        _worker, 4, tmp, str(tmp / "inits.pt"),
-        parent=lambda: {n: ts.jax_run(n, init) for n, init in inits.items()})
-    return ranks, jax_ref, inits
+    ranks, refs = ts.spawn(_worker, 4, tmp, str(tmp / "inits.pt"),
+                           parent=lambda: jax_refs(inits))
+    # The fp32 runs without remat under each model's name.
+    refs.update({n: refs[(n, "none", "fp32")] for n in inits})
+    return ranks, refs, inits
 
 
 @pytest.mark.parametrize("job", list(JOBS))
 def test_losses_and_params_match_jax(run, job):
-    ranks, ref, _ = run
-    name = JOBS[job][0]
+    ranks, refs, _ = run
+    ref = refs[ref_key(job)]
+    bf16 = ref_key(job)[2] == "bf16"
     for r in ranks:
-        np.testing.assert_allclose(r[job]["losses"], ref[name]["losses"],
-                                   rtol=ts.RTOL, atol=ts.ATOL)
+        np.testing.assert_allclose(r[job]["losses"], ref["losses"],
+                                   rtol=BF16_RTOL if bf16 else ts.RTOL,
+                                   atol=0 if bf16 else ts.ATOL)
         assert r[job]["losses"] == ranks[0][job]["losses"]
-    ts.assert_params_close(ranks[0][job]["params"], ref[name]["params"])
+    if bf16:
+        # bf16 is load-bearing: the fp32 run's losses differ.
+        assert ranks[0][job]["losses"] != refs[JOBS[job][0]]["losses"]
+        return
+    ts.assert_params_close(ranks[0][job]["params"], ref["params"])
 
 
 @pytest.mark.parametrize("job", list(JOBS))

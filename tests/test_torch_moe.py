@@ -28,7 +28,8 @@ seeded numpy generator:
   once; ``grad_accum=2`` equals 1; dp=2 over two gloo processes equals one
   process within 2e-5 (routing is per row);
 - the refusals by name (``gpt2_moe`` with remat, with the reference's
-  message; ``LlamaMoe`` 'dots'; MoE x cp=2; ep=2; serving), ``cli train``,
+  message; ``LlamaMoe`` 'dots'; serving), MoE x cp=2 and ep=2 taken (held
+  against JAX in ``tests/test_torch_ep.py``), ``cli train``,
   ``cli eval`` and ``cli benchmark`` on both configs at the tiny size, and
   both configs equal the JAX package's field for field.
 """
@@ -604,27 +605,32 @@ def test_llama_moe_remat_dots_is_refused_with_the_reference_message():
 
 
 def test_moe_over_cp_is_refused_by_name():
+    """Once refused, now ported: the Trainer takes an MoE model over cp
+    (its routing carries the counts of the other blocks of a row,
+    ``parallel.ep.route_top_k``; held against JAX in
+    ``tests/test_torch_ep.py``), averaging over every rank."""
     from distributeddeeplearning_tpu_torch.mesh import Mesh
 
     mesh = Mesh({"cp": 2})
     m = models.get_model("llama_moe", **KW, attn_impl="ring", mesh=mesh)
-    with pytest.raises(NotImplementedError,
-                       match=r"mesh cp=2 x MoE model LlamaMoe: .*ROADMAP "
-                       "queue A13"):
-        train.Trainer(m, train.AdamW(1e-3), train.get_task("lm", mesh=mesh),
-                      device="cpu", mesh=mesh)
+    trainer = train.Trainer(m, train.AdamW(1e-3),
+                            train.get_task("lm", mesh=mesh), device="cpu",
+                            mesh=mesh)
+    assert trainer.sync_axis == "world" and trainer.shards is None
 
 
 @pytest.mark.parametrize("name", ["gpt2_moe", "llama_moe"])
 def test_ep_and_serving_are_refused_by_name(name):
+    """``mesh.ep`` is ported (``tests/test_torch_ep.py``): the composition
+    check passes it; capacity-MoE serving is still refused by name."""
     from distributeddeeplearning_tpu_torch.serving import (
         check_serving_composition,
     )
 
-    with pytest.raises(NotImplementedError,
-                       match=r"mesh\.ep=2 \(expert parallelism\).*A13"):
-        cli.check_train_composition(_cfg(name, "mesh.ep=2", "mesh.dp=1"),
-                                    world_size=2)
+    cli.check_train_composition(_cfg(name, "mesh.ep=2", "mesh.dp=1"),
+                                world_size=2)
+    cli.check_train_composition(_cfg(name, "mesh.ep=4", "mesh.dp=2"),
+                                world_size=8)
     with pytest.raises(NotImplementedError, match="capacity-MoE"):
         check_serving_composition(_cfg(name))
 

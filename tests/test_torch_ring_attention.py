@@ -6,8 +6,8 @@
   ``ring_attention_pallas`` (Pallas in interpret mode) on a cp=4 mesh of
   virtual CPU devices: forward and gradients, causal and full. The port
   side runs 4 virtual ranks in lockstep in one process: one thread per
-  rank, whose ring shifts meet at a barrier (:class:`LockstepComm`, the
-  transport ``comms.py`` calls in place of torch.distributed).
+  rank, whose ring shifts meet at a barrier (``torch_sharded.LockstepComm``,
+  the transport ``comms.py`` calls in place of torch.distributed).
 - Each ``*_plain`` kernel against the matching JAX Pallas kernel in
   interpret mode, mode 0 and mode 1.
 - The bf16 tensor-core kernels' roundings, emulated in plain torch, against
@@ -19,7 +19,6 @@ rtol 2e-4, atol 2e-5 (fp32 throughout; only the order of the sums differs).
 """
 
 import importlib
-import threading
 
 import jax
 import jax.numpy as jnp
@@ -40,6 +39,7 @@ from distributeddeeplearning_tpu_torch.parallel.sp_ring import (
 )
 
 from helpers import mesh_of
+from torch_sharded import lockstep
 
 torch.set_num_threads(2)
 
@@ -47,55 +47,6 @@ RTOL, ATOL = 2e-4, 2e-5
 CP = 4
 JAX_RP = importlib.import_module(
     "distributeddeeplearning_tpu.ops.ring_attention_pallas")
-
-
-class LockstepComm:
-    """A mesh transport for ranks that are threads of one process: every
-    collective is an exchange through shared slots between two barriers."""
-
-    def __init__(self, hub, rank):
-        self.hub, self.rank = hub, rank
-
-    def _exchange(self, value):
-        hub = self.hub
-        hub["slots"][self.rank] = value
-        hub["barrier"].wait()
-        got = list(hub["slots"])
-        hub["barrier"].wait()
-        return got
-
-    def shift(self, tensors, axis, ranks, index, shift):
-        got = self._exchange([t.clone() for t in tensors])
-        return [t.clone() for t in got[ranks[(index - shift) % len(ranks)]]]
-
-    def all_reduce_sum(self, t, axis):
-        return sum(self._exchange(t.clone()))
-
-    def gather_objects(self, obj):
-        return self._exchange(obj)
-
-
-def lockstep(n, fn, **shape):
-    """Run ``fn(mesh)`` on ``n`` virtual ranks of a mesh of ``shape``, one
-    thread each; returns the results in rank order."""
-    hub = {"slots": [None] * n, "barrier": threading.Barrier(n, timeout=120)}
-    out, errors = [None] * n, []
-
-    def run(r):
-        try:
-            out[r] = fn(Mesh(shape, r, LockstepComm(hub, r)))
-        except BaseException as e:  # noqa: BLE001 - re-raised below
-            errors.append(e)
-            hub["barrier"].abort()
-
-    threads = [threading.Thread(target=run, args=(r,)) for r in range(n)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
-    if errors:
-        raise errors[0]
-    return out
 
 
 def make_qkv(b=2, l=32, h=4, d=8, seed=0):

@@ -350,6 +350,13 @@ def _refused(overrides, config="gpt2_owt.py", world=4):
                      "train.precision.policy=bf16_full"], "LowPrecision"),
 ])
 def test_unheld_compositions_are_refused_by_name(config, overrides, match):
+    if "_moe" in config:
+        # Held since the MoE models were ported over tp and fsdp
+        # (``tests/test_torch_ep.py``, ``tests/test_torch_ep8.py``): the
+        # composition builds, its experts' hidden units over tp or their
+        # ``embed`` dimension over fsdp.
+        _refused(overrides, config)
+        return
     with pytest.raises(NotImplementedError, match=rf"{match}.*A13"):
         _refused(overrides, config)
 

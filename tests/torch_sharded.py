@@ -1,7 +1,8 @@
 """Shared by the tests of the port's tensor and fully sharded parallelism
 (``tests/test_torch_tp*.py``, ``tests/test_torch_fsdp.py``): gloo ranks
 spawned on the CPU, and the JAX package's Trainer on the same tiny models,
-weights and batches.
+weights and batches; and virtual ranks as threads of one process
+(:func:`lockstep`), whose collectives meet at a barrier.
 
 The setting is JAX's ``tests/test_tp_fsdp.py``: the tiny GPT-2 (4 heads,
 width 64, vocab 256) or the tiny Llama (4 query heads over 2 KV heads) on
@@ -32,6 +33,74 @@ def free_port() -> int:
     with socket.socket() as s:
         s.bind(("localhost", 0))
         return s.getsockname()[1]
+
+
+class LockstepComm:
+    """A mesh transport for ranks that are threads of one process: every
+    collective is an exchange through shared slots between two barriers."""
+
+    def __init__(self, hub, rank):
+        self.hub, self.rank = hub, rank
+
+    def _exchange(self, value):
+        hub = self.hub
+        hub["slots"][self.rank] = value
+        hub["barrier"].wait()
+        got = list(hub["slots"])
+        hub["barrier"].wait()
+        return got
+
+    def shift(self, tensors, axis, ranks, index, shift):
+        got = self._exchange([t.clone() for t in tensors])
+        return [t.clone() for t in got[ranks[(index - shift) % len(ranks)]]]
+
+    def all_reduce_sum(self, t, axis, op="sum"):
+        return sum(self._exchange(t.clone()))
+
+    def all_gather(self, t, axis, out):
+        return out.copy_(torch.cat(self._exchange(t.clone())))
+
+    def gather_objects(self, obj):
+        return self._exchange(obj)
+
+
+def lockstep(n, fn, **shape):
+    """Run ``fn(mesh)`` on ``n`` virtual ranks of a mesh of ``shape``, one
+    thread each; returns the results in rank order."""
+    import threading
+
+    from distributeddeeplearning_tpu_torch.mesh import Mesh
+
+    hub = {"slots": [None] * n, "barrier": threading.Barrier(n, timeout=120)}
+    out, errors = [None] * n, []
+
+    def run(r):
+        try:
+            out[r] = fn(Mesh(shape, r, LockstepComm(hub, r)))
+        except BaseException as e:  # noqa: BLE001 - re-raised below
+            errors.append(e)
+            hub["barrier"].abort()
+
+    threads = [threading.Thread(target=run, args=(r,)) for r in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return out
+
+
+def free_ports(n: int) -> list:
+    """``n`` distinct free ports (each ``cli`` call of a spawned rank
+    joins a group of its own)."""
+    socks = [socket.socket() for _ in range(n)]
+    for so in socks:
+        so.bind(("localhost", 0))
+    ports = [so.getsockname()[1] for so in socks]
+    for so in socks:
+        so.close()
+    return ports
 
 
 def join_world(rank: int, world: int, port: int) -> None:
@@ -88,12 +157,12 @@ def jax_tree(flat: dict) -> dict:
     return tree
 
 
-def port_init(name: str) -> dict:
+def port_init(name: str, **model_kw) -> dict:
     """The tiny ``name``'s weights the port draws from seed 0 (one rank),
     as a flat state_dict: the init both packages start from."""
     from distributeddeeplearning_tpu_torch import models
 
-    m = models.get_model(name, **MODEL)
+    m = models.get_model(name, **MODEL, **model_kw)
     m.init_weights(torch.Generator().manual_seed(0))
     return {k: v.detach().clone() for k, v in m.state_dict().items()}
 
@@ -153,12 +222,15 @@ def jax_run(name: str, init: dict, steps: int = STEPS, *,
 def port_trainer(name: str, mesh, *, sequence_parallel: bool = False,
                  precision: str = "fp32", attn_impl: str = "xla",
                  zero1: bool = False, grad_accum: int = 1,
-                 health: bool = False, remat: str = "none", device="cpu"):
+                 health: bool = False, remat: str = "none", device="cpu",
+                 model_kw: dict | None = None):
     """(model, trainer) of the tiny ``name`` on ``mesh``, as ``jax_run``
-    sets it up."""
+    sets it up; ``model_kw``: more of the model's arguments."""
     from distributeddeeplearning_tpu_torch import config, models, train
 
-    kw = dict(MODEL, attn_impl=attn_impl, remat=remat, mesh=mesh)
+    kw = dict(MODEL, attn_impl=attn_impl, mesh=mesh, **(model_kw or {}))
+    if remat != "none":
+        kw["remat"] = remat
     if sequence_parallel:
         kw["sequence_parallel"] = True
     if precision != "fp32":
@@ -183,14 +255,18 @@ def load_whole(state, whole: dict) -> None:
             p.copy_(local[k])
 
 
-def port_run(name: str, mesh, init: dict, steps: int = STEPS, **kw) -> dict:
+def port_run(name: str, mesh, init: dict, steps: int = STEPS, *,
+             setup=None, **kw) -> dict:
     """``steps`` Trainer steps of the tiny ``name`` on ``mesh`` from the
     whole ``init``: the losses, each step's metrics, the whole params on
-    rank 0 (None elsewhere), and what says the sharding is real."""
+    rank 0 (None elsewhere), and what says the sharding is real.
+    ``setup(model)`` runs on the model before the first step."""
     from distributeddeeplearning_tpu_torch import data
     from distributeddeeplearning_tpu_torch.parallel import fsdp
 
     model, trainer = port_trainer(name, mesh, **kw)
+    if setup is not None:
+        setup(model)
     state = trainer.init(0)
     load_whole(state, init)
     ds = data.SyntheticTokens(**DATA)
@@ -208,7 +284,7 @@ def port_run(name: str, mesh, init: dict, steps: int = STEPS, **kw) -> dict:
             "params": None if whole is None else {
                 k: v.detach().clone() for k, v in whole.items()},
             "fraction": {a: fsdp.sharded_fraction(model, a)
-                         for a in ("tp", "fsdp")},
+                         for a in ("tp", "fsdp", "ep")},
             "bytes": fsdp.per_device_bytes(model),
             "coords": dict(mesh.coords), "state": state, "trainer": trainer}
 
