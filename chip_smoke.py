@@ -52,7 +52,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      on 2 spawned ranks (``spawn_ranks``, run as ``torchrun`` would run
      it, in a process group of its own; the same pair then runs the jobs
      of phases 11-13), ``mesh.cp=2``, ``ring_pallas``, at full width (the
-     batch cut for time to 8 x 1024) for 2 steps. Both ranks share the one
+     batch cut for time to 4 x 1024) for 2 steps. Both ranks share the one
      card over gloo, so
      the step times are no context-parallel speed. Launches must be 12 x
      steps per ring kernel on rank 0 and 24 x steps on rank 1, none of the
@@ -194,7 +194,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      and Llama the serving engine's on the same weights and prompts, its
      decode steps through ``paged_decode`` (launches counted).
   34. one spawn of four ranks sharing the one card over gloo
-     (``spawn_ranks``) runs every multi-rank job of phases 34-38 in turn,
+     (``spawn_ranks``) runs every multi-rank job of phases 34-39 in turn,
      the ``cli train`` ones as ``torchrun`` would (each in a process group
      of its own). Phase 34's: pipeline parallelism through the entry
      point, ``cli train`` on ``configs/gpt2_pp.py`` as shipped (pp=4, dp=1
@@ -247,13 +247,38 @@ Phases, in order; any failure raises and the script exits non-zero:
      moe_dropped_frac, peak memory and transport seconds a step; the save,
      restored here at ep=1 and cut to each rank's blocks, equal to every
      rank's params (sha256). llama_moe 8x300m as shipped at ep2 x tp2 with
-     sequence parallelism at 4 x 2048 for 2 steps: flash at [32, 2048,
+     sequence parallelism at 2 x 2048 for 2 steps: flash at [16, 2048,
      64], a rank ~0.28 of the params. fp32 gpt2_moe (2 x 1024, one batch,
      adamw_fused, drops present at the shipped capacity) at dp2 x ep2 and
-     at ep2 x cp2 on ``ring_pallas``, 3 steps each, against one process
+     at ep2 x cp2 on ``ring_pallas``, 2 steps each, against one process
      here: losses and aux_loss within 1e-4 relative, moe_dropped_frac
      within one assignment a layer, the losses falling, the ring kernels
      on the cp ranks (12 x steps x (cp index + 1)).
+  39. the ranks' jobs of tensor and fully sharded parallelism for the rest
+     of the zoo (``shard_parity``): ``configs/gpt2_pp.py`` as shipped at
+     pp2 x tp2 (2 stages of 6 layers, 6 heads a rank, bf16, 8 x 1024) for
+     2 steps with an evaluation and a save: losses equal on the ranks, 10
+     ticks a step (20 over the 2 steps) and 9 in the evaluation, no hand
+     kernel, every rank cut over tp, per rank its param and moment bytes
+     against the whole model's (the table cut over tp then pp, JAX's
+     ``vocab_pp``) and its transport seconds; fp32
+     gpt2_pp at pp2 x tp2 on phase 35's batches within 1e-4 relative of a
+     pp=1 twin here, its step-2 save restored here at pp=1 and cut to each
+     rank's rows and blocks equal to that rank's params (sha256);
+     ``configs/vit_imagenet21k.py`` (remat full, flash, adamw_fused) and
+     ``configs/bert_mlm.py`` (4 microbatches, ragged rows) as shipped at
+     tp2 x fsdp2 with sequence parallelism, 16 rows, 2 steps: flash at [8
+     x 8 heads, 256, 64] limit 197 (48 flash_fwd a step with the
+     recompute) and [2 x 6 heads, 128, 64] with per-row limits, fused_adamw
+     2 a step over the rank's blocks; ``configs/resnet50_imagenet.py`` as
+     shipped (SGD, bf16, 32 x 224²) at fsdp2 x tp2; fp32
+     ViT-L and BERT at tp2 x fsdp2 within 1e-4 relative of phase 20's one
+     process, and each rank's AdamW moments after step 2 (the clipped raw
+     gradients, which ViT's zero head hides from its step-1 loss and
+     AdamW's update from the rest) against phase 20's cut to the rank's
+     blocks within ``LEAF_STATS_TOL`` leaf by leaf; ResNet-50 at dp2 x
+     fsdp2 within 1e-4 of phase 16's one process, its BatchNorm running
+     statistics within ``BN_STATS_TOL``.
 Phase 3 also holds the paged kernels at Llama-300M's decode shape (16 q
 heads over 8 KV heads: bf16 and int8 pools with bf16 q at 2e-2, an fp32
 twin at 2e-5), and phase 6 the flash kernels at its training shape, bf16
@@ -333,7 +358,7 @@ TC_KERNELS = {"flash_attention": ("flash_fwd_kernel_tc", "flash_dq_kernel_tc",
 CP_STEPS = 2
 # Phase 10's batch, cut for time from the config's 32: over gloo on one
 # card its step is ~98% transport, which scales with the rows.
-CP_BATCH = 8
+CP_BATCH = 4
 
 
 _T0 = time.perf_counter()
@@ -1090,7 +1115,8 @@ def check_encoder_flash(torch, fa):
     run no other pad at D = 64), in bf16 and fp32; BERT-base's 64 x 12
     heads at 128 tokens, whole and with per-row key limits, and the
     shape one of its 4 microbatches gives the kernels on the main path
-    (16 x 12 heads), ragged."""
+    (16 x 12 heads), ragged; and a tp2 x fsdp2 rank's shapes of phase 39
+    (ViT-L 8 x 8 heads, BERT 2 x 6 heads ragged)."""
     bf16, f32 = torch.bfloat16, torch.float32
     vit = dict(bh=64 * 16, L=256, D=64, causal=False, limit=197, heads=16)
     bert = dict(bh=64 * 12, L=128, D=64, causal=False, heads=12)
@@ -1107,6 +1133,15 @@ def check_encoder_flash(torch, fa):
         "bert_micro_bf16_ragged": (
             "bf16 BERT microbatch [192, 128, 64] ragged vl, non-causal",
             dict(dtype=bf16, ragged=True, **{**bert, "bh": 16 * 12}), 2e-2),
+        # Phase 39's per-rank shapes at tp2 x fsdp2: 8 images x 8 heads,
+        # 2 rows of a microbatch x 6 heads.
+        "vit_rank_bf16": ("bf16 ViT-L tp2 x fsdp2 rank [64, 256, 64] limit "
+                          "197, non-causal",
+                          dict(dtype=bf16, **{**vit, "bh": 8 * 8}), 2e-2),
+        "bert_rank_micro_bf16_ragged": (
+            "bf16 BERT tp2 x fsdp2 rank microbatch [12, 128, 64] ragged vl, "
+            "non-causal",
+            dict(dtype=bf16, ragged=True, **{**bert, "bh": 2 * 6}), 2e-2),
     }
     out = {}
     for key, (name, kw, atol) in cases.items():
@@ -1567,7 +1602,9 @@ def _rank_fit(rank, ports, jobs, out_dir, world=2):
     params; ``{"whole": True}``: rank 0 keeps the whole params of a model
     cut over tp, fsdp or ep (every rank takes part in the gather);
     ``{"eval": True}``: an evaluation after the last step (the config's
-    ``train.eval_batches``); ``{"restore_step": N}``: restore step N, not
+    ``train.eval_batches``); ``{"stats": True}``: :func:`leaf_stats` of
+    this rank's AdamW moments; ``{"restore_step": N}``: restore
+    step N, not
     the latest. Each result carries its job's ``seconds`` and each step's
     (``step_s``). A job ``{"cli": argv}`` runs ``cli.main(argv)``
     on these ranks as ``torchrun`` would run it on fresh ones (its own
@@ -1676,6 +1713,9 @@ def _rank_fit(rank, ports, jobs, out_dir, world=2):
                    b - a for a, b in zip([0.0, *transport], transport)],
                "step_s": step_s,
                "peak_mem_gb": torch.cuda.max_memory_allocated(device) / 1e9}
+        if opts.get("stats"):
+            out["stats"] = {"mu": leaf_stats(torch, state.opt_state.mu),
+                            "nu": leaf_stats(torch, state.opt_state.nu)}
         if state.shards is not None:
             out["shards"] = {
                 "param_bytes": sum(p.numel() * p.element_size()
@@ -1716,6 +1756,46 @@ def param_digest(t) -> str:
     flat = t.detach().contiguous().cpu().reshape(-1)
     return hashlib.sha256(flat.view(torch.uint8).numpy().tobytes()
                           ).hexdigest()
+
+
+def leaf_stats(torch, tree) -> dict:
+    """Per leaf of ``tree`` (name -> tensor), in float64: (its 2-norm, its
+    dot product with random signs drawn from the leaf's name at its
+    shape). Equal tensors give equal pairs, a scaled one a scaled pair, one
+    pointing elsewhere another projection: a rank's block is held against
+    the one process's cut of it without moving either."""
+    import zlib
+
+    out = {}
+    for k, t in tree.items():
+        x = t.detach().double()
+        gen = torch.Generator(device=x.device)
+        gen.manual_seed(zlib.crc32(k.encode()))
+        signs = torch.randint(0, 2, x.shape, generator=gen, device=x.device,
+                              dtype=torch.float64) * 2 - 1
+        out[k] = (x.norm().item(), (x * signs).sum().item())
+    return out
+
+
+# Leaves whose gradient is zero but for rounding: a key bias shifts every
+# score of a query's row alike, which the softmax ignores. AdamW turns
+# that rounding into steps of up to lr, so two runs' key biases share no
+# digits, and a gate on them would hold rounding.
+UNOBSERVED = r"\.attn\.key\.bias$"
+
+
+def stats_diff(got: dict, want: dict) -> list[tuple[float, str]]:
+    """The differences of two :func:`leaf_stats` over ``want``'s leaves
+    but :data:`UNOBSERVED`, each over its leaf's norm in ``want`` (a
+    tensor's relative error, about), largest first, with their leaves."""
+    out = []
+    for k, (n, p) in want.items():
+        if re.search(UNOBSERVED, k):
+            continue
+        m, q = got[k]
+        out.append((max(abs(m - n), abs(q - p)) / n if n
+                    else (0.0 if m == 0 else math.inf), k))
+    return sorted(out, reverse=True)
 
 
 def spawn_ranks(torch, jobs, out_dir, nranks=2):
@@ -2138,7 +2218,8 @@ def resnet_dp2(torch, cli, load_config, apply_overrides, extra=()):
     ``torchrun`` would), the fp32 parity of dp=2 (grad_accum 1 and 2)
     against one process, a resume from the step-2 save that repeats steps
     3 and 4 bit for bit, and the ``extra`` jobs (phase 13's). Returns (the
-    record, the extra jobs' results)."""
+    record, the extra jobs' results, the one process's (losses, running
+    statistics) at grad_accum 1, phase 39's reference)."""
     import tempfile
 
     accums = (1, 2)
@@ -2212,7 +2293,7 @@ def resnet_dp2(torch, cli, load_config, apply_overrides, extra=()):
            "parity": parity}
     print(f"resnet50 dp=2 train: {json.dumps(res)} (both ranks share the one "
           "card over gloo: not a data-parallel speed)", flush=True)
-    return res, out[len(accums) + 2:]
+    return res, out[len(accums) + 2:], one[0]
 
 
 # ---------------------------------------------------------------------------
@@ -2387,9 +2468,10 @@ def flash_benchmarks(torch, cli, models, load_config, apply_overrides,
     return out
 
 
-def route_run(torch, cli, load_config, apply_overrides, config, overrides):
+def route_run(torch, cli, load_config, apply_overrides, config, overrides,
+              keep=None):
     """fp32 training on one route: (losses, params on the host, hand
-    kernel launches)."""
+    kernel launches, ``keep(state)`` or None)."""
     from distributeddeeplearning_tpu_torch import data
     from distributeddeeplearning_tpu_torch.train import fit
 
@@ -2404,7 +2486,8 @@ def route_run(torch, cli, load_config, apply_overrides, config, overrides):
     torch.cuda.synchronize()
     out = ([r["loss"] for r in hist],
            {k: p.detach().cpu() for k, p in state.params.items()},
-           sum(all_launches().values()) - before)
+           sum(all_launches().values()) - before,
+           None if keep is None else keep(state))
     del trainer, state
     torch.cuda.empty_cache()
     return out
@@ -2414,16 +2497,19 @@ def rel_diff(a, b):
     return max(abs(x - y) / abs(y) for x, y in zip(a, b))
 
 
-def parity_runs(torch, cli, load_config, apply_overrides, routes, pairs):
+def parity_runs(torch, cli, load_config, apply_overrides, routes, pairs,
+                keep=None):
     """fp32 training on each route of ``routes`` ((key, config,
     overrides)), then each pair of ``pairs`` ((a, b, limit)): the losses
     of a within ``limit`` relative of b's. Every run's loss falls; the
-    routes whose key names ``kernels`` launch kernels, the others none."""
-    runs = {}
+    routes whose key names ``kernels`` launch kernels, the others none.
+    ``keep``: route key -> a function of its final state, whose results
+    the record holds under ``kept``."""
+    runs, keep = {}, keep or {}
     for key, config, extra in routes:
         runs[key] = route_run(torch, cli, load_config, apply_overrides,
-                              config, extra)
-        losses, _, launched = runs[key]
+                              config, extra, keep.get(key))
+        losses, _, launched, _ = runs[key]
         if (launched > 0) != ("kernels" in key):
             raise AssertionError(f"parity route {key}: {launched} launches")
         if not losses[-1] < losses[0]:
@@ -2431,7 +2517,7 @@ def parity_runs(torch, cli, load_config, apply_overrides, routes, pairs):
                                  f"{losses}")
     out = {}
     for a, b, limit in pairs:
-        (la, pa, _), (lb, pb, _) = runs[a], runs[b]
+        (la, pa, _, _), (lb, pb, _, _) = runs[a], runs[b]
         rel = rel_diff(la, lb)
         pdiff = max((pa[k] - pb[k]).abs().max().item() for k in pa)
         equal = la == lb and all(torch.equal(pa[k], pb[k]) for k in pa)
@@ -2443,7 +2529,34 @@ def parity_runs(torch, cli, load_config, apply_overrides, routes, pairs):
         out[f"{a}_vs_{b}"] = {"losses": [la, lb], "max_rel_diff": rel,
                               "max_abs_param_diff": pdiff,
                               "bit_equal": equal}
+    if keep:
+        out["kept"] = {k: runs[k][3] for k in keep}
     return out
+
+
+def rank_cuts(torch, load_config, apply_overrides, config, overrides):
+    """A ``keep`` of :func:`parity_runs`: for each rank of ``TP_MESH``
+    (tp2 x fsdp2), :func:`leaf_stats` of the one process's AdamW moments
+    cut to that rank's blocks, what phase 39(f)'s rank holds if its
+    sharded step is right."""
+    from distributeddeeplearning_tpu_torch import models
+    from distributeddeeplearning_tpu_torch.mesh import Mesh
+
+    cfg = apply_overrides(load_config(config), list(overrides) + TP_MESH)
+    shape = {a: getattr(cfg.mesh, a) for a in ("fsdp", "tp")}
+
+    def keep(state):
+        out = []
+        for rank in range(math.prod(shape.values())):
+            meta = models.get_model(cfg.model.name, **cfg.model.kwargs,
+                                    mesh=Mesh(shape, rank=rank),
+                                    device="meta")
+            out.append({
+                name: leaf_stats(torch, meta.shards.take(tree))
+                for name, tree in (("mu", state.opt_state.mu),
+                                   ("nu", state.opt_state.nu))})
+        return out
+    return keep
 
 
 def encoder_parity(torch, cli, load_config, apply_overrides):
@@ -2451,7 +2564,9 @@ def encoder_parity(torch, cli, load_config, apply_overrides):
     weights on one batch: ViT-L/16 (flash, adamw_fused, remat full)
     against (xla, adamw, remat none) within 1e-4 relative, and against
     (flash, adamw_fused, remat none) within 1e-6; BERT-base with padded
-    rows and grad_accum 2, flash against xla within 1e-4."""
+    rows and grad_accum 2, flash against xla within 1e-4. The kernel
+    routes' AdamW moments are kept cut to phase 39(f)'s ranks
+    (:func:`rank_cuts`)."""
     routes = [(key, config, ENCODER_PARITY + extra) for key, config, extra in (
             ("vit_kernels", VIT, ["model.kwargs.attn_impl=flash",
                                   "optim.name=adamw_fused",
@@ -2468,10 +2583,14 @@ def encoder_parity(torch, cli, load_config, apply_overrides):
             ("bert_plain", BERT, ["model.kwargs.attn_impl=xla",
                                   "optim.name=adamw", "data.pad_min_len=32",
                                   "train.grad_accum=2"]))]
+    keep = {key: rank_cuts(torch, load_config, apply_overrides, config,
+                           extra)
+            for key, config, extra in routes if key in ("vit_kernels",
+                                                        "bert_kernels")}
     return parity_runs(torch, cli, load_config, apply_overrides, routes, (
         ("vit_kernels", "vit_plain", 1e-4),
         ("vit_kernels", "vit_kernels_no_remat", 1e-6),
-        ("bert_kernels", "bert_plain", 1e-4)))
+        ("bert_kernels", "bert_plain", 1e-4)), keep)
 
 
 # ---------------------------------------------------------------------------
@@ -3175,20 +3294,23 @@ def four_rank_group(torch, parity, tmp):
     in turn, ``cli train`` on gpt2_pp (phase 34) and on gpt2_owt at tp2 x
     fsdp2 with SP (phase 36), as ``torchrun`` would run them, then the fit
     jobs of phases 35 (:func:`pp_jobs`), 37 (:func:`tp_jobs`, set up by
-    phase 8's ``parity``) and 38 (:func:`ep_jobs`). Returns each phase's
-    results and checkpoint directories."""
+    phase 8's ``parity``), 38 (:func:`ep_jobs`) and 39
+    (:func:`shard_jobs`). Returns each phase's results and checkpoint
+    directories."""
     pp_cli, pp_ck = pp_cli_job(tmp)
     tp_cli, tp_cli_ck = tp_cli_job(tmp)
     pp, pp_ck35 = pp_jobs(tmp)
     tp, tp_ck = tp_jobs(tmp, parity)
     ep, ep_ck = ep_jobs(tmp)
-    jobs = [pp_cli, tp_cli] + pp + tp + ep
+    shard, shard_cks = shard_jobs(tmp)
+    jobs = [pp_cli, tp_cli] + pp + tp + ep + shard
     out = spawn_ranks(torch, jobs, tmp, nranks=PP_RANKS)
-    n = len(pp)
+    n, m, e = len(pp), len(tp), len(ep)
     return {"pp_cli": (out[0], pp_ck), "tp_cli": (out[1], tp_cli_ck),
             "pp": (out[2:2 + n], pp_ck35),
-            "tp": (out[2 + n:2 + n + len(tp)], tp_ck),
-            "ep": (out[2 + n + len(tp):], ep_ck)}
+            "tp": (out[2 + n:2 + n + m], tp_ck),
+            "ep": (out[2 + n + m:2 + n + m + e], ep_ck),
+            "shard": (out[2 + n + m + e:], shard_cks)}
 
 
 def pp_parity(torch, cli, load_config, apply_overrides, results, ck):
@@ -3517,19 +3639,19 @@ EP_STEPS = 2
 GPT2_MOE_EP = ["mesh.dp=2", "mesh.ep=2", "data.batch_size=8",
                f"train.steps={EP_STEPS}", "train.eval_batches=1"]
 # (b) llama_moe 8x300m as shipped at ep2 x tp2 with sequence parallelism
-# (JAX's GQA composition), the batch cut for time to 4 x 2048 (8 heads a
+# (JAX's GQA composition), the batch cut for time to 2 x 2048 (8 heads a
 # rank).
 LLAMA_MOE_EP = ["mesh.dp=1", "mesh.ep=2", "mesh.tp=2",
-                "train.sequence_parallel=true", "data.batch_size=4",
+                "train.sequence_parallel=true", "data.batch_size=2",
                 f"train.steps={EP_STEPS}"]
 # (c) fp32 gpt2_moe on one batch of 2 x 1024 at the config's lr held
 # constant, adamw_fused, the shipped capacity (a fresh router drops 18-44%
-# of a layer's assignments), 3 steps, against one process; at dp2 x ep2
+# of a layer's assignments), 2 steps, against one process; at dp2 x ep2
 # (ZeRO-1 over dp) and at ep2 x cp2 on ring_pallas.
 EP_PARITY = ["model.kwargs.dtype=float32", "data.batch_size=2",
              "data.n_distinct=1", "optim.schedule=constant",
              "optim.warmup_steps=0", "optim.name=adamw_fused",
-             "train.steps=3"]
+             "train.steps=2"]
 EP_PARITY_MESHES = {
     "dp2_ep2": ["mesh.dp=2", "mesh.ep=2"],
     "ep2_cp2": ["mesh.dp=1", "mesh.ep=2", "mesh.cp=2",
@@ -3591,7 +3713,7 @@ def ep_parity(torch, cli, models, load_config, apply_overrides, results,
     (ZeRO-1); the save, restored here in one process at ep=1 and cut to
     each rank's blocks, equals every rank's params (sha256). (b) llama_moe
     at ep2 x tp2 with SP: losses finite and equal, each flash kernel 12 a
-    step at [4 rows x 8 heads, 2048, 64], a rank ~0.28 of the 933.9M
+    step at [2 rows x 8 heads, 2048, 64], a rank ~0.28 of the 933.9M
     params. (c) fp32 gpt2_moe at dp2 x ep2 and ep2 x cp2 (ring_pallas)
     against one process: losses and aux_loss within 1e-4 relative each
     step, moe_dropped_frac within one assignment a layer (1 / (tokens x
@@ -3760,6 +3882,289 @@ def ep_parity(torch, cli, models, load_config, apply_overrides, results,
     return res, launched
 
 
+# ---------------------------------------------------------------------------
+# 39. pp x tp and pp x fsdp; tp, SP and fsdp for ViT-L/16, BERT-base and
+#     ResNet-50
+# ---------------------------------------------------------------------------
+
+# The four ranks of phase 34 as pp2 x tp2 (gpt2_pp's 12 layers in 2 stages
+# of 6, 6 heads a tp rank) and as tp2 x fsdp2 with sequence parallelism.
+PP_TP_MESH = ["mesh.dp=1", "mesh.pp=2", "mesh.tp=2",
+              "model.kwargs.num_stages=2"]
+ENC_STEPS = 2
+# (a) gpt2_pp as shipped (bf16, 1F1B interleaved over 8 microbatches, the
+# plain AdamW), the batch cut for time to 8 x 1024 (one row a microbatch).
+GPT2_PP_TP = PP_TP_MESH + ["data.batch_size=8", f"train.steps={ENC_STEPS}",
+                           "train.eval_batches=1"]
+# (b) fp32 gpt2_pp at pp2 x tp2 on phase 35's batches, adamw_fused.
+GPT2_PP_TP_PARITY = GPT2_PP_PARITY + PP_TP_MESH + [
+    "optim.name=adamw_fused", f"train.steps={ENC_STEPS}"]
+# (c) ViT-L/16 as shipped (bf16, remat full, flash, adamw_fused) and (d)
+# BERT-base as shipped (4 microbatches) on ragged rows, at tp2 x fsdp2
+# with SP, the batch cut for time to 16: ViT 8 images a rank, 8 heads,
+# 197 tokens in shards of 99; BERT 2 rows a microbatch, 6 heads.
+VIT_TP = TP_MESH + ["data.batch_size=16", f"train.steps={ENC_STEPS}"]
+BERT_TP = TP_MESH + ["data.batch_size=16", "data.pad_min_len=32",
+                     f"train.steps={ENC_STEPS}"]
+# (e) ResNet-50 as shipped (SGD, bf16) at 32 x 224², fsdp2 x tp2 (the
+# convs' output channels over fsdp, the head's classes over tp); dp2 x
+# fsdp2 runs in (f)'s fp32 pair (a bf16 run there too took 8.6 s).
+RESNET_MESHES = {"dp2_fsdp2": ["mesh.dp=2", "mesh.fsdp=2"],
+                 "fsdp2_tp2": ["mesh.dp=1", "mesh.fsdp=2", "mesh.tp=2"]}
+RESNET_TP = ["data.batch_size=32", f"train.steps={ENC_STEPS}"]
+# (f) fp32 at tp2 x fsdp2 (SP) on phase 20's kernel routes, and ResNet-50
+# at dp2 x fsdp2 on phase 16's parity config.
+VIT_TP_PARITY = ENCODER_PARITY + TP_MESH + [
+    "model.kwargs.attn_impl=flash", "optim.name=adamw_fused",
+    "train.remat=full"]
+BERT_TP_PARITY = ENCODER_PARITY + TP_MESH + [
+    "model.kwargs.attn_impl=flash", "optim.name=adamw_fused",
+    "data.pad_min_len=32", "train.grad_accum=2"]
+RESNET_FSDP_PARITY = RESNET_PARITY + RESNET_MESHES["dp2_fsdp2"]
+# (f)'s AdamW moments after step 2 (the clipped raw gradients) against
+# phase 20's cut to each rank's blocks, leaf by leaf (``stats_diff``): fp32
+# sums in another order differ by up to ~1e-4 of a leaf's norm (ViT-L's
+# 24 blocks); a tp or fsdp sum doubled or left out moves a moment by 0.5
+# of it or more. The params are not held so: AdamW's first steps move
+# each element of a leaf by about lr whatever its gradient's size, so a
+# leaf that starts at zero (a bias) carries its smallest gradients'
+# rounding into its params whole.
+LEAF_STATS_TOL = 1e-3
+
+
+def shard_jobs(tmp):
+    """Phase 39's jobs, run in phase 34's four spawned ranks: (a) gpt2_pp
+    at pp2 x tp2 with an evaluation and a save at step 2; (b) its fp32
+    twin with a save at step 2 (each rank's digests); (c) ViT-L/16 and (d)
+    BERT-base as shipped at tp2 x fsdp2 with SP; (e) ResNet-50 as shipped
+    at fsdp2 x tp2; (f) the fp32 ViT-L, BERT and ResNet-50 (dp2 x fsdp2)
+    runs (ViT-L's and BERT's with :func:`leaf_stats` of every rank's AdamW
+    moments). Returns (the jobs, the two checkpoint directories)."""
+    cka = os.path.join(tmp, "pp_tp_ckpt")
+    ckb = os.path.join(tmp, "pp_tp_fp32_ckpt")
+    keep = {"params": False}
+    stats = {"params": False, "stats": True}
+    return [
+        (GPT2_PP_TP, cka, ENC_STEPS, GPT2_PP, {"eval": True, **keep}),
+        (GPT2_PP_TP_PARITY, ckb, ENC_STEPS, GPT2_PP, {"hashes": True}),
+        (VIT_TP, None, 0, VIT, keep),
+        (BERT_TP, None, 0, BERT, keep),
+        (RESNET_TP + RESNET_MESHES["fsdp2_tp2"], None, 0, RESNET, keep),
+        (VIT_TP_PARITY, None, 0, VIT, stats),
+        (BERT_TP_PARITY, None, 0, BERT, stats),
+        (RESNET_FSDP_PARITY, None, 0, RESNET),
+    ], (cka, ckb)
+
+
+def _equal_losses(name, ranks):
+    ls = [r["losses"] for r in ranks]
+    if any(x != ls[0] for x in ls) or not all(map(math.isfinite, ls[0])):
+        raise AssertionError(f"{name}: rank losses {ls}")
+    return ls[0]
+
+
+def _rank_bytes(r):
+    sh = r["shards"]
+    return {"param_bytes": sh["param_bytes"],
+            "moment_bytes": r["opt_state_bytes"],
+            "whole_param_bytes": sh["whole_param_bytes"],
+            "param_share": sh["param_bytes"] / sh["whole_param_bytes"],
+            "sharded_fraction": {a: sh["sharded_fraction"][a]
+                                 for a in ("tp", "fsdp")},
+            "peak_mem_gb": r["peak_mem_gb"],
+            "transport_s_by_step": r["transport_s_by_step"]}
+
+
+def _flash_job(name, ranks, layers, fwd_per, accum, shape):
+    """A flash job's launch counts and shapes on every rank: per step
+    flash_fwd layers x fwd_per x accum, flash_dq and flash_dkv layers x
+    accum, fused_adamw twice (its two groups over the rank's blocks), each
+    flash kernel at ``shape``."""
+    want = {"flash_fwd": layers * fwd_per * accum * ENC_STEPS,
+            "flash_dq": layers * accum * ENC_STEPS,
+            "flash_dkv": layers * accum * ENC_STEPS,
+            "fused_adamw": 2 * ENC_STEPS,
+            "ring_step": 0, "ring_dq": 0, "ring_dkv": 0}
+    for i, r in enumerate(ranks):
+        shapes = sorted({tuple(x) for v in r["flash_shapes"].values()
+                         for x in v})
+        if r["launches"] != want or shapes != [shape]:
+            raise AssertionError(f"{name} rank {i}: launches {r['launches']}"
+                                 f" != {want}, shapes {shapes} != {shape}")
+    return want
+
+
+def shard_parity(torch, cli, models, load_config, apply_overrides, enc_ref,
+                 resnet_ref, results, cks):
+    """Phase 39: the results of :func:`shard_jobs`.
+
+    (a) gpt2_pp at pp2 x tp2: losses finite and equal on the 4 ranks, an
+    evaluation, the step-2 save on disk; each rank M + 2(S - 1) = 10 ticks
+    a step (20 over the 2 steps), M + 1 = 9 in the evaluation, no hand
+    kernel, its leaves cut over tp; per rank its param and moment bytes
+    against the whole model's (its stage's blocks and its block of the
+    table's tp slice, JAX's ``vocab_pp``), and its transport seconds.
+    (b) fp32: losses within 1e-4 relative of a pp=1 twin here (the same 2
+    stages, the plain AdamW) and falling; the save restored here at pp=1
+    and cut to each rank's rows and tp blocks equals that rank's params
+    bit for bit (sha256). (c) ViT-L/16: every rank's flash kernels at [8
+    images x 8 heads, 256, 64] (limit 197), 24 x 2 (remat) flash_fwd a
+    step, 24 flash_dq and flash_dkv, 2 fused_adamw. (d) BERT-base: [2 rows
+    x 6 heads, 128, 64] with per-row limits, 12 x 4 of each a step. (e)
+    ResNet-50 at fsdp2 x tp2: losses finite and equal, no hand kernel.
+    (f) fp32 ViT-L and BERT within 1e-4 relative of phase 20's one
+    process, and every rank's AdamW moments within ``LEAF_STATS_TOL`` of
+    phase 20's cut to its blocks, leaf by leaf; ResNet-50 at dp2 x fsdp2
+    within 1e-4 of phase 16's one process, its running statistics within
+    ``BN_STATS_TOL``. Returns (the record, the launches on these
+    paths)."""
+    from distributeddeeplearning_tpu_torch.checkpoint import (
+        CheckpointManager,
+    )
+    from distributeddeeplearning_tpu_torch.mesh import Mesh
+
+    (pp_a, pp_b, vit, bert, resnet), (cka, ckb) = results[:-3], cks
+    vit32, bert32, resnet32 = results[-3:]
+    res = {}
+    # (a)
+    losses = _equal_losses("gpt2_pp pp2 x tp2", pp_a)
+    S, M = 2, 8
+    if (len(losses) != ENC_STEPS or not pp_a[0]["evals"]
+            or sorted(os.listdir(cka)) != [str(ENC_STEPS)]):
+        raise AssertionError(f"gpt2_pp pp2 x tp2: losses {losses}, evals "
+                             f"{pp_a[0]['evals']}, saves "
+                             f"{sorted(os.listdir(cka))}")
+    per_rank = []
+    for i, r in enumerate(pp_a):
+        t = r["pipeline"]
+        if (t["train_ticks"] != ENC_STEPS * (M + 2 * (S - 1))
+                or t["eval_ticks"] != M + S - 1):
+            raise AssertionError(f"gpt2_pp pp2 x tp2 rank {i}: ticks {t}")
+        if (any(r["launches"].values())
+                or not r["shards"]["sharded_fraction"]["tp"] > 0):
+            raise AssertionError(
+                f"gpt2_pp pp2 x tp2 rank {i}: launches {r['launches']}, "
+                f"sharded fraction {r['shards']['sharded_fraction']}")
+        per_rank.append({"rank": i, "coords": {a: r["coords"][a]
+                                               for a in ("pp", "tp")},
+                         "ticks_per_step": t["train_ticks"] // ENC_STEPS,
+                         "eval_ticks": t["eval_ticks"],
+                         "pipeline_transport_s": t["train_transport_s"],
+                         "step_s": r["step_s"], **_rank_bytes(r)})
+    res["gpt2_pp_pp2_tp2"] = {"losses": losses,
+                              "eval_loss": pp_a[0]["evals"][0]["eval_loss"],
+                              "checkpoint_saves": pp_a[0]["timings"],
+                              "per_rank": per_rank}
+    # (b)
+    got = _equal_losses("gpt2_pp fp32 pp2 x tp2", pp_b)
+    twin, trainer, state = pp_twin(
+        torch, cli, load_config, apply_overrides, GPT2_PP,
+        GPT2_PP_PARITY + ["model.kwargs.num_stages=2",
+                          f"train.steps={ENC_STEPS}"])
+    with CheckpointManager(ckb) as mgr:
+        state, _ = mgr.restore(state, step=ENC_STEPS)
+    restored = {k: p.detach().cpu() for k, p in state.params.items()}
+    del trainer, state
+    torch.cuda.empty_cache()
+    cfg = apply_overrides(load_config(GPT2_PP),
+                          GPT2_PP_TP_PARITY + ["mesh.pp=2"])
+    mismatched = []
+    for rank, r in enumerate(pp_b):
+        mesh = Mesh({"pp": 2, "tp": 2}, rank=rank)
+        model = models.get_model(cfg.model.name, **cfg.model.kwargs,
+                                 mesh=mesh, device="meta")
+        cut = model.shards.take(model.stage_rows.take(restored))
+        for k, h in r["hashes"].items():
+            if param_digest(cut[k]) != h:
+                mismatched.append((rank, k))
+    rel = rel_diff(got, twin)
+    fused = 0
+    for r in pp_b:
+        if r["launches"]["fused_adamw"] != ENC_STEPS * r["groups"]:
+            raise AssertionError(f"gpt2_pp fp32 pp2 x tp2: launches "
+                                 f"{r['launches']}")
+        fused += r["launches"]["fused_adamw"]
+    res["gpt2_pp_pp2_tp2_fp32"] = {
+        "losses": got, "pp1": twin, "max_rel_diff": rel,
+        "restore_at_pp1_mismatched_leaves": len(mismatched),
+        "leaves_checked": sum(len(r["hashes"]) for r in pp_b)}
+    if mismatched:
+        raise AssertionError(f"pp2 x tp2 restore at pp=1: {mismatched[:4]}")
+    if not rel <= 1e-4 or not got[-1] < got[0]:
+        raise AssertionError(f"gpt2_pp fp32 pp2 x tp2: {got} vs {twin}")
+    # (c), (d)
+    vit_layers = model_shape(models, load_config, apply_overrides, VIT)[0]
+    bert_layers = model_shape(models, load_config, apply_overrides, BERT)[0]
+    launched = {k: 0 for k in ("flash_fwd", "flash_dq", "flash_dkv")}
+    launched["fused_adamw"] = fused
+    for name, ranks, layers, fwd_per, accum, shape in (
+            ("vit", vit, vit_layers, 2, 1, (8 * 8, 256, 64)),
+            ("bert", bert, bert_layers, 1, 4, (2 * 6, 128, 64)),
+            ("vit fp32", vit32, vit_layers, 2, 1, (2 * 8, 256, 64)),
+            ("bert fp32", bert32, bert_layers, 1, 2, (1 * 6, 128, 64))):
+        _equal_losses(name, ranks)
+        want = _flash_job(name, ranks, layers, fwd_per, accum, shape)
+        for k in launched:
+            launched[k] += want[k] * len(ranks)
+        if " " not in name:
+            res[f"{name}_tp2_fsdp2_sp"] = {
+                "losses": ranks[0]["losses"], "flash_shape": list(shape),
+                "launches_per_rank": want,
+                "step_s": ranks[0]["step_s"],
+                "per_rank": [_rank_bytes(r) for r in ranks]}
+    # (e), and (f)'s ResNet-50 run at dp2 x fsdp2
+    for key, ranks in (("fsdp2_tp2", resnet), ("dp2_fsdp2_fp32", resnet32)):
+        _equal_losses(f"resnet50 {key}", ranks)
+        if any(any(r["launches"].values()) for r in ranks):
+            raise AssertionError(f"resnet50 {key} launched hand kernels")
+        res[f"resnet50_{key}"] = {"losses": ranks[0]["losses"],
+                                  "step_s": ranks[0]["step_s"],
+                                  "per_rank": [_rank_bytes(r)
+                                               for r in ranks]}
+    # (f)
+    pairs = {}
+    for name, ranks, want in (
+            ("vit", vit32, enc_ref["vit_kernels_vs_vit_plain"]["losses"][0]),
+            ("bert", bert32,
+             enc_ref["bert_kernels_vs_bert_plain"]["losses"][0]),
+            ("resnet50", resnet32, resnet_ref[0])):
+        got = ranks[0]["losses"]
+        pairs[name] = {"losses": got, "one_process": want,
+                       "max_rel_diff": rel_diff(got, want)}
+    for name, ranks in (("vit", vit32), ("bert", bert32)):
+        cuts = enc_ref["kept"][f"{name}_kernels"]
+        diffs = {tree: sorted(
+            (d, leaf, rank) for rank, (r, cut) in enumerate(zip(ranks, cuts))
+            for d, leaf in stats_diff(r["stats"][tree], cut[tree]))[::-1]
+            for tree in ("mu", "nu")}
+        pairs[name]["leaf_stats_diff"] = {
+            tree: {"max": v[0][0], "worst": v[:3]}
+            for tree, v in diffs.items()}
+        pairs[name]["leaves_checked"] = len(diffs["mu"])
+    ra, sa = resnet32[0]["model_state"], resnet_ref[1]
+    sdiff = max(((ra[k] - sa[k]).abs().max() / sa[k].abs().max()).item()
+                for k in sa)
+    pairs["resnet50"]["bn_stats_diff"] = sdiff
+    res["fp32_against_one_process"] = pairs
+    print(f"shard parity: {json.dumps(res)} (four ranks share the one card "
+          "over gloo: the step times are a path, not a speed)", flush=True)
+    for name, p in pairs.items():
+        if not p["max_rel_diff"] <= 1e-4:
+            raise AssertionError(f"{name} fp32 sharded vs one process: "
+                                 f"{p}")
+        if any(not v["max"] <= LEAF_STATS_TOL
+               for v in p.get("leaf_stats_diff", {}).values()):
+            raise AssertionError(f"{name} fp32 sharded: moments off the "
+                                 f"one process's {p}")
+        if not p["losses"][-1] < p["losses"][0]:
+            raise AssertionError(f"{name} fp32 sharded: loss did not fall "
+                                 f"{p['losses']}")
+    if not sdiff <= BN_STATS_TOL:
+        raise AssertionError(f"resnet50 dp2 x fsdp2: running statistics off "
+                             f"by {sdiff}")
+    return res, launched
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -3922,7 +4327,8 @@ def main(argv=None) -> int:
 
     phase("16 ResNet-50 dp=2 (cli train on 2 spawned ranks sharing the "
           "card over gloo), then phase 13's checks")
-    _, fresh = resnet_dp2(torch, cli, load_config, apply_overrides, jobs13)
+    _, fresh, resnet_ref = resnet_dp2(torch, cli, load_config,
+                                      apply_overrides, jobs13)
     resumed12 = zero1_parity(torch, parity, zero_ranks, fresh)
     for k in ("flash_fwd", "flash_dq", "flash_dkv", "fused_adamw"):
         launches[k] += sum(r[k] for r in resumed12)
@@ -3944,7 +4350,7 @@ def main(argv=None) -> int:
             launches[k] += launched[k]
 
     phase("20 fp32 parity at full width: ViT-L/16 and BERT-base")
-    encoder_parity(torch, cli, load_config, apply_overrides)
+    enc_ref = encoder_parity(torch, cli, load_config, apply_overrides)
 
     phase("21 Llama-300M train through the entry point")
     _, llama_launched = llama_train(torch, cli, models, load_config,
@@ -4051,10 +4457,18 @@ def main(argv=None) -> int:
           "against one process, restore at ep=1")
     _, launched = ep_parity(torch, cli, models, load_config, apply_overrides,
                             *group["ep"])
+    for k, v in launched.items():
+        launches[k] += v
+    phase("39 pp2 x tp2 (gpt2_pp as shipped and fp32 against pp=1, restore "
+          "at pp=1), tp2 x fsdp2 with SP (ViT-L/16, BERT-base), ResNet-50 "
+          "over fsdp and tp, fp32 against one process")
+    _, launched = shard_parity(torch, cli, models, load_config,
+                               apply_overrides, enc_ref, resnet_ref,
+                               *group["shard"])
     tmp4.cleanup()
     for k, v in launched.items():
         launches[k] += v
-    print(f"chip_smoke: 38 phases in {time.perf_counter() - _T0:.1f} s",
+    print(f"chip_smoke: 39 phases in {time.perf_counter() - _T0:.1f} s",
           flush=True)
 
     # Each kernel's numbers come from its case at the main path's types.

@@ -28,7 +28,8 @@ and ``ep`` groups into ``model_tflops_per_step`` (those ranks' step), and
 the per-GPU rate is that over the ``pp`` x ``tp`` x ``fsdp`` x ``ep``
 ranks. They are model FLOPs: work a group's ranks repeat is counted once
 (:func:`model_share`: under ep, everything outside the routed MLPs; under
-tp, a routed MLP's router and one-hot products). An MoE model's dense
+tp, a routed MLP's router and one-hot products, ViT's patch embedding and
+ResNet's convolutions). An MoE model's dense
 dispatch and combine einsums multiply one-hots; they are counted like any
 product, and ``onehot_tflops_per_step`` with its share of the count says
 how much of the MFU they are (``models.moe.onehot_flops``).
@@ -89,18 +90,24 @@ def model_share(counts: dict, model, mesh) -> float:
     sum over the groups counts it once. Over ep every rank runs the same
     rows through everything outside the routed MLPs, whose experts and
     router columns it holds a slice of; over tp each rank of a routed MLP
-    runs the router and the one-hot products whole."""
+    runs the router and the one-hot products whole, and every rank of an
+    image model runs the submodules its ``tp_repeated`` names whole (ViT's
+    patch embedding, ResNet's convolutions)."""
     def flops(key):
         return float(sum(counts.get(key, {}).values()))
 
     total = flops("Global")
     root = type(model).__name__
+    tp = mesh.shape["tp"]
+    repeated = sum(flops(f"{root}.{n}")
+                   for n in getattr(model, "tp_repeated", ()))
+    total = total - repeated + repeated / tp
     routed = [f"{root}.{n}" for n, m in model.named_modules()
               if isinstance(m, MoeMlp)]
     moe = sum(flops(k) for k in routed)
     repeated_tp = sum(flops(f"{k}.{c}") for k in routed
                       for c in ("router", "dispatch_in", "combine_out"))
-    tp, ep = mesh.shape["tp"], mesh.shape["ep"]
+    ep = mesh.shape["ep"]
     moe = moe - repeated_tp + repeated_tp / tp
     return (total - sum(flops(k) for k in routed)) / ep + moe
 
@@ -240,7 +247,7 @@ def run_benchmark(cfg: Config, device, mesh=None, *, warmup: int = 5,
         flops = float(psum(torch.tensor(flops, dtype=torch.float64,
                                         device=device), mesh, axis))
         ranks *= mesh.shape[axis]
-    whole = state.stage_rows or state.shards
+    whole = state.shards or state.stage_rows
     if whole is not None:
         record["params"] = whole.whole_numel(state.params)
     if flops > 0:

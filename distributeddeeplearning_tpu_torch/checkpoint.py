@@ -29,7 +29,8 @@ The JAX package's ``checkpoint.py`` keeps the same interface over orbax
   tp or fsdp is written in the one-rank layout (the JAX package's keys and
   shapes): the save puts the blocks of the params and the optimizer's trees
   together on rank 0 (``sharding.ShardLayout.gather``, after ZeRO-1's
-  gather), and a restore cuts them for any mesh.
+  gather, and before the pp gather of a pipelined model's stage rows), and
+  a restore cuts them for any mesh.
 - **Fallback**: :meth:`restore` with no step walks the steps newest first;
   a step whose files fail to load is quarantined (renamed
   ``<step>.corrupt``) and the next earlier one is tried.
@@ -79,17 +80,21 @@ def _whole_trees(state) -> tuple:
     in the gathers."""
     trees = _full_opt_trees(state.opt_state)
     params = state.params
+    shards = getattr(state, "shards", None)
+    if shards is not None:
+        if trees is None:
+            return None, None  # a ZeRO-1 dp member off 0: member 0 saves
+        # After ZeRO-1's gather over dp: every tp, fsdp and ep block of the
+        # dp member 0s, put together on their member 0 (each pp stage's
+        # on its own).
+        params = shards.gather(params)
+        trees = {n: shards.gather(t) for n, t in trees.items()}
     rows = state.stage_rows
-    if rows is not None and rows.mesh is not None:
+    if rows is not None and rows.mesh is not None and params is not None:
+        # Then every stage's rows over pp, on rank 0.
         params = rows.gather(params)
         if trees is not None:
             trees = {n: rows.gather(t) for n, t in trees.items()}
-    shards = getattr(state, "shards", None)
-    if shards is not None and trees is not None:
-        # After ZeRO-1's gather over dp: every tp and fsdp block of the
-        # dp member 0s, put together on rank 0.
-        params = shards.gather(params)
-        trees = {n: shards.gather(t) for n, t in trees.items()}
     if params is None or trees is None or any(
             t is None for t in trees.values()):
         return None, None

@@ -83,18 +83,7 @@ def _unported_train_knobs(cfg: Config, world_size: int = 1):
          and sizes["dp"] > 1,
          "ZeRO-1 of the SGD momentum trace (optim.name='sgd'; the port "
          "shards AdamW's moments)", "A8"),
-        ("train.sequence_parallel", t.sequence_parallel
-         and not models.supports_tp_fsdp(cfg.model.name),
-         f"sequence parallelism of model {cfg.model.name!r} (GPT-2's, "
-         "Llama's and the MoE models' are ported)", "A13"),
         *mesh_knobs,
-        ("mesh", dataclasses.asdict(mesh)
-         if (sizes["tp"] > 1 or sizes["fsdp"] > 1)
-         and not models.supports_tp_fsdp(cfg.model.name) else "",
-         " ".join(f"mesh.{a}={sizes[a]}" for a in ("fsdp", "tp")
-                  if sizes[a] > 1) + f" on model {cfg.model.name!r} "
-         "(tensor and fully sharded parallelism of this model; GPT-2 and "
-         "Llama are ported)", "A13"),
         ("model.kwargs.attn_impl", attn if attn in ("ring", "ring_pallas")
          and sizes["cp"] == 1 else "",
          "a ring over one rank, mesh.cp=1 (the ring cores run on mesh.cp > "
@@ -380,7 +369,7 @@ def _train_once(cfg: Config, device, mesh, say, sync_steps: bool,
                 state, data_state = ckpt.restore(state)
                 start_index = int(data_state.get("next_index", state.step))
                 say(f"resumed from step {state.step}")
-        whole = state.stage_rows or state.shards
+        whole = state.shards or state.stage_rows
         n = (whole.whole_numel(state.params) if whole is not None
              else sum(p.numel() for p in state.params.values()))
         say(f"model: {cfg.model.name}  params: {n:,}")

@@ -549,6 +549,30 @@ class _ScatterGatherBwd(torch.autograd.Function):
                 None, None, None)
 
 
+class _GatherSliceBwd(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim, ctx.block = mesh, axis, dim, x.shape[dim]
+        return all_gather_dim(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        lo = axis_index(ctx.mesh, ctx.axis) * ctx.block
+        return (grad.narrow(ctx.dim, lo, ctx.block).contiguous(), None,
+                None, None)
+
+
+def all_gather_fwd_slice_bwd(x: torch.Tensor, mesh, axis: str = "tp",
+                             dim: int = -1) -> torch.Tensor:
+    """The ranks' column slices gathered along ``dim`` into a tensor every
+    rank then uses whole and alike (a class-parallel head's logits before
+    the loss, a column-parallel product before a LayerNorm): the backward
+    keeps this rank's slice of the gradient, which every rank holds whole."""
+    if axis_size(mesh, axis) == 1:
+        return x
+    return _GatherSliceBwd.apply(x, mesh, axis, dim % x.dim())
+
+
 def all_gather_fwd_reduce_scatter_bwd(x: torch.Tensor, mesh, axis: str = "tp",
                                       dim: int = 1) -> torch.Tensor:
     """f of sequence parallelism: the ranks' sequence shards gathered along

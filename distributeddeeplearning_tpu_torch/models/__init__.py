@@ -8,21 +8,18 @@ _REGISTRY: dict[str, callable] = {}
 # Models without activation checkpointing: the reference's have no
 # ``remat`` field, and its ``cli`` refuses ``train.remat`` for them.
 _NO_REMAT: set[str] = set()
-# Models whose leaves the port cuts over mesh.tp and mesh.fsdp
-# (``sharding.shard_model``); the others refuse both axes.
-_TP: set[str] = set()
 # Models with routed experts (mesh.ep cuts them) and pipelined models (the
 # Trainer's pipeline fence refuses mesh.ep on them).
 _EXPERTS: set[str] = set()
 _PIPELINED: set[str] = set()
 
 
-def register(name: str, *, remat: bool = True, tp: bool = False,
-             experts: bool = False, pipelined: bool = False):
+def register(name: str, *, remat: bool = True, experts: bool = False,
+             pipelined: bool = False):
     def deco(fn):
         _REGISTRY[name] = fn
-        for on, where in ((not remat, _NO_REMAT), (tp, _TP),
-                          (experts, _EXPERTS), (pipelined, _PIPELINED)):
+        for on, where in ((not remat, _NO_REMAT), (experts, _EXPERTS),
+                          (pipelined, _PIPELINED)):
             if on:
                 where.add(name)
         return fn
@@ -32,10 +29,6 @@ def register(name: str, *, remat: bool = True, tp: bool = False,
 
 def supports_remat(name: str) -> bool:
     return name not in _NO_REMAT
-
-
-def supports_tp_fsdp(name: str) -> bool:
-    return name in _TP
 
 
 def has_experts(name: str) -> bool:

@@ -15,6 +15,17 @@ embeddings plus a free ``mlm_bias``. ``chunked_head=True`` returns the
 With ``attn_impl='flash'`` the mask must be a contiguous prefix a row: it
 becomes the kernels' per-row key limit, and a row whose mask is no prefix
 comes out NaN (``transformer.SelfAttention``), as in the reference.
+
+On a ``mesh`` with tp or fsdp above 1 the model holds this rank's blocks
+(``sharding.shard_model``): the encoder's heads and MLP units over tp,
+``word_embeddings`` and ``mlm_bias`` vocab-parallel (30522 rows in blocks
+of ``ceil(30522 / tp)``, the last padded), ``mlm_transform``'s output
+units over tp (gathered back before ``mlm_ln``), every ``embed`` dimension
+over fsdp. The MLM head is then the vocab-parallel chunked head
+(``ops.chunked_xent``) whatever ``chunked_head`` says: its softmax needs
+every slice. ``sequence_parallel``: between the blocks a rank holds its
+shard of the positions; the key-padding mask stays whole (the attention
+core sees the whole sequence).
 """
 
 from __future__ import annotations
@@ -22,6 +33,18 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+import torch.nn.functional as F
+
+from .. import comms
+from ..parallel.fsdp import full_param
+from ..parallel.tp import (
+    check_tp_fsdp,
+    draw_block,
+    gather_columns,
+    seq_shard,
+    tp_rules,
+)
+from ..sharding import shard_model
 from . import register
 from .gpt2 import Embed, as_torch_dtype
 from .transformer import (
@@ -39,13 +62,21 @@ class BertMLM(nn.Module):
                  num_heads: int = 12, embed_dim: int = 768,
                  dropout_rate: float = 0.0, remat: str = "none",
                  dtype="float32", attn_impl: str = "xla",
-                 chunked_head: bool = False, mesh=None, device=None):
+                 chunked_head: bool = False, sequence_parallel: bool = False,
+                 mesh=None, device=None):
         super().__init__()
         if attn_impl not in ("xla", "flash"):
             raise NotImplementedError(
                 f"bert attn_impl={attn_impl!r} not yet ported to "
                 "distributeddeeplearning_tpu_torch (ROADMAP queue A13); "
                 "'xla' and 'flash' are")
+        tp = check_tp_fsdp("bert", mesh, num_heads=num_heads,
+                           attn_impl=attn_impl, dropout_rate=dropout_rate,
+                           remat=remat)
+        if embed_dim % tp:
+            raise ValueError(f"bert at mesh tp={tp}: mlm_transform's "
+                             f"{embed_dim} units not divisible by tp={tp}")
+        self.sequence_parallel = sequence_parallel and tp > 1
         self.vocab_size, self.max_len = vocab_size, max_len
         self.num_layers, self.num_heads = num_layers, num_heads
         self.embed_dim, self.head_dim = embed_dim, embed_dim // num_heads
@@ -53,8 +84,8 @@ class BertMLM(nn.Module):
         self.attn_impl, self.mesh = attn_impl, mesh
         self.chunked_head = chunked_head
         self.dtype = as_torch_dtype(dtype)
-        self.word_embeddings = Embed(vocab_size, embed_dim, self.dtype,
-                                     device)
+        self.word_embeddings = Embed(-(-vocab_size // tp), embed_dim,
+                                     self.dtype, device)
         self.position_embeddings = Embed(max_len, embed_dim, self.dtype,
                                          device)
         self.token_type_embeddings = Embed(type_vocab_size, embed_dim,
@@ -64,11 +95,16 @@ class BertMLM(nn.Module):
             num_layers, embed_dim, num_heads, self.head_dim, 4 * embed_dim,
             1e-12, self.dtype, device, pre_ln=False, causal=False,
             activation="gelu_exact", remat=remat, attn_impl=attn_impl,
-            dropout_rate=dropout_rate, mesh=mesh)
-        self.mlm_transform = Dense((embed_dim,), (embed_dim,), self.dtype,
-                                   device)
+            dropout_rate=dropout_rate, mesh=mesh,
+            sequence_parallel=self.sequence_parallel)
+        self.mlm_transform = Dense((embed_dim,), (embed_dim // tp,),
+                                   self.dtype, device)
         self.mlm_ln = LayerNorm(embed_dim, 1e-12, self.dtype, device)
-        self.mlm_bias = nn.Parameter(torch.empty(vocab_size, device=device))
+        self.mlm_bias = nn.Parameter(torch.empty(-(-vocab_size // tp),
+                                                 device=device))
+        # This rank's blocks of the leaves over tp and fsdp (None: whole).
+        self.shards = shard_model(self, mesh, tp_rules(sequence_parallel),
+                                  vocab_size)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
@@ -78,8 +114,7 @@ class BertMLM(nn.Module):
         for name, p in self.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
             if leaf in ("embedding", "kernel"):
-                p.copy_(torch.empty(p.shape).normal_(std=0.02,
-                                                     generator=generator))
+                p.copy_(draw_block(self.shards, name, p, 0.02, generator))
             elif leaf == "scale":
                 nn.init.ones_(p)
             else:
@@ -101,6 +136,9 @@ class BertMLM(nn.Module):
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(tokens)
         positions = torch.arange(L, device=tokens.device)[None, :]
+        if self.shards is not None:
+            return self._sharded_forward(tokens, attention_mask,
+                                         token_type_ids, positions, gen)
         x = (self.word_embeddings(tokens) + self.position_embeddings(positions)
              + self.token_type_embeddings(token_type_ids))
         x = self.embeddings_ln(x)
@@ -113,6 +151,48 @@ class BertMLM(nn.Module):
 
             return head_output(x, emb, self.mlm_bias)
         return (x @ emb.t() + self.mlm_bias).float()
+
+    def _sharded_forward(self, tokens, attention_mask, token_type_ids,
+                         positions, gen):
+        """The forward of a model cut over tp or fsdp: the vocab-parallel
+        embedding, the blocks on the rank's heads (and seq shard under
+        sequence parallelism), ``mlm_transform`` column-parallel and its
+        units gathered, and the vocab-parallel tied head with the rank's
+        slice of ``mlm_bias``, returned as a chunked head."""
+        from ..ops.chunked_xent import head_output
+        from ..parallel.tp import VocabShard, enter, vocab_parallel_embed
+
+        mesh, sp, L = self.mesh, self.sequence_parallel, tokens.shape[1]
+        table = full_param(self.word_embeddings, "embedding")
+        if mesh.shape["tp"] > 1:
+            shard = VocabShard.of(mesh, self.vocab_size)
+            x = vocab_parallel_embed(tokens, table, shard, self.dtype, sp)
+        else:
+            shard = None
+            x = F.embedding(tokens, table).to(self.dtype)
+        if sp:
+            positions = seq_shard(positions, mesh)
+            token_type_ids = seq_shard(token_type_ids, mesh)
+        x = (x + self.position_embeddings(positions)
+             + self.token_type_embeddings(token_type_ids))
+        x = dropout(self.embeddings_ln(x), self.dropout_rate, gen, mesh)
+        x = self.encoder(x, mask=attention_mask, generator=gen,
+                         seq_len=L if sp else None)
+        # The transform's units are a column-parallel slice, gathered
+        # whole before the LayerNorm; the vocab-parallel head's slices then
+        # give each rank its share of the gradient, summed by f. Under
+        # sequence parallelism the LayerNorm runs on the rank's seq shard,
+        # as every leaf tp does not cut does (``fsdp.reduce_grads`` sums
+        # their gradients over tp), and the shards are gathered after it.
+        y = gelu_exact(self.mlm_transform(enter(x, mesh, sp, L)))
+        if sp:
+            y = comms.all_gather_fwd_reduce_scatter_bwd(y, mesh, "tp", 2)
+            y = enter(self.mlm_ln(seq_shard(y, mesh)), mesh, sp, L)
+        else:
+            y = self.mlm_ln(gather_columns(y, mesh, self.embed_dim))
+            y = comms.identity_fwd_psum_bwd(y, mesh, "tp")
+        return head_output(y, table.to(self.dtype), self.mlm_bias,
+                           vocab=shard)
 
 
 @register("bert")

@@ -21,7 +21,15 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..parallel.fsdp import full_param
-from ..parallel.tp import tp_rules
+from ..parallel.tp import (
+    VocabShard,
+    check_tp_fsdp,
+    draw_block,
+    enter,
+    seq_shard,
+    tp_rules,
+    vocab_parallel_embed,
+)
 from ..sharding import shard_model
 from . import register
 from .transformer import (
@@ -161,7 +169,7 @@ class GPT2(nn.Module):
             if cache is not None:
                 raise NotImplementedError(
                     "decode of a model cut over tp or fsdp not yet ported to "
-                    "distributeddeeplearning_tpu_torch (ROADMAP queue A13): "
+                    "distributeddeeplearning_tpu_torch (ROADMAP queue A13 item 8.4): "
                     "restore its checkpoint on one rank")
             return self._sharded_forward(tokens, positions, gen)
         x = self.wte(tokens) + self.wpe(positions)
@@ -183,7 +191,6 @@ class GPT2(nn.Module):
         slice, returned as a chunked head (``ops.chunked_xent``) whatever
         ``chunked_head`` says: the softmax needs every slice."""
         from ..ops.chunked_xent import head_output
-        from ..parallel.tp import VocabShard, enter, vocab_parallel_embed
 
         sp = self.sequence_parallel
         table = full_param(self.wte, "embedding")
@@ -197,69 +204,11 @@ class GPT2(nn.Module):
             positions = seq_shard(positions, self.mesh)
         x = x + self.wpe(positions)
         x = self.h(x, None, generator=gen)
-        x = enter(self.ln_f(x), self.mesh, sp)
+        x = enter(self.ln_f(x), self.mesh, sp, tokens.shape[1])
         return head_output(x, table.to(self.dtype), vocab=shard)
 
 
-def seq_shard(positions, mesh):
-    """This tp rank's shard of ``positions`` ([L] or [B, L]) along the
-    sequence."""
-    tp = mesh.shape["tp"]
-    n = positions.shape[-1] // tp
-    r = mesh.coords["tp"]
-    return positions[..., r * n:(r + 1) * n]
-
-
-def check_tp_fsdp(name: str, mesh, *, num_heads: int, attn_impl: str,
-                  dropout_rate: float = 0.0, num_kv_heads: int | None = None,
-                  remat: str = "none") -> int:
-    """The fences of a decoder cut over tp or fsdp, by name; returns the tp
-    size."""
-    if mesh is None:
-        return 1
-    tp, fsdp = mesh.shape["tp"], mesh.shape["fsdp"]
-    if tp == 1 and fsdp == 1:
-        return 1
-    what = f"{name} at mesh tp={tp}, fsdp={fsdp}"
-    if mesh.shape["cp"] > 1:
-        raise NotImplementedError(
-            f"{what} x mesh.cp={mesh.shape['cp']}: tensor or fully sharded "
-            "parallelism with context parallelism not yet ported to "
-            "distributeddeeplearning_tpu_torch (ROADMAP queue A13)")
-    if attn_impl not in ("xla", "flash"):
-        raise NotImplementedError(
-            f"{what} x attn_impl={attn_impl!r}: only the xla and flash "
-            "cores run on a rank's heads in distributeddeeplearning_tpu_"
-            "torch (ROADMAP queue A13)")
-    if dropout_rate:
-        raise NotImplementedError(
-            f"{what} x dropout_rate={dropout_rate}: dropout masks over a "
-            "rank's heads and seq shard not yet ported to "
-            "distributeddeeplearning_tpu_torch (ROADMAP queue A13)")
-    if remat == "dots":
-        raise NotImplementedError(
-            f"{what} x remat='dots': the selective policy around the fsdp "
-            "gathers not yet ported to distributeddeeplearning_tpu_torch "
-            "(ROADMAP queue A13)")
-    if num_heads % tp:
-        raise ValueError(f"{what}: num_heads {num_heads} not divisible by "
-                         f"tp={tp}")
-    if num_kv_heads is not None and num_kv_heads % tp:
-        raise ValueError(f"{what}: num_kv_heads {num_kv_heads} not "
-                         f"divisible by tp={tp} (each rank holds whole KV "
-                         "heads of its query heads' groups)")
-    return tp
-
-
-def draw_block(shards, name: str, p, std: float, generator):
-    """This rank's block of a normal(0, std) draw of leaf ``name`` at its
-    whole shape, so every mesh holds the one-rank model's weights."""
-    shape = p.shape if shards is None else shards.whole_shape(name, p.shape)
-    full = torch.empty(shape).normal_(std=std, generator=generator)
-    return full if shards is None else shards.take_leaf(name, full)
-
-
-@register("gpt2", tp=True)
+@register("gpt2")
 def gpt2(size: str = "124m", **kwargs) -> GPT2:
     sizes = {
         # (layers, heads, embed) — 124m is the reference workload's config.

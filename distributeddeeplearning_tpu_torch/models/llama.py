@@ -42,10 +42,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..parallel.fsdp import full_param
-from ..parallel.tp import tp_rules
+from ..parallel.tp import check_tp_fsdp, draw_block, tp_rules
 from ..sharding import shard_model
 from . import register
-from .gpt2 import Embed, as_torch_dtype, check_tp_fsdp, draw_block
+from .gpt2 import Embed, as_torch_dtype
 from .remat import checkpoint_block
 from .transformer import (
     ATTN_IMPLS,
@@ -145,7 +145,7 @@ class LlamaAttention(nn.Module):
             if cache is not None:
                 raise NotImplementedError(
                     "decode under tensor parallelism not yet ported to "
-                    "distributeddeeplearning_tpu_torch (ROADMAP queue A13): "
+                    "distributeddeeplearning_tpu_torch (ROADMAP queue A13 item 8.4): "
                     "restore the checkpoint on one rank")
             from ..parallel.tp import enter
 
@@ -332,7 +332,7 @@ class Llama(nn.Module):
         elif self.shards is not None:
             raise NotImplementedError(
                 "decode of a model cut over tp, fsdp or ep not yet ported to "
-                "distributeddeeplearning_tpu_torch (ROADMAP queue A13): "
+                "distributeddeeplearning_tpu_torch (ROADMAP queue A13 item 8.4): "
                 "restore its checkpoint on one rank")
         else:
             positions = cache_positions(cache, L)
@@ -377,7 +377,7 @@ class Llama(nn.Module):
                                     self.sequence_parallel), shard
 
 
-@register("llama", tp=True)
+@register("llama")
 def llama(size: str = "tiny", **kwargs) -> Llama:
     sizes = {
         # (layers, heads, kv_heads, embed, mlp)

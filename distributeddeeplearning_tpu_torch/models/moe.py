@@ -50,14 +50,17 @@ from ..parallel.ep import (
 from ..parallel.fsdp import full_param
 from ..parallel.tp import (
     VocabShard,
+    check_tp_fsdp,
+    draw_block,
     enter,
     leave,
+    seq_shard,
     tp_rules,
     vocab_parallel_embed,
 )
 from ..sharding import shard_model
 from . import register
-from .gpt2 import Embed, as_torch_dtype, check_tp_fsdp, draw_block, seq_shard
+from .gpt2 import Embed, as_torch_dtype
 from .llama import Llama, LlamaAttention, RMSNorm
 from .sow import sow_loss, sow_metric
 from .transformer import (
@@ -375,14 +378,14 @@ class MoeGPT2(nn.Module):
         emb = table.to(self.dtype)
         if mesh is not None and (mesh.shape["tp"] > 1
                                  or mesh.shape["fsdp"] > 1):
-            return head_output(enter(x, mesh, self.sequence_parallel), emb,
-                               vocab=shard)
+            return head_output(enter(x, mesh, self.sequence_parallel, L),
+                               emb, vocab=shard)
         if self.chunked_head:
             return head_output(x, emb)
         return (x @ emb.t()).float()
 
 
-@register("gpt2_moe", remat=False, tp=True, experts=True)
+@register("gpt2_moe", remat=False, experts=True)
 def gpt2_moe(size: str = "tiny", **kwargs) -> MoeGPT2:
     sizes = {
         "tiny": (2, 4, 64),
@@ -457,7 +460,7 @@ class LlamaMoe(Llama):
                              device, **self._routing, **kwargs)
 
 
-@register("llama_moe", tp=True, experts=True)
+@register("llama_moe", experts=True)
 def llama_moe(size: str = "tiny", **kwargs) -> LlamaMoe:
     sizes = {
         # (layers, heads, kv_heads, embed, mlp)

@@ -20,6 +20,27 @@ replicated on every rank of the axis.
 
 Every stage block attends with the plain core (``attn_impl='xla'``), as the
 reference's stages do; the models have no dropout and no remat.
+
+On a ``mesh`` with tp or fsdp above 1 (``sharding.shard_model``) a rank
+holds its blocks of every leaf, the stage leaves' ``[rows, ...]`` cut past
+their stage dim as their block's leaves are (JAX's
+``manual_tp_stage_setup``: heads, ``mlp_dim`` and Llama's ``num_kv_heads``
+over tp, with JAX's divisibility errors; ``embed`` over fsdp). A stage's
+blocks run tp-local behind the f/g markers (``parallel.tp``), each
+row-parallel bias added once after g, so torch's autograd gives every tp
+rank the whole gradient of the replicated leaves and JAX's 1/tp pre-scale of
+those biases has no counterpart; a block's leaves are gathered over fsdp in
+its forward, freed at its end and gathered again in its backward
+(``parallel.fsdp.reshard_after_forward``). The embedding is vocab-parallel
+on stage 0 and the tied (or untied) head is the vocab-parallel chunked head
+on the last stage (``ops.chunked_xent``), both over the stage's tp ranks;
+the pipeline's activations and cotangents are whole on every tp rank, so
+stage ``s`` exchanges with the stages that share its tp, fsdp and dp
+coordinates. The batch is split over dp x fsdp. The embedding tables (and
+Llama's untied head) are JAX's ``vocab_pp``: each pp rank stores its block
+of the table's tp slice, not a copy of it; the stages' ranks all-gather the
+slice over pp before a step or an evaluation, and each keeps its block of
+the gradient summed over pp.
 """
 
 from __future__ import annotations
@@ -29,11 +50,26 @@ import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call
 
+from .. import comms
 from ..parallel import pp
+from ..parallel.fsdp import full_param
+from ..parallel.tp import (
+    VocabShard,
+    gather_columns,
+    tp_size,
+    vocab_parallel_embed,
+)
+from ..sharding import make_rules, shard_model
 from . import register
 from .gpt2 import Embed, as_torch_dtype
 from .llama import LlamaBlock, RMSNorm, rope_tables
-from .transformer import Dense, LayerNorm, TransformerBlock, gelu_exact
+from .transformer import (
+    Dense,
+    LayerNorm,
+    TransformerBlock,
+    block_scope,
+    gelu_exact,
+)
 
 SCHEDULES = ("gpipe", "1f1b", "1f1b_interleaved")
 
@@ -41,26 +77,30 @@ SCHEDULES = ("gpipe", "1f1b", "1f1b_interleaved")
 class PipelineStage(nn.Module):
     """``num_layers`` blocks ``block_{j}`` of one stage: the GPT-2/BERT
     family's ``TransformerBlock`` or Llama's ``LlamaBlock`` (RoPE over the
-    stage input's positions, GQA, SwiGLU)."""
+    stage input's positions, GQA, SwiGLU). On a ``mesh`` with tp > 1 each
+    block holds the rank's heads and MLP units; under fsdp each block's
+    gathered leaves are freed at the end of its forward."""
 
     def __init__(self, num_layers, embed_dim, num_heads, head_dim, mlp_dim, *,
                  pre_ln=True, causal=False, activation="gelu_exact",
                  ln_eps=1e-5, dtype=torch.float32, block_kind="gpt2",
-                 num_kv_heads=0, rope_theta=10000.0, device=None):
+                 num_kv_heads=0, rope_theta=10000.0, mesh=None, device=None):
         super().__init__()
         if block_kind not in ("gpt2", "llama"):
             raise ValueError(f"unknown block_kind {block_kind!r}")
         self.num_layers, self.block_kind = num_layers, block_kind
         self.head_dim, self.rope_theta = head_dim, rope_theta
+        self.mesh = mesh
         for j in range(num_layers):
             if block_kind == "llama":
                 block = LlamaBlock(embed_dim, num_heads, num_kv_heads,
-                                   head_dim, mlp_dim, ln_eps, dtype, device)
+                                   head_dim, mlp_dim, ln_eps, dtype, device,
+                                   mesh=mesh)
             else:
                 block = TransformerBlock(
                     embed_dim, num_heads, head_dim, mlp_dim, ln_eps, dtype,
                     device, pre_ln=pre_ln, causal=causal,
-                    activation=activation)
+                    activation=activation, mesh=mesh)
             self.add_module(f"block_{j}", block)
 
     def forward(self, x, mask=None):
@@ -73,10 +113,12 @@ class PipelineStage(nn.Module):
             rope = rope_tables(torch.arange(x.shape[1], device=x.device),
                                self.head_dim, self.rope_theta)
             for j in range(self.num_layers):
-                x = getattr(self, f"block_{j}")(x, rope)
+                with block_scope(self.mesh, "none"):
+                    x = getattr(self, f"block_{j}")(x, rope)
             return x
         for j in range(self.num_layers):
-            x = getattr(self, f"block_{j}")(x, mask=mask)
+            with block_scope(self.mesh, "none"):
+                x = getattr(self, f"block_{j}")(x, mask=mask)
         return x
 
 
@@ -107,6 +149,16 @@ class PipelinedTransformerStack(nn.Module):
         self.pipelined = bool(pipeline) and size > 1
         if self.pipelined and size != num_stages:
             raise ValueError(f"mesh pp={size} != num_stages={num_stages}")
+        tp = tp_size(mesh)
+        if tp > 1:
+            # JAX's manual_tp_stage_setup: a stage runs on the rank's heads.
+            if num_heads % tp or mlp_dim % tp:
+                raise ValueError(
+                    f"pp×tp: num_heads={num_heads} and mlp_dim={mlp_dim} "
+                    f"must be divisible by tp={tp}")
+            if block_kind == "llama" and num_kv_heads % tp:
+                raise ValueError(f"pp×tp: num_kv_heads={num_kv_heads} must "
+                                 f"be divisible by tp={tp}")
         self.num_layers, self.num_stages = num_layers, num_stages
         self.num_microbatches, self.schedule = num_microbatches, schedule
         self.dropout_rate, self.mesh = dropout_rate, mesh
@@ -115,7 +167,8 @@ class PipelinedTransformerStack(nn.Module):
             num_layers // num_stages, embed_dim, num_heads, head_dim,
             mlp_dim, pre_ln=pre_ln, causal=causal, activation=activation,
             ln_eps=ln_eps, dtype=dtype, block_kind=block_kind,
-            num_kv_heads=num_kv_heads, rope_theta=rope_theta, device=device)
+            num_kv_heads=num_kv_heads, rope_theta=rope_theta, mesh=mesh,
+            device=device)
         rows = 1 if self.pipelined else num_stages
         self.first = mesh.coords["pp"] if self.pipelined else 0
         for mod in self.stages.modules():
@@ -195,6 +248,75 @@ class _Pipelined(nn.Module):
     y)`` and ``_draw(name, shape, generator)``."""
 
     STACK = "h"
+    # The tables whose vocabulary is JAX's ``vocab_pp``.
+    VOCAB_PP: tuple = ()
+    shards = None  # sharding.ShardLayout under tp or fsdp (``_place``)
+
+    def _place(self, vocab_size: int) -> None:
+        """Cut the leaves over the mesh's tp and fsdp (``sharding.
+        shard_model``), the tables' tp slices over pp too, the stage rows
+        counted over pp in a norm."""
+        self.shards = shard_model(self, self.mesh, make_rules(), vocab_size,
+                                  self.VOCAB_PP if self.pipelined else ())
+        if self.shards is not None and self.pipelined:
+            self.shards.pp_names = set(self.stage_rows.names)
+
+    def _pp_tables(self) -> list:
+        """The leaves this rank holds a pp block of (``vocab_pp``)."""
+        if self.shards is None:
+            return []
+        return [k for k, dims in self.shards.dims.items() if "pp" in dims]
+
+    def _whole_shared(self, track: bool = False) -> dict:
+        """:meth:`shared`, each ``vocab_pp`` table all-gathered over pp
+        into its tp slice, as the embedding and the head use it (every
+        stage's rank takes part); with ``track``, leaves that autograd
+        differentiates against."""
+        shared = self.shared()
+        for k in self._pp_tables():
+            t = self.shards.gather_axis(k, shared[k], "pp")
+            shared[k] = t.requires_grad_() if track else t
+        return shared
+
+    def _own_blocks(self, grads: dict) -> dict:
+        """``grads`` with each ``vocab_pp`` table's (its tp slice's,
+        summed over pp) cut to this rank's pp block."""
+        for k in self._pp_tables():
+            grads[k] = self.shards.take_axis(k, grads[k], "pp")
+        return grads
+
+    def _whole_leaf(self, name: str, shared: dict, dtype=None):
+        """Leaf ``name`` of ``shared`` whole over fsdp (gathered in
+        ``dtype`` when ``shard_model`` cut it), as it is otherwise."""
+        owner_name, _, leaf = name.rpartition(".")
+        owner = self.get_submodule(owner_name) if owner_name else self
+        return full_param(owner, leaf, dtype, shared[name])
+
+    def _embed_vocab(self, name: str, shared: dict, tokens):
+        """The lookup of ``tokens`` in embedding module ``name``:
+        vocab-parallel over tp (each token's row from the rank that holds
+        it, summed), plain otherwise."""
+        if tp_size(self.mesh) == 1:
+            return _part(self, name, shared, tokens)
+        table = self._whole_leaf(f"{name}.embedding", shared)
+        return vocab_parallel_embed(
+            tokens, table, VocabShard.of(self.mesh, self.vocab_size),
+            self.dtype, False)
+
+    def _decode(self, x, dec, bias=None):
+        """The LM head on the final states ``x`` with decoder ``dec`` [rows,
+        E] (compute dtype) and ``bias``: fp32 logits, or under tp or fsdp
+        the vocab-parallel chunked head (``ops.chunked_xent``) behind f."""
+        if self.shards is None:
+            logits = x @ dec.t()
+            return (logits if bias is None else logits + bias).float()
+        from ..ops.chunked_xent import head_output
+
+        vocab = None
+        if tp_size(self.mesh) > 1:
+            x = comms.identity_fwd_psum_bwd(x, self.mesh, "tp")
+            vocab = VocabShard.of(self.mesh, self.vocab_size)
+        return head_output(x, dec, bias, vocab=vocab)
 
     @property
     def stack(self) -> PipelinedTransformerStack:
@@ -226,21 +348,24 @@ class _Pipelined(nn.Module):
         for all ``num_stages``), in the parameters' order, and this rank
         keeps its rows, so every ``pp`` gives the weights ``pp = 1``
         draws."""
-        rows = self.stage_rows
+        rows, shards = self.stage_rows, self.shards
         for name, p in self.named_parameters():
-            full = self._draw(name, rows.whole_shape(name, p.shape),
-                              generator)
-            p.copy_(rows.take({name: full})[name])
+            shape = (p.shape if shards is None
+                     else shards.whole_shape(name, p.shape))
+            full = self._draw(name, rows.whole_shape(name, shape), generator)
+            full = rows.take({name: full})[name]
+            p.copy_(full if shards is None else shards.take_leaf(name, full))
 
-    def _sequence(self, tokens, *extra):
+    def _sequence(self, shared, tokens, *extra):
         """(stage input, mask): the embedded tokens and this batch's
         key-padding mask, if the model takes one."""
-        return self.embed_tokens(self.shared(), tokens, *extra), None
+        return self.embed_tokens(shared, tokens, *extra), None
 
     def forward(self, tokens, *extra, train: bool = False, generator=None):
         del generator  # no dropout
-        x, mask = self._sequence(tokens, *extra)
-        return self.head(self.shared(), self.stack(x, mask, train=train))
+        shared = self._whole_shared()
+        x, mask = self._sequence(shared, tokens, *extra)
+        return self.head(shared, self.stack(x, mask, train=train))
 
     def pipeline_value_and_grad(self, batch: dict, task):
         """One training schedule on this rank's ``batch``: ``(loss, grads
@@ -258,8 +383,8 @@ class _Pipelined(nn.Module):
         st.check(tokens, mask, True)
         mesh = st.mesh if st.pipelined else None
         S, s = pp.stage_count(mesh), st.first
-        params = dict(self.named_parameters())
-        shared = self.shared()
+        shared = self._whole_shared(track=True)
+        params = {**dict(self.named_parameters()), **shared}
         engine = pp.one_f_one_b if st.schedule == "1f1b" else pp.gpipe
         with torch.enable_grad():
             x = self.embed_tokens(shared, tokens, *extra) if s == 0 else None
@@ -281,7 +406,7 @@ class _Pipelined(nn.Module):
             metrics if s == S - 1 else None, task, tokens.device, mesh,
             [grads[n] for n in shared])
         grads.update(zip(shared, summed))
-        return metrics["loss"], grads, metrics
+        return metrics["loss"], self._own_blocks(grads), metrics
 
     @staticmethod
     def _over_stages(metrics, task, device, mesh, tensors=()):
@@ -306,7 +431,8 @@ class _Pipelined(nn.Module):
         tokens, extra = inputs[0], inputs[1:]
         mask = extra[0] if extra else None
         st.check(tokens, mask, False)
-        x = (self.embed_tokens(self.shared(), tokens, *extra)
+        shared = self._whole_shared()
+        x = (self.embed_tokens(shared, tokens, *extra)
              if st.first == 0 else None)
         y = pp.forward_only(st.stage_fn, st.stacked(), x, mesh=st.mesh,
                             num_microbatches=st.num_microbatches,
@@ -314,7 +440,7 @@ class _Pipelined(nn.Module):
                             act=st.act(tokens.shape[0], tokens.shape[1]))
         metrics = None
         if st.first == st.num_stages - 1:
-            _, metrics = task.loss_fn(self.head(self.shared(), y), batch)
+            _, metrics = task.loss_fn(self.head(shared, y), batch)
         return self._over_stages(metrics, task, tokens.device, st.mesh)[1]
 
     def _interleaved(self, batch: dict):
@@ -327,18 +453,23 @@ class _Pipelined(nn.Module):
             return self.embed_tokens(shared, bm["tokens"][:, :-1])
 
         def head_fn(shared, y, bm):
-            logits = self.head(shared, y)
+            from ..ops.chunked_xent import chunked_xent, is_chunked_head
+
+            logits, targets = self.head(shared, y), bm["tokens"][:, 1:]
+            if is_chunked_head(logits):
+                return chunked_xent(logits, targets).mean()
             return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
-                                   bm["tokens"][:, 1:].reshape(-1).long())
+                                   targets.reshape(-1).long())
 
         loss, (dstacked, dshared) = pp.interleaved_1f1b(
-            embed_fn, st.stage_fn, head_fn, st.stacked(), self.shared(),
+            embed_fn, st.stage_fn, head_fn, st.stacked(),
+            self._whole_shared(),
             {"tokens": tokens}, mesh=st.mesh if st.pipelined else None,
             num_microbatches=st.num_microbatches,
             act=st.act(tokens.shape[0], tokens.shape[1] - 1))
         prefix = f"{self.STACK}.stages."
         grads = {**dshared, **{prefix + k: g for k, g in dstacked.items()}}
-        return loss, grads, {"loss": loss}
+        return loss, self._own_blocks(grads), {"loss": loss}
 
 
 def _normal(shape, std, generator):
@@ -348,6 +479,8 @@ def _normal(shape, std, generator):
 class PipelinedGPT2(_Pipelined):
     """GPT-2 with a pipelined block stack (the embeddings and tied head of
     ``models/gpt2.py``): ``wte``, ``wpe``, ``h.stages``, ``ln_f``."""
+
+    VOCAB_PP = ("wte.embedding",)
 
     def __init__(self, vocab_size: int = 50257, max_len: int = 1024,
                  num_layers: int = 12, num_heads: int = 12,
@@ -362,7 +495,8 @@ class PipelinedGPT2(_Pipelined):
         self.num_microbatches, self.pipeline = num_microbatches, pipeline
         self.schedule, self.mesh = schedule, mesh
         self.dtype = as_torch_dtype(dtype)
-        self.wte = Embed(vocab_size, embed_dim, self.dtype, device)
+        self.wte = Embed(-(-vocab_size // tp_size(mesh)), embed_dim,
+                         self.dtype, device)
         self.wpe = Embed(max_len, embed_dim, self.dtype, device)
         self.h = PipelinedTransformerStack(
             num_layers, num_stages, num_microbatches, embed_dim, num_heads,
@@ -370,6 +504,7 @@ class PipelinedGPT2(_Pipelined):
             activation="gelu_tanh", ln_eps=1e-5, dtype=self.dtype,
             pipeline=pipeline, schedule=schedule, mesh=mesh, device=device)
         self.ln_f = LayerNorm(embed_dim, 1e-5, self.dtype, device)
+        self._place(vocab_size)
 
     def _draw(self, name, shape, generator):
         leaf = name.rsplit(".", 1)[-1]
@@ -384,18 +519,21 @@ class PipelinedGPT2(_Pipelined):
         if L > self.max_len:
             raise ValueError(f"seq_len {L} exceeds max_len {self.max_len}")
         pos = torch.arange(L, device=tokens.device)[None, :]
-        return (_part(self, "wte", shared, tokens)
+        return (self._embed_vocab("wte", shared, tokens)
                 + _part(self, "wpe", shared, pos))
 
     def head(self, shared, y):
         x = _part(self, "ln_f", shared, y)
-        return (x @ shared["wte.embedding"].to(self.dtype).t()).float()
+        return self._decode(x, self._whole_leaf(
+            "wte.embedding", shared, self.dtype).to(self.dtype))
 
 
 class PipelinedLlama(_Pipelined):
     """Llama with a pipelined block stack (``models/llama.py``'s blocks and
     head): ``embed``, ``h.stages``, ``norm``, and ``lm_head`` [E, V]
     unless ``tie_embeddings``."""
+
+    VOCAB_PP = ("embed.embedding", "lm_head")
 
     def __init__(self, vocab_size: int = 32000, max_len: int = 4096,
                  num_layers: int = 8, num_heads: int = 8,
@@ -413,7 +551,8 @@ class PipelinedLlama(_Pipelined):
         self.pipeline, self.schedule, self.mesh = pipeline, schedule, mesh
         self.tie_embeddings = tie_embeddings
         self.dtype = as_torch_dtype(dtype)
-        self.embed = Embed(vocab_size, embed_dim, self.dtype, device)
+        self.embed = Embed(-(-vocab_size // tp_size(mesh)), embed_dim,
+                           self.dtype, device)
         self.h = PipelinedTransformerStack(
             num_layers, num_stages, num_microbatches, embed_dim, num_heads,
             embed_dim // num_heads, mlp_dim, ln_eps=rms_eps,
@@ -422,8 +561,9 @@ class PipelinedLlama(_Pipelined):
             rope_theta=rope_theta, device=device)
         self.norm = RMSNorm(embed_dim, rms_eps, self.dtype, device)
         if not tie_embeddings:
-            self.lm_head = nn.Parameter(torch.empty(embed_dim, vocab_size,
-                                                    device=device))
+            self.lm_head = nn.Parameter(torch.empty(
+                embed_dim, -(-vocab_size // tp_size(mesh)), device=device))
+        self._place(vocab_size)
 
     def _draw(self, name, shape, generator):
         if name.rsplit(".", 1)[-1] == "scale":
@@ -434,14 +574,13 @@ class PipelinedLlama(_Pipelined):
         L = tokens.shape[1]
         if L > self.max_len:
             raise ValueError(f"seq_len {L} exceeds max_len {self.max_len}")
-        return _part(self, "embed", shared, tokens)
+        return self._embed_vocab("embed", shared, tokens)
 
     def head(self, shared, y):
         x = _part(self, "norm", shared, y)
-        dec = (shared["embed.embedding"].to(self.dtype)
-               if self.tie_embeddings
-               else shared["lm_head"].to(self.dtype).t())
-        return torch.einsum("ble,ve->blv", x, dec).float()
+        name = "embed.embedding" if self.tie_embeddings else "lm_head"
+        dec = self._whole_leaf(name, shared, self.dtype).to(self.dtype)
+        return self._decode(x, dec if self.tie_embeddings else dec.t())
 
 
 class PipelinedBERT(_Pipelined):
@@ -451,6 +590,7 @@ class PipelinedBERT(_Pipelined):
     rows. ``gpipe`` and ``1f1b`` only."""
 
     STACK = "encoder"
+    VOCAB_PP = ("word_embeddings.embedding",)
 
     def __init__(self, vocab_size: int = 30522, max_len: int = 512,
                  type_vocab_size: int = 2, num_layers: int = 12,
@@ -470,8 +610,12 @@ class PipelinedBERT(_Pipelined):
         self.num_microbatches, self.pipeline = num_microbatches, pipeline
         self.schedule, self.mesh = schedule, mesh
         self.dtype = as_torch_dtype(dtype)
-        self.word_embeddings = Embed(vocab_size, embed_dim, self.dtype,
-                                     device)
+        tp = tp_size(mesh)
+        if embed_dim % tp:
+            raise ValueError(f"bert_pp at mesh tp={tp}: mlm_transform's "
+                             f"{embed_dim} units not divisible by tp={tp}")
+        self.word_embeddings = Embed(-(-vocab_size // tp), embed_dim,
+                                     self.dtype, device)
         self.position_embeddings = Embed(max_len, embed_dim, self.dtype,
                                          device)
         self.token_type_embeddings = Embed(type_vocab_size, embed_dim,
@@ -483,10 +627,12 @@ class PipelinedBERT(_Pipelined):
             causal=False, activation="gelu_exact", ln_eps=1e-12,
             dtype=self.dtype, pipeline=pipeline, schedule=schedule,
             mesh=mesh, device=device)
-        self.mlm_transform = Dense((embed_dim,), (embed_dim,), self.dtype,
-                                   device)
+        self.mlm_transform = Dense((embed_dim,), (embed_dim // tp,),
+                                   self.dtype, device)
         self.mlm_ln = LayerNorm(embed_dim, 1e-12, self.dtype, device)
-        self.mlm_bias = nn.Parameter(torch.empty(vocab_size, device=device))
+        self.mlm_bias = nn.Parameter(torch.empty(-(-vocab_size // tp),
+                                                 device=device))
+        self._place(vocab_size)
 
     def _draw(self, name, shape, generator):
         leaf = name.rsplit(".", 1)[-1]
@@ -503,30 +649,40 @@ class PipelinedBERT(_Pipelined):
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(tokens)
         pos = torch.arange(L, device=tokens.device)[None, :]
-        x = (_part(self, "word_embeddings", shared, tokens)
+        x = (self._embed_vocab("word_embeddings", shared, tokens)
              + _part(self, "position_embeddings", shared, pos)
              + _part(self, "token_type_embeddings", shared, token_type_ids))
         return _part(self, "embeddings_ln", shared, x)
 
-    def _sequence(self, tokens, attention_mask=None, token_type_ids=None):
-        return (self.embed_tokens(self.shared(), tokens, None, token_type_ids),
+    def _sequence(self, shared, tokens, attention_mask=None,
+                  token_type_ids=None):
+        return (self.embed_tokens(shared, tokens, None, token_type_ids),
                 attention_mask)
 
     def head(self, shared, y):
+        if tp_size(self.mesh) > 1:
+            # mlm_transform's units are a column-parallel slice, gathered
+            # whole before the LayerNorm (``models/bert.py``).
+            y = comms.identity_fwd_psum_bwd(y, self.mesh, "tp")
+        x = gelu_exact(_part(self, "mlm_transform", shared, y))
         x = _part(self, "mlm_ln", shared,
-                  gelu_exact(_part(self, "mlm_transform", shared, y)))
-        emb = shared["word_embeddings.embedding"].to(self.dtype)
-        return (x @ emb.t() + shared["mlm_bias"]).float()
+                  gather_columns(x, self.mesh, self.embed_dim))
+        emb = self._whole_leaf("word_embeddings.embedding", shared,
+                               self.dtype).to(self.dtype)
+        return self._decode(x, emb, shared["mlm_bias"])
 
 
 # The reference registers them without a remat field: its cli refuses
-# train.remat for them.
+# train.remat for them. ``sequence_parallel`` is dropped: a stage's
+# activations stay whole over tp, as the reference's stages see whole
+# sequences inside their shard_map.
 @register("bert_pp", remat=False, pipelined=True)
 def bert_pp(size: str = "base", **kwargs) -> PipelinedBERT:
     sizes = {"tiny": (2, 4, 64), "base": (12, 12, 768),
              "large": (24, 16, 1024)}
     n_l, n_h, d = sizes[size]
     defaults = dict(num_layers=n_l, num_heads=n_h, embed_dim=d)
+    kwargs.pop("sequence_parallel", None)
     defaults.update(kwargs)
     return PipelinedBERT(**defaults)
 
@@ -542,6 +698,7 @@ def llama_pp(size: str = "tiny", **kwargs) -> PipelinedLlama:
     n_l, n_h, n_kv, d, m = sizes[size]
     defaults = dict(num_layers=n_l, num_heads=n_h, num_kv_heads=n_kv,
                     embed_dim=d, mlp_dim=m)
+    kwargs.pop("sequence_parallel", None)
     defaults.update(kwargs)
     return PipelinedLlama(**defaults)
 
@@ -555,5 +712,6 @@ def gpt2_pp(size: str = "124m", **kwargs) -> PipelinedGPT2:
     }
     n_l, n_h, d = sizes[size]
     defaults = dict(num_layers=n_l, num_heads=n_h, embed_dim=d)
+    kwargs.pop("sequence_parallel", None)
     defaults.update(kwargs)
     return PipelinedGPT2(**defaults)

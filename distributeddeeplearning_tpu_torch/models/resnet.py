@@ -21,6 +21,14 @@
 - ``remat`` ('none' | 'full' | 'dots') checkpoints each residual block
   (``models/remat.py``); 'dots' saves no conv (a conv is no dot, as in
   JAX), so it recomputes what 'full' does.
+- On a ``mesh`` with tp or fsdp above 1 the model holds this rank's blocks
+  (``sharding.shard_model``, JAX's ``models/resnet.py`` axes): each conv
+  weight's output channels over fsdp, gathered whole in the compute dtype
+  just before its conv (``parallel.fsdp.full_param``; under remat 'none' a
+  residual block's gathered weights are freed at the end of its forward
+  and gathered again in its backward), the head's ``[features]`` over fsdp
+  and its classes over tp (the logits gathered over tp before the loss).
+  The batch is split over dp x fsdp, so BatchNorm's sums run over both.
 - Names follow the flax tree (``ConvBN_0.Conv_0``, ``BottleneckBlock_3``,
   ``Dense_0``); a parameter in torch's layout is named ``weight`` where
   flax's is ``kernel`` (OIHW against HWIO, [out, in] against [in, out]),
@@ -35,9 +43,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.fsdp import full_param
+from ..parallel.tp import check_tp_fsdp, class_parallel_logits
+from ..sharding import make_rules, shard_model
 from . import register
 from .gpt2 import as_torch_dtype
 from .remat import check_remat, checkpoint_block, recomputing
+from .transformer import block_scope
 
 BN_MOMENTUM, BN_EPS = 0.9, 1e-5
 
@@ -112,7 +124,8 @@ class _Normalize(torch.autograd.Function):
 
 class BatchNorm(nn.Module):
     """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over the channel
-    dim of NCHW input, its statistics synced over the mesh's dp ranks."""
+    dim of NCHW input, its statistics synced over the mesh's batch ranks
+    (dp and fsdp)."""
 
     def __init__(self, features: int, dtype, mesh=None, device=None):
         super().__init__()
@@ -133,8 +146,9 @@ class BatchNorm(nn.Module):
         count = float(x.shape[0] * x.shape[2] * x.shape[3])
         stats = torch.cat([sums.reshape(-1),
                            sums.new_full((1,), count)])
-        if self.mesh is not None and self.mesh.shape["dp"] > 1:
-            stats = psum_differentiable(stats, self.mesh, "dp")
+        for axis in ("dp", "fsdp"):
+            if self.mesh is not None and self.mesh.shape[axis] > 1:
+                stats = psum_differentiable(stats, self.mesh, axis)
         c = x.shape[1]
         n = stats[2 * c]
         mean, mean2 = stats[:c] / n, stats[c:2 * c] / n
@@ -163,7 +177,7 @@ class Conv(nn.Module):
         ).contiguous(memory_format=torch.channels_last))
 
     def forward(self, x):
-        w = self.weight.to(self.dtype)
+        w = full_param(self, "weight", self.dtype).to(self.dtype)
         if self.kernel == 1:
             # A 1x1 window of stride s reads every s-th pixel ("SAME" pads
             # nothing), so it is a 1x1 conv of the strided view; torch's
@@ -246,21 +260,23 @@ class Dense(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features, device=device))
 
     def forward(self, x):
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype),
-                        self.bias.to(self.dtype))
+        w = full_param(self, "weight", self.dtype).to(self.dtype)
+        return F.linear(x.to(self.dtype), w, self.bias.to(self.dtype))
 
 
 class ResNet(nn.Module):
     """ResNet over NHWC RGB inputs. ``small_stem=True`` is the CIFAR stem
     (3x3/1, no max pool); otherwise the ImageNet stem (7x7/2 + 3x3/2 max
     pool).
-    ``mesh``: the ranks whose BatchNorm statistics are synced (over dp)."""
+    ``mesh``: the ranks whose BatchNorm statistics are synced (over dp
+    and fsdp), and over which the leaves are cut (fsdp and tp)."""
 
     def __init__(self, block, stage_sizes, num_classes: int, width: int = 64,
                  small_stem: bool = False, remat: str = "none",
                  dtype="float32", mesh=None, device=None):
         super().__init__()
         self.remat = check_remat(remat)
+        tp = check_tp_fsdp("resnet", mesh, remat=remat)
         self.dtype, self.mesh = as_torch_dtype(dtype), mesh
         self.small_stem, self.num_classes = small_stem, num_classes
         kw = dict(dtype=self.dtype, mesh=mesh, device=device)
@@ -278,7 +294,13 @@ class ResNet(nn.Module):
                 k += 1
         self.num_blocks = k
         self.block_name = block.__name__
-        self.Dense_0 = Dense(features, num_classes, self.dtype, device)
+        # Every tp rank runs the convolutions whole, the head on its
+        # classes (``benchmark.model_share``).
+        self.tp_repeated = tuple(n for n, _ in self.named_children())
+        self.Dense_0 = Dense(features, -(-num_classes // tp), self.dtype,
+                             device)
+        # This rank's blocks of the leaves over tp and fsdp (None: whole).
+        self.shards = shard_model(self, mesh, make_rules(), num_classes)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
@@ -289,14 +311,17 @@ class ResNet(nn.Module):
         running mean 0 and variance 1."""
         for name, p in self.named_parameters():
             if name.endswith("Conv_0.weight"):
-                fan_in = p.shape[1] * p.shape[2] * p.shape[3]
+                shape = (p.shape if self.shards is None
+                         else self.shards.whole_shape(name, p.shape))
+                fan_in = shape[1] * shape[2] * shape[3]
                 # flax's truncated normal rescales by the stddev of a unit
                 # normal truncated to [-2, 2].
                 std = math.sqrt(2.0 / fan_in) / .87962566103423978
-                w = torch.empty(p.shape)
+                w = torch.empty(shape)
                 nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
                                       generator=generator)
-                p.copy_(w)
+                p.copy_(w if self.shards is None
+                        else self.shards.take_leaf(name, w))
             elif name.endswith("scale"):
                 p.fill_(1.0)
             else:
@@ -318,10 +343,12 @@ class ResNet(nn.Module):
             x = F.max_pool2d(x, 3, 2)
         for k in range(self.num_blocks):
             block = getattr(self, f"{self.block_name}_{k}")
-            x = checkpoint_block(lambda y, b=block: b(y, train), x,
-                                 remat=self.remat)
+            with block_scope(self.mesh, self.remat):
+                x = checkpoint_block(lambda y, b=block: b(y, train), x,
+                                     remat=self.remat)
         x = _f32(x).mean((2, 3)).to(self.dtype)
-        return self.Dense_0(x).float()
+        return class_parallel_logits(x, self.Dense_0, self.mesh,
+                                     self.num_classes).float()
 
 
 @register("resnet18")

@@ -393,7 +393,8 @@ class SelfAttention(nn.Module):
     (``parallel.tp``): query/key/value are column-parallel after the
     region's entry, ``out`` row-parallel, and the core runs on the rank's
     heads; ``sequence_parallel``: ``x`` is the rank's seq shard, gathered
-    at the entry and scattered at the exit. No decode cache under tp.
+    at the entry (cut to ``seq_len`` positions where tp does not divide
+    them) and scattered at the exit. No decode cache under tp.
     """
 
     def __init__(self, embed_dim, num_heads, head_dim, dtype, device=None,
@@ -422,16 +423,17 @@ class SelfAttention(nn.Module):
             self.out = Dense((heads, head_dim), (embed_dim,), dtype, device)
 
     def forward(self, x, cache: KVCache | PagedKVCache | None = None,
-                layer: int = 0, *, mask=None, generator=None):
+                layer: int = 0, *, mask=None, generator=None,
+                seq_len: int | None = None):
         if self.tp > 1:
             if cache is not None:
                 raise NotImplementedError(
                     "decode under tensor parallelism not yet ported to "
-                    "distributeddeeplearning_tpu_torch (ROADMAP queue A13): "
+                    "distributeddeeplearning_tpu_torch (ROADMAP queue A13 item 8.4): "
                     "restore the checkpoint on one rank")
             from ..parallel.tp import enter
 
-            x = enter(x, self.mesh, self.sequence_parallel)
+            x = enter(x, self.mesh, self.sequence_parallel, seq_len)
         q, k, v = self.query(x), self.key(x), self.value(x)
         if cache is not None and mask is not None:
             raise NotImplementedError(
@@ -532,11 +534,11 @@ class Mlp(nn.Module):
         else:
             self.fc_out = Dense((hidden,), (embed_dim,), dtype, device)
 
-    def forward(self, x, generator=None):
+    def forward(self, x, generator=None, seq_len: int | None = None):
         if self.tp > 1:
             from ..parallel.tp import enter
 
-            x = enter(x, self.mesh, self.sequence_parallel)
+            x = enter(x, self.mesh, self.sequence_parallel, seq_len)
         h = self.fc_out(self.act(self.fc_in(x)))
         return dropout(h, self.dropout_rate, generator, self.mesh)
 
@@ -545,7 +547,8 @@ class TransformerBlock(nn.Module):
     """Pre-LN (GPT-2, ViT): x + drop(attn(ln1(x))), then x + mlp(ln2(x));
     post-LN (BERT): ln1(x + drop(attn(x))), then ln2(x + mlp(x)). The MLP
     applies its own output dropout. ``mask``: the attention core's
-    key-padding mask."""
+    key-padding mask; ``seq_len``: the sequence's length under sequence
+    parallelism (``x`` is then a rank's shard of it)."""
 
     def __init__(self, embed_dim, num_heads, head_dim, mlp_dim, ln_eps,
                  dtype, device=None, *, pre_ln: bool = True,
@@ -565,17 +568,18 @@ class TransformerBlock(nn.Module):
         self.ln2 = LayerNorm(embed_dim, ln_eps, dtype, device)
 
     def forward(self, x, cache=None, layer: int = 0, *, mask=None,
-                generator=None):
+                generator=None, seq_len: int | None = None):
         def drop(a):
             return dropout(a, self.dropout_rate, generator, self.mesh)
 
         if self.pre_ln:
             x = x + drop(self.attn(self.ln1(x), cache, layer, mask=mask,
-                                   generator=generator))
-            return x + self.mlp(self.ln2(x), generator)
+                                   generator=generator, seq_len=seq_len))
+            return x + self.mlp(self.ln2(x), generator, seq_len)
         x = self.ln1(x + drop(self.attn(x, cache, layer, mask=mask,
-                                        generator=generator)))
-        return self.ln2(x + self.mlp(x, generator))
+                                        generator=generator,
+                                        seq_len=seq_len)))
+        return self.ln2(x + self.mlp(x, generator, seq_len))
 
 
 class TransformerStack(nn.Module):
@@ -604,11 +608,13 @@ class TransformerStack(nn.Module):
                 attn_impl=attn_impl, dropout_rate=dropout_rate, mesh=mesh,
                 sequence_parallel=sequence_parallel))
 
-    def forward(self, x, cache=None, *, mask=None, generator=None):
+    def forward(self, x, cache=None, *, mask=None, generator=None,
+                seq_len: int | None = None):
         remat = self.remat if cache is None else "none"
         for i in range(self.num_layers):
             block = functools.partial(getattr(self, f"block_{i}"), cache=cache,
-                                      layer=i, mask=mask, generator=generator)
+                                      layer=i, mask=mask, generator=generator,
+                                      seq_len=seq_len)
             with block_scope(self.mesh, remat):
                 x = checkpoint_block(block, x, remat=remat,
                                      generator=generator)

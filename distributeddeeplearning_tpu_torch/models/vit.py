@@ -19,6 +19,15 @@ package's ``models/vit.py`` in torch.
 
 With ``attn_impl='flash'`` the 197 tokens of ViT-L/16 at 224² are padded
 to 256, the padded columns hidden by the kernels' static limit.
+
+On a ``mesh`` with tp or fsdp above 1 the model holds this rank's blocks
+(``sharding.shard_model``): the encoder's heads and MLP units over tp
+(``parallel.tp``), the head's classes over tp (21843 cut into blocks of
+``ceil(21843 / tp)``, the last padded with zeros; the logits gathered over
+tp before the loss), every ``embed`` dimension (the patch kernel's output,
+``cls_token``, ``pos_embed``, the encoder's) over fsdp (``parallel.fsdp``).
+``sequence_parallel``: between the blocks a rank holds ``ceil(197 / tp)``
+of the tokens, the last rank's shard padded (``parallel.tp.seq_shard``).
 """
 
 from __future__ import annotations
@@ -26,6 +35,16 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from .. import comms
+from ..parallel.fsdp import full_param
+from ..parallel.tp import (
+    check_tp_fsdp,
+    class_parallel_logits,
+    draw_block,
+    seq_shard,
+    tp_rules,
+)
+from ..sharding import shard_model
 from . import register
 from .gpt2 import as_torch_dtype
 from .transformer import Dense, LayerNorm, TransformerStack, dropout
@@ -34,12 +53,16 @@ CHANNELS = 3  # RGB, as every image kind draws
 
 
 class ViT(nn.Module):
+    # The work every tp rank repeats whole (``benchmark.model_share``).
+    tp_repeated = ("patch_embed",)
+
     def __init__(self, num_classes: int = 21843, image_size: int = 224,
                  patch_size: int = 16, num_layers: int = 24,
                  num_heads: int = 16, embed_dim: int = 1024,
                  mlp_ratio: int = 4, dropout_rate: float = 0.0,
                  remat: str = "none", dtype="float32",
-                 attn_impl: str = "xla", mesh=None, device=None):
+                 attn_impl: str = "xla", sequence_parallel: bool = False,
+                 mesh=None, device=None):
         super().__init__()
         if attn_impl not in ("xla", "flash"):
             raise NotImplementedError(
@@ -49,6 +72,10 @@ class ViT(nn.Module):
         if image_size % patch_size:
             raise ValueError(f"image_size {image_size} is no multiple of "
                              f"patch_size {patch_size}")
+        tp = check_tp_fsdp("vit", mesh, num_heads=num_heads,
+                           attn_impl=attn_impl, dropout_rate=dropout_rate,
+                           remat=remat)
+        self.sequence_parallel = sequence_parallel and tp > 1
         self.num_classes, self.image_size = num_classes, image_size
         self.patch_size = patch_size
         self.num_layers, self.num_heads = num_layers, num_heads
@@ -67,9 +94,14 @@ class ViT(nn.Module):
             num_layers, embed_dim, num_heads, self.head_dim,
             mlp_ratio * embed_dim, 1e-12, self.dtype, device, pre_ln=True,
             causal=False, activation="gelu_exact", remat=remat,
-            attn_impl=attn_impl, dropout_rate=dropout_rate, mesh=mesh)
+            attn_impl=attn_impl, dropout_rate=dropout_rate, mesh=mesh,
+            sequence_parallel=self.sequence_parallel)
         self.ln_f = LayerNorm(embed_dim, 1e-12, self.dtype, device)
-        self.head = Dense((embed_dim,), (num_classes,), self.dtype, device)
+        self.head = Dense((embed_dim,), (-(-num_classes // tp),), self.dtype,
+                          device)
+        # This rank's blocks of the leaves over tp and fsdp (None: whole).
+        self.shards = shard_model(self, mesh, tp_rules(sequence_parallel),
+                                  num_classes)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
@@ -81,8 +113,7 @@ class ViT(nn.Module):
             leaf = name.rsplit(".", 1)[-1]
             if name == "pos_embed" or (leaf == "kernel"
                                        and not name.startswith("head.")):
-                p.copy_(torch.empty(p.shape).normal_(std=0.02,
-                                                     generator=generator))
+                p.copy_(draw_block(self.shards, name, p, 0.02, generator))
             elif leaf == "scale":
                 nn.init.ones_(p)
             else:
@@ -105,14 +136,26 @@ class ViT(nn.Module):
         patches = images.reshape(B, H // p, p, W // p, p, C).permute(
             0, 1, 3, 2, 4, 5).reshape(B, -1, p, p, C)
         x = self.patch_embed(patches)  # [B, n_patches, E]
-        dt = torch.promote_types(x.dtype, self.cls_token.dtype)
-        cls = self.cls_token.to(dt)[None].expand(B, 1, self.embed_dim)
+        cls_token = full_param(self, "cls_token")
+        dt = torch.promote_types(x.dtype, cls_token.dtype)
+        cls = cls_token.to(dt)[None].expand(B, 1, self.embed_dim)
         x = torch.cat([cls, x.to(dt)], dim=1)
-        x = x + self.pos_embed[None]
+        x = x + full_param(self, "pos_embed")[None]
         x = dropout(x, self.dropout_rate, gen, self.mesh)
-        x = self.encoder(x, generator=gen)
-        x = self.ln_f(x)[:, 0]  # the CLS token
-        return self.head(x).float()
+        if not self.sequence_parallel:
+            x = self.ln_f(self.encoder(x, generator=gen))
+        else:
+            # The rank's shard of the tokens between the blocks; the whole
+            # sequence back after the final LayerNorm (each rank's slice of
+            # its gradient kept: the CLS row's, whole on every rank).
+            L = x.shape[1]
+            x = self.encoder(seq_shard(x, self.mesh), generator=gen,
+                             seq_len=L)
+            x = comms.all_gather_fwd_slice_bwd(self.ln_f(x), self.mesh,
+                                               "tp", 1)
+        x = x[:, 0]  # the CLS token
+        return class_parallel_logits(x, self.head, self.mesh,
+                                     self.num_classes).float()
 
 
 @register("vit")

@@ -17,8 +17,10 @@ softmax is taken over the slices together: the max of the local logits
 all-reduced over tp (detached: a shift), the sum of the exponentials
 all-reduced over tp, the target's logit from the rank that holds it. Every
 tp rank gets the same per-token loss, and each rank's logits the gradient
-of their own columns. The collectives run again, in the same order on every
-rank, when the backward recomputes a chunk.
+of their own columns. A head with a bias (BERT's ``mlm_bias``) holds the
+same slice of it, added to the slice's logits first. The collectives run
+again, in the same order on every rank, when the backward recomputes a
+chunk.
 """
 
 from __future__ import annotations
@@ -62,13 +64,18 @@ def _chunk_xent(hc, emb, tc, bias=None):
                            reduction="none").reshape(B, Lc)
 
 
-def _chunk_xent_vocab_parallel(hc, emb, tc, vocab):
+def _chunk_xent_vocab_parallel(hc, emb, tc, vocab, bias=None):
     """:func:`_chunk_xent` over this rank's vocabulary slice (``emb``
-    [rows, E], rows ``[vocab.lo, vocab.lo + vocab.valid)`` of the whole)."""
+    [rows, E], rows ``[vocab.lo, vocab.lo + vocab.valid)`` of the whole;
+    ``bias`` [rows]: the same slice of the bias, joined to the slice's
+    logits before the softmax over the slices)."""
     from .. import comms
 
     mesh = vocab.mesh
-    logits = torch.einsum("ble,ve->blv", hc, emb).float()
+    logits = torch.einsum("ble,ve->blv", hc, emb)
+    if bias is not None:
+        logits = logits + bias
+    logits = logits.float()
     rows = logits.shape[-1]
     if vocab.valid < rows:  # the padded rows of the last rank's slice
         cols = torch.arange(rows, device=logits.device)
@@ -92,8 +99,6 @@ def chunked_xent(out: ChunkedHeadOut, targets, *, seq_chunk: int = 128):
     it and drops the pad, which is the same function)."""
     hidden, emb = out["hidden"], out["emb"]
     bias, vocab = out.get("bias"), out.get("vocab")
-    if vocab is not None and bias is not None:
-        raise NotImplementedError("a vocab-parallel head with a bias")
     L = hidden.shape[1]
     seq_chunk = max(1, min(seq_chunk, L))
     per_tok = []
@@ -102,7 +107,7 @@ def chunked_xent(out: ChunkedHeadOut, targets, *, seq_chunk: int = 128):
         tc = targets[:, lo:lo + seq_chunk]
         if vocab is not None:
             per_tok.append(checkpoint(_chunk_xent_vocab_parallel, hc, emb,
-                                      tc, vocab, use_reentrant=False))
+                                      tc, vocab, bias, use_reentrant=False))
             continue
         per_tok.append(checkpoint(_chunk_xent, hc, emb, tc, bias,
                                   use_reentrant=False))

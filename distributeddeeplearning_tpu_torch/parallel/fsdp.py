@@ -86,11 +86,12 @@ def fsdp_gather(local: torch.Tensor, mesh, dim: int, size: int,
     return full
 
 
-def full_param(module, name: str, dtype=None) -> torch.Tensor:
+def full_param(module, name: str, dtype=None, value=None) -> torch.Tensor:
     """``module``'s leaf ``name`` whole: gathered over fsdp when
     ``sharding.shard_model`` cut it (in ``dtype``, the compute dtype), as
-    it is otherwise."""
-    t = getattr(module, name)
+    it is otherwise. ``value``: the block to use in place of the module's
+    own (a copy the caller differentiates against)."""
+    t = getattr(module, name) if value is None else value
     spec = getattr(module, "fsdp_dims", None)
     if not spec or name not in spec:
         return t
@@ -217,14 +218,17 @@ def reduce_grads(grads: dict, layout) -> dict:
     return grads
 
 
+# The axes a norm's sums of squares meet over: the sharded ones, and pp
+# for a pipeline stage's rows.
+NORM_AXES = SHARD_AXES + ("pp",)
 # The classes of a leaf by the live axes that cut it: a norm's sums of
 # squares are kept apart by class until they meet over those axes.
-CLASSES = tuple(c for n in range(len(SHARD_AXES) + 1)
-                for c in itertools.combinations(SHARD_AXES, n))
+CLASSES = tuple(c for n in range(len(NORM_AXES) + 1)
+                for c in itertools.combinations(NORM_AXES, n))
 
 
 def leaf_class(layout, name: str) -> int:
-    axes = set(layout.axes_of(name)) if layout is not None else set()
+    axes = set(layout.norm_axes(name)) if layout is not None else set()
     return next(i for i, c in enumerate(CLASSES) if set(c) == axes)
 
 
@@ -233,7 +237,7 @@ def whole_sq(sq: torch.Tensor, mesh) -> torch.Tensor:
     class (``[len(CLASSES)]``): a class cut over an axis sums over it, a
     class whole on an axis counts member 0's copy. Every rank gets the same
     value, so every rank takes the same clip and health decision."""
-    for axis in SHARD_AXES:
+    for axis in NORM_AXES:
         if mesh.shape[axis] == 1:
             continue
         keep = torch.tensor([axis in c or mesh.coords[axis] == 0

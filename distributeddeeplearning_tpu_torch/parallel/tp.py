@@ -23,7 +23,10 @@ the collectives itself:
   vocabulary, zero for the others' tokens, summed (or scattered into seq
   shards) over tp; the tied or untied head multiplies by the same slice,
   and ``ops.chunked_xent`` takes the softmax over the slices together
-  (:class:`VocabShard`).
+  (:class:`VocabShard`);
+- :func:`check_tp_fsdp` holds every model's fences under tp or fsdp, and
+  :func:`draw_block` draws a leaf whole and keeps the rank's block, so
+  every mesh starts from the one-rank model's weights.
 """
 
 from __future__ import annotations
@@ -51,24 +54,117 @@ def tp_size(mesh) -> int:
     return 1 if mesh is None else mesh.shape["tp"]
 
 
-def enter(x, mesh, sequence_parallel: bool):
+def enter(x, mesh, sequence_parallel: bool, length: int | None = None):
     """A tensor-parallel region's entry: f, or the all-gather of the seq
-    shards."""
+    shards, cut to the sequence's ``length`` where tp does not divide it
+    (the last shard's padding rows dropped)."""
     if tp_size(mesh) == 1:
         return x
     if sequence_parallel:
-        return comms.all_gather_fwd_reduce_scatter_bwd(x, mesh, "tp", 1)
+        x = comms.all_gather_fwd_reduce_scatter_bwd(x, mesh, "tp", 1)
+        return x if length is None else x[:, :length]
     return comms.identity_fwd_psum_bwd(x, mesh, "tp")
 
 
 def leave(x, mesh, sequence_parallel: bool):
     """A tensor-parallel region's exit: g, or the reduce-scatter of the
-    partial sums into seq shards."""
-    if tp_size(mesh) == 1:
+    partial sums into seq shards (a sequence that tp does not divide padded
+    with zero rows at its end first, as :func:`seq_shard` pads it)."""
+    tp = tp_size(mesh)
+    if tp == 1:
         return x
     if sequence_parallel:
+        pad = -x.shape[1] % tp
+        if pad:
+            x = F.pad(x, (0, 0) * (x.dim() - 2) + (0, pad))
         return comms.reduce_scatter_fwd_all_gather_bwd(x, mesh, "tp", 1)
     return comms.psum_identity_bwd(x, mesh, "tp")
+
+
+def seq_shard(x, mesh, dim: int = 1):
+    """This tp rank's shard of ``x`` along the sequence dimension ``dim``:
+    ``ceil(L / tp)`` positions, the last rank's padded with zeros where tp
+    does not divide ``L`` (ViT's 197 tokens), as :func:`leave` scatters
+    them."""
+    tp = tp_size(mesh)
+    if tp == 1:
+        return x
+    n = -(-x.shape[dim] // tp)
+    pad = n * tp - x.shape[dim]
+    if pad:
+        x = F.pad(x, (0, 0) * (x.dim() - 1 - dim) + (0, pad))
+    return x.narrow(dim, mesh.coords["tp"] * n, n)
+
+
+def gather_columns(y, mesh, size: int):
+    """The whole last dimension (``size`` columns) of a column-parallel
+    output ``y`` (this rank's slice, the last rank's padded): gathered over
+    tp, each rank's slice of the gradient kept (the whole is used alike on
+    every rank)."""
+    if tp_size(mesh) == 1:
+        return y
+    return comms.all_gather_fwd_slice_bwd(y, mesh, "tp", -1)[..., :size]
+
+
+def class_parallel_logits(x, head, mesh, num_classes: int):
+    """An image head over tp: ``head`` (a linear map onto this rank's
+    slice of the classes, padded on the last rank) on the replicated ``x``
+    [B, E] behind f, the slices' logits gathered into the whole ``[B,
+    num_classes]``, which the classification task takes as it is."""
+    if tp_size(mesh) == 1:
+        return head(x)
+    x = comms.identity_fwd_psum_bwd(x, mesh, "tp")
+    return gather_columns(head(x), mesh, num_classes)
+
+
+def check_tp_fsdp(name: str, mesh, *, num_heads: int | None = None,
+                  attn_impl: str = "xla",
+                  dropout_rate: float = 0.0, num_kv_heads: int | None = None,
+                  remat: str = "none") -> int:
+    """The fences of a model cut over tp or fsdp, by name; returns the tp
+    size."""
+    if mesh is None:
+        return 1
+    tp, fsdp = mesh.shape["tp"], mesh.shape["fsdp"]
+    if tp == 1 and fsdp == 1:
+        return 1
+    what = f"{name} at mesh tp={tp}, fsdp={fsdp}"
+    if mesh.shape["cp"] > 1:
+        raise NotImplementedError(
+            f"{what} x mesh.cp={mesh.shape['cp']}: tensor or fully sharded "
+            "parallelism with context parallelism not yet ported to "
+            "distributeddeeplearning_tpu_torch (ROADMAP queue A13 item 8.4)")
+    if attn_impl not in ("xla", "flash"):
+        raise NotImplementedError(
+            f"{what} x attn_impl={attn_impl!r}: only the xla and flash "
+            "cores run on a rank's heads in distributeddeeplearning_tpu_"
+            "torch (ROADMAP queue A13)")
+    if dropout_rate:
+        raise NotImplementedError(
+            f"{what} x dropout_rate={dropout_rate}: dropout masks over a "
+            "rank's heads and seq shard not yet ported to "
+            "distributeddeeplearning_tpu_torch (ROADMAP queue A13 item 8.4)")
+    if remat == "dots":
+        raise NotImplementedError(
+            f"{what} x remat='dots': the selective policy around the fsdp "
+            "gathers not yet ported to distributeddeeplearning_tpu_torch "
+            "(ROADMAP queue A13 item 8.4)")
+    if num_heads is not None and num_heads % tp:
+        raise ValueError(f"{what}: num_heads {num_heads} not divisible by "
+                         f"tp={tp}")
+    if num_kv_heads is not None and num_kv_heads % tp:
+        raise ValueError(f"{what}: num_kv_heads {num_kv_heads} not "
+                         f"divisible by tp={tp} (each rank holds whole KV "
+                         "heads of its query heads' groups)")
+    return tp
+
+
+def draw_block(shards, name: str, p, std: float, generator):
+    """This rank's block of a normal(0, std) draw of leaf ``name`` at its
+    whole shape, so every mesh holds the one-rank model's weights."""
+    shape = p.shape if shards is None else shards.whole_shape(name, p.shape)
+    full = torch.empty(shape).normal_(std=std, generator=generator)
+    return full if shards is None else shards.take_leaf(name, full)
 
 
 class RowParallelDense(Dense):

@@ -166,11 +166,14 @@ def mlm_task(head_chunk: int = 128, mesh=None) -> Task:
     On a ``mesh`` of n > 1 ranks the count is the whole (micro)batch's, as
     the reference's loss over the global batch divides by it: a rank's
     loss is ``n * sum_rank / max(count, 1)``, so the mean over the ranks
-    (the gradient and metric sync) is the global loss. Under pipeline
-    parallelism the ranks of a ``pp`` group hold the same rows, and the
-    count sums over dp only."""
-    axis = "dp" if mesh is not None and mesh.shape["pp"] > 1 else "world"
-    ranks = 1 if mesh is None else axis_size(mesh, axis)
+    (the gradient and metric sync) is the global loss. The ``n`` ranks are
+    those that split the batch, dp x fsdp: the ranks of a ``pp`` or ``tp``
+    group hold the same rows."""
+    from .mesh import BATCH_AXES
+
+    axes = [] if mesh is None else [a for a in BATCH_AXES
+                                    if mesh.shape[a] > 1]
+    ranks = math.prod(axis_size(mesh, a) for a in axes)
 
     def input_fn(batch):
         if "attention_mask" in batch:
@@ -182,7 +185,7 @@ def mlm_task(head_chunk: int = 128, mesh=None) -> Task:
         weights = (labels >= 0).float()
         per_tok = _per_token_xent(out, labels.clamp_min(0), head_chunk)
         count = weights.sum()
-        if ranks > 1:
+        for axis in axes:
             count = psum(count, mesh, axis)
         loss = (per_tok * weights).sum() / (count.clamp_min(1.0) / ranks)
         return loss, {"loss": loss, "masked_fraction": weights.mean()}
@@ -643,14 +646,13 @@ class Trainer:
         attn = getattr(model, "attn_impl", None)
         if hasattr(model, "num_stages"):
             # The reference's fences on a pipelined model.
-            dead = {a: mesh.shape[a] for a in ("ep", "cp", "tp", "fsdp")
+            dead = {a: mesh.shape[a] for a in ("ep", "cp")
                     if mesh is not None and mesh.shape[a] > 1}
             if dead:
                 raise NotImplementedError(
-                    f"pipeline x {'/'.join(dead)} (mesh has {dead}): the "
-                    "port's pipelined stacks compose with dp and zero1 only; "
-                    "pp x tp and fsdp x pp not yet ported to "
-                    "distributeddeeplearning_tpu_torch (ROADMAP queue A13)"
+                    f"pipeline x {'/'.join(dead)} is unsupported in v1 "
+                    f"(mesh has {dead}): pipelined stacks compose with "
+                    "dp/fsdp/tp/zero1 only"
                 )
             if get_policy(precision).mixed:
                 raise NotImplementedError(
@@ -741,20 +743,19 @@ class Trainer:
             return
         live = {a: mesh.shape[a] for a in ("tp", "fsdp", "ep")
                 if mesh.shape[a] > 1}
-        if not live or hasattr(model, "num_stages"):
+        if not live or (hasattr(model, "num_stages") and "ep" in live):
             return  # the pipeline's fences name it
         what = ", ".join(f"mesh.{a}={n}" for a, n in live.items())
-        if getattr(model, "shards", None) is None:
+        if isinstance(tx, LowPrecisionAdamW):
             raise NotImplementedError(
-                f"{what} x model {type(model).__name__}: tensor and fully "
-                "sharded parallelism of this model not yet ported to "
-                "distributeddeeplearning_tpu_torch (ROADMAP queue A13; GPT-2, "
-                "Llama and the MoE models are)")
-        if isinstance(tx, (SGD, LowPrecisionAdamW)):
+                f"{what} x {type(tx).__name__}: bf16_full's stochastically "
+                "rounded moments over a rank's blocks not yet ported to "
+                "distributeddeeplearning_tpu_torch (ROADMAP queue A13 item "
+                "8.4)")
+        if isinstance(tx, SGD) and "ep" in live:
             raise NotImplementedError(
-                f"{what} x {type(tx).__name__}: the port composes tp, fsdp "
-                "and ep with AdamW and the fused AdamW only (ROADMAP queue "
-                "A13)")
+                f"{what} x SGD: the port composes ep with AdamW and the "
+                "fused AdamW only (ROADMAP queue A13 item 8.4)")
 
     def _batch_mean(self, tensors: list, *, fsdp: bool = True) -> list:
         """The mean over the ranks that split the batch: under a sharded

@@ -108,8 +108,8 @@ def _sgd_state_from_jax(opt_state, like, rows=None, shards=None):
     if trace is None or count is None:
         raise ValueError("no (trace, count) SGD state in the JAX optimizer "
                          "state")
-    flat = to_torch_layout(rank_shards(rank_rows(
-        from_jax_params(trace.trace), rows), shards), set(like.trace))
+    flat = rank_shards(rank_rows(to_torch_layout(
+        from_jax_params(trace.trace), set(like.trace)), rows), shards)
     if set(flat) != set(like.trace):
         raise KeyError(f"trace names differ: "
                        f"{sorted(set(flat) ^ set(like.trace))}")
@@ -171,8 +171,8 @@ def state_from_jax(jax_state, like):
             ("model_state",
              dict(getattr(jax_state, "model_state", None) or {}).get(
                  "batch_stats", {}), like.model_state)):
-        flat = to_torch_layout(rank_shards(rank_rows(
-            from_jax_params(tree), rows), shards), set(into))
+        flat = rank_shards(rank_rows(to_torch_layout(
+            from_jax_params(tree), set(into)), rows), shards)
         if set(flat) != set(into):
             raise KeyError(f"{name} names differ: "
                            f"{sorted(set(flat) ^ set(into))}")

@@ -25,6 +25,7 @@ def _sources():
         ROOT / "tools" / "torch_cp_profile.py",
         ROOT / "tools" / "torch_flash_tiles.py",
         ROOT / "tools" / "torch_launch_profile.py",
+        ROOT / "tools" / "torch_pp_tables_ab.py",
     ]
     return [p for p in files if "_build" not in p.parts]
 
@@ -171,13 +172,29 @@ def test_cli_generate_refuses_gpt2_moe_by_name():
     ("mesh.tp=2", "mesh"),
 ])
 def test_unported_train_knobs_are_refused_by_name(override, knob):
-    # GPT-2 and Llama run tp and sequence parallelism; the other models
-    # refuse them.
     model = {"train.sequence_parallel": "vit", "mesh": "resnet50"}.get(knob)
     extra = [f"model.name={model}"] if model else []
+    if model:
+        # Every model of the zoo runs tp and sequence parallelism now
+        # (tests/test_torch_encoders_tp.py): the composition is accepted.
+        _accepted(override, *extra, world=4)
+        return
     with pytest.raises(NotImplementedError,
                        match=rf"^{knob}=.*ROADMAP queue A\d+"):
         _train(override, *extra)
+
+
+def _accepted(*overrides, world):
+    """``cli``'s composition fences pass over a job of ``world`` ranks."""
+    from distributeddeeplearning_tpu_torch import cli
+    from distributeddeeplearning_tpu_torch.config import (
+        apply_overrides,
+        load_config,
+    )
+
+    cfg = apply_overrides(load_config(str(ROOT / CONFIG)),
+                          TINY + list(overrides))
+    cli.check_train_composition(cfg, world_size=world)
 
 
 @pytest.mark.parametrize("override,knob", [
@@ -244,6 +261,11 @@ def test_unported_mesh_axes_are_refused_by_name(override, axis):
         return
     model = {"fsdp": "vit", "tp": "resnet50"}.get(axis)
     extra = [f"model.name={model}"] if model else []
+    if model:
+        # Every model of the zoo runs fsdp and tp now
+        # (tests/test_torch_encoders_tp.py): the composition is accepted.
+        _accepted(override, "mesh.dp=1", *extra, world=4)
+        return
     with pytest.raises(NotImplementedError,
                        match=rf"^mesh=.*mesh\.{axis}=\d+ .*ROADMAP queue A13"):
         _train(override, "mesh.dp=1", *extra)

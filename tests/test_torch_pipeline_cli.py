@@ -8,8 +8,9 @@ the pipeline's fences, configs, HF restacking and bf16 hold.
   overrides as the JAX package's tests shrink them; then ``cli eval`` in
   one process at pp=1 evaluates the pp=4 checkpoint, as the 4 ranks did.
 - Every fence the JAX package puts on pipelined models raises its
-  exception type here; ``mesh.tp`` beside ``mesh.pp`` is refused naming
-  ROADMAP A13.
+  exception type here; the knobs not ported beside ``mesh.pp`` are refused
+  naming ROADMAP A13 (``mesh.tp`` and ``mesh.fsdp`` beside it run:
+  ``tests/test_torch_pp_tp.py``).
 - The two configs are the JAX package's; ``hf_port.to_pipelined`` gives
   JAX's tree on a tiny GPT-2 and a tiny Llama, and ``validate_params``
   takes it for a pipeline rank's model.
@@ -221,7 +222,7 @@ def test_pp_with_a_model_that_is_not_pipelined_is_refused():
 
 @pytest.mark.parametrize("override", [
     "train.grad_comm=int8", "train.grad_bucket_mb=4.0",
-    "train.update_sharding=sharded", "mesh.tp=2",
+    "train.update_sharding=sharded", "mesh.dcn_dp=2",
 ])
 def test_unported_knobs_beside_pp_are_refused(override):
     cfg = apply_overrides(load_config(GPT2_PP), GPT2_TINY + [override])
