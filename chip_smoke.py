@@ -194,7 +194,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      and Llama the serving engine's on the same weights and prompts, its
      decode steps through ``paged_decode`` (launches counted).
   34. one spawn of four ranks sharing the one card over gloo
-     (``spawn_ranks``) runs every multi-rank job of phases 34-39 in turn,
+     (``spawn_ranks``) runs every multi-rank job of phases 34-40 in turn,
      the ``cli train`` ones as ``torchrun`` would (each in a process group
      of its own). Phase 34's: pipeline parallelism through the entry
      point, ``cli train`` on ``configs/gpt2_pp.py`` as shipped (pp=4, dp=1
@@ -217,10 +217,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      through the entry point: the ranks' ``cli train`` on
      ``configs/gpt2_owt.py`` at dp=1 x fsdp=2 x tp=2 with
      ``train.sequence_parallel=true`` (bf16, flash, adamw_fused; the batch
-     cut for time to 8 x 1024) for 2 steps, an evaluation and a checkpoint
+     cut for time to 4 x 1024) for 2 steps, an evaluation and a checkpoint
      at step 2 (in the one-rank layout): every loss finite and equal on the
      4 ranks; per rank each flash kernel 12 x steps launches (flash_fwd 12
-     more for the evaluation) at [4 rows x 6 heads, 1024, 64], fused_adamw
+     more for the evaluation) at [2 rows x 6 heads, 1024, 64], fused_adamw
      2 x steps over the rank's blocks; its param, gradient and moment bytes
      against the whole 124M's, the tp and fsdp sharded fractions (each
      above 0.5), peak memory and the transport's seconds a step. A path,
@@ -233,15 +233,15 @@ Phases, in order; any failure raises and the script exits non-zero:
      this process restores the step-2 save and cuts it to each rank's
      blocks, equal to that rank's step-2 params bit for bit (sha256);
      Llama-300M at dp2 x tp2 with ZeRO-1: bf16 as shipped (the batch cut
-     for time to 4 x 2048) for 2 steps, each flash kernel 12 a step at [2
-     rows x 8 heads, 2048, 64], fused_adamw 2 a step over the rank's
+     for time to 2 x 2048) for 2 steps, each flash kernel 12 a step at [1
+     row x 8 heads, 2048, 64], fused_adamw 2 a step over the rank's
      shards; the fp32 pair at 2 x 2048 for 2 steps within 1e-4 relative
      of phase 23's one-process kernel route and falling.
   38. the ranks' expert-parallel jobs (``ep_parity``): gpt2_moe as shipped
      (bf16, flash, top-2 of 8 at capacity factor 1.25, ZeRO-1) at dp2 x
-     ep2, the batch cut for time to 8 x 1024, for 2 steps, an evaluation
+     ep2, the batch cut for time to 4 x 1024, for 2 steps, an evaluation
      and a save: the losses equal on the ranks, drops present, each flash
-     kernel 12 a step (flash_fwd 12 more for the evaluation) at [48, 1024,
+     kernel 12 a step (flash_fwd 12 more for the evaluation) at [24, 1024,
      64]; per rank its param, gradient and moment bytes against the whole
      model's (a share of ~0.65, the moments half that again), aux_loss,
      moe_dropped_frac, peak memory and transport seconds a step; the save,
@@ -267,9 +267,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      rank's rows and blocks equal to that rank's params (sha256);
      ``configs/vit_imagenet21k.py`` (remat full, flash, adamw_fused) and
      ``configs/bert_mlm.py`` (4 microbatches, ragged rows) as shipped at
-     tp2 x fsdp2 with sequence parallelism, 16 rows, 2 steps: flash at [8
+     tp2 x fsdp2 with sequence parallelism, 8 rows, 2 steps: flash at [4
      x 8 heads, 256, 64] limit 197 (48 flash_fwd a step with the
-     recompute) and [2 x 6 heads, 128, 64] with per-row limits, fused_adamw
+     recompute) and [1 x 6 heads, 128, 64] with per-row limits, fused_adamw
      2 a step over the rank's blocks; ``configs/resnet50_imagenet.py`` as
      shipped (SGD, bf16, 32 x 224²) at fsdp2 x tp2; fp32
      ViT-L and BERT at tp2 x fsdp2 within 1e-4 relative of phase 20's one
@@ -279,6 +279,22 @@ Phases, in order; any failure raises and the script exits non-zero:
      blocks within ``LEAF_STATS_TOL`` leaf by leaf; ResNet-50 at dp2 x
      fsdp2 within 1e-4 of phase 16's one process, its BatchNorm running
      statistics within ``BN_STATS_TOL``.
+  40. the ranks' jobs of context parallelism on a rank's heads
+     (``heads_cp_parity``): ``configs/gpt2_owt.py`` as shipped (bf16,
+     adamw_fused) on ``ulysses_flash`` at dp1 x tp2 x cp2, 8 x 1024, 2
+     steps, an evaluation and a save: the flash kernels on every rank at [8
+     rows x 3 heads, 1024, 64] (the whole sequence over the rank's heads
+     after the all-to-alls), 12 a step (flash_fwd 12 more in the
+     evaluation), the save restored here in one process and cut to each
+     rank's blocks equal to its params (sha256); the same config on
+     ``ring_pallas`` at tp2 x cp2 with sequence parallelism: the ring
+     kernels on 6 heads a rank over the 512-token blocks, 12 x steps x (cp
+     index + 1), no flash launch; Llama-300M as shipped on
+     ``ulysses_flash`` at tp2 x cp2, 2 x 2048, 2 steps: flash at [2 x 4
+     heads, 2048, 64]; fp32 GPT-2 on phase 8's batch at tp2 x cp2 on
+     ``ulysses_flash`` and at fsdp2 x cp2 on ``ring_pallas``, 2 steps each,
+     within 1e-4 relative of phase 8's one process and falling. Each job's
+     all-to-all seconds beside its step seconds (a path, not a speed).
 Phase 3 also holds the paged kernels at Llama-300M's decode shape (16 q
 heads over 8 KV heads: bf16 and int8 pools with bf16 q at 2e-2, an fp32
 twin at 2e-5), and phase 6 the flash kernels at its training shape, bf16
@@ -1195,6 +1211,20 @@ def check_training_kernels(torch, models, cfg):
         torch, fa, "bf16 causal [256, 2048, 64] (Llama-300M)",
         flash_case(torch, dtype=bf16, bh=256, L=2048, D=64, causal=True,
                    heads=16), 2e-2, timed=True)
+    # Phase 40's per-rank shapes under ulysses_flash at tp2 x cp2: the
+    # whole sequence over a rank's heads (GPT-2 8 rows x 3 heads, Llama-300M
+    # 2 rows x 4 heads).
+    res["ulysses"] = {
+        "gpt2": check_flash(
+            torch, fa, "bf16 causal [24, 1024, 64] (GPT-2 ulysses_flash tp2 "
+            "x cp2 rank)", flash_case(torch, dtype=bf16, bh=24, L=1024, D=64,
+                                      causal=True, heads=3), 2e-2,
+            timed=True),
+        "llama": check_flash(
+            torch, fa, "bf16 causal [8, 2048, 64] (Llama-300M ulysses_flash "
+            "tp2 x cp2 rank)", flash_case(torch, dtype=bf16, bh=8, L=2048,
+                                          D=64, causal=True, heads=4), 2e-2,
+            timed=True)}
     groups = adamw_leaves(torch, models, cfg, fused)
     err = check_adamw(torch, fused, groups, cfg)
     res["fused_adamw"] = {**time_adamw(torch, fused, groups, cfg),
@@ -1546,6 +1576,12 @@ def check_ring_kernels(torch):
                    "[24, 200, 64]",
                    ring_case(torch, rp, dtype=dtype, bh=24, L=200, D=64),
                    tol, timed=False)
+    # Phase 40's per-rank shape of ring_pallas at tp2 x cp2: 8 rows x 6
+    # heads over a 512-token block.
+    res["tp_rank"] = check_ring(
+        torch, rp, "bf16 [48, 512, 64] (GPT-2 ring_pallas tp2 x cp2 rank)",
+        ring_case(torch, rp, dtype=bf16, bh=48, L=512, D=64), bf16_tol,
+        timed=True)
     composed_ring(torch, rp, fa, dtype=f32, atol=1e-4)
     # bf16: the tensor-core kernels' roundings, folded over every visit of
     # four ranks, against fp32 attention on the same bf16 values.
@@ -1677,7 +1713,7 @@ def _rank_fit(rank, ports, jobs, out_dir, world=2):
             state, _ = ckpt.restore(state, step=opts.get("restore_step"))
         torch.cuda.reset_peak_memory_stats(device)
         comms.reset_transport()
-        transport, step_s = [], []
+        transport, a2a, step_s = [], [], []
         steps = cfg.train.steps
         state, hist = fit(trainer, state, data.prefetch(
             data.sharded_batches(dataset.iter_from(state.step), mesh,
@@ -1688,7 +1724,9 @@ def _rank_fit(rank, ports, jobs, out_dir, world=2):
             eval_fn=(cli.make_eval_fn(cfg, mesh, device)
                      if opts.get("eval") else None),
             step_times=step_s,
-            on_step=lambda _: transport.append(comms.TRANSPORT["seconds"]))
+            on_step=lambda _: (
+                transport.append(comms.TRANSPORT["seconds"]),
+                a2a.append(comms.TRANSPORT["by_call"].get("all_to_all", 0.0))))
         torch.cuda.synchronize()
         if ckpt is not None:
             ckpt.close()
@@ -1711,6 +1749,8 @@ def _rank_fit(rank, ports, jobs, out_dir, world=2):
                "pipeline": dict(pp.TICKS), "coords": mesh.coords,
                "transport_s_by_step": [
                    b - a for a, b in zip([0.0, *transport], transport)],
+               "all_to_all_s_by_step": [
+                   b - a for a, b in zip([0.0, *a2a], a2a)],
                "step_s": step_s,
                "peak_mem_gb": torch.cuda.max_memory_allocated(device) / 1e9}
         if opts.get("stats"):
@@ -3295,22 +3335,21 @@ def four_rank_group(torch, parity, tmp):
     fsdp2 with SP (phase 36), as ``torchrun`` would run them, then the fit
     jobs of phases 35 (:func:`pp_jobs`), 37 (:func:`tp_jobs`, set up by
     phase 8's ``parity``), 38 (:func:`ep_jobs`) and 39
-    (:func:`shard_jobs`). Returns each phase's results and checkpoint
-    directories."""
+    (:func:`shard_jobs`) and 40 (:func:`heads_cp_jobs`). Returns each
+    phase's results and checkpoint directories."""
     pp_cli, pp_ck = pp_cli_job(tmp)
     tp_cli, tp_cli_ck = tp_cli_job(tmp)
-    pp, pp_ck35 = pp_jobs(tmp)
-    tp, tp_ck = tp_jobs(tmp, parity)
-    ep, ep_ck = ep_jobs(tmp)
-    shard, shard_cks = shard_jobs(tmp)
-    jobs = [pp_cli, tp_cli] + pp + tp + ep + shard
+    groups = {"pp": pp_jobs(tmp), "tp": tp_jobs(tmp, parity),
+              "ep": ep_jobs(tmp), "shard": shard_jobs(tmp),
+              "heads_cp": heads_cp_jobs(tmp, parity)}
+    jobs = [pp_cli, tp_cli] + [j for js, _ in groups.values() for j in js]
     out = spawn_ranks(torch, jobs, tmp, nranks=PP_RANKS)
-    n, m, e = len(pp), len(tp), len(ep)
-    return {"pp_cli": (out[0], pp_ck), "tp_cli": (out[1], tp_cli_ck),
-            "pp": (out[2:2 + n], pp_ck35),
-            "tp": (out[2 + n:2 + n + m], tp_ck),
-            "ep": (out[2 + n + m:2 + n + m + e], ep_ck),
-            "shard": (out[2 + n + m + e:], shard_cks)}
+    res = {"pp_cli": (out[0], pp_ck), "tp_cli": (out[1], tp_cli_ck)}
+    at = 2
+    for key, (js, ck) in groups.items():
+        res[key] = (out[at:at + len(js)], ck)
+        at += len(js)
+    return res
 
 
 def pp_parity(torch, cli, load_config, apply_overrides, results, ck):
@@ -3400,13 +3439,13 @@ def pp_parity(torch, cli, load_config, apply_overrides, results, ck):
 
 TP_RANKS, TP_STEPS = 4, 2
 # Phase 36: gpt2_owt as shipped (bf16, flash, adamw_fused) at tp2 x fsdp2
-# with sequence parallelism, the batch cut for time to 8 x 1024 (4 rows a
+# with sequence parallelism, the batch cut for time to 4 x 1024 (2 rows a
 # rank over dp x fsdp = 2, 6 heads a rank).
 TP_MESH = ["mesh.dp=1", "mesh.fsdp=2", "mesh.tp=2",
            "train.sequence_parallel=true"]
 # Phase 37's Llama-300M jobs at dp2 x tp2 with ZeRO-1 (the config's
-# zero1=True): the shipped bf16 run with the batch cut for time to 4 x
-# 2048 (2 rows a rank, 8 heads), and the fp32 pair of phase 23.
+# zero1=True): the shipped bf16 run with the batch cut for time to 2 x
+# 2048 (1 row a rank, 8 heads), and the fp32 pair of phase 23.
 LLAMA_TP = ["mesh.dp=2", "mesh.tp=2"]
 
 
@@ -3416,7 +3455,7 @@ def tp_cli_job(tmp):
     (the job, its checkpoint directory)."""
     ck = os.path.join(tmp, "tp_cli_ckpt")
     return cli_job(TP_MESH + [
-        "data.batch_size=8", f"train.steps={TP_STEPS}", "train.log_every=1",
+        "data.batch_size=4", f"train.steps={TP_STEPS}", "train.log_every=1",
         "train.eval_every=2", "train.eval_batches=1", "train.save_every=2",
         f"train.checkpoint_dir={ck}", f"train.log_dir={tmp}/tp_logs"]), ck
 
@@ -3424,10 +3463,10 @@ def tp_cli_job(tmp):
 def tp_cli_train(torch, models, load_config, apply_overrides, ranks, ck):
     """Phase 36: ``cli train`` with 4 ranks on ``configs/gpt2_owt.py`` at
     dp=1 x fsdp=2 x tp=2 with sequence parallelism (bf16, flash,
-    adamw_fused, batch 8 x 1024) for 2 steps, an evaluation and a
+    adamw_fused, batch 4 x 1024) for 2 steps, an evaluation and a
     checkpoint at step 2 (the job of :func:`tp_cli_job`): every loss
     finite and equal on the 4 ranks; per rank each flash kernel 12 x steps
-    launches (flash_fwd 12 more for the evaluation) at [4 rows x 6 heads,
+    launches (flash_fwd 12 more for the evaluation) at [2 rows x 6 heads,
     1024, 64], fused_adamw 2 x steps over the rank's blocks; its param
     (and gradient) and moment bytes against the whole 124M's, the sharded
     fractions, peak memory and the transport's seconds a step. The
@@ -3463,7 +3502,7 @@ def tp_cli_train(torch, models, load_config, apply_overrides, ranks, ck):
     want = {"flash_fwd": steps + layers, "flash_dq": steps,
             "flash_dkv": steps, "fused_adamw": 2 * TP_STEPS,
             "ring_step": 0, "ring_dq": 0, "ring_dkv": 0}
-    shape = [[4 * 6, 1024, 64]]
+    shape = [[2 * 6, 1024, 64]]
     per_rank = []
     for i, r in enumerate(ranks):
         sh = r["shards"]
@@ -3504,14 +3543,14 @@ def tp_jobs(tmp, parity):
     124M at tp2 x fsdp2 with sequence parallelism on phase 8's overrides
     (4 x 1024, flash, adamw_fused) to step 2 with a save, then on to 4 from
     it (rank 0 gathering the whole params); Llama-300M at dp2 x tp2 with
-    ZeRO-1, bf16 as shipped at 4 x 2048 (cut for time) for 2 steps, then
+    ZeRO-1, bf16 as shipped at 2 x 2048 (cut for time) for 2 steps, then
     the fp32 pair of phase 23 (2 x 2048; 2 of its 3 steps)."""
     ck = os.path.join(tmp, "gpt2_tp_ckpt")
     gpt = parity["overrides"] + TP_MESH
     return [
         (gpt + ["train.steps=2"], ck, 2, CONFIG, {"hashes": True}),
         (gpt + ["train.steps=4"], ck, 0, CONFIG, {"whole": True}),
-        (LLAMA_TP + ["data.batch_size=4", "train.steps=2"], None, 0, LLAMA,
+        (LLAMA_TP + ["data.batch_size=2", "train.steps=2"], None, 0, LLAMA,
          {"params": False}),
         (LLAMA_TP + LLAMA_PARITY + ["model.kwargs.attn_impl=flash",
                                     "optim.name=adamw_fused",
@@ -3529,7 +3568,7 @@ def tp_parity(torch, cli, models, load_config, apply_overrides, parity,
     its params; the step-2 save, restored here in one process, cut to each
     rank's blocks equals that rank's step-2 params bit for bit. Llama-300M
     at dp2 x tp2 with ZeRO-1: the shipped bf16 run's losses finite and
-    equal on the ranks, each flash kernel 12 launches a step at [2 rows x
+    equal on the ranks, each flash kernel 12 launches a step at [1 row x
     8 heads, 2048, 64], fused_adamw 2 a step over each rank's ZeRO-1
     shards; the fp32 pair's losses within 1e-4 relative of phase 23's
     kernel route. Returns (the record, the launches on these paths)."""
@@ -3577,7 +3616,7 @@ def tp_parity(torch, cli, models, load_config, apply_overrides, parity,
     bf16_want = {"flash_fwd": 2 * layers, "flash_dq": 2 * layers,
                  "flash_dkv": 2 * layers, "fused_adamw": 2 * 2,
                  "ring_step": 0, "ring_dq": 0, "ring_dkv": 0}
-    bf16_shape = [(2 * 8, 2048, 64)]
+    bf16_shape = [(1 * 8, 2048, 64)]
     for r in llama_bf16:
         shapes = {k: [tuple(x) for x in v] for k, v in
                   r["flash_shapes"].items()}
@@ -3635,8 +3674,8 @@ def tp_parity(torch, cli, models, load_config, apply_overrides, parity,
 EP_STEPS = 2
 # (a) gpt2_moe as shipped (bf16, flash, top-2 of 8 at capacity factor
 # 1.25, 6 routed blocks of 12, the plain AdamW, ZeRO-1) at dp2 x ep2, the
-# batch cut for time to 8 x 1024 (4 rows a dp rank, 12 heads).
-GPT2_MOE_EP = ["mesh.dp=2", "mesh.ep=2", "data.batch_size=8",
+# batch cut for time to 4 x 1024 (2 rows a dp rank, 12 heads).
+GPT2_MOE_EP = ["mesh.dp=2", "mesh.ep=2", "data.batch_size=4",
                f"train.steps={EP_STEPS}", "train.eval_batches=1"]
 # (b) llama_moe 8x300m as shipped at ep2 x tp2 with sequence parallelism
 # (JAX's GQA composition), the batch cut for time to 2 x 2048 (8 heads a
@@ -3707,7 +3746,7 @@ def ep_parity(torch, cli, models, load_config, apply_overrides, results,
     (a) gpt2_moe at dp2 x ep2: losses, aux_loss and moe_dropped_frac
     finite, the losses equal on the 4 ranks, drops present; per rank each
     flash kernel 12 launches a step (flash_fwd 12 more for the evaluation)
-    at [4 rows x 12 heads, 1024, 64], no fused_adamw (the config's plain
+    at [2 rows x 12 heads, 1024, 64], no fused_adamw (the config's plain
     AdamW); a rank's params are its 4 of the 8 experts and the rest whole
     (a share of ~0.65 of the 322.8M), its moments half that again
     (ZeRO-1); the save, restored here in one process at ep=1 and cut to
@@ -3738,7 +3777,8 @@ def ep_parity(torch, cli, models, load_config, apply_overrides, results,
     want = {"flash_fwd": layers * (EP_STEPS + 1),
             "flash_dq": layers * EP_STEPS, "flash_dkv": layers * EP_STEPS,
             "fused_adamw": 0, "ring_step": 0, "ring_dq": 0, "ring_dkv": 0}
-    shape = [(4 * meta.num_heads, cfg.data.seq_len, meta.head_dim)]
+    shape = [(cfg.data.batch_size // 2 * meta.num_heads, cfg.data.seq_len,
+              meta.head_dim)]
     per_rank = []
     for i, r in enumerate(gpt):
         sh = r["shards"]
@@ -3901,10 +3941,10 @@ GPT2_PP_TP_PARITY = GPT2_PP_PARITY + PP_TP_MESH + [
     "optim.name=adamw_fused", f"train.steps={ENC_STEPS}"]
 # (c) ViT-L/16 as shipped (bf16, remat full, flash, adamw_fused) and (d)
 # BERT-base as shipped (4 microbatches) on ragged rows, at tp2 x fsdp2
-# with SP, the batch cut for time to 16: ViT 8 images a rank, 8 heads,
-# 197 tokens in shards of 99; BERT 2 rows a microbatch, 6 heads.
-VIT_TP = TP_MESH + ["data.batch_size=16", f"train.steps={ENC_STEPS}"]
-BERT_TP = TP_MESH + ["data.batch_size=16", "data.pad_min_len=32",
+# with SP, the batch cut for time to 8: ViT 4 images a rank,
+# 8 heads, 197 tokens in shards of 99; BERT 1 row a microbatch, 6 heads.
+VIT_TP = TP_MESH + ["data.batch_size=8", f"train.steps={ENC_STEPS}"]
+BERT_TP = TP_MESH + ["data.batch_size=8", "data.pad_min_len=32",
                      f"train.steps={ENC_STEPS}"]
 # (e) ResNet-50 as shipped (SGD, bf16) at 32 x 224², fsdp2 x tp2 (the
 # convs' output channels over fsdp, the head's classes over tp); dp2 x
@@ -4007,9 +4047,9 @@ def shard_parity(torch, cli, models, load_config, apply_overrides, enc_ref,
     (b) fp32: losses within 1e-4 relative of a pp=1 twin here (the same 2
     stages, the plain AdamW) and falling; the save restored here at pp=1
     and cut to each rank's rows and tp blocks equals that rank's params
-    bit for bit (sha256). (c) ViT-L/16: every rank's flash kernels at [8
+    bit for bit (sha256). (c) ViT-L/16: every rank's flash kernels at [4
     images x 8 heads, 256, 64] (limit 197), 24 x 2 (remat) flash_fwd a
-    step, 24 flash_dq and flash_dkv, 2 fused_adamw. (d) BERT-base: [2 rows
+    step, 24 flash_dq and flash_dkv, 2 fused_adamw. (d) BERT-base: [1 row
     x 6 heads, 128, 64] with per-row limits, 12 x 4 of each a step. (e)
     ResNet-50 at fsdp2 x tp2: losses finite and equal, no hand kernel.
     (f) fp32 ViT-L and BERT within 1e-4 relative of phase 20's one
@@ -4098,8 +4138,8 @@ def shard_parity(torch, cli, models, load_config, apply_overrides, enc_ref,
     launched = {k: 0 for k in ("flash_fwd", "flash_dq", "flash_dkv")}
     launched["fused_adamw"] = fused
     for name, ranks, layers, fwd_per, accum, shape in (
-            ("vit", vit, vit_layers, 2, 1, (8 * 8, 256, 64)),
-            ("bert", bert, bert_layers, 1, 4, (2 * 6, 128, 64)),
+            ("vit", vit, vit_layers, 2, 1, (4 * 8, 256, 64)),
+            ("bert", bert, bert_layers, 1, 4, (1 * 6, 128, 64)),
             ("vit fp32", vit32, vit_layers, 2, 1, (2 * 8, 256, 64)),
             ("bert fp32", bert32, bert_layers, 1, 2, (1 * 6, 128, 64))):
         _equal_losses(name, ranks)
@@ -4162,6 +4202,171 @@ def shard_parity(torch, cli, models, load_config, apply_overrides, enc_ref,
     if not sdiff <= BN_STATS_TOL:
         raise AssertionError(f"resnet50 dp2 x fsdp2: running statistics off "
                              f"by {sdiff}")
+    return res, launched
+
+
+
+# ---------------------------------------------------------------------------
+# 40. context parallelism on a rank's heads
+# ---------------------------------------------------------------------------
+
+HEADS_CP_STEPS = 2
+TP_CP = ["mesh.dp=1", "mesh.tp=2", "mesh.cp=2"]
+# (a) gpt2_owt as shipped (bf16, adamw_fused) on ulysses_flash at dp1 x tp2
+# x cp2, 8 x 1024: a rank's flash kernels run on its 3 heads of 12 over
+# the whole 1024 tokens; an evaluation and a save at step 2.
+ULYSSES_GPT2 = TP_CP + ["model.kwargs.attn_impl=ulysses_flash",
+                        "data.batch_size=8", f"train.steps={HEADS_CP_STEPS}",
+                        "train.eval_batches=1"]
+# (b) the same on ring_pallas with sequence parallelism: a rank's ring
+# kernels on its 6 heads over its 512-token cp block.
+RING_GPT2 = TP_CP + ["model.kwargs.attn_impl=ring_pallas",
+                     "train.sequence_parallel=true", "data.batch_size=8",
+                     f"train.steps={HEADS_CP_STEPS}"]
+# (c) Llama-300M as shipped on ulysses_flash at tp2 x cp2, 2 x 2048: K and
+# V repeated to a tp rank's 8 query heads, 4 a rank after the flip.
+ULYSSES_LLAMA = TP_CP + ["model.kwargs.attn_impl=ulysses_flash",
+                         "data.batch_size=2", f"train.steps={HEADS_CP_STEPS}"]
+# (d) fp32 GPT-2 on phase 8's overrides (4 x 1024, adamw_fused), its first
+# 2 steps, against phase 8's one process.
+HEADS_CP_PARITY = {
+    "tp2_cp2_ulysses_flash": TP_CP + ["model.kwargs.attn_impl=ulysses_flash"],
+    "fsdp2_cp2_ring_pallas": ["mesh.dp=1", "mesh.fsdp=2", "mesh.cp=2",
+                              "model.kwargs.attn_impl=ring_pallas"],
+}
+
+
+def heads_cp_jobs(tmp, parity):
+    """Phase 40's jobs, run in phase 34's four spawned ranks: (a), (b),
+    (c) and the two fp32 runs of (d). Returns (the jobs, (a)'s checkpoint
+    directory)."""
+    ck = os.path.join(tmp, "ulysses_ckpt")
+    steps = [f"train.steps={HEADS_CP_STEPS}"]
+    return [
+        (ULYSSES_GPT2, ck, HEADS_CP_STEPS, CONFIG,
+         {"hashes": True, "eval": True}),
+        (RING_GPT2, None, 0, CONFIG, {"params": False}),
+        (ULYSSES_LLAMA, None, 0, LLAMA, {"params": False}),
+        *[(parity["overrides"] + mesh + steps, None, 0, CONFIG,
+           {"params": False}) for mesh in HEADS_CP_PARITY.values()],
+    ], ck
+
+
+def _heads_cp_launches(name, ranks, kernel, layers, fwd, bwd, shape=None):
+    """Every rank's launches on a cp path: ``kernel`` 'flash' (``fwd``
+    flash_fwd, ``bwd`` flash_dq and flash_dkv, every one at ``shape``, no
+    ring kernel) or 'ring' (cp rank c: ``(c + 1) * layers`` of each ring
+    kernel a step, no flash kernel); fused_adamw twice a step."""
+    s = HEADS_CP_STEPS
+    for i, r in enumerate(ranks):
+        if kernel == "flash":
+            want = {"flash_fwd": fwd, "flash_dq": bwd, "flash_dkv": bwd,
+                    "ring_step": 0, "ring_dq": 0, "ring_dkv": 0}
+        else:
+            n = (r["coords"]["cp"] + 1) * layers * s
+            want = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
+                    "ring_step": n, "ring_dq": n, "ring_dkv": n}
+        want["fused_adamw"] = 2 * s
+        shapes = sorted({tuple(x) for v in r["flash_shapes"].values()
+                         for x in v})
+        if r["launches"] != want or (shape and shapes != [shape]):
+            raise AssertionError(f"{name} rank {i}: launches {r['launches']}"
+                                 f" != {want}, flash shapes {shapes}")
+
+
+def _a2a_share(r):
+    """A rank's all-to-all seconds in its last step over that step's."""
+    return r["all_to_all_s_by_step"][-1] / r["step_s"][-1]
+
+
+def heads_cp_parity(torch, cli, models, load_config, apply_overrides, parity,
+                    results, ck):
+    """Phase 40: the results of :func:`heads_cp_jobs`. (a) gpt2_owt on
+    ulysses_flash at tp2 x cp2: losses finite and equal on the ranks, the
+    flash kernels 12 launches a layer pass at [8 x 3 heads, 1024, 64] on
+    every rank (12 a step forward and backward, 12 in the evaluation), an
+    evaluation, and the step-2 save restored here in one process and cut
+    to each rank's blocks equal to that rank's params bit for bit; (b) on
+    ring_pallas with SP: no flash kernel, cp rank 0 12 ring launches of
+    each kernel a step, cp rank 1 24; (c) Llama-300M on ulysses_flash: each
+    flash kernel 12 a step at [2 x 4 heads, 2048, 64]; (d) fp32 at tp2 x
+    cp2 on ulysses_flash and fsdp2 x cp2 on ring_pallas: losses within
+    1e-4 relative of phase 8's first 2 and falling. Every job's all-to-all
+    seconds beside its step seconds (four ranks share the card over gloo:
+    a path, not a speed). Returns (the record, the launches on these
+    paths)."""
+    from distributeddeeplearning_tpu_torch.checkpoint import (
+        CheckpointManager,
+    )
+    from distributeddeeplearning_tpu_torch.mesh import Mesh
+
+    uly, ring, llama, *fp32 = results
+    names = ["gpt2_ulysses_flash_tp2_cp2", "gpt2_ring_pallas_sp_tp2_cp2",
+             "llama_ulysses_flash_tp2_cp2",
+             *[f"gpt2_fp32_{k}" for k in HEADS_CP_PARITY]]
+    for name, ranks in zip(names, results):
+        _equal_losses(name, ranks)
+    layers = model_shape(models, load_config, apply_overrides, CONFIG)[0]
+    llayers = model_shape(models, load_config, apply_overrides, LLAMA)[0]
+    s = HEADS_CP_STEPS
+    _heads_cp_launches(names[0], uly, "flash", layers, layers * (s + 1),
+                       layers * s, (8 * 3, 1024, 64))
+    _heads_cp_launches(names[1], ring, "ring", layers, 0, 0)
+    _heads_cp_launches(names[2], llama, "flash", llayers, llayers * s,
+                       llayers * s, (2 * 4, 2048, 64))
+    _heads_cp_launches(names[3], fp32[0], "flash", layers, layers * s,
+                       layers * s, (4 * 3, 1024, 64))
+    _heads_cp_launches(names[4], fp32[1], "ring", layers, 0, 0)
+    if not uly[0]["evals"]:
+        raise AssertionError(f"{names[0]}: no evaluation")
+    # (a)'s save restored in one process, cut to each rank's blocks.
+    cfg = apply_overrides(load_config(CONFIG), ULYSSES_GPT2)
+    one = apply_overrides(cfg, ["mesh.tp=1", "mesh.cp=1",
+                                "model.kwargs.attn_impl=flash"])
+    _, trainer, _ = cli.build_all(one, "cuda")
+    state = trainer.init(one.train.seed)
+    with CheckpointManager(ck) as mgr:
+        state, _ = mgr.restore(state, step=s)
+    restored = {k: p.detach().cpu() for k, p in state.params.items()}
+    del trainer, state
+    torch.cuda.empty_cache()
+    mismatched = []
+    for rank, r in enumerate(uly):
+        mesh = Mesh({"tp": 2, "cp": 2}, rank=rank)
+        if mesh.coords != r["coords"]:
+            raise AssertionError(f"rank {rank}: coords {r['coords']}")
+        layout = models.get_model(cfg.model.name, **cfg.model.kwargs,
+                                  mesh=mesh, device="meta").shards
+        for k, h in r["hashes"].items():
+            if param_digest(layout.take_leaf(k, restored[k])) != h:
+                mismatched.append((rank, k))
+    want = parity["losses_kernels"][:s]
+    pairs = {k: {"losses": ranks[0]["losses"], "one_process": want,
+                 "max_rel_diff": rel_diff(ranks[0]["losses"], want)}
+             for k, ranks in zip(HEADS_CP_PARITY, fp32)}
+    res = {name: {"losses": ranks[0]["losses"],
+                  "step_s": ranks[0]["step_s"],
+                  "transport_s_by_step": ranks[0]["transport_s_by_step"],
+                  "all_to_all_share_last_step": [
+                      round(_a2a_share(r), 4) for r in ranks],
+                  "peak_mem_gb": [r["peak_mem_gb"] for r in ranks],
+                  "launches": [r["launches"] for r in ranks],
+                  "seconds": ranks[0]["seconds"]}
+           for name, ranks in zip(names, results)}
+    res["restore_in_one_process_mismatched_leaves"] = len(mismatched)
+    res["fp32_against_one_process"] = pairs
+    print(f"heads cp parity: {json.dumps(res)} (four ranks share the one "
+          "card over gloo: the step times are a path, not a speed)",
+          flush=True)
+    if mismatched:
+        raise AssertionError(f"ulysses restore in one process: "
+                             f"{mismatched[:4]} differ")
+    for k, p in pairs.items():
+        if not p["max_rel_diff"] <= 1e-4 or not p["losses"][-1] < p[
+                "losses"][0]:
+            raise AssertionError(f"gpt2 fp32 {k} vs one process: {p}")
+    launched = {k: sum(r["launches"][k] for job in results for r in job)
+                for k in results[0][0]["launches"]}
     return res, launched
 
 
@@ -4430,7 +4635,7 @@ def main(argv=None) -> int:
 
     phase("34 one spawn of 4 ranks on the card over gloo: cli train on "
           "gpt2_pp (pp=4), then phase 36's cli train and the jobs of "
-          "phases 35, 37 and 38")
+          "phases 35 and 37-40")
     tmp4 = tempfile.TemporaryDirectory()  # the group's saves
     group = four_rank_group(torch, parity, tmp4.name)
     pp_cli_train(torch, *group["pp_cli"])
@@ -4465,10 +4670,18 @@ def main(argv=None) -> int:
     _, launched = shard_parity(torch, cli, models, load_config,
                                apply_overrides, enc_ref, resnet_ref,
                                *group["shard"])
+    for k, v in launched.items():
+        launches[k] += v
+    phase("40 context parallelism on a rank's heads: gpt2_owt on "
+          "ulysses_flash (tp2 x cp2) and ring_pallas (tp2 x cp2, SP), "
+          "Llama-300M on ulysses_flash, fp32 against one process")
+    _, launched = heads_cp_parity(torch, cli, models, load_config,
+                                  apply_overrides, parity,
+                                  *group["heads_cp"])
     tmp4.cleanup()
     for k, v in launched.items():
         launches[k] += v
-    print(f"chip_smoke: 39 phases in {time.perf_counter() - _T0:.1f} s",
+    print(f"chip_smoke: 40 phases in {time.perf_counter() - _T0:.1f} s",
           flush=True)
 
     # Each kernel's numbers come from its case at the main path's types.

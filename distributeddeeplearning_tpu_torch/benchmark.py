@@ -23,13 +23,17 @@ against the card's own dense bf16 peak, looked up by
 ``torch.cuda.get_device_name()``; an unknown card gets no ``mfu``. Under
 pipeline parallelism each rank counts its own stage's FLOPs, under tp its
 slice of the heads, MLP units and vocabulary, under fsdp its own rows,
-under ep its own experts: the counts sum over the ``pp``, ``tp``, ``fsdp``
-and ``ep`` groups into ``model_tflops_per_step`` (those ranks' step), and
-the per-GPU rate is that over the ``pp`` x ``tp`` x ``fsdp`` x ``ep``
-ranks. They are model FLOPs: work a group's ranks repeat is counted once
+under ep its own experts, under cp its block of the sequence (under
+Ulysses, attention over the whole sequence for its ``H / (tp * cp)``
+heads; under the ring, its queries against every block): the counts sum
+over the ``pp``, ``tp``, ``fsdp``, ``ep`` and ``cp`` groups into
+``model_tflops_per_step`` (those ranks' step), and the per-GPU rate is
+that over the ``pp`` x ``tp`` x ``fsdp`` x ``ep`` x ``cp`` ranks. They are
+model FLOPs: work a group's ranks repeat is counted once
 (:func:`model_share`: under ep, everything outside the routed MLPs; under
 tp, a routed MLP's router and one-hot products, ViT's patch embedding and
-ResNet's convolutions). An MoE model's dense
+ResNet's convolutions; under cp, a routed MLP's experts, which run over
+the whole rows' slots on every cp rank). An MoE model's dense
 dispatch and combine einsums multiply one-hots; they are counted like any
 product, and ``onehot_tflops_per_step`` with its share of the count says
 how much of the MFU they are (``models.moe.onehot_flops``).
@@ -49,7 +53,7 @@ import torch
 
 from . import data as data_lib
 from .config import Config
-from .models.moe import MoeMlp, moe_mlps, onehot_flops
+from .models.moe import MoeMlp, moe_mlps, onehot_flops, router_flops
 
 # Dense bf16 tensor-core peak in TFLOP/s, by a fragment of the card's name
 # (NVIDIA's data sheets, at each part's full power limit); first match.
@@ -83,33 +87,39 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def model_share(counts: dict, model, mesh) -> float:
+def model_share(counts: dict, model, mesh, rows: int = 0, tokens: int = 0,
+                forwards: int = 1) -> float:
     """This rank's share of the step's model FLOPs, from a
     ``FlopCounterMode``'s per-module ``counts``: the work a rank repeats
     with the other ranks of a group divided by the group's size, so the
     sum over the groups counts it once. Over ep every rank runs the same
     rows through everything outside the routed MLPs, whose experts and
-    router columns it holds a slice of; over tp each rank of a routed MLP
-    runs the router and the one-hot products whole, and every rank of an
-    image model runs the submodules its ``tp_repeated`` names whole (ViT's
-    patch embedding, ResNet's convolutions)."""
+    router columns it holds a slice of; every rank of an image model runs
+    the submodules its ``tp_repeated`` names whole over tp (ViT's patch
+    embedding, ResNet's convolutions). A routed MLP's router and one-hot
+    products, which every tp rank runs whole, are computed from the shapes
+    (this rank's ``rows`` x ``tokens`` a step, ``forwards`` under remat:
+    ``models.moe.router_flops``, ``onehot_flops``), since the counter files
+    the experts' backward under the combine's module; its experts run over
+    the whole rows' capacity on every cp rank. The rest of a cp rank's work
+    (its block's products, its heads' or its queries' attention) is its
+    own."""
     def flops(key):
         return float(sum(counts.get(key, {}).values()))
 
     total = flops("Global")
     root = type(model).__name__
-    tp = mesh.shape["tp"]
+    tp, ep, cp = (mesh.shape[a] for a in ("tp", "ep", "cp"))
     repeated = sum(flops(f"{root}.{n}")
                    for n in getattr(model, "tp_repeated", ()))
     total = total - repeated + repeated / tp
-    routed = [f"{root}.{n}" for n, m in model.named_modules()
-              if isinstance(m, MoeMlp)]
+    routed = {f"{root}.{n}": m for n, m in model.named_modules()
+              if isinstance(m, MoeMlp)}
     moe = sum(flops(k) for k in routed)
-    repeated_tp = sum(flops(f"{k}.{c}") for k in routed
-                      for c in ("router", "dispatch_in", "combine_out"))
-    ep = mesh.shape["ep"]
-    moe = moe - repeated_tp + repeated_tp / tp
-    return (total - sum(flops(k) for k in routed)) / ep + moe
+    whole = sum(router_flops(m, rows, tokens, forwards, mesh)
+                + onehot_flops(m, rows, tokens, forwards, mesh)
+                for m in routed.values())
+    return (total - moe) / ep + (moe - whole) / cp + whole / tp
 
 
 def _items(batch: dict) -> tuple[int, str]:
@@ -238,8 +248,14 @@ def run_benchmark(cfg: Config, device, mesh=None, *, warmup: int = 5,
     with FlopCounterMode(display=False) as counter:
         state, _ = step(state, staged[0])
     _sync(device)
-    flops = model_share(counter.get_flop_counts(), trainer.model, mesh)
-    group = [a for a in ("pp", "tp", "fsdp", "ep") if mesh.shape[a] > 1]
+    tokens = staged[0].get("tokens")
+    flops = model_share(
+        counter.get_flop_counts(), trainer.model, mesh,
+        rows=0 if tokens is None else tokens.shape[0],
+        tokens=cfg.data.seq_len // mesh.shape["cp"],
+        forwards=2 if cfg.train.remat != "none" else 1)
+    group = [a for a in ("pp", "tp", "fsdp", "ep", "cp")
+             if mesh.shape[a] > 1]
     ranks = 1
     for axis in group:
         from .comms import psum

@@ -57,7 +57,6 @@ _UNPORTED_AXES = {
 def _unported_train_knobs(cfg: Config, world_size: int = 1):
     t, mesh = cfg.train, cfg.mesh
     sizes = {**_mesh_sizes(cfg, world_size), "dcn_dp": mesh.dcn_dp}
-    attn = cfg.model.kwargs.get("attn_impl")
     mesh_knobs = [
         ("mesh", dataclasses.asdict(mesh) if sizes[a] > 1 else "",
          f"mesh.{a}={sizes[a]} ({what})", item)
@@ -84,10 +83,6 @@ def _unported_train_knobs(cfg: Config, world_size: int = 1):
          "ZeRO-1 of the SGD momentum trace (optim.name='sgd'; the port "
          "shards AdamW's moments)", "A8"),
         *mesh_knobs,
-        ("model.kwargs.attn_impl", attn if attn in ("ring", "ring_pallas")
-         and sizes["cp"] == 1 else "",
-         "a ring over one rank, mesh.cp=1 (the ring cores run on mesh.cp > "
-         "1; on one rank attn_impl='flash' is the same attention)", "A13"),
     ]
 
 

@@ -33,6 +33,9 @@ Here they are calls on ``torch.distributed`` groups, made by each rank:
   (the partial sums scattered into seq shards at its exit), with
   :func:`all_gather_dim` / :func:`reduce_scatter_dim` beneath them (also
   the fsdp gather of a leaf and the scatter of its gradient);
+- :func:`all_to_all_dim`: one dimension cut over an axis's members and
+  another gathered, differentiable (its backward is the inverse): Ulysses'
+  seq <-> heads flip, which XLA emits from a sharding constraint in JAX;
 - :func:`pmax`: all-reduce max (the vocab-parallel softmax's shift);
 - :func:`axis_index` / :func:`axis_size`.
 
@@ -57,12 +60,13 @@ import torch
 BUCKET_ELEMENTS = 1 << 25
 
 # Calls through :class:`DistComm`'s collectives and the seconds inside them
-# (``cli train --sync-steps`` reports them a step).
-TRANSPORT = {"calls": 0, "seconds": 0.0}
+# (``cli train --sync-steps`` reports them a step), and the seconds by
+# collective (``by_call``: method name -> seconds).
+TRANSPORT = {"calls": 0, "seconds": 0.0, "by_call": {}}
 
 
 def reset_transport() -> None:
-    TRANSPORT.update(calls=0, seconds=0.0)
+    TRANSPORT.update(calls=0, seconds=0.0, by_call={})
 
 
 _DEPTH = [0]
@@ -78,8 +82,11 @@ def _timed(fn):
             return fn(*args, **kwargs)
         finally:
             _DEPTH[0] -= 1
+            dt = time.perf_counter() - t0
             TRANSPORT["calls"] += 1
-            TRANSPORT["seconds"] += time.perf_counter() - t0
+            TRANSPORT["seconds"] += dt
+            by = TRANSPORT["by_call"]
+            by[fn.__name__] = by.get(fn.__name__, 0.0) + dt
 
     wrapper.__name__, wrapper.__doc__ = fn.__name__, fn.__doc__
     return wrapper
@@ -164,6 +171,24 @@ class DistComm:
         if dst is not out:
             out.copy_(dst, non_blocking=True)
         return out
+
+    @_timed
+    def all_to_all(self, t: torch.Tensor, axis: str, ranks: list[int],
+                   index: int) -> torch.Tensor:
+        """``t`` is ``[n, ...]`` over the ``n`` members of ``axis``: member
+        ``i`` gets this member's ``t[i]``, and the result's row ``j`` is
+        member ``j``'s row for this one (``ranks``, ``index``: the group
+        in member order and this member's place, which the group itself
+        knows here)."""
+        import torch.distributed as dist
+
+        del ranks, index
+        if self._wide(t):
+            return self.all_to_all(t.float(), axis, None, None).to(t.dtype)
+        buf = self._out(t)
+        out = torch.empty_like(buf)
+        dist.all_to_all_single(out, buf, group=self.groups[axis])
+        return out.to(t.device, non_blocking=True)
 
     def gather(self, t: torch.Tensor, axis: str) -> torch.Tensor | None:
         """Every member's flat ``t``, in member order, on member 0 of
@@ -581,6 +606,48 @@ def all_gather_fwd_reduce_scatter_bwd(x: torch.Tensor, mesh, axis: str = "tp",
     if axis_size(mesh, axis) == 1:
         return x
     return _GatherScatterBwd.apply(x, mesh, axis, dim)
+
+
+def _all_to_all(x: torch.Tensor, mesh, axis: str, split_dim: int,
+                concat_dim: int) -> torch.Tensor:
+    n = axis_size(mesh, axis)
+    if x.shape[split_dim] % n:
+        raise ValueError(f"all_to_all: dimension {split_dim} of "
+                         f"{tuple(x.shape)} is not divisible by {axis}={n}")
+    # [n, ...]: chunk i of the split dimension goes to member i.
+    chunks = x.detach().unflatten(split_dim, (n, -1)).movedim(split_dim, 0)
+    got = _comm(mesh, "all_to_all").all_to_all(
+        chunks.contiguous(), axis, mesh.axis_ranks(axis),
+        axis_index(mesh, axis))
+    # Row j came from member j: the members in order along concat_dim.
+    return got.movedim(0, concat_dim).flatten(concat_dim, concat_dim + 1)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, split_dim, concat_dim):
+        ctx.mesh, ctx.axis = mesh, axis
+        ctx.split_dim, ctx.concat_dim = split_dim, concat_dim
+        return _all_to_all(x, mesh, axis, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (_all_to_all(grad, ctx.mesh, ctx.axis, ctx.concat_dim,
+                            ctx.split_dim), None, None, None, None)
+
+
+def all_to_all_dim(x: torch.Tensor, mesh, axis: str, split_dim: int,
+                   concat_dim: int) -> torch.Tensor:
+    """The all-to-all over ``axis``: ``x``'s ``split_dim`` cut into one
+    chunk per member, chunk ``i`` sent to member ``i``, and the chunks
+    received concatenated along ``concat_dim`` in member order (Ulysses'
+    seq <-> heads flip, ``parallel/sp_ulysses.py``). Differentiable: the
+    backward is the inverse all-to-all (``concat_dim`` split back to the
+    members, their chunks concatenated along ``split_dim``)."""
+    if axis_size(mesh, axis) == 1:
+        return x
+    split_dim, concat_dim = split_dim % x.dim(), concat_dim % x.dim()
+    return _AllToAll.apply(x, mesh, axis, split_dim, concat_dim)
 
 
 def reduce_scatter_fwd_all_gather_bwd(x: torch.Tensor, mesh, axis: str = "tp",

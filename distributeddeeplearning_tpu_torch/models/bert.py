@@ -16,6 +16,13 @@ With ``attn_impl='flash'`` the mask must be a contiguous prefix a row: it
 becomes the kernels' per-row key limit, and a row whose mask is no prefix
 comes out NaN (``transformer.SelfAttention``), as in the reference.
 
+On a ``mesh`` with cp > 1 (``attn_impl='ulysses'``, the plain core behind
+the all-to-alls) a rank holds its block of each row: its positions start at
+``cp_index * L``, and its block of the mask is gathered over cp into the
+whole row's, the keys the core sees. The ring cores and ``ulysses_flash``
+take no mask, and raise the reference's ``NotImplementedError`` when given
+one.
+
 On a ``mesh`` with tp or fsdp above 1 the model holds this rank's blocks
 (``sharding.shard_model``): the encoder's heads and MLP units over tp,
 ``word_embeddings`` and ``mlm_bias`` vocab-parallel (30522 rows in blocks
@@ -37,6 +44,7 @@ import torch.nn.functional as F
 
 from .. import comms
 from ..parallel.fsdp import full_param
+from ..parallel.sp_ulysses import gather_mask
 from ..parallel.tp import (
     check_tp_fsdp,
     draw_block,
@@ -49,6 +57,7 @@ from . import register
 from .gpt2 import Embed, as_torch_dtype
 from .transformer import (
     Dense,
+    check_attn,
     LayerNorm,
     TransformerStack,
     dropout,
@@ -65,14 +74,9 @@ class BertMLM(nn.Module):
                  chunked_head: bool = False, sequence_parallel: bool = False,
                  mesh=None, device=None):
         super().__init__()
-        if attn_impl not in ("xla", "flash"):
-            raise NotImplementedError(
-                f"bert attn_impl={attn_impl!r} not yet ported to "
-                "distributeddeeplearning_tpu_torch (ROADMAP queue A13); "
-                "'xla' and 'flash' are")
+        check_attn(attn_impl, mesh)
         tp = check_tp_fsdp("bert", mesh, num_heads=num_heads,
-                           attn_impl=attn_impl, dropout_rate=dropout_rate,
-                           remat=remat)
+                           dropout_rate=dropout_rate, remat=remat)
         if embed_dim % tp:
             raise ValueError(f"bert at mesh tp={tp}: mlm_transform's "
                              f"{embed_dim} units not divisible by tp={tp}")
@@ -127,15 +131,21 @@ class BertMLM(nn.Module):
         ``head_output`` dict. ``train=True`` applies dropout from
         ``generator``."""
         B, L = tokens.shape
-        if L > self.max_len:
-            raise ValueError(f"seq_len {L} exceeds max_len {self.max_len}")
+        cp = 1 if self.mesh is None else self.mesh.shape["cp"]
+        if L * cp > self.max_len:
+            raise ValueError(f"seq_len {L * cp} exceeds max_len "
+                             f"{self.max_len}")
         if train and self.dropout_rate and generator is None:
             raise ValueError("train=True with dropout_rate > 0 needs a "
                              "dropout generator")
         gen = generator if train else None
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(tokens)
-        positions = torch.arange(L, device=tokens.device)[None, :]
+        # A cp rank holds its block of the sequence: its positions start at
+        # cp_index * L, and the core sees every block's keys.
+        offset = 0 if cp == 1 else self.mesh.coords["cp"] * L
+        positions = torch.arange(L, device=tokens.device)[None, :] + offset
+        attention_mask = gather_mask(attention_mask, self.mesh)
         if self.shards is not None:
             return self._sharded_forward(tokens, attention_mask,
                                          token_type_ids, positions, gen)

@@ -33,11 +33,12 @@ from ..parallel.tp import (
 from ..sharding import shard_model
 from . import register
 from .transformer import (
-    ATTN_IMPLS,
     KVCache,
     LayerNorm,
+    SHARDED_DECODE,
     PagedKVCache,
     TransformerStack,
+    check_attn,
     dropout,
 )
 
@@ -71,19 +72,10 @@ class GPT2(nn.Module):
                  attn_impl: str = "xla", chunked_head: bool = False,
                  sequence_parallel: bool = False, mesh=None, device=None):
         super().__init__()
-        if attn_impl not in ATTN_IMPLS:
-            # Ulysses is the context-parallel core still to come (ROADMAP
-            # queue A13); the serving engine fences everything but 'xla'.
-            raise NotImplementedError(
-                f"gpt2 attn_impl={attn_impl!r} not yet ported to "
-                "distributeddeeplearning_tpu_torch (the ulysses cores: "
-                f"ROADMAP queue A13); {', '.join(map(repr, ATTN_IMPLS))} are"
-            )
-        if attn_impl in ("ring", "ring_pallas") and mesh is None:
-            raise ValueError(f"attn_impl={attn_impl!r} requires mesh")
+        # The serving engine fences everything but 'xla' itself.
+        check_attn(attn_impl, mesh)
         tp = check_tp_fsdp("gpt2", mesh, num_heads=num_heads,
-                           attn_impl=attn_impl, dropout_rate=dropout_rate,
-                           remat=remat)
+                           dropout_rate=dropout_rate, remat=remat)
         self.vocab_size, self.max_len = vocab_size, max_len
         self.num_layers, self.num_heads = num_layers, num_heads
         self.embed_dim, self.head_dim = embed_dim, embed_dim // num_heads
@@ -167,10 +159,7 @@ class GPT2(nn.Module):
             )
         if self.shards is not None:
             if cache is not None:
-                raise NotImplementedError(
-                    "decode of a model cut over tp or fsdp not yet ported to "
-                    "distributeddeeplearning_tpu_torch (ROADMAP queue A13 item 8.4): "
-                    "restore its checkpoint on one rank")
+                raise NotImplementedError(SHARDED_DECODE)
             return self._sharded_forward(tokens, positions, gen)
         x = self.wte(tokens) + self.wpe(positions)
         x = dropout(x, self.dropout_rate, gen, self.mesh)

@@ -8,10 +8,12 @@ JAX package's ``models/llama.py`` in torch.
 - GQA repeats K and V group-major (query head ``g * rep + i`` reads kv
   head ``g``: ``repeat_interleave`` on the heads axis, ``jnp.repeat`` in
   the reference) and runs any MHA core of ``transformer.attention_core``:
-  ``xla``, ``flash`` (the hand kernels on the GPU), ``ring`` and
-  ``ring_pallas``. The decode caches hold the PRE-repeat k and v and read
-  them with ``num_rep``: the contiguous ``KVCache`` of ``generate``
-  through ``transformer.decode_attention``, the paged serving cache through
+  ``xla``, ``flash`` (the hand kernels on the GPU), ``ring``,
+  ``ring_pallas``, and ``ulysses`` / ``ulysses_flash`` (the repeat before
+  the seq <-> heads flip over cp, as the reference's). The decode caches
+  hold the PRE-repeat k and v and read them with ``num_rep``: the
+  contiguous ``KVCache`` of ``generate`` through
+  ``transformer.decode_attention``, the paged serving cache through
   ``transformer.paged_decode_attention`` (the paged decode kernel folds the
   query groups itself).
 - Every projection is bias-free (no ``bias`` parameter), the LM head is the
@@ -48,12 +50,13 @@ from . import register
 from .gpt2 import Embed, as_torch_dtype
 from .remat import checkpoint_block
 from .transformer import (
-    ATTN_IMPLS,
     Dense,
     KVCache,
+    SHARDED_DECODE,
     PagedKVCache,
     attention_core,
     block_scope,
+    check_attn,
     decode_attention,
     paged_decode_attention,
 )
@@ -119,7 +122,7 @@ class LlamaAttention(nn.Module):
         if num_heads % num_kv_heads:
             raise ValueError(f"num_heads {num_heads} not a multiple of "
                              f"num_kv_heads {num_kv_heads}")
-        self.rep = num_heads // num_kv_heads
+        self.rep, self.num_heads = num_heads // num_kv_heads, num_heads
         self.dtype, self.attn_impl, self.mesh = dtype, attn_impl, mesh
         self.tp = 1 if mesh is None else mesh.shape["tp"]
         self.sequence_parallel = sequence_parallel and self.tp > 1
@@ -143,10 +146,7 @@ class LlamaAttention(nn.Module):
                 layer: int = 0):
         if self.tp > 1:
             if cache is not None:
-                raise NotImplementedError(
-                    "decode under tensor parallelism not yet ported to "
-                    "distributeddeeplearning_tpu_torch (ROADMAP queue A13 item 8.4): "
-                    "restore the checkpoint on one rank")
+                raise NotImplementedError(SHARDED_DECODE)
             from ..parallel.tp import enter
 
             x = enter(x, self.mesh, self.sequence_parallel)
@@ -167,8 +167,19 @@ class LlamaAttention(nn.Module):
             if self.rep > 1:
                 k = k.repeat_interleave(self.rep, dim=2)
                 v = v.repeat_interleave(self.rep, dim=2)
-            out = attention_core(q, k, v, impl=self.attn_impl, causal=True,
-                                 dtype=self.dtype, mesh=self.mesh)
+            if self.attn_impl in ("ulysses", "ulysses_flash"):
+                # The seq <-> heads flip around an MHA core (K and V
+                # repeated above, so the head counts match q's).
+                from ..parallel.sp_ulysses import ulysses_attention
+
+                out = ulysses_attention(
+                    q, k, v, flash=self.attn_impl == "ulysses_flash",
+                    causal=True, dtype=self.dtype, mesh=self.mesh,
+                    num_heads=self.num_heads)
+            else:
+                out = attention_core(q, k, v, impl=self.attn_impl,
+                                     causal=True, dtype=self.dtype,
+                                     mesh=self.mesh)
         return self.out(out)
 
 
@@ -257,20 +268,12 @@ class Llama(nn.Module):
                  chunked_head: bool = False, tie_embeddings: bool = False,
                  sequence_parallel: bool = False, mesh=None, device=None):
         super().__init__()
-        if attn_impl not in ATTN_IMPLS:
-            # The serving engine fences everything but 'xla' itself.
-            raise NotImplementedError(
-                f"{self.NAME} attn_impl={attn_impl!r} not yet ported to "
-                "distributeddeeplearning_tpu_torch (the ulysses cores: "
-                f"ROADMAP queue A13); {', '.join(map(repr, ATTN_IMPLS))} are"
-            )
-        if attn_impl in ("ring", "ring_pallas") and mesh is None:
-            raise ValueError(f"attn_impl={attn_impl!r} requires mesh")
+        # The serving engine fences everything but 'xla' itself.
+        check_attn(attn_impl, mesh)
         if remat not in REMAT_MODES:
             raise ValueError(f"unknown remat {remat!r}")
         tp = check_tp_fsdp(self.NAME, mesh, num_heads=num_heads,
-                           attn_impl=attn_impl, num_kv_heads=num_kv_heads,
-                           remat=remat)
+                           num_kv_heads=num_kv_heads, remat=remat)
         self.vocab_size, self.max_len = vocab_size, max_len
         self.num_layers, self.num_heads = num_layers, num_heads
         self.num_kv_heads = num_kv_heads
@@ -330,10 +333,7 @@ class Llama(nn.Module):
             offset = 0 if cp == 1 else self.mesh.coords["cp"] * L
             positions = torch.arange(L, device=tokens.device) + offset
         elif self.shards is not None:
-            raise NotImplementedError(
-                "decode of a model cut over tp, fsdp or ep not yet ported to "
-                "distributeddeeplearning_tpu_torch (ROADMAP queue A13 item 8.4): "
-                "restore its checkpoint on one rank")
+            raise NotImplementedError(SHARDED_DECODE)
         else:
             positions = cache_positions(cache, L)
         rope = rope_tables(positions, self.head_dim, self.rope_theta)

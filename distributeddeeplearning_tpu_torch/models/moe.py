@@ -65,12 +65,12 @@ from .llama import Llama, LlamaAttention, RMSNorm
 from .sow import sow_loss, sow_metric
 from .transformer import (
     ACTIVATIONS,
-    ATTN_IMPLS,
     Dense,
     LayerNorm,
     SelfAttention,
     TransformerBlock,
     block_scope,
+    check_attn,
     dropout,
 )
 
@@ -211,15 +211,29 @@ def moe_mlps(model) -> list[MoeMlp]:
 
 
 def onehot_flops(mlp: MoeMlp, rows: int, tokens: int,
-                 forwards: int = 1) -> int:
+                 forwards: int = 1, mesh=None) -> int:
     """The matrix FLOPs of one training step's products with the dispatch
     and combine one-hots in ``mlp`` over ``rows`` x ``tokens``: each
     einsum is 2·g·t·e·c·d a forward (``forwards`` 2 under remat: the
     recompute), then the dispatch's backward takes one product (the input's
-    gradient) and the combine's two (its own and the experts')."""
-    one = (2 * rows * tokens * mlp.num_experts * mlp.capacity(tokens)
-           * mlp.embed_dim)
+    gradient) and the combine's two (its own and the experts'). On a
+    ``mesh``, one rank's: ``tokens`` its cp block, its ep slice of the
+    experts, the whole rows' capacity."""
+    cp, ep = (1, 1) if mesh is None else (mesh.shape["cp"], mesh.shape["ep"])
+    one = (2 * rows * tokens * (mlp.num_experts // ep)
+           * mlp.capacity(tokens * cp) * mlp.embed_dim)
     return one * (2 * forwards + 3)
+
+
+def router_flops(mlp: MoeMlp, rows: int, tokens: int, forwards: int = 1,
+                 mesh=None) -> int:
+    """The router's product in one training step of ``mlp`` over ``rows`` x
+    ``tokens``: 2·g·t·d·e ``forwards`` times, and its two backward products
+    (the input's gradient and the kernel's); on a ``mesh``, over the rank's
+    ep columns."""
+    ep = 1 if mesh is None else mesh.shape["ep"]
+    return (2 * rows * tokens * mlp.embed_dim * (mlp.num_experts // ep)
+            * (forwards + 2))
 
 
 class MoeTransformerBlock(nn.Module):
@@ -252,17 +266,6 @@ class MoeTransformerBlock(nn.Module):
         return x + self.moe_mlp(self.ln2(x), generator)
 
 
-def _check_attn(name: str, attn_impl: str, mesh) -> None:
-    if attn_impl not in ATTN_IMPLS:
-        raise NotImplementedError(
-            f"{name} attn_impl={attn_impl!r} not yet ported to "
-            "distributeddeeplearning_tpu_torch (the ulysses cores: ROADMAP "
-            f"queue A13); {', '.join(map(repr, ATTN_IMPLS))} are"
-        )
-    if attn_impl in ("ring", "ring_pallas") and mesh is None:
-        raise ValueError(f"attn_impl={attn_impl!r} requires mesh")
-
-
 class MoeGPT2(nn.Module):
     """GPT-2 with every ``moe_every``-th block routed (1 = all MoE): the
     blocks ``i`` with ``(i + 1) % moe_every == 0``, GShard's interleave.
@@ -285,9 +288,9 @@ class MoeGPT2(nn.Module):
                  chunked_head: bool = False, sequence_parallel: bool = False,
                  mesh=None, device=None):
         super().__init__()
-        _check_attn("gpt2_moe", attn_impl, mesh)
+        check_attn(attn_impl, mesh)
         tp = check_tp_fsdp("gpt2_moe", mesh, num_heads=num_heads,
-                           attn_impl=attn_impl, dropout_rate=dropout_rate)
+                           dropout_rate=dropout_rate)
         self.vocab_size, self.max_len = vocab_size, max_len
         self.num_layers, self.num_heads = num_layers, num_heads
         self.embed_dim, self.head_dim = embed_dim, embed_dim // num_heads

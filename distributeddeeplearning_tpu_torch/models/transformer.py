@@ -30,7 +30,14 @@ from .remat import check_remat, checkpoint_block
 
 _NEG_INF = -1e30
 
-ATTN_IMPLS = ("xla", "flash", "ring", "ring_pallas")
+ATTN_IMPLS = ("xla", "flash", "ring", "ring_pallas", "ulysses",
+              "ulysses_flash")
+# A decode cache on a model cut over ranks: the reference decodes on one
+# program, dropping the mesh and the kernel options before it does (its
+# ``cli generate`` and ``cli serve``), as the port's one-rank restore does.
+SHARDED_DECODE = ("decode of a model cut over tp, fsdp or ep: the reference "
+                  "decodes on one program with the mesh dropped (cli generate "
+                  "and cli serve); restore the checkpoint on one rank")
 
 
 @dataclasses.dataclass
@@ -129,7 +136,7 @@ def _global_rand(shape, generator, device, mesh):
     """Uniforms for this rank's rows of the global batch: the draw is made
     for all dp ranks' rows and sliced, so a mask does not depend on how the
     ranks split the batch, as JAX's masks over global arrays do not. (No
-    draw is made under cp > 1: the ring cores refuse active dropout.)"""
+    draw is made under cp > 1: the cp cores refuse active dropout there.)"""
     dp = 1 if mesh is None else mesh.shape["dp"]
     if dp == 1:
         return torch.rand(shape, generator=generator, device=device)
@@ -387,7 +394,13 @@ class SelfAttention(nn.Module):
       mask (turned into per-sequence kv limits; rows whose mask is not a
       prefix are poisoned to NaN), and no active attention-dropout;
     - ``ring`` / ``ring_pallas``: ring attention over ``mesh``'s cp axis,
-      with mask=None and no active attention-dropout.
+      with mask=None and no active attention-dropout;
+    - ``ulysses`` / ``ulysses_flash``: the xla or the flash core over the
+      whole sequence and this rank's ``H / (tp * cp)`` heads, behind the
+      all-to-alls over cp (``parallel.sp_ulysses``); ``ulysses`` takes the
+      key-padding ``mask`` of the whole sequence (``[batch, seq]``,
+      gathered over cp by the caller), ``ulysses_flash`` mask=None and no
+      active attention-dropout, and neither active dropout at cp > 1.
 
     On a ``mesh`` with tp > 1 the rank holds ``num_heads / tp`` heads
     (``parallel.tp``): query/key/value are column-parallel after the
@@ -404,7 +417,7 @@ class SelfAttention(nn.Module):
         super().__init__()
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"unknown attn_impl {attn_impl!r}")
-        self.causal = causal
+        self.causal, self.num_heads = causal, num_heads
         self.dtype, self.attn_impl = dtype, attn_impl
         self.dropout_rate, self.mesh = dropout_rate, mesh
         self.tp = 1 if mesh is None else mesh.shape["tp"]
@@ -427,10 +440,7 @@ class SelfAttention(nn.Module):
                 seq_len: int | None = None):
         if self.tp > 1:
             if cache is not None:
-                raise NotImplementedError(
-                    "decode under tensor parallelism not yet ported to "
-                    "distributeddeeplearning_tpu_torch (ROADMAP queue A13 item 8.4): "
-                    "restore the checkpoint on one rank")
+                raise NotImplementedError(SHARDED_DECODE)
             from ..parallel.tp import enter
 
             x = enter(x, self.mesh, self.sequence_parallel, seq_len)
@@ -458,6 +468,8 @@ class SelfAttention(nn.Module):
             out = attention_core(q, k, v, impl=self.attn_impl,
                                  causal=self.causal, dtype=self.dtype,
                                  mesh=self.mesh)
+        elif self.attn_impl in ("ulysses", "ulysses_flash"):
+            out = self._ulysses(q, k, v, mask, generator)
         elif self.attn_impl == "flash":
             if self.dropout_rate and generator is not None:
                 raise NotImplementedError(
@@ -491,6 +503,39 @@ class SelfAttention(nn.Module):
                 dropout=lambda p: dropout(p, rate, generator, mesh),
             )
         return self.out(out)
+
+    def _ulysses(self, q, k, v, mask, generator):
+        from ..parallel.sp_ulysses import ulysses_attention
+
+        flash = self.attn_impl == "ulysses_flash"
+        active = bool(self.dropout_rate and generator is not None)
+        if flash and (mask is not None or active):
+            raise NotImplementedError(
+                "ulysses_flash supports mask=None and no active "
+                "attention-dropout")
+        rate, mesh = self.dropout_rate, self.mesh
+        if active and mesh is not None and mesh.shape["cp"] > 1:
+            # A rank's masks would be its block's of the whole sequence's.
+            raise NotImplementedError(
+                f"dropout under mesh.cp={mesh.shape['cp']}: masks over a "
+                "rank's block of the sequence not yet ported to "
+                "distributeddeeplearning_tpu_torch (ROADMAP queue A13 item "
+                "8.4)")
+        return ulysses_attention(
+            q, k, v, flash=flash, causal=self.causal, dtype=self.dtype,
+            mesh=mesh, num_heads=self.num_heads,
+            mask=None if flash else mask,
+            dropout=None if flash else (
+                lambda p: dropout(p, rate, generator, mesh)))
+
+
+def check_attn(attn_impl: str, mesh) -> None:
+    """An attention core by name: one of :data:`ATTN_IMPLS`, the ring
+    cores on a mesh (whose cp axis they rotate over)."""
+    if attn_impl not in ATTN_IMPLS:
+        raise ValueError(f"unknown attn_impl {attn_impl!r}")
+    if attn_impl in ("ring", "ring_pallas") and mesh is None:
+        raise ValueError(f"attn_impl={attn_impl!r} requires mesh")
 
 
 def gelu_tanh(x):

@@ -37,6 +37,8 @@ from torch import nn
 
 from .. import comms
 from ..parallel.fsdp import full_param
+from ..parallel.sp_ring import check_ring_shapes
+from ..parallel.sp_ulysses import check_ulysses_shapes
 from ..parallel.tp import (
     check_tp_fsdp,
     class_parallel_logits,
@@ -47,7 +49,13 @@ from ..parallel.tp import (
 from ..sharding import shard_model
 from . import register
 from .gpt2 import as_torch_dtype
-from .transformer import Dense, LayerNorm, TransformerStack, dropout
+from .transformer import (
+    Dense,
+    LayerNorm,
+    TransformerStack,
+    check_attn,
+    dropout,
+)
 
 CHANNELS = 3  # RGB, as every image kind draws
 
@@ -64,17 +72,12 @@ class ViT(nn.Module):
                  attn_impl: str = "xla", sequence_parallel: bool = False,
                  mesh=None, device=None):
         super().__init__()
-        if attn_impl not in ("xla", "flash"):
-            raise NotImplementedError(
-                f"vit attn_impl={attn_impl!r} not yet ported to "
-                "distributeddeeplearning_tpu_torch (ROADMAP queue A13); "
-                "'xla' and 'flash' are")
+        check_attn(attn_impl, mesh)
         if image_size % patch_size:
             raise ValueError(f"image_size {image_size} is no multiple of "
                              f"patch_size {patch_size}")
         tp = check_tp_fsdp("vit", mesh, num_heads=num_heads,
-                           attn_impl=attn_impl, dropout_rate=dropout_rate,
-                           remat=remat)
+                           dropout_rate=dropout_rate, remat=remat)
         self.sequence_parallel = sequence_parallel and tp > 1
         self.num_classes, self.image_size = num_classes, image_size
         self.patch_size = patch_size
@@ -84,6 +87,7 @@ class ViT(nn.Module):
         self.attn_impl, self.mesh = attn_impl, mesh
         self.dtype = as_torch_dtype(dtype)
         p, n_tokens = patch_size, (image_size // patch_size) ** 2 + 1
+        _check_cp(mesh, attn_impl, num_heads, n_tokens)
         self.patch_embed = Dense((p, p, CHANNELS), (embed_dim,), self.dtype,
                                  device)
         self.cls_token = nn.Parameter(torch.empty(1, embed_dim,
@@ -156,6 +160,23 @@ class ViT(nn.Module):
         x = x[:, 0]  # the CLS token
         return class_parallel_logits(x, self.head, self.mesh,
                                      self.num_classes).float()
+
+
+def _check_cp(mesh, attn_impl: str, num_heads: int, n_tokens: int) -> None:
+    """ViT's tokens over cp ranks: the reference's shape errors where cp
+    does not divide them (ViT-L/16's 197 under any cp core); at a count cp
+    divides, refused by name."""
+    cp = 1 if mesh is None else mesh.shape["cp"]
+    if cp == 1 or attn_impl in ("xla", "flash"):
+        return  # the Trainer refuses a core that does not split over cp
+    if attn_impl in ("ring", "ring_pallas"):
+        check_ring_shapes(n_tokens, cp)
+    else:
+        check_ulysses_shapes(num_heads, n_tokens, mesh.shape["tp"], cp)
+    raise NotImplementedError(
+        f"vit x mesh.cp={cp}: the CLS token's head over a rank's block of "
+        f"the {n_tokens} tokens not yet ported to "
+        "distributeddeeplearning_tpu_torch (ROADMAP queue A13 item 8.4)")
 
 
 @register("vit")

@@ -24,6 +24,11 @@ the collectives itself:
   shards) over tp; the tied or untied head multiplies by the same slice,
   and ``ops.chunked_xent`` takes the softmax over the slices together
   (:class:`VocabShard`);
+- under context parallelism (``mesh.cp``) a rank's activations are its
+  cp block of the sequence, cut again over tp under sequence parallelism
+  (JAX's ``seq -> ('cp', 'tp')``), and every attention core runs on the
+  rank's heads: the ring's shift stays within the cp group of fixed (dp,
+  fsdp, tp) coordinates, Ulysses' all-to-alls cut them over cp;
 - :func:`check_tp_fsdp` holds every model's fences under tp or fsdp, and
   :func:`draw_block` draws a leaf whole and keeps the rank's block, so
   every mesh starts from the one-rank model's weights.
@@ -44,9 +49,10 @@ from ..sharding import make_rules
 def tp_rules(sequence_parallel: bool = False) -> dict:
     """The rules of tensor parallelism: ``sharding.DEFAULT_LOGICAL_RULES``
     (``heads``, ``mlp``, ``vocab`` over tp), with Megatron sequence
-    parallelism the activations' ``seq`` over tp between the blocks."""
+    parallelism the activations' ``seq`` over (cp, tp) between the blocks:
+    a rank's cp block, cut over tp (JAX's rule)."""
     if sequence_parallel:
-        return make_rules(seq="tp")
+        return make_rules(seq=("cp", "tp"))
     return make_rules()
 
 
@@ -118,7 +124,6 @@ def class_parallel_logits(x, head, mesh, num_classes: int):
 
 
 def check_tp_fsdp(name: str, mesh, *, num_heads: int | None = None,
-                  attn_impl: str = "xla",
                   dropout_rate: float = 0.0, num_kv_heads: int | None = None,
                   remat: str = "none") -> int:
     """The fences of a model cut over tp or fsdp, by name; returns the tp
@@ -129,16 +134,6 @@ def check_tp_fsdp(name: str, mesh, *, num_heads: int | None = None,
     if tp == 1 and fsdp == 1:
         return 1
     what = f"{name} at mesh tp={tp}, fsdp={fsdp}"
-    if mesh.shape["cp"] > 1:
-        raise NotImplementedError(
-            f"{what} x mesh.cp={mesh.shape['cp']}: tensor or fully sharded "
-            "parallelism with context parallelism not yet ported to "
-            "distributeddeeplearning_tpu_torch (ROADMAP queue A13 item 8.4)")
-    if attn_impl not in ("xla", "flash"):
-        raise NotImplementedError(
-            f"{what} x attn_impl={attn_impl!r}: only the xla and flash "
-            "cores run on a rank's heads in distributeddeeplearning_tpu_"
-            "torch (ROADMAP queue A13)")
     if dropout_rate:
         raise NotImplementedError(
             f"{what} x dropout_rate={dropout_rate}: dropout masks over a "

@@ -107,7 +107,8 @@ TP_PARTIAL = (r"\.moe_mlp\.router\.kernel$", r"\.moe_mlp\.b2$")
 
 # Logical axis -> mesh axis (None: replicated). ``seq`` is the activations'
 # sequence dimension: ``parallel.tp.tp_rules(sequence_parallel=True)`` maps
-# it onto tp between the blocks (Megatron sequence parallelism). JAX's
+# it onto (cp, tp) between the blocks (Megatron sequence parallelism within
+# a rank's cp block; the cp cut is the task's, ``train.seq_block``). JAX's
 # ``batch`` -> (dp, fsdp) is the data path's (``data.sharded_batches``).
 DEFAULT_LOGICAL_RULES: dict[str, str | None] = {
     "seq": None,
@@ -236,7 +237,8 @@ class ShardLayout:
     @property
     def sequence_parallel(self) -> bool:
         """Activations' ``seq`` over tp between the blocks."""
-        return self.rules.get("seq") == "tp" and self.mesh.shape["tp"] > 1
+        return ("tp" in (self.rules.get("seq") or ())
+                and self.mesh.shape["tp"] > 1)
 
     def axes_of(self, name: str) -> tuple:
         """The live mesh axes leaf ``name`` is sharded over."""

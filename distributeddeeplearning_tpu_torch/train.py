@@ -167,21 +167,24 @@ def mlm_task(head_chunk: int = 128, mesh=None) -> Task:
     the reference's loss over the global batch divides by it: a rank's
     loss is ``n * sum_rank / max(count, 1)``, so the mean over the ranks
     (the gradient and metric sync) is the global loss. The ``n`` ranks are
-    those that split the batch, dp x fsdp: the ranks of a ``pp`` or ``tp``
-    group hold the same rows."""
+    those that split the batch's tokens, dp x fsdp x cp: the ranks of a
+    ``pp`` or ``tp`` group hold the same rows. On a mesh with cp > 1 the
+    tokens, the mask and the labels are cut to this rank's block of the
+    positions, as the ``lm`` task cuts them."""
     from .mesh import BATCH_AXES
 
-    axes = [] if mesh is None else [a for a in BATCH_AXES
+    axes = [] if mesh is None else [a for a in (*BATCH_AXES, "cp")
                                     if mesh.shape[a] > 1]
     ranks = math.prod(axis_size(mesh, a) for a in axes)
 
     def input_fn(batch):
+        tokens = seq_block(batch["input_tokens"], mesh)
         if "attention_mask" in batch:
-            return (batch["input_tokens"], batch["attention_mask"])
-        return (batch["input_tokens"],)
+            return (tokens, seq_block(batch["attention_mask"], mesh))
+        return (tokens,)
 
     def loss_fn(out, batch):
-        labels = batch["labels"]
+        labels = seq_block(batch["labels"], mesh)
         weights = (labels >= 0).float()
         per_tok = _per_token_xent(out, labels.clamp_min(0), head_chunk)
         count = weights.sum()
@@ -604,7 +607,9 @@ class TrainState:
     shards: Any = None
 
 
-CP_ATTN = ("ring", "ring_pallas")
+# The attention cores that split the sequence over mesh.cp (the
+# reference's ``cp_attn``).
+CP_ATTN = ("ring", "ring_pallas", "ulysses", "ulysses_flash")
 ZERO1_SGD = ("train.zero1=True with optim.name='sgd' over dp > 1: ZeRO-1 of "
              "the SGD momentum trace not yet ported to "
              "distributeddeeplearning_tpu_torch (ROADMAP queue A8; the port "

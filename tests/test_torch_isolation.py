@@ -236,8 +236,17 @@ def test_ported_train_knobs_run(override, knob, tmp_path):
     ("model.kwargs.attn_impl=ring", NotImplementedError, "attn_impl='ring'"),
 ])
 def test_unported_paths_are_refused_by_name(override, exc, match):
+    if override in HELD_PATHS:
+        # Held since Ulysses and a ring over one rank were ported
+        # (``tests/test_torch_ulysses.py``): on one rank the core alone.
+        assert _train(override, "model.kwargs.dtype=float32") == 0
+        return
     with pytest.raises(exc, match=match):
         _train(override)
+
+
+# The paths of the parametrization above that now train.
+HELD_PATHS = ("model.kwargs.attn_impl=ulysses", "model.kwargs.attn_impl=ring")
 
 
 def test_zero1_on_one_device_is_accepted(capsys):
@@ -291,9 +300,24 @@ def test_zero1_over_dp_composes():
 
 @pytest.mark.parametrize("impl", ["ulysses", "ulysses_flash"])
 def test_ulysses_is_refused_by_name(impl):
-    with pytest.raises(NotImplementedError,
-                       match=rf"attn_impl='{impl}'.*ROADMAP queue A13"):
-        _train(f"model.kwargs.attn_impl={impl}")
+    """Held since the Ulysses cores were ported
+    (``tests/test_torch_ulysses.py``): the composition builds and its
+    forward at the tiny size equals the plain core's (one rank: no
+    flip)."""
+    from distributeddeeplearning_tpu_torch import models
+    from distributeddeeplearning_tpu_torch.mesh import Mesh
+
+    tokens = torch.randint(0, 64, (2, 16),
+                           generator=torch.Generator().manual_seed(0))
+    outs = []
+    for core in ("xla", impl):
+        model = models.get_model("gpt2", size="tiny", vocab_size=64,
+                                 max_len=32, attn_impl=core,
+                                 mesh=Mesh({"cp": 1}))
+        model.init_weights(torch.Generator().manual_seed(0))
+        outs.append(model(tokens))
+    assert outs[1].shape == (2, 16, 64)
+    torch.testing.assert_close(outs[1], outs[0], rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("impl", ["flash", "xla"])

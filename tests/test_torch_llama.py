@@ -336,9 +336,21 @@ def test_remat_dots_is_refused_with_the_reference_error():
 
 @pytest.mark.parametrize("impl", ["ulysses", "ulysses_flash"])
 def test_ulysses_is_refused_by_name(impl):
-    with pytest.raises(NotImplementedError,
-                       match=rf"llama attn_impl='{impl}'.*ROADMAP queue A13"):
-        models.get_model("llama", **KW, attn_impl=impl)
+    """Held since the Ulysses cores were ported
+    (``tests/test_torch_ulysses.py``): the composition builds and its
+    forward at the tiny size equals the plain core's (one rank: K and V
+    repeated, no flip)."""
+    from distributeddeeplearning_tpu_torch.mesh import Mesh
+
+    tokens = torch.randint(0, KW["vocab_size"], (2, 16),
+                           generator=torch.Generator().manual_seed(0))
+    outs = []
+    for core in ("xla", impl):
+        m = models.get_model("llama", **KW, attn_impl=core,
+                             mesh=Mesh({"cp": 1}))
+        m.init_weights(torch.Generator().manual_seed(0))
+        outs.append(m(tokens))
+    torch.testing.assert_close(outs[1], outs[0], rtol=1e-5, atol=1e-5)
 
 
 # ---------------------------------------------------------------------------

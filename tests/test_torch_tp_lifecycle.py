@@ -359,9 +359,10 @@ def test_unheld_compositions_are_refused_by_name(config, overrides, match):
         return
     if (config, match) in HELD:
         # Held since ViT, BERT, ResNet and the pipelined models were ported
-        # over tp and fsdp, and SGD over a rank's blocks
-        # (``tests/test_torch_encoders_tp.py``, ``tests/test_torch_pp_tp.py``):
-        # the composition builds at the tiny size, its leaves cut.
+        # over tp and fsdp, SGD over a rank's blocks, and tp x cp
+        # (``tests/test_torch_encoders_tp.py``, ``tests/test_torch_pp_tp.py``,
+        # ``tests/test_torch_ulysses.py``): the composition builds at the
+        # tiny size, its leaves cut.
         model = _refused(HELD[config, match] + overrides, config,
                          tiny=config != "gpt2_owt.py")
         assert model.shards is not None
@@ -389,6 +390,8 @@ HELD = {
         "model.kwargs.max_len=32", "model.kwargs.num_stages=2",
         "data.vocab_size=64", "data.seq_len=16", "data.batch_size=8"],
     ("gpt2_owt.py", "SGD"): [],
+    # tp x cp: the ring on a rank's heads (``tests/test_torch_ulysses.py``).
+    ("gpt2_owt.py", r"mesh\.cp=2"): [],
 }
 
 
@@ -408,5 +411,6 @@ def test_decode_under_tp_is_refused_by_name():
 
     model = models.get_model("gpt2", **ts.MODEL, mesh=Mesh({"tp": 2}))
     cache = KVCache.empty(2, 1, 8, 4, 16, torch.float32, "cpu")
-    with pytest.raises(NotImplementedError, match="A13"):
+    with pytest.raises(NotImplementedError,
+                       match="the reference decodes on one program"):
         model(torch.zeros(1, 2, dtype=torch.long), cache)
