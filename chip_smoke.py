@@ -86,7 +86,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      phase 12's run from its step-2 save to step 4.
   14. ResNet-50 training through the entry point: ``cli train`` in-process
      on ``configs/resnet50_imagenet.py`` as shipped (batch 256 x 224², bf16
-     convs, SGD, label smoothing) for 8 steps, then 4 with the C++ loader
+     convs, SGD, label smoothing) for 6 steps, then 4 with the C++ loader
      (``data.kind=native_image``): images/s over steps 2..N, p50 step,
      peak memory, every loss finite; the path launches none of the nine
      hand kernels (its convs are cuDNN's, as the JAX package's are XLA's);
@@ -106,7 +106,7 @@ Phases, in order; any failure raises and the script exits non-zero:
   17. ViT-L/16 training through the entry point: ``cli train`` on
      ``configs/vit_imagenet21k.py`` as shipped (batch 64 x 224², 21843
      classes, bf16, flash over 197 tokens padded to 256, adamw_fused,
-     every block checkpointed) for 6 steps: per step flash_fwd launches 2
+     every block checkpointed) for 4 steps: per step flash_fwd launches 2
      x 24 times (the forward and the recompute), flash_dq and flash_dkv 24,
      fused_adamw once per group; every loss finite; images/s over steps
      2..N, p50 step, peak memory; then 2 steps with ``train.remat=none``;
@@ -194,12 +194,13 @@ Phases, in order; any failure raises and the script exits non-zero:
      and Llama the serving engine's on the same weights and prompts, its
      decode steps through ``paged_decode`` (launches counted).
   34. one spawn of four ranks sharing the one card over gloo
-     (``spawn_ranks``) runs every multi-rank job of phases 34-40 in turn,
+     (``spawn_ranks``) runs every multi-rank job of phases 34-41 in turn,
      the ``cli train`` ones as ``torchrun`` would (each in a process group
      of its own). Phase 34's: pipeline parallelism through the entry
      point, ``cli train`` on ``configs/gpt2_pp.py`` as shipped (pp=4, dp=1
-     so ZeRO-1 is a no-op, 1f1b_interleaved over 8 microbatches, bf16, 32
-     x 1024, vocab 50304) for 2 steps with an evaluation and a checkpoint
+     so ZeRO-1 is a no-op, 1f1b_interleaved over 8 microbatches, bf16, the
+     batch cut to 16 x 1024, vocab 50304) for 2 steps with an evaluation
+     and a checkpoint
      at step 2: every loss finite and equal on the 4 ranks, each rank 14 =
      M + 2(S-1) ticks a step and 11 in the evaluation; per rank its peak
      memory and its transport seconds and megabytes a step. A path, not a
@@ -281,8 +282,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      statistics within ``BN_STATS_TOL``.
   40. the ranks' jobs of context parallelism on a rank's heads
      (``heads_cp_parity``): ``configs/gpt2_owt.py`` as shipped (bf16,
-     adamw_fused) on ``ulysses_flash`` at dp1 x tp2 x cp2, 8 x 1024, 2
-     steps, an evaluation and a save: the flash kernels on every rank at [8
+     adamw_fused) on ``ulysses_flash`` at dp1 x tp2 x cp2, 4 x 1024, 2
+     steps, an evaluation and a save: the flash kernels on every rank at [4
      rows x 3 heads, 1024, 64] (the whole sequence over the rank's heads
      after the all-to-alls), 12 a step (flash_fwd 12 more in the
      evaluation), the save restored here in one process and cut to each
@@ -295,6 +296,22 @@ Phases, in order; any failure raises and the script exits non-zero:
      ``ulysses_flash`` and at fsdp2 x cp2 on ``ring_pallas``, 2 steps each,
      within 1e-4 relative of phase 8's one process and falling. Each job's
      all-to-all seconds beside its step seconds (a path, not a speed).
+  41. the ranks' jobs of the compositions (``composition_parity``):
+     ViT-L/16 at 240² (226 tokens, 113 a cp rank) in fp32 at dp2 x cp2 on
+     ``ring_pallas`` and at tp2 x cp2 on ``ulysses_flash`` (4 images, 2
+     steps) against one process here: losses within 1e-4 relative, every
+     rank's AdamW moments within ``LEAF_STATS_TOL`` of the one process's
+     cut to its blocks, the non-causal ring kernels at 113-row blocks or
+     the flash kernels at [4 x 4 heads, 256, 64] (limit 226) on every
+     rank; the same as shipped (bf16, remat full) at dp2 x cp2 on
+     ``ring_pallas``, 4 images, 2 steps; fp32 GPT-2 with dropout 0.1 on
+     phase 8's batch at tp2 x cp2 on ``ulysses`` and at dp2 x fsdp2 on xla
+     with remat 'dots', against one process from the same seed (losses
+     1e-4, moments leaf by leaf); GPT-2 124M under ``bf16_full`` at tp2 x
+     fsdp2 (4 x 1024, 2 steps) against one process (losses
+     ``BF16_FULL_COMP_TOL``, bf16 moments); and phase 34's gpt2_pp run:
+     each rank holds a quarter of the tied table's rows and of their
+     moments (JAX's ``vocab_pp`` at pp alone), its bytes before and after.
 Phase 3 also holds the paged kernels at Llama-300M's decode shape (16 q
 heads over 8 KV heads: bf16 and int8 pools with bf16 q at 2e-2, an fp32
 twin at 2e-5), and phase 6 the flash kernels at its training shape, bf16
@@ -1131,8 +1148,9 @@ def check_encoder_flash(torch, fa):
     run no other pad at D = 64), in bf16 and fp32; BERT-base's 64 x 12
     heads at 128 tokens, whole and with per-row key limits, and the
     shape one of its 4 microbatches gives the kernels on the main path
-    (16 x 12 heads), ragged; and a tp2 x fsdp2 rank's shapes of phase 39
-    (ViT-L 8 x 8 heads, BERT 2 x 6 heads ragged)."""
+    (16 x 12 heads), ragged; a tp2 x fsdp2 rank's shapes of phase 39
+    (ViT-L 2 x 8 heads, BERT 2 x 6 heads ragged); and a tp2 x cp2 rank's
+    of phase 41 (ViT-L at 226 tokens, 4 x 4 heads)."""
     bf16, f32 = torch.bfloat16, torch.float32
     vit = dict(bh=64 * 16, L=256, D=64, causal=False, limit=197, heads=16)
     bert = dict(bh=64 * 12, L=128, D=64, causal=False, heads=12)
@@ -1149,15 +1167,28 @@ def check_encoder_flash(torch, fa):
         "bert_micro_bf16_ragged": (
             "bf16 BERT microbatch [192, 128, 64] ragged vl, non-causal",
             dict(dtype=bf16, ragged=True, **{**bert, "bh": 16 * 12}), 2e-2),
-        # Phase 39's per-rank shapes at tp2 x fsdp2: 8 images x 8 heads,
+        # Phase 39's per-rank shapes at tp2 x fsdp2: 2 images x 8 heads,
         # 2 rows of a microbatch x 6 heads.
-        "vit_rank_bf16": ("bf16 ViT-L tp2 x fsdp2 rank [64, 256, 64] limit "
+        "vit_rank_bf16": ("bf16 ViT-L tp2 x fsdp2 rank [16, 256, 64] limit "
                           "197, non-causal",
-                          dict(dtype=bf16, **{**vit, "bh": 8 * 8}), 2e-2),
+                          dict(dtype=bf16, **{**vit, "bh": 2 * 8}), 2e-2),
         "bert_rank_micro_bf16_ragged": (
             "bf16 BERT tp2 x fsdp2 rank microbatch [12, 128, 64] ragged vl, "
             "non-causal",
             dict(dtype=bf16, ragged=True, **{**bert, "bh": 2 * 6}), 2e-2),
+        # Phase 41's ViT-L/16 at 240² on ulysses_flash at tp2 x cp2: a
+        # rank's 4 images x 4 heads over the whole 226 tokens padded to
+        # 256 (fp32 there; bf16 as a shipped run would give them).
+        "vit_cp_rank_fp32": ("fp32 ViT-L ulysses_flash tp2 x cp2 rank [16, "
+                             "256, 64] limit 226, non-causal",
+                             dict(dtype=f32, **{**vit, "bh": 4 * 4,
+                                                "limit": 226, "heads": 4}),
+                             2e-5),
+        "vit_cp_rank_bf16": ("bf16 ViT-L ulysses_flash tp2 x cp2 rank [16, "
+                             "256, 64] limit 226, non-causal",
+                             dict(dtype=bf16, **{**vit, "bh": 4 * 4,
+                                                 "limit": 226, "heads": 4}),
+                             2e-2),
     }
     out = {}
     for key, (name, kw, atol) in cases.items():
@@ -1212,12 +1243,12 @@ def check_training_kernels(torch, models, cfg):
         flash_case(torch, dtype=bf16, bh=256, L=2048, D=64, causal=True,
                    heads=16), 2e-2, timed=True)
     # Phase 40's per-rank shapes under ulysses_flash at tp2 x cp2: the
-    # whole sequence over a rank's heads (GPT-2 8 rows x 3 heads, Llama-300M
+    # whole sequence over a rank's heads (GPT-2 4 rows x 3 heads, Llama-300M
     # 2 rows x 4 heads).
     res["ulysses"] = {
         "gpt2": check_flash(
-            torch, fa, "bf16 causal [24, 1024, 64] (GPT-2 ulysses_flash tp2 "
-            "x cp2 rank)", flash_case(torch, dtype=bf16, bh=24, L=1024, D=64,
+            torch, fa, "bf16 causal [12, 1024, 64] (GPT-2 ulysses_flash tp2 "
+            "x cp2 rank)", flash_case(torch, dtype=bf16, bh=12, L=1024, D=64,
                                       causal=True, heads=3), 2e-2,
             timed=True),
         "llama": check_flash(
@@ -1312,7 +1343,7 @@ def parity_pair(torch, cli, load_config, apply_overrides, steps=4):
 # ---------------------------------------------------------------------------
 
 
-def ring_case(torch, rp, *, dtype, bh, L, D, seed=11):
+def ring_case(torch, rp, *, dtype, bh, L, D, seed=11, heads=12):
     """Inputs of one ring visit as rank 1 of cp=2 meets them: its queries
     q, a diagonal block (k1, v1) and the block of rank 0 (k0, v0), dO; the
     carries after the diagonal visit (plain versions), the lse and delta of
@@ -1337,7 +1368,7 @@ def ring_case(torch, rp, *, dtype, bh, L, D, seed=11):
     return dict(q=q, qf=qf, blocks={1: (k1, v1), 0: (k0, v0)},
                 carries={1: (zero["m"], zero["l"], zero["acc"]), 0: diag},
                 grads={1: (zd, zd, zd), 0: (dq1, dk1, dv1)},
-                do=do, lse=lse, delta=delta, scale=scale)
+                do=do, lse=lse, delta=delta, scale=scale, heads=heads)
 
 
 def ring_calls(rp, case, mode, plain=False):
@@ -1447,13 +1478,14 @@ def check_ring(torch, rp, name, case, atol, timed):
     return out
 
 
-def ring_yardsticks(torch, case, heads=12):
+def ring_yardsticks(torch, case):
     """Yardsticks only (the port never calls them): the library's
     ``scaled_dot_product_attention`` forward over one visible block (no
-    mask) and its autograd backward, on the case's bf16 tensors viewed
-    [B, H, L, D]."""
+    mask) and its autograd backward, on the case's tensors viewed [B, H,
+    L, D]."""
     F = torch.nn.functional
     bh, L, D = case["q"].shape
+    heads = case["heads"]
     k, v = case["blocks"][0]
     shape = (bh // heads, heads, L, D)
     q, k, v = (x.reshape(shape).detach().requires_grad_()
@@ -1582,6 +1614,18 @@ def check_ring_kernels(torch):
         torch, rp, "bf16 [48, 512, 64] (GPT-2 ring_pallas tp2 x cp2 rank)",
         ring_case(torch, rp, dtype=bf16, bh=48, L=512, D=64), bf16_tol,
         timed=True)
+    # Phase 41's ViT-L/16 at 240² on ring_pallas at dp2 x cp2: a rank's 2
+    # images x 16 heads (bf16 as shipped, and fp32) over a 113-token block,
+    # no multiple of the 64-row tile, non-causal (every visit a mode-0
+    # one; mode 1 is checked at the shape as well).
+    res["vit_cp_rank"] = check_ring(
+        torch, rp, "bf16 [32, 113, 64] (ViT-L ring_pallas dp2 x cp2 rank)",
+        ring_case(torch, rp, dtype=bf16, bh=32, L=113, D=64, heads=16),
+        bf16_tol, timed=True)
+    res["vit_cp_rank_fp32"] = check_ring(
+        torch, rp, "float32 [32, 113, 64] (ViT-L fp32 dp2 x cp2 rank)",
+        ring_case(torch, rp, dtype=f32, bh=32, L=113, D=64, heads=16),
+        f32_tol, timed=True)
     composed_ring(torch, rp, fa, dtype=f32, atol=1e-4)
     # bf16: the tensor-core kernels' roundings, folded over every visit of
     # four ranks, against fp32 attention on the same bf16 values.
@@ -2103,7 +2147,7 @@ def zero1_parity(torch, parity, ranks, fresh, steps=4):
 
 RESNET = os.path.join(ROOT, "distributeddeeplearning_tpu_torch", "configs",
                       "resnet50_imagenet.py")
-RESNET_STEPS, NATIVE_STEPS = 8, 4
+RESNET_STEPS, NATIVE_STEPS = 6, 4
 # Phase 16's fp32 parity at a global batch of 16 (8 a rank), one batch
 # repeated at a constant lr low enough that the loss falls smoothly in 4
 # steps. The runs agree to ~4e-7 through step 3, and then rounding grows
@@ -2174,7 +2218,7 @@ def config_cli_train(cli, config, steps, overrides=(), start=0):
 
 
 def resnet_train(torch, cli, batch):
-    """Phase 14: 8 steps of the shipped config, then 4 with the C++
+    """Phase 14: 6 steps of the shipped config, then 4 with the C++
     loader; no hand kernel launches on this path."""
     out = {}
     for kind, steps, extra in (
@@ -2344,7 +2388,7 @@ VIT = os.path.join(ROOT, "distributeddeeplearning_tpu_torch", "configs",
                    "vit_imagenet21k.py")
 BERT = os.path.join(ROOT, "distributeddeeplearning_tpu_torch", "configs",
                     "bert_mlm.py")
-VIT_STEPS, BERT_STEPS = 6, 4
+VIT_STEPS, BERT_STEPS = 4, 4
 # Phase 20's fp32 pairs: one batch repeated at the config's lr held
 # constant, as phase 8. (BERT at ViT's lr of 1e-3 overshoots by step 3.)
 ENCODER_PARITY = ["model.kwargs.dtype=float32", "data.batch_size=4",
@@ -2408,7 +2452,7 @@ def flash_model_train(torch, cli, name, config, steps, layers, groups,
 
 
 def vit_train(torch, cli, models, load_config, apply_overrides):
-    """Phase 17: ViT-L/16 as shipped (remat 'full') for 6 steps, then 2
+    """Phase 17: ViT-L/16 as shipped (remat 'full') for 4 steps, then 2
     with remat off, for the memory remat saves."""
     layers, groups, n, _ = model_shape(models, load_config,
                                        apply_overrides, VIT)
@@ -3232,6 +3276,9 @@ GPT2_PP = os.path.join(ROOT, "distributeddeeplearning_tpu_torch", "configs",
 BERT_PP = os.path.join(ROOT, "distributeddeeplearning_tpu_torch", "configs",
                        "bert_pp.py")
 PP_RANKS, PP_STEPS = 4, 2
+# Phase 34's batch, cut for time from the config's 32 x 1024: two rows a
+# microbatch.
+PP_BATCH = 16
 # Phase 35's fp32 pairs: gpt2_pp at 8 x 1024 (adamw_fused on the ranks),
 # bert_pp at 8 x 512 (one row a microbatch; cut for time from 16), on one
 # repeated batch at a constant lr.
@@ -3247,7 +3294,8 @@ def pp_cli_job(tmp):
     evaluation and a checkpoint at step 2. Returns (the job, its
     checkpoint directory)."""
     ck = os.path.join(tmp, "pp_cli_ckpt")
-    return cli_job([f"train.steps={PP_STEPS}", "train.log_every=1",
+    return cli_job([f"train.steps={PP_STEPS}", f"data.batch_size={PP_BATCH}",
+                    "train.log_every=1",
                     "train.eval_every=2", "train.eval_batches=1",
                     "train.save_every=2", f"train.checkpoint_dir={ck}",
                     f"train.log_dir={tmp}/pp_logs"], config=GPT2_PP), ck
@@ -3255,7 +3303,7 @@ def pp_cli_job(tmp):
 
 def pp_cli_train(torch, ranks, ck):
     """Phase 34: ``cli train`` with 4 ranks on ``configs/gpt2_pp.py`` as
-    shipped (pp=4, dp=1, 1f1b_interleaved, M=8, bf16, 32 x 1024, vocab
+    shipped (pp=4, dp=1, 1f1b_interleaved, M=8, bf16, 16 x 1024, vocab
     50304) for 2 steps, an evaluation and a checkpoint at step 2 (the job
     of :func:`pp_cli_job`): every loss finite and equal on the 4 ranks,
     each rank 14 = M + 2(S-1) ticks a step and M + S - 1 = 11 in the
@@ -3335,13 +3383,15 @@ def four_rank_group(torch, parity, tmp):
     fsdp2 with SP (phase 36), as ``torchrun`` would run them, then the fit
     jobs of phases 35 (:func:`pp_jobs`), 37 (:func:`tp_jobs`, set up by
     phase 8's ``parity``), 38 (:func:`ep_jobs`) and 39
-    (:func:`shard_jobs`) and 40 (:func:`heads_cp_jobs`). Returns each
-    phase's results and checkpoint directories."""
+    (:func:`shard_jobs`), 40 (:func:`heads_cp_jobs`) and 41
+    (:func:`composition_jobs`). Returns each phase's results and
+    checkpoint directories."""
     pp_cli, pp_ck = pp_cli_job(tmp)
     tp_cli, tp_cli_ck = tp_cli_job(tmp)
     groups = {"pp": pp_jobs(tmp), "tp": tp_jobs(tmp, parity),
               "ep": ep_jobs(tmp), "shard": shard_jobs(tmp),
-              "heads_cp": heads_cp_jobs(tmp, parity)}
+              "heads_cp": heads_cp_jobs(tmp, parity),
+              "compositions": composition_jobs(tmp, parity)}
     jobs = [pp_cli, tp_cli] + [j for js, _ in groups.values() for j in js]
     out = spawn_ranks(torch, jobs, tmp, nranks=PP_RANKS)
     res = {"pp_cli": (out[0], pp_ck), "tp_cli": (out[1], tp_cli_ck)}
@@ -3358,9 +3408,9 @@ def pp_parity(torch, cli, load_config, apply_overrides, results, ck):
     fp32 gpt2_pp (4 steps, fused_adamw over each rank's leaves: launches
     = steps x its kernel groups) and bert_pp (3 steps) losses within 1e-4
     relative of their pp=1 twins here (plain AdamW) and falling; the
-    step-2 checkpoint ``ck``, restored here at pp=1, equals every rank's
-    step-2 params bit for bit. Returns (the record, fused_adamw launches
-    on the ranks)."""
+    step-2 checkpoint ``ck``, restored here at pp=1 and cut to each rank's
+    rows and table block, equals every rank's step-2 params bit for bit.
+    Returns (the record, fused_adamw launches on the ranks)."""
     from distributeddeeplearning_tpu_torch.checkpoint import (
         CheckpointManager,
     )
@@ -3387,15 +3437,28 @@ def pp_parity(torch, cli, load_config, apply_overrides, results, ck):
         GPT2_PP_PARITY + ["train.steps=4"])
     with CheckpointManager(ck) as mgr:
         state, _ = mgr.restore(state, step=2)
+    from distributeddeeplearning_tpu_torch import models
+    from distributeddeeplearning_tpu_torch.mesh import Mesh
+
     restored = {k: param_digest(p) for k, p in state.params.items()}
     rows = state.stage_rows
+    cfg = apply_overrides(load_config(GPT2_PP), GPT2_PP_PARITY)
     mismatched = []
     for r in gpt_a:
         s = r["coords"]["pp"]
+        # A rank's layout: its stage's rows, its block of the tables
+        # (JAX's vocab_pp, at pp alone too).
+        tables = models.get_model(cfg.model.name, **cfg.model.kwargs,
+                                  mesh=Mesh({"pp": PP_RANKS}, rank=s),
+                                  device="meta").shards
         for k, h in r["hashes"].items():
             p = state.params[k]
-            want = param_digest(p[s:s + 1]) if k in rows.names else \
-                restored[k]
+            if k in rows.names:
+                want = param_digest(p[s:s + 1])
+            elif "pp" in tables.dims.get(k, {}):
+                want = param_digest(tables.take_leaf(k, p))
+            else:
+                want = restored[k]
             if h != want:
                 mismatched.append((s, k))
     del trainer, state
@@ -3674,8 +3737,8 @@ def tp_parity(torch, cli, models, load_config, apply_overrides, parity,
 EP_STEPS = 2
 # (a) gpt2_moe as shipped (bf16, flash, top-2 of 8 at capacity factor
 # 1.25, 6 routed blocks of 12, the plain AdamW, ZeRO-1) at dp2 x ep2, the
-# batch cut for time to 4 x 1024 (2 rows a dp rank, 12 heads).
-GPT2_MOE_EP = ["mesh.dp=2", "mesh.ep=2", "data.batch_size=4",
+# batch cut for time to 2 x 1024 (1 row a dp rank, 12 heads).
+GPT2_MOE_EP = ["mesh.dp=2", "mesh.ep=2", "data.batch_size=2",
                f"train.steps={EP_STEPS}", "train.eval_batches=1"]
 # (b) llama_moe 8x300m as shipped at ep2 x tp2 with sequence parallelism
 # (JAX's GQA composition), the batch cut for time to 2 x 2048 (8 heads a
@@ -3746,7 +3809,7 @@ def ep_parity(torch, cli, models, load_config, apply_overrides, results,
     (a) gpt2_moe at dp2 x ep2: losses, aux_loss and moe_dropped_frac
     finite, the losses equal on the 4 ranks, drops present; per rank each
     flash kernel 12 launches a step (flash_fwd 12 more for the evaluation)
-    at [2 rows x 12 heads, 1024, 64], no fused_adamw (the config's plain
+    at [1 row x 12 heads, 1024, 64], no fused_adamw (the config's plain
     AdamW); a rank's params are its 4 of the 8 experts and the rest whole
     (a share of ~0.65 of the 322.8M), its moments half that again
     (ZeRO-1); the save, restored here in one process at ep=1 and cut to
@@ -3941,9 +4004,10 @@ GPT2_PP_TP_PARITY = GPT2_PP_PARITY + PP_TP_MESH + [
     "optim.name=adamw_fused", f"train.steps={ENC_STEPS}"]
 # (c) ViT-L/16 as shipped (bf16, remat full, flash, adamw_fused) and (d)
 # BERT-base as shipped (4 microbatches) on ragged rows, at tp2 x fsdp2
-# with SP, the batch cut for time to 8: ViT 4 images a rank,
-# 8 heads, 197 tokens in shards of 99; BERT 1 row a microbatch, 6 heads.
-VIT_TP = TP_MESH + ["data.batch_size=8", f"train.steps={ENC_STEPS}"]
+# with SP, the batch cut for time to 4 (ViT) and 8 (BERT):
+# ViT 2 images a rank, 8 heads, 197 tokens in shards of 99; BERT 1 row a
+# microbatch, 6 heads.
+VIT_TP = TP_MESH + ["data.batch_size=4", f"train.steps={ENC_STEPS}"]
 BERT_TP = TP_MESH + ["data.batch_size=8", "data.pad_min_len=32",
                      f"train.steps={ENC_STEPS}"]
 # (e) ResNet-50 as shipped (SGD, bf16) at 32 x 224², fsdp2 x tp2 (the
@@ -4138,7 +4202,7 @@ def shard_parity(torch, cli, models, load_config, apply_overrides, enc_ref,
     launched = {k: 0 for k in ("flash_fwd", "flash_dq", "flash_dkv")}
     launched["fused_adamw"] = fused
     for name, ranks, layers, fwd_per, accum, shape in (
-            ("vit", vit, vit_layers, 2, 1, (4 * 8, 256, 64)),
+            ("vit", vit, vit_layers, 2, 1, (2 * 8, 256, 64)),
             ("bert", bert, bert_layers, 1, 4, (1 * 6, 128, 64)),
             ("vit fp32", vit32, vit_layers, 2, 1, (2 * 8, 256, 64)),
             ("bert fp32", bert32, bert_layers, 1, 2, (1 * 6, 128, 64))):
@@ -4213,15 +4277,15 @@ def shard_parity(torch, cli, models, load_config, apply_overrides, enc_ref,
 HEADS_CP_STEPS = 2
 TP_CP = ["mesh.dp=1", "mesh.tp=2", "mesh.cp=2"]
 # (a) gpt2_owt as shipped (bf16, adamw_fused) on ulysses_flash at dp1 x tp2
-# x cp2, 8 x 1024: a rank's flash kernels run on its 3 heads of 12 over
+# x cp2, 4 x 1024: a rank's flash kernels run on its 3 heads of 12 over
 # the whole 1024 tokens; an evaluation and a save at step 2.
 ULYSSES_GPT2 = TP_CP + ["model.kwargs.attn_impl=ulysses_flash",
-                        "data.batch_size=8", f"train.steps={HEADS_CP_STEPS}",
+                        "data.batch_size=4", f"train.steps={HEADS_CP_STEPS}",
                         "train.eval_batches=1"]
 # (b) the same on ring_pallas with sequence parallelism: a rank's ring
-# kernels on its 6 heads over its 512-token cp block.
+# kernels on its 6 heads over its 512-token cp block, 4 x 1024.
 RING_GPT2 = TP_CP + ["model.kwargs.attn_impl=ring_pallas",
-                     "train.sequence_parallel=true", "data.batch_size=8",
+                     "train.sequence_parallel=true", "data.batch_size=4",
                      f"train.steps={HEADS_CP_STEPS}"]
 # (c) Llama-300M as shipped on ulysses_flash at tp2 x cp2, 2 x 2048: K and
 # V repeated to a tp rank's 8 query heads, 4 a rank after the flip.
@@ -4283,7 +4347,7 @@ def heads_cp_parity(torch, cli, models, load_config, apply_overrides, parity,
                     results, ck):
     """Phase 40: the results of :func:`heads_cp_jobs`. (a) gpt2_owt on
     ulysses_flash at tp2 x cp2: losses finite and equal on the ranks, the
-    flash kernels 12 launches a layer pass at [8 x 3 heads, 1024, 64] on
+    flash kernels 12 launches a layer pass at [4 x 3 heads, 1024, 64] on
     every rank (12 a step forward and backward, 12 in the evaluation), an
     evaluation, and the step-2 save restored here in one process and cut
     to each rank's blocks equal to that rank's params bit for bit; (b) on
@@ -4310,7 +4374,7 @@ def heads_cp_parity(torch, cli, models, load_config, apply_overrides, parity,
     llayers = model_shape(models, load_config, apply_overrides, LLAMA)[0]
     s = HEADS_CP_STEPS
     _heads_cp_launches(names[0], uly, "flash", layers, layers * (s + 1),
-                       layers * s, (8 * 3, 1024, 64))
+                       layers * s, (4 * 3, 1024, 64))
     _heads_cp_launches(names[1], ring, "ring", layers, 0, 0)
     _heads_cp_launches(names[2], llama, "flash", llayers, llayers * s,
                        llayers * s, (2 * 4, 2048, 64))
@@ -4365,6 +4429,285 @@ def heads_cp_parity(torch, cli, models, load_config, apply_overrides, parity,
         if not p["max_rel_diff"] <= 1e-4 or not p["losses"][-1] < p[
                 "losses"][0]:
             raise AssertionError(f"gpt2 fp32 {k} vs one process: {p}")
+    launched = {k: sum(r["launches"][k] for job in results for r in job)
+                for k in results[0][0]["launches"]}
+    return res, launched
+
+
+# ---------------------------------------------------------------------------
+# 41. the compositions: ViT under cp, dropout, remat 'dots' and bf16_full
+#     over a rank's blocks, the pipelined tables over pp alone
+# ---------------------------------------------------------------------------
+
+COMP_STEPS = 2
+# (a) ViT-L/16 at 240²: 15 x 15 patches and the CLS token, 226 tokens, 113
+# a cp rank (no multiple of the kernels' 64-row tile); at 224² its 197
+# tokens raise the reference's seq % cp error. fp32 on phase 20's
+# overrides (4 images, one batch, 2 steps) on the kernel route (flash or
+# ring_pallas, adamw_fused, remat full): at dp2 x cp2 on ring_pallas (2
+# images x 16 heads over a 113-token block a rank) and at tp2 x cp2 on
+# ulysses_flash (4 images x 4 heads over all 226 tokens a rank).
+VIT_CP = ["model.kwargs.image_size=240", "data.image_size=240"]
+VIT_CP_TOKENS = 226
+VIT_CP_PARITY = ENCODER_PARITY + VIT_CP + ["optim.name=adamw_fused",
+                                           "train.remat=full"]
+VIT_CP_MESHES = {
+    "ring_pallas_dp2_cp2": ["mesh.dp=2", "mesh.cp=2",
+                            "model.kwargs.attn_impl=ring_pallas"],
+    "ulysses_flash_tp2_cp2": TP_CP + ["model.kwargs.attn_impl=ulysses_flash"],
+}
+# ... and as shipped (bf16, remat full, adamw_fused) at dp2 x cp2 on
+# ring_pallas, 4 images (2 x 16 heads a rank, bf16 ring kernels over 113
+# tokens), 2 steps.
+VIT_CP_BF16 = VIT_CP + ["mesh.dp=2", "mesh.cp=2",
+                        "model.kwargs.attn_impl=ring_pallas",
+                        "data.batch_size=4", f"train.steps={COMP_STEPS}"]
+# (b) fp32 GPT-2 with dropout 0.1 on phase 8's overrides (4 x 1024, one
+# batch, adamw_fused; ZeRO-1 off, so each rank's moments are its blocks),
+# 2 steps: on ulysses (the plain core behind the all-to-alls) at tp2 x
+# cp2, and on xla with remat 'dots' at dp2 x fsdp2 (1 row a rank).
+DROPOUT = ["model.kwargs.dropout_rate=0.1", "train.zero1=false",
+           f"train.steps={COMP_STEPS}"]
+DROPOUT_MESHES = {
+    "ulysses_tp2_cp2": TP_CP + ["model.kwargs.attn_impl=ulysses"],
+    "xla_dots_dp2_fsdp2": ["mesh.dp=2", "mesh.fsdp=2",
+                           "model.kwargs.attn_impl=xla", "train.remat=dots"],
+}
+# (c) GPT-2 124M under bf16_full (bf16 compute, bf16 moments rounded with
+# each element's bits of the whole leaf) at tp2 x fsdp2, 4 x 1024 of one
+# batch at a constant lr, 2 steps, against the same in one process.
+BF16_FULL_COMP = BF16_FULL + ["data.batch_size=4", "data.n_distinct=1",
+                              "optim.schedule=constant",
+                              "optim.warmup_steps=0",
+                              f"train.steps={COMP_STEPS}"]
+BF16_FULL_MESH = ["mesh.dp=1", "mesh.tp=2", "mesh.fsdp=2"]
+# bf16 compute in another summation order (the tp and fsdp sums) moves a
+# loss by a few bf16 roundings of the logits at most: 1e-3 relative.
+BF16_FULL_COMP_TOL = 1e-3
+
+
+def composition_jobs(tmp, parity):
+    """Phase 41's jobs, run in phase 34's four spawned ranks: (a) the fp32
+    ViT-L runs (each rank's :func:`leaf_stats` of its AdamW moments) and
+    the bf16 one; (b) the fp32 GPT-2 runs with dropout (leaf stats); (c)
+    bf16_full at tp2 x fsdp2. Returns (the jobs, None)."""
+    stats = {"params": False, "stats": True}
+    keep = {"params": False}
+    return [
+        *[(VIT_CP_PARITY + mesh, None, 0, VIT, stats)
+          for mesh in VIT_CP_MESHES.values()],
+        (VIT_CP_BF16, None, 0, VIT, keep),
+        *[(parity["overrides"] + DROPOUT + mesh, None, 0, CONFIG, stats)
+          for mesh in DROPOUT_MESHES.values()],
+        (BF16_FULL_COMP + BF16_FULL_MESH, None, 0, CONFIG, keep),
+    ], None
+
+
+def _mesh_shape(overrides) -> dict:
+    """The axis sizes a list of overrides sets (``mesh.<axis>=<n>``)."""
+    return {o.split("=")[0][len("mesh."):]: int(o.split("=")[1])
+            for o in overrides if o.startswith("mesh.")}
+
+
+def cut_stats(torch, load_config, apply_overrides, config, overrides,
+              meshes):
+    """A ``keep`` of :func:`parity_runs`: for each mesh of ``meshes``
+    (name -> overrides) and each of its four ranks, :func:`leaf_stats` of
+    the one process's AdamW moments cut to that rank's blocks (whole where
+    the mesh cuts no leaf): what the rank holds if its step is right."""
+    from distributeddeeplearning_tpu_torch import models
+    from distributeddeeplearning_tpu_torch.mesh import Mesh
+
+    def keep(state):
+        out = {}
+        for name, mesh in meshes.items():
+            cfg = apply_overrides(load_config(config),
+                                  list(overrides) + list(mesh))
+            shape = _mesh_shape(mesh)
+            out[name] = []
+            for rank in range(math.prod(shape.values())):
+                meta = models.get_model(cfg.model.name, **cfg.model.kwargs,
+                                        mesh=Mesh(shape, rank=rank),
+                                        device="meta")
+                cut = (meta.shards.take if meta.shards is not None
+                       else lambda t: t)
+                out[name].append({
+                    m: leaf_stats(torch, cut(getattr(state.opt_state, m)))
+                    for m in ("mu", "nu")})
+        return out
+    return keep
+
+
+def _moments_against(name, ranks, want):
+    """Every rank's moments' :func:`leaf_stats` against the one process's
+    cut to its blocks: the largest relative difference and its leaf."""
+    worst = (0.0, "")
+    for rank, (r, w) in enumerate(zip(ranks, want)):
+        for m in ("mu", "nu"):
+            d = stats_diff(r["stats"][m], w[m])
+            if d and d[0][0] > worst[0]:
+                worst = (d[0][0], f"rank {rank} {m} {d[0][1]}")
+    if not worst[0] <= LEAF_STATS_TOL:
+        raise AssertionError(f"{name}: moments off one process's by "
+                             f"{worst}")
+    return worst
+
+
+def _kernel_launches(name, ranks, kernels, none):
+    """Each of ``kernels`` launched on every rank, none of ``none``, and
+    every rank the same counts (the cp cores: every block visited by every
+    rank, non-causal)."""
+    for i, r in enumerate(ranks):
+        got = r["launches"]
+        if (not all(got[k] > 0 for k in kernels) or any(got[k] for k in none)
+                or {k: got[k] for k in kernels} != {
+                    k: ranks[0]["launches"][k] for k in kernels}):
+            raise AssertionError(f"{name} rank {i}: launches {got}")
+
+
+def composition_parity(torch, cli, models, load_config, apply_overrides,
+                       parity, pp_ranks, results, _):
+    """Phase 41: the results of :func:`composition_jobs` and phase 34's
+    gpt2_pp run. (a) fp32 ViT-L/16 at 240² (226 tokens) at dp2 x cp2 on
+    ring_pallas and at tp2 x cp2 on ulysses_flash: losses equal on the
+    ranks, within 1e-4 relative of one process here (flash, adamw_fused,
+    remat full) and falling; every rank's AdamW moments within
+    ``LEAF_STATS_TOL`` of the one process's cut to its blocks, leaf by leaf
+    (the zero head hides the encoder's gradient from the first loss, and
+    the CLS token's cotangent reaches every rank's blocks through cp rank
+    0 alone); the ring kernels (non-causal, 113-row blocks) or the flash
+    kernels (4 heads over 226 tokens padded to 256) launched on every
+    rank; the bf16 run as shipped on ring_pallas: losses finite and equal,
+    the ring kernels on every rank. (b) fp32 GPT-2 with dropout 0.1 at tp2
+    x cp2 on ulysses and at dp2 x fsdp2 on xla with remat 'dots': losses
+    (moved by the masks from phase 8's) within 1e-4 relative of one
+    process on xla from the same seed (each
+    rank's masks its blocks of the one-rank masks) and every rank's
+    moments within ``LEAF_STATS_TOL`` of its cut. (c) bf16_full at tp2 x
+    fsdp2: losses within ``BF16_FULL_COMP_TOL`` of one process, bf16
+    moments (a rank's moment bytes equal to its fp32 master bytes), no
+    fused_adamw launch. (d) phase 34's gpt2_pp at pp=4: each rank holds a
+    quarter of the tied table's rows (JAX's ``vocab_pp`` at pp alone) and
+    of their two fp32 moments; its param and moment bytes before (the
+    table whole) and after. Returns (the record, the launches on
+    these paths)."""
+    from distributeddeeplearning_tpu_torch.mesh import Mesh
+
+    vit32 = results[:2]
+    vit16 = results[2]
+    drop32 = results[3:5]
+    full = results[5]
+    res = {}
+    # (a)
+    want_losses, _, _, kept = route_run(
+        torch, cli, load_config, apply_overrides, VIT,
+        VIT_CP_PARITY + ["model.kwargs.attn_impl=flash"],
+        cut_stats(torch, load_config, apply_overrides, VIT, VIT_CP_PARITY,
+                  VIT_CP_MESHES))
+    layers = model_shape(models, load_config, apply_overrides, VIT)[0]
+    for (name, mesh), ranks in zip(VIT_CP_MESHES.items(), vit32):
+        losses = _equal_losses(f"vit {name}", ranks)
+        rel = rel_diff(losses, want_losses)
+        worst = _moments_against(f"vit {name}", ranks, kept[name])
+        ring = name.startswith("ring")
+        rk, fk = ("ring_step", "ring_dq", "ring_dkv"), ("flash_fwd",
+                                                        "flash_dq",
+                                                        "flash_dkv")
+        _kernel_launches(f"vit {name}", ranks, (rk if ring else fk)
+                         + ("fused_adamw",), fk if ring else rk)
+        shapes = sorted({tuple(x) for v in ranks[0]["flash_shapes"].values()
+                         for x in v})
+        res[f"vit_fp32_{name}"] = {
+            "losses": losses, "one_process": want_losses,
+            "max_rel_diff": rel, "moments_max_rel_diff": worst,
+            "launches": ranks[0]["launches"], "flash_shapes": shapes,
+            "step_s": ranks[0]["step_s"],
+            "transport_s_by_step": ranks[0]["transport_s_by_step"],
+            "peak_mem_gb": [r["peak_mem_gb"] for r in ranks]}
+        if not rel <= 1e-4 or not losses[-1] < losses[0]:
+            raise AssertionError(f"vit fp32 {name}: {res[f'vit_fp32_{name}']}")
+        if not ring and shapes != [(4 * 4, 256, 64)]:
+            raise AssertionError(f"vit {name}: flash shapes {shapes}")
+    losses = _equal_losses("vit bf16 dp2 x cp2", vit16)
+    _kernel_launches("vit bf16 dp2 x cp2", vit16,
+                     ("ring_step", "ring_dq", "ring_dkv", "fused_adamw"),
+                     ("flash_fwd", "flash_dq", "flash_dkv"))
+    res["vit_bf16_ring_pallas_dp2_cp2"] = {
+        "losses": losses, "launches": vit16[0]["launches"],
+        "layers": layers, "step_s": vit16[0]["step_s"],
+        "transport_s_by_step": vit16[0]["transport_s_by_step"],
+        "peak_mem_gb": [r["peak_mem_gb"] for r in vit16]}
+    # (b)
+    drop_base = parity["overrides"] + DROPOUT
+    want_losses, _, _, kept = route_run(
+        torch, cli, load_config, apply_overrides, CONFIG,
+        drop_base + ["model.kwargs.attn_impl=xla", "optim.name=adamw"],
+        cut_stats(torch, load_config, apply_overrides, CONFIG, drop_base,
+                  DROPOUT_MESHES))
+    plain = parity["losses_kernels"][0]
+    if not abs(want_losses[0] - plain) > 1e-4 * plain:
+        # The masks move the loss by more than the parity gate below.
+        raise AssertionError(f"gpt2 dropout: one process's loss "
+                             f"{want_losses} is no dropout's ({plain})")
+    for (name, _), ranks in zip(DROPOUT_MESHES.items(), drop32):
+        losses = _equal_losses(f"gpt2 dropout {name}", ranks)
+        rel = rel_diff(losses, want_losses)
+        worst = _moments_against(f"gpt2 dropout {name}", ranks, kept[name])
+        res[f"gpt2_dropout_{name}"] = {
+            "losses": losses, "one_process": want_losses,
+            "max_rel_diff": rel, "moments_max_rel_diff": worst,
+            "launches": ranks[0]["launches"], "step_s": ranks[0]["step_s"],
+            "transport_s_by_step": ranks[0]["transport_s_by_step"],
+            "peak_mem_gb": [r["peak_mem_gb"] for r in ranks]}
+        if not rel <= 1e-4:  # each step draws new masks: no fall needed
+            raise AssertionError(f"gpt2 dropout {name}: "
+                                 f"{res[f'gpt2_dropout_{name}']}")
+    # (c)
+    losses = _equal_losses("gpt2 bf16_full tp2 x fsdp2", full)
+    one, _, _, _ = route_run(torch, cli, load_config, apply_overrides,
+                             CONFIG, BF16_FULL_COMP)
+    rel = rel_diff(losses, one)
+    for i, r in enumerate(full):
+        if (r["launches"]["fused_adamw"] or not r["launches"]["flash_fwd"]
+                or r["opt_state_bytes"] != r["shards"]["param_bytes"]):
+            raise AssertionError(
+                f"gpt2 bf16_full tp2 x fsdp2 rank {i}: launches "
+                f"{r['launches']}, moment bytes {r['opt_state_bytes']} "
+                f"against fp32 master bytes {r['shards']['param_bytes']}")
+    res["gpt2_bf16_full_tp2_fsdp2"] = {
+        "losses": losses, "one_process": one, "max_rel_diff": rel,
+        "per_rank": [_rank_bytes(r) for r in full],
+        "step_s": full[0]["step_s"]}
+    if not rel <= BF16_FULL_COMP_TOL:
+        raise AssertionError(f"gpt2 bf16_full tp2 x fsdp2: {rel} > "
+                             f"{BF16_FULL_COMP_TOL}")
+    # (d)
+    _, _, end = cli_result(pp_ranks)
+    cfg = load_config(GPT2_PP)
+    table = "wte.embedding"
+    per_rank = []
+    for i, r in enumerate(end["ranks"]):
+        meta = models.get_model(cfg.model.name, **cfg.model.kwargs,
+                                mesh=Mesh({"pp": PP_RANKS}, rank=i),
+                                device="meta")
+        whole = meta.shards.whole[table]
+        block = meta.shards.local[table]
+        after = 4 * sum(p.numel() for p in meta.parameters())
+        before = after + 4 * (math.prod(whole) - math.prod(block))
+        row = {"rank": i, "table_block": list(block),
+               "table_whole": list(whole),
+               "param_bytes_before": before, "param_bytes": after,
+               "moment_bytes_before": 2 * before,
+               "moment_bytes": r["opt_state_bytes"]}
+        per_rank.append(row)
+        if (block[0] != -(-whole[0] // PP_RANKS)
+                or r["shards"]["param_bytes"] != after
+                or r["opt_state_bytes"] != 2 * after):
+            raise AssertionError(f"gpt2_pp pp=4 rank {i}: {row}, recorded "
+                                 f"{r['shards']}")
+    res["gpt2_pp_pp4_tables"] = per_rank
+    print(f"compositions: {json.dumps(res)} (four ranks share the one card "
+          "over gloo: the step times are a path, not a speed)", flush=True)
     launched = {k: sum(r["launches"][k] for job in results for r in job)
                 for k in results[0][0]["launches"]}
     return res, launched
@@ -4635,7 +4978,7 @@ def main(argv=None) -> int:
 
     phase("34 one spawn of 4 ranks on the card over gloo: cli train on "
           "gpt2_pp (pp=4), then phase 36's cli train and the jobs of "
-          "phases 35 and 37-40")
+          "phases 35 and 37-41")
     tmp4 = tempfile.TemporaryDirectory()  # the group's saves
     group = four_rank_group(torch, parity, tmp4.name)
     pp_cli_train(torch, *group["pp_cli"])
@@ -4678,10 +5021,20 @@ def main(argv=None) -> int:
     _, launched = heads_cp_parity(torch, cli, models, load_config,
                                   apply_overrides, parity,
                                   *group["heads_cp"])
+    for k, v in launched.items():
+        launches[k] += v
+    phase("41 the compositions: ViT-L/16 at 226 tokens under cp "
+          "(ring_pallas, ulysses_flash), fp32 GPT-2 with dropout at tp2 x "
+          "cp2 and dp2 x fsdp2 with remat dots, bf16_full at tp2 x fsdp2, "
+          "against one process; gpt2_pp's tables over pp alone")
+    _, launched = composition_parity(torch, cli, models, load_config,
+                                     apply_overrides, parity,
+                                     group["pp_cli"][0],
+                                     *group["compositions"])
     tmp4.cleanup()
     for k, v in launched.items():
         launches[k] += v
-    print(f"chip_smoke: 40 phases in {time.perf_counter() - _T0:.1f} s",
+    print(f"chip_smoke: 41 phases in {time.perf_counter() - _T0:.1f} s",
           flush=True)
 
     # Each kernel's numbers come from its case at the main path's types.

@@ -96,8 +96,10 @@ def model_share(counts: dict, model, mesh, rows: int = 0, tokens: int = 0,
     rows through everything outside the routed MLPs, whose experts and
     router columns it holds a slice of; every rank of an image model runs
     the submodules its ``tp_repeated`` names whole over tp (ViT's patch
-    embedding, ResNet's convolutions). A routed MLP's router and one-hot
-    products, which every tp rank runs whole, are computed from the shapes
+    embedding, ResNet's convolutions), and every cp rank the submodules
+    its ``cp_repeated`` names (ViT's head, on the CLS token every cp rank
+    reads). A routed MLP's router and one-hot products, which every tp
+    rank runs whole, are computed from the shapes
     (this rank's ``rows`` x ``tokens`` a step, ``forwards`` under remat:
     ``models.moe.router_flops``, ``onehot_flops``), since the counter files
     the experts' backward under the combine's module; its experts run over
@@ -113,6 +115,9 @@ def model_share(counts: dict, model, mesh, rows: int = 0, tokens: int = 0,
     repeated = sum(flops(f"{root}.{n}")
                    for n in getattr(model, "tp_repeated", ()))
     total = total - repeated + repeated / tp
+    repeated = sum(flops(f"{root}.{n}")
+                   for n in getattr(model, "cp_repeated", ()))
+    total = total - repeated + repeated / cp
     routed = {f"{root}.{n}": m for n, m in model.named_modules()
               if isinstance(m, MoeMlp)}
     moe = sum(flops(k) for k in routed)

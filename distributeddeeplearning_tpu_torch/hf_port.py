@@ -363,6 +363,9 @@ def validate_params(model, params) -> None:
         hf_port.validate_params(model, params)
     """
     want = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    shards = getattr(model, "shards", None)
+    if shards is not None:  # a rank holds its blocks of the leaves it cuts
+        want = {k: shards.whole_shape(k, s) for k, s in want.items()}
     rows = getattr(model, "stage_rows", None)
     if rows is not None:  # a pipeline rank holds some rows of the stack
         want = {k: rows.whole_shape(k, s) for k, s in want.items()}

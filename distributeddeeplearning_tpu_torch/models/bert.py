@@ -60,6 +60,7 @@ from .transformer import (
     check_attn,
     LayerNorm,
     TransformerStack,
+    act_cuts,
     dropout,
     gelu_exact,
 )
@@ -75,8 +76,7 @@ class BertMLM(nn.Module):
                  mesh=None, device=None):
         super().__init__()
         check_attn(attn_impl, mesh)
-        tp = check_tp_fsdp("bert", mesh, num_heads=num_heads,
-                           dropout_rate=dropout_rate, remat=remat)
+        tp = check_tp_fsdp("bert", mesh, num_heads=num_heads)
         if embed_dim % tp:
             raise ValueError(f"bert at mesh tp={tp}: mlm_transform's "
                              f"{embed_dim} units not divisible by tp={tp}")
@@ -152,7 +152,7 @@ class BertMLM(nn.Module):
         x = (self.word_embeddings(tokens) + self.position_embeddings(positions)
              + self.token_type_embeddings(token_type_ids))
         x = self.embeddings_ln(x)
-        x = dropout(x, self.dropout_rate, gen, self.mesh)
+        x = dropout(x, self.dropout_rate, gen, self.mesh, act_cuts(self.mesh))
         x = self.encoder(x, mask=attention_mask, generator=gen)
         x = self.mlm_ln(gelu_exact(self.mlm_transform(x)))
         emb = self.word_embeddings.embedding.to(self.dtype)
@@ -185,7 +185,8 @@ class BertMLM(nn.Module):
             token_type_ids = seq_shard(token_type_ids, mesh)
         x = (x + self.position_embeddings(positions)
              + self.token_type_embeddings(token_type_ids))
-        x = dropout(self.embeddings_ln(x), self.dropout_rate, gen, mesh)
+        x = dropout(self.embeddings_ln(x), self.dropout_rate, gen, mesh,
+                    act_cuts(mesh, sp, L))
         x = self.encoder(x, mask=attention_mask, generator=gen,
                          seq_len=L if sp else None)
         # The transform's units are a column-parallel slice, gathered

@@ -38,6 +38,7 @@ from .transformer import (
     SHARDED_DECODE,
     PagedKVCache,
     TransformerStack,
+    act_cuts,
     check_attn,
     dropout,
 )
@@ -74,8 +75,7 @@ class GPT2(nn.Module):
         super().__init__()
         # The serving engine fences everything but 'xla' itself.
         check_attn(attn_impl, mesh)
-        tp = check_tp_fsdp("gpt2", mesh, num_heads=num_heads,
-                           dropout_rate=dropout_rate, remat=remat)
+        tp = check_tp_fsdp("gpt2", mesh, num_heads=num_heads)
         self.vocab_size, self.max_len = vocab_size, max_len
         self.num_layers, self.num_heads = num_layers, num_heads
         self.embed_dim, self.head_dim = embed_dim, embed_dim // num_heads
@@ -162,7 +162,8 @@ class GPT2(nn.Module):
                 raise NotImplementedError(SHARDED_DECODE)
             return self._sharded_forward(tokens, positions, gen)
         x = self.wte(tokens) + self.wpe(positions)
-        x = dropout(x, self.dropout_rate, gen, self.mesh)
+        x = dropout(x, self.dropout_rate, gen, self.mesh,
+                    act_cuts(self.mesh))
         x = self.h(x, cache, generator=gen)
         x = self.ln_f(x)
         emb = self.wte.embedding.to(self.dtype)
@@ -192,6 +193,8 @@ class GPT2(nn.Module):
         if sp:
             positions = seq_shard(positions, self.mesh)
         x = x + self.wpe(positions)
+        x = dropout(x, self.dropout_rate, gen, self.mesh,
+                    act_cuts(self.mesh, sp))
         x = self.h(x, None, generator=gen)
         x = enter(self.ln_f(x), self.mesh, sp, tokens.shape[1])
         return head_output(x, table.to(self.dtype), vocab=shard)

@@ -273,7 +273,7 @@ class Llama(nn.Module):
         if remat not in REMAT_MODES:
             raise ValueError(f"unknown remat {remat!r}")
         tp = check_tp_fsdp(self.NAME, mesh, num_heads=num_heads,
-                           num_kv_heads=num_kv_heads, remat=remat)
+                           num_kv_heads=num_kv_heads)
         self.vocab_size, self.max_len = vocab_size, max_len
         self.num_layers, self.num_heads = num_layers, num_heads
         self.num_kv_heads = num_kv_heads
@@ -347,7 +347,8 @@ class Llama(nn.Module):
             block = functools.partial(getattr(self, f"block_{i}"), rope=rope,
                                       cache=cache, layer=i)
             with block_scope(self.mesh, remat):
-                x = checkpoint_block(block, x, remat=remat)
+                x = checkpoint_block(block, x, remat=remat,
+                                     module=block.func)
         x = self.norm(x)
         dec = decoder_matrix(self)
         if sharded:

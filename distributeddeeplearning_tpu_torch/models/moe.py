@@ -71,6 +71,7 @@ from .transformer import (
     TransformerBlock,
     block_scope,
     check_attn,
+    act_cuts,
     dropout,
 )
 
@@ -202,7 +203,8 @@ class MoeMlp(nn.Module):
             out = leave(out, mesh, sp)
         if self.ep > 1:
             out = comms.psum_identity_bwd(out, mesh, "ep")
-        return dropout(out, self.dropout_rate, generator, self.mesh)
+        return dropout(out, self.dropout_rate, generator, self.mesh,
+                       act_cuts(mesh, sp))
 
 
 def moe_mlps(model) -> list[MoeMlp]:
@@ -247,6 +249,8 @@ class MoeTransformerBlock(nn.Module):
                  sequence_parallel: bool = False):
         super().__init__()
         self.dropout_rate, self.mesh = dropout_rate, mesh
+        self.cuts = act_cuts(mesh, sequence_parallel and (
+            mesh is not None and mesh.shape["tp"] > 1))
         self.attn = SelfAttention(embed_dim, num_heads, head_dim, dtype,
                                   device, causal=True, attn_impl=attn_impl,
                                   dropout_rate=dropout_rate, mesh=mesh,
@@ -262,7 +266,7 @@ class MoeTransformerBlock(nn.Module):
 
     def forward(self, x, generator=None):
         x = x + dropout(self.attn(self.ln1(x), generator=generator),
-                        self.dropout_rate, generator, self.mesh)
+                        self.dropout_rate, generator, self.mesh, self.cuts)
         return x + self.moe_mlp(self.ln2(x), generator)
 
 
@@ -289,8 +293,7 @@ class MoeGPT2(nn.Module):
                  mesh=None, device=None):
         super().__init__()
         check_attn(attn_impl, mesh)
-        tp = check_tp_fsdp("gpt2_moe", mesh, num_heads=num_heads,
-                           dropout_rate=dropout_rate)
+        tp = check_tp_fsdp("gpt2_moe", mesh, num_heads=num_heads)
         self.vocab_size, self.max_len = vocab_size, max_len
         self.num_layers, self.num_heads = num_layers, num_heads
         self.embed_dim, self.head_dim = embed_dim, embed_dim // num_heads
@@ -373,7 +376,8 @@ class MoeGPT2(nn.Module):
         if self.sequence_parallel:
             positions = seq_shard(positions, mesh)
         x = x + self.wpe(positions)
-        x = dropout(x, self.dropout_rate, gen, mesh)
+        x = dropout(x, self.dropout_rate, gen, mesh,
+                    act_cuts(mesh, self.sequence_parallel))
         for i in range(self.num_layers):
             with block_scope(mesh, "none"):
                 x = getattr(self, f"block_{i}")(x, generator=gen)

@@ -6,8 +6,9 @@ The blocks sit in one stage-stacked tree, ``h.stages.block_j...`` (BERT:
 holds its rows of it (``parallel.pp.StageRows``): ``[1, ...]`` when the
 model pipelines over ``pp = num_stages`` ranks, the whole ``[S, ...]`` on
 one rank or with ``pipeline=False`` (the stages back to back, the
-reference's sequential oracle). Embeddings, the final norm and the head are
-replicated on every rank of the axis.
+reference's sequential oracle). The position table and the final norm are
+replicated on every rank of the axis; the token tables (and Llama's
+untied head) are cut over it (``vocab_pp``, below).
 
 - ``forward`` (evaluation, any caller): every rank embeds, the stages run
   as a pipeline whose output every rank of the axis gets, and every rank
@@ -36,11 +37,12 @@ on stage 0 and the tied (or untied) head is the vocab-parallel chunked head
 on the last stage (``ops.chunked_xent``), both over the stage's tp ranks;
 the pipeline's activations and cotangents are whole on every tp rank, so
 stage ``s`` exchanges with the stages that share its tp, fsdp and dp
-coordinates. The batch is split over dp x fsdp. The embedding tables (and
-Llama's untied head) are JAX's ``vocab_pp``: each pp rank stores its block
-of the table's tp slice, not a copy of it; the stages' ranks all-gather the
-slice over pp before a step or an evaluation, and each keeps its block of
-the gradient summed over pp.
+coordinates. The batch is split over dp x fsdp. On every mesh pipelined
+over pp (pp alone too) the embedding tables (and Llama's untied head) are
+JAX's ``vocab_pp``: each pp rank stores its block of the table's tp slice
+(of the whole table at tp = 1), not a copy of it; the stages' ranks
+all-gather the slice over pp before a step or an evaluation, and each
+keeps its block of the gradient summed over pp.
 """
 
 from __future__ import annotations
@@ -59,7 +61,7 @@ from ..parallel.tp import (
     tp_size,
     vocab_parallel_embed,
 )
-from ..sharding import make_rules, shard_model
+from ..sharding import SHARD_AXES, make_rules, shard_model
 from . import register
 from .gpt2 import Embed, as_torch_dtype
 from .llama import LlamaBlock, RMSNorm, rope_tables
@@ -254,8 +256,8 @@ class _Pipelined(nn.Module):
 
     def _place(self, vocab_size: int) -> None:
         """Cut the leaves over the mesh's tp and fsdp (``sharding.
-        shard_model``), the tables' tp slices over pp too, the stage rows
-        counted over pp in a norm."""
+        shard_model``), the tables' tp slices over pp too (at pp alone the
+        tables only), the stage rows counted over pp in a norm."""
         self.shards = shard_model(self, self.mesh, make_rules(), vocab_size,
                                   self.VOCAB_PP if self.pipelined else ())
         if self.shards is not None and self.pipelined:
@@ -307,7 +309,8 @@ class _Pipelined(nn.Module):
         """The LM head on the final states ``x`` with decoder ``dec`` [rows,
         E] (compute dtype) and ``bias``: fp32 logits, or under tp or fsdp
         the vocab-parallel chunked head (``ops.chunked_xent``) behind f."""
-        if self.shards is None:
+        if self.shards is None or not any(
+                self.mesh.shape[a] > 1 for a in SHARD_AXES):
             logits = x @ dec.t()
             return (logits if bias is None else logits + bias).float()
         from ..ops.chunked_xent import head_output

@@ -21,7 +21,14 @@ State outside the checkpointed function would be wrong on a recompute:
 - in-place side effects of a training forward (BatchNorm's running
   statistics): :func:`recomputing` is True while a block is recomputed,
   and such a module skips them there, as JAX's recompute, which returns
-  the statistics as an output, changes nothing.
+  the statistics as an output, changes nothing;
+- the block's parameters: a mixed-precision step calls the model on its
+  compute copies (``torch.func.functional_call``), which are swapped back
+  for the fp32 masters before the backward recomputes. The block's
+  parameters at its forward are kept and put in place for the recompute,
+  so the recompute runs the forward's ops on the forward's tensors (under
+  'dots' the policy matches the two op for op; under 'full' the masters'
+  casts would only repeat the copies' values).
 
 The hand kernels launch through ctypes, which the policy's dispatch mode
 does not see: under either policy a block's flash forward runs again in
@@ -30,6 +37,7 @@ the recompute, as a ``pallas_call`` (no saveable dot) does under JAX's.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import threading
 
@@ -65,14 +73,33 @@ def _dots_policy(ctx, op, *args, **kwargs):
     return CheckpointPolicy.PREFER_RECOMPUTE
 
 
-def checkpoint_block(fn, *args, remat: str, generator=None):
+@contextlib.contextmanager
+def _parameters_of(module, params: dict):
+    """``module``'s parameters set to ``params`` (by name) for the scope,
+    then put back."""
+    swapped = []
+    for name, t in params.items():
+        owner_name, _, leaf = name.rpartition(".")
+        owner = module.get_submodule(owner_name) if owner_name else module
+        swapped.append((owner, leaf, owner._parameters[leaf]))
+        owner._parameters[leaf] = t
+    try:
+        yield
+    finally:
+        for owner, leaf, t in swapped:
+            owner._parameters[leaf] = t
+
+
+def checkpoint_block(fn, *args, remat: str, generator=None, module=None):
     """``fn(*args)`` under ``remat`` ('none', or no gradient to take,
     calls it as it is). The tensors of ``args`` are the block's
     checkpointed inputs; ``generator`` is the dropout generator ``fn``
-    draws from, if any."""
+    draws from, if any; ``module`` the block whose parameters ``fn`` uses
+    (recomputed on the tensors its forward used)."""
     if check_remat(remat) == "none" or not torch.is_grad_enabled():
         return fn(*args)
     snapshot = None if generator is None else generator.get_state()
+    params = {} if module is None else dict(module.named_parameters())
     calls = [0]
 
     def run(*a):
@@ -85,7 +112,8 @@ def checkpoint_block(fn, *args, remat: str, generator=None):
             generator.set_state(snapshot)
         _LOCAL.depth = getattr(_LOCAL, "depth", 0) + 1
         try:
-            return fn(*a)
+            with _parameters_of(module, params):
+                return fn(*a)
         finally:
             _LOCAL.depth -= 1
             if resume is not None:

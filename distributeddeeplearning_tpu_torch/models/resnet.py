@@ -276,7 +276,7 @@ class ResNet(nn.Module):
                  dtype="float32", mesh=None, device=None):
         super().__init__()
         self.remat = check_remat(remat)
-        tp = check_tp_fsdp("resnet", mesh, remat=remat)
+        tp = check_tp_fsdp("resnet", mesh)
         self.dtype, self.mesh = as_torch_dtype(dtype), mesh
         self.small_stem, self.num_classes = small_stem, num_classes
         kw = dict(dtype=self.dtype, mesh=mesh, device=device)
@@ -345,7 +345,7 @@ class ResNet(nn.Module):
             block = getattr(self, f"{self.block_name}_{k}")
             with block_scope(self.mesh, self.remat):
                 x = checkpoint_block(lambda y, b=block: b(y, train), x,
-                                     remat=self.remat)
+                                     remat=self.remat, module=block)
         x = _f32(x).mean((2, 3)).to(self.dtype)
         return class_parallel_logits(x, self.Dense_0, self.mesh,
                                      self.num_classes).float()

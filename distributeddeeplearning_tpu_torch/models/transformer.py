@@ -132,31 +132,86 @@ def _promoted_einsum(eq: str, a: torch.Tensor, b: torch.Tensor):
     return torch.einsum(eq, a.to(dt), b.to(dt))
 
 
-def _global_rand(shape, generator, device, mesh):
-    """Uniforms for this rank's rows of the global batch: the draw is made
-    for all dp ranks' rows and sliced, so a mask does not depend on how the
-    ranks split the batch, as JAX's masks over global arrays do not. (No
-    draw is made under cp > 1: the cp cores refuse active dropout there.)"""
-    dp = 1 if mesh is None else mesh.shape["dp"]
-    if dp == 1:
+def act_cuts(mesh, sequence_parallel: bool = False,
+             seq_len: int | None = None) -> tuple:
+    """The cuts of an activation ``[batch, seq, ...]`` over ``mesh`` (see
+    :func:`_global_rand`): the batch over (dp, fsdp), the sequence over cp
+    (a rank's contiguous block) and, under sequence parallelism, that block
+    over tp (``parallel.tp.seq_shard``: ``seq_len``, the cp block's length,
+    where tp does not divide it, the last shard padded)."""
+    from ..mesh import BATCH_AXES
+
+    cp = 1 if mesh is None else mesh.shape["cp"]
+    seq = ("cp", "tp") if sequence_parallel else ("cp",)
+    return ((BATCH_AXES, None),
+            (seq, None if seq_len is None else seq_len * cp))
+
+
+def head_cuts(heads: tuple = ("tp",)) -> tuple:
+    """The cuts of attention probabilities ``[batch, heads, q, k]``: the
+    batch over (dp, fsdp), the heads over ``heads`` (a tp rank's block;
+    under Ulysses its block of (tp, cp), JAX's order)."""
+    from ..mesh import BATCH_AXES
+
+    return ((BATCH_AXES, None), (heads, None))
+
+
+def _block(mesh, axes: tuple, local: int, whole: int | None) -> tuple:
+    """(whole length, offset, valid rows) of this rank's block of a
+    dimension cut over ``axes`` (outer first) into ``local`` rows: each
+    axis cuts what the previous left into blocks of ``ceil(n / k)``, the
+    rows past the end padding (``whole``: the dimension's length, default
+    ``local`` times the axes' sizes)."""
+    sizes = [mesh.shape[a] for a in axes]
+    whole = local * math.prod(sizes) if whole is None else whole
+    offset, valid = 0, whole
+    for a, k in zip(axes, sizes):
+        n = -(-valid // k)
+        lo = mesh.coords[a] * n
+        offset, valid = offset + lo, max(0, min(n, valid - lo))
+    return whole, offset, valid
+
+
+def _global_rand(shape, generator, device, mesh, cuts=()):
+    """Uniforms for this rank's block of the whole tensor that one process
+    would hold: the draw is made at the whole shape and sliced, so a mask
+    does not depend on how the ranks cut the tensor, as JAX's masks over
+    global arrays do not, and every mesh draws the one-rank port's masks
+    from the same generator. ``cuts``: per leading dimension, (mesh axes
+    that cut it, outer first; its whole length or None), as
+    :func:`act_cuts` and :func:`head_cuts` give them. Rows past a
+    dimension's end (an uneven sequence-parallel shard's padding) draw 0.
+
+    Each rank draws the whole tensor, so it spends the one-rank draw's time
+    and memory on every dropout site: a counter-based draw of its block
+    alone (Philox keyed by the element's whole index) would not, and is
+    left for later (ROADMAP A15.q)."""
+    if mesh is None or all(mesh.shape[a] == 1 for axes, _ in cuts
+                           for a in axes):
         return torch.rand(shape, generator=generator, device=device)
-    B = shape[0]
-    full = torch.rand((B * dp, *shape[1:]), generator=generator,
-                      device=device)
-    b0 = mesh.coords["dp"] * B
-    return full[b0:b0 + B]
+    full_shape, index = list(shape), [slice(None)] * len(shape)
+    for d, (axes, whole) in enumerate(cuts):
+        full_shape[d], lo, valid = _block(mesh, axes, shape[d], whole)
+        index[d] = slice(lo, lo + valid)
+    got = torch.rand(full_shape, generator=generator, device=device)[
+        tuple(index)]
+    if got.shape == tuple(shape):
+        return got
+    out = got.new_zeros(shape)
+    out[tuple(slice(0, n) for n in got.shape)] = got
+    return out
 
 
-def dropout(x, rate: float, generator, mesh=None):
+def dropout(x, rate: float, generator, mesh=None, cuts=()):
     """flax ``nn.Dropout``: keep each element with probability ``1 - rate``
     and scale the kept ones by ``1 / (1 - rate)``. Deterministic (the
     identity) without a generator or at rate 0. On a ``mesh`` the mask is
-    this rank's rows (``x`` is ``[batch, ...]`` over dp) of the global
-    batch's mask."""
+    this rank's block of the mask of the whole tensor, ``x`` cut as
+    ``cuts`` says (:func:`_global_rand`)."""
     if not rate or generator is None:
         return x
     keep = 1.0 - rate
-    mask = _global_rand(x.shape, generator, x.device, mesh) < keep
+    mask = _global_rand(x.shape, generator, x.device, mesh, cuts) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
 
@@ -400,7 +455,7 @@ class SelfAttention(nn.Module):
       all-to-alls over cp (``parallel.sp_ulysses``); ``ulysses`` takes the
       key-padding ``mask`` of the whole sequence (``[batch, seq]``,
       gathered over cp by the caller), ``ulysses_flash`` mask=None and no
-      active attention-dropout, and neither active dropout at cp > 1.
+      active attention-dropout.
 
     On a ``mesh`` with tp > 1 the rank holds ``num_heads / tp`` heads
     (``parallel.tp``): query/key/value are column-parallel after the
@@ -500,7 +555,8 @@ class SelfAttention(nn.Module):
             rate, mesh = self.dropout_rate, self.mesh
             out = attention_core(
                 q, k, v, causal=self.causal, dtype=self.dtype, mask=mask,
-                dropout=lambda p: dropout(p, rate, generator, mesh),
+                dropout=lambda p: dropout(p, rate, generator, mesh,
+                                          head_cuts()),
             )
         return self.out(out)
 
@@ -514,19 +570,15 @@ class SelfAttention(nn.Module):
                 "ulysses_flash supports mask=None and no active "
                 "attention-dropout")
         rate, mesh = self.dropout_rate, self.mesh
-        if active and mesh is not None and mesh.shape["cp"] > 1:
-            # A rank's masks would be its block's of the whole sequence's.
-            raise NotImplementedError(
-                f"dropout under mesh.cp={mesh.shape['cp']}: masks over a "
-                "rank's block of the sequence not yet ported to "
-                "distributeddeeplearning_tpu_torch (ROADMAP queue A13 item "
-                "8.4)")
+        # After the flip a rank holds the whole sequence's probabilities on
+        # its block of the heads over (tp, cp).
         return ulysses_attention(
             q, k, v, flash=flash, causal=self.causal, dtype=self.dtype,
             mesh=mesh, num_heads=self.num_heads,
             mask=None if flash else mask,
             dropout=None if flash else (
-                lambda p: dropout(p, rate, generator, mesh)))
+                lambda p: dropout(p, rate, generator, mesh,
+                                  head_cuts(("tp", "cp")))))
 
 
 def check_attn(attn_impl: str, mesh) -> None:
@@ -585,7 +637,8 @@ class Mlp(nn.Module):
 
             x = enter(x, self.mesh, self.sequence_parallel, seq_len)
         h = self.fc_out(self.act(self.fc_in(x)))
-        return dropout(h, self.dropout_rate, generator, self.mesh)
+        return dropout(h, self.dropout_rate, generator, self.mesh,
+                       act_cuts(self.mesh, self.sequence_parallel, seq_len))
 
 
 class TransformerBlock(nn.Module):
@@ -603,6 +656,8 @@ class TransformerBlock(nn.Module):
         super().__init__()
         self.pre_ln = pre_ln
         self.dropout_rate, self.mesh = dropout_rate, mesh
+        self.sequence_parallel = sequence_parallel and (
+            mesh is not None and mesh.shape["tp"] > 1)
         self.attn = SelfAttention(embed_dim, num_heads, head_dim, dtype,
                                   device, causal=causal, attn_impl=attn_impl,
                                   dropout_rate=dropout_rate, mesh=mesh,
@@ -615,7 +670,9 @@ class TransformerBlock(nn.Module):
     def forward(self, x, cache=None, layer: int = 0, *, mask=None,
                 generator=None, seq_len: int | None = None):
         def drop(a):
-            return dropout(a, self.dropout_rate, generator, self.mesh)
+            return dropout(a, self.dropout_rate, generator, self.mesh,
+                           act_cuts(self.mesh, self.sequence_parallel,
+                                    seq_len))
 
         if self.pre_ln:
             x = x + drop(self.attn(self.ln1(x), cache, layer, mask=mask,
@@ -662,7 +719,7 @@ class TransformerStack(nn.Module):
                                       seq_len=seq_len)
             with block_scope(self.mesh, remat):
                 x = checkpoint_block(block, x, remat=remat,
-                                     generator=generator)
+                                     generator=generator, module=block.func)
         return x
 
 

@@ -28,6 +28,17 @@ tp before the loss), every ``embed`` dimension (the patch kernel's output,
 ``cls_token``, ``pos_embed``, the encoder's) over fsdp (``parallel.fsdp``).
 ``sequence_parallel``: between the blocks a rank holds ``ceil(197 / tp)``
 of the tokens, the last rank's shard padded (``parallel.tp.seq_shard``).
+
+On a ``mesh`` with cp > 1 (a context-parallel core, at a token count cp
+divides: 226 at image 240, not ViT-L/16's 197, which raises the
+reference's ``seq % cp`` error) a rank embeds its contiguous block of the
+tokens only: the CLS token and the first patches on cp rank 0, its block
+of ``pos_embed`` on each. The CLS token's final state lives on rank 0, and
+every cp rank reads it through a sum over cp whose backward sums the
+cotangents (``comms.psum_differentiable``): rank 0 gets the cotangent of
+every rank's copy of the loss, so the mean over cp of the ranks' gradients
+that the Trainer takes is the one-process gradient. Each cp rank runs the
+head on the same rows (``cp_repeated``).
 """
 
 from __future__ import annotations
@@ -53,6 +64,7 @@ from .transformer import (
     Dense,
     LayerNorm,
     TransformerStack,
+    act_cuts,
     check_attn,
     dropout,
 )
@@ -61,8 +73,10 @@ CHANNELS = 3  # RGB, as every image kind draws
 
 
 class ViT(nn.Module):
-    # The work every tp rank repeats whole (``benchmark.model_share``).
+    # The work every tp rank repeats whole, and every cp rank
+    # (``benchmark.model_share``).
     tp_repeated = ("patch_embed",)
+    cp_repeated = ("head",)
 
     def __init__(self, num_classes: int = 21843, image_size: int = 224,
                  patch_size: int = 16, num_layers: int = 24,
@@ -76,8 +90,7 @@ class ViT(nn.Module):
         if image_size % patch_size:
             raise ValueError(f"image_size {image_size} is no multiple of "
                              f"patch_size {patch_size}")
-        tp = check_tp_fsdp("vit", mesh, num_heads=num_heads,
-                           dropout_rate=dropout_rate, remat=remat)
+        tp = check_tp_fsdp("vit", mesh, num_heads=num_heads)
         self.sequence_parallel = sequence_parallel and tp > 1
         self.num_classes, self.image_size = num_classes, image_size
         self.patch_size = patch_size
@@ -136,36 +149,45 @@ class ViT(nn.Module):
             raise ValueError("train=True with dropout_rate > 0 needs a "
                              "dropout generator")
         gen = generator if train else None
-        p = self.patch_size
+        p, mesh = self.patch_size, self.mesh
         patches = images.reshape(B, H // p, p, W // p, p, C).permute(
             0, 1, 3, 2, 4, 5).reshape(B, -1, p, p, C)
-        x = self.patch_embed(patches)  # [B, n_patches, E]
+        cp = 1 if mesh is None else mesh.shape["cp"]
+        c = 0 if cp == 1 else mesh.coords["cp"]
+        n = (patches.shape[1] + 1) // cp  # the tokens of a cp block
+        # Token t > 0 is patch t - 1: rank c embeds tokens [c n, (c + 1) n).
+        x = self.patch_embed(patches[:, max(c * n - 1, 0):(c + 1) * n - 1])
         cls_token = full_param(self, "cls_token")
         dt = torch.promote_types(x.dtype, cls_token.dtype)
-        cls = cls_token.to(dt)[None].expand(B, 1, self.embed_dim)
-        x = torch.cat([cls, x.to(dt)], dim=1)
-        x = x + full_param(self, "pos_embed")[None]
-        x = dropout(x, self.dropout_rate, gen, self.mesh)
+        if c == 0:
+            cls = cls_token.to(dt)[None].expand(B, 1, self.embed_dim)
+            x = torch.cat([cls, x.to(dt)], dim=1)
+        x = x + full_param(self, "pos_embed")[c * n:(c + 1) * n][None]
+        x = dropout(x, self.dropout_rate, gen, mesh, act_cuts(mesh))
         if not self.sequence_parallel:
             x = self.ln_f(self.encoder(x, generator=gen))
         else:
             # The rank's shard of the tokens between the blocks; the whole
-            # sequence back after the final LayerNorm (each rank's slice of
+            # block back after the final LayerNorm (each rank's slice of
             # its gradient kept: the CLS row's, whole on every rank).
-            L = x.shape[1]
-            x = self.encoder(seq_shard(x, self.mesh), generator=gen,
-                             seq_len=L)
-            x = comms.all_gather_fwd_slice_bwd(self.ln_f(x), self.mesh,
-                                               "tp", 1)
-        x = x[:, 0]  # the CLS token
-        return class_parallel_logits(x, self.head, self.mesh,
+            x = self.encoder(seq_shard(x, mesh), generator=gen, seq_len=n)
+            x = comms.all_gather_fwd_slice_bwd(self.ln_f(x), mesh, "tp", 1)
+        x = x[:, 0]  # the CLS token (cp rank 0's first)
+        if cp > 1:
+            # Zeros off rank 0, the graph kept: every rank's backward runs
+            # its blocks, whose ring or all-to-all backward the others wait
+            # on.
+            x = comms.psum_differentiable(
+                torch.where(torch.tensor(c == 0, device=x.device), x,
+                            torch.zeros((), dtype=x.dtype, device=x.device)),
+                mesh, "cp")
+        return class_parallel_logits(x, self.head, mesh,
                                      self.num_classes).float()
 
 
 def _check_cp(mesh, attn_impl: str, num_heads: int, n_tokens: int) -> None:
     """ViT's tokens over cp ranks: the reference's shape errors where cp
-    does not divide them (ViT-L/16's 197 under any cp core); at a count cp
-    divides, refused by name."""
+    does not divide them (ViT-L/16's 197 under any cp core)."""
     cp = 1 if mesh is None else mesh.shape["cp"]
     if cp == 1 or attn_impl in ("xla", "flash"):
         return  # the Trainer refuses a core that does not split over cp
@@ -173,10 +195,6 @@ def _check_cp(mesh, attn_impl: str, num_heads: int, n_tokens: int) -> None:
         check_ring_shapes(n_tokens, cp)
     else:
         check_ulysses_shapes(num_heads, n_tokens, mesh.shape["tp"], cp)
-    raise NotImplementedError(
-        f"vit x mesh.cp={cp}: the CLS token's head over a rank's block of "
-        f"the {n_tokens} tokens not yet ported to "
-        "distributeddeeplearning_tpu_torch (ROADMAP queue A13 item 8.4)")
 
 
 @register("vit")

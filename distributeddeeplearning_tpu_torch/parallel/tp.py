@@ -29,7 +29,9 @@ the collectives itself:
   (JAX's ``seq -> ('cp', 'tp')``), and every attention core runs on the
   rank's heads: the ring's shift stays within the cp group of fixed (dp,
   fsdp, tp) coordinates, Ulysses' all-to-alls cut them over cp;
-- :func:`check_tp_fsdp` holds every model's fences under tp or fsdp, and
+- :func:`check_tp_fsdp` holds every model's shape checks under tp or fsdp
+  (a dropout mask is the rank's block of the one-rank mask,
+  ``models.transformer.dropout``), and
   :func:`draw_block` draws a leaf whole and keeps the rank's block, so
   every mesh starts from the one-rank model's weights.
 """
@@ -124,26 +126,15 @@ def class_parallel_logits(x, head, mesh, num_classes: int):
 
 
 def check_tp_fsdp(name: str, mesh, *, num_heads: int | None = None,
-                  dropout_rate: float = 0.0, num_kv_heads: int | None = None,
-                  remat: str = "none") -> int:
-    """The fences of a model cut over tp or fsdp, by name; returns the tp
-    size."""
+                  num_kv_heads: int | None = None) -> int:
+    """The shape checks of a model cut over tp or fsdp, by name; returns
+    the tp size."""
     if mesh is None:
         return 1
     tp, fsdp = mesh.shape["tp"], mesh.shape["fsdp"]
     if tp == 1 and fsdp == 1:
         return 1
     what = f"{name} at mesh tp={tp}, fsdp={fsdp}"
-    if dropout_rate:
-        raise NotImplementedError(
-            f"{what} x dropout_rate={dropout_rate}: dropout masks over a "
-            "rank's heads and seq shard not yet ported to "
-            "distributeddeeplearning_tpu_torch (ROADMAP queue A13 item 8.4)")
-    if remat == "dots":
-        raise NotImplementedError(
-            f"{what} x remat='dots': the selective policy around the fsdp "
-            "gathers not yet ported to distributeddeeplearning_tpu_torch "
-            "(ROADMAP queue A13 item 8.4)")
     if num_heads is not None and num_heads % tp:
         raise ValueError(f"{what}: num_heads {num_heads} not divisible by "
                          f"tp={tp}")

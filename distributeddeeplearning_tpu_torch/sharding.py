@@ -361,11 +361,14 @@ def shard_model(model, mesh, rules: dict | None = None,
     leaf cut over fsdp or pp replaced by an empty parameter of this rank's
     block (``init_weights`` or a restore fills it), and each owning module
     told which dimension of which leaf to gather over fsdp before use
-    (``parallel.fsdp.full_param``). None when tp, fsdp and ep are all 1.
-    ``vocab_size``: the whole size of every ``vocab`` dimension (the
-    vocabulary, or an image head's classes); ``vocab_pp``: the leaves
-    whose ``vocab`` is ``vocab_pp`` (a pipelined model's tables)."""
-    if mesh is None or all(mesh.shape[a] == 1 for a in SHARD_AXES):
+    (``parallel.fsdp.full_param``). None when tp, fsdp and ep are all 1,
+    unless ``vocab_pp`` names tables to cut over pp > 1 (a model pipelined
+    over pp alone: the layout cuts those tables only). ``vocab_size``: the
+    whole size of every ``vocab`` dimension (the vocabulary, or an image
+    head's classes); ``vocab_pp``: the leaves whose ``vocab`` is
+    ``vocab_pp`` (a pipelined model's tables)."""
+    if mesh is None or (all(mesh.shape[a] == 1 for a in SHARD_AXES)
+                        and not (vocab_pp and mesh.shape["pp"] > 1)):
         return None
     rules = DEFAULT_LOGICAL_RULES if rules is None else rules
     whole = {}

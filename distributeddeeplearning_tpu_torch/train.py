@@ -305,9 +305,9 @@ class AdamW(FusedAdamW):
         random bits of a stochastic rounding, or None)."""
         return x32
 
-    def _leaf_bits(self, count: int, i: int, p) -> tuple:
-        """(mu bits, nu bits) of the i-th leaf ``p`` at the incremented
-        ``count``: none here."""
+    def _leaf_bits(self, count: int, i: int, name: str, p) -> tuple:
+        """(mu bits, nu bits) of the i-th leaf ``p`` (``name``) at the
+        incremented ``count``: none here."""
         return None, None
 
     def _shard_bits(self, count: int, layout, group: str, device) -> tuple:
@@ -346,7 +346,7 @@ class AdamW(FusedAdamW):
         count = state.count + 1
         self._step(state.count, (
             (p, grads[k], state.mu[k], state.nu[k], decay_leaf(p),
-             self._leaf_bits(count, i, p))
+             self._leaf_bits(count, i, k, p))
             for i, (k, p) in enumerate(params.items())))
         return state._replace(count=count)
 
@@ -405,7 +405,13 @@ class LowPrecisionAdamW(AdamW):
     the i-th leaf in the params' order, at the incremented ``count``;
     default :func:`rounding_bits`. Under ZeRO-1 a rank takes the slice of
     each leaf's bits that its shard holds, so the update equals the
-    unsharded one element for element."""
+    unsharded one element for element. On a model cut over tp, fsdp or ep
+    (``shards``, the model's ``sharding.ShardLayout``, which the Trainer
+    sets) a rank draws each leaf's bits at the leaf's whole shape and takes
+    its block, in the whole leaf's element order, so every mesh rounds
+    every element as one process does."""
+
+    shards = None
 
     def __init__(self, learning_rate, b1: float = 0.9, b2: float = 0.999,
                  eps: float = 1e-8, weight_decay: float = 0.0, *,
@@ -440,15 +446,30 @@ class LowPrecisionAdamW(AdamW):
             return x32.to(self.moment_dtype)
         return stochastic_round(x32, bits, self.moment_dtype)
 
-    def _leaf_bits(self, count: int, i: int, p) -> tuple:
+    def _block_bits(self, count: int, tree: int, name: str, shape, shards,
+                    device) -> torch.Tensor:
+        """Moment tree ``tree``'s bits for leaf ``name``, in the shape
+        ``shape`` this rank holds: the whole leaf's drawn, and this rank's
+        block of them kept where ``shards`` cuts the leaf (zeros on its
+        padding)."""
+        if shards is None or name not in shards.dims:
+            return self.bits(count, tree, math.prod(shape), device).view(
+                shape)
+        whole = shards.whole_shape(name)
+        bits = self.bits(count, tree, math.prod(whole), device)
+        return shards.take_leaf(name, bits.view(whole))
+
+    def _leaf_bits(self, count: int, i: int, name: str, p) -> tuple:
         if not self.stochastic_rounding:
             return None, None
-        return tuple(self.bits(count, 2 * i + m, p.numel(),
-                               p.device).view(p.shape) for m in (0, 1))
+        return tuple(self._block_bits(count, 2 * i + m, name, p.shape,
+                                      self.shards, p.device)
+                     for m in (0, 1))
 
     def _shard_bits(self, count: int, layout, group: str, device) -> tuple:
-        """The slice of each leaf's bits that this rank's shard of
-        ``group`` holds, zeros on the padding."""
+        """The slice of each leaf's bits (its block's, on a model cut over
+        tp, fsdp or ep) that this rank's shard of ``group`` holds, zeros
+        on the padding."""
         if not self.stochastic_rounding:
             return None, None
         order = {k: i for i, k in enumerate(layout.shapes)}
@@ -461,8 +482,9 @@ class LowPrecisionAdamW(AdamW):
                 o, n = layout.offsets[k], layout.shapes[k].numel()
                 a, b = max(o, lo), min(o + n, hi)
                 if a < b:
-                    bits[a - lo:b - lo] = self.bits(
-                        count, 2 * order[k] + m, n, device)[a - o:b - o]
+                    bits[a - lo:b - lo] = self._block_bits(
+                        count, 2 * order[k] + m, k, layout.shapes[k],
+                        layout.shards, device).reshape(-1)[a - o:b - o]
             out.append(bits)
         return tuple(out)
 
@@ -691,10 +713,11 @@ class Trainer:
                 "silently replicate — use an MoE model (gpt2_moe/llama_moe) "
                 "or drop the axis"
             )
-        # A model cut over tp, fsdp or ep (``sharding.ShardLayout``), and
-        # the fences of what the port composes with it.
+        # A model cut over tp, fsdp or ep (``sharding.ShardLayout``); the
+        # low-precision optimizer draws its rounding bits over its blocks.
         self.shards = getattr(model, "shards", None)
-        self._check_shards(model, tx, mesh)
+        if isinstance(tx, LowPrecisionAdamW):
+            tx.shards = self.shards
         # Gradients and metrics average over the ranks that split the
         # batch: every rank, or under pp (whose ranks hold the same rows)
         # the dp ranks; under tp, fsdp and ep the dp ranks after the fsdp
@@ -739,28 +762,6 @@ class Trainer:
                                      stage_rows=self.stage_rows,
                                      shards=self.shards)
             self.layout.bind(dict(model.named_parameters()))
-
-    @staticmethod
-    def _check_shards(model, tx, mesh) -> None:
-        """Refuse by name what the port does not compose with mesh.tp,
-        mesh.fsdp or mesh.ep above 1 (ROADMAP queue A13)."""
-        if mesh is None:
-            return
-        live = {a: mesh.shape[a] for a in ("tp", "fsdp", "ep")
-                if mesh.shape[a] > 1}
-        if not live or (hasattr(model, "num_stages") and "ep" in live):
-            return  # the pipeline's fences name it
-        what = ", ".join(f"mesh.{a}={n}" for a, n in live.items())
-        if isinstance(tx, LowPrecisionAdamW):
-            raise NotImplementedError(
-                f"{what} x {type(tx).__name__}: bf16_full's stochastically "
-                "rounded moments over a rank's blocks not yet ported to "
-                "distributeddeeplearning_tpu_torch (ROADMAP queue A13 item "
-                "8.4)")
-        if isinstance(tx, SGD) and "ep" in live:
-            raise NotImplementedError(
-                f"{what} x SGD: the port composes ep with AdamW and the "
-                "fused AdamW only (ROADMAP queue A13 item 8.4)")
 
     def _batch_mean(self, tensors: list, *, fsdp: bool = True) -> list:
         """The mean over the ranks that split the batch: under a sharded

@@ -445,13 +445,21 @@ def test_ep_over_a_model_without_experts_is_the_reference_s_value_error():
 
 @pytest.mark.parametrize("overrides,exc,match", [
     (["mesh.ep=3"], ValueError, "num_experts=4 not divisible by ep=3"),
-    (["mesh.ep=2", "optim.name=sgd", "train.zero1=false"],
-     NotImplementedError, r"mesh\.ep=2 x SGD"),
+    # SGD under ep is held against optax's since it was ported
+    # (``tests/test_torch_compositions.py``): it builds, the experts cut.
+    (["mesh.ep=2", "optim.name=sgd", "train.zero1=false"], None, None),
 ])
 def test_what_ep_does_not_compose_with_is_refused(overrides, exc, match):
     cfg = apply_overrides(load_config(CONFIG),
                           TINY + ["mesh.dp=1"] + overrides)
     n = int(overrides[0].split("=")[1])
     mesh = Mesh({"ep": n})
+    if exc is None:
+        model, trainer, _ = cli.build_all(cfg, "cpu", mesh)
+        assert isinstance(trainer.tx, train.SGD)
+        experts = [k for k in model.shards.dims if k.endswith("moe_mlp.w1")]
+        assert experts and all(model.shards.axes_of(k) == ("ep",)
+                               for k in experts)
+        return
     with pytest.raises(exc, match=match):
         cli.build_all(cfg, "cpu", mesh)

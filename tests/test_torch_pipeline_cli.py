@@ -288,6 +288,7 @@ def test_to_pipelined_is_the_jax_package_s(name):
     from distributeddeeplearning_tpu_torch.weights import (
         from_jax_params,
         rank_rows,
+        rank_shards,
     )
 
     kw = dict(size="tiny", vocab_size=64, max_len=32)
@@ -308,8 +309,9 @@ def test_to_pipelined_is_the_jax_package_s(name):
         model = models.get_model(f"{name}_pp", **kw, num_stages=2,
                                  num_microbatches=2, mesh=mesh)
         hf_port.validate_params(model, got)
-        model.load_state_dict(rank_rows(from_jax_params(got),
-                                        model.stage_rows), strict=True)
+        model.load_state_dict(rank_shards(rank_rows(
+            from_jax_params(got), model.stage_rows), model.shards),
+            strict=True)
     with pytest.raises(ValueError, match="not divisible"):
         hf_port.to_pipelined(flat, 3)
     with pytest.raises(ValueError, match="shape mismatches"):

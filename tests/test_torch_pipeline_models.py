@@ -36,7 +36,12 @@ import torch
 from distributeddeeplearning_tpu_torch import comms, data, models, train
 from distributeddeeplearning_tpu_torch.config import MeshConfig
 from distributeddeeplearning_tpu_torch.mesh import build_mesh, init_distributed
-from distributeddeeplearning_tpu_torch.weights import from_jax_params, rank_rows
+from distributeddeeplearning_tpu_torch.weights import (
+    from_jax_params,
+    rank_rows,
+    rank_shards,
+)
+from torch_sharded import pp_blocks, whole_over_pp
 
 torch.set_num_threads(2)
 
@@ -89,17 +94,21 @@ def _worker(rank, world, port, S, path, out_dir):
         cid, name, _, _, task_name = case
         params, batch = inputs[cid]
         model = models.get_model(name, **model_kwargs(case, S), mesh=mesh)
-        model.load_state_dict(rank_rows(params, model.stage_rows),
-                              strict=True)
+        # The tables are cut over pp (``vocab_pp``): a rank loads its
+        # block, and its gradient's block is put back together below.
+        model.load_state_dict(rank_shards(rank_rows(
+            params, model.stage_rows), model.shards), strict=True)
         local = {k: torch.from_numpy(np.asarray(v)) for k, v in next(iter(
             data.sharded_batches([batch], mesh))).items()}
         task = train.get_task(task_name, mesh=mesh)
         loss, grads, metrics = model.pipeline_value_and_grad(local, task)
         names = list(grads)
+        dtypes = {n: g.dtype for n, g in grads.items()}
+        grads = whole_over_pp(grads, model.shards)
         synced = comms.pmean_tensors([grads[n] for n in names] + [loss],
                                      mesh, "dp")
         res = {"loss": synced[-1], "grads": dict(zip(names, synced[:-1])),
-               "dtypes": {n: g.dtype for n, g in grads.items()}}
+               "dtypes": dtypes, "blocks": pp_blocks(model.shards)}
         if "interleaved" not in cid:
             with torch.no_grad():
                 res["logits"] = model(*task.input_fn(local))
@@ -209,6 +218,29 @@ def check_loss_and_every_grad(run, cid):
             assert got["dtypes"][k] == torch.float32
 
 
+# Each model's tables (JAX's ``vocab_pp``) -> the dimension pp cuts.
+TABLES = {"gpt2_pp": {"wte.embedding": 0},
+          "llama_pp": {"embed.embedding": 0, "lm_head": 1},
+          "bert_pp": {"word_embeddings.embedding": 0}}
+EMBED = 64  # the tiny models' width
+
+
+def check_table_blocks(run, cid):
+    """At pp alone every rank stores its block of ``ceil(V / pp)`` rows of
+    each table (and of Llama's untied head), not the whole."""
+    S, ranks, _, _ = run
+    case = next(c for c in CASES if c[0] == cid)
+    want = {}
+    for k, d in TABLES[case[1]].items():
+        if k == "lm_head" and case[2].get("tie_embeddings"):
+            continue
+        shape = [EMBED, EMBED]
+        shape[d] = -(-VOCAB // S)
+        want[k] = tuple(shape)
+    for r in ranks:
+        assert r[cid]["blocks"] == want, (cid, r["coords"])
+
+
 def check_eval_logits(run, cid):
     S, ranks, jax_out, _ = run
     logits = jax_out[cid][2]
@@ -235,6 +267,11 @@ def test_loss_and_every_grad_match_jax(run, cid):
 @pytest.mark.parametrize("cid", [c for c in IDS if "interleaved" not in c])
 def test_eval_forward_matches_jax_logits(run, cid):
     check_eval_logits(run, cid)
+
+
+@pytest.mark.parametrize("cid", IDS)
+def test_tables_are_cut_over_pp_alone(run, cid):
+    check_table_blocks(run, cid)
 
 
 def test_ranks_sit_on_the_mesh(run):

@@ -1,7 +1,8 @@
 """The cases of ``tests/test_torch_pipeline_models.py`` at pp=4 on 4 gloo
 ranks (one stage a rank, the middle stages neither embedding nor head),
 against the JAX package's pipelined models at 4 stages on a pp=4 mesh:
-the loss and every leaf's gradient, and the evaluation forward's logits."""
+the loss and every leaf's gradient, the evaluation forward's logits, and
+each rank's block of the tables."""
 
 import pytest
 
@@ -9,6 +10,7 @@ from test_torch_pipeline_models import (
     IDS,
     check_eval_logits,
     check_loss_and_every_grad,
+    check_table_blocks,
     run_cases,
 )
 
@@ -27,6 +29,11 @@ def test_loss_and_every_grad_match_jax_at_pp4(run, cid):
 @pytest.mark.parametrize("cid", [c for c in IDS if "interleaved" not in c])
 def test_eval_forward_matches_jax_logits_at_pp4(run, cid):
     check_eval_logits(run, cid)
+
+
+@pytest.mark.parametrize("cid", IDS)
+def test_tables_are_cut_over_pp4_alone(run, cid):
+    check_table_blocks(run, cid)
 
 
 def test_every_rank_is_a_stage(run):

@@ -359,10 +359,12 @@ def test_unheld_compositions_are_refused_by_name(config, overrides, match):
         return
     if (config, match) in HELD:
         # Held since ViT, BERT, ResNet and the pipelined models were ported
-        # over tp and fsdp, SGD over a rank's blocks, and tp x cp
+        # over tp and fsdp, SGD over a rank's blocks, tp x cp, and dropout,
+        # remat 'dots' and bf16_full over a rank's blocks
         # (``tests/test_torch_encoders_tp.py``, ``tests/test_torch_pp_tp.py``,
-        # ``tests/test_torch_ulysses.py``): the composition builds at the
-        # tiny size, its leaves cut.
+        # ``tests/test_torch_ulysses.py``,
+        # ``tests/test_torch_compositions.py``): the composition builds at
+        # the tiny size, its leaves cut.
         model = _refused(HELD[config, match] + overrides, config,
                          tiny=config != "gpt2_owt.py")
         assert model.shards is not None
@@ -392,6 +394,12 @@ HELD = {
     ("gpt2_owt.py", "SGD"): [],
     # tp x cp: the ring on a rank's heads (``tests/test_torch_ulysses.py``).
     ("gpt2_owt.py", r"mesh\.cp=2"): [],
+    # Each rank's masks its blocks of the one-rank masks, the selective
+    # policy around the fsdp gathers, the rounding bits of each rank's
+    # blocks (``tests/test_torch_compositions.py``).
+    ("gpt2_owt.py", "dropout"): [],
+    ("gpt2_owt.py", "remat='dots'"): [],
+    ("gpt2_owt.py", "LowPrecision"): [],
 }
 
 

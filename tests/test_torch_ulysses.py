@@ -550,14 +550,28 @@ def test_ulysses_on_one_rank_equals_the_plain_core(name):
 
 
 def test_dropout_under_cp_is_refused_by_name():
-    """Active dropout over cp ranks on the Ulysses plain core: a rank's
-    masks would be its block's of the whole sequence's (ROADMAP A13 8.4);
-    at cp=1 the core takes it as the xla core does."""
-    model = models.get_model("gpt2", size="tiny", vocab_size=32, max_len=16,
-                             attn_impl="ulysses", dropout_rate=0.1,
-                             mesh=Mesh({"cp": 2}))
-    model.init_weights(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match=r"dropout under "
-                       r"mesh\.cp=2.*ROADMAP queue A13 item 8\.4"):
-        model(torch.zeros(1, 4, dtype=torch.long), train=True,
-              generator=torch.Generator().manual_seed(0))
+    """Active dropout over cp ranks on the Ulysses plain core, no longer
+    refused: each rank's masks are its blocks of the one-rank masks (its
+    cp block of the sequence for the embeddings and residuals, its heads
+    over (tp, cp) for the probabilities), so 2 cp ranks (threads) give the
+    logits of one process from the same generator, block for block."""
+    kw = dict(size="tiny", vocab_size=32, max_len=16, dropout_rate=0.1)
+    tokens = torch.randint(0, 32, (2, 8),
+                           generator=torch.Generator().manual_seed(1))
+    one = models.get_model("gpt2", attn_impl="xla", **kw)
+    one.init_weights(torch.Generator().manual_seed(0))
+    want = one(tokens, train=True,
+               generator=torch.Generator().manual_seed(3))
+    plain = one(tokens)
+
+    def fn(mesh):
+        model = models.get_model("gpt2", attn_impl="ulysses", mesh=mesh,
+                                 **kw)
+        model.init_weights(torch.Generator().manual_seed(0))
+        c = mesh.coords["cp"]
+        return model(tokens[:, 4 * c:4 * (c + 1)], train=True,
+                     generator=torch.Generator().manual_seed(3))
+
+    got = torch.cat(ts.lockstep(2, fn, cp=2), dim=1)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert (want - plain).abs().max() > 1e-2  # the masks are live

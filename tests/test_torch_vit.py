@@ -19,7 +19,8 @@ their plain versions, the JAX flash kernel runs in Pallas interpret mode.
   Adam's first update of a leaf is ``lr * sign(g)``, so an element whose
   gradient is at rounding level (one of 65536 in ``fc_out``: 2e-8 against
   a median of 1e-4) moves by +-lr differently on the two sides; at the
-  config's lr of 1e-3 that is 1.3e-5, so the run uses lr 1e-4.
+  config's lr of 1e-3 that is 1.3e-5, so the run uses lr 1e-4, and a
+  second run at 1e-3 excuses that element alone.
 """
 
 import importlib
@@ -145,10 +146,11 @@ def test_image_size_is_checked():
         m(torch.zeros(1, 64, 64, 3))
 
 
-def test_trainer_matches_jax_for_five_steps(mesh1):
-    """5 steps of the config cut to the small size, remat 'full', from the
-    JAX Trainer's init: losses 1e-4 relative, params 1e-5."""
-    cfg = apply_overrides(load_config(CONFIG), TRAIN)
+def _five_steps(mesh1, lr):
+    """5 steps of the config cut to the small size at ``lr``, remat
+    'full', from the JAX Trainer's init, in both packages: (the port's
+    losses, its final params, JAX's losses, JAX's final params)."""
+    cfg = apply_overrides(load_config(CONFIG), TRAIN + [f"optim.lr={lr}"])
     assert cfg.train.remat == "full" and cfg.optim.name == "adamw_fused"
     model, trainer, dataset = cli.build_all(cfg, "cpu")
     assert model.remat == "full" and model.attn_impl == "flash"
@@ -177,8 +179,35 @@ def test_trainer_matches_jax_for_five_steps(mesh1):
                             data.prefetch(dataset.iter_from(0), "cpu"),
                             steps=STEPS, log_every=1, log_fn=lambda m: None)
     assert j_losses[-1] < j_losses[0]
-    np.testing.assert_allclose([r["loss"] for r in hist], j_losses,
-                               rtol=1e-4)
-    for k, v in from_jax_params(_host(jstate.params)).items():
-        np.testing.assert_allclose(state.params[k].detach().numpy(),
-                                   v.numpy(), rtol=0, atol=1e-5, err_msg=k)
+    params = {k: p.detach().numpy() for k, p in state.params.items()}
+    want = {k: v.numpy()
+            for k, v in from_jax_params(_host(jstate.params)).items()}
+    return [r["loss"] for r in hist], params, j_losses, want
+
+
+def test_trainer_matches_jax_for_five_steps(mesh1):
+    """5 steps of the config cut to the small size, remat 'full', from the
+    JAX Trainer's init: losses 1e-4 relative, params 1e-5."""
+    losses, params, j_losses, want = _five_steps(mesh1, 1e-4)
+    np.testing.assert_allclose(losses, j_losses, rtol=1e-4)
+    for k, v in want.items():
+        np.testing.assert_allclose(params[k], v, rtol=0, atol=1e-5,
+                                   err_msg=k)
+
+
+def test_trainer_matches_jax_at_the_config_lr(mesh1):
+    """The same 5 steps at the config's lr of 1e-3: losses 1e-4 relative,
+    params 1e-5 but for the rounding-level elements of an ``fc_out``
+    kernel, whose gradient (2e-8 against a median of 1e-4) Adam's
+    sign-like first steps move by a share of lr either way on either side
+    (1.3e-5 measured): at most one element a leaf, within 5e-5."""
+    losses, params, j_losses, want = _five_steps(mesh1, 1e-3)
+    np.testing.assert_allclose(losses, j_losses, rtol=1e-4)
+    for k, v in want.items():
+        off = np.abs(params[k] - v) > 1e-5
+        if k.endswith("mlp.fc_out.kernel"):
+            assert off.sum() <= 1, (k, int(off.sum()))
+            np.testing.assert_allclose(params[k], v, rtol=0, atol=5e-5,
+                                       err_msg=k)
+        else:
+            assert not off.any(), (k, np.abs(params[k] - v).max())

@@ -29,10 +29,27 @@ OPT = dict(weight_decay=0.1, grad_clip=0.05)
 LR = 1e-3
 
 
+# The spawned ranks' rendezvous ports are taken below the kernel's
+# ephemeral range (32768 and up on Linux): a port the kernel hands out as
+# a client socket's (every gloo connection of the tests running beside
+# this one takes some) can be taken between a test's choice and its bind.
+# Each pytest-xdist worker draws from its own slice of the range, so the
+# files running side by side never draw the same port.
+_PORTS = (20000, 32768)
+_SLICES = 8
+
+
+def _port_range() -> tuple:
+    worker = os.environ.get("PYTEST_XDIST_WORKER", "")
+    if not worker.startswith("gw"):
+        return _PORTS
+    width = (_PORTS[1] - _PORTS[0]) // _SLICES
+    lo = _PORTS[0] + (int(worker[2:]) % _SLICES) * width
+    return lo, lo + width
+
+
 def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
+    return free_ports(1)[0]
 
 
 class LockstepComm:
@@ -97,13 +114,21 @@ def lockstep(n, fn, **shape):
 
 def free_ports(n: int) -> list:
     """``n`` distinct free ports (each ``cli`` call of a spawned rank
-    joins a group of its own)."""
-    socks = [socket.socket() for _ in range(n)]
-    for so in socks:
-        so.bind(("localhost", 0))
-    ports = [so.getsockname()[1] for so in socks]
-    for so in socks:
-        so.close()
+    joins a group of its own), drawn at random below the ephemeral
+    range."""
+    import random
+
+    rng, ports = random.Random(), []
+    while len(ports) < n:
+        port = rng.randrange(*_port_range())
+        if port in ports:
+            continue
+        with socket.socket() as so:
+            try:
+                so.bind(("localhost", port))
+            except OSError:
+                continue
+        ports.append(port)
     return ports
 
 
@@ -173,14 +198,18 @@ def port_init(name: str, **model_kw) -> dict:
 
 def jax_run(name: str, init: dict, steps: int = STEPS, *,
             precision: str = "fp32", grad_accum: int = 1,
-            health: bool = False, evals: int = 0, **model_kw) -> dict:
+            health: bool = False, evals: int = 0, optim: str = "adamw",
+            **model_kw) -> dict:
     """JAX's Trainer on one device: ``steps`` steps of the tiny ``name``
-    (gpt2 or llama) from ``init`` (a flat state_dict). Returns the final
-    params as a flat state_dict, the losses, the metrics of each step
-    (``grad_norm`` under the guard) and, with ``evals`` > 0, ``evaluate``
-    over that many eval batches of the final state."""
+    (gpt2 or llama) from ``init`` (a flat state_dict), with ``optim``
+    (``adamw``, or ``sgd`` with momentum 0.9). Returns the final params as
+    a flat state_dict, the losses, the metrics of each step (``grad_norm``
+    under the guard), the optimizer state (host arrays) and, with
+    ``evals`` > 0, ``evaluate`` over that many eval batches of the final
+    state."""
     import dataclasses
 
+    import jax
     import jax.numpy as jnp
     from distributeddeeplearning_tpu import config as jconfig
     from distributeddeeplearning_tpu import data as jdata
@@ -199,7 +228,7 @@ def jax_run(name: str, init: dict, steps: int = STEPS, *,
     model = jmodels.get_model(name, **kw)
     ds = jdata.SyntheticTokens(**DATA)
     mesh = single_device_mesh()
-    opt = make_optimizer("adamw", LR, precision=precision, **OPT)
+    opt = make_optimizer(optim, LR, precision=precision, **OPT)
     trainer = Trainer(model, opt, get_task("lm"), mesh, donate=False,
                       precision=precision, grad_accum=grad_accum,
                       health=jconfig.HealthConfig(enabled=True)
@@ -214,7 +243,8 @@ def jax_run(name: str, init: dict, steps: int = STEPS, *,
         losses.append(float(m["loss"]))
         metrics.append({k: float(v) for k, v in m.items()})
     out = {"losses": losses, "metrics": metrics,
-           "params": flat_numpy(state.params)}
+           "params": flat_numpy(state.params),
+           "opt_state": jax.tree.map(np.asarray, state.opt_state)}
     if evals:
         eds = jdata.SyntheticTokens(**{**DATA, "seed": 1})
         out["eval"] = evaluate(trainer, state, (
@@ -227,9 +257,11 @@ def port_trainer(name: str, mesh, *, sequence_parallel: bool = False,
                  precision: str = "fp32", attn_impl: str = "xla",
                  zero1: bool = False, grad_accum: int = 1,
                  health: bool = False, remat: str = "none", device="cpu",
-                 model_kw: dict | None = None):
+                 model_kw: dict | None = None, optim: str = "adamw",
+                 tx=None):
     """(model, trainer) of the tiny ``name`` on ``mesh``, as ``jax_run``
-    sets it up; ``model_kw``: more of the model's arguments."""
+    sets it up; ``model_kw``: more of the model's arguments; ``tx``: an
+    optimizer in place of ``optim``'s."""
     from distributeddeeplearning_tpu_torch import config, models, train
 
     kw = dict(MODEL, attn_impl=attn_impl, mesh=mesh, **(model_kw or {}))
@@ -240,7 +272,8 @@ def port_trainer(name: str, mesh, *, sequence_parallel: bool = False,
     if precision != "fp32":
         kw["dtype"] = "bfloat16"
     model = models.get_model(name, **kw).to(device)
-    tx = train.make_optimizer("adamw", LR, precision=precision, **OPT)
+    if tx is None:
+        tx = train.make_optimizer(optim, LR, precision=precision, **OPT)
     trainer = train.Trainer(
         model, tx, train.get_task("lm", mesh=mesh), device=device,
         precision=precision, mesh=mesh, zero1=zero1, grad_accum=grad_accum,
@@ -290,7 +323,27 @@ def port_run(name: str, mesh, init: dict, steps: int = STEPS, *,
             "fraction": {a: fsdp.sharded_fraction(model, a)
                          for a in ("tp", "fsdp", "ep")},
             "bytes": fsdp.per_device_bytes(model),
-            "coords": dict(mesh.coords), "state": state, "trainer": trainer}
+            "coords": {} if mesh is None else dict(mesh.coords),
+            "state": state, "trainer": trainer}
+
+
+def whole_over_pp(tree: dict, shards) -> dict:
+    """A pipeline rank's ``tree`` with each leaf its ``shards`` cut over pp
+    (the ``vocab_pp`` tables: a pp rank holds a block of them, at pp alone
+    too) all-gathered back over pp (a collective of the rank's pp group);
+    the other leaves as they are."""
+    if shards is None:
+        return dict(tree)
+    return {k: shards.gather_axis(k, v.detach(), "pp")
+            if "pp" in shards.dims.get(k, {}) else v
+            for k, v in tree.items()}
+
+
+def pp_blocks(shards) -> dict:
+    """Each leaf ``shards`` cuts over pp -> the block shape a rank holds."""
+    if shards is None:
+        return {}
+    return {k: shards.local[k] for k, d in shards.dims.items() if "pp" in d}
 
 
 def assert_params_close(got: dict, want: dict, rtol=RTOL, atol=ATOL):
