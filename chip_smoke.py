@@ -35,7 +35,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      times, bounds and library yardsticks;
   7. train through the entry point: ``cli train`` in-process on
      ``configs/gpt2_owt.py`` at full width (batch 32 x 1024, bf16, flash,
-     adamw_fused) for 8 steps; launches must be 12 x steps per flash kernel
+     adamw_fused) for 6 steps; launches must be 12 x steps per flash kernel
      and 2 x steps for fused_adamw, every loss finite;
   8. fp32 parity pair at 124M width: (flash, adamw_fused) through the
      kernels against (xla, adamw) through none, 4 steps on the same weights
@@ -86,7 +86,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      phase 12's run from its step-2 save to step 4.
   14. ResNet-50 training through the entry point: ``cli train`` in-process
      on ``configs/resnet50_imagenet.py`` as shipped (batch 256 x 224², bf16
-     convs, SGD, label smoothing) for 6 steps, then 4 with the C++ loader
+     convs, SGD, label smoothing) for 4 steps, then 4 with the C++ loader
      (``data.kind=native_image``): images/s over steps 2..N, p50 step,
      peak memory, every loss finite; the path launches none of the nine
      hand kernels (its convs are cuDNN's, as the JAX package's are XLA's);
@@ -128,7 +128,7 @@ Phases, in order; any failure raises and the script exits non-zero:
   21. Llama-300M training through the entry point: ``cli train`` on
      ``configs/llama_lm.py`` as shipped (16 x 2048, bf16, flash over K and
      V repeated from 8 to 16 heads, chunked head over the untied 32000-word
-     ``lm_head``, adamw_fused, zero1 at dp = 1) for 6 steps: each flash
+     ``lm_head``, adamw_fused, zero1 at dp = 1) for 4 steps: each flash
      kernel launches 12 times a step, fused_adamw once a group; every loss
      finite; tokens/s over steps 2..N, p50 step, peak memory;
   22. ``cli benchmark`` (as in phase 18) on that config, its record
@@ -144,7 +144,7 @@ Phases, in order; any failure raises and the script exits non-zero:
   25. llama_moe 8x300m training through the entry point: ``cli train`` on
      ``configs/llama_moe.py`` as shipped (16 x 2048, bf16, every MLP top-2
      of 8 SwiGLU experts at capacity 640, flash as Llama-300M's, the plain
-     AdamW as the reference ships it) for 6 steps: each flash kernel
+     AdamW as the reference ships it) for 4 steps: each flash kernel
      launches 12 times a step, fused_adamw never; every loss, aux_loss and
      moe_dropped_frac finite; tokens/s over steps 2..N, p50, peak memory;
   26. ``cli benchmark`` (as in phase 18) on that config: the record
@@ -152,7 +152,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      and the dense one-hot dispatch and combine einsums' FLOPs, which the
      MFU counts;
   27. gpt2_moe training through the entry point: ``configs/gpt2_moe.py``
-     as shipped (32 x 1024, 6 routed blocks of 12) for 6 steps, the same
+     as shipped (32 x 1024, 6 routed blocks of 12) for 4 steps, the same
      checks (each flash kernel 12 a step: every block has attention);
   28. fp32 parity at full width: llama_moe, batch 2 x 2048, 2 steps on one
      batch at the shipped capacity factor, (flash, adamw) against (xla,
@@ -168,7 +168,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      fused_adamw 2).
   30. bf16_full: ``cli train`` on ``configs/gpt2_owt.py`` with
      ``train.precision.policy=bf16_full`` and ``optim.name=adamw`` (bf16
-     moments with stochastic rounding, ``train.LowPrecisionAdamW``) for 6
+     moments with stochastic rounding, ``train.LowPrecisionAdamW``) for 4
      steps: flash 12 a step each, fused_adamw none; the optimizer state
      exactly 2 x 2 bytes a parameter, half fp32 AdamW's; p50, peak memory;
   31. health guard: ``cli train`` on gpt2_owt as shipped for 6 steps with
@@ -199,7 +199,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      of its own). Phase 34's: pipeline parallelism through the entry
      point, ``cli train`` on ``configs/gpt2_pp.py`` as shipped (pp=4, dp=1
      so ZeRO-1 is a no-op, 1f1b_interleaved over 8 microbatches, bf16, the
-     batch cut to 16 x 1024, vocab 50304) for 2 steps with an evaluation
+     batch cut to 8 x 1024, vocab 50304) for 2 steps with an evaluation
      and a checkpoint
      at step 2: every loss finite and equal on the 4 ranks, each rank 14 =
      M + 2(S-1) ticks a step and 11 in the evaluation; per rank its peak
@@ -312,6 +312,16 @@ Phases, in order; any failure raises and the script exits non-zero:
      ``BF16_FULL_COMP_TOL``, bf16 moments); and phase 34's gpt2_pp run:
      each rank holds a quarter of the tied table's rows and of their
      moments (JAX's ``vocab_pp`` at pp alone), its bytes before and after.
+  42. the explicit data-parallel sync (``dp_sync_parity``, then
+     ``dp_sync_launch``): phase 34's ranks run fp32 GPT-2 on phase 8's 4 x
+     1024 (adamw, no weight decay or clip: the sharded update's fences)
+     under the hierarchical sharded update (dp=4 in 2 slices), the flat
+     bucketed sync and int8 over the hierarchy, 2 steps, against one
+     process here (1e-4 relative; int8 ``INT8_LOSS_BAND``); then ``cli
+     launch --num-processes 4`` on ``configs/gpt2_owt.py`` as shipped at
+     dp=4, dcn_dp=2, int8 in 25 MiB buckets, 4 x 1024, 2 steps: losses
+     finite and equal on every rank, every residual non-zero, exact
+     launches a rank, and the sync's wire bytes by bucket and by phase.
 Phase 3 also holds the paged kernels at Llama-300M's decode shape (16 q
 heads over 8 KV heads: bf16 and int8 pools with bf16 q at 2e-2, an fp32
 twin at 2e-5), and phase 6 the flash kernels at its training shape, bf16
@@ -378,7 +388,7 @@ REPLACES = {
     "ring_dq": "distributeddeeplearning_tpu/ops/ring_attention_pallas.py:234",
     "ring_dkv": "distributeddeeplearning_tpu/ops/ring_attention_pallas.py:261",
 }
-TRAIN_STEPS = 8
+TRAIN_STEPS = 6
 # Instantiations in csrc/paged_attention.cu: the split kernel for 2 q types
 # x 3 pool types x 3 head dims, the merge for 2 q types.
 PAGED_SPLIT_KERNELS, PAGED_MERGE_KERNELS = 18, 2
@@ -2147,7 +2157,7 @@ def zero1_parity(torch, parity, ranks, fresh, steps=4):
 
 RESNET = os.path.join(ROOT, "distributeddeeplearning_tpu_torch", "configs",
                       "resnet50_imagenet.py")
-RESNET_STEPS, NATIVE_STEPS = 6, 4
+RESNET_STEPS, NATIVE_STEPS = 4, 4
 # Phase 16's fp32 parity at a global batch of 16 (8 a rank), one batch
 # repeated at a constant lr low enough that the loss falls smoothly in 4
 # steps. The runs agree to ~4e-7 through step 3, and then rounding grows
@@ -2218,7 +2228,7 @@ def config_cli_train(cli, config, steps, overrides=(), start=0):
 
 
 def resnet_train(torch, cli, batch):
-    """Phase 14: 6 steps of the shipped config, then 4 with the C++
+    """Phase 14: 4 steps of the shipped config, then 4 with the C++
     loader; no hand kernel launches on this path."""
     out = {}
     for kind, steps, extra in (
@@ -2683,7 +2693,7 @@ def encoder_parity(torch, cli, load_config, apply_overrides):
 
 LLAMA = os.path.join(ROOT, "distributeddeeplearning_tpu_torch", "configs",
                      "llama_lm.py")
-LLAMA_STEPS = 6
+LLAMA_STEPS = 4
 # Phase 23's fp32 pair: one batch of 2 x 2048 repeated at the config's lr
 # held constant, as phases 8 and 20.
 LLAMA_PARITY = ["model.kwargs.dtype=float32", "data.batch_size=2",
@@ -2695,7 +2705,7 @@ LLAMA_PARITY = ["model.kwargs.dtype=float32", "data.batch_size=2",
 def llama_train(torch, cli, models, load_config, apply_overrides):
     """Phase 21: Llama-300M as shipped (16 x 2048, bf16, flash over K and V
     repeated to 16 heads, chunked head, adamw_fused, zero1 at dp = 1) for
-    6 steps: each flash kernel 12 launches a step, fused_adamw once a
+    4 steps: each flash kernel 12 launches a step, fused_adamw once a
     group; tokens/s over steps 2..N, p50 step, peak memory."""
     layers, groups, n, _ = model_shape(models, load_config,
                                        apply_overrides, LLAMA)
@@ -2735,7 +2745,7 @@ GPT2_MOE = os.path.join(ROOT, "distributeddeeplearning_tpu_torch", "configs",
                         "gpt2_moe.py")
 OWT_FILE = os.path.join(ROOT, "distributeddeeplearning_tpu_torch", "configs",
                         "gpt2_owt_file.py")
-MOE_STEPS = 6
+MOE_STEPS = 4
 # Phase 28's fp32 pair: one batch of 2 x 2048 at the config's lr held
 # constant, at the shipped capacity factor (a fresh router's loads already
 # overflow 640 slots: about a third of the assignments drop).
@@ -2961,13 +2971,13 @@ def token_file_train(torch, cli, models, load_config, apply_overrides):
 
 
 BF16_FULL = ["train.precision.policy=bf16_full", "optim.name=adamw"]
-BF16_FULL_STEPS = 6
+BF16_FULL_STEPS = 4
 
 
 def bf16_full_train(torch, cli, models, load_config, apply_overrides):
     """Phase 30: ``cli train`` on gpt2_owt as shipped but for the
     ``bf16_full`` policy with ``optim.name=adamw`` (the reference fences
-    bf16 moments to the plain AdamW), 6 steps: each flash kernel 12 a
+    bf16 moments to the plain AdamW), 4 steps: each flash kernel 12 a
     step, fused_adamw never (``LowPrecisionAdamW`` is plain torch); the
     moments are bf16, so the optimizer state is 2 x 2 bytes a parameter,
     half the plain fp32 AdamW's 2 x 4; p50 and peak memory."""
@@ -3276,9 +3286,9 @@ GPT2_PP = os.path.join(ROOT, "distributeddeeplearning_tpu_torch", "configs",
 BERT_PP = os.path.join(ROOT, "distributeddeeplearning_tpu_torch", "configs",
                        "bert_pp.py")
 PP_RANKS, PP_STEPS = 4, 2
-# Phase 34's batch, cut for time from the config's 32 x 1024: two rows a
+# Phase 34's batch, cut for time from the config's 32 x 1024: one row a
 # microbatch.
-PP_BATCH = 16
+PP_BATCH = 8
 # Phase 35's fp32 pairs: gpt2_pp at 8 x 1024 (adamw_fused on the ranks),
 # bert_pp at 8 x 512 (one row a microbatch; cut for time from 16), on one
 # repeated batch at a constant lr.
@@ -3303,7 +3313,7 @@ def pp_cli_job(tmp):
 
 def pp_cli_train(torch, ranks, ck):
     """Phase 34: ``cli train`` with 4 ranks on ``configs/gpt2_pp.py`` as
-    shipped (pp=4, dp=1, 1f1b_interleaved, M=8, bf16, 16 x 1024, vocab
+    shipped (pp=4, dp=1, 1f1b_interleaved, M=8, bf16, 8 x 1024, vocab
     50304) for 2 steps, an evaluation and a checkpoint at step 2 (the job
     of :func:`pp_cli_job`): every loss finite and equal on the 4 ranks,
     each rank 14 = M + 2(S-1) ticks a step and M + S - 1 = 11 in the
@@ -3383,15 +3393,16 @@ def four_rank_group(torch, parity, tmp):
     fsdp2 with SP (phase 36), as ``torchrun`` would run them, then the fit
     jobs of phases 35 (:func:`pp_jobs`), 37 (:func:`tp_jobs`, set up by
     phase 8's ``parity``), 38 (:func:`ep_jobs`) and 39
-    (:func:`shard_jobs`), 40 (:func:`heads_cp_jobs`) and 41
-    (:func:`composition_jobs`). Returns each phase's results and
-    checkpoint directories."""
+    (:func:`shard_jobs`), 40 (:func:`heads_cp_jobs`), 41
+    (:func:`composition_jobs`) and 42 (:func:`dp_sync_jobs`). Returns each
+    phase's results and checkpoint directories."""
     pp_cli, pp_ck = pp_cli_job(tmp)
     tp_cli, tp_cli_ck = tp_cli_job(tmp)
     groups = {"pp": pp_jobs(tmp), "tp": tp_jobs(tmp, parity),
               "ep": ep_jobs(tmp), "shard": shard_jobs(tmp),
               "heads_cp": heads_cp_jobs(tmp, parity),
-              "compositions": composition_jobs(tmp, parity)}
+              "compositions": composition_jobs(tmp, parity),
+              "dp_sync": dp_sync_jobs(tmp, parity)}
     jobs = [pp_cli, tp_cli] + [j for js, _ in groups.values() for j in js]
     out = spawn_ranks(torch, jobs, tmp, nranks=PP_RANKS)
     res = {"pp_cli": (out[0], pp_ck), "tp_cli": (out[1], tp_cli_ck)}
@@ -4713,6 +4724,146 @@ def composition_parity(torch, cli, models, load_config, apply_overrides,
     return res, launched
 
 
+# ---------------------------------------------------------------------------
+# 42. the explicit data-parallel sync
+# ---------------------------------------------------------------------------
+
+# (a) cli launch: gpt2_owt as shipped (bf16, flash, adamw_fused, ZeRO-1) at
+# dp=4 in two slices of two, the int8 ring with error feedback in buckets.
+DP_SYNC_BUCKET_MB = 25.0
+DP_SYNC_STEPS = 2
+DP_SYNC_LAUNCH = ["mesh.dp=4", "mesh.dcn_dp=2", "train.grad_comm=int8",
+                  f"train.grad_bucket_mb={DP_SYNC_BUCKET_MB}",
+                  "data.batch_size=4", f"train.steps={DP_SYNC_STEPS}",
+                  "train.log_every=1"]
+# (b) phase 8's fp32 overrides with the sharded update's optimizer (the
+# reference's fences refuse weight decay, the clip and adamw_fused there).
+DP_SYNC_OPT = ["optim.name=adamw", "optim.weight_decay=0.0",
+               "optim.grad_clip=0.0", f"train.steps={DP_SYNC_STEPS}"]
+DP_SYNC_MESHES = {
+    "hier_sharded": ["mesh.dp=4", "mesh.dcn_dp=2",
+                     "train.update_sharding=sharded"],
+    "flat_bucketed": ["mesh.dp=4", f"train.grad_bucket_mb={DP_SYNC_BUCKET_MB}"],
+    "int8_hier": ["mesh.dp=4", "mesh.dcn_dp=2", "train.grad_comm=int8",
+                  f"train.grad_bucket_mb={DP_SYNC_BUCKET_MB}"],
+}
+# int8 with error feedback against the fp32 one process: the losses of 2
+# steps within this relative band (the reference's own test allows 5e-3
+# absolute, about 5e-4 relative at these losses, over 6 steps at dp=8).
+INT8_LOSS_BAND = 2e-3
+
+
+def dp_sync_jobs(tmp, parity):
+    """Phase 42(b)'s jobs, run in phase 34's four spawned ranks: fp32 GPT-2
+    on phase 8's 4 x 1024 under the hierarchical sharded update, the flat
+    bucketed sync, and int8 over the hierarchy. Returns (the jobs, None)."""
+    keep = {"params": False}
+    return [(parity["overrides"] + DP_SYNC_OPT + mesh, None, 0, CONFIG, keep)
+            for mesh in DP_SYNC_MESHES.values()], None
+
+
+def dp_sync_launch(torch):
+    """Phase 42(a): ``cli launch --num-processes 4`` on the card (the four
+    ranks share it over gloo): ``configs/gpt2_owt.py`` as shipped with
+    :data:`DP_SYNC_LAUNCH`. Every rank's losses finite and equal, its
+    error-feedback residual non-zero, the flash kernels and fused AdamW
+    launched 12 x steps and 2 x steps (ZeRO-1's two groups); the wire
+    bytes of ``benchmark.sync_fields`` printed. Returns (the record, the
+    launches summed over the ranks)."""
+    argv = [sys.executable, "-m", "distributeddeeplearning_tpu_torch.cli",
+            "launch", "--num-processes", "4", "--sync-steps", "--config",
+            CONFIG]
+    for o in DP_SYNC_LAUNCH:
+        argv += ["--override", o]
+    t0 = time.perf_counter()
+    res = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True,
+                         timeout=600)
+    seconds = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise RuntimeError(f"cli launch exited {res.returncode}:\n"
+                           f"{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+    recs = [json.loads(line.split("] ", 1)[1]) for line in
+            res.stdout.splitlines() if line.startswith("[p0] {")]
+    end = next(r for r in recs if r.get("event") == "train_end")
+    ranks = end["ranks"]
+    if len(ranks) != 4 or end["backend"] != "gloo":
+        raise AssertionError(f"cli launch: {len(ranks)} ranks over "
+                             f"{end['backend']}")
+    losses = [r["losses"] for r in ranks]
+    if not (len(losses[0]) == DP_SYNC_STEPS
+            and all(math.isfinite(x) for x in losses[0])
+            and all(x == losses[0] for x in losses)):
+        raise AssertionError(f"cli launch: losses {losses}")
+    norms = [r["grad_residual_norm"] for r in ranks]
+    if not all(n > 0 for n in norms):
+        raise AssertionError(f"cli launch: residual norms {norms}")
+    layers = 12
+    want = {"flash_fwd": layers * DP_SYNC_STEPS,
+            "flash_dq": layers * DP_SYNC_STEPS,
+            "flash_dkv": layers * DP_SYNC_STEPS,
+            "fused_adamw": 2 * DP_SYNC_STEPS}
+    for r, rank in enumerate(ranks):
+        got = {k: rank["launches"].get(k, 0) for k in want}
+        if got != want:
+            raise AssertionError(f"cli launch rank {r}: launches {got}, "
+                                 f"expected {want}")
+    sync = end["sync"]
+    print(f"cli launch (4 ranks, dcn_dp=2, int8, buckets of "
+          f"{DP_SYNC_BUCKET_MB} MiB): {seconds:.1f} s; losses {losses[0]} "
+          f"on every rank; residual norms {norms}; step s {end['step_s']}; "
+          f"{sync['grad_buckets']} buckets, wire bytes a bucket "
+          f"{sync['grad_bucket_wire_bytes']}, by phase "
+          f"{sync['hier_phase_wire_bytes']}, cross-slice "
+          f"{sync['dcn_wire_bytes']}, flat-ring model "
+          f"{sync['grad_sync_bytes_per_step']}; peak GB "
+          f"{[round(r['peak_mem_gb'], 2) for r in ranks]}", flush=True)
+    record = {"seconds": seconds, "losses": losses[0], "residual_norms":
+              norms, "step_s": end["step_s"], "sync": sync}
+    launched = {k: sum(r["launches"].get(k, 0) for r in ranks) for k in want}
+    return record, launched
+
+
+def dp_sync_parity(torch, cli, load_config, apply_overrides, parity,
+                   results, _):
+    """Phase 42(b): the results of :func:`dp_sync_jobs` against one process
+    here on the same overrides (phase 8's fp32 route with
+    :data:`DP_SYNC_OPT`): the fp32 hierarchical sharded update and the
+    flat bucketed sync within 1e-4 relative (phase 8's limit), int8 over
+    the hierarchy within :data:`INT8_LOSS_BAND`; losses equal on the
+    ranks and falling; the flash kernels on every rank. Returns (the
+    record, the launches on these paths)."""
+    losses, _, launched_one, _ = route_run(
+        torch, cli, load_config, apply_overrides, CONFIG,
+        parity["overrides"] + DP_SYNC_OPT)
+    record, launched = {"one_process": losses}, {}
+    for (name, _), ranks in zip(DP_SYNC_MESHES.items(), results):
+        got = ranks[0]["losses"]
+        if any(r["losses"] != got for r in ranks):
+            raise AssertionError(f"{name}: losses differ over the ranks "
+                                 f"{[r['losses'] for r in ranks]}")
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got, losses))
+        limit = INT8_LOSS_BAND if name.startswith("int8") else 1e-4
+        if not (rel <= limit and got[-1] < got[0]):
+            raise AssertionError(f"{name}: losses {got} against one "
+                                 f"process {losses}: rel {rel} > {limit}")
+        for r in ranks:
+            if not all(r["launches"][k] > 0 for k in
+                       ("flash_fwd", "flash_dq", "flash_dkv")):
+                raise AssertionError(f"{name}: launches {r['launches']}")
+        for k in ("flash_fwd", "flash_dq", "flash_dkv", "fused_adamw"):
+            launched[k] = launched.get(k, 0) + sum(
+                r["launches"].get(k, 0) for r in ranks)
+        step2 = ranks[0]["step_s"][-1]
+        share = ranks[0]["transport_s_by_step"][-1] / step2
+        record[name] = {"losses": got, "rel": rel, "step2_s": step2,
+                        "transport_share": share}
+        print(f"{name}: losses {got}, one process {losses}, max rel "
+              f"{rel:.3g} (limit {limit}); step 2 {step2:.3f} s, "
+              f"{100 * share:.0f}% transport; peak GB "
+              f"{[round(r['peak_mem_gb'], 2) for r in ranks]}", flush=True)
+    return record, launched
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -4978,7 +5129,7 @@ def main(argv=None) -> int:
 
     phase("34 one spawn of 4 ranks on the card over gloo: cli train on "
           "gpt2_pp (pp=4), then phase 36's cli train and the jobs of "
-          "phases 35 and 37-41")
+          "phases 35 and 37-42")
     tmp4 = tempfile.TemporaryDirectory()  # the group's saves
     group = four_rank_group(torch, parity, tmp4.name)
     pp_cli_train(torch, *group["pp_cli"])
@@ -5031,10 +5182,20 @@ def main(argv=None) -> int:
                                      apply_overrides, parity,
                                      group["pp_cli"][0],
                                      *group["compositions"])
+    for k, v in launched.items():
+        launches[k] += v
+    phase("42 the explicit data-parallel sync: cli launch of 4 ranks at "
+          "dcn_dp=2 with the int8 ring (gpt2_owt), then fp32 hierarchical "
+          "sharded and flat bucketed, and int8, against one process")
+    _, launched = dp_sync_parity(torch, cli, load_config, apply_overrides,
+                                 parity, *group["dp_sync"])
     tmp4.cleanup()
     for k, v in launched.items():
         launches[k] += v
-    print(f"chip_smoke: 41 phases in {time.perf_counter() - _T0:.1f} s",
+    _, launched = dp_sync_launch(torch)
+    for k, v in launched.items():
+        launches[k] += v
+    print(f"chip_smoke: 42 phases in {time.perf_counter() - _T0:.1f} s",
           flush=True)
 
     # Each kernel's numbers come from its case at the main path's types.

@@ -140,6 +140,46 @@ def _items(batch: dict) -> tuple[int, str]:
     return tokens.shape[0] * (tokens.shape[1] - 1), "tokens/sec/chip"
 
 
+def sync_fields(cfg: Config, trainer, state, mesh) -> dict:
+    """The reference's gradient-sync fields: ``grad_comm`` and the analytic
+    per-member sync bytes a step (``grad_sync_bytes_per_step``; 0 at dp =
+    1), ``update_sharding``, ``grad_bucket_mb``, the bucket count and each
+    bucket's wire bytes under the codec when the bucketed path is on,
+    ``comm_hierarchy`` as resolved, ``dcn_dp``, the hierarchical sync's
+    bytes by phase (``hier_phase_wire_bytes``) and the bytes that cross
+    slices (``dcn_wire_bytes``)."""
+    from .comms_hier import HierTopology, phase_wire_bytes, resolve_hierarchy
+    from .parallel.fsdp import grad_sync_bytes
+
+    t, policy = cfg.train, trainer.precision
+    out = {"grad_comm": t.grad_comm, "grad_sync_bytes_per_step":
+           grad_sync_bytes(
+               state.params, mode=t.grad_comm, block_size=t.grad_comm_block,
+               n_members=mesh.shape["dp"],
+               wire_elem_bytes=(torch.finfo(policy.compute_dtype).bits // 8
+                                if policy.mixed else None)),
+           "update_sharding": t.update_sharding,
+           "grad_bucket_mb": t.grad_bucket_mb}
+    hier = resolve_hierarchy(t.comm_hierarchy, cfg.mesh.dcn_dp)
+    out["comm_hierarchy"] = "hierarchical" if hier else "flat"
+    out["dcn_dp"] = cfg.mesh.dcn_dp
+    layout = trainer.bucket_layout
+    if layout is not None:
+        out["grad_buckets"] = layout.num_buckets
+        out["grad_bucket_wire_bytes"] = list(layout.wire_bytes(
+            t.grad_comm, t.grad_comm_block))
+        if hier:
+            phases = phase_wire_bytes(
+                sum(out["grad_bucket_wire_bytes"]),
+                HierTopology(n=mesh.shape["dp"], dcn=cfg.mesh.dcn_dp))
+            out["hier_phase_wire_bytes"] = phases
+            out["dcn_wire_bytes"] = phases["cross_all_reduce_bytes"]
+    if not hier:
+        out["dcn_wire_bytes"] = (out["grad_sync_bytes_per_step"]
+                                 if cfg.mesh.dcn_dp > 1 else 0)
+    return out
+
+
 def run_benchmark(cfg: Config, device, mesh=None, *, warmup: int = 5,
                   steps: int = 30, latency_steps: int | None = None,
                   fused_probe: int | None = None) -> dict:
@@ -242,6 +282,7 @@ def run_benchmark(cfg: Config, device, mesh=None, *, warmup: int = 5,
         record["dispatch_overhead_ms_per_step"] = round(
             (elapsed / steps - 1.0 / fused_sps) * 1e3, 3)
 
+    record.update(sync_fields(cfg, trainer, state, mesh))
     record["precision"] = trainer.precision.name
     record["param_bytes_per_member"] = sum(
         p.numel() * p.element_size() for p in state.params.values())

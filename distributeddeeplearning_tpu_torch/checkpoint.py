@@ -58,19 +58,40 @@ _LOAD_ERRORS = (OSError, EOFError, RuntimeError, ValueError, KeyError,
 _KEYS = ("step", "rng", "count", "params")
 
 
-def _full_opt_trees(opt_state) -> dict | None:
+def _full_opt_trees(opt_state, dp_sync=None) -> dict | None:
     """The optimizer state's params-shaped trees (``train.opt_state_trees``:
-    Adam's mu and nu, or SGD's trace): a ZeRO-1 state's shards gathered on
-    member 0 of each dp group (a collective of the group; None on every
-    other rank), a replicated state's trees as they are."""
-    from .parallel.zero import ZeroState
+    Adam's mu and nu, or SGD's trace): a ZeRO-1 state's shards, or the
+    sharded update's flat shards (``dp_sync``), gathered on member 0 of
+    each dp group (a collective of the group; None on every other rank), a
+    replicated state's trees as they are."""
     from .train import opt_state_trees
 
-    if isinstance(opt_state, ZeroState):
-        layout = opt_state.layout
-        mu, nu = layout.gather(opt_state.mu), layout.gather(opt_state.nu)
-        return None if mu is None else {"mu": mu, "nu": nu}
-    return opt_state_trees(opt_state)
+    trees = opt_state_trees(opt_state)
+    gather = (dp_sync.gather if dp_sync is not None and dp_sync.sharded
+              else opt_state.layout.gather if hasattr(opt_state, "layout")
+              else None)
+    if gather is None:
+        return trees
+    full = {name: gather(tree) for name, tree in trees.items()}
+    return None if any(t is None for t in full.values()) else full
+
+
+def _residual_rows(state) -> dict | None:
+    """The error-feedback residual of every dp rank on rank 0: each leaf's
+    (or bucket's) ``[dp, ...]`` rows in member order, the reference's
+    stacked layout, with what they are tied to (``DpSync.signature``).
+    None elsewhere and where the state has none. A collective of the dp
+    group."""
+    res, sync = state.grad_residual, state.dp_sync
+    if res is None:
+        return None
+    tree = ({f"bucket_{b}": r for b, r in enumerate(res)}
+            if isinstance(res, tuple) else res)
+    rows = {k: sync.gather_rows(t) for k, t in tree.items()}
+    if any(v is None for v in rows.values()):
+        return None
+    return {"signature": sync.signature(),
+            "rows": {k: v.to("cpu", copy=True) for k, v in rows.items()}}
 
 
 def _whole_trees(state) -> tuple:
@@ -78,7 +99,7 @@ def _whole_trees(state) -> tuple:
     the checkpoint's layout: a pipelined model's stage leaves gathered over
     pp to all their rows. (None, None) on the other ranks, which take part
     in the gathers."""
-    trees = _full_opt_trees(state.opt_state)
+    trees = _full_opt_trees(state.opt_state, state.dp_sync)
     params = state.params
     shards = getattr(state, "shards", None)
     if shards is not None:
@@ -139,11 +160,12 @@ def load_into(state, host: dict):
     cut to the rows the state holds, Adam's moments cut to the state's
     ZeRO-1 shards where it has them. A checkpoint of another model or
     optimizer is refused by name."""
-    from .parallel.zero import ZeroState
     from .train import opt_state_trees
 
     opt = state.opt_state
     trees = {} if opt is None else opt_state_trees(opt)
+    sync = getattr(state, "dp_sync", None)
+    residual = _restored_residual(state, host.get("grad_residual"))
     rows = getattr(state, "stage_rows", None)
     if rows is not None:
         host = {**host, **{name: rows.take(host[name])
@@ -166,7 +188,9 @@ def load_into(state, host: dict):
     if opt is not None:
         for name, tree in trees.items():
             full = host[name]
-            if isinstance(opt, ZeroState):
+            if sync is not None and sync.sharded:
+                full = sync.local(full)
+            elif hasattr(opt, "layout"):
                 full = opt.layout.shard(full)
             for k, t in tree.items():
                 t.copy_(full[k])
@@ -178,7 +202,50 @@ def load_into(state, host: dict):
         health = HealthState.from_dict(host["health"])
     return dataclasses.replace(state, step=int(host["step"]),
                                rng=int(host["rng"]), opt_state=opt,
-                               health=health)
+                               health=health, grad_residual=residual)
+
+
+def _restored_residual(state, saved):
+    """This rank's error-feedback residual from a checkpoint's stacked
+    ``saved`` rows, or the state's own where it has none. A residual is
+    each rank's own compression error, so a checkpoint whose dp size,
+    buckets or chunks differ from the state's is refused by name, as is
+    one without a residual for a state that carries one."""
+    res = getattr(state, "grad_residual", None)
+    if res is None:
+        return res
+    if saved is None:
+        raise ValueError(
+            "checkpoint has no grad_residual: it was saved with "
+            "train.grad_comm='fp32', and a compressed sync resumes only "
+            "from its own residual")
+    sync = state.dp_sync
+    want = sync.signature()
+    if saved["signature"] != want:
+        def brief(sig):
+            b = sig["buckets"]
+            return (f"dp={sig['dp']}, "
+                    f"{'no' if b is None else len(b['buckets'])} buckets, "
+                    f"chunks {sig['chunks'] or 'replicated'}")
+
+        raise ValueError(
+            f"checkpoint grad_residual was saved at "
+            f"{brief(saved['signature'])}, the state's sync is at "
+            f"{brief(want)}: the error-feedback residual is each dp rank's "
+            "own, so a restore needs the same mesh.dp, train.grad_bucket_mb, "
+            "update_sharding and comm_hierarchy")
+    rows = saved["rows"]
+    if isinstance(res, tuple):
+        got = tuple(rows[f"bucket_{b}"][sync.index] for b in range(len(res)))
+        pairs = zip(res, got)
+    else:
+        _check_tree({k: v[sync.index] for k, v in rows.items()},
+                    "grad_residual", res)
+        pairs = ((t, rows[k][sync.index]) for k, t in res.items())
+    with torch.no_grad():
+        for t, v in pairs:
+            t.copy_(v)
+    return res
 
 
 class CheckpointManager:
@@ -220,10 +287,13 @@ class CheckpointManager:
         self._latest_saved = step
         t0 = time.perf_counter()
         params, opt_trees = _whole_trees(state)
+        residual = _residual_rows(state)
         if not self._writer:
             return True
         host = _host(state, params, opt_trees)
-        del params, opt_trees
+        if residual is not None:
+            host["grad_residual"] = residual
+        del params, opt_trees, residual
         record = {"step": step, "host_s": time.perf_counter() - t0}
         self.timings.append(record)
         self._pending.append(self._pool.submit(

@@ -1,5 +1,5 @@
 """CLI entry points: ``python -m distributeddeeplearning_tpu_torch.cli
-{train,eval,benchmark,generate,serve}``.
+{train,eval,benchmark,generate,serve,launch}``.
 
 ``train`` runs the training path (``build_all`` -> ``Trainer`` -> ``fit``)
 on one rank, or on every rank ``torchrun`` starts (one process per rank,
@@ -9,8 +9,9 @@ on one rank, or on every rank ``torchrun`` starts (one process per rank,
 training step (``benchmark.run_benchmark``: images or tokens per second per
 GPU); ``generate`` samples from its latest checkpoint's weights with the
 KV-cache decoder (``generate.py``); ``serve`` runs the in-process serving
-engine on them. All run on the GPU by default; ``--device cpu`` asks for the
-CPU (and gloo under ``torchrun``).
+engine on them; ``launch`` starts ``--num-processes`` ``cli train`` ranks
+of one job on this machine, as ``torchrun`` would. All run on the GPU by
+default; ``--device cpu`` asks for the CPU (and gloo under ``torchrun``).
 """
 
 from __future__ import annotations
@@ -47,21 +48,9 @@ def _mesh_sizes(cfg: Config, world_size: int) -> dict[str, int]:
         return {a: max(getattr(cfg.mesh, a), 1) for a in MESH_AXES}
 
 
-# Mesh axes whose parallel strategy is not ported: (what, ROADMAP item).
-_UNPORTED_AXES = {
-    "dcn_dp": ("data parallelism across slices over DCN", "A13"),
-}
-
-
 # (knob, value is on, what it is, ROADMAP queue item that ports it)
-def _unported_train_knobs(cfg: Config, world_size: int = 1):
-    t, mesh = cfg.train, cfg.mesh
-    sizes = {**_mesh_sizes(cfg, world_size), "dcn_dp": mesh.dcn_dp}
-    mesh_knobs = [
-        ("mesh", dataclasses.asdict(mesh) if sizes[a] > 1 else "",
-         f"mesh.{a}={sizes[a]} ({what})", item)
-        for a, (what, item) in _UNPORTED_AXES.items()
-    ]
+def _unported_train_knobs(cfg: Config):
+    t = cfg.train
     fault = t.fault_injection.partition(":")[0]
     return [
         ("telemetry.enabled", cfg.telemetry.enabled, "telemetry", "A14"),
@@ -71,18 +60,6 @@ def _unported_train_knobs(cfg: Config, world_size: int = 1):
          "and corrupt-checkpoint faults; 'nan:K' is ported)", "A14"),
         ("train.debug_nans", t.debug_nans, "NaN debugging", "A14"),
         ("train.debug_checks", t.debug_checks, "runtime checks", "A14"),
-        ("train.grad_comm", t.grad_comm if t.grad_comm != "fp32" else "",
-         "compressed gradient sync", "A13"),
-        ("train.grad_bucket_mb", t.grad_bucket_mb,
-         "bucketed overlapped gradient sync", "A13"),
-        ("train.update_sharding", t.update_sharding
-         if t.update_sharding == "sharded" else "",
-         "sharded weight update", "A13"),
-        ("train.zero1", t.zero1 and cfg.optim.name == "sgd"
-         and sizes["dp"] > 1,
-         "ZeRO-1 of the SGD momentum trace (optim.name='sgd'; the port "
-         "shards AdamW's moments)", "A8"),
-        *mesh_knobs,
     ]
 
 
@@ -91,13 +68,34 @@ def check_train_composition(cfg: Config, world_size: int = 1) -> None:
     feature is not ported yet, over a job of ``world_size`` ranks; and, as
     the reference's Trainer does, ``mesh.ep`` over a model without experts
     (a pipelined model's own fence names it, in the Trainer)."""
-    for knob, value, what, item in _unported_train_knobs(cfg, world_size):
+    from .comms_hier import check_comm_hierarchy_config
+    from .comms_overlap import check_update_sharding_config
+    from .train import check_explicit_sync
+
+    for knob, value, what, item in _unported_train_knobs(cfg):
         if value:
             raise NotImplementedError(
                 f"{knob}={value!r}: {what} not yet ported to "
                 f"distributeddeeplearning_tpu_torch (ROADMAP queue {item})"
             )
-    ep = _mesh_sizes(cfg, world_size)["ep"]
+    # The reference's config-time fences of the explicit dp sync (its
+    # optimizer-level ones, then the hierarchy's), then its Trainer's,
+    # all before the build.
+    t = cfg.train
+    check_update_sharding_config(
+        update_sharding=t.update_sharding, grad_bucket_mb=t.grad_bucket_mb,
+        optim_name=cfg.optim.name, weight_decay=cfg.optim.weight_decay,
+        grad_clip=cfg.optim.grad_clip)
+    check_comm_hierarchy_config(comm_hierarchy=t.comm_hierarchy,
+                                dcn_dp=cfg.mesh.dcn_dp)
+    sizes = _mesh_sizes(cfg, world_size)
+    check_explicit_sync(
+        grad_comm=t.grad_comm, grad_bucket_mb=t.grad_bucket_mb,
+        update_sharding=t.update_sharding, dcn_dp=cfg.mesh.dcn_dp,
+        comm_hierarchy=t.comm_hierarchy,
+        pipelined=models.is_pipelined(cfg.model.name), mesh_shape=sizes,
+        grad_accum=t.grad_accum, model_name=cfg.model.name)
+    ep = sizes["ep"]
     name = cfg.model.name
     if ep > 1 and not (models.has_experts(name) or models.is_pipelined(name)):
         raise ValueError(
@@ -165,7 +163,11 @@ def build_all(cfg: Config, device, mesh=None, fault_nan_step=None):
                  label_smoothing=cfg.train.label_smoothing),
         device=device, precision=policy, mesh=mesh, zero1=cfg.train.zero1,
         grad_accum=cfg.train.grad_accum, health=cfg.health,
-        fault_nan_step=fault_nan_step,
+        fault_nan_step=fault_nan_step, grad_comm=cfg.train.grad_comm,
+        grad_comm_block=cfg.train.grad_comm_block,
+        grad_bucket_mb=cfg.train.grad_bucket_mb,
+        update_sharding=cfg.train.update_sharding, dcn_dp=cfg.mesh.dcn_dp,
+        comm_hierarchy=cfg.train.comm_hierarchy,
     )
     dataset = data.make_dataset(cfg.data.kind, **cfg.data.dataset_kwargs())
     return model, trainer, dataset
@@ -174,7 +176,8 @@ def build_all(cfg: Config, device, mesh=None, fault_nan_step=None):
 def _rank_report(device, history, state, ckpt, transport=()) -> dict:
     """What one rank reports at the end: its kernel launch counts (and the
     flash kernels' folded [bh, L, D] shapes), its peak device memory, its optimizer state's bytes (Adam's moments, a shard of
-    them under ZeRO-1, or SGD's trace), the losses it logged, its
+    them under ZeRO-1, or SGD's trace), the losses it logged, the norm of
+    its error-feedback residual under a compressed sync, its
     checkpoint saves' timings, and what the pipeline schedules did on it
     (``parallel.pp.TICKS``) when they ran; for a model cut over tp, fsdp or
     ep
@@ -188,6 +191,9 @@ def _rank_report(device, history, state, ckpt, transport=()) -> dict:
 
     peak = (torch.cuda.max_memory_allocated(device) / 1e9
             if device.type == "cuda" else None)
+    res = state.grad_residual
+    res = (list(res) if isinstance(res, tuple)
+           else list(res.values()) if res is not None else [])
     opt_bytes = opt_state_bytes(state.opt_state)
     report = {
         "launches": {**flash_attention.LAUNCHES, **fused_adamw.LAUNCHES,
@@ -198,6 +204,9 @@ def _rank_report(device, history, state, ckpt, transport=()) -> dict:
         "opt_state_bytes": opt_bytes,
         "losses": [r["loss"] for r in history if "loss" in r],
         "checkpoints": ckpt.timings if ckpt is not None else [],
+        **({"grad_residual_norm": float(torch.linalg.vector_norm(
+            torch.stack([torch.linalg.vector_norm(r) for r in res])))}
+           if res else {}),
         **({"pipeline": dict(pp.TICKS)} if pp.TICKS["train_ticks"]
            else {}),
     }
@@ -405,6 +414,10 @@ def _train_once(cfg: Config, device, mesh, say, sync_steps: bool,
             if mesh.size > 1:
                 extra = {"backend": dist.get_backend(),
                          "ranks": mesh.comm.gather_objects(report)}
+            if trainer.explicit:
+                from .benchmark import sync_fields
+
+                extra["sync"] = sync_fields(cfg, trainer, state, mesh)
             say(json.dumps(event_record("train_end", t.steps, step_s=step_s,
                                         **extra)))
     finally:
@@ -592,6 +605,121 @@ def cmd_serve(cfg: Config, prompts: list[str], max_new_tokens: int,
     return 0
 
 
+# The rank env of ``mesh.DistEnv`` (what ``torchrun`` sets).
+_RANK_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
+             "MASTER_ADDR", "MASTER_PORT")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as so:
+        so.bind(("localhost", 0))
+        return so.getsockname()[1]
+
+
+def _launch_plan(config: str, overrides: list[str], num_processes: int, *,
+                 coordinator_port: int = 0, base_env: dict | None = None,
+                 independent: bool = False, device: str | None = None,
+                 sync_steps: bool = False):
+    """``[(cmd, env), ...]`` for every child of ``cli launch`` — pure (no
+    process is spawned), so tests can pin the plan.
+
+    Children are plain ``cli train`` runs; the job reaches them through the
+    env ``mesh.DistEnv`` reads, as ``torchrun`` sets it (``RANK``,
+    ``WORLD_SIZE``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``, ``MASTER_ADDR``,
+    ``MASTER_PORT``), so a launched child and one ``torchrun`` starts take
+    the same code path. Every child gets ``DDL_PROCESS_INDEX``, its index.
+    ``independent=True`` skips the rendezvous: the children run as N
+    single-process jobs, the inherited rank env scrubbed. ``device``: the
+    children's ``--device`` (default: the card); ``sync_steps``: their
+    ``--sync-steps``."""
+    import os
+
+    if num_processes < 2:
+        raise ValueError(
+            f"--num-processes={num_processes}: a multiprocess launch needs "
+            ">= 2 (single-process runs don't need the launcher)"
+        )
+    port = None if independent else (coordinator_port or _free_port())
+    cmd = [sys.executable, "-m", "distributeddeeplearning_tpu_torch.cli",
+           "train", "--config", config]
+    for o in overrides:
+        cmd += ["--override", o]
+    if device is not None:
+        cmd += ["--device", device]
+    if sync_steps:
+        cmd.append("--sync-steps")
+    plan = []
+    for pid in range(num_processes):
+        env = dict(os.environ if base_env is None else base_env)
+        if not independent:
+            env.update(RANK=str(pid), WORLD_SIZE=str(num_processes),
+                       LOCAL_RANK=str(pid),
+                       LOCAL_WORLD_SIZE=str(num_processes),
+                       MASTER_ADDR="localhost", MASTER_PORT=str(port))
+        else:
+            # A previous job's rank env must not leak into the children:
+            # each is its own single-process job.
+            for k in _RANK_ENV:
+                env.pop(k, None)
+        env["DDL_PROCESS_INDEX"] = str(pid)
+        plan.append((list(cmd), env))
+    return plan
+
+
+def _stream_prefixed(stream, prefix: str, out) -> None:
+    """Copy ``stream`` to ``out`` line by line with a ``[pK] `` prefix, so
+    the interleaved output of N children stays attributable."""
+    for line in iter(stream.readline, ""):
+        out.write(prefix + line)
+        out.flush()
+    stream.close()
+
+
+def cmd_launch(args) -> int:
+    """Spawn ``--num-processes`` ``cli train`` ranks of one job on this
+    machine (:func:`_launch_plan`) and stream their output, each line
+    prefixed with its process. The launcher touches no device and joins no
+    process group. The exit code is the children's maximum."""
+    import subprocess
+    import threading
+
+    for flag, on in (("--devices-per-process", args.devices_per_process),
+                     ("--xla-perf-flags", args.xla_perf_flags)):
+        if on:
+            raise NotImplementedError(
+                f"cli launch {flag}: an XLA runtime option, which the port "
+                "(torch.distributed) has no use for")
+    plan = _launch_plan(args.config, args.override, args.num_processes,
+                        coordinator_port=args.coordinator_port,
+                        independent=args.independent, device=args.device,
+                        sync_steps=args.sync_steps)
+    procs, threads = [], []
+    try:
+        for pid, (cmd, env) in enumerate(plan):
+            p = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+            t = threading.Thread(target=_stream_prefixed,
+                                 args=(p.stdout, f"[p{pid}] ", sys.stdout),
+                                 daemon=True)
+            t.start()
+            procs.append(p)
+            threads.append(t)
+        rcs = [p.wait() for p in procs]
+    finally:
+        for p in procs:  # no child outlives the launcher
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for t in threads:
+        t.join(timeout=5)
+    for pid, rc in enumerate(rcs):
+        if rc:
+            print(f"[launch] process {pid} exited {rc}", file=sys.stderr)
+    return max(rcs)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="distributeddeeplearning_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
@@ -637,6 +765,20 @@ def main(argv=None) -> int:
         p.add_argument("--top-p", type=float, default=0.0)
         p.add_argument("--seed", type=int, default=0)
 
+    la = sub.add_parser("launch")
+    common(la)
+    la.add_argument("--num-processes", type=int, required=True,
+                    help="cli train ranks to spawn (>= 2)")
+    la.add_argument("--coordinator-port", type=int, default=0,
+                    help="the ranks' MASTER_PORT (0 = pick a free one)")
+    la.add_argument("--independent", action="store_true",
+                    help="no rendezvous: N single-process train jobs")
+    la.add_argument("--sync-steps", action="store_true",
+                    help="the ranks' cli train --sync-steps")
+    la.add_argument("--devices-per-process", type=int, default=0,
+                    help="XLA only (refused)")
+    la.add_argument("--xla-perf-flags", action="store_true",
+                    help="XLA only (refused)")
     g = sub.add_parser("generate")
     common(g)
     sampling(g, "decodes together, left-padded")
@@ -659,6 +801,10 @@ def main(argv=None) -> int:
         help="cross-process fleet (refused: not yet ported)",
     )
     args = parser.parse_args(argv)
+    if args.cmd == "launch":
+        # Before any device use: the backend and the rendezvous belong to
+        # the children.
+        return cmd_launch(args)
     if args.cmd == "train":
         cfg = apply_overrides(load_config(args.config), args.override)
         return cmd_train(cfg, device=args.device, sync_steps=args.sync_steps)

@@ -135,6 +135,29 @@ class DistComm:
         return buf.to(t.device, non_blocking=True)
 
     @_timed
+    def all_reduce_async(self, t: torch.Tensor, axis: str):
+        """Post the sum over ``axis`` of the fp32 ``t`` and return at once:
+        a callable that waits for it and returns the sum on ``t``'s device
+        (its wait counted in :data:`TRANSPORT` as ``all_reduce_wait``)."""
+        import torch.distributed as dist
+
+        buf = self._out(t)
+        if buf is t:
+            buf = t.clone()
+        work = dist.all_reduce(buf, group=self.groups[axis], async_op=True)
+
+        def wait() -> torch.Tensor:
+            t0 = time.perf_counter()
+            work.wait()
+            dt = time.perf_counter() - t0
+            TRANSPORT["seconds"] += dt
+            by = TRANSPORT["by_call"]
+            by["all_reduce_wait"] = by.get("all_reduce_wait", 0.0) + dt
+            return buf.to(t.device, non_blocking=True)
+
+        return wait
+
+    @_timed
     def reduce_scatter_sum(self, t: torch.Tensor, axis: str) -> torch.Tensor:
         """Chunk ``i`` of the sum over ``axis`` of the flat ``t`` (whose
         length the axis size divides), on member ``i``."""

@@ -201,27 +201,60 @@ def single_device_mesh() -> Mesh:
     return Mesh({a: 1 for a in MESH_AXES})
 
 
+def check_dcn(cfg: MeshConfig, sizes: dict[str, int]) -> None:
+    """``mesh.dcn_dp``: the dp axis spans that many slices (hosts), so it
+    must divide dp (the JAX package's ``build_mesh``)."""
+    if cfg.dcn_dp < 1:
+        raise ValueError(f"mesh.dcn_dp={cfg.dcn_dp} must be >= 1")
+    if sizes["dp"] % cfg.dcn_dp:
+        raise ValueError(
+            f"dp={sizes['dp']} not divisible by dcn_dp={cfg.dcn_dp}")
+
+
 def build_mesh(cfg: MeshConfig) -> Mesh:
     """The mesh of ``cfg`` over the ranks of the process group (one rank
-    when there is none), with one group per axis larger than 1."""
+    when there is none), with one group per axis larger than 1. With
+    ``dcn_dp > 1`` dp member ``i`` sits on slice ``i // (dp / dcn_dp)``
+    (the JAX package's member numbering: ranks are host-major and dp is
+    the outermost axis, so consecutive dp members share a host), and the
+    transport also holds the hierarchy's sub-groups ``dp_intra`` (this
+    rank's slice) and ``dp_cross`` (its position across slices)."""
     import torch.distributed as dist
 
     if not dist.is_initialized():
-        return Mesh(axis_sizes(cfg, 1))
+        sizes = axis_sizes(cfg, 1)
+        check_dcn(cfg, sizes)
+        return Mesh(sizes)
     from .comms import DistComm
 
     sizes = axis_sizes(cfg, dist.get_world_size())
+    check_dcn(cfg, sizes)
     rank, n = dist.get_rank(), dist.get_world_size()
     groups = {"world": dist.group.WORLD}
+    lines = {}
     for axis in MESH_AXES:
         if sizes[axis] == 1:
             continue
         # Every rank creates every group of the axis, in the same order, as
         # new_group requires; each keeps the one it belongs to.
-        for ranks in sorted({tuple(axis_ranks(sizes, r, axis))
-                             for r in range(n)}):
+        lines[axis] = sorted({tuple(axis_ranks(sizes, r, axis))
+                              for r in range(n)})
+        for ranks in lines[axis]:
             g = dist.new_group(list(ranks))
             if rank in ranks:
                 groups[axis] = g
+    ici = sizes["dp"] // cfg.dcn_dp
+    if cfg.dcn_dp > 1 and ici > 1:
+        # The hierarchy's sub-groups of every dp group (comms_hier): the
+        # members of each slice, then the same position across slices.
+        for sub, cut in (("dp_intra", lambda m: [m[d * ici:(d + 1) * ici]
+                                               for d in range(cfg.dcn_dp)]),
+                         ("dp_cross", lambda m: [m[j::ici]
+                                               for j in range(ici)])):
+            for members in lines["dp"]:
+                for ranks in cut(list(members)):
+                    g = dist.new_group(ranks)
+                    if rank in ranks:
+                        groups[sub] = g
     comm = DistComm(groups, stage_on_host=dist.get_backend() == "gloo")
     return Mesh(sizes, rank, comm=comm)

@@ -37,6 +37,8 @@
 
 from __future__ import annotations
 
+import contextlib
+
 import math
 
 import torch
@@ -122,6 +124,22 @@ class _Normalize(torch.autograd.Function):
                 (gdm * inv).to(ds), gbias.to(db), None)
 
 
+_LOCAL_STATISTICS = [False]
+
+
+@contextlib.contextmanager
+def local_batch_statistics():
+    """Within it, a training forward's BatchNorm takes the statistics of
+    this rank's rows alone (no sync over dp): the explicit data-parallel
+    sync's steps, whose reference runs each member's forward under
+    ``shard_map`` and averages the running statistics after the step."""
+    _LOCAL_STATISTICS[0] = True
+    try:
+        yield
+    finally:
+        _LOCAL_STATISTICS[0] = False
+
+
 class BatchNorm(nn.Module):
     """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over the channel
     dim of NCHW input, its statistics synced over the mesh's batch ranks
@@ -147,7 +165,8 @@ class BatchNorm(nn.Module):
         stats = torch.cat([sums.reshape(-1),
                            sums.new_full((1,), count)])
         for axis in ("dp", "fsdp"):
-            if self.mesh is not None and self.mesh.shape[axis] > 1:
+            if (self.mesh is not None and self.mesh.shape[axis] > 1
+                    and not _LOCAL_STATISTICS[0]):
                 stats = psum_differentiable(stats, self.mesh, axis)
         c = x.shape[1]
         n = stats[2 * c]

@@ -282,3 +282,22 @@ def per_device_bytes(model) -> int:
     """The bytes of the parameters this rank holds (its blocks, padding
     included): the JAX package's per-device footprint of the params."""
     return sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+def grad_sync_bytes(tree: dict, *, mode: str = "fp32", block_size: int = 256,
+                    n_members: int = 2,
+                    wire_elem_bytes: float | None = None) -> int:
+    """Per-member wire bytes of one data-parallel gradient sync of
+    ``tree`` (the JAX package's analytic ring model): ``2 * (n - 1)`` hops
+    of ``P / n`` elements at the payload width of the ``grad_comm`` mode
+    (``comms_quant.compression_ratio``). ``wire_elem_bytes`` overrides the
+    fp32 mode's element width (a mixed policy's compute-dtype gradients)."""
+    from ..comms_quant import compression_ratio
+
+    n_elems = sum(t.numel() for t in tree.values())
+    per_hop = -(-n_elems // n_members)  # ring chunks are padded equal
+    if mode == "fp32" and wire_elem_bytes is not None:
+        bytes_per_elem = float(wire_elem_bytes)
+    else:
+        bytes_per_elem = 4.0 * compression_ratio(mode, block_size)
+    return int(2 * (n_members - 1) * per_hop * bytes_per_elem)

@@ -234,3 +234,13 @@ class ZeroLayout:
                 out[g] = m.to(device)
             self._shared_masks = out
         return self._shared_masks
+
+
+class ZeroSGDState(NamedTuple):
+    """SGD state of one ZeRO-1 rank: the count and this rank's shard of
+    each group's fp32 momentum trace (``train.SGDState``'s layout over the
+    groups), and the ``layout`` that cut it."""
+
+    count: int
+    trace: dict
+    layout: ZeroLayout

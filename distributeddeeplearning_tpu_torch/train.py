@@ -512,29 +512,56 @@ class SGD:
             k: torch.zeros_like(p, dtype=torch.float32)
             for k, p in params.items()})
 
+    def init_shard(self, layout):
+        """One ZeRO-1 rank's state (``parallel.zero.ZeroSGDState``): its
+        shard of each group's momentum trace, zeros."""
+        from .parallel.zero import ZeroSGDState
+
+        return ZeroSGDState(count=0, trace={
+            g: f.new_zeros(layout.shard_size[g])
+            for g, f in layout.flats.items()}, layout=layout)
+
+    def _step(self, count: int, leaves) -> None:
+        """The update at the pre-increment ``count`` over ``leaves``, (p,
+        g, trace, decayed) each."""
+        lr = f32(self.learning_rate(count)
+                 if callable(self.learning_rate) else self.learning_rate)
+        wd, mom = f32(self.weight_decay), f32(self.momentum)
+        for p, g, t, decayed in leaves:
+            g = g.float()
+            if wd and decayed:
+                g = g + p * wd
+            t.copy_(g + t * mom)
+            p.add_(t * -lr)
+
     @torch.no_grad()
     def update(self, grads: dict, state: SGDState, params: dict,
                norm=None) -> SGDState:
         if self.grad_clip:
             grads = clip_to(grads, global_norm(grads) if norm is None
                             else norm, self.grad_clip)
-        lr = f32(self.learning_rate(state.count)
-                 if callable(self.learning_rate) else self.learning_rate)
-        wd, mom = f32(self.weight_decay), f32(self.momentum)
-        for k, p in params.items():
-            g, t = grads[k].float(), state.trace[k]
-            if wd and decay_leaf(p):
-                g = g + p * wd
-            t.copy_(g + t * mom)
-            p.add_(t * -lr)
+        self._step(state.count, ((p, grads[k], state.trace[k], decay_leaf(p))
+                                 for k, p in params.items()))
         return SGDState(count=state.count + 1, trace=state.trace)
+
+    @torch.no_grad()
+    def update_shard(self, grads: dict, state, params: dict, norm):
+        """One ZeRO-1 rank's update (``FusedAdamW.update_shard``'s
+        contract): ``grads`` and ``params`` map each group to this rank's
+        flat shard, ``norm`` is the global gradient norm, each group's
+        weight decay the group's."""
+        if self.grad_clip:
+            grads = clip_to(grads, norm, self.grad_clip)
+        self._step(state.count, ((p, grads[g], state.trace[g], g == "decay")
+                                 for g, p in params.items()))
+        return state._replace(count=state.count + 1)
 
 
 def opt_state_trees(opt_state) -> dict:
     """The params-shaped trees of an optimizer state, by name: Adam's
     ``mu`` and ``nu`` (a ZeRO-1 rank's shards of them), or SGD's
     ``trace``."""
-    if isinstance(opt_state, SGDState):
+    if hasattr(opt_state, "trace"):
         return {"trace": opt_state.trace}
     return {"mu": opt_state.mu, "nu": opt_state.nu}
 
@@ -627,15 +654,100 @@ class TrainState:
     # leaf's whole shape and this rank's block), for the checkpoints' whole
     # layout; None for any other model.
     shards: Any = None
+    # The compressed sync's error-feedback residual: this rank's own
+    # compression error, per parameter (name -> fp32 tensor) or per bucket
+    # (a tuple of flat fp32 buffers); None under fp32, so the state's
+    # schema (and its checkpoints) is unchanged.
+    grad_residual: Any = None
+    # The explicit dp sync's placement (``comms_overlap.DpSync``: the dp
+    # group, the buckets, the sharded update's flat shards); None
+    # otherwise.
+    dp_sync: Any = None
+
+
+def check_explicit_sync(*, grad_comm: str = "fp32",
+                        grad_bucket_mb: float = 0.0,
+                        update_sharding: str = "replicated", dcn_dp: int = 1,
+                        comm_hierarchy: str = "auto", pipelined: bool = False,
+                        mesh_shape: dict | None = None,
+                        grad_accum: int = 1, model_name: str = "model"):
+    """The reference Trainer's fences of the explicit data-parallel sync,
+    with its exception types and messages, in its order: the lossy wire
+    modes, then the bucketed/sharded/hierarchical paths, are pure dp (no
+    fsdp/tp/pp/cp/ep axis above 1), refuse a pipelined model and
+    ``grad_accum > 1``. ``mesh_shape``: the axis sizes (None: the dp size
+    is not known yet, and the hierarchy's dp checks wait). Returns the
+    active ``comms_hier.HierTopology``, or None."""
+    from .comms_hier import (
+        HierTopology,
+        check_comm_hierarchy_config,
+        resolve_hierarchy,
+    )
+    from .comms_overlap import UPDATE_SHARDING_MODES
+    from .comms_quant import GRAD_COMM_MODES
+
+    shape = mesh_shape or {}
+    busy = {a: shape[a] for a in ("fsdp", "tp", "pp", "cp", "ep")
+            if shape.get(a, 1) > 1}
+    if grad_comm not in GRAD_COMM_MODES:
+        raise ValueError(f"grad_comm={grad_comm!r} not in {GRAD_COMM_MODES}")
+    if grad_comm != "fp32":
+        if pipelined:
+            raise NotImplementedError(
+                f"grad_comm={grad_comm!r} x pipelined model {model_name} is "
+                "unsupported in v1: the pipeline engine computes grads "
+                "inside its schedule — use grad_comm='fp32'"
+            )
+        if busy:
+            raise NotImplementedError(
+                f"grad_comm={grad_comm!r} is pure-DP in v1 but the mesh "
+                f"has {busy}: quantized sync composes with dp/zero1 only"
+            )
+        if grad_accum > 1:
+            raise NotImplementedError(
+                f"grad_comm={grad_comm!r} x grad_accum={grad_accum} is "
+                "unsupported in v1: accumulate-then-compress needs the "
+                "residual threaded through the microbatch scan"
+            )
+    if update_sharding not in UPDATE_SHARDING_MODES:
+        raise ValueError(f"update_sharding={update_sharding!r} not in "
+                         f"{UPDATE_SHARDING_MODES}")
+    if grad_bucket_mb < 0:
+        raise ValueError(f"grad_bucket_mb={grad_bucket_mb} must be >= 0")
+    dp = shape.get("dp")
+    check_comm_hierarchy_config(comm_hierarchy=comm_hierarchy, dcn_dp=dcn_dp,
+                                dp=dp)
+    hier = resolve_hierarchy(comm_hierarchy, dcn_dp)
+    if grad_bucket_mb > 0 or update_sharding == "sharded" or hier:
+        knobs = (f"grad_bucket_mb={grad_bucket_mb}" if grad_bucket_mb > 0
+                 else f"update_sharding={update_sharding!r}"
+                 if update_sharding == "sharded"
+                 else f"comm_hierarchy={comm_hierarchy!r} (dcn_dp={dcn_dp})")
+        if pipelined:
+            raise NotImplementedError(
+                f"{knobs} x pipelined model {model_name} is unsupported in "
+                "v1: the pipeline engine computes grads inside its schedule "
+                "— use grad_bucket_mb=0 and update_sharding='replicated'"
+            )
+        if busy:
+            raise NotImplementedError(
+                f"{knobs} is pure-DP in v1 but the mesh has {busy}: "
+                "bucketed/sharded sync composes with dp/zero1 only"
+            )
+        if grad_accum > 1:
+            raise NotImplementedError(
+                f"{knobs} x grad_accum={grad_accum} is unsupported in v1: "
+                "per-bucket collectives (and EF residuals) would need "
+                "threading through the microbatch scan"
+            )
+    if hier and dp is not None:
+        return HierTopology(n=dp, dcn=dcn_dp)
+    return None
 
 
 # The attention cores that split the sequence over mesh.cp (the
 # reference's ``cp_attn``).
 CP_ATTN = ("ring", "ring_pallas", "ulysses", "ulysses_flash")
-ZERO1_SGD = ("train.zero1=True with optim.name='sgd' over dp > 1: ZeRO-1 of "
-             "the SGD momentum trace not yet ported to "
-             "distributeddeeplearning_tpu_torch (ROADMAP queue A8; the port "
-             "shards AdamW's moments)")
 
 
 class Trainer:
@@ -657,14 +769,70 @@ class Trainer:
     step (``health.guard_step``); anything else leaves the step unguarded.
     ``fault_nan_step``: the step whose pre-step counter equals it has its
     gradients poisoned to NaN (``train.fault_injection=nan:K``), before the
-    guard's norm, so the guard sees what the optimizer would consume."""
+    guard's norm, so the guard sees what the optimizer would consume.
+
+    The explicit data-parallel sync (``comms_quant``, ``comms_overlap``,
+    ``comms_hier``; pure dp, ``grad_accum`` 1): ``grad_comm`` 'bf16' or
+    'int8' syncs the gradients on the compressed ring with error feedback
+    (``grad_comm_block`` elements a scale); ``grad_bucket_mb`` > 0 syncs
+    them in buckets of about that many MiB; ``update_sharding='sharded'``
+    reduce-scatters them, updates each rank's flat shard and all-gathers
+    the params; ``dcn_dp`` slices of the dp axis with ``comm_hierarchy``
+    'auto' or 'hierarchical' sync each bucket within, then across, the
+    slices. Each rank's loss and gradient are then those of its own rows
+    (its own dropout, BatchNorm statistics of its rows, averaged over dp
+    after the step), as in the reference's ``shard_map`` steps."""
 
     def __init__(self, model, tx, task: Task, *, device,
                  precision: str | Policy = "fp32", mesh=None,
                  zero1: bool = False, grad_accum: int = 1, health=None,
-                 fault_nan_step: int | None = None):
+                 fault_nan_step: int | None = None, grad_comm: str = "fp32",
+                 grad_comm_block: int = 256, grad_bucket_mb: float = 0.0,
+                 update_sharding: str = "replicated", dcn_dp: int = 1,
+                 comm_hierarchy: str = "auto"):
         self.model, self.tx, self.task = model, tx, task
         self.mesh = mesh
+        from .mesh import single_device_mesh
+
+        # The explicit sync's dp group (one rank when there is no mesh).
+        self._dp_mesh = mesh or single_device_mesh()
+        shape = self._dp_mesh.shape
+        self._hier_topo = check_explicit_sync(
+            grad_comm=grad_comm, grad_bucket_mb=grad_bucket_mb,
+            update_sharding=update_sharding, dcn_dp=dcn_dp,
+            comm_hierarchy=comm_hierarchy,
+            pipelined=hasattr(model, "num_stages"), mesh_shape=shape,
+            grad_accum=grad_accum, model_name=type(model).__name__)
+        self.grad_comm, self.grad_comm_block = grad_comm, grad_comm_block
+        self.grad_bucket_mb = float(grad_bucket_mb)
+        self.update_sharding = update_sharding
+        self.dcn_dp, self.comm_hierarchy = dcn_dp, comm_hierarchy
+        self._overlap = (self.grad_bucket_mb > 0
+                         or update_sharding == "sharded"
+                         or self._hier_topo is not None)
+        self.explicit = grad_comm != "fp32" or self._overlap
+        if (update_sharding == "sharded" and isinstance(tx, FusedAdamW)
+                and not isinstance(tx, AdamW)):
+            raise NotImplementedError(
+                "update_sharding='sharded' x adamw_fused is unsupported "
+                "in v1: the fused kernel has its own per-leaf shard_map "
+                "dispatch (_tx_update) — use optimizer 'adamw' or "
+                "update_sharding='replicated'"
+            )
+        self.bucket_layout = self._posted = None
+        if self._overlap:
+            from .comms_overlap import PostedBuckets, build_bucket_layout
+
+            self.bucket_layout = build_bucket_layout(
+                dict(model.named_parameters()), self.grad_bucket_mb,
+                n_members=shape["dp"], block_size=grad_comm_block)
+            if (grad_comm == "fp32" and update_sharding == "replicated"
+                    and self._hier_topo is None):
+                # fp32 buckets are posted from the backward; the lossy
+                # rings, the hierarchy's three phases and the sharded
+                # update's reduce-scatter run after it (ROADMAP A15).
+                self._posted = PostedBuckets(self.bucket_layout,
+                                             self._dp_mesh)
         self.health = health if (health is not None
                                  and health.enabled) else None
         self.fault_nan_step = fault_nan_step
@@ -753,9 +921,10 @@ class Trainer:
             )
         self._generator = torch.Generator(device=self.device)
         self.layout = None
-        if zero1 and mesh is not None and mesh.shape["dp"] > 1:
-            if isinstance(tx, SGD):
-                raise NotImplementedError(ZERO1_SGD)
+        if (zero1 and mesh is not None and mesh.shape["dp"] > 1
+                and self.update_sharding != "sharded"):
+            # (The sharded update holds each rank's 1/dp of the state
+            # already.)
             from .parallel.zero import ZeroLayout
 
             self.layout = ZeroLayout(dict(model.named_parameters()), mesh,
@@ -776,11 +945,32 @@ class Trainer:
         return pmean_tensors(tensors, self.mesh, self.sync_axis)
 
     def init(self, seed: int) -> TrainState:
-        """Draw the weights from ``seed`` and make the optimizer state."""
+        """Draw the weights from ``seed`` and make the optimizer state (the
+        sharded update's in the flat-shard layout, never whole) and the
+        error-feedback residual (zeros) of a compressed sync."""
         self.model.init_weights(torch.Generator().manual_seed(int(seed)))
         params = dict(self.model.named_parameters())
-        opt_state = (self.tx.init(params) if self.layout is None
-                     else self.tx.init_shard(self.layout))
+        dp_sync = residual = None
+        if self.explicit:
+            from .comms_overlap import DpSync
+
+            n, topo = self._dp_mesh.shape["dp"], self._hier_topo
+            dp_sync = DpSync(self._dp_mesh, self.bucket_layout, tuple(
+                topo.chunk_index(i) if topo else i for i in range(n))
+                if self.update_sharding == "sharded" else None)
+        if dp_sync is not None and dp_sync.sharded:
+            opt_state = self.tx.init(dp_sync.local(params))
+        elif self.layout is None:
+            opt_state = self.tx.init(params)
+        else:
+            opt_state = self.tx.init_shard(self.layout)
+        if self.grad_comm != "fp32":
+            from .comms_overlap import zeros_bucket_residuals
+            from .comms_quant import zeros_residual
+
+            residual = (zeros_bucket_residuals(self.bucket_layout,
+                                               self.device)
+                        if self._overlap else zeros_residual(params))
         health = None
         if self.health is not None:
             from .health import init_health_state
@@ -791,7 +981,8 @@ class Trainer:
                           model_state=dict(self.model.named_buffers()),
                           health=health,
                           stage_rows=getattr(self.model, "stage_rows", None),
-                          shards=self.shards)
+                          shards=self.shards, grad_residual=residual,
+                          dp_sync=dp_sync)
 
     def _forward(self, state: TrainState, params: dict, batch: dict,
                  train: bool):
@@ -806,13 +997,16 @@ class Trainer:
             return self.model(*inputs, **kw)
         return torch.func.functional_call(self.model, params, inputs, kw)
 
-    def _grads(self, state: TrainState, batch: dict):
+    def _grads(self, state: TrainState, batch: dict, posted=None):
         """(fp32 gradients, metrics) of this rank's loss on ``batch``. What
         the training forward sows (``models/sow.py``) joins the step as the
         reference's ``losses`` and ``metrics`` collections do: the objective
         is the task's loss plus every sown loss, ``metrics["loss"]`` stays
         the task's, ``metrics["aux_loss"]`` is the sum of the sown losses,
-        and each sown metric is its mean over the modules that sowed it."""
+        and each sown metric is its mean over the modules that sowed it.
+        ``posted`` (``comms_overlap.PostedBuckets``) hooks the tensors
+        differentiated, so the sync's buckets are posted from the
+        backward."""
         from .models.sow import collecting
 
         if self.engine:
@@ -833,8 +1027,13 @@ class Trainer:
             name: torch.stack([v.float() for v in vals]).mean()
             for name, vals in sown.metrics.items()}}
         names = list(cparams)
-        grads = torch.autograd.grad(loss, [cparams[k] for k in names],
-                                    allow_unused=True)
+        handles = [] if posted is None else posted.attach(cparams)
+        try:
+            grads = torch.autograd.grad(loss, [cparams[k] for k in names],
+                                        allow_unused=True)
+        finally:
+            for h in handles:
+                h.remove()
         grads = {k: torch.zeros_like(cparams[k]) if g is None else g
                  for k, g in zip(names, grads)}
         grads = cast_grads_to_update(self.precision, grads)
@@ -892,11 +1091,137 @@ class Trainer:
 
         return whole_norm(grads, self.stage_rows)
 
+    def _local_grads(self, state: TrainState, batch: dict, posted=None):
+        """The explicit sync's front half: this rank's fp32 gradients of
+        its own rows with its own dropout (the step's seed folded with its
+        dp index) and BatchNorm statistics of its rows; the metrics and the
+        float buffers (running statistics) averaged over dp."""
+        from .models.resnet import local_batch_statistics
+
+        dp_index = self._dp_mesh.coords["dp"]
+        self._generator.manual_seed(fold_in_step(
+            fold_in_step(state.rng, state.step), dp_index))
+        with local_batch_statistics():
+            grads, metrics = self._grads(state, batch, posted)
+        keys = list(metrics)
+        metrics = dict(zip(keys, pmean_tensors(
+            [metrics[k] for k in keys], self._dp_mesh, "dp")))
+        bufs = [b for b in state.model_state.values()
+                if b.is_floating_point()]
+        with torch.no_grad():
+            for b, m in zip(bufs, pmean_tensors(bufs, self._dp_mesh, "dp")):
+                b.copy_(m)
+        return grads, metrics
+
+    def _sync_fns(self):
+        """(all-reduce, reduce-scatter, param gather) of the buckets: the
+        flat collectives, or the hierarchical ones."""
+        from . import comms_hier, comms_overlap
+
+        kw = dict(mode=self.grad_comm, block_size=self.grad_comm_block)
+        layout, mesh, topo = self.bucket_layout, self._dp_mesh, self._hier_topo
+        if topo is not None:
+            return (lambda g, r: comms_hier.bucketed_hier_all_reduce(
+                        g, layout, mesh, topo, residuals=r, **kw),
+                    lambda g, r: comms_hier.bucketed_hier_reduce_scatter(
+                        g, layout, mesh, topo, residuals=r, **kw),
+                    lambda s: comms_hier.hier_all_gather_buckets(
+                        s, layout, mesh, topo))
+        return (lambda g, r: comms_overlap.bucketed_all_reduce(
+                    g, layout, mesh, residuals=r, **kw),
+                lambda g, r: comms_overlap.bucketed_reduce_scatter(
+                    g, layout, mesh, residuals=r, **kw),
+                lambda s: comms_overlap.all_gather_buckets(s, layout, mesh))
+
+    def _explicit_step(self, state: TrainState, batch: dict):
+        """:meth:`_staged_step` under the explicit sync (the reference's
+        ``_quantized_dp_step_fn`` and ``_overlapped_dp_step_fn``)."""
+        from .comms import axis_size
+
+        posted = self._posted
+        grads, metrics = self._local_grads(state, batch, posted)
+        n = axis_size(self._dp_mesh, "dp")
+        all_reduce, reduce_scatter, gather_params = (
+            self._sync_fns() if self._overlap else (None, None, None))
+        residual = state.grad_residual
+        if self.update_sharding == "sharded":
+            # Reduce-scatter, the update of this rank's flat shard, then
+            # the params gathered: the fault and the guard's norm on the
+            # shards (the psum of their squares is the global norm).
+            keys = state.dp_sync.keys()
+            shards, new_res = reduce_scatter(grads, residual)
+            del grads
+            shards = dict(zip(keys, (s / n for s in shards)))
+            shards, metrics = self._instrument_grads(
+                shards, state.step, metrics, norm=self._shard_norm)
+
+            def commit():
+                params = state.dp_sync.local(state.params)
+                opt_state = self.tx.update(shards, state.opt_state, params)
+                whole = gather_params([params[k] for k in keys])
+                with torch.no_grad():
+                    for k, p in state.params.items():
+                        p.copy_(whole[k])
+                return dataclasses.replace(state, step=state.step + 1,
+                                           opt_state=opt_state,
+                                           grad_residual=new_res)
+
+            return self.task.finish_metrics(metrics), commit
+        if posted is not None:
+            summed, new_res = posted.finish(grads), None
+        elif self._overlap:
+            summed, new_res = all_reduce(grads, residual)
+        elif self.grad_comm != "fp32":
+            from .comms_quant import quantized_tree_all_reduce
+
+            summed, new_res = quantized_tree_all_reduce(
+                grads, self._dp_mesh, "dp", mode=self.grad_comm,
+                block_size=self.grad_comm_block, residual=residual)
+        del grads
+        grads = {k: v / n for k, v in summed.items()}
+        if self.layout is not None:
+            # ZeRO-1 downstream of the synced (replicated) gradients: this
+            # rank's shard of them, no further collective.
+            flats = self.layout.flatten(grads)
+            shards = {g: f[self.layout.shard_slice(g)]
+                      for g, f in flats.items()}
+            shards, metrics = self._instrument_grads(
+                shards, state.step, metrics, norm=self.layout.global_norm)
+
+            def commit():
+                norm = (self.layout.global_norm(shards) if self.tx.grad_clip
+                        else None)
+                opt_state = self.tx.update_shard(
+                    shards, state.opt_state, self.layout.param_shards(), norm)
+                self.layout.gather_params()
+                return dataclasses.replace(state, step=state.step + 1,
+                                           opt_state=opt_state,
+                                           grad_residual=new_res)
+        else:
+            grads, metrics = self._instrument_grads(grads, state.step,
+                                                    metrics)
+
+            def commit():
+                norm = global_norm(grads) if self.tx.grad_clip else None
+                opt_state = self.tx.update(grads, state.opt_state,
+                                           state.params, norm=norm)
+                return dataclasses.replace(state, step=state.step + 1,
+                                           opt_state=opt_state,
+                                           grad_residual=new_res)
+        return self.task.finish_metrics(metrics), commit
+
+    def _shard_norm(self, shards: dict):
+        """The global gradient norm from every dp rank's flat shards."""
+        sq = torch.stack([(s * s).sum() for s in shards.values()]).sum()
+        return torch.sqrt(psum(sq, self._dp_mesh, "dp"))
+
     def _staged_step(self, state: TrainState, batch: dict):
         """One step up to its update: ``(metrics as device scalars,
         commit)``, where ``commit()`` applies the update in place and
         returns the new state (the health guard runs it on healthy steps
         only)."""
+        if self.explicit:
+            return self._explicit_step(state, batch)
         if self.grad_accum == 1:
             self._generator.manual_seed(fold_in_step(state.rng, state.step))
             grads, metrics = self._grads(state, batch)

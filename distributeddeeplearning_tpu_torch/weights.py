@@ -108,11 +108,14 @@ def _sgd_state_from_jax(opt_state, like, rows=None, shards=None):
     if trace is None or count is None:
         raise ValueError("no (trace, count) SGD state in the JAX optimizer "
                          "state")
+    layout = getattr(like, "layout", None)  # a ZeRO-1 rank's shards
+    names = set(layout.shapes) if layout is not None else set(like.trace)
     flat = rank_shards(rank_rows(to_torch_layout(
-        from_jax_params(trace.trace), set(like.trace)), rows), shards)
-    if set(flat) != set(like.trace):
-        raise KeyError(f"trace names differ: "
-                       f"{sorted(set(flat) ^ set(like.trace))}")
+        from_jax_params(trace.trace), names), rows), shards)
+    if set(flat) != names:
+        raise KeyError(f"trace names differ: {sorted(set(flat) ^ names)}")
+    if layout is not None:
+        flat = layout.shard(flat)
     return like._replace(count=int(np.asarray(count.count)), trace={
         k: flat[k].to(device=t.device, dtype=t.dtype)
         for k, t in like.trace.items()})
@@ -127,15 +130,13 @@ def opt_state_from_jax(opt_state, like, rows=None, shards=None):
     (cut to a pipeline rank's ``rows``, or to its tp/fsdp blocks, then to
     the rank's shards under ZeRO-1), on the device and in the dtype of
     ``like``'s moments."""
-    from .parallel.zero import ZeroState
-
     if hasattr(like, "trace"):
         return _sgd_state_from_jax(opt_state, like, rows, shards)
     node = _find_adam_moments(opt_state)
     if node is None:
         raise ValueError("no (count, mu, nu) Adam state in the JAX "
                          "optimizer state")
-    sharded = isinstance(like, ZeroState)
+    sharded = hasattr(like, "layout")
     names = set(like.layout.shapes) if sharded else set(like.mu)
 
     def moments(tree, ref):

@@ -45,7 +45,10 @@ KEYS = {"metric", "value", "unit", "steps_per_sec", "params",
         "dispatch_overhead_ms_per_step", "precision",
         "param_bytes_per_member", "opt_state_bytes_per_member",
         "hbm_peak_bytes", "model_tflops_per_step",
-        "achieved_tflops_per_sec"}
+        "achieved_tflops_per_sec",
+        # the reference's gradient-sync fields (benchmark.sync_fields)
+        "grad_comm", "grad_sync_bytes_per_step", "update_sharding",
+        "grad_bucket_mb", "comm_hierarchy", "dcn_dp", "dcn_wire_bytes"}
 
 
 def _cfg(name, *extra):
@@ -70,6 +73,9 @@ def test_run_benchmark_record_contract():
     assert rec["p50_step_ms"] <= rec["p90_step_ms"]
     assert rec["steps_per_call_probe"] == 2
     assert rec["model_tflops_per_step"] > 0 and rec["precision"] == "fp32"
+    # one rank: nothing to sync, no slices
+    assert rec["grad_comm"] == "fp32" and rec["grad_sync_bytes_per_step"] == 0
+    assert rec["comm_hierarchy"] == "flat" and rec["dcn_wire_bytes"] == 0
     json.dumps(rec)
 
 
@@ -148,11 +154,11 @@ def test_default_device_is_the_gpu():
 
 
 def test_zero1_over_sgd_is_refused_before_the_build():
+    """ZeRO-1 of SGD's momentum trace is ported (``parallel.zero.
+    ZeroSGDState``): the composition passes the fences at dp=1 and dp=2."""
     cfg = _cfg("resnet18_cifar10", "train.zero1=True")
     cli.check_train_composition(cfg, world_size=1)  # dp=1: a no-op
-    with pytest.raises(NotImplementedError,
-                       match=r"^train.zero1=True: ZeRO-1 of the SGD .*A8"):
-        cli.check_train_composition(cfg, world_size=2)
+    cli.check_train_composition(cfg, world_size=2)
 
 
 @pytest.mark.parametrize("name,unit,items", [

@@ -245,11 +245,14 @@ def port_runs(jax_run, tmp_path_factory):
     rank 1's]}."""
     tmp = tmp_path_factory.mktemp("bert")
     torch.save(jax_run[0], tmp / "init.pt")
-    torch.multiprocessing.spawn(_worker, args=(_free_port(),
-                                               str(tmp / "init.pt"),
-                                               str(tmp)),
-                                nprocs=2, join=True)
-    return {"dp1": [_fit(_cfg(1), None, jax_run[0])],
+    ctx = torch.multiprocessing.spawn(_worker, args=(_free_port(),
+                                                     str(tmp / "init.pt"),
+                                                     str(tmp)),
+                                      nprocs=2, join=False)
+    dp1 = [_fit(_cfg(1), None, jax_run[0])]  # while the ranks run
+    while not ctx.join():
+        pass
+    return {"dp1": dp1,
             "dp2": [torch.load(tmp / f"rank{r}.pt", weights_only=False)
                     for r in range(2)]}
 

@@ -112,13 +112,18 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def _spawn(world, case, weights, tmp_path):
+def _spawn(world, case, weights, tmp_path, parent):
+    """The ranks' results, and ``parent()`` (JAX's reference) computed here
+    while they run."""
     path = tmp_path / "weights.pt"
     torch.save(weights, path)
-    torch.multiprocessing.spawn(
+    ctx = torch.multiprocessing.spawn(
         _worker, args=(world, _free_port(), case, str(path), str(tmp_path)),
-        nprocs=world, join=True)
-    return [torch.load(tmp_path / f"rank{r}.pt") for r in range(world)]
+        nprocs=world, join=False)
+    here = parent()
+    while not ctx.join():
+        pass
+    return [torch.load(tmp_path / f"rank{r}.pt") for r in range(world)], here
 
 
 @pytest.fixture(scope="module")
@@ -168,17 +173,17 @@ def single(jax_init):
 @pytest.fixture(scope="module")
 def cp2(jax_init, tmp_path_factory):
     """(the 2 ranks' results, JAX's run) at cp=2 with ring_pallas."""
-    ranks = _spawn(2, (1, 2, "ring_pallas"), jax_init,
-                   tmp_path_factory.mktemp("cp2"))
-    return ranks, _jax_reference({"cp": 2}, "ring_pallas")
+    return _spawn(2, (1, 2, "ring_pallas"), jax_init,
+                  tmp_path_factory.mktemp("cp2"),
+                  lambda: _jax_reference({"cp": 2}, "ring_pallas"))
 
 
 @pytest.fixture(scope="module")
 def dp2cp2(jax_init, tmp_path_factory):
     """(the 4 ranks' results, JAX's run) at dp=2 x cp=2 with ring."""
-    ranks = _spawn(4, (2, 2, "ring"), jax_init,
-                   tmp_path_factory.mktemp("dp2cp2"))
-    return ranks, _jax_reference({"dp": 2, "cp": 2}, "ring")
+    return _spawn(4, (2, 2, "ring"), jax_init,
+                  tmp_path_factory.mktemp("dp2cp2"),
+                  lambda: _jax_reference({"dp": 2, "cp": 2}, "ring"))
 
 
 RUNS = ["cp2", "dp2cp2"]

@@ -255,7 +255,14 @@ def run(tmp_path_factory):
                tmp / "inits.pt")
 
     def parent():
-        return {m: _jax_fit(m, *ts_) for m, ts_ in jinits.items()}
+        # One thread a model: the references trace and compile side by
+        # side (XLA compiles outside the GIL).
+        import concurrent.futures
+
+        with concurrent.futures.ThreadPoolExecutor(len(jinits)) as pool:
+            futs = {m: pool.submit(_jax_fit, m, *ts_)
+                    for m, ts_ in jinits.items()}
+            return {m: f.result() for m, f in futs.items()}
 
     ranks, refs = ts.spawn(_worker, 4, tmp, ts.free_ports(len(CLI_RUNS)),
                            parent=parent)

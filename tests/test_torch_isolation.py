@@ -61,7 +61,8 @@ def test_sources_exist():
             "llama_lm.py", "moe.py", "ep.py", "sow.py", "data_text.py",
             "prepare_data.py", "gpt2_moe.py", "llama_moe.py",
             "gpt2_owt_file.py", "generate.py", "health.py",
-            "torch_launch_profile.py"} <= names
+            "torch_launch_profile.py", "comms_quant.py", "comms_overlap.py",
+            "comms_hier.py"} <= names
     csrc = {p.name for p in (PORT / "csrc").glob("*.cu")}
     assert {"paged_attention.cu", "flash_attention.cu",
             "fused_adamw.cu", "ring_attention.cu"} <= csrc
@@ -167,11 +168,24 @@ def test_cli_generate_refuses_gpt2_moe_by_name():
     ("train.grad_comm=int8", "train.grad_comm"),
     ("train.grad_bucket_mb=4.0", "train.grad_bucket_mb"),
     ("train.update_sharding=sharded", "train.update_sharding"),
+    ("train.comm_hierarchy=hierarchical", "train.comm_hierarchy"),
     ("train.sequence_parallel=True", "train.sequence_parallel"),
     ("train.debug_nans=True", "train.debug_nans"),
     ("mesh.tp=2", "mesh"),
 ])
 def test_unported_train_knobs_are_refused_by_name(override, knob):
+    if knob in SYNC_KNOBS:
+        # The explicit dp sync is ported (tests/test_torch_grad_comm.py,
+        # tests/test_torch_multislice.py): over 4 ranks the knob passes the
+        # fences (the sharded update with the optimizer its fences allow,
+        # the hierarchy over 2 slices), and where the reference refuses
+        # it, it is refused with the reference's type and knob.
+        _accepted(override, *SYNC_KNOBS[knob], world=4)
+        with pytest.raises(NotImplementedError, match=rf"{knob[6:]}=.* is "
+                           "pure-DP in v1"):
+            _accepted(override, *SYNC_KNOBS[knob], "mesh.dp=4",
+                      "mesh.cp=2", "model.kwargs.attn_impl=ring", world=8)
+        return
     model = {"train.sequence_parallel": "vit", "mesh": "resnet50"}.get(knob)
     extra = [f"model.name={model}"] if model else []
     if model:
@@ -182,6 +196,16 @@ def test_unported_train_knobs_are_refused_by_name(override, knob):
     with pytest.raises(NotImplementedError,
                        match=rf"^{knob}=.*ROADMAP queue A\d+"):
         _train(override, *extra)
+
+
+# The explicit dp sync's knobs -> what the reference's fences need beside
+# them to accept the knob.
+SYNC_KNOBS = {
+    "train.grad_comm": [], "train.grad_bucket_mb": [],
+    "train.update_sharding": ["optim.name=adamw", "optim.weight_decay=0.0",
+                              "optim.grad_clip=0.0"],
+    "train.comm_hierarchy": ["mesh.dcn_dp=2"],
+}
 
 
 def _accepted(*overrides, world):
@@ -266,6 +290,16 @@ def test_unported_mesh_axes_are_refused_by_name(override, axis):
     if axis == "ep":
         with pytest.raises(ValueError, match=r"^mesh ep=2 but model "
                            r"'gpt2' has no experts"):
+            _train(override, "mesh.dp=1")
+        return
+    if axis == "dcn_dp":
+        # Data parallelism across slices is ported
+        # (tests/test_torch_multislice.py): over 4 ranks in 2 slices the
+        # hierarchical sync passes the fences; one rank, whose dp the 2
+        # slices do not divide, is refused with the reference's words.
+        _accepted(override, world=4)
+        with pytest.raises(ValueError, match="dp=1 not divisible by "
+                           "dcn_dp=2"):
             _train(override, "mesh.dp=1")
         return
     model = {"fsdp": "vit", "tp": "resnet50"}.get(axis)

@@ -400,9 +400,13 @@ def cp2(tmp_path_factory):
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
-    torch.multiprocessing.spawn(_cp_worker, args=(port, str(tmp)), nprocs=2,
-                                join=True)
-    return [torch.load(tmp / f"rank{r}.pt") for r in range(2)]
+    ctx = torch.multiprocessing.spawn(_cp_worker, args=(port, str(tmp)),
+                                      nprocs=2, join=False)
+    # The one process on the flash core, while the ranks run.
+    one = _fit(apply_overrides(load_config(CONFIG), TINY + CP), None)
+    while not ctx.join():
+        pass
+    return [torch.load(tmp / f"rank{r}.pt") for r in range(2)], one
 
 
 @pytest.mark.parametrize("impl", ["ring", "ring_pallas"])
@@ -410,7 +414,7 @@ def test_cp2_matches_one_process(cp2, impl):
     """2 ranks at cp=2, each holding half of every sequence, against one
     process on the flash core: losses within 1e-4 relative, params within
     1e-5, the ranks bit-equal. Rank 1's RoPE positions start at L / 2."""
-    one = _fit(apply_overrides(load_config(CONFIG), TINY + CP), None)
+    cp2, one = cp2
     assert [r[impl][0] for r in cp2] == [0, 1]
     losses, params = cp2[0][impl][1:]
     assert one[0][-1] < one[0][0]

@@ -432,18 +432,21 @@ def _jax_run(name):
     return init, hist, from_jax_params(_host(jstate.params)), ev
 
 
-def _start(name, *overrides, mesh=None):
+def _start(name, *overrides, mesh=None, init=None):
+    """``init``: the JAX init's (params, opt state) as host arrays (default:
+    ``_jax_run``'s, which runs the JAX Trainer here)."""
     cfg = _cfg(name, *overrides)
     model, trainer, dataset = cli.build_all(cfg, "cpu", mesh)
-    (params, opt_state), *_ = _jax_run(name)
+    params, opt_state = init if init is not None else _jax_run(name)[0]
     state = trainer.init(cfg.train.seed)
     model.load_state_dict(from_jax_params(params), strict=True)
     state.opt_state = opt_state_from_jax(opt_state, state.opt_state)
     return cfg, trainer, dataset, state
 
 
-def _fit(name, *overrides, mesh=None):
-    cfg, trainer, dataset, state = _start(name, *overrides, mesh=mesh)
+def _fit(name, *overrides, mesh=None, init=None):
+    cfg, trainer, dataset, state = _start(name, *overrides, mesh=mesh,
+                                          init=init)
     batches = data.prefetch(data.sharded_batches(
         dataset.iter_from(0), mesh, cfg.train.grad_accum), "cpu")
     state, hist = train.fit(trainer, state, batches, steps=STEPS,
@@ -529,7 +532,7 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def _dp_worker(rank, port, out_dir):
+def _dp_worker(rank, port, out_dir, init):
     import torch.distributed as dist
 
     from distributeddeeplearning_tpu_torch.mesh import (
@@ -545,7 +548,7 @@ def _dp_worker(rank, port, out_dir):
         assert init_distributed("cpu")
     cfg = _cfg("gpt2_moe")
     assert cfg.train.zero1  # ZeRO-1 of the plain AdamW's moments at dp=2
-    out = _fit("gpt2_moe", mesh=build_mesh(cfg.mesh))
+    out = _fit("gpt2_moe", mesh=build_mesh(cfg.mesh), init=init)
     torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     dist.barrier()
     dist.destroy_process_group()
@@ -555,10 +558,13 @@ def test_dp2_over_gloo_matches_one_process(tmp_path):
     """2 ranks, 2 rows each: each rank routes and averages its own rows'
     aux loss and dropped fraction; the mean over the ranks is the one
     process's, within JAX's EP parity tolerance."""
-    torch.multiprocessing.spawn(_dp_worker, args=(_free_port(),
-                                                  str(tmp_path)),
-                                nprocs=2, join=True)
-    one, p_one = _port_run("gpt2_moe")
+    # The ranks start from the parent's JAX init (no JAX run in a rank).
+    ctx = torch.multiprocessing.spawn(_dp_worker, args=(
+        _free_port(), str(tmp_path), _jax_run("gpt2_moe")[0]), nprocs=2,
+        join=False)
+    one, p_one = _port_run("gpt2_moe")  # while the ranks run
+    while not ctx.join():
+        pass
     ranks = [torch.load(tmp_path / f"rank{r}.pt", weights_only=False)
              for r in range(2)]
     hist, params = ranks[0]

@@ -186,11 +186,16 @@ def _free_port():
         return so.getsockname()[1]
 
 
-def _spawn(world, tmp_path):
-    torch.multiprocessing.spawn(_worker, args=(world, _free_port(),
-                                               str(tmp_path)),
-                                nprocs=world, join=True)
-    return [torch.load(tmp_path / f"rank{r}.pt") for r in range(world)]
+def _spawn(world, tmp_path, parent):
+    """The ranks' results, and ``parent()`` (JAX's reference) computed here
+    while they run."""
+    ctx = torch.multiprocessing.spawn(_worker, args=(world, _free_port(),
+                                                     str(tmp_path)),
+                                      nprocs=world, join=False)
+    here = parent()
+    while not ctx.join():
+        pass
+    return [torch.load(tmp_path / f"rank{r}.pt") for r in range(world)], here
 
 
 def _jax_reference(S):
@@ -245,8 +250,9 @@ def _jax_reference(S):
 def run(request, tmp_path_factory):
     """(S, the S ranks' results, JAX's) for a pp=S spawn."""
     S = request.param
-    ranks = _spawn(S, tmp_path_factory.mktemp(f"pp{S}"))
-    return S, ranks, _jax_reference(S)
+    ranks, ref = _spawn(S, tmp_path_factory.mktemp(f"pp{S}"),
+                        lambda: _jax_reference(S))
+    return S, ranks, ref
 
 
 def _close(got, want, what):

@@ -311,12 +311,19 @@ def test_sgd_matches_optax(clip):
 
 
 def test_zero1_over_sgd_is_refused_by_name():
+    """ZeRO-1 of SGD's trace is ported: over dp=2 the trainer cuts the
+    trace into this rank's shard of each group (held against JAX's
+    ``zero1=True`` in ``tests/test_torch_grad_comm.py``)."""
     from distributeddeeplearning_tpu_torch.mesh import Mesh
+    from distributeddeeplearning_tpu_torch.parallel.zero import ZeroSGDState
 
     mesh = Mesh({"dp": 2})
     model = models.get_model("resnet18", width=8, mesh=mesh)
-    with pytest.raises(NotImplementedError,
-                       match=r"train.zero1=True with optim.name='sgd'.*A8"):
-        train.Trainer(model, train.make_optimizer("sgd"),
-                      train.get_task("classification"), device="cpu",
-                      mesh=mesh, zero1=True)
+    trainer = train.Trainer(model, train.make_optimizer("sgd"),
+                            train.get_task("classification"), device="cpu",
+                            mesh=mesh, zero1=True)
+    opt = trainer.tx.init_shard(trainer.layout)
+    assert isinstance(opt, ZeroSGDState)
+    whole = sum(p.numel() for p in model.parameters())
+    assert whole / 2 <= sum(t.numel() for t in opt.trace.values()) \
+        <= whole / 2 + 16

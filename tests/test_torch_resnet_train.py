@@ -196,14 +196,17 @@ def port_runs(jax_runs, tmp_path_factory):
     tmp = tmp_path_factory.mktemp("resnet")
     torch.save(jax_runs["init"], tmp / "init.pt")
     torch.save(jax_runs["step2"], tmp / "step2.pt")
-    torch.multiprocessing.spawn(
+    ctx = torch.multiprocessing.spawn(
         _worker, args=(_free_port(), str(tmp / "init.pt"),
                        str(tmp / "step2.pt"), str(tmp)),
-        nprocs=2, join=True)
+        nprocs=2, join=False)
+    dp1 = [_fit(_cfg(1, 1), None, jax_runs["init"])]  # while the ranks run
+    while not ctx.join():
+        pass
     got = [torch.load(tmp / f"rank{r}.pt", weights_only=False)
            for r in range(2)]
     out = {run: [g[run] for g in got] for run in ("dp2", "dp2_accum2")}
-    out["dp1"] = [_fit(_cfg(1, 1), None, jax_runs["init"])]
+    out["dp1"] = dp1
     out["grads"] = [g["grads"] for g in got]
     return out
 

@@ -199,10 +199,11 @@ def port_init(name: str, **model_kw) -> dict:
 def jax_run(name: str, init: dict, steps: int = STEPS, *,
             precision: str = "fp32", grad_accum: int = 1,
             health: bool = False, evals: int = 0, optim: str = "adamw",
-            **model_kw) -> dict:
+            opt: dict | None = None, **model_kw) -> dict:
     """JAX's Trainer on one device: ``steps`` steps of the tiny ``name``
     (gpt2 or llama) from ``init`` (a flat state_dict), with ``optim``
-    (``adamw``, or ``sgd`` with momentum 0.9). Returns the final params as
+    (``adamw``, or ``sgd`` with momentum 0.9) and ``opt`` (its weight decay
+    and clip; default :data:`OPT`). Returns the final params as
     a flat state_dict, the losses, the metrics of each step (``grad_norm``
     under the guard), the optimizer state (host arrays) and, with
     ``evals`` > 0, ``evaluate`` over that many eval batches of the final
@@ -228,8 +229,9 @@ def jax_run(name: str, init: dict, steps: int = STEPS, *,
     model = jmodels.get_model(name, **kw)
     ds = jdata.SyntheticTokens(**DATA)
     mesh = single_device_mesh()
-    opt = make_optimizer(optim, LR, precision=precision, **OPT)
-    trainer = Trainer(model, opt, get_task("lm"), mesh, donate=False,
+    tx = make_optimizer(optim, LR, precision=precision,
+                        **(OPT if opt is None else opt))
+    trainer = Trainer(model, tx, get_task("lm"), mesh, donate=False,
                       precision=precision, grad_accum=grad_accum,
                       health=jconfig.HealthConfig(enabled=True)
                       if health else None)
