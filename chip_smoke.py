@@ -24,10 +24,26 @@ Phases, in order; any failure raises and the script exits non-zero:
      an fp32-q twin held to 2e-5), timed the same way;
   4. serve through the entry point: ``cli serve`` in-process on
      ``configs/gpt2_owt.py`` at 124M width (byte tokenizer), with the fp and
-     the int8 KV pool; the launch counts must equal decode calls x layers;
+     the int8 KV pool, then with the prefix cache, a host spill tier, int8
+     weights and the telemetry bundle (its trace, spans and stats files and
+     the record's ``telemetry``); the launch counts must equal decode calls
+     x layers;
   5. serve at full width: the engine on GPT-2 124M (vocab 50257, bf16),
      decode tokens/s and p50 decode-step time with each pool, then an fp32
-     pair, kernel against gather, that must agree token for token;
+     pair, kernel against gather, that must agree token for token; then
+     the serving features (``serving_features``): 8 requests on one
+     256-token prompt with distinct suffixes, one admission a step, with
+     the cache on and off and each pool (hit rate, prefill tokens saved,
+     decode tokens/s and p50 step); the fp32 pair with the cache on,
+     kernel and gather each equal to the cache-off run; the host spill
+     tier on a pool cut to 40 blocks, two prefixes alternating, 'fp' and
+     'int8' codecs, tokens equal to spill off (spill and promote bytes
+     and transfers); ``ngram:4`` on the gather path, tokens equal to
+     speculation off (acceptance, tokens a verify step); a prefill-role
+     engine handing off to a decode-role engine, tokens equal to the
+     unified run; int8 weights, resident bytes against fp32's and tokens
+     equal to an fp engine on the dequantized weights; every run's paged
+     kernel launches equal its decode calls x layers;
   6. training kernels vs plain: flash fwd / dq / dkv and fused AdamW against
      their plain torch versions at GPT-2 124M training shapes (bf16 causal
      [384, 1024, 64]), the bf16 kernels' other mask paths (per-row limits,
@@ -139,8 +155,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      relative, every loss falling;
   24. Llama-300M serving at full width (vocab 32000, bf16, 8 slots, the
      paged kernels at num_rep = 2) with the fp and the int8 pool, the fp32
-     pair kernel against gather token for token, then ``cli serve`` on the
-     config with the byte tokenizer (launches = decode calls x 12).
+     pair kernel against gather token for token, the fp32 pair with the
+     prefix cache on over the 8 KV-head pools (phase 5's shared-prefix
+     trace), then ``cli serve`` on the config with the byte tokenizer
+     (launches = decode calls x 12).
   25. llama_moe 8x300m training through the entry point: ``cli train`` on
      ``configs/llama_moe.py`` as shipped (16 x 2048, bf16, every MLP top-2
      of 8 SwiGLU experts at capacity 640, flash as Llama-300M's, the plain
@@ -335,7 +353,8 @@ microbatch's [192, 128, 64] ragged; each error's share of its tolerance
 is printed.
 Each phase's banner gives the seconds since the start. Before the last
 line come the kernels record, the card's name and power limit, the five
-benchmark records and phase 32's generate record; the last line is
+benchmark records, phase 32's generate record and phase 5's serving
+features record; the last line is
 ``{"ok": true, "device": {...}}``. No GPU means no result line and a
 non-zero exit: nothing here falls back to the CPU.
 """
@@ -668,14 +687,17 @@ def check_kernels(torch, pa):
 # ---------------------------------------------------------------------------
 
 
-def cli_serve(cli, kv_quant, config=CONFIG):
+def cli_serve(cli, kv_quant, config=CONFIG, extra=()):
+    """``cli serve`` in-process on ``config`` with the byte tokenizer, the
+    paged kernels and ``kv_quant`` (and ``extra`` overrides): its
+    record."""
     prompts = ["The H100 decodes", "paged attention reads the pool in place",
                "hello", "continuous batching over four lanes",
                "GPT-2 124M"]
     argv = ["serve", "--config", config, "--device", "cuda"]
     for o in OVERRIDES + ["model.kwargs.vocab_size=256",
                           "serving.attn_kernel=pallas",
-                          f"serving.kv_quant={kv_quant}"]:
+                          f"serving.kv_quant={kv_quant}", *extra]:
         argv += ["--override", o]
     for p in prompts:
         argv += ["--prompt", p]
@@ -689,9 +711,31 @@ def cli_serve(cli, kv_quant, config=CONFIG):
     res = rec["results"]
     if len(res) != len(prompts) or any(r["new_tokens"] != 24 for r in res):
         raise AssertionError(f"cli serve ({kv_quant}): incomplete {res}")
-    print(f"cli serve {os.path.basename(config)} kv_quant={kv_quant}: "
-          f"{json.dumps([r['completion'] for r in res])} "
+    print(f"cli serve {os.path.basename(config)} kv_quant={kv_quant} "
+          f"{' '.join(extra)}: {json.dumps([r['completion'] for r in res])} "
           f"decode calls {rec['stats']['calls']['decode']}", flush=True)
+    return rec
+
+
+def cli_serve_features(cli, tmp):
+    """``cli serve`` with the prefix cache, the host spill tier, int8
+    weights and the telemetry bundle: the bundle's files in ``tmp`` and
+    the record's ``telemetry``. Returns the decode calls."""
+    rec = cli_serve(cli, "off", extra=(
+        "serving.prefix_cache=true", "serving.spill_blocks=64",
+        "serving.quant=int8", "telemetry.enabled=true",
+        f"telemetry.dir={tmp}"))
+    files = sorted(os.listdir(tmp))
+    programs = sorted(rec["telemetry"]["executables"])
+    if (rec["telemetry_dir"] != tmp or "serving_decode" not in programs
+            or not {"trace_p0_a0.json", "stats_p0_a0.json",
+                    "spans_p0_a0.jsonl"} <= set(files)):
+        raise AssertionError(f"cli serve telemetry: {programs} {files}")
+    with open(os.path.join(tmp, "stats_p0_a0.json")) as f:
+        hists = sorted(json.load(f)["histograms"])
+    print(f"cli serve telemetry: programs {programs}, files {files}, "
+          f"histograms {hists}; quant {json.dumps(rec['stats']['quant'])}",
+          flush=True)
     return rec["stats"]["calls"]["decode"]
 
 
@@ -725,10 +769,12 @@ def make_engine_cls(ServingEngine):
 
 
 def serve_full_width(torch, pa, cli, ServingEngine, ServingConfig, Request,
-                     load_config, apply_overrides, config=CONFIG):
+                     load_config, apply_overrides, config=CONFIG,
+                     prefix=False):
     """The engine on ``config``'s model at full width (GPT-2 124M, vocab
     50257, or Llama-300M, vocab 32000; bf16): 16 requests over 8 lanes with
-    the fp and the int8 pool, then an fp32 pair, kernel against gather.
+    the fp and the int8 pool, then an fp32 pair, kernel against gather
+    (``prefix``: then :func:`prefix_pair`, the pair with the cache on).
     Returns the stats of each bf16 run."""
     import numpy as np
 
@@ -802,7 +848,254 @@ def serve_full_width(torch, pa, cli, ServingEngine, ServingConfig, Request,
             raise AssertionError("fp32 greedy tokens differ, kernel vs gather")
     print(f"fp32 kernel vs gather ({cfg.model.name}): {len(a_done)} requests "
           "x 64 greedy tokens identical", flush=True)
+    if prefix:
+        prefix_pair(torch, pa, Engine, ServingConfig, Request, model32,
+                    cfg.model.name)
     return out
+
+
+# ---------------------------------------------------------------------------
+# 5. (and 24.) the serving features at full width
+# ---------------------------------------------------------------------------
+
+# Phase 5's shared-prefix trace: 8 requests on one 256-token prompt (16
+# blocks of 16) with distinct suffixes, one of them a single token (the
+# full-prefix hit's decode route); one admission a step, so each later
+# request finds the prefix its predecessor published.
+PREFIX_LEN, PREFIX_SUFFIXES, PREFIX_NEW = 256, (5, 1, 9, 17, 24, 33, 48, 60), 32
+FEATURE_SERVING = dict(slots=8, block_size=16, max_seq_len=1024,
+                       prompt_buckets=(128, 512), hbm_budget_mb=2048,
+                       max_prefills_per_step=1)
+PREFIX_ON = dict(prefix_cache=True, suffix_buckets=(16, 64))
+
+
+def prefix_trace(vocab, seed=0, prefix=None):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    if prefix is None:
+        prefix = list(map(int, rng.integers(0, vocab, PREFIX_LEN)))
+    return [prefix + list(map(int, rng.integers(0, vocab, n)))
+            for n in PREFIX_SUFFIXES]
+
+
+def feature_run(torch, pa, Engine, ServingConfig, Request, model, trace, *,
+                new=PREFIX_NEW, waves=None, constrain=0, prefill_to=None,
+                **kw):
+    """One engine run of ``trace`` (or of ``waves``, each drained before
+    the next) with ``kw`` over :data:`FEATURE_SERVING`. The paged kernels'
+    launches must equal decode calls x layers on the 'pallas' path (none
+    on 'reference'). ``prefill_to``: a prefill-role engine's handoffs are
+    adopted by this engine before each request is submitted here. Returns
+    (tokens by request, engine, launches)."""
+    scfg = ServingConfig(**{**FEATURE_SERVING, **kw})
+    eng = Engine(model, scfg, seed=0, device="cuda")
+    eng.warmup()
+    if constrain:
+        eng.constrain_pool(constrain)
+    before = sum(pa.LAUNCHES.values())
+    got = {}
+    for wave in (waves or [trace]):
+        if prefill_to is not None:
+            for i, p in enumerate(wave):
+                prefill_to.submit(Request(prompt=list(p), max_new_tokens=new,
+                                          request_id=len(got) + i))
+            assert prefill_to.run() == []
+            for h in prefill_to.take_handoffs():
+                eng.adopt_chain(h["request"].prompt, h["payloads"])
+                eng.submit(Request(prompt=list(h["request"].prompt),
+                                   max_new_tokens=new,
+                                   request_id=h["request"].request_id))
+        else:
+            for i, p in enumerate(wave):
+                eng.submit(Request(prompt=list(p), max_new_tokens=new,
+                                   request_id=len(got) + i))
+        for st in eng.run():
+            got[st.request.request_id] = list(st.generated)
+        eng.scheduler.finished.clear()
+    torch.cuda.synchronize()
+    launched = sum(pa.LAUNCHES.values()) - before
+    want = (eng.calls["decode"] * model.num_layers
+            if scfg.attn_kernel == "pallas" else 0)
+    if launched != want:
+        raise AssertionError(f"serving features {kw}: {launched} kernel "
+                             f"launches, expected {want} (decode calls x "
+                             "layers)")
+    if any(len(t) != new for t in got.values()):
+        raise AssertionError(f"serving features {kw}: incomplete requests")
+    return got, eng, launched
+
+
+def same_tokens(name, a, b, gaps=None):
+    """``a`` == ``b`` request by request, or an AssertionError naming the
+    first differing token (and its top-2 logit gaps, where recorded)."""
+    for rid in sorted(b):
+        if a[rid] != b[rid]:
+            t = next(i for i, (x, y) in enumerate(zip(a[rid], b[rid]))
+                     if x != y)
+            gap = "" if gaps is None else (
+                f"; top-2 logit gaps {[g.get(rid, [None] * (t + 1))[t] for g in gaps]}")
+            raise AssertionError(f"{name}: request {rid} token {t}: "
+                                 f"{a[rid][t]} vs {b[rid][t]}{gap}")
+
+
+def prefix_pair(torch, pa, Engine, ServingConfig, Request, model32, name):
+    """The fp32 pair with the cache on (phases 5 and 24): the shared-prefix
+    trace, kernel and gather with the cache on, each token for token the
+    kernel's run with the cache off."""
+    trace = prefix_trace(model32.vocab_size)
+    off, off_eng, _ = feature_run(torch, pa, Engine, ServingConfig, Request,
+                                  model32, trace, attn_kernel="pallas")
+    for kernel in ("pallas", "reference"):
+        on, eng, _ = feature_run(torch, pa, Engine, ServingConfig, Request,
+                                 model32, trace, attn_kernel=kernel,
+                                 **PREFIX_ON)
+        pc = eng.stats()["prefix_cache"]
+        if not pc["hit_tokens"] or not pc["decode_route_admits"]:
+            raise AssertionError(f"{name} fp32 {kernel}: no prefix hits {pc}")
+        same_tokens(f"{name} fp32 cache on ({kernel}) vs off", on, off,
+                    (eng.gaps, off_eng.gaps))
+    print(f"fp32 prefix cache ({name}): kernel and gather with the cache on "
+          f"equal the cache-off run, {len(off)} requests x {PREFIX_NEW} "
+          f"tokens; hit rate {pc['hit_rate']}", flush=True)
+    return off
+
+
+def serving_features(torch, pa, cli, ServingEngine, ServingConfig, Request,
+                     load_config, apply_overrides):
+    """Phase 5's feature runs on GPT-2 124M: the shared-prefix trace with
+    the cache on and off (bf16, fp and int8 pools), the fp32 pair with
+    the cache on, the host spill tier on a cut pool ('fp' and 'int8'
+    codecs), ``ngram:4``, a prefill-role engine handing off to a
+    decode-role engine, and int8 weights. Returns the printed record."""
+    import numpy as np
+
+    from distributeddeeplearning_tpu_torch import models
+    from distributeddeeplearning_tpu_torch.serving.quant import (
+        dequantize_params,
+        resident_param_bytes,
+    )
+
+    cfg = apply_overrides(load_config(CONFIG), OVERRIDES)
+    Engine = make_engine_cls(ServingEngine)
+    model = cli.build_model(cfg, "cuda")
+    trace = prefix_trace(model.vocab_size)
+    rec = {}
+    for q in ("off", "int8"):
+        runs = {}
+        for cache in (False, True):
+            got, eng, launched = feature_run(
+                torch, pa, Engine, ServingConfig, Request, model, trace,
+                attn_kernel="pallas", kv_quant=q,
+                **(PREFIX_ON if cache else {}))
+            st = eng.stats()
+            runs[cache] = {
+                "decode_calls": eng.calls["decode"], "launches": launched,
+                "decode_tokens_per_s": sum(len(t) - 1 for t in got.values())
+                / sum(eng.decode_step_s),
+                "p50_decode_step_ms": statistics.median(eng.decode_step_s)
+                * 1e3,
+                "prefill_calls": eng.calls["prefill"],
+            }
+            if cache:
+                pc = st["prefix_cache"]
+                runs[cache].update(hit_rate=pc["hit_rate"],
+                                   prefill_tokens_saved=pc["hit_tokens"],
+                                   decode_route_admits=pc[
+                                       "decode_route_admits"])
+        rec[f"prefix_kv_{q}"] = {"cache_off": runs[False],
+                                 "cache_on": runs[True]}
+        print(f"shared prefix, kv_quant={q}: {json.dumps(rec[f'prefix_kv_{q}'])}",
+              flush=True)
+    model32 = models.get_model(cfg.model.name, **{
+        **cfg.model.kwargs, "dtype": "float32"}).to("cuda")
+    model32.load_state_dict(model.state_dict())
+    fp_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    del model
+    off = prefix_pair(torch, pa, Engine, ServingConfig, Request, model32,
+                      "GPT-2 124M")
+
+    # The host tier: prefixes A and B alternate on a pool cut below their
+    # working set, so B's admissions spill A's blocks and A's next wave
+    # promotes them back.
+    rng = np.random.default_rng(1)
+    other = list(map(int, rng.integers(0, model32.vocab_size, PREFIX_LEN)))
+    a, b = trace[:2], prefix_trace(model32.vocab_size, 2, other)[:2]
+    waves = [a, b, [p + [7] for p in a]]
+    spill = dict(attn_kernel="pallas", slots=2, **PREFIX_ON)
+    base, base_eng, _ = feature_run(torch, pa, Engine, ServingConfig,
+                                    Request, model32, None, waves=waves,
+                                    constrain=40, **spill)
+    for codec in ("fp", "int8"):
+        got, eng, _ = feature_run(torch, pa, Engine, ServingConfig, Request,
+                                  model32, None, waves=waves, constrain=40,
+                                  spill_blocks=64, spill_codec=codec, **spill)
+        pc = eng.stats()["prefix_cache"]
+        if not pc["spills"] or not pc["promotes"]:
+            raise AssertionError(f"spill {codec}: nothing spilled or "
+                                 f"promoted {pc}")
+        same_tokens(f"spill {codec} vs spill off", got, base,
+                    (eng.gaps, base_eng.gaps))
+        rec[f"spill_{codec}"] = {k: pc[k] for k in (
+            "spills", "promotes", "spill_bytes", "promote_bytes",
+            "spill_transfers", "promote_transfers", "hit_tokens_host")}
+        print(f"spill {codec}: {json.dumps(rec[f'spill_{codec}'])}; tokens "
+              "equal to spill off", flush=True)
+
+    # ngram:4 on the gather path (the paged kernel is single-token).
+    rep = [(trace[i][:32] * 4) for i in range(8)]
+    plain, plain_eng, _ = feature_run(torch, pa, Engine, ServingConfig,
+                                      Request, model32, rep,
+                                      attn_kernel="reference")
+    spec, eng, _ = feature_run(torch, pa, Engine, ServingConfig, Request,
+                               model32, rep, attn_kernel="reference",
+                               speculation="ngram:4")
+    same_tokens("ngram:4 vs speculation off", spec, plain,
+                (eng.gaps, plain_eng.gaps))
+    sp = eng.stats()["speculation"]
+    if not eng.calls["verify"]:
+        raise AssertionError("ngram:4: no verify step ran")
+    rec["ngram_4"] = {"verify_calls": eng.calls["verify"],
+                      "decode_calls": eng.calls["decode"],
+                      "plain_decode_calls": plain_eng.calls["decode"],
+                      "accept_rate": sp["accept_rate"],
+                      "tokens_per_verify_step": sp["mean_accepted_per_step"]}
+    print(f"ngram:4 (fp32, reference): {json.dumps(rec['ngram_4'])}; tokens "
+          "equal to speculation off", flush=True)
+
+    # A prefill-role engine hands every request to a decode-role engine.
+    pre = Engine(model32, ServingConfig(**{
+        **FEATURE_SERVING, **PREFIX_ON, "role": "prefill",
+        "attn_kernel": "pallas"}), seed=0, device="cuda")
+    got, dec, _ = feature_run(torch, pa, Engine, ServingConfig, Request,
+                              model32, trace, prefill_to=pre, role="decode",
+                              attn_kernel="pallas", **PREFIX_ON)
+    same_tokens("prefill -> decode roles vs unified", got, off,
+                (dec.gaps,))
+    rec["roles"] = {"prefill": pre.stats()["handoff"],
+                    "decode": dec.stats()["handoff"]}
+    print(f"roles: {json.dumps(rec['roles'])}; tokens equal to unified",
+          flush=True)
+
+    # int8 weights: resident bytes, and tokens equal to an fp engine on the
+    # dequantized weights.
+    q8 = models.get_model(cfg.model.name, **{
+        **cfg.model.kwargs, "dtype": "float32"}).to("cuda")
+    q8.load_state_dict(model32.state_dict())
+    got, eng, _ = feature_run(torch, pa, Engine, ServingConfig, Request, q8,
+                              trace, attn_kernel="pallas", quant="int8")
+    model32.load_state_dict(dequantize_params(eng.model))
+    ref, ref_eng, _ = feature_run(torch, pa, Engine, ServingConfig, Request,
+                                  model32, trace, attn_kernel="pallas")
+    same_tokens("quant=int8 vs fp on the dequantized weights", got, ref,
+                (eng.gaps, ref_eng.gaps))
+    rec["quant_int8"] = {**eng.stats()["quant"],
+                         "resident_param_bytes": resident_param_bytes(
+                             eng.model),
+                         "resident_param_bytes_fp": fp_bytes}
+    print(f"quant=int8: {json.dumps(rec['quant_int8'])}; fp32 tokens equal "
+          "to the dequantized fp engine's", flush=True)
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -4934,10 +5227,13 @@ def main(argv=None) -> int:
     scfg = apply_overrides(cfg, OVERRIDES)
     layers = models.get_model(scfg.model.name, **scfg.model.kwargs,
                               device="meta").num_layers
+    tel_dir = tempfile.TemporaryDirectory()  # the telemetry bundle's
     pa.reset_launches()  # the main path's count starts here
-    calls_off = cli_serve(cli, "off")
-    calls_q8 = cli_serve(cli, "int8")
+    calls_off = cli_serve(cli, "off")["stats"]["calls"]["decode"]
+    calls_q8 = cli_serve(cli, "int8")["stats"]["calls"]["decode"]
+    calls_off += cli_serve_features(cli, tel_dir.name)
     launches = dict(pa.LAUNCHES)
+    tel_dir.cleanup()
     want = {"paged_decode": calls_off * layers,
             "paged_decode_q8": calls_q8 * layers}
     print(f"launches {launches} expected {want}", flush=True)
@@ -4950,6 +5246,8 @@ def main(argv=None) -> int:
     phase("5 serve at full width")
     serve_full_width(torch, pa, cli, ServingEngine, ServingConfig,
                      Request, load_config, apply_overrides)
+    features = serving_features(torch, pa, cli, ServingEngine, ServingConfig,
+                                Request, load_config, apply_overrides)
 
     phase("6 training kernels vs plain")
     kres.update(check_training_kernels(torch, models, cfg))
@@ -5068,12 +5366,13 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     pa.reset_launches()  # each run checks its own count: calls x layers
     serve_full_width(torch, pa, cli, ServingEngine, ServingConfig, Request,
-                     load_config, apply_overrides, config=LLAMA)
+                     load_config, apply_overrides, config=LLAMA, prefix=True)
     full = dict(pa.LAUNCHES)
     llama_layers = model_shape(models, load_config, apply_overrides,
                                LLAMA)[0]
     pa.reset_launches()  # cli serve's counts start here
-    calls = {q: cli_serve(cli, q, LLAMA) for q in ("off", "int8")}
+    calls = {q: cli_serve(cli, q, LLAMA)["stats"]["calls"]["decode"]
+             for q in ("off", "int8")}
     served = dict(pa.LAUNCHES)
     want = {"paged_decode": calls["off"] * llama_layers,
             "paged_decode_q8": calls["int8"] * llama_layers}
@@ -5223,6 +5522,7 @@ def main(argv=None) -> int:
         print(json.dumps({"benchmark": rec}))
     print(json.dumps({"generate": {k: v for k, v in gen_rec.items()
                                    if k != "results"}}))
+    print(json.dumps({"serving_features": features}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

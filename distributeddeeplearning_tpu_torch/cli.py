@@ -557,6 +557,14 @@ def cmd_serve(cfg: Config, prompts: list[str], max_new_tokens: int,
 
     # Composition fences FIRST (fail by name before any build).
     check_serving_composition(cfg)
+    if temperature > 0 and cfg.serving.speculation != "off":
+        # The engine refuses a sampled request at submit, after the build
+        # and the restore: every request here shares one --temperature.
+        raise NotImplementedError(
+            "cli serve --temperature > 0 x serving.speculation: "
+            "speculative serving is greedy-only — drop --temperature or "
+            "set serving.speculation=off"
+        )
     if any(not p for p in prompts):
         raise ValueError("prompt must be non-empty")
     if temperature == 0.0 and (top_k or top_p):
@@ -579,7 +587,11 @@ def cmd_serve(cfg: Config, prompts: list[str], max_new_tokens: int,
         cfg, TrainState(step=0, params=dict(model.named_parameters()),
                         opt_state=None, rng=int(cfg.train.seed)),
         "serving from")
-    engine = ServingEngine(model, cfg.serving, seed=seed, device=device)
+    from .telemetry import Telemetry
+
+    tel = Telemetry.from_config(cfg)
+    engine = ServingEngine(model, cfg.serving, seed=seed, device=device,
+                           telemetry=tel)
     engine.warmup()
     for p in prompts:
         engine.submit(Request(
@@ -587,6 +599,7 @@ def cmd_serve(cfg: Config, prompts: list[str], max_new_tokens: int,
             temperature=temperature, top_k=top_k, top_p=top_p,
         ))
     finished = engine.run()
+    tel.write_trace()
     results = []
     for st in finished:
         m = st.metrics()
@@ -601,6 +614,9 @@ def cmd_serve(cfg: Config, prompts: list[str], max_new_tokens: int,
         "stats": engine.stats(),
         "events": engine.events,
     }
+    if tel.enabled:
+        record["telemetry"] = tel.registry.to_dict()
+        record["telemetry_dir"] = tel.dir
     print(json.dumps(record))
     return 0
 

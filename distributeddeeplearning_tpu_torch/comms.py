@@ -103,16 +103,21 @@ class DistComm:
         self._p2p_ready: set = set()
 
     def _out(self, t):
-        """The tensor handed to the library: a host copy under gloo. The
-        copy is synchronous, so every kernel that wrote ``t`` has ended."""
+        """The tensor handed to the library: under gloo a copy in pinned
+        host memory (the caching host allocator reuses its blocks, and the
+        copy back to the device does not block). The copy is synchronous,
+        so every kernel that wrote ``t`` has ended."""
         if self.stage_on_host and t.device.type == "cuda":
-            return t.to("cpu")
+            return self._buffer(t).copy_(t)
         return t.contiguous()
 
-    def _buffer(self, t):
-        if self.stage_on_host and t.device.type == "cuda":
-            return torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        return torch.empty_like(t, memory_format=torch.contiguous_format)
+    def _buffer(self, t, shape=None):
+        """An empty tensor like ``t`` (of ``shape``) for the library to
+        write: pinned host memory under gloo."""
+        shape = t.shape if shape is None else shape
+        if self.stage_on_host and (t.device.type == "cuda" or t.is_pinned()):
+            return torch.empty(shape, dtype=t.dtype, pin_memory=True)
+        return torch.empty(shape, dtype=t.dtype, device=t.device)
 
     def _wide(self, t) -> bool:
         """A bf16 tensor under gloo crosses in fp32."""
@@ -167,8 +172,7 @@ class DistComm:
             return self.reduce_scatter_sum(t.float(), axis).to(t.dtype)
         group = self.groups[axis]
         buf = self._out(t)
-        out = torch.empty(buf.numel() // dist.get_world_size(group),
-                          dtype=buf.dtype, device=buf.device)
+        out = self._buffer(buf, (buf.numel() // dist.get_world_size(group),))
         with warnings.catch_warnings():  # renamed, not removed, in torch 2.13
             warnings.simplefilter("ignore", FutureWarning)
             dist.reduce_scatter_tensor(out, buf, group=group)
@@ -209,7 +213,7 @@ class DistComm:
         if self._wide(t):
             return self.all_to_all(t.float(), axis, None, None).to(t.dtype)
         buf = self._out(t)
-        out = torch.empty_like(buf)
+        out = self._buffer(buf)
         dist.all_to_all_single(out, buf, group=self.groups[axis])
         return out.to(t.device, non_blocking=True)
 

@@ -166,7 +166,7 @@ class GPT2(nn.Module):
                     act_cuts(self.mesh))
         x = self.h(x, cache, generator=gen)
         x = self.ln_f(x)
-        emb = self.wte.embedding.to(self.dtype)
+        emb = full_param(self.wte, "embedding").to(self.dtype)
         if self.chunked_head:
             from ..ops.chunked_xent import head_output
 

@@ -92,6 +92,9 @@ def full_param(module, name: str, dtype=None, value=None) -> torch.Tensor:
     it is otherwise. ``value``: the block to use in place of the module's
     own (a copy the caller differentiates against)."""
     t = getattr(module, name) if value is None else value
+    if not isinstance(t, torch.Tensor):
+        # ``serving.quant.QuantizedLeaf``: int8 resident, float where used.
+        t = t.dequantize()
     spec = getattr(module, "fsdp_dims", None)
     if not spec or name not in spec:
         return t

@@ -1,6 +1,8 @@
-"""Serving: continuous batching over a paged KV cache (engine core of the
-port). Host-side state (scheduler, block pool) and device-side work (engine)
-are split so admission policy is testable without a device."""
+"""Serving: continuous batching over a paged KV cache, with the prefix
+cache, the host spill tier, n-gram speculation, prefill/decode roles and
+int8 weights (``quant.py``). Host-side state (scheduler, block pool) and
+device-side work (engine) are split so admission policy is testable without
+a device."""
 
 from .engine import (  # noqa: F401
     ROUTER_POLICIES,

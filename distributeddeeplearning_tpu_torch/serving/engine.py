@@ -24,10 +24,43 @@ not depend on its batchmates. (The JAX engine's ``fold_in`` key chain
 cannot be reproduced in torch: greedy output matches it exactly, sampled
 output matches it in distribution.)
 
-This slice ports the engine core. The prefix cache, host spill tier,
-speculation, disaggregation roles, int8 weight quantization, replicas,
-router, socket fleet, static batching and the telemetry bundle are refused
-by name (:func:`check_serving_composition`, :class:`ServingEngine`).
+The serving features, each as in the JAX engine:
+
+- **prefix cache** (``serving.prefix_cache``): the pool runs the
+  content-addressed prefix trie (``scheduler.KVBlockPool``); matched
+  blocks are mapped into the page table and the same prefill body runs
+  over the uncached suffix with the cursor at ``cached_len`` (positions,
+  the causal mask and the KV scatter all derive from ``seq_lens``).
+  ``serving.suffix_buckets`` adds narrow prefill widths. A full-prefix hit
+  (all but the last prompt token cached) skips prefill: the lane is armed
+  with the last prompt token and the next decode step writes its KV in
+  the request's own block;
+- **host spill tier** (``serving.spill_blocks``, ``spill_codec``):
+  eviction demotes a refcount-0 trie block's KV into a host store keyed by
+  chain hash (one device-to-host copy per eviction batch); admission
+  matches through spilled nodes, and their payloads are copied back into
+  fresh device blocks before the request's prefill. ``'fp'`` keeps the
+  pool's bytes (an int8 pool's codes and scales too); ``'int8'`` goes
+  through ``comms_quant.block_quantize``;
+- **speculation** (``serving.speculation='ngram:K'``): host-drafted
+  n-gram continuations verified in one ``generate.verify_step`` of K+1
+  positions a lane, on the gather read path (the paged kernel is
+  single-token); greedy only, token for token the plain engine's output;
+- **roles** (``serving.role``): a ``'prefill'`` engine prefills, publishes
+  the prompt's blocks and queues a handoff record (chain digests and the
+  blocks' raw bytes, :meth:`ServingEngine.take_handoffs`); a ``'decode'``
+  engine grafts them into its own pool (:meth:`ServingEngine.adopt_chain`)
+  so the request admits as a near-full prefix hit;
+- **int8 weights** (``serving.quant='int8'``, ``serving/quant.py``);
+- **static batching** (admission only into an empty engine), the
+  benchmarks' baseline;
+- **telemetry** (``telemetry.Telemetry``): ``schedule``/``prefill``/
+  ``decode`` spans, the ``ttft``, ``queue_wait``, ``cached_prefill_skip``,
+  ``promote_stage``/``promote_wait`` and ``spec_accept`` histograms, the
+  gauge digest and the programs' registry.
+
+Replicas, the router and the socket fleet are refused by name
+(:func:`check_serving_composition`, :class:`ServingEngine`).
 """
 
 from __future__ import annotations
@@ -39,10 +72,18 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..generate import _filter_logits, decode_step, logits_at, prefill
+from ..comms_quant import _pad_to, block_dequantize, block_quantize
+from ..generate import (
+    _filter_logits, decode_step, logits_at, prefill, verify_step,
+)
 from ..metrics import serving_event, serving_gauges
 from ..models.transformer import PagedKVCache, paged_pool_specs
-from .scheduler import KVBlockPool, Request, RequestState, Scheduler, blocks_for
+from ..telemetry import NULL_TELEMETRY, SPEC_ACCEPT_HIST
+from .quant import quantize_params
+from .scheduler import (
+    KVBlockPool, Request, RequestState, Scheduler, blocks_for,
+    chain_digests, ngram_draft,
+)
 
 KV_QUANT_MODES = ("off", "int8")
 SERVABLE_MODELS = ("gpt2", "llama")
@@ -53,6 +94,8 @@ SERVE_FAULT_KINDS = (
     "worker_crash", "worker_hang", "conn_drop", "heartbeat_stall"
 )
 _NOT_PORTED = "not yet ported to distributeddeeplearning_tpu_torch"
+# int8 spill codec granularity (elements a scale), as the reference's.
+_SPILL_QBLOCK = 256
 
 
 # ---------------------------------------------------------------------------
@@ -267,33 +310,24 @@ def _check_fleet_healing(s, fleet: int) -> None:
 
 
 def _refuse_unported(s) -> None:
-    """Refuse, by name, every serving knob whose feature this slice has not
-    ported — a config that asks for one must not silently get the core.
-    Knobs that build on the prefix cache are named before it."""
-    refused = (
-        (s.quant != "none", f"serving.quant={s.quant!r} "
-         "(int8 weight quantization)"),
-        (str(s.speculation) != "off",
-         f"serving.speculation={s.speculation!r} (speculative decoding)"),
-        (str(s.role) != "unified",
-         f"serving.role={s.role!r} (disaggregated prefill/decode)"),
-        (int(s.prefill_replicas) > 0, "serving.prefill_replicas"),
-        (bool(s.spill_blocks), "serving.spill_blocks (host spill tier)"),
-        (bool(s.suffix_buckets), "serving.suffix_buckets"),
-        (bool(s.prefix_cache), "serving.prefix_cache=True (prefix cache)"),
-        (int(s.replicas) > 1,
-         f"serving.replicas={s.replicas} (replica router)"),
-    )
-    for bad, what in refused:
-        if bad:
-            raise NotImplementedError(f"{what} {_NOT_PORTED}")
+    """Refuse, by name, the knobs of the serving fleet (replicas behind a
+    router, role-split worker processes), which are not ported: a config
+    that asks for one must not silently get one engine."""
+    if int(s.replicas) > 1:
+        raise NotImplementedError(
+            f"serving.replicas={s.replicas} (replica router) {_NOT_PORTED}")
+    if int(s.prefill_replicas) > 0:
+        raise NotImplementedError(
+            f"serving.prefill_replicas={s.prefill_replicas} (role-split "
+            f"fleet) {_NOT_PORTED}")
 
 
 def check_serving_composition(cfg, *, fleet: int = 0) -> None:
     """Config-time composition fences for ``serve`` (fail BY NAME before any
     build): every fence of the JAX package's engine, unchanged — including
-    ``pallas x block_size % 8``, which the CUDA kernel would not need — then
-    the refusals of what is not ported. ``cfg`` is the full Config."""
+    ``pallas x block_size % 8``, which the CUDA kernel would not need — and
+    the refusals of the fleet's knobs, which are not ported. ``cfg`` is the
+    full Config."""
     name = cfg.model.name
     if name.endswith("_pp"):
         raise NotImplementedError(
@@ -389,6 +423,7 @@ def check_serving_composition(cfg, *, fleet: int = 0) -> None:
         )
     _check_speculation(s.speculation, s.block_size, kernel)
     _check_role(s.role, prefix_on, s.speculation)
+    _refuse_unported(s)
     pr = int(s.prefill_replicas)
     if pr < 0:
         raise ValueError(
@@ -420,12 +455,8 @@ def check_serving_composition(cfg, *, fleet: int = 0) -> None:
             f"{s.handoff_blocks_per_frame}"
         )
     _check_fleet_healing(s, fleet)
-    # --- the port's refusals ---------------------------------------------
     if fleet:
         raise NotImplementedError(f"serve --fleet {fleet} {_NOT_PORTED}")
-    if cfg.telemetry.enabled:
-        raise NotImplementedError(f"telemetry.enabled {_NOT_PORTED}")
-    _refuse_unported(s)
 
 
 def _lane_seed(seed: int, request_id: int) -> int:
@@ -439,13 +470,17 @@ class ServingEngine:
 
     ``submit()`` enqueues requests; every ``step()`` retires finished
     lanes, admits from the queue (one bucketed prefill per admission), and
-    runs ONE decode call for the whole batch. ``run()`` drains to idle.
+    runs ONE decode (or verify) call for the whole batch. ``run()`` drains
+    to idle.
 
     ``model`` is a GPT-2 or a Llama of this package with its weights
     loaded; the engine moves it to ``device`` (``None`` = the GPU; the CPU
-    only when asked). ``cfg`` is a ``ServingConfig``. ``clock`` is injectable for
+    only when asked) and, with ``quant='int8'``, quantizes its weights in
+    place. ``cfg`` is a ``ServingConfig``. ``clock`` is injectable for
     deterministic tests; ``emit`` receives ``metrics.serving_event``
-    records (default: collected on ``self.events``).
+    records (default: collected on ``self.events``); ``telemetry`` is a
+    ``telemetry.Telemetry`` (default: the inert one).
+    ``static_batching=True`` admits only into an empty engine.
     """
 
     def __init__(self, model, cfg, *, emit=None, clock=time.monotonic,
@@ -456,17 +491,14 @@ class ServingEngine:
                 f"serving x attn_impl={model.attn_impl!r} (see "
                 "check_serving_composition)"
             )
-        if static_batching:
-            raise NotImplementedError(f"static_batching {_NOT_PORTED}")
-        if telemetry is not None:
-            raise NotImplementedError(f"serving telemetry {_NOT_PORTED}")
-        _check_kv_quant(cfg.kv_quant, cfg.spill_codec)
         _refuse_unported(cfg)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.clock = clock
+        self.static_batching = bool(static_batching)
         self.events: list[dict] = []
         self._emit = emit if emit is not None else self.events.append
+        self._tel = telemetry if telemetry is not None else NULL_TELEMETRY
         self.gauge_every = int(cfg.gauge_every)
         self.max_seq_len = int(cfg.max_seq_len) or int(model.max_len)
         if self.max_seq_len > int(model.max_len):
@@ -480,12 +512,51 @@ class ServingEngine:
                 f"largest prompt bucket {self.buckets[-1]} leaves no room "
                 f"for generation within max_seq_len {self.max_seq_len}"
             )
-        self.kv_quant = str(cfg.kv_quant)
+        self.prefix_cache = bool(cfg.prefix_cache)
+        self.suffix_buckets = _check_prefix_cache(
+            self.prefix_cache, cfg.suffix_buckets, self.buckets)
+        self._prefill_widths = tuple(
+            sorted(set(self.buckets) | set(self.suffix_buckets)))
+        self.spill_blocks = _check_spill(
+            cfg.spill_blocks, cfg.spill_codec, self.prefix_cache)
+        self.spill_codec = str(cfg.spill_codec or "fp")
+        self.kv_quant = _check_kv_quant(cfg.kv_quant, self.spill_codec)
+        self.role = _check_role(cfg.role, self.prefix_cache, cfg.speculation)
+        if static_batching:
+            for bad, what, why in (
+                (self.role != "unified", f"serving.role={self.role!r}",
+                 "the static baseline forms whole batches and runs them "
+                 "to completion in one engine — there is no phase "
+                 "boundary to split"),
+                (self.kv_quant != "off",
+                 f"serving.kv_quant={self.kv_quant!r}",
+                 "the static baseline is the exact-numerics anchor, and a "
+                 "quantized pool perturbs logits"),
+                (bool(self.spill_blocks), "serving.spill_blocks",
+                 "the host tier carries warm prefixes ACROSS batches, the "
+                 "very reuse the static baseline excludes"),
+                (self.prefix_cache, "serving.prefix_cache",
+                 "cross-batch KV reuse would confound what the static "
+                 "baseline isolates"),
+            ):
+                if bad:
+                    raise NotImplementedError(
+                        f"{what} x static_batching: {why} — compare against "
+                        "the continuous engine instead")
         S, bs = int(cfg.slots), int(cfg.block_size)
         self.slots_n, self.block_size = S, bs
-        # Same page-table width as the reference, blocks_for(max_seq_len +
-        # spec_k); spec_k is 0 here (speculation is not ported).
-        self.pages = blocks_for(self.max_seq_len, bs)
+        self.attn_kernel = str(cfg.attn_kernel)
+        if self.attn_kernel not in ("reference", "pallas"):
+            raise ValueError(
+                "serving.attn_kernel must be 'reference' or 'pallas', got "
+                f"{self.attn_kernel!r}"
+            )
+        self.spec_k = _check_speculation(cfg.speculation, bs,
+                                         self.attn_kernel)
+        # One draft window wider than max_seq_len needs, as in the
+        # reference: a verify step writes up to spec_k positions past the
+        # cursor, into columns that stay on the null block.
+        self.pages = blocks_for(self.max_seq_len + self.spec_k, bs)
 
         # --- size the pool from the device-memory budget -----------------
         # Per-block bytes of every layer's pool tensors: layers x {k, v} x
@@ -510,12 +581,6 @@ class ServingEngine:
                 f"{min_blocks} — raise the budget or lower max_seq_len"
             )
         self.block_bytes = block_bytes
-        self.attn_kernel = str(cfg.attn_kernel)
-        if self.attn_kernel not in ("reference", "pallas"):
-            raise ValueError(
-                "serving.attn_kernel must be 'reference' or 'pallas', got "
-                f"{self.attn_kernel!r}"
-            )
         self.max_prefills = int(cfg.max_prefills_per_step)
         if self.max_prefills < 0:
             raise ValueError(
@@ -523,6 +588,10 @@ class ServingEngine:
                 f"{self.max_prefills}"
             )
         self.model = model.to(self.device).eval()
+        self.quant_report = (
+            quantize_params(self.model, int(cfg.quant_block))
+            if cfg.quant == "int8" else None
+        )
         self._pools = [
             {
                 name: torch.zeros((self.num_blocks,) + tuple(shape[1:]),
@@ -533,11 +602,25 @@ class ServingEngine:
         ]
 
         # --- host-side scheduler + per-lane operand rows ----------------
+        # Host spill store: chain hash -> ("fp", raw block bytes) or
+        # ("int8", [(codes, scales) per pool tensor]).
+        self._spill_store: dict[bytes, tuple] = {}
+        self.spill_stats = {
+            "spill_bytes": 0, "promote_bytes": 0,
+            "spill_transfers": 0, "promote_transfers": 0,
+        }
         self.scheduler = Scheduler(
-            S, KVBlockPool(self.num_blocks, bs), self.max_seq_len,
+            S, self._new_pool(self.num_blocks), self.max_seq_len,
             kv_bytes_per_token=self.block_bytes // bs,
-            kv_quant=self.kv_quant, role="unified",
+            kv_quant=self.kv_quant, role=self.role,
         )
+        self._handoffs: list[dict] = []
+        self.handoff_stats = {
+            "exported": 0, "export_blocks": 0, "export_bytes": 0,
+            "adopted": 0, "adopt_blocks": 0, "adopt_bytes": 0,
+            "adopt_skipped_blocks": 0, "adopt_fallbacks": 0,
+        }
+        self._staged_promotes: dict[int, tuple] = {}
         self._table = np.zeros((S, self.pages), np.int32)
         self._lens = np.zeros((S,), np.int32)
         self._tok = np.zeros((S,), np.int32)
@@ -546,11 +629,24 @@ class ServingEngine:
         self._top_p = np.zeros((S,), np.float32)
         self._gens: list[torch.Generator | None] = [None] * S
         self._seed = int(seed)
-        self.calls = {"prefill": 0, "decode": 0}
-        # Host wall seconds of each decode call, sampled tokens on the host
-        # included (the call ends in a device sync either way).
+        self.calls = {"prefill": 0, "decode": 0, "verify": 0}
+        # drafted = draft tokens offered to verify, draft_hits = accepted
+        # drafts, emitted = tokens verify steps emitted (hits plus one
+        # correction or bonus token a lane a step), lane_steps = (lane,
+        # verify call) pairs.
+        self.spec = {"drafted": 0, "draft_hits": 0, "emitted": 0,
+                     "lane_steps": 0}
+        # Host wall seconds of each decode (or verify) call, sampled tokens
+        # on the host included (the call ends in a device sync either way).
         self.decode_step_s: list[float] = []
         self.step_count = 0
+
+    def _new_pool(self, num_blocks: int) -> KVBlockPool:
+        return KVBlockPool(num_blocks, self.block_size,
+                           prefix_cache=self.prefix_cache,
+                           spill_blocks=self.spill_blocks,
+                           spill_fn=self._spill_out,
+                           drop_fn=self._spill_drop)
 
     # ------------------------------------------------------------------
     # cache plumbing: host arrays in, pool tensors shared across calls
@@ -598,6 +694,13 @@ class ServingEngine:
                 tok[r] = torch.argmax(filtered[r] - torch.log(-torch.log(u)))
         return tok.to(torch.int32).cpu().numpy()
 
+    def _first_call(self, name: str, t0: float) -> None:
+        """Register program ``name`` in the telemetry registry on its first
+        call, with that call's seconds (a kernel build included)."""
+        if name not in self._tel.registry:
+            self._tel.record_exe(name, None,
+                                 compile_s=time.perf_counter() - t0)
+
     def warmup(self):
         """Build the decode kernel now (a CUDA device with
         ``attn_kernel='pallas'``), so the first decode step does not pay
@@ -606,6 +709,266 @@ class ServingEngine:
             from ..ops._build import load
 
             load("paged_attention")
+
+    # ------------------------------------------------------------------
+    # pool rows as bytes: spill, promote, handoff
+    # ------------------------------------------------------------------
+
+    def _pool_leaves(self) -> list[torch.Tensor]:
+        """Every pool tensor, layer by layer, names sorted — one order for
+        capture and scatter, so a payload's slice k always names the same
+        tensor."""
+        return [layer[n] for layer in self._pools for n in sorted(layer)]
+
+    def _gather_rows(self, ids) -> torch.Tensor:
+        """Pool blocks ``ids`` as raw bytes on the host, ``[n,
+        block_bytes]`` uint8: each block's rows of every pool tensor
+        concatenated in :meth:`_pool_leaves` order, in ONE device-to-host
+        copy."""
+        idx = torch.as_tensor(np.asarray(ids, np.int64), device=self.device)
+        parts = [leaf.index_select(0, idx).reshape(len(ids), -1)
+                 .view(torch.uint8) for leaf in self._pool_leaves()]
+        return torch.cat(parts, dim=1).cpu()
+
+    def _scatter_rows(self, ids, rows: torch.Tensor) -> None:
+        """The inverse of :meth:`_gather_rows`: ``rows`` ``[n,
+        block_bytes]`` uint8 (on any device) written into pool blocks
+        ``ids``, tensor by tensor."""
+        idx = torch.as_tensor(np.asarray(ids, np.int64), device=self.device)
+        rows = rows.to(self.device, non_blocking=True)
+        off = 0
+        for leaf in self._pool_leaves():
+            nb = math.prod(leaf.shape[1:]) * leaf.element_size()
+            part = rows[:, off:off + nb].contiguous().view(leaf.dtype)
+            leaf.index_copy_(0, idx, part.reshape((len(ids),) + leaf.shape[1:]))
+            off += nb
+
+    def _to_device(self, t: torch.Tensor) -> torch.Tensor:
+        """A host tensor copied to the device without blocking the host:
+        from pinned memory on a CUDA device (the copy is ordered before
+        every later kernel on the stream, so the scatter that reads it
+        waits for it)."""
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
+    # ------------------------------------------------------------------
+    # host spill tier
+    # ------------------------------------------------------------------
+
+    def _spill_out(self, pairs: list[tuple[int, bytes]]) -> None:
+        """Pool eviction callback: capture the victims' KV into the host
+        store BEFORE their blocks can be reused, one copy per eviction
+        batch. ``'fp'`` keeps the pool's bytes; ``'int8'`` quantizes each
+        pool tensor's rows per 256-element block, the scales beside the
+        codes."""
+        rows = self._gather_rows([b for b, _ in pairs])
+        self.spill_stats["spill_transfers"] += 1
+        for i, (_, h) in enumerate(pairs):
+            if self.spill_codec == "int8":
+                payload, off = [], 0
+                for leaf in self._pool_leaves():
+                    nb = math.prod(leaf.shape[1:]) * leaf.element_size()
+                    vals = rows[i, off:off + nb].view(leaf.dtype).float()
+                    off += nb
+                    q, scale = block_quantize(
+                        _pad_to(vals, _SPILL_QBLOCK), _SPILL_QBLOCK)
+                    payload.append((q, scale))
+                nbytes = sum(q.numel() + 4 * s.numel() for q, s in payload)
+                self._spill_store[h] = ("int8", payload)
+            else:
+                nbytes = rows.shape[1]
+                self._spill_store[h] = ("fp", rows[i].clone())
+            self.spill_stats["spill_bytes"] += nbytes
+
+    def _spill_drop(self, chain_hash: bytes) -> None:
+        """Pool drop callback: a host node left the trie — release its
+        payload."""
+        self._spill_store.pop(chain_hash, None)
+
+    def _start_promotions(self, state: RequestState) -> None:
+        """Stage ``state``'s promoted blocks: pop their payloads and start
+        the host-to-device copies now (non-blocking), parked for the
+        scatter in :meth:`_apply_promotions`. ``step()`` stages every
+        admitted state before the first prefill, so the copies run under
+        the earlier admissions' prefills."""
+        pairs = state.promoted
+        if not pairs:
+            return
+        state.promoted = []
+        t0 = time.perf_counter()
+        entries = [self._spill_store.pop(h) for _, h in pairs]
+        codec = entries[0][0]
+        if codec == "int8":
+            uploads = [
+                (self._to_device(torch.stack([e[1][j][0] for e in entries])),
+                 self._to_device(torch.stack([e[1][j][1] for e in entries])))
+                for j in range(len(entries[0][1]))
+            ]
+            nbytes = sum(q.numel() + 4 * s.numel() for q, s in uploads)
+        else:
+            uploads = self._to_device(torch.stack([e[1] for e in entries]))
+            nbytes = uploads.numel()
+        self.spill_stats["promote_bytes"] += nbytes
+        self.spill_stats["promote_transfers"] += 1
+        self._staged_promotes[state.request.request_id] = (
+            codec, [b for b, _ in pairs], uploads)
+        self._tel.hist("promote_stage").record(time.perf_counter() - t0)
+
+    def _apply_promotions(self, state: RequestState) -> None:
+        """Scatter ``state``'s staged blocks into the pool, below the row's
+        cursor, with the bytes the trie published there (bit for bit under
+        ``'fp'``)."""
+        t0 = time.perf_counter()
+        staged = self._staged_promotes.pop(state.request.request_id, None)
+        if staged is None:
+            if not state.promoted:
+                return
+            self._start_promotions(state)
+            staged = self._staged_promotes.pop(state.request.request_id)
+        codec, ids, uploads = staged
+        if codec == "int8":
+            idx = torch.as_tensor(np.asarray(ids, np.int64),
+                                  device=self.device)
+            for leaf, (q, scale) in zip(self._pool_leaves(), uploads):
+                n, row = len(ids), math.prod(leaf.shape[1:])
+                flat = block_dequantize(q.reshape(-1, _SPILL_QBLOCK),
+                                        scale.reshape(-1, 1))
+                vals = flat.reshape(n, -1)[:, :row].reshape(
+                    (n,) + leaf.shape[1:])
+                leaf.index_copy_(0, idx, vals.to(leaf.dtype))
+        else:
+            self._scatter_rows(ids, uploads)
+        self._tel.hist("promote_wait").record(time.perf_counter() - t0)
+
+    def constrain_pool(self, num_blocks: int) -> None:
+        """Rebuild the pool with ``num_blocks <= self.num_blocks`` usable
+        entries (sizes the device pool below a trace's prefix working set,
+        so eviction and spill pressure is real). Only on an idle engine;
+        the spill store is cleared with the trie."""
+        if self.scheduler.active or self.scheduler.pending:
+            raise RuntimeError(
+                "constrain_pool with requests queued or in flight"
+            )
+        if not 2 <= num_blocks <= self.num_blocks:
+            raise ValueError(
+                f"constrain_pool({num_blocks}): need 2 <= n <= "
+                f"{self.num_blocks} (the allocated pool)"
+            )
+        self.scheduler.pool = self._new_pool(num_blocks)
+        self._spill_store.clear()
+
+    def _spill_meta(self) -> dict:
+        return {"kv_quant": self.kv_quant, "spill_codec": self.spill_codec,
+                "block_bytes": self.block_bytes}
+
+    def save_spill_store(self, path: str) -> int:
+        """Persist the host spill tier (the trie's host nodes and their
+        payloads) to ``path``; device blocks and live requests are not
+        saved. Returns the number of nodes written."""
+        return self.scheduler.pool.save_host_store(
+            path, self._spill_store, meta=self._spill_meta())
+
+    def load_spill_store(self, path: str) -> int:
+        """Restore a :meth:`save_spill_store` file into this engine's host
+        tier (root-connected chains, existing hashes win, the
+        ``spill_blocks`` budget caps intake); the file's layout must be
+        this engine's. Returns the number of chains restored."""
+        loaded = self.scheduler.pool.load_host_store(
+            path, expect_meta=self._spill_meta())
+        self._spill_store.update(loaded)
+        return len(loaded)
+
+    # ------------------------------------------------------------------
+    # prefill/decode roles: export on the prefill side, adoption on the
+    # decode side; the block is the unit, the trie the ledger
+    # ------------------------------------------------------------------
+
+    def _queue_handoff(self, state: RequestState, *, written: int) -> None:
+        """Prefill side: export the prompt's cached chain (digests and raw
+        block bytes), retire the lane WITHOUT finishing the request, and
+        park the record on the handoff queue. ``written`` is the count of
+        prompt positions whose KV this engine wrote (``len(prompt) - 1``
+        on the decode route, which ran no forward). The capture happens
+        before ``complete_handoff`` releases the chain."""
+        req, slot = state.request, state.slot
+        digests, ids = self.scheduler.pool.export_chain(req.prompt)
+        rows = self._gather_rows(ids) if ids else None
+        payloads = ([] if rows is None
+                    else [r.numpy().tobytes() for r in rows])
+        nbytes = sum(len(p) for p in payloads)
+        self.scheduler.complete_handoff(slot, self.clock(), written=written)
+        self._park(slot)
+        self._handoffs.append({
+            "state": state, "request": req,
+            "digests": digests, "payloads": payloads,
+        })
+        self.scheduler.handoff_queue_depth = len(self._handoffs)
+        self.scheduler.handoff_bytes_total += nbytes
+        st = self.handoff_stats
+        st["exported"] += 1
+        st["export_blocks"] += len(ids)
+        st["export_bytes"] += nbytes
+        self._event("request_handoff", state, slot=slot, blocks=len(ids),
+                    kv_bytes=nbytes)
+
+    def take_handoffs(self) -> list[dict]:
+        """Drain the handoff queue: each record carries the retired
+        ``state``, its ``request``, the chain ``digests`` and the raw block
+        ``payloads``."""
+        out, self._handoffs = self._handoffs, []
+        self.scheduler.handoff_queue_depth = 0
+        return out
+
+    def adopt_chain(self, prompt: list[int], payloads: list[bytes], *,
+                    offset: int = 0) -> int:
+        """Decode side: graft ``payloads`` — raw block bytes for chain
+        positions ``offset .. offset+len(payloads)`` of ``prompt`` — into
+        this engine's pool and trie, so the request's :meth:`submit` admits
+        as a (near-)full prefix hit. Positions the trie already holds are
+        skipped; a stale slice or a full pool adopts nothing (the request
+        then prefills cold). A payload of the wrong size raises before any
+        device write. Returns the blocks adopted."""
+        digests = chain_digests(prompt, self.block_size)
+        k_end = offset + len(payloads)
+        if k_end > len(digests):
+            raise ValueError(
+                f"adopt_chain: {len(payloads)} payload blocks at offset "
+                f"{offset} overrun the prompt's {len(digests)}-block chain"
+            )
+        for raw in payloads:
+            if len(raw) != self.block_bytes:
+                raise ValueError(
+                    f"handoff block payload is {len(raw)} bytes; this "
+                    f"pool's blocks are {self.block_bytes} — sender "
+                    "kv_quant/model layout differs"
+                )
+        pool = self.scheduler.pool
+        st = self.handoff_stats
+        m = pool.match_digests(digests[:k_end])
+        if m < offset:
+            st["adopt_fallbacks"] += 1
+            return 0
+        if m >= k_end:
+            st["adopt_skipped_blocks"] += len(payloads)
+            return 0
+        blocks = pool.alloc(k_end - m)
+        if blocks is None:
+            st["adopt_fallbacks"] += 1
+            return 0
+        rows = torch.stack([
+            torch.frombuffer(bytearray(raw), dtype=torch.uint8)
+            for raw in payloads[m - offset:]
+        ])
+        self._scatter_rows(blocks, self._to_device(rows))
+        pool.adopt_chain(prompt, blocks, start=m)
+        nbytes = rows.numel()
+        st["adopted"] += 1
+        st["adopt_blocks"] += len(blocks)
+        st["adopt_bytes"] += nbytes
+        st["adopt_skipped_blocks"] += m - offset
+        self.scheduler.handoff_bytes_total += nbytes
+        return len(blocks)
 
     # ------------------------------------------------------------------
     # request lifecycle
@@ -620,19 +983,51 @@ class ServingEngine:
             f"serving.prompt_buckets entry {self.buckets[-1]}"
         )
 
+    def suffix_bucket_of(self, suffix_len: int) -> int:
+        """Smallest prefill width (suffix or prompt bucket) that fits an
+        uncached suffix."""
+        for b in self._prefill_widths:
+            if suffix_len <= b:
+                return b
+        raise ValueError(
+            f"suffix length {suffix_len} exceeds the largest prefill "
+            f"width {self._prefill_widths[-1]}"
+        )
+
+    def prefix_match_len(self, prompt: list[int]) -> int:
+        """Tokens of ``prompt`` whose KV this engine already caches (0 with
+        the cache off)."""
+        return self.scheduler.pool.match_len(list(prompt))
+
     def submit(self, request: Request,
                now: float | None = None) -> RequestState:
         """Enqueue one request (``now`` overrides the arrival stamp)."""
         self.bucket_of(len(request.prompt))  # fail before enqueueing
+        if self.spec_k and request.temperature > 0:
+            raise NotImplementedError(
+                "serving.speculation x sampled request (temperature="
+                f"{request.temperature}): speculative serving is "
+                "greedy-only — submit temperature=0 requests or set "
+                "serving.speculation='off'"
+            )
         return self.scheduler.submit(
             request, self.clock() if now is None else now
         )
 
     def _event(self, name: str, state: RequestState, **fields):
-        self._emit(serving_event(
+        rec = serving_event(
             name, self.step_count,
             request_id=state.request.request_id, **fields,
-        ))
+        )
+        self._emit(rec)
+        self._tel.note_event(rec)
+
+    def _park(self, slot: int) -> None:
+        """Point an emptied lane at the null block with cursor 0."""
+        self._temp[slot] = 0.0
+        self._lens[slot] = 0
+        self._table[slot] = 0
+        self._gens[slot] = None
 
     def _finish_if_done(self, state: RequestState, tok: int) -> bool:
         req = state.request
@@ -642,10 +1037,7 @@ class ServingEngine:
         if done:
             slot = state.slot
             self.scheduler.complete(slot, self.clock())
-            self._temp[slot] = 0.0
-            self._lens[slot] = 0
-            self._table[slot] = 0  # park the lane on the null block
-            self._gens[slot] = None
+            self._park(slot)
             self._event(
                 "request_completed", state,
                 new_tokens=len(state.generated), slot=slot,
@@ -660,26 +1052,60 @@ class ServingEngine:
             "first_token", state, slot=state.slot,
             ttft_s=round(now - state.arrival_s, 6),
         )
+        self._tel.hist("ttft").record(now - state.arrival_s)
 
     def _admit_one(self, state: RequestState):
         req, slot = state.request, state.slot
+        # Promote FIRST, on either route: a full-prefix hit can ride
+        # through spilled nodes too.
+        self._apply_promotions(state)
         row = np.zeros((self.pages,), np.int32)
-        row[: len(state.blocks)] = state.blocks  # logical block order
+        chain = state.cached_blocks + state.blocks  # logical block order
+        row[: len(chain)] = chain
         gen = torch.Generator(device=self.device)
         gen.manual_seed(_lane_seed(self._seed, req.request_id))
         self._table[slot] = row
         self._temp[slot] = req.temperature
         self._top_k[slot] = req.top_k
         self._top_p[slot] = req.top_p
+        if state.decode_route:
+            if self.role == "prefill":
+                # The whole exportable chain is resident: hand off with no
+                # forward; the last prompt token's KV was never written.
+                self._queue_handoff(state, written=len(req.prompt) - 1)
+                return
+            # Full-prefix hit: the match is capped below the last prompt
+            # token, so the next decode step writes that token's KV at
+            # position len-1, in the request's OWN block, and samples the
+            # first new token.
+            self._lens[slot] = len(req.prompt) - 1
+            self._tok[slot] = req.prompt[-1]
+            self._gens[slot] = gen
+            return
+        off = state.cached_len  # 0 = cold, else suffix-only prefill
+        suffix = req.prompt[off:]
         tokens = np.zeros((1, state.bucket), np.int64)
-        tokens[0, : len(req.prompt)] = req.prompt  # RIGHT-padded
-        out = prefill(self.model, self._inject(row[None], [0]),
+        tokens[0, : len(suffix)] = suffix  # RIGHT-padded to the width
+        # The same prefill body at any offset: the cursor at off puts the
+        # positions, the causal mask over the cached columns and the KV
+        # scatter (row[off // bs:], the request's own blocks) in place.
+        t0 = time.perf_counter()
+        out = prefill(self.model, self._inject(row[None], [off]),
                       self._host(tokens))
+        self.calls["prefill"] += 1
+        if self.role == "prefill":
+            # Publish the prompt's blocks (their KV is final) and hand off
+            # instead of decoding; the decode engine samples the first
+            # token from the same (seed, request_id) generator.
+            self._first_call(f"serving_prefill_{state.bucket}", t0)
+            self.scheduler.publish_prefix(state, len(req.prompt))
+            self._queue_handoff(state, written=len(req.prompt))
+            return
         tok = int(self._sample_body(
-            logits_at(out, [len(req.prompt) - 1]), self._temp[slot:slot + 1],
+            logits_at(out, [len(suffix) - 1]), self._temp[slot:slot + 1],
             self._top_k[slot:slot + 1], self._top_p[slot:slot + 1], [gen],
         )[0])
-        self.calls["prefill"] += 1
+        self._first_call(f"serving_prefill_{state.bucket}", t0)
         now = self.clock()
         state.generated.append(tok)
         state.token_times_s.append(now)
@@ -689,45 +1115,102 @@ class ServingEngine:
         self._tok[slot] = tok
         self._gens[slot] = gen
         self._note_first_token(state, now)
+        # Publish the prompt's full blocks now that their KV is final:
+        # later arrivals in the same wave already hit them.
         self.scheduler.publish_prefix(state, len(req.prompt))
         self._finish_if_done(state, tok)
 
     def step(self) -> bool:
         """One engine iteration: admit (+prefill) into free lanes, then one
-        decode call for the whole batch. Returns False when idle."""
+        decode (or verify) call for the whole batch. Returns False when
+        idle."""
         self.step_count += 1
+        tel = self._tel
         now = self.clock()
-        admitted = self.scheduler.admit(
-            now, self.bucket_of, max_admit=self.max_prefills,
-            cover_tokens=self.pages * self.block_size,
-        )
+        with tel.span("schedule", step=self.step_count) as sp:
+            admitted = (
+                [] if self.static_batching and self.scheduler.active
+                else self.scheduler.admit(
+                    now, self.bucket_of, max_admit=self.max_prefills,
+                    suffix_bucket_of=(
+                        self.suffix_bucket_of if self.prefix_cache else None
+                    ),
+                    cover_tokens=self.pages * self.block_size,
+                )
+            )
+            if admitted:
+                sp.set(request_ids=[s.request.request_id for s in admitted])
+        # Start every admitted state's promotion copies before the first
+        # prefill, so they run under the earlier admissions' prefills.
         for state in admitted:
+            self._start_promotions(state)
+        for state in admitted:
+            extra = {}
+            if self.prefix_cache:
+                extra["cached_tokens"] = state.cached_len
+                tel.hist("cached_prefill_skip").record(
+                    float(state.cached_len))
             self._event(
                 "request_admitted", state, slot=state.slot,
                 bucket=state.bucket, blocks=len(state.blocks),
-                queue_s=round(now - state.arrival_s, 6),
+                queue_s=round(now - state.arrival_s, 6), **extra,
             )
-            self._admit_one(state)
+            tel.hist("queue_wait").record(now - state.arrival_s)
+            with tel.span("prefill", step=self.step_count,
+                          request_id=state.request.request_id,
+                          bucket=state.bucket):
+                self._admit_one(state)
         if self.gauge_every and self.step_count % self.gauge_every == 0:
-            self._emit(serving_gauges(
-                self.step_count, **self.scheduler.gauges(self.clock())
-            ))
+            gauges = self.scheduler.gauges(self.clock())
+            if self.spec_k and self.spec["drafted"]:
+                gauges["spec_accept_rate"] = round(
+                    self.spec["draft_hits"] / self.spec["drafted"], 4)
+            rec = serving_gauges(self.step_count, **gauges)
+            self._emit(rec)
+            tel.note_event(rec)
+            tel.note_gauges(gauges)
         active = self.scheduler.active
-        if active:
+        if not active:
+            return not self.scheduler.idle
+        toks = dlens = None
+        if self.spec_k:
+            toks = np.zeros((self.slots_n, self.spec_k + 1), np.int32)
+            toks[:, 0] = self._tok
+            dlens = np.zeros((self.slots_n,), np.int32)
+            for state in active:
+                d = self._draft_for(state)
+                if d:
+                    toks[state.slot, 1:1 + len(d)] = d
+                    dlens[state.slot] = len(d)
+        if dlens is not None and dlens.any():
+            self._verify_batch(active, toks, dlens)
+        else:
+            # Speculation off, or no lane found a draft: the L=1 call
+            # (verify with empty drafts would give the same tokens).
             self._decode_batch(active)
         return not self.scheduler.idle
 
+    def _span_args(self, active, **args) -> dict:
+        args = {"step": self.step_count, "batch": len(active), **args}
+        if self._tel.enabled:
+            args["request_ids"] = [s.request.request_id for s in active]
+        return args
+
     def _decode_batch(self, active):
         """One decode call (L=1) for the whole batch."""
-        cache = self._inject(self._table, self._lens)
-        t0 = time.perf_counter()
-        logits = decode_step(
-            self.model, cache, self._host(self._tok[:, None].astype(np.int64))
-        )
-        tok = self._sample_body(
-            logits, self._temp, self._top_k, self._top_p, self._gens
-        )
-        self.decode_step_s.append(time.perf_counter() - t0)
+        with self._tel.span("decode", **self._span_args(active)):
+            cache = self._inject(self._table, self._lens)
+            t0 = time.perf_counter()
+            logits = decode_step(
+                self.model, cache,
+                self._host(self._tok[:, None].astype(np.int64))
+            )
+            # The sync on the sampled tokens is inside the span.
+            tok = self._sample_body(
+                logits, self._temp, self._top_k, self._top_p, self._gens
+            )
+            self.decode_step_s.append(time.perf_counter() - t0)
+        self._first_call("serving_decode", t0)
         self.calls["decode"] += 1
         now = self.clock()
         for state in active:
@@ -737,7 +1220,65 @@ class ServingEngine:
             state.token_times_s.append(now)
             self._lens[slot] += 1
             self._tok[slot] = t
+            self._note_first_token(state, now)  # decode-route admissions
             self._finish_if_done(state, t)
+
+    def _draft_for(self, state: RequestState) -> list[int]:
+        """Up to ``spec_k`` draft tokens for one lane, by n-gram lookup
+        over the request's own prompt and generated tokens."""
+        return ngram_draft(
+            state.request.prompt + state.generated, self.spec_k
+        )
+
+    def _verify_batch(self, active, toks, dlens):
+        """One verify call: score all K+1 positions a lane, accept each
+        lane's longest draft prefix that matches the greedy continuation
+        plus the correction (or bonus) token, and rewind past rejected
+        drafts by not advancing the cursor: the KV written for them is
+        overwritten by the next step's own scatter before any read."""
+        tel = self._tel
+        with tel.span("decode", **self._span_args(
+                active, speculative=True, drafted=int(dlens.sum()))) as sp:
+            cache = self._inject(self._table, self._lens)
+            t0 = time.perf_counter()
+            greedy = verify_step(self.model, cache,
+                                 self._host(toks.astype(np.int64)))
+            greedy = greedy.cpu().numpy()
+            self.decode_step_s.append(time.perf_counter() - t0)
+            self.calls["verify"] += 1
+            now = self.clock()
+            runs = np.cumprod(
+                toks[:, 1:] == greedy[:, :-1], axis=1
+            ).sum(axis=1)
+            accepted_toks = greedy.tolist()
+            emitted = hits = 0
+            for state in active:
+                slot = state.slot
+                req = state.request
+                # Clipped so a lane never emits past max_new_tokens, which
+                # keeps every accepted position inside its reservation.
+                limit = min(int(dlens[slot]),
+                            req.max_new_tokens - len(state.generated) - 1)
+                m = min(int(runs[slot]), limit)
+                acc = accepted_toks[slot][:m + 1]
+                # EOS inside an accepted run ends the request there.
+                if self.cfg.eos_id >= 0 and self.cfg.eos_id in acc:
+                    acc = acc[: acc.index(self.cfg.eos_id) + 1]
+                state.generated.extend(acc)
+                state.token_times_s.extend([now] * len(acc))
+                self._lens[slot] += len(acc)
+                self._tok[slot] = acc[-1]
+                self._note_first_token(state, now)
+                emitted += len(acc)
+                hits += len(acc) - 1 if len(acc) == m + 1 else len(acc)
+                tel.hist(SPEC_ACCEPT_HIST).record(float(len(acc)))
+                self._finish_if_done(state, acc[-1])
+            sp.set(accepted=emitted, draft_hits=hits)
+        self._first_call("serving_verify", t0)
+        self.spec["drafted"] += int(dlens.sum())
+        self.spec["draft_hits"] += hits
+        self.spec["emitted"] += emitted
+        self.spec["lane_steps"] += len(active)
 
     def run(self, max_steps: int = 0) -> list[RequestState]:
         """Drain the queue; returns the finished states (submit order)."""
@@ -752,17 +1293,41 @@ class ServingEngine:
         )
 
     def stats(self) -> dict:
-        return {
+        out = {
             **self.scheduler.stats(),
             "num_blocks": self.num_blocks,
             "block_bytes": self.block_bytes,
             "pages_per_seq": self.pages,
             "prompt_buckets": list(self.buckets),
+            "suffix_buckets": list(self.suffix_buckets),
             "calls": dict(self.calls),
             "steps": self.step_count,
+            "quant": self.quant_report,
             "kv_quant": self.kv_quant,
             "kv_bytes_per_token": self.block_bytes // self.block_size,
             "attn_kernel": self.attn_kernel,
             "max_prefills_per_step": self.max_prefills,
             "device": str(self.device),
+            "speculation": None if not self.spec_k else {
+                "k": self.spec_k,
+                **self.spec,
+                "verify_calls": self.calls["verify"],
+                "accept_rate": (
+                    round(self.spec["draft_hits"] / self.spec["drafted"], 4)
+                    if self.spec["drafted"] else None
+                ),
+                "mean_accepted_per_step": (
+                    round(self.spec["emitted"] / self.spec["lane_steps"], 4)
+                    if self.spec["lane_steps"] else None
+                ),
+            },
         }
+        if self.prefix_cache and self.spill_blocks:
+            out["prefix_cache"].update({
+                "spill_codec": self.spill_codec,
+                "spill_store_blocks": len(self._spill_store),
+                **self.spill_stats,
+            })
+        if self.role != "unified":
+            out["handoff"] = dict(self.handoff_stats)
+        return out

@@ -2,16 +2,13 @@
 continuous-batching scheduler.
 
 A copy of the JAX package's ``serving/scheduler.py`` (pure Python, so it
-runs unchanged here); ``tests/test_torch_serving.py`` replays one trace
-through both and requires the same end state.
+runs unchanged here), less what only the replica router calls (the trie's
+digest summary) and what only tests call (a subtree eviction, a flush);
+``tests/test_torch_serving.py`` replays traces through both and requires
+the same end state. The device half (the pool tensors these blocks index
+into) lives in ``serving/engine.py``.
 
-Everything in this module is pure Python — no jax imports — so admission
-policy, block accounting, and lifecycle bookkeeping are unit-testable
-without a device (tests/test_serving_units.py). The device half (compiled
-prefill/decode graphs, the paged pool arrays those blocks index into) lives
-in ``serving/engine.py``.
-
-Design (docs/SERVING.md):
+Design:
 
 - **KVBlockPool** — a free-list allocator over ``num_blocks`` fixed-size
   blocks of the device-side KV pool. Block 0 is reserved as the NULL block
@@ -210,13 +207,12 @@ class KVBlockPool:
         self.block_size = block_size
         self.prefix_cache = bool(prefix_cache)
         self.spill_blocks = int(spill_blocks)
-        # Host-tier callbacks (the engine wires these; pure-Python pool
-        # stays jax-free): ``spill_fn(pairs)`` receives
+        # Host-tier callbacks (the engine wires these; the pool stays
+        # pure Python): ``spill_fn(pairs)`` receives
         # ``[(block_id, chain_hash), ...]`` BEFORE any spilled block can be
         # reused — the engine must capture the device KV then;
         # ``drop_fn(chain_hash)`` releases the host payload when a host
-        # node leaves the trie (final eviction, promotion-by-adoption,
-        # flush).
+        # node leaves the trie (final eviction, promotion-by-adoption).
         self._spill_fn = spill_fn
         self._drop_fn = drop_fn
         # LIFO free list: recently-freed (cache-warm) blocks are reused
@@ -343,25 +339,6 @@ class KVBlockPool:
                 break
             n += 1
         return n
-
-    def digest_summary(self, limit: int = 0) -> list[bytes]:
-        """The trie's chain digests (both tiers), most-recently-used
-        first, capped at ``limit`` (0 = all). This is the summary a
-        fleet worker pushes in its heartbeat so the router's
-        ``prefix_affinity`` probe runs on a local set instead of a
-        cross-process round trip. A digest names its ENTIRE prefix
-        chain (``_block_hash`` chains through the parent), so plain set
-        membership router-side reproduces :meth:`match_digests` — no
-        tree structure needs to travel."""
-        if not self.prefix_cache or not self._cached:
-            return []
-        nodes = sorted(
-            self._cached.values(), key=lambda nd: nd.last_use,
-            reverse=True,
-        )
-        if limit:
-            nodes = nodes[:limit]
-        return [nd.chain_hash for nd in nodes]
 
     def acquire(self, blocks: list[int]) -> None:
         """Map cached blocks into a request: refcount+1 and LRU-touch the
@@ -520,29 +497,6 @@ class KVBlockPool:
             self.promotes += 1
             out.append((b, nd.chain_hash))
         return out
-
-    def evict_subtree(self, b: int) -> list[int]:
-        """Evict cache node ``b`` AND its whole subtree (deepest first), so
-        an interior eviction detaches its children's hash chain instead of
-        orphaning unreachable nodes. Every node in the subtree must be
-        refcount-0 — a refcount>0 descendant means a live request still
-        maps it, and evicting it would hand its KV to the free list while
-        decode is writing around it. Returns the freed block ids."""
-        stack, order = [b], []
-        while stack:
-            cur = stack.pop()
-            nd = self._cached.get(cur)
-            if nd is None:
-                raise ValueError(f"evicting uncached block {cur}")
-            if nd.refs:
-                raise ValueError(
-                    f"evicting cached block {cur} with refcount {nd.refs}"
-                )
-            order.append(cur)
-            stack.extend(nd.children)
-        for cur in reversed(order):  # children before parents
-            self._drop_node(cur)
-        return order
 
     def _evict_one(self, spill_batch: list | None = None) -> None:
         """Reclaim the LRU refcount-0 device node with no DEVICE children.
@@ -743,26 +697,6 @@ class KVBlockPool:
             parent_block = b
             out.append(b)
         return out
-
-    def flush_cache(self) -> int:
-        """Drop every refcount-0 cache node in BOTH tiers (leaf-first,
-        ``(last_use, id)`` order — no spilling: a flush is a teardown,
-        not memory pressure); returns the count. With no live requests
-        this empties the trie and, via ``drop_fn``, the engine's spill
-        store — the leak check's end state."""
-        n = 0
-        while True:
-            victims = [
-                b for b, nd in self._cached.items()
-                if nd.refs == 0 and not nd.children
-            ]
-            if not victims:
-                break
-            victims.sort(key=lambda b: (self._cached[b].last_use, b))
-            for b in victims:
-                self._drop_node(b)
-                n += 1
-        return n
 
     # -- host-tier persistence --------------------------------------------
 

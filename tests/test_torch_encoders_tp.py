@@ -89,14 +89,14 @@ EVALS = {("vit", "tp2_fsdp2"), ("resnet", "dp2_fsdp2")}
 EVAL_BATCHES = 2
 # cli runs of the configs at tp2 x fsdp2 (``cli.main`` in the ranks)
 R50 = ["model.kwargs.width=4", "model.kwargs.num_classes=10",
-       "data.num_classes=10", "data.image_size=32", "data.batch_size=8"]
+       "data.num_classes=10", "data.image_size=16", "data.batch_size=4"]
 CLI_RUNS = {
     "train_vit": ("train", "vit", MESHES["tp2_fsdp2"]),
     "train_bert": ("train", "bert", MESHES["tp2_fsdp2"]),
     "train_resnet50": ("train", "resnet50", MESHES["tp2_fsdp2"]),
     "benchmark_resnet50": ("benchmark", "resnet50", MESHES["tp2_fsdp2"]),
     "benchmark_resnet50_dp": ("benchmark", "resnet50",
-                              MESHES["dp2_fsdp2"] + ["data.batch_size=16"]),
+                              MESHES["dp2_fsdp2"] + ["data.batch_size=8"]),
 }
 
 

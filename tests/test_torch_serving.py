@@ -6,6 +6,10 @@ refill mid-flight; prompts span both buckets) runs through the JAX engine
 and the port's engine on the CPU with the same tiny GPT-2 weights, under
 that file's Pallas config (block_size 8, ``attn_kernel='pallas'``): greedy
 tokens must be identical per request, with the fp and the int8 KV pool.
+The scheduler replays traces through both packages' schedulers, one of
+them through the prefix trie, its host tier and a chain handoff. The
+serving features are held in ``tests/test_torch_serving_cache.py`` and
+``tests/test_torch_serving_features.py``.
 """
 
 import dataclasses
@@ -32,7 +36,6 @@ from distributeddeeplearning_tpu_torch.config import (
     Config,
     ModelConfig,
     ServingConfig,
-    apply_overrides,
 )
 from distributeddeeplearning_tpu_torch.serving import (
     KVBlockPool,
@@ -131,6 +134,107 @@ def test_scheduler_replays_jax_trace_to_the_same_state():
     )
 
 
+def _pool_state(pool):
+    """Everything a pool holds: free list, owned blocks, every trie node
+    (both tiers) with its chain, refcount and children, the host ledger."""
+    return (
+        list(pool._free), sorted(pool._allocated),
+        sorted((b, nd.chain_hash, nd.parent, nd.refs, nd.last_use,
+                sorted(nd.children), nd.depth)
+               for b, nd in pool._cached.items()),
+        pool.spilled_blocks, pool.evictable_blocks, pool.high_water,
+    )
+
+
+def _drive_trie(mod, tmp):
+    """Three prefixes over a 10-block pool with a 3-block host tier: cold
+    admissions, partial and full-prefix hits, evictions that spill,
+    promotions back, a spill cap that evicts for good, generated blocks
+    published at completion, a prefill-role retirement, a chain exported
+    and adopted into a second pool, and the host tier saved and loaded.
+    ``mod`` holds one package's pool, scheduler and digests."""
+    store, log = {}, []
+
+    def spill_fn(pairs):
+        log.append(("spill", [b for b, _ in pairs]))
+        store.update({h: b for b, h in pairs})
+
+    def drop_fn(h):
+        log.append(("drop", store.pop(h, None)))
+
+    def pool_of():
+        return mod["pool"](10, 4, prefix_cache=True, spill_blocks=3,
+                           spill_fn=spill_fn, drop_fn=drop_fn)
+
+    pool = pool_of()
+    sched = mod["sched"](2, pool, 40, role="unified")
+    widths = (4, 8, 16)
+
+    def width(n):
+        return next(b for b in widths if n <= b)
+
+    rng = np.random.default_rng(0)
+    pa, pb, pc = (list(map(int, rng.integers(1, 90, 8))) for _ in range(3))
+    waves = [[pa + [1, 2], pa + [3]], [pb + [4, 5, 6]], [pc + [7]],
+             [pa + [1, 2, 8], pa + [1]], [pb + [4, 5, 6]], [pa + [3]]]
+    now = 0.0
+    for w, wave in enumerate(waves):
+        for p in wave:
+            sched.submit(mod["req"](prompt=p, max_new_tokens=5), now)
+        while not sched.idle:
+            now += 1.0
+            for st in sched.admit(now, width, suffix_bucket_of=width,
+                                  cover_tokens=48):
+                log.append(("admit", st.request.request_id, st.slot,
+                            tuple(st.cached_blocks), tuple(st.blocks),
+                            st.cached_len, st.decode_route,
+                            tuple(st.promoted), st.bucket))
+                sched.publish_prefix(st, len(st.request.prompt))
+            for st in list(sched.active):
+                st.generated = [50 + w] * 5
+                if w == 2:  # the prefill role's retirement
+                    sched.complete_handoff(st.slot, now,
+                                           written=len(st.request.prompt))
+                else:
+                    sched.complete(st.slot, now)
+        log.append(("wave", w, _pool_state(pool), sched.stats(),
+                    sched.gauges(now), round(sched.prefix_hit_rate(), 9)))
+    for p in (pa + [1, 2], pb + [4, 5, 6, 9], pc):
+        digests, ids = pool.export_chain(p)
+        log.append(("export", digests, ids, pool.match_len(p),
+                    pool.match_digests(digests)))
+    adopter = pool_of()
+    digests, ids = pool.export_chain(pa + [1, 2, 8, 9])
+    blocks = adopter.alloc(len(ids))
+    log.append(("adopt", adopter.adopt_chain(pa + [1, 2, 8, 9], blocks),
+                adopter.match_digests(digests), _pool_state(adopter)))
+    path = str(tmp / f"host_{mod['name']}.pkl")
+    log.append(("save", pool.save_host_store(path, store, meta={"m": 1})))
+    fresh = pool_of()
+    loaded = fresh.load_host_store(path, expect_meta={"m": 1})
+    log.append(("load", sorted(loaded.items()), _pool_state(fresh)))
+    return log
+
+
+def test_scheduler_replays_a_trie_trace_to_the_same_state(tmp_path):
+    from distributeddeeplearning_tpu.serving.scheduler import (
+        Scheduler as JaxSched,
+    )
+
+    got = _drive_trie({"pool": KVBlockPool, "sched": Scheduler,
+                       "req": Request, "name": "port"}, tmp_path)
+    want = _drive_trie({"pool": JaxPool, "sched": JaxSched,
+                        "req": JaxRequest, "name": "jax"}, tmp_path)
+    assert got == want
+    kinds = {e[0] for e in got}
+    assert {"spill", "drop", "export", "adopt", "save",
+            "load"} <= kinds
+    admits = [e for e in got if e[0] == "admit"]
+    assert any(e[6] for e in admits), "no full-prefix (decode route) hit"
+    assert any(e[7] for e in admits), "no promotion from the host tier"
+    assert any(e[5] and not e[6] for e in admits), "no partial hit"
+
+
 def test_sampled_request_is_independent_of_batchmates(weights):
     _, params = weights
     model = _port_model(params)
@@ -186,12 +290,8 @@ def _serve_cfg(**serving):
 
 
 _REFUSED = {
-    "quant": dict(quant="int8"),
-    "speculation": dict(speculation="ngram:2", attn_kernel="reference"),
-    "prefix_cache": dict(prefix_cache=True),
-    "spill_blocks": dict(prefix_cache=True, spill_blocks=4),
-    "role": dict(prefix_cache=True, role="decode"),
     "replicas": dict(replicas=2),
+    "prefill_replicas": dict(prefix_cache=True, prefill_replicas=1),
 }
 
 
@@ -205,23 +305,16 @@ def test_unported_knobs_are_refused_by_name(weights, knob):
         ServingEngine(_port_model(weights[1]), cfg.serving, device="cpu")
 
 
-@pytest.mark.parametrize("case", ["fleet", "telemetry", "static",
-                                  "engine_tel"])
-def test_other_unported_paths_are_refused(weights, tmp_path, case):
-    cfg = _serve_cfg()
+@pytest.mark.parametrize("case", ["fleet", "fleet_split"])
+def test_other_unported_paths_are_refused(case):
     if case == "fleet":
         with pytest.raises(NotImplementedError, match="--fleet 2 not yet"):
-            check_serving_composition(cfg, fleet=2)
-    elif case == "telemetry":
-        cfg = apply_overrides(cfg, ["telemetry.enabled=true"])
-        with pytest.raises(NotImplementedError, match="telemetry"):
-            check_serving_composition(cfg)
+            check_serving_composition(_serve_cfg(), fleet=2)
     else:
-        kw = ({"static_batching": True} if case == "static"
-              else {"telemetry": object()})
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            ServingEngine(_port_model(weights[1]), cfg.serving,
-                          device="cpu", **kw)
+        cfg = _serve_cfg(prefix_cache=True, prefill_replicas=1)
+        with pytest.raises(NotImplementedError,
+                           match="prefill_replicas=1.*not yet ported"):
+            check_serving_composition(cfg, fleet=2)
 
 
 def test_cli_serve_restores_the_checkpoint(tmp_path):
