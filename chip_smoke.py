@@ -6,6 +6,9 @@ Run from the repository root on a machine with one NVIDIA H100:
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py --quick    # device, build, kernels vs plain only
                                      # (phases 1-3, 6 and 9; no result line)
+    python3 chip_smoke.py --fleets   # device, build, phase 4's references
+                                     # and phase 43's fleets alone on the
+                                     # card (no result line)
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
@@ -26,8 +29,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      ``configs/gpt2_owt.py`` at 124M width (byte tokenizer), with the fp and
      the int8 KV pool, then with the prefix cache, a host spill tier, int8
      weights and the telemetry bundle (its trace, spans and stats files and
-     the record's ``telemetry``); the launch counts must equal decode calls
-     x layers;
+     the record's ``telemetry``), then at fp32 with the prefix cache and
+     the int8 pool on a shared 64-byte system prompt (phase 43's
+     role-split reference); the launch counts must equal decode calls x
+     layers;
   5. serve at full width: the engine on GPT-2 124M (vocab 50257, bf16),
      decode tokens/s and p50 decode-step time with each pool, then an fp32
      pair, kernel against gather, that must agree token for token; then
@@ -42,8 +47,13 @@ Phases, in order; any failure raises and the script exits non-zero:
      speculation off (acceptance, tokens a verify step); a prefill-role
      engine handing off to a decode-role engine, tokens equal to the
      unified run; int8 weights, resident bytes against fp32's and tokens
-     equal to an fp engine on the dequantized weights; every run's paged
-     kernel launches equal its decode calls x layers;
+     equal to an fp engine on the dequantized weights; then
+     ``serving.replicas=2`` behind the router on the fp32 weights:
+     ``least_loaded`` over the shared-prefix trace, and ``prefix_affinity``
+     with the cache on over two prompt families (each family kept on its
+     replica), tokens equal to one engine's, each replica's launches equal
+     to its decode calls x layers; every run's paged kernel launches equal
+     its decode calls x layers;
   6. training kernels vs plain: flash fwd / dq / dkv and fused AdamW against
      their plain torch versions at GPT-2 124M training shapes (bf16 causal
      [384, 1024, 64]), the bf16 kernels' other mask paths (per-row limits,
@@ -340,6 +350,20 @@ Phases, in order; any failure raises and the script exits non-zero:
      dp=4, dcn_dp=2, int8 in 25 MiB buckets, 4 x 1024, 2 steps: losses
      finite and equal on every rank, every residual non-zero, exact
      launches a rank, and the sync's wire bytes by bucket and by phase.
+  43. the serving fleet, three ``cli serve --fleet 2`` runs in
+     subprocesses started in a thread when phase 34's group starts (the
+     card is mostly idle under the group's host-staged gloo) and checked
+     after phase 42 (``check_fleets``): the fp pool on phase 4's prompts;
+     the role split (``serving.prefill_replicas=1``, the prefix cache, the
+     int8 pool, fp32, one block a KV frame), whose decode worker's
+     ``paged_decode_q8`` reads blocks adopted from socket frames; and
+     ``serving.fault_injection=worker_crash:4`` on worker 0, restarted
+     once by the fleet supervisor. Each: exit code 0 and every worker's 0,
+     tokens equal to its phase-4 in-process engine's, every worker's paged
+     launches equal to its decode calls x layers (its ``worker_launches``
+     line), no request failed or delivered twice; the seconds, tokens/s,
+     p50 TTFT and end-to-end, workers' ready seconds and the restart's
+     recovery seconds.
 Phase 3 also holds the paged kernels at Llama-300M's decode shape (16 q
 heads over 8 KV heads: bf16 and int8 pools with bf16 q at 2e-2, an fp32
 twin at 2e-5), and phase 6 the flash kernels at its training shape, bf16
@@ -353,8 +377,8 @@ microbatch's [192, 128, 64] ragged; each error's share of its tolerance
 is printed.
 Each phase's banner gives the seconds since the start. Before the last
 line come the kernels record, the card's name and power limit, the five
-benchmark records, phase 32's generate record and phase 5's serving
-features record; the last line is
+benchmark records, phase 32's generate record, phase 5's serving
+features record and phase 43's fleet record; the last line is
 ``{"ok": true, "device": {...}}``. No GPU means no result line and a
 non-zero exit: nothing here falls back to the CPU.
 """
@@ -687,13 +711,24 @@ def check_kernels(torch, pa):
 # ---------------------------------------------------------------------------
 
 
-def cli_serve(cli, kv_quant, config=CONFIG, extra=()):
-    """``cli serve`` in-process on ``config`` with the byte tokenizer, the
-    paged kernels and ``kv_quant`` (and ``extra`` overrides): its
-    record."""
-    prompts = ["The H100 decodes", "paged attention reads the pool in place",
-               "hello", "continuous batching over four lanes",
-               "GPT-2 124M"]
+SERVE_PROMPTS = ["The H100 decodes", "paged attention reads the pool in place",
+                 "hello", "continuous batching over four lanes",
+                 "GPT-2 124M"]
+# The role-split fleet's prompts: a shared 64-byte system prompt (4 blocks
+# of 16) and distinct questions, so each handoff ships several blocks.
+SPLIT_PROMPTS = [
+    "You are a terse assistant on an H100. Answer in one short line. " + q
+    for q in ("What is paged attention?", "Why split prefill and decode?",
+              "hi", "Name a KV cache codec.", "How big is GPT-2 124M?")]
+# Phase 4's role-split reference and fleet: fp32 weights (the roles'
+# suffix prefill and a unified engine's cold prefill agree token for token
+# at fp32, as phase 5 holds), the prefix cache, the int8 pool.
+SPLIT_OVERRIDES = ("model.kwargs.dtype=float32", "serving.prefix_cache=true")
+
+
+def serve_argv(kv_quant, config=CONFIG, extra=(), prompts=SERVE_PROMPTS):
+    """``cli serve``'s argv on ``config`` with the byte tokenizer, the
+    paged kernels and ``kv_quant`` (and ``extra`` overrides)."""
     argv = ["serve", "--config", config, "--device", "cuda"]
     for o in OVERRIDES + ["model.kwargs.vocab_size=256",
                           "serving.attn_kernel=pallas",
@@ -701,7 +736,12 @@ def cli_serve(cli, kv_quant, config=CONFIG, extra=()):
         argv += ["--override", o]
     for p in prompts:
         argv += ["--prompt", p]
-    argv += ["--max-new-tokens", "24"]
+    return argv + ["--max-new-tokens", "24"]
+
+
+def cli_serve(cli, kv_quant, config=CONFIG, extra=(), prompts=SERVE_PROMPTS):
+    """``cli serve`` in-process (:func:`serve_argv`): its record."""
+    argv = serve_argv(kv_quant, config, extra, prompts)
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         rc = cli.main(argv)
@@ -711,6 +751,7 @@ def cli_serve(cli, kv_quant, config=CONFIG, extra=()):
     res = rec["results"]
     if len(res) != len(prompts) or any(r["new_tokens"] != 24 for r in res):
         raise AssertionError(f"cli serve ({kv_quant}): incomplete {res}")
+    rec["tokens"] = [r["generated"] for r in res]
     print(f"cli serve {os.path.basename(config)} kv_quant={kv_quant} "
           f"{' '.join(extra)}: {json.dumps([r['completion'] for r in res])} "
           f"decode calls {rec['stats']['calls']['decode']}", flush=True)
@@ -1077,6 +1118,12 @@ def serving_features(torch, pa, cli, ServingEngine, ServingConfig, Request,
     print(f"roles: {json.dumps(rec['roles'])}; tokens equal to unified",
           flush=True)
 
+    # serving.replicas=2 behind the router, on the same fp32 weights.
+    from distributeddeeplearning_tpu_torch.serving import ReplicaRouter
+
+    rec["replicas"] = replica_runs(torch, pa, ServingEngine, ReplicaRouter,
+                                   ServingConfig, Request, model32, off)
+
     # int8 weights: resident bytes, and tokens equal to an fp engine on the
     # dequantized weights.
     q8 = models.get_model(cfg.model.name, **{
@@ -1096,6 +1143,228 @@ def serving_features(torch, pa, cli, ServingEngine, ServingConfig, Request,
     print(f"quant=int8: {json.dumps(rec['quant_int8'])}; fp32 tokens equal "
           "to the dequantized fp engine's", flush=True)
     return rec
+
+
+# ---------------------------------------------------------------------------
+# 5. and 43. the serving fleet: replicas in-process, worker processes
+# ---------------------------------------------------------------------------
+
+
+def replica_runs(torch, pa, ServingEngine, ReplicaRouter, ServingConfig,
+                 Request, model32, off):
+    """Phase 5's replica runs (fp32, phase 5's engine setting,
+    ``serving.replicas=2``): ``least_loaded`` over the shared-prefix trace,
+    tokens equal to the single engine's ``off``; then ``prefix_affinity``
+    with the cache on over two prompt families (two requests first, one a
+    family, then the rest once their prefixes are published): each family
+    on one replica, tokens equal to a single engine's. Each replica's
+    paged launches equal its decode calls x layers. Returns the record."""
+    import numpy as np
+
+    start = time.perf_counter()
+    rng = np.random.default_rng(1)
+    other = list(map(int, rng.integers(0, model32.vocab_size, PREFIX_LEN)))
+    trace = prefix_trace(model32.vocab_size)
+    families = [p for pair in zip(trace[:4], prefix_trace(
+        model32.vocab_size, 2, other)[:4]) for p in pair]
+    Engine = make_engine_cls(ServingEngine)
+    ref, _, _ = feature_run(torch, pa, Engine, ServingConfig, Request,
+                            model32, families, attn_kernel="pallas")
+    rec = {}
+    for policy, prompts, want, extra in (
+            ("least_loaded", trace, off, {}),
+            ("prefix_affinity", families, ref, PREFIX_ON)):
+        router = ReplicaRouter(model32, ServingConfig(**{
+            **FEATURE_SERVING, **extra, "replicas": 2,
+            "attn_kernel": "pallas", "router_policy": policy}),
+            seed=0, device="cuda")
+        router.warmup()
+        launched = [0, 0]
+        for r in router.replicas:  # count each replica's own launches
+            def counted(step=r.step, i=r.index):
+                before = sum(pa.LAUNCHES.values())
+                busy = step()
+                launched[i] += sum(pa.LAUNCHES.values()) - before
+                return busy
+            r.step = counted
+        t0 = time.perf_counter()
+        first = 2 if policy == "prefix_affinity" else len(prompts)
+        for i, p in enumerate(prompts[:first]):
+            router.submit(Request(prompt=list(p), max_new_tokens=PREFIX_NEW,
+                                  request_id=i))
+        if first < len(prompts):
+            router.step()  # the first two prefill and publish their chains
+            for i, p in enumerate(prompts[first:], start=first):
+                router.submit(Request(prompt=list(p),
+                                      max_new_tokens=PREFIX_NEW,
+                                      request_id=i))
+        got = {s.request.request_id: list(s.generated) for s in router.run()}
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        same_tokens(f"replicas=2 {policy} vs one engine", got, want)
+        calls = [r.engine.calls["decode"] for r in router.replicas]
+        want_launches = [c * model32.num_layers for c in calls]
+        if launched != want_launches or not all(launched):
+            raise AssertionError(
+                f"replicas=2 {policy}: launches {launched} != decode calls "
+                f"x layers {want_launches}")
+        routes = [router.routes[i] for i in range(len(prompts))]
+        if policy == "prefix_affinity" and routes != [0, 1] * 4:
+            raise AssertionError(f"prefix_affinity routes {routes}: each "
+                                 "family should stay on its replica")
+        st = router.stats()
+        rec[policy] = {"routes": routes, "decode_calls": calls,
+                       "launches": launched, "wall_s": wall,
+                       "num_compiles": st["num_compiles"],
+                       "tokens_per_s": sum(map(len, got.values())) / wall}
+        print(f"replicas=2 {policy}: {json.dumps(rec[policy])}; tokens "
+              "equal to one engine's", flush=True)
+    print(f"fleet check seconds: replica runs "
+          f"{time.perf_counter() - start:.1f}", flush=True)
+    return rec
+
+
+# The three worker-process fleets of phase 43 (each ``cli serve --fleet 2``
+# in a subprocess, started with phase 34's group and checked after it):
+# (name, kv_quant, extra overrides, prompts, the phase-4 record whose
+# tokens it must equal, restarts expected).
+FLEETS = (
+    ("fleet_fp", "off", (), SERVE_PROMPTS, "off", 0),
+    ("fleet_split", "int8", SPLIT_OVERRIDES + (
+        "serving.prefill_replicas=1", "serving.handoff_blocks_per_frame=1"),
+     SPLIT_PROMPTS, "split", 0),
+    ("fleet_crash", "off", ("serving.fault_injection=worker_crash:4",),
+     SERVE_PROMPTS, "off", 1),
+)
+
+
+def start_fleets(nice=True):
+    """Run the three fleets one after another on a thread (each parent a
+    subprocess that touches no device; its two workers share the card):
+    returns the thread and the dict it fills with (rc, stdout, stderr,
+    seconds) by name. With ``nice`` the fleets run at a lower CPU priority,
+    so the phase they run beside keeps the host's cores; they have that
+    phase's minutes to finish in."""
+    import threading
+
+    out = {}
+
+    def run():
+        for name, q, extra, prompts, _, _ in FLEETS:
+            low = (["nice", "-n", "10"] if nice and shutil.which("nice")
+                   else [])
+            argv = [*low, sys.executable, "-m",
+                    "distributeddeeplearning_tpu_torch.cli",
+                    *serve_argv(q, extra=extra, prompts=prompts),
+                    "--fleet", "2"]
+            t0 = time.perf_counter()
+            try:
+                p = subprocess.run(argv, cwd=ROOT, capture_output=True,
+                                   text=True, timeout=400)
+                out[name] = (p.returncode, p.stdout, p.stderr,
+                             time.perf_counter() - t0)
+            except subprocess.TimeoutExpired as exc:
+                out[name] = (124, exc.stdout or "", exc.stderr or "",
+                             time.perf_counter() - t0)
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    return t, out
+
+
+def check_fleets(out, refs, layers):
+    """Phase 43: each fleet exited 0 with every worker's exit code 0, its
+    greedy tokens equal to its phase-4 reference, every worker's paged
+    launches equal to its decode calls x layers (the pool's kernel; none
+    of the other), the role-split fleet's handoffs in several parts with
+    every block its prefill worker exported adopted by its decode worker
+    (none fell back to a cold prefill, so ``paged_decode_q8`` read the
+    blocks that came over the socket), and the crash fleet's one restart with every request delivered exactly
+    once. Returns the record and each kernel's launches in the workers."""
+    rec, total = {}, {"paged_decode": 0, "paged_decode_q8": 0}
+    for name, q, _, _, ref, restarts in FLEETS:
+        if name not in out:
+            raise AssertionError(f"{name}: did not run")
+        rc, stdout, stderr, secs = out[name]
+        lines = stdout.strip().splitlines()
+        if rc != 0:
+            raise AssertionError(f"{name}: exit {rc}\n" + "\n".join(
+                lines[-20:]) + "\n" + stderr[-4000:])
+        res = json.loads(lines[-1])
+        tokens = [r["generated"] for r in res["results"]]
+        if tokens != refs[ref]:
+            raise AssertionError(f"{name}: tokens {tokens} != the "
+                                 f"in-process engine's {refs[ref]}")
+        st, sup = res["stats"], res["supervisor"]
+        if (any(res["worker_exit_codes"]) or st["duplicate_deliveries"]
+                or st["failed"] or sup["restarts"] != restarts):
+            raise AssertionError(
+                f"{name}: exit codes {res['worker_exit_codes']}, "
+                f"duplicates {st['duplicate_deliveries']}, failed "
+                f"{st['failed']}, restarts {sup['restarts']} (want "
+                f"{restarts})")
+        kernel = "paged_decode_q8" if q == "int8" else "paged_decode"
+        workers = []
+        for line in lines:
+            m = re.match(r"\[w(\d)\] (\{.*\})$", line)
+            if m and '"worker_launches"' in line:
+                w = json.loads(m.group(2))
+                want = {"paged_decode": 0, "paged_decode_q8": 0,
+                        kernel: w["calls"]["decode"] * layers}
+                if w["launches"] != want:
+                    raise AssertionError(f"{name} worker {w['replica']}: "
+                                         f"launches {w['launches']} != "
+                                         f"{want}")
+                for k, v in w["launches"].items():
+                    total[k] += v
+                workers.append({k: w[k] for k in (
+                    "replica", "attempt", "role", "calls", "launches",
+                    "handoff")})
+        # Every process that exited cleanly reported: one per worker slot,
+        # a crashed process's replacement reporting in its place.
+        if len(workers) != 2:
+            raise AssertionError(f"{name}: {len(workers)} launch reports")
+        if sum(w["calls"]["decode"] for w in workers) == 0:
+            raise AssertionError(f"{name}: no decode step ran")
+        if name == "fleet_split":
+            if not st["handoff_parts"] > st["handoffs"] > 0:
+                raise AssertionError(f"{name}: handoffs {st['handoffs']} "
+                                     f"in {st['handoff_parts']} parts")
+            by_role = {w["role"]: w["handoff"] for w in workers}
+            sent, got = by_role.get("prefill"), by_role.get("decode")
+            if sent is None or got is None:
+                raise AssertionError(f"{name}: roles {sorted(by_role)}")
+            if (got["adopt_fallbacks"] or not got["adopt_blocks"]
+                    or not sent["export_blocks"]
+                    or got["adopt_blocks"] + got["adopt_skipped_blocks"]
+                    != sent["export_blocks"]):
+                raise AssertionError(
+                    f"{name}: the decode worker adopted "
+                    f"{got['adopt_blocks']} blocks and skipped "
+                    f"{got['adopt_skipped_blocks']} of the "
+                    f"{sent['export_blocks']} exported, with "
+                    f"{got['adopt_fallbacks']} cold-prefill fallbacks")
+        if name == "fleet_crash" and not (st["retried"] + st["rerouted"]):
+            raise AssertionError(f"{name}: nothing retried or rerouted")
+        new = sum(len(t) for t in tokens)
+        rec[name] = {
+            "seconds": secs, "serve_s": res["serve_s"],
+            "tokens_per_s": new / res["serve_s"],
+            "p50_ttft_s": statistics.median(
+                r["ttft_s"] for r in res["results"]),
+            "p50_e2e_s": statistics.median(
+                r["e2e_s"] for r in res["results"]),
+            "worker_ready_s": res["worker_ready_s"],
+            "restart_records": sup["restart_records"],
+            "retried": st["retried"], "rerouted": st["rerouted"],
+            "handoffs": st["handoffs"], "handoff_parts": st["handoff_parts"],
+            "handoff_bytes": sum(w["handoff"]["export_bytes"]
+                                 for w in workers),
+            "workers": workers,
+        }
+        print(f"{name}: {json.dumps(rec[name])}; tokens equal to the "
+              f"in-process engine's", flush=True)
+    return rec, total
 
 
 # ---------------------------------------------------------------------------
@@ -5161,6 +5430,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
                     help="stop after the kernels-vs-plain phase")
+    ap.add_argument("--fleets", action="store_true",
+                    help="after the build, run phase 43's three fleets "
+                    "alone on the card (no other phase beside them) "
+                    "against phase 4's two in-process references")
     args = ap.parse_args(argv)
     import tempfile
 
@@ -5212,6 +5485,21 @@ def main(argv=None) -> int:
     check_tensor_core_build(_build)
     check_paged_build(_build)
 
+    if args.fleets:
+        phase("43 the serving fleet alone")
+        scfg = apply_overrides(load_config(CONFIG), OVERRIDES)
+        layers = models.get_model(scfg.model.name, **scfg.model.kwargs,
+                                  device="meta").num_layers
+        refs = {"off": cli_serve(cli, "off")["tokens"],
+                "split": cli_serve(cli, "int8", extra=SPLIT_OVERRIDES,
+                                   prompts=SPLIT_PROMPTS)["tokens"]}
+        fleet_thread, fleet_out = start_fleets(nice=False)
+        fleet_thread.join(timeout=600)
+        if fleet_thread.is_alive():
+            raise AssertionError("the fleets did not finish in 600 s")
+        check_fleets(fleet_out, refs, layers)
+        return 0  # a partial run prints no result line
+
     phase("3 kernels vs plain")
     kres = check_kernels(torch, pa)
 
@@ -5229,9 +5517,18 @@ def main(argv=None) -> int:
                               device="meta").num_layers
     tel_dir = tempfile.TemporaryDirectory()  # the telemetry bundle's
     pa.reset_launches()  # the main path's count starts here
-    calls_off = cli_serve(cli, "off")["stats"]["calls"]["decode"]
+    served = cli_serve(cli, "off")
+    calls_off = served["stats"]["calls"]["decode"]
     calls_q8 = cli_serve(cli, "int8")["stats"]["calls"]["decode"]
     calls_off += cli_serve_features(cli, tel_dir.name)
+    # The role-split fleet's reference (phase 43): one unified engine.
+    t0 = time.perf_counter()
+    split = cli_serve(cli, "int8", extra=SPLIT_OVERRIDES,
+                      prompts=SPLIT_PROMPTS)
+    print(f"fleet check seconds: role-split reference "
+          f"{time.perf_counter() - t0:.1f}", flush=True)
+    calls_q8 += split["stats"]["calls"]["decode"]
+    fleet_refs = {"off": served["tokens"], "split": split["tokens"]}
     launches = dict(pa.LAUNCHES)
     tel_dir.cleanup()
     want = {"paged_decode": calls_off * layers,
@@ -5430,6 +5727,9 @@ def main(argv=None) -> int:
           "gpt2_pp (pp=4), then phase 36's cli train and the jobs of "
           "phases 35 and 37-42")
     tmp4 = tempfile.TemporaryDirectory()  # the group's saves
+    # Phase 43's worker-process fleets run beside the group, whose ranks
+    # leave the card mostly idle (host-staged gloo).
+    fleet_thread, fleet_out = start_fleets()
     group = four_rank_group(torch, parity, tmp4.name)
     pp_cli_train(torch, *group["pp_cli"])
     phase("35 pipelined jobs: bert_pp as shipped, fp32 gpt2_pp and bert_pp "
@@ -5494,7 +5794,17 @@ def main(argv=None) -> int:
     _, launched = dp_sync_launch(torch)
     for k, v in launched.items():
         launches[k] += v
-    print(f"chip_smoke: 42 phases in {time.perf_counter() - _T0:.1f} s",
+    phase("43 the serving fleet: cli serve --fleet 2 (fp pool), the "
+          "role-split fleet (int8 pool, KV frames over sockets) and "
+          "worker_crash on worker 0, run beside phase 34's group")
+    fleet_thread.join(timeout=600)
+    if fleet_thread.is_alive():
+        raise AssertionError("the fleets did not finish within 600 s of "
+                             "phase 42's end")
+    fleet_rec, launched = check_fleets(fleet_out, fleet_refs, layers)
+    for k, v in launched.items():
+        launches[k] += v
+    print(f"chip_smoke: 43 phases in {time.perf_counter() - _T0:.1f} s",
           flush=True)
 
     # Each kernel's numbers come from its case at the main path's types.
@@ -5523,6 +5833,7 @@ def main(argv=None) -> int:
     print(json.dumps({"generate": {k: v for k, v in gen_rec.items()
                                    if k != "results"}}))
     print(json.dumps({"serving_features": features}))
+    print(json.dumps({"fleet": fleet_rec}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -8,10 +8,14 @@ on one rank, or on every rank ``torchrun`` starts (one process per rank,
 ``eval`` evaluates its latest checkpoint; ``benchmark`` times the config's
 training step (``benchmark.run_benchmark``: images or tokens per second per
 GPU); ``generate`` samples from its latest checkpoint's weights with the
-KV-cache decoder (``generate.py``); ``serve`` runs the in-process serving
-engine on them; ``launch`` starts ``--num-processes`` ``cli train`` ranks
-of one job on this machine, as ``torchrun`` would. All run on the GPU by
-default; ``--device cpu`` asks for the CPU (and gloo under ``torchrun``).
+KV-cache decoder (``generate.py``); ``serve`` runs the serving engine on
+them — one engine, ``serving.replicas`` engines behind a router in this
+process, or ``--fleet N`` worker processes behind a router over sockets,
+supervised and restarted when one dies (``serving.prefill_replicas``
+splits the fleet into prefill and decode workers); ``launch`` starts
+``--num-processes`` ``cli train`` ranks of one job on this machine, as
+``torchrun`` would. All run on the GPU by default; ``--device cpu`` asks
+for the CPU (and gloo under ``torchrun``).
 """
 
 from __future__ import annotations
@@ -546,13 +550,28 @@ def cmd_generate(cfg: Config, prompts: list[str], max_new_tokens: int,
     return 0
 
 
+def _result_record(st) -> dict:
+    """One finished request as ``serve`` reports it: its metrics, the
+    prompt and completion as text (byte vocabulary) and the greedy ids."""
+    m = st.metrics()
+    m["prompt"] = bytes(st.request.prompt).decode("utf-8", "replace")
+    m["completion"] = bytes(
+        t for t in st.generated if 0 <= t < 256
+    ).decode("utf-8", errors="replace")
+    m["generated"] = [int(t) for t in st.generated]
+    return m
+
+
 def cmd_serve(cfg: Config, prompts: list[str], max_new_tokens: int,
               temperature: float, seed: int, *, top_k: int = 0,
               top_p: float = 0.0, device=None) -> int:
     """Serve a batch of prompts through the continuous-batching engine
-    (byte tokenizer: prompts are UTF-8 bytes, completions decoded back).
-    Prints one JSON record with completions, per-request latency metrics,
-    engine stats and the lifecycle event stream."""
+    (byte tokenizer: prompts are UTF-8 bytes, completions decoded back),
+    or with ``serving.replicas > 1`` through that many engine replicas
+    behind a ``ReplicaRouter`` (each with its own stamped telemetry bundle
+    in the shared dir). Prints one JSON record with completions (and each
+    request's token ids), per-request latency metrics, engine (or router)
+    stats and the lifecycle event stream."""
     from .serving import Request, ServingEngine, check_serving_composition
 
     # Composition fences FIRST (fail by name before any build).
@@ -587,36 +606,53 @@ def cmd_serve(cfg: Config, prompts: list[str], max_new_tokens: int,
         cfg, TrainState(step=0, params=dict(model.named_parameters()),
                         opt_state=None, rng=int(cfg.train.seed)),
         "serving from")
-    from .telemetry import Telemetry
+    from .telemetry import Telemetry, resolve_dir
 
-    tel = Telemetry.from_config(cfg)
-    engine = ServingEngine(model, cfg.serving, seed=seed, device=device,
-                           telemetry=tel)
-    engine.warmup()
-    for p in prompts:
-        engine.submit(Request(
-            prompt=list(p.encode("utf-8")), max_new_tokens=max_new_tokens,
-            temperature=temperature, top_k=top_k, top_p=top_p,
-        ))
-    finished = engine.run()
-    tel.write_trace()
-    results = []
-    for st in finished:
-        m = st.metrics()
-        m["prompt"] = bytes(st.request.prompt).decode("utf-8", "replace")
-        m["completion"] = bytes(
-            t for t in st.generated if 0 <= t < 256
-        ).decode("utf-8", errors="replace")
-        results.append(m)
+    requests = [
+        Request(prompt=list(p.encode("utf-8")), max_new_tokens=max_new_tokens,
+                temperature=temperature, top_k=top_k, top_p=top_p)
+        for p in prompts
+    ]
+    tel_extra = {}
+    if cfg.serving.replicas > 1:
+        # The router tier: N engine replicas behind gauge-driven dispatch.
+        # Each replica stamps its own telemetry bundle (process_index=i)
+        # into the shared dir, so no top-level bundle is built here (its
+        # p0 stamp would collide with replica 0's).
+        from .serving import ReplicaRouter
+
+        tdir = resolve_dir(cfg) if cfg.telemetry.enabled else None
+        router = ReplicaRouter(model, cfg.serving, seed=seed,
+                               telemetry_dir=tdir, device=device)
+        router.warmup()
+        for req in requests:
+            router.submit(req)
+        finished = router.run()
+        router.write_trace()
+        stats, events = router.stats(), router.events
+        if tdir:
+            tel_extra["telemetry_dir"] = tdir
+    else:
+        tel = Telemetry.from_config(cfg)
+        engine = ServingEngine(model, cfg.serving, seed=seed, device=device,
+                               telemetry=tel)
+        engine.warmup()
+        for req in requests:
+            engine.submit(req)
+        finished = engine.run()
+        tel.write_trace()
+        stats, events = engine.stats(), engine.events
+        if tel.enabled:
+            tel_extra["telemetry"] = tel.registry.to_dict()
+            tel_extra["telemetry_dir"] = tel.dir
+    results = [_result_record(st) for st in finished]
     record = {
         "step": state.step,
         "results": results,
-        "stats": engine.stats(),
-        "events": engine.events,
+        "stats": stats,
+        "events": events,
+        **tel_extra,
     }
-    if tel.enabled:
-        record["telemetry"] = tel.registry.to_dict()
-        record["telemetry_dir"] = tel.dir
     print(json.dumps(record))
     return 0
 
@@ -691,6 +727,267 @@ def _stream_prefixed(stream, prefix: str, out) -> None:
         out.write(prefix + line)
         out.flush()
     stream.close()
+
+
+def _fleet_plan(config: str, overrides: list[str], fleet: int, *,
+                host: str = "127.0.0.1", port_base: int = 0,
+                telemetry_dir: str | None = None,
+                spill_dir: str | None = None,
+                worker_args: list[str] | None = None,
+                base_env: dict | None = None,
+                roles: list[str] | None = None,
+                device: str | None = None):
+    """``[(cmd, env), ...]`` for every worker of ``cli serve --fleet N``
+    — pure (no process is spawned), so tests can pin the plan.
+
+    Workers are ``serving.worker`` runs (one ServingEngine process each)
+    with the ``cli launch`` child conventions: every child gets
+    ``DDL_PROCESS_INDEX=i`` (the telemetry stamp, so N workers sharing one
+    telemetry dir write non-clobbering artifacts) and the rank env of a
+    coordinated job is scrubbed — a fleet worker is single-process by
+    construction. ``device`` is every worker's ``--device`` (default: the
+    card); no worker is pinned to a device of its own.
+
+    ``roles`` (from ``serving.prefill_replicas``) pins worker ``i`` to
+    ``serving.role=roles[i]`` via a trailing override — trailing so it
+    wins over any user-supplied role — and scrubs the fleet-level
+    ``prefill_replicas`` knob (a child validates with ``fleet=1``, and
+    the split topology is the PARENT'S concern; the child only needs
+    its own phase). Because the plan is per-index, a supervisor respawn
+    re-runs plan[i] and the worker rejoins with its original role."""
+    import os
+
+    plan = []
+    for i in range(fleet):
+        cmd = [
+            sys.executable, "-m",
+            "distributeddeeplearning_tpu_torch.serving.worker",
+            "--config", config,
+            "--replica-index", str(i),
+            "--host", host,
+            "--port", str(port_base + i if port_base else 0),
+        ]
+        for o in overrides:
+            cmd += ["--override", o]
+        if roles is not None:
+            cmd += ["--override", f"serving.role={roles[i]}",
+                    "--override", "serving.prefill_replicas=0"]
+        if telemetry_dir:
+            cmd += ["--telemetry-dir", telemetry_dir]
+        if spill_dir:
+            # Per-worker KV spill checkpoint file: the fleet supervisor's
+            # restart re-warms worker i from exactly the store worker i
+            # checkpointed (indices are stable across restarts).
+            cmd += ["--spill-store",
+                    os.path.join(spill_dir, f"spill_w{i}.json")]
+        if device is not None:
+            cmd += ["--device", device]
+        if worker_args:
+            cmd += list(worker_args)
+        env = dict(os.environ if base_env is None else base_env)
+        for k in _RANK_ENV:
+            env.pop(k, None)
+        env["DDL_PROCESS_INDEX"] = str(i)
+        plan.append((cmd, env))
+    return plan
+
+
+def read_worker_ready(stream, *, echo=None) -> dict:
+    """Scan a worker's stdout for its single ``worker_ready`` JSON line
+    (passing any other output through ``echo``); raises on EOF."""
+    for line in iter(stream.readline, ""):
+        try:
+            rec = json.loads(line)
+        except ValueError:
+            rec = None
+        if isinstance(rec, dict) and rec.get("event") == "worker_ready":
+            return rec
+        if echo is not None:
+            echo(line)
+    raise RuntimeError(
+        "fleet worker exited before reporting worker_ready"
+    )
+
+
+def cmd_serve_fleet(args) -> int:
+    """``cli serve --fleet N``: spawn N ``serving.worker`` processes, dial
+    their sockets, and serve the prompt batch through a ReplicaRouter
+    whose replicas are SocketReplica transports — the cross-process
+    counterpart of the in-process ``serving.replicas`` path, with the same
+    dispatch, shed, drain and quarantine code. The parent is a process
+    babysitter and a socket client: it touches no device; the engines and
+    the card belong to the workers, each of which takes the parent's
+    ``--device``.
+
+    The parent runs a :class:`~.serving.fleet_supervisor.FleetSupervisor`
+    control loop: a worker that exits, drops its socket or goes
+    heartbeat-silent is classified (``supervisor.py``), its in-flight work
+    retried on the survivors under a bumped attempt epoch, and the process
+    restarted with exponential backoff (``serving.max_worker_restarts``,
+    ``restart_backoff_*``), re-warming its KV spill tier from the
+    ``--spill-store`` file it checkpointed. ``serving.prefill_replicas=K``
+    splits the fleet into K prefill and N-K decode workers. The exit code
+    is the workers' largest."""
+    import os
+    import subprocess
+    import tempfile
+    import threading
+    import time
+
+    from .serving import (
+        Request,
+        check_fleet_composition,
+        check_serving_composition,
+        connect_fleet,
+    )
+    from .serving.fleet_supervisor import FleetSupervisor
+    from .serving.worker import ATTEMPT_ENV
+    from .telemetry import resolve_dir
+
+    cfg = apply_overrides(load_config(args.config), args.override)
+    # Composition fences FIRST — fail by name before any child spawns.
+    # fleet=args.fleet arms the self-healing fences (fault injection is
+    # fleet-only; restart knobs must be sane).
+    check_serving_composition(cfg, fleet=args.fleet)
+    check_fleet_composition(cfg.serving, args.fleet)
+    if args.temperature > 0 and cfg.serving.speculation != "off":
+        raise NotImplementedError(
+            "cli serve --temperature > 0 x serving.speculation: "
+            "speculative serving is greedy-only — drop --temperature or "
+            "set serving.speculation=off"
+        )
+    if any(not p for p in args.prompt):
+        raise ValueError("prompt must be non-empty")
+    tdir = resolve_dir(cfg) if cfg.telemetry.enabled else None
+    # The KV re-warm chain needs a durable spill store per worker; only
+    # meaningful when the spill tier exists at all.
+    spill_dir = None
+    if cfg.serving.spill_blocks > 0:
+        spill_dir = tdir or tempfile.mkdtemp(prefix="ddl_fleet_spill_")
+    # Disaggregated topology: serving.prefill_replicas=K splits the
+    # fleet into K prefill + (N-K) decode workers (fenced above: 0 < K
+    # < fleet, prefix_cache on). Roles are pinned per plan index, so
+    # supervisor respawns preserve the topology.
+    pr = int(cfg.serving.prefill_replicas)
+    roles = (
+        ["prefill"] * pr + ["decode"] * (args.fleet - pr)
+        if pr > 0 else None
+    )
+    plan = _fleet_plan(
+        args.config, args.override, args.fleet,
+        host=cfg.serving.worker_host,
+        port_base=cfg.serving.worker_port,
+        telemetry_dir=tdir,
+        spill_dir=spill_dir,
+        roles=roles,
+        device=args.device,
+        worker_args=["--seed", str(args.seed)],
+    )
+    procs = [None] * args.fleet
+    threads, endpoints, ready_s = [], [], []
+
+    def _attach_stream(index, p):
+        t = threading.Thread(
+            target=_stream_prefixed,
+            args=(p.stdout, f"[w{index}] ", sys.stdout),
+            daemon=True,
+        )
+        t.start()
+        threads.append(t)
+
+    def _spawn_worker(index, attempt):
+        """FleetSupervisor spawn hook: (re)launch worker ``index`` as
+        restart ``attempt`` (stamped into $DDL_WORKER_ATTEMPT so one-shot
+        fault injection never re-fires on the respawned process) and
+        block until its ``worker_ready`` line."""
+        cmd, env = plan[index]
+        env = dict(env)
+        env[ATTEMPT_ENV] = str(attempt)
+        p = subprocess.Popen(
+            cmd, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True,
+        )
+        procs[index] = p
+        ready = read_worker_ready(
+            p.stdout,
+            echo=lambda line: sys.stdout.write(f"[w{index}] {line}"),
+        )
+        _attach_stream(index, p)
+        return p, ready
+
+    try:
+        # Initial boot stays parallel: spawn everyone, then collect the
+        # ready lines (the workers' builds and warmups overlap).
+        t0 = time.perf_counter()
+        for i, (cmd, env) in enumerate(plan):
+            env = dict(env)
+            env[ATTEMPT_ENV] = "0"
+            procs[i] = subprocess.Popen(
+                cmd, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True,
+            )
+        for i, p in enumerate(procs):
+            ready = read_worker_ready(
+                p.stdout,
+                echo=lambda line, i=i: sys.stdout.write(f"[w{i}] {line}"),
+            )
+            endpoints.append((ready["host"], ready["port"]))
+            ready_s.append(time.perf_counter() - t0)
+            _attach_stream(i, p)
+        router = connect_fleet(cfg.serving, endpoints)
+        supervisor = FleetSupervisor(
+            router, procs, _spawn_worker, cfg.serving,
+        )
+        t0 = time.perf_counter()
+        for p_text in args.prompt:
+            router.submit(Request(
+                prompt=list(p_text.encode("utf-8")),
+                max_new_tokens=args.max_new_tokens,
+                temperature=args.temperature,
+                top_k=args.top_k, top_p=args.top_p,
+            ))
+        finished = supervisor.run()
+        serve_s = time.perf_counter() - t0
+        stats, events = router.stats(), router.events
+        supervisor.shutdown()
+    except BaseException:
+        # A worker that never came up (a failed build, a crash in its
+        # boot) fails the run: stop the others now rather than let them
+        # wait for a router that will not dial.
+        for p in procs:
+            if p is not None and p.poll() is None:
+                p.kill()
+        raise
+    finally:
+        for p in procs:  # no worker outlives the parent
+            if p is None:
+                continue
+            try:
+                p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                p.kill()
+    rcs = [p.wait() for p in procs if p is not None]
+    for t in threads:
+        t.join(timeout=5)
+    sys.stdout.flush()
+    results = [_result_record(st) for st in finished]
+    record = {
+        "fleet": args.fleet,
+        "results": results,
+        "stats": stats,
+        "events": events,
+        "supervisor": supervisor.stats(),
+        "supervisor_events": supervisor.events,
+        "worker_exit_codes": rcs,
+        # Seconds from the spawn to each worker's ready line (read in
+        # index order), and from the first submit to the last result.
+        "worker_ready_s": ready_s,
+        "serve_s": serve_s,
+    }
+    if tdir:
+        record["telemetry_dir"] = tdir
+    print(json.dumps(record), flush=True)
+    return max(rcs) if rcs else 0
 
 
 def cmd_launch(args) -> int:
@@ -809,12 +1106,17 @@ def main(argv=None) -> int:
     common(p)
     p.add_argument(
         "--telemetry", nargs="?", const="", default=None, metavar="DIR",
-        help="enable telemetry (refused: not yet ported)",
+        help="enable the telemetry bundle (spans, histograms, gauges, the "
+        "programs' registry): sugar for telemetry.enabled=true, with DIR "
+        "as telemetry.dir when given",
     )
     sampling(p, "decodes by continuous batching over serving.slots lanes")
     p.add_argument(
         "--fleet", type=int, default=0,
-        help="cross-process fleet (refused: not yet ported)",
+        help="serve through N worker processes (serving.worker, one "
+        "engine each, on --device) behind a router over sockets, "
+        "supervised and restarted on a crash; serving.prefill_replicas=K "
+        "makes K of them prefill workers (0 = serve in this process)",
     )
     args = parser.parse_args(argv)
     if args.cmd == "launch":
@@ -843,11 +1145,11 @@ def main(argv=None) -> int:
         args.override = list(args.override) + ["telemetry.enabled=True"]
         if args.telemetry:
             args.override.append(f"telemetry.dir={args.telemetry}")
-    cfg = apply_overrides(load_config(args.config), args.override)
     if args.fleet:
-        from .serving import check_serving_composition
-
-        check_serving_composition(cfg, fleet=args.fleet)
+        # Before any device use: the parent is a babysitter and a socket
+        # client; the engines (and the card) belong to the workers.
+        return cmd_serve_fleet(args)
+    cfg = apply_overrides(load_config(args.config), args.override)
     return cmd_serve(
         cfg, args.prompt, args.max_new_tokens, args.temperature, args.seed,
         top_k=args.top_k, top_p=args.top_p, device=args.device,

@@ -59,8 +59,20 @@ The serving features, each as in the JAX engine:
   ``promote_stage``/``promote_wait`` and ``spec_accept`` histograms, the
   gauge digest and the programs' registry.
 
-Replicas, the router and the socket fleet are refused by name
-(:func:`check_serving_composition`, :class:`ServingEngine`).
+Replicas behind a router (``serving.replicas``, ``serving/router.py``) and
+the socket fleet of worker processes (``cli serve --fleet N``,
+``serving/worker.py``, ``serving/fleet_supervisor.py``) are built on this
+engine: :meth:`ServingEngine.drain` cuts its intake, and
+:meth:`ServingEngine.prefix_match_digests` /
+:meth:`ServingEngine.prefix_digest_summary` are the router's read-only
+probes of its trie.
+
+``num_compiles`` keeps the JAX engine's meaning: the distinct programs the
+engine has readied — the decode step, each prefill width (prompt and
+suffix buckets), the verify step — whether :meth:`ServingEngine.warmup`
+readied them or their first call did. Eager torch compiles nothing, so the
+count is of programs, not of builds; it equals the JAX engine's on the
+same config and trace, and steady traffic adds none.
 """
 
 from __future__ import annotations
@@ -93,13 +105,12 @@ SERVING_ROLES = ("unified", "prefill", "decode")
 SERVE_FAULT_KINDS = (
     "worker_crash", "worker_hang", "conn_drop", "heartbeat_stall"
 )
-_NOT_PORTED = "not yet ported to distributeddeeplearning_tpu_torch"
 # int8 spill codec granularity (elements a scale), as the reference's.
 _SPILL_QBLOCK = 256
 
 
 # ---------------------------------------------------------------------------
-# Composition fences: the reference's, unchanged, then the port's refusals
+# Composition fences: the reference's, unchanged
 # ---------------------------------------------------------------------------
 
 
@@ -309,25 +320,12 @@ def _check_fleet_healing(s, fleet: int) -> None:
         )
 
 
-def _refuse_unported(s) -> None:
-    """Refuse, by name, the knobs of the serving fleet (replicas behind a
-    router, role-split worker processes), which are not ported: a config
-    that asks for one must not silently get one engine."""
-    if int(s.replicas) > 1:
-        raise NotImplementedError(
-            f"serving.replicas={s.replicas} (replica router) {_NOT_PORTED}")
-    if int(s.prefill_replicas) > 0:
-        raise NotImplementedError(
-            f"serving.prefill_replicas={s.prefill_replicas} (role-split "
-            f"fleet) {_NOT_PORTED}")
-
-
 def check_serving_composition(cfg, *, fleet: int = 0) -> None:
     """Config-time composition fences for ``serve`` (fail BY NAME before any
     build): every fence of the JAX package's engine, unchanged — including
-    ``pallas x block_size % 8``, which the CUDA kernel would not need — and
-    the refusals of the fleet's knobs, which are not ported. ``cfg`` is the
-    full Config."""
+    ``pallas x block_size % 8``, which the CUDA kernel would not need.
+    ``fleet`` is ``cli serve --fleet N``'s N (0 = in-process serve).
+    ``cfg`` is the full Config."""
     name = cfg.model.name
     if name.endswith("_pp"):
         raise NotImplementedError(
@@ -423,7 +421,6 @@ def check_serving_composition(cfg, *, fleet: int = 0) -> None:
         )
     _check_speculation(s.speculation, s.block_size, kernel)
     _check_role(s.role, prefix_on, s.speculation)
-    _refuse_unported(s)
     pr = int(s.prefill_replicas)
     if pr < 0:
         raise ValueError(
@@ -441,7 +438,9 @@ def check_serving_composition(cfg, *, fleet: int = 0) -> None:
         if pr >= fleet:
             raise ValueError(
                 f"serving.prefill_replicas={pr} x fleet={fleet}: a split "
-                "fleet needs at least one decode replica"
+                "fleet needs at least one decode replica "
+                "(prefill_replicas < fleet) — no one would ever emit a "
+                "token"
             )
         if not prefix_on:
             raise ValueError(
@@ -455,8 +454,6 @@ def check_serving_composition(cfg, *, fleet: int = 0) -> None:
             f"{s.handoff_blocks_per_frame}"
         )
     _check_fleet_healing(s, fleet)
-    if fleet:
-        raise NotImplementedError(f"serve --fleet {fleet} {_NOT_PORTED}")
 
 
 def _lane_seed(seed: int, request_id: int) -> int:
@@ -491,7 +488,6 @@ class ServingEngine:
                 f"serving x attn_impl={model.attn_impl!r} (see "
                 "check_serving_composition)"
             )
-        _refuse_unported(cfg)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.clock = clock
@@ -640,6 +636,9 @@ class ServingEngine:
         # on the host included (the call ends in a device sync either way).
         self.decode_step_s: list[float] = []
         self.step_count = 0
+        # Programs readied (``num_compiles``) and the drain flag.
+        self._programs: set[str] = set()
+        self.draining = False
 
     def _new_pool(self, num_blocks: int) -> KVBlockPool:
         return KVBlockPool(num_blocks, self.block_size,
@@ -694,21 +693,38 @@ class ServingEngine:
                 tok[r] = torch.argmax(filtered[r] - torch.log(-torch.log(u)))
         return tok.to(torch.int32).cpu().numpy()
 
+    @property
+    def num_compiles(self) -> int:
+        """Distinct programs readied so far (module docstring): the JAX
+        engine's compile count on the same config and trace."""
+        return len(self._programs)
+
     def _first_call(self, name: str, t0: float) -> None:
-        """Register program ``name`` in the telemetry registry on its first
-        call, with that call's seconds (a kernel build included)."""
+        """Count program ``name`` as readied and register it in the
+        telemetry registry on its first call, with that call's seconds (a
+        kernel build included)."""
+        self._programs.add(name)
         if name not in self._tel.registry:
             self._tel.record_exe(name, None,
                                  compile_s=time.perf_counter() - t0)
 
     def warmup(self):
-        """Build the decode kernel now (a CUDA device with
-        ``attn_kernel='pallas'``), so the first decode step does not pay
-        the ``nvcc`` build."""
+        """Ready every program now: build the decode kernel (a CUDA device
+        with ``attn_kernel='pallas'``), so the first decode step does not
+        pay the ``nvcc`` build, and count the decode step, each prefill
+        width and (speculation on) the verify step as readied — the JAX
+        engine's compile pin, ``len(prompt_buckets) +
+        len(suffix_buckets) + 1`` programs (+1 with speculation), which
+        steady traffic never raises."""
         if self.attn_kernel == "pallas" and self.device.type == "cuda":
             from ..ops._build import load
 
             load("paged_attention")
+        self._programs.add("serving_decode")
+        if self.spec_k:
+            self._programs.add("serving_verify")
+        self._programs.update(
+            f"serving_prefill_{b}" for b in self._prefill_widths)
 
     # ------------------------------------------------------------------
     # pool rows as bytes: spill, promote, handoff
@@ -999,9 +1015,37 @@ class ServingEngine:
         the cache off)."""
         return self.scheduler.pool.match_len(list(prompt))
 
+    def prefix_match_digests(self, digests: list[bytes]) -> int:
+        """Cached-token count from pre-hashed chain digests
+        (``scheduler.chain_digests``): the router hashes a prompt once and
+        probes every replica with it. Matches through the host tier, like
+        admission."""
+        return self.scheduler.pool.match_digests(digests) * self.block_size
+
+    def prefix_digest_summary(self, limit: int = 0) -> list[bytes]:
+        """The trie's digest set (MRU first, capped at ``limit``) a fleet
+        worker ships in its heartbeat (``KVBlockPool.digest_summary``).
+        Empty with the cache off."""
+        return self.scheduler.pool.digest_summary(limit)
+
+    def drain(self) -> None:
+        """Cut intake: everything already accepted — queued and in flight
+        — runs to completion with the same tokens, and every new
+        :meth:`submit` is refused by name. Once :meth:`run` reaches idle
+        the pool's free list is back to the empty engine's and the replica
+        can leave the fleet."""
+        self.draining = True
+
     def submit(self, request: Request,
                now: float | None = None) -> RequestState:
-        """Enqueue one request (``now`` overrides the arrival stamp)."""
+        """Enqueue one request (``now`` overrides the arrival stamp: the
+        router stamps arrivals with its own clock)."""
+        if self.draining:
+            raise RuntimeError(
+                "ServingEngine is draining: in-flight requests run to "
+                "completion but new submissions are rejected — route to "
+                "another replica"
+            )
         self.bucket_of(len(request.prompt))  # fail before enqueueing
         if self.spec_k and request.temperature > 0:
             raise NotImplementedError(
@@ -1300,6 +1344,7 @@ class ServingEngine:
             "pages_per_seq": self.pages,
             "prompt_buckets": list(self.buckets),
             "suffix_buckets": list(self.suffix_buckets),
+            "num_compiles": self.num_compiles,
             "calls": dict(self.calls),
             "steps": self.step_count,
             "quant": self.quant_report,
@@ -1307,6 +1352,7 @@ class ServingEngine:
             "kv_bytes_per_token": self.block_bytes // self.block_size,
             "attn_kernel": self.attn_kernel,
             "max_prefills_per_step": self.max_prefills,
+            "draining": self.draining,
             "device": str(self.device),
             "speculation": None if not self.spec_k else {
                 "k": self.spec_k,

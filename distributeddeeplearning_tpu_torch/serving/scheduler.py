@@ -340,6 +340,25 @@ class KVBlockPool:
             n += 1
         return n
 
+    def digest_summary(self, limit: int = 0) -> list[bytes]:
+        """The trie's chain digests (both tiers), most-recently-used
+        first, capped at ``limit`` (0 = all). This is the summary a
+        fleet worker pushes in its heartbeat so the router's
+        ``prefix_affinity`` probe runs on a local set instead of a
+        cross-process round trip. A digest names its ENTIRE prefix
+        chain (``_block_hash`` chains through the parent), so plain set
+        membership router-side reproduces :meth:`match_digests` — no
+        tree structure needs to travel."""
+        if not self.prefix_cache or not self._cached:
+            return []
+        nodes = sorted(
+            self._cached.values(), key=lambda nd: nd.last_use,
+            reverse=True,
+        )
+        if limit:
+            nodes = nodes[:limit]
+        return [nd.chain_hash for nd in nodes]
+
     def acquire(self, blocks: list[int]) -> None:
         """Map cached blocks into a request: refcount+1 and LRU-touch the
         whole chain (one shared tick — a parent is never staler than its

@@ -62,7 +62,8 @@ def test_sources_exist():
             "prepare_data.py", "gpt2_moe.py", "llama_moe.py",
             "gpt2_owt_file.py", "generate.py", "health.py",
             "torch_launch_profile.py", "comms_quant.py", "comms_overlap.py",
-            "comms_hier.py"} <= names
+            "comms_hier.py", "supervisor.py", "net.py", "router.py",
+            "worker.py", "fleet_supervisor.py"} <= names
     csrc = {p.name for p in (PORT / "csrc").glob("*.cu")}
     assert {"paged_attention.cu", "flash_attention.cu",
             "fused_adamw.cu", "ring_attention.cu"} <= csrc

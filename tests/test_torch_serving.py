@@ -289,32 +289,91 @@ def _serve_cfg(**serving):
     )
 
 
-_REFUSED = {
-    "replicas": dict(replicas=2),
-    "prefill_replicas": dict(prefix_cache=True, prefill_replicas=1),
+# JAX's fences of the fleet's knobs: (serving overrides, fleet size, the
+# exception, its message). Each holds on the port and on the JAX package's
+# own check of the same config, with the same message.
+_FLEET_FENCES = {
+    "replicas_below_one": (dict(replicas=0), 0, ValueError,
+                           "serving.replicas must be >= 1"),
+    "prefill_replicas_in_process": (
+        dict(prefix_cache=True, prefill_replicas=1), 0, ValueError,
+        "prefill_replicas=1 x in-process serve"),
+    "prefill_replicas_whole_fleet": (
+        dict(prefix_cache=True, prefill_replicas=2), 2, ValueError,
+        "needs at least one decode replica"),
+    "prefill_replicas_without_cache": (
+        dict(prefill_replicas=1), 2, ValueError,
+        "prefill_replicas=1 x prefix_cache=False"),
 }
 
 
-@pytest.mark.parametrize("knob", sorted(_REFUSED))
-def test_unported_knobs_are_refused_by_name(weights, knob):
-    cfg = _serve_cfg(**_REFUSED[knob])
-    with pytest.raises(NotImplementedError,
-                       match=f"serving.{knob}.*not yet ported"):
-        check_serving_composition(cfg)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ServingEngine(_port_model(weights[1]), cfg.serving, device="cpu")
+def _jax_serve_cfg(**serving):
+    from distributeddeeplearning_tpu.config import (
+        Config as JaxConfig,
+        ModelConfig as JaxModelConfig,
+    )
+
+    return JaxConfig(
+        model=JaxModelConfig(name="gpt2", kwargs=dict(_KW)),
+        serving=dataclasses.replace(JaxServing(**_PALLAS), **serving),
+    )
 
 
-@pytest.mark.parametrize("case", ["fleet", "fleet_split"])
-def test_other_unported_paths_are_refused(case):
-    if case == "fleet":
-        with pytest.raises(NotImplementedError, match="--fleet 2 not yet"):
-            check_serving_composition(_serve_cfg(), fleet=2)
-    else:
-        cfg = _serve_cfg(prefix_cache=True, prefill_replicas=1)
-        with pytest.raises(NotImplementedError,
-                           match="prefill_replicas=1.*not yet ported"):
-            check_serving_composition(cfg, fleet=2)
+def _same_refusal(check, jax_check, exc, match):
+    with pytest.raises(exc, match=match) as ours:
+        check()
+    with pytest.raises(exc) as theirs:
+        jax_check()
+    assert str(ours.value) == str(theirs.value)
+
+
+@pytest.mark.parametrize("case", sorted(_FLEET_FENCES))
+def test_fleet_fences_are_jax_fences(case):
+    from distributeddeeplearning_tpu.serving import (
+        check_serving_composition as jax_check,
+    )
+
+    serving, fleet, exc, match = _FLEET_FENCES[case]
+    _same_refusal(
+        lambda: check_serving_composition(_serve_cfg(**serving), fleet=fleet),
+        lambda: jax_check(_jax_serve_cfg(**serving), fleet=fleet),
+        exc, match)
+
+
+@pytest.mark.parametrize("case,serving,exc,match", [
+    ("port", dict(worker_port=65535), ValueError, "overflows"),
+    ("heartbeat", dict(heartbeat_interval_s=0.5, heartbeat_timeout_s=0.4),
+     ValueError, "must exceed"),
+    ("static_batching", {}, NotImplementedError, "static_batching"),
+])
+def test_fleet_composition_fences_are_jax_fences(case, serving, exc, match):
+    from distributeddeeplearning_tpu.serving.worker import (
+        check_fleet_composition as jax_check,
+    )
+    from distributeddeeplearning_tpu_torch.serving.worker import (
+        check_fleet_composition,
+    )
+
+    static = case == "static_batching"
+    _same_refusal(
+        lambda: check_fleet_composition(
+            _serve_cfg(**serving).serving, 2, static_batching=static),
+        lambda: jax_check(_jax_serve_cfg(**serving).serving, 2,
+                          static_batching=static),
+        exc, match)
+
+
+def test_fleet_configs_pass_the_fences():
+    """What the fences accept: replicas behind a router, and a role-split
+    fleet of workers, on the port as on JAX."""
+    from distributeddeeplearning_tpu.serving import (
+        check_serving_composition as jax_check,
+    )
+
+    for serving, fleet in ((dict(replicas=2), 0), ({}, 2),
+                           (dict(prefix_cache=True, prefill_replicas=1), 2)):
+        check_serving_composition(_serve_cfg(**serving), fleet=fleet)
+        jax_check(_jax_serve_cfg(**serving), fleet=fleet)
 
 
 def test_cli_serve_restores_the_checkpoint(tmp_path):
