@@ -9,6 +9,8 @@ Run from the repository root on a machine with one NVIDIA H100:
     python3 chip_smoke.py --fleets   # device, build, phase 4's references
                                      # and phase 43's fleets alone on the
                                      # card (no result line)
+    python3 chip_smoke.py --chaos    # device, build, phases 44-45 alone
+                                     # on the card (no result line)
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
@@ -364,6 +366,38 @@ Phases, in order; any failure raises and the script exits non-zero:
      line), no request failed or delivered twice; the seconds, tokens/s,
      p50 TTFT and end-to-end, workers' ready seconds and the restart's
      recovery seconds.
+  44. supervised training: ``tools/torch_chaos_run.py``'s runs of ``cli
+     supervise`` on ``configs/gpt2_owt.py`` at 124M width (bf16, flash,
+     adamw_fused, the health guard on, 8 steps, a save every 2, the batch
+     cut to 8 x 1024, a 60 s hang timeout), started in three lanes of
+     threads when phase 34's group starts (subprocesses at ``nice 10``)
+     and checked here: ``nan:5`` skips one step in place (no restart, 8
+     finite losses); ``hang:7`` is killed (``supervisor_hang_kill``) and
+     restarted; ``corrupt:6`` (with ``--telemetry``) restores from the
+     save before the truncated one, restarts and disarms the fault, its
+     goodput file one record an attempt plus the backoff, a
+     ``fault_corrupt`` flight record and the ``goodput_summary`` printed;
+     a SIGTERM to the supervisor after step 3's record saves at the step
+     it stops at (exit 21, ``preempt_save``, ``preempted_exit``) and a
+     relaunch resumes there; every other run exits 0 at step 8. An
+     undisturbed run of the same overrides in this process launches each
+     flash kernel 12 x 8 times and fused_adamw 2 x 8; the hang, corrupt
+     and preempt recoveries' step-8 params and moments equal its bit for
+     bit (each a child in a process of its own). Then ``cli train`` with
+     ``train.debug_nans`` and ``nan:2`` raises FloatingPointError at step
+     2, and one ``paged_decode`` step under ``debug.bounds_checks`` with
+     a table entry at num_blocks leaves that row NaN, the others equal to
+     the step without it, and the card error-free. Each fault's recovery
+     seconds, the preempt save's and a restart's cold start are printed;
+  45. serving chaos: ``tools/torch_serve_chaos.py`` (a subprocess whose
+     workers run at ``nice 10``, started with phase 44) on GPT-2 124M's
+     width (vocab 256, max_len 160, the paged kernel): ``worker_crash``,
+     ``worker_hang``, ``conn_drop``, ``heartbeat_stall`` and the
+     exhaustion run over 2 workers, every pin of the reference held
+     (exactly once, tokens equal to the undisturbed oracle's, the
+     restarted worker re-warmed from its spill checkpoint and hit the
+     host tier, recovery within the bound) and each worker's launches
+     equal to its decode calls x layers; each kind's ``recovery_s``.
 Phase 3 also holds the paged kernels at Llama-300M's decode shape (16 q
 heads over 8 KV heads: bf16 and int8 pools with bf16 q at 2e-2, an fp32
 twin at 2e-5), and phase 6 the flash kernels at its training shape, bf16
@@ -378,7 +412,8 @@ is printed.
 Each phase's banner gives the seconds since the start. Before the last
 line come the kernels record, the card's name and power limit, the five
 benchmark records, phase 32's generate record, phase 5's serving
-features record and phase 43's fleet record; the last line is
+features record, phase 43's fleet record and phases 44-45's chaos
+record; the last line is
 ``{"ok": true, "device": {...}}``. No GPU means no result line and a
 non-zero exit: nothing here falls back to the CPU.
 """
@@ -5426,6 +5461,404 @@ def dp_sync_parity(torch, cli, load_config, apply_overrides, parity,
     return record, launched
 
 
+# ---------------------------------------------------------------------------
+# 44-45. supervised training and the chaos harnesses
+# ---------------------------------------------------------------------------
+
+# Phase 44: tools/torch_chaos_run.py's matrix through cli supervise on
+# configs/gpt2_owt.py at 124M width (bf16, flash, adamw_fused as shipped),
+# the health guard on, 8 steps, a save every 2. The batch is cut to 8 x
+# 1024 (phase 34's cut): the children share the card with phase 34's
+# group. The hang timeout must exceed the longest wait between two
+# heartbeats of a healthy child: its start (import, CUDA, the 124M draw)
+# or its cold first step (~9 s, ROADMAP A15.r). Spawn to a child's first
+# record took 28-40 s on an H100 beside phase 34's group, so 60 s.
+CHAOS_OVERRIDES = ("data.batch_size=8",)
+CHAOS_STEPS = 8
+CHAOS_HANG_TIMEOUT_S = 60
+# Three lanes of runs, one after another in each ("preempt" gets a
+# SIGTERM after step 3's record, then "relaunch" resumes it). An
+# undisturbed child was bit-equal to the in-process run on an H100, so
+# the recoveries are held to it bit for bit.
+CHAOS_LANES = (("hang:7",), ("corrupt:6", "nan:5"), ("preempt",))
+# Phase 45: tools/torch_serve_chaos.py's matrix on GPT-2 124M's width
+# (vocab 256, max_len 160), the paged kernel as the read path; the pool
+# allocated large enough for the 9 blocks the workers are cut to.
+SERVE_CHAOS_ARGS = ("--size", "124m", "--hbm-budget-mb", "64")
+
+
+def load_tool(name):
+    """A module of ``tools/`` by file name."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, "tools", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _keep_last(ck_dir, step):
+    """Delete every save of ``ck_dir`` but ``step``'s (disk)."""
+    for name in os.listdir(ck_dir) if os.path.isdir(ck_dir) else []:
+        if name != str(step) and (name.isdigit() or name.endswith(
+                ".corrupt")):
+            shutil.rmtree(os.path.join(ck_dir, name), ignore_errors=True)
+
+
+def start_chaos_train(tmp, nice=True):
+    """Phase 44's supervised runs, each lane of ``CHAOS_LANES`` on a thread
+    of its own (each supervisor a subprocess that touches no device; its
+    child trains on the card). Returns the threads and the dict they fill
+    with each run's result (``tools/torch_chaos_run.run_one``) by name."""
+    import signal
+    import threading
+
+    tool = load_tool("torch_chaos_run")
+    args = tool.parser().parse_args([
+        "--config", CONFIG, "--steps", str(CHAOS_STEPS),
+        "--hang-timeout", str(CHAOS_HANG_TIMEOUT_S), "--timeout", "420",
+        "--out", os.path.join(tmp, "status.json"),
+        *[x for o in CHAOS_OVERRIDES for x in ("--override", o)]])
+    args.compile_cache = os.path.join(tmp, "compile_cache")
+    prefix = (["nice", "-n", "10"] if nice and shutil.which("nice") else [])
+    out = {}
+
+    def run(name):
+        key = name
+        workdir = os.path.join(tmp, key.replace(":", "_"))
+        os.makedirs(workdir, exist_ok=True)
+        extra, hook = [], None
+        if name == "corrupt:6":
+            extra = ["--telemetry", os.path.join(workdir, "telemetry")]
+        if name == "preempt":
+            sent = {}
+
+            def hook(proc, rec):
+                if rec.get("step") == 3 and "loss" in rec and not sent:
+                    sent["t"] = time.monotonic()
+                    proc.send_signal(signal.SIGTERM)
+
+        t0 = time.monotonic()
+        fault = "" if name == "preempt" else name
+        res = tool.run_one(args, fault, workdir, on_record=hook,
+                           extra=extra, prefix=prefix)
+        res["workdir"] = workdir
+        if name == "preempt":
+            res["sigterm_s"] = round(sent.get("t", t0) - t0, 3)
+            out[name] = res
+            res = tool.run_one(args, "", workdir, prefix=prefix)
+            res["workdir"] = workdir
+            key = "relaunch"
+        _keep_last(os.path.join(workdir, "ckpt"), CHAOS_STEPS)
+        out[key] = res
+
+    def lane(names):
+        for name in names:
+            try:
+                run(name)
+            except Exception as exc:  # reported by check_chaos_train
+                out[name] = {"error": repr(exc)}
+
+    threads = [threading.Thread(target=lane, args=(names,), daemon=True)
+               for names in CHAOS_LANES]
+    for t in threads:
+        t.start()
+    return threads, out
+
+
+def _first_loss_after(timeline, t):
+    return next(ts for ts, rec in timeline if ts >= t and "loss" in rec)
+
+
+def _at(timeline, event, nth=0):
+    return [ts for ts, rec in timeline if rec.get("event") == event][nth]
+
+
+def chaos_reference(torch, cli, tmp):
+    """The undisturbed run of phase 44's overrides, in this process: its
+    flash and fused_adamw launches counted as phase 7 counts them, its
+    step-8 save's params and moments in host memory."""
+    from distributeddeeplearning_tpu_torch.ops import flash_attention as fa
+    from distributeddeeplearning_tpu_torch.ops import fused_adamw as fused
+
+    ck = os.path.join(tmp, "reference")
+    argv = ["train", "--config", CONFIG, "--device", "cuda"]
+    for o in (*CHAOS_OVERRIDES, f"train.steps={CHAOS_STEPS}",
+              "train.log_every=1", "train.save_every=2",
+              f"train.checkpoint_dir={ck}", "health.enabled=True"):
+        argv += ["--override", o]
+    fa.reset_launches()
+    fused.reset_launches()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    launched = {**fa.LAUNCHES, **fused.LAUNCHES}
+    want = {**{k: 12 * CHAOS_STEPS for k in fa.LAUNCHES},
+            "fused_adamw": 2 * CHAOS_STEPS}
+    losses = [r["loss"] for r in map(json.loads, (
+        x for x in buf.getvalue().splitlines() if x.startswith("{")))
+        if "loss" in r]
+    if rc != 0 or launched != want or len(losses) != CHAOS_STEPS:
+        raise AssertionError(f"phase 44 reference: rc {rc}, launches "
+                             f"{launched} (want {want}), losses {losses}")
+    state = torch.load(os.path.join(ck, str(CHAOS_STEPS), "state.pt"),
+                       map_location="cpu", weights_only=True)
+    shutil.rmtree(ck, ignore_errors=True)
+    print(f"chaos reference: losses {losses}; launches {launched}",
+          flush=True)
+    return {t: state[t] for t in ("params", "mu", "nu")}, launched
+
+
+def _state_diff(torch, ref, workdir):
+    """(bit-equal, the largest |difference|) of a run's step-8 save's
+    params and moments against ``ref``."""
+    state = torch.load(os.path.join(workdir, "ckpt", str(CHAOS_STEPS),
+                                    "state.pt"), map_location="cpu",
+                       weights_only=True)
+    equal, worst = True, 0.0
+    for tree, leaves in ref.items():
+        if set(state[tree]) != set(leaves):
+            raise AssertionError(f"{workdir}: {tree} leaves differ")
+        for k, v in leaves.items():
+            if not torch.equal(state[tree][k], v):
+                equal = False
+                worst = max(worst, float((state[tree][k].double()
+                                          - v.double()).abs().max()))
+    return equal, worst
+
+
+def check_chaos_train(torch, out, ref):
+    """Phase 44: every run exited 0 and reached step 8 (the preempted one
+    21, its relaunch 0 at step 8); nan:5 skipped one step in place with
+    every loss finite and no restart; hang:7 was killed and restarted;
+    corrupt:6 fell back to an earlier save, restarted and disarmed the
+    fault, and its telemetry holds one goodput record an attempt, the
+    backoff and a fault_corrupt flight record; the SIGTERM saved at the
+    step it was preempted at, and the relaunch resumed there. The hang,
+    corrupt and preempt recoveries' step-8 params and moments equal the
+    in-process reference's bit for bit. Returns the record."""
+    for name in ("nan:5", "hang:7", "corrupt:6", "preempt", "relaunch"):
+        r = out.get(name)
+        if r is None or "error" in r:
+            raise AssertionError(f"phase 44 {name}: {r}")
+    rec = {}
+    for name, r in out.items():
+        want = 21 if name == "preempt" else 0
+        if r["exit_code"] != want or (want == 0 and r["final_step"]
+                                      != CHAOS_STEPS):
+            raise AssertionError(
+                f"phase 44 {name}: exit {r['exit_code']} (want {want}), "
+                f"step {r['final_step']}\n{r['stderr_tail']}")
+        tl = r["timeline"]
+        marks = [ts for ts, x in tl if "loss" in x
+                 or x.get("event") == "supervisor_spawn"]
+        rec[name] = {"wall_s": r["wall_s"], "restarts": r["restarts"],
+                     "max_gap_s": max(b - a for a, b in zip(marks,
+                                                            marks[1:]))}
+    recs = {n: [x for _, x in r["timeline"]] for n, r in out.items()}
+    events = {n: [x["event"] for x in v if "event" in x]
+              for n, v in recs.items()}
+    nan = [x for x in recs["nan:5"] if "loss" in x]
+    if (out["nan:5"]["restarts"] or [x["skipped"] for x in nan]
+            != [0.0] * 5 + [1.0] + [0.0] * 2
+            or not all(math.isfinite(x["loss"]) for x in nan)):
+        raise AssertionError(f"phase 44 nan:5: {nan}")
+    ev = events["hang:7"]
+    if not (ev.index("fault_hang") < ev.index("supervisor_hang_kill")
+            < ev.index("supervisor_restart")) or "fault_disarmed" not in ev:
+        raise AssertionError(f"phase 44 hang:7: {ev}")
+    ev = events["corrupt:6"]
+    if (not {"fault_corrupt", "supervisor_restart", "fault_disarmed"}
+            <= set(ev) or "falling back" not in out["corrupt:6"][
+                "stderr_tail"]):
+        raise AssertionError(f"phase 44 corrupt:6: {ev}\n"
+                             f"{out['corrupt:6']['stderr_tail']}")
+    tdir = os.path.join(out["corrupt:6"]["workdir"], "telemetry")
+    with open(os.path.join(tdir, "goodput_p0.jsonl")) as f:
+        ledger = [json.loads(x) for x in f]
+    summary = [x for x in recs["corrupt:6"]
+               if x.get("event") == "goodput_summary"]
+    if ([(x["record"], x["attempt"]) for x in ledger]
+            != [("attempt", 0), ("backoff", 1), ("attempt", 1)]
+            or not os.path.exists(os.path.join(
+                tdir, "flight_fault_corrupt_p0_attempt0.json"))
+            or len(summary) != 1):
+        raise AssertionError(f"phase 44 telemetry: {ledger}, {summary}")
+    print(f"chaos goodput_summary: {json.dumps(summary[0])}", flush=True)
+    saves = [x for x in recs["preempt"] if x.get("event") == "preempt_save"]
+    exits = [x for x in recs["preempt"]
+             if x.get("event") == "preempted_exit"]
+    if len(saves) != 1 or len(exits) != 1 or not saves[0]["saved"]:
+        raise AssertionError(f"phase 44 preempt: {events['preempt']}")
+    n = saves[0]["step"]
+    resumed = [line for _, line in out["relaunch"]["text"]
+               if line.startswith("resumed from step")]
+    if resumed != [f"resumed from step {n}"]:
+        raise AssertionError(f"phase 44 relaunch: {resumed} (preempted "
+                             f"at {n})")
+    # Seconds from each run's own timeline.
+    tl = {name: r["timeline"] for name, r in out.items()}
+    for name, fault in (("hang:7", "fault_hang"),
+                        ("corrupt:6", "fault_corrupt")):
+        t_fault = _at(tl[name], fault)
+        t_spawn = _at(tl[name], "supervisor_spawn", 1)
+        first = _first_loss_after(tl[name], t_spawn)
+        rec[name].update(recovery_s=round(first - t_fault, 3),
+                         cold_start_s=round(first - t_spawn, 3))
+    rec["hang:7"]["detect_s"] = round(_at(tl["hang:7"],
+                                          "supervisor_hang_kill")
+                                      - _at(tl["hang:7"], "fault_hang"), 3)
+    rec["preempt"].update(step=n, save_s=round(
+        _at(tl["preempt"], "preempt_save") - out["preempt"]["sigterm_s"],
+        3))
+    rec["relaunch"]["cold_start_s"] = round(
+        _first_loss_after(tl["relaunch"], 0.0)
+        - _at(tl["relaunch"], "supervisor_spawn"), 3)
+    # The kernel gate: the recoveries against the in-process reference.
+    for name in ("hang:7", "corrupt:6", "relaunch"):
+        eq, worst = _state_diff(torch, ref, out[name]["workdir"])
+        if not eq:
+            raise AssertionError(f"phase 44 {name}: step-8 state differs "
+                                 f"from the reference by {worst}")
+        rec[name]["bit_equal"] = eq
+    for name, r in rec.items():
+        print(f"chaos {name}: {json.dumps(r)}", flush=True)
+    return rec
+
+
+def start_serve_chaos(tmp, nice=True):
+    """Phase 45: ``tools/torch_serve_chaos.py`` on a thread, a subprocess
+    whose router touches no device; its workers and oracle run on the
+    card, at ``nice 10`` with ``nice``. The router keeps its priority: a
+    starved router credits its own silence back to every worker and never
+    outs a stalled one. Returns the thread and the dict it fills."""
+    import threading
+
+    out = {}
+    path = os.path.join(tmp, "serve_chaos.json")
+
+    def run():
+        low = (["--nice", "10"] if nice and shutil.which("nice") else [])
+        t0 = time.perf_counter()
+        try:
+            p = subprocess.run(
+                [sys.executable, os.path.join(ROOT, "tools",
+                                              "torch_serve_chaos.py"),
+                 *SERVE_CHAOS_ARGS, *low, "--out", path],
+                cwd=ROOT, capture_output=True, text=True, timeout=900)
+            out.update(rc=p.returncode, stdout=p.stdout, stderr=p.stderr)
+        except subprocess.TimeoutExpired as exc:
+            out.update(rc=124, stdout=exc.stdout or "",
+                       stderr=exc.stderr or "")
+        out["seconds"] = time.perf_counter() - t0
+        if os.path.exists(path):
+            with open(path) as f:
+                out["status"] = json.load(f)
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    return t, out
+
+
+def check_serve_chaos(out, layers):
+    """Phase 45: the matrix exited 0 and its status holds every pin of the
+    reference (``check_status``) and every run's checks, each worker's
+    paged launches equal to its decode calls x layers (``launches_exact``,
+    with the kernel route on the card). Returns the record and the
+    workers' launches."""
+    status = out.get("status")
+    if out.get("rc") != 0 or not status or not status["ok"]:
+        failed = [{k: r[k] for k in ("run", "checks", "supervisor",
+                                     "events")}
+                  for r in (status or {}).get("runs", []) if not r["ok"]]
+        raise AssertionError(
+            f"phase 45: exit {out.get('rc')}\n{out.get('stdout', '')[-3000:]}"
+            f"\n{out.get('stderr', '')[-3000:]}\n{json.dumps(failed)[-8000:]}")
+    total = {"paged_decode": 0, "paged_decode_q8": 0}
+    rec = {"seconds": out["seconds"], "oracle_s": status["oracle_s"]}
+    for r in status["runs"]:
+        bad = [k for k, v in r["checks"].items() if not v]
+        reports = r["worker_launches"]
+        if bad or any(w["layers"] != layers or not w["device"].startswith(
+                "cuda") for w in reports):
+            raise AssertionError(f"phase 45 {r['run']}: {bad} {reports}")
+        for w in reports:
+            for k, v in w["launches"].items():
+                total[k] += v
+        rec[r["run"]] = {
+            "recovery_s": [x["recovery_s"] for x in r["restart_records"]],
+            "served": r["served"], "retried": r["retried"],
+            "rerouted": r["rerouted"], "boot_s": r["boot_s"],
+            "wall_s": r["wall_s"],
+            "spill_rewarm_chains": [x["spill_rewarm_chains"]
+                                    for x in r["restart_records"]],
+            "rewarm_hit_tokens_host": r["rewarm_hit_tokens_host"],
+            "launches": [w["launches"]["paged_decode"] for w in reports],
+        }
+        print(f"serve chaos {r['run']}: {json.dumps(rec[r['run']])}",
+              flush=True)
+    return rec, total
+
+
+def debug_flags(torch, cli, pa):
+    """Phase 44's debug flags in this process: ``cli train`` with
+    ``train.debug_nans`` and ``nan:2`` raises FloatingPointError at step
+    2; under ``debug.bounds_checks`` one paged_decode step with a row's
+    table entry at num_blocks leaves that row NaN and every other row as
+    the step without it, and the card reports no error. Returns the
+    paged kernel's launches."""
+    from distributeddeeplearning_tpu_torch import debug
+    from distributeddeeplearning_tpu_torch.models.transformer import (
+        paged_decode_attention,
+    )
+
+    argv = ["train", "--config", CONFIG, "--device", "cuda"]
+    for o in ("data.batch_size=4", "train.steps=4", "train.log_every=1",
+              "train.debug_nans=true", "train.fault_injection=nan:2"):
+        argv += ["--override", o]
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.main(argv)
+    except FloatingPointError as exc:
+        if "(at step 2)" not in str(exc):
+            raise AssertionError(f"debug_nans raised {exc}") from exc
+        print(f"debug_nans: {exc}", flush=True)
+    else:
+        raise AssertionError("debug_nans: no FloatingPointError at step 2")
+    g = torch.Generator().manual_seed(3)
+    B, H, D, nb, bs, pages = 8, 12, 64, 96, 16, 8
+    table = torch.randperm(nb - 1, generator=g)[:B * pages].add(1).reshape(
+        B, pages).int()
+    lens = torch.randint(1, pages * bs - 1, (B,), generator=g).int()
+    q, k, v = (torch.randn(B, 1, H, D, generator=g, dtype=torch.float32)
+               .to(torch.bfloat16).cuda() for _ in range(3))
+    pools = {n: torch.randn(nb, bs, H, D, generator=g).to(
+        torch.bfloat16).cuda() for n in ("pool_key", "pool_value")}
+    pa.reset_launches()
+    outs = []
+    for bad in (False, True):
+        t = table.clone()
+        if bad:
+            t[3, pages - 1] = nb
+        with debug.bounds_checks(True):
+            outs.append(paged_decode_attention(
+                q, k, v, dtype=torch.bfloat16,
+                pools={n: p.clone() for n, p in pools.items()},
+                page_table=t.cuda(), seq_lens=lens.cuda(), kernel="pallas"))
+    torch.cuda.synchronize()  # a read outside the pool would fail here
+    clean, poisoned = (o.float().cpu() for o in outs)
+    rows = [i for i in range(B) if i != 3]
+    if (not torch.isnan(poisoned[3]).all()
+            or not torch.equal(poisoned[rows], clean[rows])
+            or torch.isnan(clean).any()):
+        raise AssertionError("debug_checks: the tripwire's rows differ")
+    print(f"debug_checks: row 3 NaN, rows {rows} equal; launches "
+          f"{dict(pa.LAUNCHES)}", flush=True)
+    return dict(pa.LAUNCHES)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -5434,6 +5867,10 @@ def main(argv=None) -> int:
                     help="after the build, run phase 43's three fleets "
                     "alone on the card (no other phase beside them) "
                     "against phase 4's two in-process references")
+    ap.add_argument("--chaos", action="store_true",
+                    help="after the build, run phases 44 and 45 (the "
+                    "supervised training and serving chaos matrices) "
+                    "alone on the card")
     args = ap.parse_args(argv)
     import tempfile
 
@@ -5498,6 +5935,29 @@ def main(argv=None) -> int:
         if fleet_thread.is_alive():
             raise AssertionError("the fleets did not finish in 600 s")
         check_fleets(fleet_out, refs, layers)
+        return 0  # a partial run prints no result line
+
+    if args.chaos:
+        scfg = apply_overrides(load_config(CONFIG), OVERRIDES)
+        layers = models.get_model(scfg.model.name, **scfg.model.kwargs,
+                                  device="meta").num_layers
+        chaos_tmp = tempfile.TemporaryDirectory()
+        phase("44 supervised training alone (then 45's matrix beside it)")
+        chaos_threads, chaos_out = start_chaos_train(chaos_tmp.name,
+                                                     nice=False)
+        serve_thread, serve_out = start_serve_chaos(chaos_tmp.name,
+                                                    nice=False)
+        ref, _ = chaos_reference(torch, cli, chaos_tmp.name)
+        debug_flags(torch, cli, pa)
+        for t in (*chaos_threads, serve_thread):
+            t.join(timeout=900)
+            if t.is_alive():
+                raise AssertionError("the chaos runs did not finish in "
+                                     "900 s")
+        check_chaos_train(torch, chaos_out, ref)
+        phase("45 serving chaos alone")
+        check_serve_chaos(serve_out, layers)
+        chaos_tmp.cleanup()
         return 0  # a partial run prints no result line
 
     phase("3 kernels vs plain")
@@ -5727,9 +6187,13 @@ def main(argv=None) -> int:
           "gpt2_pp (pp=4), then phase 36's cli train and the jobs of "
           "phases 35 and 37-42")
     tmp4 = tempfile.TemporaryDirectory()  # the group's saves
-    # Phase 43's worker-process fleets run beside the group, whose ranks
-    # leave the card mostly idle (host-staged gloo).
+    # Phase 43's worker-process fleets and phases 44-45's supervised
+    # training and serving chaos run beside the group, whose ranks leave
+    # the card mostly idle (host-staged gloo).
     fleet_thread, fleet_out = start_fleets()
+    chaos_tmp = tempfile.TemporaryDirectory()
+    chaos_threads, chaos_out = start_chaos_train(chaos_tmp.name)
+    serve_thread, serve_out = start_serve_chaos(chaos_tmp.name)
     group = four_rank_group(torch, parity, tmp4.name)
     pp_cli_train(torch, *group["pp_cli"])
     phase("35 pipelined jobs: bert_pp as shipped, fp32 gpt2_pp and bert_pp "
@@ -5804,7 +6268,34 @@ def main(argv=None) -> int:
     fleet_rec, launched = check_fleets(fleet_out, fleet_refs, layers)
     for k, v in launched.items():
         launches[k] += v
-    print(f"chip_smoke: 43 phases in {time.perf_counter() - _T0:.1f} s",
+    phase("44 supervised training: cli supervise under nan:5, hang:7, "
+          "corrupt:6 (with telemetry) and a SIGTERM, against an "
+          "undisturbed run in this process; the debug flags")
+    t0 = time.perf_counter()
+    ref, launched = chaos_reference(torch, cli, chaos_tmp.name)
+    for k, v in launched.items():
+        launches[k] += v
+    debug_flags(torch, cli, pa)
+    print(f"chaos check seconds: reference and debug flags "
+          f"{time.perf_counter() - t0:.1f}", flush=True)
+    for t in chaos_threads:
+        t.join(timeout=600)
+        if t.is_alive():
+            raise AssertionError("the supervised runs did not finish "
+                                 "within 600 s of phase 43's end")
+    chaos_rec = check_chaos_train(torch, chaos_out, ref)
+    del ref
+    phase("45 serving chaos: worker_crash, worker_hang, conn_drop, "
+          "heartbeat_stall and the exhaustion run over 2 workers")
+    serve_thread.join(timeout=600)
+    if serve_thread.is_alive():
+        raise AssertionError("the serving chaos did not finish within "
+                             "600 s of phase 44's end")
+    serve_chaos_rec, launched = check_serve_chaos(serve_out, layers)
+    for k, v in launched.items():
+        launches[k] += v
+    chaos_tmp.cleanup()
+    print(f"chip_smoke: 45 phases in {time.perf_counter() - _T0:.1f} s",
           flush=True)
 
     # Each kernel's numbers come from its case at the main path's types.
@@ -5834,6 +6325,8 @@ def main(argv=None) -> int:
                                    if k != "results"}}))
     print(json.dumps({"serving_features": features}))
     print(json.dumps({"fleet": fleet_rec}))
+    print(json.dumps({"chaos": {"train": chaos_rec,
+                                "serve": serve_chaos_rec}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

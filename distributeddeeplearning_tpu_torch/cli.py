@@ -1,5 +1,5 @@
 """CLI entry points: ``python -m distributeddeeplearning_tpu_torch.cli
-{train,eval,benchmark,generate,serve,launch}``.
+{train,supervise,eval,benchmark,generate,serve,launch}``.
 
 ``train`` runs the training path (``build_all`` -> ``Trainer`` -> ``fit``)
 on one rank, or on every rank ``torchrun`` starts (one process per rank,
@@ -14,8 +14,10 @@ process, or ``--fleet N`` worker processes behind a router over sockets,
 supervised and restarted when one dies (``serving.prefill_replicas``
 splits the fleet into prefill and decode workers); ``launch`` starts
 ``--num-processes`` ``cli train`` ranks of one job on this machine, as
-``torchrun`` would. All run on the GPU by default; ``--device cpu`` asks
-for the CPU (and gloo under ``torchrun``).
+``torchrun`` would; ``supervise`` runs ``train`` as a child process and
+restarts it after a crash, a hang or a corrupt checkpoint, and stops it
+with a save on SIGTERM (``supervisor.py``). All run on the GPU by
+default; ``--device cpu`` asks for the CPU (and gloo under ``torchrun``).
 """
 
 from __future__ import annotations
@@ -52,36 +54,15 @@ def _mesh_sizes(cfg: Config, world_size: int) -> dict[str, int]:
         return {a: max(getattr(cfg.mesh, a), 1) for a in MESH_AXES}
 
 
-# (knob, value is on, what it is, ROADMAP queue item that ports it)
-def _unported_train_knobs(cfg: Config):
-    t = cfg.train
-    fault = t.fault_injection.partition(":")[0]
-    return [
-        ("telemetry.enabled", cfg.telemetry.enabled, "telemetry", "A14"),
-        ("train.fault_injection", t.fault_injection
-         if fault in ("step", "hang", "corrupt") else "",
-         f"fault injection of kind {fault!r} (the supervisor's crash, hang "
-         "and corrupt-checkpoint faults; 'nan:K' is ported)", "A14"),
-        ("train.debug_nans", t.debug_nans, "NaN debugging", "A14"),
-        ("train.debug_checks", t.debug_checks, "runtime checks", "A14"),
-    ]
-
-
 def check_train_composition(cfg: Config, world_size: int = 1) -> None:
-    """Refuse by name, before anything is built, every training knob whose
-    feature is not ported yet, over a job of ``world_size`` ranks; and, as
-    the reference's Trainer does, ``mesh.ep`` over a model without experts
-    (a pipelined model's own fence names it, in the Trainer)."""
+    """The reference's composition fences of a training config over a job
+    of ``world_size`` ranks, before anything is built: the explicit dp
+    sync's, and ``mesh.ep`` over a model without experts (a pipelined
+    model's own fence names it, in the Trainer)."""
     from .comms_hier import check_comm_hierarchy_config
     from .comms_overlap import check_update_sharding_config
     from .train import check_explicit_sync
 
-    for knob, value, what, item in _unported_train_knobs(cfg):
-        if value:
-            raise NotImplementedError(
-                f"{knob}={value!r}: {what} not yet ported to "
-                f"distributeddeeplearning_tpu_torch (ROADMAP queue {item})"
-            )
     # The reference's config-time fences of the explicit dp sync (its
     # optimizer-level ones, then the hierarchy's), then its Trainer's,
     # all before the build.
@@ -311,26 +292,56 @@ def cmd_train(cfg: Config, *, device=None, sync_steps: bool = False) -> int:
     from the last checkpoint (a ``rollback_restart`` record), up to
     ``health.max_rollbacks`` times, then gives up with exit code 1 (a
     ``rollback_give_up`` record on stderr). A restart models a transient
-    fault, so an injected ``nan:K`` fault is disarmed for it."""
+    fault, so an injected fault is disarmed for it; so it is in a child of
+    ``cli supervise`` past its first attempt (``DDL_SUPERVISOR_ATTEMPT`` >
+    0, a ``fault_disarmed`` record). A SIGTERM or SIGINT ends the run with
+    a forced save and exit code ``EXIT_PREEMPTED`` (a ``preempted_exit``
+    record). ``train.debug_nans`` and ``train.debug_checks`` turn on
+    ``debug.nan_checks`` and ``debug.bounds_checks`` for the run;
+    ``telemetry.enabled`` writes the Trainer's telemetry bundle (one per
+    process, reused across rollbacks)."""
+    import os
+
+    from . import debug
     from .mesh import DistEnv
-    from .train import HealthRollback, check_fusion_cadences
+    from .supervisor import ATTEMPT_ENV, EXIT_PREEMPTED
+    from .telemetry import Telemetry
+    from .train import HealthRollback, Preempted, check_fusion_cadences
     from .train import parse_fault_injection
 
     t = cfg.train
     check_train_composition(cfg, world_size=DistEnv.from_environ().world_size)
     fault = parse_fault_injection(t.fault_injection)
+    attempt = int(os.environ.get(ATTEMPT_ENV, "0") or 0)
+    if fault is not None and attempt > 0:
+        # One-shot: a supervised restart replays the run without the fault
+        # (else step:K would crash-loop and hang:K stall every attempt).
+        print(json.dumps({"event": "fault_disarmed", "attempt": attempt,
+                          "fault": f"{fault.kind}:{fault.step}"}),
+              flush=True)
+        fault = None
     # Cadence fences before the build: fit checks again with the resume
     # step.
     check_fusion_cadences(t.steps_per_call, steps=t.steps,
                           log_every=t.log_every, eval_every=t.eval_every,
-                          save_every=t.save_every)
-    with _joined(cfg, device) as (device, mesh, say):
+                          save_every=t.save_every, fault=fault)
+    with (_joined(cfg, device) as (device, mesh, say),
+          debug.nan_checks(t.debug_nans),
+          debug.bounds_checks(t.debug_checks)):
+        tel = Telemetry.from_config(
+            cfg, attempt=attempt,
+            process_index=mesh.rank if mesh.size > 1 else None)
         rollbacks = 0
         while True:
             try:
-                _train_once(cfg, device, mesh, say, sync_steps,
-                            fault_nan_step=fault.step if fault else None)
+                _train_once(cfg, device, mesh, say, sync_steps, fault, tel)
                 return 0
+            except Preempted as p:
+                # fit saved already; the exit code tells a supervisor not
+                # to restart.
+                say(json.dumps({"event": "preempted_exit", "step": p.step,
+                                "saved": p.saved}))
+                return EXIT_PREEMPTED
             except HealthRollback as rb:
                 rollbacks += 1
                 if rollbacks > cfg.health.max_rollbacks:
@@ -349,10 +360,13 @@ def cmd_train(cfg: Config, *, device=None, sync_steps: bool = False) -> int:
                 fault = None
 
 
-def _train_once(cfg: Config, device, mesh, say, sync_steps: bool,
-                fault_nan_step: int | None) -> None:
+def _train_once(cfg: Config, device, mesh, say, sync_steps: bool, fault,
+                tel) -> None:
     """One attempt of :func:`cmd_train` on this rank of ``mesh``: build,
-    resume from the latest checkpoint if any, and fit."""
+    resume from the latest checkpoint if any, and fit, with ``fault`` (a
+    ``train.FaultSpec`` or None) armed. ``tel`` (a ``telemetry.Telemetry``)
+    brackets the attempt: its goodput ledger is opened at the resume step
+    and closed, and its trace written, on every exit path."""
     import torch.distributed as dist
 
     from . import comms, data
@@ -365,8 +379,10 @@ def _train_once(cfg: Config, device, mesh, say, sync_steps: bool,
     ckpt = writer = None
     pp.reset_ticks()  # the train_end record reports this attempt's
     try:
-        _, trainer, dataset = build_all(cfg, device, mesh,
-                                        fault_nan_step=fault_nan_step)
+        _, trainer, dataset = build_all(
+            cfg, device, mesh,
+            fault_nan_step=(fault.step if fault is not None
+                            and fault.kind == "nan" else None))
         live = {a: n for a, n in mesh.shape.items() if n > 1}
         say(f"devices: {mesh.size}  device: {device}  mesh: {live or {}}")
         state = trainer.init(t.seed)
@@ -387,6 +403,10 @@ def _train_once(cfg: Config, device, mesh, say, sync_steps: bool,
             placed = data.stacked_batches(placed, t.steps_per_call)
         batches = data.prefetch(placed, device, size=cfg.data.prefetch_size)
         writer = MetricWriter(t.log_dir)
+        if tel.ledger is not None:
+            # Opened at the resume step: steps an earlier attempt passed
+            # are classed rollback_replay.
+            tel.ledger.open(start_index)
         step_s = [] if sync_steps else None
         # The pipeline's, and the transport's, seconds at the end of each
         # step.
@@ -397,11 +417,12 @@ def _train_once(cfg: Config, device, mesh, say, sync_steps: bool,
             steps_per_call=t.steps_per_call,
             log_fn=lambda m: say(json.dumps(m)), writer=writer,
             profiler=Profiler(t.profile_steps, t.log_dir), ckpt=ckpt,
-            save_every=t.save_every, eval_every=t.eval_every,
+            save_every=t.save_every, fault=fault, eval_every=t.eval_every,
             eval_fn=(make_eval_fn(cfg, mesh, device) if t.eval_every
                      else None),
             step_times=step_s,
             health=cfg.health if cfg.health.enabled else None,
+            telemetry=tel,
             on_step=(lambda _: (
                 transport.append(pp.TICKS["train_transport_s"]),
                 calls_s.append(comms.TRANSPORT["seconds"])))
@@ -431,6 +452,61 @@ def _train_once(cfg: Config, device, mesh, say, sync_steps: bool,
             ckpt.close()
         if writer is not None:
             writer.close()
+        if tel.ledger is not None:
+            tel.ledger.close()
+        tel.write_trace()
+
+
+def cmd_supervise(args) -> int:
+    """Run ``cli train`` under the restart supervisor (``supervisor.py``):
+    the child is this CLI's ``train`` with the same ``--config`` and
+    ``--override`` flags (and ``--device`` where given); restarts, backoff
+    and hang detection come from the config's ``supervisor`` section. This
+    process touches no device and joins no process group, so it outlives
+    any child's crash. With ``telemetry.enabled`` the supervisor adds its
+    backoff records to the children's goodput ledger, a flight record of
+    each hang or crash kill, and a ``goodput_summary`` record at the end.
+    The exit code is the last child's (0 when it finished,
+    ``EXIT_PREEMPTED`` after a preemption's save)."""
+    import os
+
+    from .ops._build import BUILD_DIR
+    from .supervisor import supervise_command
+
+    if args.xla_perf_flags:
+        raise NotImplementedError(
+            "cli supervise --xla-perf-flags: an XLA runtime option, which "
+            "the port (torch) has no use for")
+    cfg = apply_overrides(load_config(args.config), args.override)
+    cmd = [sys.executable, "-m", "distributeddeeplearning_tpu_torch.cli",
+           "train", "--config", args.config]
+    for o in args.override:
+        cmd += ["--override", o]
+    if args.device is not None:
+        cmd += ["--device", args.device]
+    clear = ()
+    cache = cfg.train.compile_cache_dir
+    if cfg.supervisor.clear_cache_on_crash and cache:
+        cache = os.path.abspath(cache)
+        if os.path.commonpath([cache, BUILD_DIR]) in (cache, BUILD_DIR):
+            raise ValueError(
+                f"train.compile_cache_dir={cfg.train.compile_cache_dir!r} "
+                f"holds or lies in the kernels' build directory {BUILD_DIR}, "
+                "which supervisor.clear_cache_on_crash would delete")
+        clear = (cache,)
+    goodput_path = flight_dir = None
+    if cfg.telemetry.enabled:
+        from .telemetry import resolve_dir, resolve_process_index, stamped
+
+        flight_dir = resolve_dir(cfg)
+        os.makedirs(flight_dir, exist_ok=True)
+        # Stamped as the child's ledger is, so the backoff records land in
+        # the file its attempts append to.
+        goodput_path = os.path.join(flight_dir, stamped(
+            cfg.telemetry.goodput_file, resolve_process_index()))
+    return supervise_command(cmd, cfg.supervisor, crash_clear_paths=clear,
+                             goodput_path=goodput_path,
+                             flight_dir=flight_dir)
 
 
 def cmd_eval(cfg: Config, *, device=None) -> int:
@@ -1048,6 +1124,14 @@ def main(argv=None) -> int:
             help="torch device to run on (default: cuda; 'cpu' on request)",
         )
 
+    def telemetry(p, what):
+        p.add_argument(
+            "--telemetry", nargs="?", const="", default=None, metavar="DIR",
+            help=f"enable the telemetry bundle ({what}): sugar for "
+            "telemetry.enabled=true, with DIR as telemetry.dir when given "
+            "(default <train.checkpoint_dir>/telemetry)",
+        )
+
     t = sub.add_parser("train")
     common(t)
     t.add_argument(
@@ -1055,6 +1139,13 @@ def main(argv=None) -> int:
         help="end every step in a device sync and print the step times in "
         "a final train_end record",
     )
+    telemetry(t, "spans, the goodput ledger, flight records")
+    su = sub.add_parser("supervise")
+    common(su)
+    telemetry(su, "the children's, plus the supervisor's backoff and kill "
+              "records and a goodput summary")
+    su.add_argument("--xla-perf-flags", action="store_true",
+                    help="XLA only (refused)")
     e = sub.add_parser("eval")
     common(e)
     b = sub.add_parser("benchmark")
@@ -1104,12 +1195,7 @@ def main(argv=None) -> int:
                    help="timed runs of each stage under --bench (>= 3)")
     p = sub.add_parser("serve")
     common(p)
-    p.add_argument(
-        "--telemetry", nargs="?", const="", default=None, metavar="DIR",
-        help="enable the telemetry bundle (spans, histograms, gauges, the "
-        "programs' registry): sugar for telemetry.enabled=true, with DIR "
-        "as telemetry.dir when given",
-    )
+    telemetry(p, "spans, histograms, gauges, the programs' registry")
     sampling(p, "decodes by continuous batching over serving.slots lanes")
     p.add_argument(
         "--fleet", type=int, default=0,
@@ -1118,7 +1204,23 @@ def main(argv=None) -> int:
         "supervised and restarted on a crash; serving.prefill_replicas=K "
         "makes K of them prefill workers (0 = serve in this process)",
     )
+    r = sub.add_parser("report")
+    r.add_argument("--dir", required=True, help="a telemetry directory")
     args = parser.parse_args(argv)
+    if args.cmd == "report":
+        raise NotImplementedError(
+            "cli report: the fleet report (telemetry_aggregate.py, "
+            "tools/telemetry_report.py) not yet ported to "
+            "distributeddeeplearning_tpu_torch (ROADMAP queue A14)")
+    if getattr(args, "telemetry", None) is not None:
+        # Before the dispatch: supervise and the fleet build their
+        # children's command lines from args.override.
+        args.override = list(args.override) + ["telemetry.enabled=True"]
+        if args.telemetry:
+            args.override.append(f"telemetry.dir={args.telemetry}")
+    if args.cmd == "supervise":
+        # Before any device use: the children own the card.
+        return cmd_supervise(args)
     if args.cmd == "launch":
         # Before any device use: the backend and the rendezvous belong to
         # the children.
@@ -1141,10 +1243,6 @@ def main(argv=None) -> int:
             args.seed, top_k=args.top_k, top_p=args.top_p, bench=args.bench,
             reps=args.reps, device=args.device,
         )
-    if args.telemetry is not None:
-        args.override = list(args.override) + ["telemetry.enabled=True"]
-        if args.telemetry:
-            args.override.append(f"telemetry.dir={args.telemetry}")
     if args.fleet:
         # Before any device use: the parent is a babysitter and a socket
         # client; the engines (and the card) belong to the workers.

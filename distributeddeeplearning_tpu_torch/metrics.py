@@ -104,6 +104,13 @@ class DeferredMetrics:
         """Drop the pending interval without emitting it."""
         self._pending = None
 
+    def emit_event(self, record: dict) -> None:
+        """Emit a loop-status event (:func:`event_record`) in the same
+        ordered stream: the pending interval goes first, so an event at
+        step N never comes before the records of earlier steps."""
+        self.flush()
+        self._emit(record)
+
     def _materialize(self, item) -> None:
         step, host, event, extras = item
         if event is not None:
@@ -125,7 +132,8 @@ class MetricWriter:
         self._jsonl = None
         if logdir and is_rank0():
             print("metrics: TensorBoard sink not ported to "
-                  "distributeddeeplearning_tpu_torch; writing "
+                  "distributeddeeplearning_tpu_torch (ROADMAP queue A14); "
+                  "writing "
                   f"{os.path.join(logdir, 'metrics.jsonl')} only",
                   file=sys.stderr, flush=True)
             try:

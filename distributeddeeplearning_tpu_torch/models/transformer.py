@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..comms_quant import block_quantize
+from ..debug import checks_on
 from ..parallel.fsdp import full_param, reshard_after_forward
 from .remat import check_remat, checkpoint_block
 
@@ -341,6 +342,16 @@ def paged_decode_attention(q, k, v, *, dtype, pools: dict,
     num_blocks, bs, Hkv, D = pk.shape
     B, L = k.shape[:2]
     pages = page_table.shape[1]
+    bad = None
+    if checks_on():
+        # The out-of-bounds tripwire (``train.debug_checks``): whether an
+        # entry is in range is data-dependent, so a row whose table holds
+        # one outside the pool is pointed at the null block (neither the
+        # pool writes nor the kernel read outside the pool) and its output
+        # poisoned to NaN below.
+        bad = ((page_table < 0) | (page_table >= num_blocks)).any(dim=1)
+        page_table = torch.where(bad[:, None], torch.zeros_like(page_table),
+                                 page_table)
     tbl = page_table.long()
     pos = seq_lens.long()[:, None] + torch.arange(L, device=k.device)[None, :]
     blk = torch.gather(tbl, 1, pos // bs)
@@ -362,18 +373,24 @@ def paged_decode_attention(q, k, v, *, dtype, pools: dict,
     if kernel == "pallas" and L == 1:
         from ..ops.paged_attention import paged_attention
 
-        return paged_attention(
+        out = paged_attention(
             q[:, 0].contiguous(), pk, pv, page_table, seq_lens,
             num_rep=num_rep, scale_k=sk, scale_v=sv,
         )[:, None]
-    ck = pk[tbl].reshape(B, pages * bs, Hkv, D)
-    cv = pv[tbl].reshape(B, pages * bs, Hkv, D)
-    if quantized:
-        ck = ck.float() * sk[tbl].reshape(B, pages * bs, Hkv, 1)
-        cv = cv.float() * sv[tbl].reshape(B, pages * bs, Hkv, 1)
-    cols = torch.arange(pages * bs, device=k.device)
-    visible = cols[None, None, :] <= pos[:, :, None]  # causal per row
-    return _cache_attend(q, ck, cv, visible, num_rep, dtype)
+    else:
+        ck = pk[tbl].reshape(B, pages * bs, Hkv, D)
+        cv = pv[tbl].reshape(B, pages * bs, Hkv, D)
+        if quantized:
+            ck = ck.float() * sk[tbl].reshape(B, pages * bs, Hkv, 1)
+            cv = cv.float() * sv[tbl].reshape(B, pages * bs, Hkv, 1)
+        cols = torch.arange(pages * bs, device=k.device)
+        visible = cols[None, None, :] <= pos[:, :, None]  # causal per row
+        out = _cache_attend(q, ck, cv, visible, num_rep, dtype)
+    if bad is not None:
+        out = torch.where(bad[:, None, None, None],
+                          torch.full((), float("nan"), dtype=out.dtype,
+                                     device=out.device), out)
+    return out
 
 
 class Dense(nn.Module):

@@ -29,6 +29,8 @@ import math
 
 import torch
 
+from ..debug import check_nans
+
 _NEG_INF = -1e30  # finite: exp(_NEG_INF - m) == 0 exactly, no inf-inf NaNs
 
 # Kernel launches by the wrappers, per kernel. Only a launch adds to it.
@@ -201,6 +203,7 @@ def flash_fwd(q, k, v, *, causal: bool, sm_scale: float, limit: int,
     _raise_on(lib, "flash_fwd", err)
     LAUNCHES["flash_fwd"] += 1
     SHAPES["flash_fwd"].add((bh, L, D))
+    check_nans("flash_fwd", o, lse)
     return o, lse
 
 
@@ -225,6 +228,7 @@ def flash_dq(q, k, v, o, do, lse, *, causal: bool, sm_scale: float,
     _raise_on(lib, "flash_dq", err)
     LAUNCHES["flash_dq"] += 1
     SHAPES["flash_dq"].add((bh, L, D))
+    check_nans("flash_dq", dq, delta)
     return dq, delta
 
 
@@ -249,6 +253,7 @@ def flash_dkv(q, k, v, do, lse, delta, *, causal: bool, sm_scale: float,
     _raise_on(lib, "flash_dkv", err)
     LAUNCHES["flash_dkv"] += 1
     SHAPES["flash_dkv"].add((bh, L, D))
+    check_nans("flash_dkv", dk, dv)
     return dk, dv
 
 

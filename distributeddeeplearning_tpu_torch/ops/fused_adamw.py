@@ -29,6 +29,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..debug import check_nans
+
 _MIN_KERNEL_SIZE = 1024  # the reference's 8 x 128 fp32 tile; below it, plain
 _THREADS = 256
 
@@ -135,6 +137,7 @@ def fused_adamw_group(ps, gs, ms, vs, *, lr, b1, b2, eps, wd, c1,
             f"{lib.ddl_cuda_error_string(err).decode()} (cudaError {err})"
         )
     LAUNCHES["fused_adamw"] += 1
+    check_nans("fused_adamw", *ps, *ms, *vs)
 
 
 def _bind(lib):

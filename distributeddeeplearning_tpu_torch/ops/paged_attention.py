@@ -25,6 +25,8 @@ import math
 
 import torch
 
+from ..debug import check_nans
+
 _NEG_INF = -1e30  # finite: exp(_NEG_INF - m) == 0 exactly, no inf-inf NaNs
 
 # Kernel launches by the wrapper, per kernel — the count a run reads to show
@@ -212,6 +214,7 @@ def _launch(q, pool_k, pool_v, page_table, seq_lens, scale_k, scale_v,
             f"{lib.ddl_cuda_error_string(err).decode()} (cudaError {err})"
         )
     LAUNCHES["paged_decode_q8" if quantized else "paged_decode"] += 1
+    check_nans("paged_decode_q8" if quantized else "paged_decode", out)
     return out
 
 

@@ -36,6 +36,7 @@ import math
 import torch
 
 from ..comms import axis_index, axis_size, ring_shift
+from ..debug import check_nans
 
 _NEG_INF = -1e30  # finite: exp(_NEG_INF - m) == 0 exactly, no inf-inf NaNs
 
@@ -156,13 +157,14 @@ def _lib(kernel: str, head_dim: int):
     return lib
 
 
-def _launched(lib, kernel: str, err: int) -> None:
+def _launched(lib, kernel: str, err: int, *outputs) -> None:
     if err != 0:
         raise RuntimeError(
             f"{kernel} kernel launch failed: "
             f"{lib.ddl_cuda_error_string(err).decode()} (cudaError {err})"
         )
     LAUNCHES[kernel] += 1
+    check_nans(kernel, *outputs)
 
 
 def _stream(t):
@@ -187,7 +189,7 @@ def ring_step(qf, kt, vt, m, l, acc, mode: int):
         qf.data_ptr(), kt.data_ptr(), vt.data_ptr(), m.data_ptr(),
         l.data_ptr(), acc.data_ptr(), m_o.data_ptr(), l_o.data_ptr(),
         acc_o.data_ptr(), bh, L, D, int(mode), _DTYPE_CODES[T], _stream(qf))
-    _launched(lib, "ring_step", err)
+    _launched(lib, "ring_step", err, m_o, l_o, acc_o)
     return m_o, l_o, acc_o
 
 
@@ -214,7 +216,7 @@ def ring_dq(q, kt, vt, do, lse, delta, dq, mode: int, sm_scale: float):
         q.data_ptr(), kt.data_ptr(), vt.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dq_o.data_ptr(),
         bh, L, D, int(mode), float(sm_scale), _DTYPE_CODES[T], _stream(q))
-    _launched(lib, "ring_dq", err)
+    _launched(lib, "ring_dq", err, dq_o)
     return dq_o
 
 
@@ -236,7 +238,7 @@ def ring_dkv(q, kt, vt, do, lse, delta, dk, dv, mode: int,
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         dk_o.data_ptr(), dv_o.data_ptr(), bh, L, D, int(mode),
         float(sm_scale), _DTYPE_CODES[T], _stream(q))
-    _launched(lib, "ring_dkv", err)
+    _launched(lib, "ring_dkv", err, dk_o, dv_o)
     return dk_o, dv_o
 
 

@@ -56,6 +56,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import itertools
+import os
 import pickle
 from collections import deque
 
@@ -753,8 +754,13 @@ class KVBlockPool:
             "meta": dict(meta) if meta else {},
             "records": records,
         }
-        with open(path, "wb") as f:
+        # Written aside, then renamed over the last file: a worker killed
+        # mid-write (the fleet supervisor SIGKILLs a stalled or hung one)
+        # leaves the previous file whole for its restart to re-warm from.
+        tmp = f"{path}.tmp"
+        with open(tmp, "wb") as f:
             pickle.dump(blob, f)
+        os.replace(tmp, path)
         return len(records)
 
     def load_host_store(self, path: str,

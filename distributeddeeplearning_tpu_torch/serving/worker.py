@@ -143,7 +143,10 @@ class ReplicaWorker:
     """The serve-loop body for one fleet worker.
 
     ``conn`` is the (nonblocking) socket to the router; ``clock`` and
-    ``sleep`` are injectable for deterministic tests.
+    ``sleep`` are injectable for deterministic tests. ``step_dwell_s``
+    adds a sleep after every engine step, so a chaos run's fault fires
+    while work is still queued (``tools/torch_serve_chaos.py``); 0 (the
+    default) for real use.
 
     Drive it with :meth:`pump` until ``exit_code`` is not None.
     """
@@ -153,7 +156,8 @@ class ReplicaWorker:
                  heartbeat_interval_s: float = 0.05,
                  shed_percentile: float = 50.0,
                  digest_limit: int = DIGEST_SUMMARY_LIMIT,
-                 telemetry=NULL_TELEMETRY, fault=None, exit_hook=None,
+                 telemetry=NULL_TELEMETRY, step_dwell_s: float = 0.0,
+                 fault=None, exit_hook=None,
                  spill_store: str | None = None,
                  spill_checkpoint_every_s: float = 0.0):
         self.engine = engine
@@ -165,6 +169,7 @@ class ReplicaWorker:
         self.shed_percentile = float(shed_percentile)
         self.digest_limit = int(digest_limit)
         self.telemetry = telemetry
+        self.step_dwell_s = float(step_dwell_s)
         self.exit_code: int | None = None
         self._exit_when_idle: int | None = None
         self._decoder = net.FrameDecoder()
@@ -529,6 +534,8 @@ class ReplicaWorker:
             self._steps_done += 1
             self._sync_lifecycle()
             self._push_handoffs()
+            if self.step_dwell_s:
+                self.sleep(self.step_dwell_s)
         self.heartbeat()
         self.checkpoint_spill()
         if (self._exit_when_idle is not None
@@ -721,6 +728,12 @@ def main(argv=None) -> int:
                    help="torch device of the engine (default: cuda; "
                    "'cpu' on request)")
     p.add_argument("--telemetry-dir", default=None)
+    p.add_argument("--dwell-s", type=float, default=0.0,
+                   help="sleep this long after every engine step (chaos "
+                   "runs: the fault fires while work is queued)")
+    p.add_argument("--constrain-pool", type=int, default=0,
+                   help="cap the KV pool at N usable blocks "
+                   "(engine.constrain_pool: the spill tier runs hot)")
     p.add_argument("--spill-store", default=None,
                    help="spill-tier persistence file: loaded on boot if "
                    "it exists (the restart re-warm), written on the "
@@ -765,6 +778,8 @@ def main(argv=None) -> int:
     engine = ServingEngine(model, scfg, seed=args.seed, telemetry=tel,
                            device=device)
     engine.warmup()
+    if args.constrain_pool:
+        engine.constrain_pool(args.constrain_pool)
     rewarm_chains = 0
     if args.spill_store and os.path.exists(args.spill_store):
         # The restart re-warm: adopt the previous attempt's persisted
@@ -823,6 +838,7 @@ def main(argv=None) -> int:
         heartbeat_interval_s=scfg.heartbeat_interval_s,
         shed_percentile=scfg.shed_percentile,
         telemetry=tel,
+        step_dwell_s=args.dwell_s,
         fault=armed_fault(scfg, args.replica_index),
         spill_store=args.spill_store,
         spill_checkpoint_every_s=getattr(

@@ -1,37 +1,37 @@
-"""Restart supervisor — unattended recovery for a training child
-(``SupervisorConfig``), a copy of the JAX package's ``supervisor.py``.
+"""Restart supervisor: unattended recovery for a training child
+(``SupervisorConfig``), the port's copy of the JAX package's
+``supervisor.py``. ``cli supervise`` runs :class:`Supervisor` around ``cli
+train``; the serving fleet (``serving/worker.py``,
+``serving/fleet_supervisor.py``) shares its exit-code contract
+(``EXIT_FAULT``, ``EXIT_PREEMPTED``, ``classify_exit``) and its backoff.
 
-The serving fleet (``serving/worker.py``, ``serving/fleet_supervisor.py``)
-uses its exit-code contract (``EXIT_FAULT``, ``EXIT_PREEMPTED``,
-``classify_exit``) and its backoff; ``cli supervise``, which runs
-:class:`Supervisor` around ``cli train``, is not wired into the port's CLI
-yet (ROADMAP A14).
-
-Production pod training treats preemption, hangs and crashes as routine; the
-run must absorb them without a human relaunching it. The supervisor wraps the
-``train`` subcommand as a child process and:
+Production training treats preemption, hangs and crashes as routine: the
+run must absorb them without a human relaunching it. The supervisor runs
+the ``train`` subcommand as a child process and:
 
 - **classifies exits**: clean (0) / preempted (``EXIT_PREEMPTED``: the child
   already force-saved) / injected fault (``EXIT_FAULT``) / crash (anything
   else) / hang (killed by the monitor below);
-- **restarts with exponential backoff + jitter** under a bounded
-  ``max_restarts`` — resume is the child's ordinary checkpoint-resume path,
-  which is exactly why restart-based recovery is sound here;
-- **detects hangs** via a heartbeat file the child's step loop touches at
-  log boundaries (``train.fit``): no touch for ``hang_timeout_s`` → SIGKILL
-  and restart;
-- **converts SIGTERM/SIGINT preemption** into a graceful shutdown: the
-  signal is forwarded to the child, whose step loop performs a final
-  synchronous ``CheckpointManager.save(force=True)+wait()`` before exiting
-  ``EXIT_PREEMPTED`` — resume loses zero durable steps.
+- **restarts with exponential backoff and jitter** under a bounded
+  ``max_restarts``; resume is the child's ordinary checkpoint resume, which
+  is why restart-based recovery is sound here;
+- **detects hangs** through a heartbeat file the child's step loop
+  (``train.fit``) writes at its start and at every step edge, log record,
+  evaluation and save: no write for ``hang_timeout_s`` -> SIGKILL and
+  restart;
+- **turns SIGTERM/SIGINT (preemption) into a graceful shutdown**: the
+  signal is forwarded to the child, whose step loop makes a final
+  synchronous ``CheckpointManager.save(force=True)`` + ``wait()`` and exits
+  ``EXIT_PREEMPTED``, so a resume loses no step; a child that outlives
+  ``preempt_grace_s`` is killed.
 
 Each attempt exports ``DDL_SUPERVISOR_ATTEMPT`` (0, 1, ...) to the child;
-``cli.cmd_train`` disarms ``train.fault_injection`` on attempts > 0 so every
-injected fault is a one-shot, deterministically-recoverable event.
+``cli.cmd_train`` disarms ``train.fault_injection`` on attempts > 0, so
+every injected fault is a one-shot, recoverable event.
 
-Time, sleep, process spawning and jitter are injectable so the backoff /
-hang / preemption state machine unit-tests with a fake clock
-(``tests/test_supervisor.py``) — no subprocesses, no wall time.
+Time, sleep, process spawning and jitter are injectable, so the backoff,
+hang and preemption state machine is tested with a fake clock
+(``tests/test_torch_supervise.py``): no subprocesses, no wall time.
 """
 
 from __future__ import annotations
@@ -43,7 +43,6 @@ import random
 import shutil
 import signal
 import subprocess
-import sys
 import tempfile
 import time
 
@@ -90,10 +89,6 @@ class SupervisorResult:
     exit_code: int  # what the supervise process should exit with
     restarts: int  # restarts performed (attempts - 1)
     attempts: list[AttemptRecord]
-
-    @property
-    def final_kind(self) -> str:
-        return self.attempts[-1].kind if self.attempts else CLEAN
 
 
 def touch(path: str | None, *, step: int | None = None,
@@ -433,8 +428,3 @@ def supervise_command(
     """Convenience wrapper used by the CLI: run to completion, return the
     exit code for the supervising process."""
     return Supervisor(cmd, cfg, **kwargs).run().exit_code
-
-
-if __name__ == "__main__":  # minimal manual harness: supervise ARGV
-    cfg = SupervisorConfig(hang_timeout_s=float(os.environ.get("HT", "0")))
-    sys.exit(supervise_command(sys.argv[1:], cfg))

@@ -1366,13 +1366,17 @@ def evaluate(trainer: Trainer, state: TrainState, batches) -> dict:
 
 def check_fusion_cadences(steps_per_call: int, *, steps: int, start: int = 0,
                           log_every: int = 0, eval_every: int = 0,
-                          save_every: int = 0) -> None:
+                          save_every: int = 0,
+                          fault: FaultSpec | None = None) -> None:
     """The reference's fences for multi-step dispatch: the host regains
     control only every ``steps_per_call`` steps, so every cadence (steps,
-    log, eval, save) and the resume step must land on a call edge."""
+    log, eval, save), a host-side fault's step and the resume step must
+    land on a call edge (``nan:K`` fires inside the step: it is exempt)."""
     k = steps_per_call
     if k < 1:
         raise ValueError(f"steps_per_call={k} must be >= 1")
+    if fault is not None and fault.kind not in FAULT_KINDS:
+        raise ValueError(f"fault kind {fault.kind!r} not in {FAULT_KINDS}")
     if k == 1:
         return
     for name, every in (("steps", steps), ("log_every", log_every),
@@ -1384,6 +1388,12 @@ def check_fusion_cadences(steps_per_call: int, *, steps: int, start: int = 0,
                 f"advance {k} steps at a time, so every cadence boundary has "
                 "to land on a call edge"
             )
+    if fault is not None and fault.kind != "nan" and fault.step % k:
+        raise ValueError(
+            f"steps_per_call={k} must divide fault_step={fault.step} "
+            f"(kind={fault.kind!r}): host-side fault injections fire between "
+            "fused calls — use steps_per_call=1 for mid-interval faults"
+        )
     if start % k:
         raise ValueError(
             f"resume step {start} is not a multiple of steps_per_call={k}: "
@@ -1397,10 +1407,15 @@ FAULT_KINDS = ("step", "nan", "hang", "corrupt")
 
 class FaultSpec(NamedTuple):
     """One injected fault (``train.fault_injection='kind:K'``): ``kind`` is
-    how the run breaks, ``step`` the pre-step counter it breaks at. The
-    port runs ``nan`` (Trainer ``fault_nan_step``: step K's gradients
-    poisoned); ``step``, ``hang`` and ``corrupt`` belong to the supervisor
-    and are refused by ``cli train``."""
+    how the run breaks, ``step`` the pre-step counter it breaks at.
+
+    - ``step``: the process exits at once (``os._exit(EXIT_FAULT)``: a
+      crash, no cleanup);
+    - ``nan``: that step's gradients are poisoned (Trainer
+      ``fault_nan_step``);
+    - ``hang``: the host loop stalls for ever (the heartbeat goes stale);
+    - ``corrupt``: the latest checkpoint is truncated, then as ``step``.
+    """
 
     kind: str
     step: int
@@ -1417,6 +1432,17 @@ def parse_fault_injection(spec: str) -> FaultSpec | None:
             f"{'|'.join(FAULT_KINDS)}:K"
         )
     return FaultSpec(kind, int(arg))
+
+
+class Preempted(Exception):
+    """Raised by :func:`fit` after the final save a SIGTERM or SIGINT asked
+    for: the state at ``step`` is on disk, and the process should exit
+    ``supervisor.EXIT_PREEMPTED`` and not be restarted."""
+
+    def __init__(self, step: int, saved: bool):
+        super().__init__(f"preempted at step {step} (saved={saved})")
+        self.step = step
+        self.saved = saved
 
 
 class HealthRollback(Exception):
@@ -1436,47 +1462,97 @@ class HealthRollback(Exception):
 def fit(trainer: Trainer, state: TrainState, batches, steps: int,
         log_every: int = 10, steps_per_call: int = 1, log_fn=print,
         writer=None, profiler=None, ckpt=None, save_every: int = 0,
-        eval_every: int = 0, eval_fn=None, step_times: list | None = None,
-        health=None, on_step=None):
+        fault: FaultSpec | None = None, eval_every: int = 0, eval_fn=None,
+        step_times: list | None = None, health=None, on_step=None,
+        heartbeat_file: str | None = None, telemetry=None):
     """Host step loop from ``state.step`` to ``steps`` (callers start
     ``batches`` at the same index).
 
     Every ``log_every`` steps a record ``{metric, ..., "step", "wall_s"}``
     goes to ``log_fn`` (and ``writer``, a ``metrics.MetricWriter``) with one
     interval of lag (``DeferredMetrics``); the last interval is flushed
-    before returning. ``steps_per_call`` = K > 1 runs
-    :meth:`Trainer.fused_train_step` over stacked superbatches (leaves
-    ``[K, B, ...]``, ``data.stacked_batches``), and K must divide ``steps``
-    and every cadence (:func:`check_fusion_cadences`). ``eval_every`` > 0
-    runs :func:`evaluate` over ``eval_fn()`` (a fresh iterable of this
-    rank's eval batches) every that many steps and after the last, its
-    record keyed ``eval_*``. ``ckpt`` (a ``checkpoint.CheckpointManager``)
-    saves the state with ``{"next_index": step}`` every ``save_every``
-    steps. ``profiler`` (a ``metrics.Profiler``) sees every step's index.
+    before returning. Loop events (faults, preemption saves, rollbacks) go
+    through the same ordered stream (``metrics.event_record``).
+    ``steps_per_call`` = K > 1 runs :meth:`Trainer.fused_train_step` over
+    stacked superbatches (leaves ``[K, B, ...]``, ``data.stacked_batches``),
+    and K must divide ``steps``, every cadence and a host-side fault's step
+    (:func:`check_fusion_cadences`). ``eval_every`` > 0 runs
+    :func:`evaluate` over ``eval_fn()`` (a fresh iterable of this rank's
+    eval batches) every that many steps and after the last, its record
+    keyed ``eval_*``. ``ckpt`` (a ``checkpoint.CheckpointManager``) saves
+    the state with ``{"next_index": step}`` every ``save_every`` steps.
+    ``profiler`` (a ``metrics.Profiler``) sees every step's index.
     ``step_times``: when a list, each call ends in a device sync and its
     seconds are appended (for timing; the loop otherwise never waits on
-    the device outside its log records and evaluations). ``health`` (a
-    ``config.HealthConfig``): when the logged metric stream reports
-    ``max_consecutive_anomalies`` anomalous steps in a row (one logging
-    interval late, the deferred fetch's lag), a ``health_rollback`` event
-    is emitted and :class:`HealthRollback` raised. ``on_step(end)`` runs
-    after each call, at its last step (after ``step_times``' sync). Returns
-    (state, history)."""
+    the device outside its log records and evaluations). ``on_step(end)``
+    runs after each call, at its last step (after ``step_times``' sync).
+    Returns (state, history).
+
+    Resilience, as the reference's loop:
+
+    - ``fault`` (:class:`FaultSpec`) injects one failure: ``step`` and
+      ``corrupt`` exit through ``os._exit(EXIT_FAULT)`` (a crash: no
+      cleanup; ``corrupt`` first truncates the latest checkpoint), ``hang``
+      stalls the loop for ever, ``nan`` is the Trainer's
+      ``fault_nan_step``. With a fault armed every save is waited for, so a
+      crash resumes from a known step.
+    - SIGTERM or SIGINT (preemption; handlers installed from the main
+      thread only, and restored on every exit path) turns into a forced,
+      synchronous save at the next call edge, a ``preempt_save`` record and
+      :class:`Preempted`.
+    - The loop writes ``{step, attempt, phase}`` to ``heartbeat_file``
+      (default ``$DDL_HEARTBEAT_FILE``, which the supervisor exports) at
+      its start and at every step edge, log record, evaluation and save.
+    - ``health`` (a ``config.HealthConfig``): when the logged metric stream
+      reports ``max_consecutive_anomalies`` anomalous steps in a row (one
+      logging interval late, the deferred fetch's lag), a
+      ``health_rollback`` event is emitted and :class:`HealthRollback`
+      raised.
+
+    ``telemetry`` (an enabled ``telemetry.Telemetry``) gets host spans
+    (``step`` > ``data_wait``/``dispatch``/``device_wait``, plus
+    ``checkpoint`` and ``eval``), the goodput ledger's seconds (the first
+    dispatch of the step program is classed ``compile`` and registered;
+    then data wait, checkpoint stall, eval, and productive or rollback
+    replay) and a flight record on every fault, rollback and preemption.
+    Off (None), each hook costs one truthiness check."""
+    import os
+    import signal
+    import sys
+
     from .metrics import DeferredMetrics, event_record
+    from .supervisor import ATTEMPT_ENV, EXIT_FAULT, HEARTBEAT_ENV
+    from .supervisor import touch as hb_touch
+    from .telemetry import NULL_TELEMETRY
 
     if eval_every and eval_fn is None:
         raise ValueError("eval_every > 0 requires eval_fn")
     k, start = steps_per_call, int(state.step)
     check_fusion_cadences(k, steps=steps, start=start, log_every=log_every,
-                          eval_every=eval_every, save_every=save_every)
+                          eval_every=eval_every, save_every=save_every,
+                          fault=fault)
+    if fault is not None and fault.kind == "corrupt" and ckpt is None:
+        raise ValueError("fault_injection=corrupt:K requires a checkpoint_dir")
     step_call = trainer.fused_train_step(k)
     max_consec = (health.max_consecutive_anomalies if health is not None
                   else 0)
+    hb = (heartbeat_file if heartbeat_file is not None
+          else os.environ.get(HEARTBEAT_ENV))
+    tel = telemetry if telemetry is not None else NULL_TELEMETRY
+    ledger = tel.ledger
+    attempt = int(os.environ.get(ATTEMPT_ENV, "0") or 0)
+    step_name = "train_step" if k == 1 else f"fused_train_step_{k}"
     history = []
+
+    def beat(phase, at):
+        # The mtime is the supervisor's liveness signal; the content says
+        # where the loop was when it stopped.
+        hb_touch(hb, step=at, attempt=attempt, phase=phase)
 
     def emit(m):
         history.append(m)
         log_fn(m)
+        tel.note_event(m)
         if writer is not None and "event" not in m:
             writer.write(m["step"],
                          {x: v for x, v in m.items() if x != "step"})
@@ -1489,19 +1565,100 @@ def fit(trainer: Trainer, state: TrainState, batches, steps: int,
     def run_eval(at):
         # evaluate() syncs anyway; the train line of step N goes first.
         deferred.flush()
-        emit({**evaluate(trainer, state, eval_fn()), "step": at})
+        t_ev = time.perf_counter()
+        with tel.span("eval", step=at):
+            m = evaluate(trainer, state, eval_fn())
+        if ledger is not None:
+            ledger.add("eval", time.perf_counter() - t_ev)
+        emit({**m, "step": at})
+
+    def fault_exit(event, at, **fields):
+        # The process ends here, before the caller's finally: its records,
+        # flight record and trace are written now or never.
+        deferred.emit_event(event_record(event, at, **fields))
+        tel.flight_dump(event, step=at, phase="fault")
+        tel.write_trace()
+        if ledger is not None:
+            ledger.close(at)
+        sys.stdout.flush()
+
+    preempt = {"signum": None}
+
+    def on_preempt(signum, frame):
+        preempt["signum"] = signum
+
+    prev_handlers = {}
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        try:
+            prev_handlers[sig] = signal.signal(sig, on_preempt)
+        except ValueError:
+            pass  # not the main thread
 
     t0 = time.perf_counter()
     it = iter(batches)
     end = start
+    beat("start", start)
     try:
         for i in range(start, steps, k):
-            try:
-                batch = next(it)
-            except StopIteration:
-                break
-            t_step = time.perf_counter()
-            state, metrics = step_call(state, batch)
+            if preempt["signum"] is not None:
+                # Synchronous and forced (off the save cadence too): by the
+                # time Preempted propagates, the state is on disk.
+                saved = False
+                if ckpt is not None:
+                    with tel.span("checkpoint", step=end, forced=True):
+                        if ckpt.latest_step() != end:
+                            ckpt.save(end, state, {"next_index": end},
+                                      force=True)
+                        ckpt.wait()
+                    saved = True
+                signum = int(preempt["signum"])
+                deferred.emit_event(event_record("preempt_save", end,
+                                                 saved=saved, signum=signum))
+                tel.flight_dump("preempt", step=end, phase="preempt",
+                                signum=signum, saved=saved)
+                tel.write_trace()
+                sys.stdout.flush()
+                raise Preempted(end, saved)
+            if fault is not None and i == fault.step and fault.kind != "nan":
+                if fault.kind == "step":
+                    fault_exit("fault_kill", i)
+                    os._exit(EXIT_FAULT)
+                if fault.kind == "hang":
+                    # Recorded before the stall: the supervisor's recovery
+                    # is a SIGKILL, after which nothing is written.
+                    fault_exit("fault_hang", i)
+                    while True:
+                        time.sleep(3600)
+                ckpt.wait()  # corrupt a finished save, not a temp dir
+                bad = ckpt.corrupt_latest_for_test()
+                fault_exit("fault_corrupt", i, corrupted_step=bad)
+                os._exit(EXIT_FAULT)
+            beat("step", end)
+            with tel.span("step", step=i):
+                t_dw = time.perf_counter()
+                try:
+                    with tel.span("data_wait", step=i):
+                        batch = next(it)
+                except StopIteration:
+                    break
+                if ledger is not None:
+                    ledger.add("data_wait", time.perf_counter() - t_dw)
+                # The first call builds what the step needs (the kernels'
+                # libraries, the allocator's pools): classed as compile.
+                cold = tel.enabled and step_name not in tel.registry
+                t_step = time.perf_counter()
+                with tel.span("dispatch", step=i):
+                    try:
+                        state, metrics = step_call(state, batch)
+                    except FloatingPointError as e:  # train.debug_nans
+                        raise FloatingPointError(f"{e} (at step {i})") from e
+                dt = time.perf_counter() - t_step
+                if cold:
+                    tel.record_exe(step_name, None, compile_s=dt)
+                    if ledger is not None:
+                        ledger.add("compile", dt)
+                elif ledger is not None:
+                    ledger.step_time(dt, i + k)
             if step_times is not None:
                 if trainer.device.type == "cuda":
                     torch.cuda.synchronize(trainer.device)
@@ -1517,12 +1674,25 @@ def fit(trainer: Trainer, state: TrainState, batches, steps: int,
                 # the interval's last, as the unfused loop's.
                 last = (metrics if k == 1
                         else {x: v[-1] for x, v in metrics.items()})
-                deferred.push(end, last,
-                              wall_s=round(time.perf_counter() - t0, 3))
+                with tel.span("device_wait", step=end):
+                    deferred.push(end, last,
+                                  wall_s=round(time.perf_counter() - t0, 3))
+                beat("log", end)
             if eval_every and end % eval_every == 0:
                 run_eval(end)
+                beat("eval", end)
             if ckpt is not None and save_every and end % save_every == 0:
-                ckpt.save(end, state, {"next_index": end})
+                t_ck = time.perf_counter()
+                with tel.span("checkpoint", step=end):
+                    ckpt.save(end, state, {"next_index": end})
+                    if fault is not None:
+                        # An injected crash resumes from the last save on
+                        # disk: waiting makes that step known.
+                        ckpt.wait()
+                if ledger is not None:
+                    ledger.add("checkpoint_stall",
+                               time.perf_counter() - t_ck)
+                beat("save", end)
         if eval_every and end % eval_every and end > start:
             run_eval(end)  # a final eval, so short runs still report one
         deferred.flush()
@@ -1532,8 +1702,14 @@ def fit(trainer: Trainer, state: TrainState, batches, steps: int,
         deferred.discard()
         emit(event_record("health_rollback", rb.step,
                           consecutive=rb.consecutive))
+        tel.flight_dump("health_rollback", step=rb.step, phase="rollback",
+                        consecutive=rb.consecutive)
+        tel.write_trace()
+        sys.stdout.flush()
         raise
     finally:
+        for sig, handler in prev_handlers.items():
+            signal.signal(sig, handler)
         if profiler is not None:
             profiler.close()
         if writer is not None:

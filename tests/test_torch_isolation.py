@@ -19,14 +19,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "distributeddeeplearning_tpu")
 
 
 def _sources():
-    files = sorted(PORT.rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "tools" / "torch_decode_profile.py",
-        ROOT / "tools" / "torch_train_profile.py",
-        ROOT / "tools" / "torch_cp_profile.py",
-        ROOT / "tools" / "torch_flash_tiles.py",
-        ROOT / "tools" / "torch_launch_profile.py",
-        ROOT / "tools" / "torch_pp_tables_ab.py",
-    ]
+    files = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+             + sorted((ROOT / "tools").glob("torch_*.py")))
     return [p for p in files if "_build" not in p.parts]
 
 
@@ -63,7 +57,8 @@ def test_sources_exist():
             "gpt2_owt_file.py", "generate.py", "health.py",
             "torch_launch_profile.py", "comms_quant.py", "comms_overlap.py",
             "comms_hier.py", "supervisor.py", "net.py", "router.py",
-            "worker.py", "fleet_supervisor.py"} <= names
+            "worker.py", "fleet_supervisor.py", "debug.py",
+            "torch_chaos_run.py", "torch_serve_chaos.py"} <= names
     csrc = {p.name for p in (PORT / "csrc").glob("*.cu")}
     assert {"paged_attention.cu", "flash_attention.cu",
             "fused_adamw.cu", "ring_attention.cu"} <= csrc
@@ -186,6 +181,12 @@ def test_unported_train_knobs_are_refused_by_name(override, knob):
                            "pure-DP in v1"):
             _accepted(override, *SYNC_KNOBS[knob], "mesh.dp=4",
                       "mesh.cp=2", "model.kwargs.attn_impl=ring", world=8)
+        return
+    if knob in ("train.fault_injection", "telemetry.enabled",
+                "train.debug_nans"):
+        # Ported with cli supervise (tests/test_torch_fault_tolerance.py,
+        # tests/test_torch_supervise.py): the composition is accepted.
+        _accepted(override, world=1)
         return
     model = {"train.sequence_parallel": "vit", "mesh": "resnet50"}.get(knob)
     extra = [f"model.name={model}"] if model else []
