@@ -5520,7 +5520,6 @@ def start_chaos_train(tmp, nice=True):
         "--hang-timeout", str(CHAOS_HANG_TIMEOUT_S), "--timeout", "420",
         "--out", os.path.join(tmp, "status.json"),
         *[x for o in CHAOS_OVERRIDES for x in ("--override", o)]])
-    args.compile_cache = os.path.join(tmp, "compile_cache")
     prefix = (["nice", "-n", "10"] if nice and shutil.which("nice") else [])
     out = {}
 
@@ -5770,8 +5769,8 @@ def check_serve_chaos(out, layers):
     workers' launches."""
     status = out.get("status")
     if out.get("rc") != 0 or not status or not status["ok"]:
-        failed = [{k: r[k] for k in ("run", "checks", "supervisor",
-                                     "events")}
+        failed = [{k: r.get(k) for k in ("run", "checks", "supervisor",
+                                         "events", "worker_stderr")}
                   for r in (status or {}).get("runs", []) if not r["ok"]]
         raise AssertionError(
             f"phase 45: exit {out.get('rc')}\n{out.get('stdout', '')[-3000:]}"

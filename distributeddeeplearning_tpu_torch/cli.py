@@ -54,15 +54,25 @@ def _mesh_sizes(cfg: Config, world_size: int) -> dict[str, int]:
         return {a: max(getattr(cfg.mesh, a), 1) for a in MESH_AXES}
 
 
+def _refuse_compile_cache(cfg: Config) -> None:
+    if cfg.train.compile_cache_dir:
+        raise NotImplementedError(
+            f"train.compile_cache_dir={cfg.train.compile_cache_dir!r}: the "
+            "port has no persistent compile cache (eager torch; the hand "
+            "kernels build into ops/_build) — drop the override")
+
+
 def check_train_composition(cfg: Config, world_size: int = 1) -> None:
     """The reference's composition fences of a training config over a job
     of ``world_size`` ranks, before anything is built: the explicit dp
     sync's, and ``mesh.ep`` over a model without experts (a pipelined
-    model's own fence names it, in the Trainer)."""
+    model's own fence names it, in the Trainer). A compile cache directory
+    is refused by name: the port has none."""
     from .comms_hier import check_comm_hierarchy_config
     from .comms_overlap import check_update_sharding_config
     from .train import check_explicit_sync
 
+    _refuse_compile_cache(cfg)
     # The reference's config-time fences of the explicit dp sync (its
     # optimizer-level ones, then the hierarchy's), then its Trainer's,
     # all before the build.
@@ -470,7 +480,6 @@ def cmd_supervise(args) -> int:
     ``EXIT_PREEMPTED`` after a preemption's save)."""
     import os
 
-    from .ops._build import BUILD_DIR
     from .supervisor import supervise_command
 
     if args.xla_perf_flags:
@@ -478,22 +487,14 @@ def cmd_supervise(args) -> int:
             "cli supervise --xla-perf-flags: an XLA runtime option, which "
             "the port (torch) has no use for")
     cfg = apply_overrides(load_config(args.config), args.override)
+    # Here too, not only in the child: a refused child would crash-loop.
+    _refuse_compile_cache(cfg)
     cmd = [sys.executable, "-m", "distributeddeeplearning_tpu_torch.cli",
            "train", "--config", args.config]
     for o in args.override:
         cmd += ["--override", o]
     if args.device is not None:
         cmd += ["--device", args.device]
-    clear = ()
-    cache = cfg.train.compile_cache_dir
-    if cfg.supervisor.clear_cache_on_crash and cache:
-        cache = os.path.abspath(cache)
-        if os.path.commonpath([cache, BUILD_DIR]) in (cache, BUILD_DIR):
-            raise ValueError(
-                f"train.compile_cache_dir={cfg.train.compile_cache_dir!r} "
-                f"holds or lies in the kernels' build directory {BUILD_DIR}, "
-                "which supervisor.clear_cache_on_crash would delete")
-        clear = (cache,)
     goodput_path = flight_dir = None
     if cfg.telemetry.enabled:
         from .telemetry import resolve_dir, resolve_process_index, stamped
@@ -504,8 +505,7 @@ def cmd_supervise(args) -> int:
         # the file its attempts append to.
         goodput_path = os.path.join(flight_dir, stamped(
             cfg.telemetry.goodput_file, resolve_process_index()))
-    return supervise_command(cmd, cfg.supervisor, crash_clear_paths=clear,
-                             goodput_path=goodput_path,
+    return supervise_command(cmd, cfg.supervisor, goodput_path=goodput_path,
                              flight_dir=flight_dir)
 
 

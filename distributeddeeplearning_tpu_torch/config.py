@@ -174,6 +174,8 @@ class SupervisorConfig:
     poll_interval_s: float = 0.5
     preempt_grace_s: float = 60.0
     heartbeat_file: str = ""
+    # The reference's schema; the port keeps no compile cache, so there is
+    # nothing to clear after a crash (train.compile_cache_dir is refused).
     clear_cache_on_crash: bool = True
 
 

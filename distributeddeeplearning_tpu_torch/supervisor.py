@@ -40,7 +40,6 @@ import dataclasses
 import json
 import os
 import random
-import shutil
 import signal
 import subprocess
 import tempfile
@@ -163,7 +162,6 @@ class Supervisor:
         jitter_rng: random.Random | None = None,
         log_fn=None,
         mtime=os.path.getmtime,
-        crash_clear_paths: tuple[str, ...] = (),
         goodput_path: str | None = None,
         flight_dir: str | None = None,
     ):
@@ -179,7 +177,6 @@ class Supervisor:
         )
         self._log = log_fn or (lambda rec: print(json.dumps(rec), flush=True))
         self._mtime = mtime
-        self._crash_clear_paths = tuple(p for p in crash_clear_paths if p)
         # Telemetry (telemetry.py; docs/OBSERVABILITY.md), both optional:
         # goodput_path = the shared goodput.jsonl sidecar (the supervisor
         # appends backoff records and emits the exit summary); flight_dir
@@ -322,33 +319,31 @@ class Supervisor:
                     )
                     return self._done(rc if rc else 1, attempts)
                 hb = read_heartbeat(self._heartbeat) or {}
-                if kind in (CRASH, HANG):
-                    self._clear_suspect_state(kind)
-                    if self._flight_dir:
-                        # The killed/crashed child may not have written its
-                        # own flight record — preserve what the supervisor
-                        # knows (last heartbeat = last reported location).
-                        # Fleet-stamped like every other artifact so N
-                        # supervisors can share one dir.
-                        from .telemetry import (
-                            dump_flight,
-                            resolve_process_index,
-                        )
+                if kind in (CRASH, HANG) and self._flight_dir:
+                    # The killed/crashed child may not have written its
+                    # own flight record — preserve what the supervisor
+                    # knows (last heartbeat = last reported location).
+                    # Fleet-stamped like every other artifact so N
+                    # supervisors can share one dir.
+                    from .telemetry import (
+                        dump_flight,
+                        resolve_process_index,
+                    )
 
-                        pidx = resolve_process_index()
-                        dump_flight(
-                            os.path.join(
-                                self._flight_dir,
-                                f"flight_supervisor_{kind}_p{pidx}_attempt"
-                                f"{restarts}.json",
-                            ),
-                            reason=f"supervisor_{kind}",
-                            attempt=restarts,
-                            process_index=pidx,
-                            returncode=rc,
-                            heartbeat=hb or None,
-                            phase=hb.get("phase"),
-                        )
+                    pidx = resolve_process_index()
+                    dump_flight(
+                        os.path.join(
+                            self._flight_dir,
+                            f"flight_supervisor_{kind}_p{pidx}_attempt"
+                            f"{restarts}.json",
+                        ),
+                        reason=f"supervisor_{kind}",
+                        attempt=restarts,
+                        process_index=pidx,
+                        returncode=rc,
+                        heartbeat=hb or None,
+                        phase=hb.get("phase"),
+                    )
                 delay = self.backoff_s(restarts)
                 rec.backoff_s = delay
                 self._log(
@@ -372,26 +367,6 @@ class Supervisor:
             self._child = None
             for sig, handler in prev_handlers.items():
                 signal.signal(sig, handler)
-
-    def _clear_suspect_state(self, kind: str) -> None:
-        """Cache hygiene before an abnormal-exit restart: a child that
-        CRASHed or HANGed may have truncated a persistent-compile-cache
-        entry mid-write — or be dying ON a cached program (a deserialized
-        program can crash where a fresh build would not; the
-        ``corrupt:K`` chaos test catches exactly this). Deleting the cache
-        makes the next attempt compile cold: strictly slower, strictly more
-        likely to make progress. Clean/preempted/fault exits keep it warm."""
-        for path in self._crash_clear_paths:
-            if not os.path.isdir(path):
-                continue
-            shutil.rmtree(path, ignore_errors=True)
-            self._log(
-                {
-                    "event": "supervisor_cache_clear",
-                    "after": kind,
-                    "path": path,
-                }
-            )
 
     def _done(self, exit_code: int, attempts) -> SupervisorResult:
         result = SupervisorResult(

@@ -120,8 +120,11 @@ def test_traces_and_spec_equal_the_reference(tools):
                 == jax_tool._make_requests(prefixes, seed, n, base))
     for fault, restarts in (("worker_crash:18", None),
                             ("worker_hang:18", 0)):
-        assert (port_tool._spec(fault, max_restarts=restarts)
-                == jax_tool._spec(fault, max_restarts=restarts))
+        # The one addition: the port's workers read the pool through the
+        # hand-written paged decode kernel.
+        want = jax_tool._spec(fault, max_restarts=restarts)
+        want["serving"]["attn_kernel"] = "pallas"
+        assert port_tool._spec(fault, max_restarts=restarts) == want
     plan = port_tool.Plan()
     assert (plan.wave_a, plan.wave_b, plan.fault_step, plan.timeout_s,
             plan.recovery_s, plan.dwell_s) == (
@@ -225,7 +228,7 @@ def test_live_chaos_one_crash(tools, tmp_path, monkeypatch):
     _, port_tool = tools
     monkeypatch.setenv("OMP_NUM_THREADS", "1")  # the workers'
     plan = port_tool.Plan(kinds=("worker_crash",), exhaustion=False,
-                          device="cpu", serving={"attn_kernel": "pallas"})
+                          device="cpu")
     status = port_tool.run_matrix(plan, log=lambda m: None)
     (run,) = status["runs"]
     assert status["ok"] is True, (status["check_failures"], run["checks"])

@@ -224,7 +224,6 @@ def chaos(tmp_path_factory):
                                  "configs", "gpt2_owt.py"),
         "--device", "cpu", "--hang-timeout", str(HANG_TIMEOUT_S),
         "--timeout", "240", "--out", str(tmp / "status.json"), *overrides])
-    args.compile_cache = str(tmp / "compile_cache")
     results = {}
 
     def run(i, fault):
@@ -354,9 +353,16 @@ def test_supervise_refuses_xla_flags_and_a_cache_over_the_build():
                           "configs", "gpt2_owt.py")
     with pytest.raises(NotImplementedError, match="--xla-perf-flags"):
         cli.main(["supervise", "--config", config, "--xla-perf-flags"])
-    with pytest.raises(ValueError, match="kernels' build directory"):
-        cli.main(["supervise", "--config", config, "--override",
-                  f"train.compile_cache_dir={os.path.dirname(BUILD_DIR)}"])
+    # The port has no persistent compile cache: a cache directory, here
+    # one over the kernels' build, is refused before any child starts.
+    cache = f"train.compile_cache_dir={os.path.dirname(BUILD_DIR)}"
+    with pytest.raises(NotImplementedError,
+                       match="no persistent compile cache"):
+        cli.main(["supervise", "--config", config, "--override", cache])
+    with pytest.raises(NotImplementedError,
+                       match="no persistent compile cache"):
+        cli.check_train_composition(
+            cli.apply_overrides(cli.load_config(config), [cache]))
 
 
 def test_cli_report_is_refused_by_name():

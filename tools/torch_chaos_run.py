@@ -48,7 +48,6 @@ def build_cmd(args, fault: str, workdir: str) -> list[str]:
         "--override", "train.log_every=1",
         "--override", f"train.save_every={args.save_every}",
         "--override", f"train.checkpoint_dir={workdir}/ckpt",
-        "--override", f"train.compile_cache_dir={args.compile_cache}",
         "--override", f"train.fault_injection={fault}",
         "--override", "health.enabled=True",
         "--override", f"supervisor.max_restarts={args.max_restarts}",
@@ -170,7 +169,6 @@ def main(argv=None) -> int:
     faults = args.fault or list(DEFAULT_FAULTS)
     status: dict = {"config": args.config, "steps": args.steps, "runs": []}
     with tempfile.TemporaryDirectory(prefix="chaos_") as tmp:
-        args.compile_cache = os.path.join(tmp, "compile_cache")
         for i, fault in enumerate(faults):
             workdir = os.path.join(tmp, f"run{i}")
             os.makedirs(workdir)

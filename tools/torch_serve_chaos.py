@@ -51,9 +51,9 @@ Usage:
     python tools/torch_serve_chaos.py --validate --out /tmp/sc.json
 
 The workers run on ``--device`` (default: the GPU) and read the pool
-through ``--attn-kernel`` (default ``pallas``, the hand-written paged
-decode kernel). Shrink knobs, as the reference's: ``$DDL_CHAOS_KINDS``
-(comma list, default all four), ``$DDL_CHAOS_WAVE_A`` /
+through the hand-written paged decode kernel (``attn_kernel='pallas'``;
+on the CPU its plain version). Shrink knobs, as the reference's:
+``$DDL_CHAOS_KINDS`` (comma list, default all four), ``$DDL_CHAOS_WAVE_A`` /
 ``$DDL_CHAOS_WAVE_B`` (requests a wave), ``$DDL_CHAOS_FAULT_STEP``,
 ``$DDL_CHAOS_TIMEOUT`` (wall seconds a run), ``$DDL_CHAOS_RECOVERY_S``,
 ``$DDL_CHAOS_SKIP_EXHAUSTION=1``, ``$DDL_CHAOS_SEED``, ``$DDL_CHAOS_DWELL``.
@@ -65,6 +65,7 @@ import argparse
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -103,7 +104,7 @@ _SERVING_KW = dict(
     heartbeat_interval_s=0.05, heartbeat_timeout_s=5.0,
     max_worker_restarts=2, restart_backoff_base_s=0.2,
     restart_backoff_max_s=1.0, spill_checkpoint_every_s=0.05,
-    request_retry=True,
+    request_retry=True, attn_kernel="pallas",
 )
 
 
@@ -215,16 +216,14 @@ def oracle_tokens(plan: Plan, requests) -> dict:
 
 def _launch_checks(reports, serving: dict) -> bool:
     """Every report's paged launches equal its decode calls x layers on
-    the kernel route on the GPU, and none otherwise."""
+    the GPU, and none on the CPU (the wrapper's plain version)."""
     if not reports:
         return False
     kernel = ("paged_decode_q8" if serving.get("kv_quant") == "int8"
               else "paged_decode")
     for r in reports:
-        live = (serving.get("attn_kernel") == "pallas"
-                and r["device"].startswith("cuda"))
         want = {"paged_decode": 0, "paged_decode_q8": 0}
-        if live:
+        if r["device"].startswith("cuda"):
             want[kernel] = r["calls"]["decode"] * r["layers"]
         if r["launches"] != want:
             return False
@@ -280,9 +279,11 @@ def _run_one(plan: Plan, kind: str, oracle: dict, *,
         env["DDL_PROCESS_INDEX"] = str(index)
         env[ATTEMPT_ENV] = str(attempt)
         env[FAULT_WORKER_ENV] = str(_FAULT_TARGET)
-        p = subprocess.Popen(cmd, env=env, cwd=_REPO,
-                             stdout=subprocess.PIPE,
-                             stderr=subprocess.DEVNULL, text=True)
+        with open(os.path.join(spill_dir, f"stderr_w{index}_a{attempt}"),
+                  "w") as err:
+            p = subprocess.Popen(cmd, env=env, cwd=_REPO,
+                                 stdout=subprocess.PIPE, stderr=err,
+                                 text=True)
         procs[index] = p
         ready = read_worker_ready(p.stdout)
         t = threading.Thread(target=read_rest, args=(p,), daemon=True)
@@ -372,6 +373,14 @@ def _run_one(plan: Plan, kind: str, oracle: dict, *,
                 p.kill()
                 p.wait()
             t.join(timeout=10)
+        stderr_tails = {}
+        for name in sorted(os.listdir(spill_dir)):
+            if name.startswith("stderr_"):
+                with open(os.path.join(spill_dir, name)) as f:
+                    tail = f.read()[-2000:]
+                if tail:
+                    stderr_tails[name[len("stderr_"):]] = tail
+        shutil.rmtree(spill_dir, ignore_errors=True)
 
     served_ids = sorted(int(s.request.request_id) for s in finished)
     parity = all(list(s.generated) == oracle[int(s.request.request_id)]
@@ -434,6 +443,10 @@ def _run_one(plan: Plan, kind: str, oracle: dict, *,
         "checks": checks,
         "ok": all(checks.values()),
     })
+    if not result["ok"]:
+        # What each worker attempt printed on stderr (a failed load, a
+        # traceback), by w<replica>_a<attempt>.
+        result["worker_stderr"] = stderr_tails
     return result
 
 
@@ -546,9 +559,6 @@ def main(argv=None) -> int:
                    help="validate an existing status file; run nothing")
     p.add_argument("--device", default=None,
                    help="the workers' --device (default: cuda)")
-    p.add_argument("--attn-kernel", default="pallas",
-                   choices=("pallas", "reference"),
-                   help="serving.attn_kernel of the workers and the oracle")
     p.add_argument("--size", default=_MODEL_KW["size"],
                    help="the GPT-2 size (vocab 256, max_len 160)")
     p.add_argument("--nice", type=int, default=0,
@@ -571,8 +581,7 @@ def main(argv=None) -> int:
     plan = plan_from_env(
         device=args.device, nice=args.nice,
         model_kw={**_MODEL_KW, "size": args.size},
-        serving={"attn_kernel": args.attn_kernel,
-                 "hbm_budget_mb": args.hbm_budget_mb})
+        serving={"hbm_budget_mb": args.hbm_budget_mb})
     status = run_matrix(plan, log=lambda m: print(m, flush=True))
     with open(args.out, "w") as f:
         json.dump(status, f, indent=1)
